@@ -1,0 +1,212 @@
+"""Sequential λ-path driver: screen → reduce → solve → (KKT check) → next.
+
+The sequential rules thread the exact dual point θ*(λ_k) from each
+solution into the screen for λ_{k+1}. Per grid step the driver screens
+through the :class:`~.engine.ScreeningEngine` (one pass over X), gathers
+the surviving columns into a power-of-two **bucket** (zero-filled; zero
+columns are exact fixed points of the solver), warm-starts β from the
+previous step, solves through the :class:`~.solver.SolverEngine`, and
+computes the fitted values X_r·β_r from the reduced bucket for the next
+dual state. Pow-2 buckets keep the set of bucket sizes, and so the
+solver's Lipschitz cache entries, O(log p).
+
+This slice drives one query (``batch=None``); the batched driver is
+ROADMAP.md queue 1 item 6. The KKT loop runs when ``paranoid=True`` asks
+for it (safe rules never trigger it).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+
+def next_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+@dataclasses.dataclass
+class PathStepStats:
+    lam: float
+    n_discarded: int
+    n_kept: int
+    solver_iters: int
+    gap: float
+    kkt_rounds: int
+    screen_time_s: float
+    solve_time_s: float
+    x_passes: int = 0             # full HBM passes over X this screen took
+    gap_checks: int = 0           # duality-gap evaluations of this step
+    gram_step_frac: float = 0.0   # fraction of this step's solves on Gram CD
+    solver_backend: str = ""
+    screen_backend: str = ""
+    bucket: int = 0               # padded bucket size (columns) solved at
+    solver_x_passes: float = 0.0  # solver passes in full-X equivalents
+    batch_size: int = 1
+    queries_converged: int = 0
+    x_passes_per_query: float = 0.0
+    screen_bytes: float = 0.0     # HBM bytes this step's screens streamed
+    screen_dtype_effective: str = ""
+    solve_dtype_effective: str = ""
+    solver_lo_iters: int = 0
+    solve_bytes: float = 0.0      # HBM bytes this step's solves streamed
+    geometry_version: int = 0
+
+
+@dataclasses.dataclass
+class PathResult:
+    """The path result, with a leading batch axis as in the reference:
+
+        lambdas  (B, K)        λ grids
+        betas    (B, K, p)     coefficient paths (float64)
+        masks    (B, K, p)     post-KKT discard masks
+        stats    [PathStepStats] per grid step
+        query_converged (B,)   True iff every non-trivial solve converged
+
+    ``squeeze()`` drops the axis of a B = 1 result.
+    """
+
+    lambdas: np.ndarray
+    betas: np.ndarray
+    stats: list[PathStepStats]
+    masks: np.ndarray | None = None
+    query_converged: np.ndarray | None = None
+
+    @property
+    def batched(self) -> bool:
+        return self.betas.ndim == 3
+
+    @property
+    def batch(self) -> int:
+        return self.betas.shape[0] if self.batched else 1
+
+    def squeeze(self) -> "PathResult":
+        if not self.batched:
+            return self
+        if self.batch != 1:
+            raise ValueError(f"squeeze() needs a single-query result, got "
+                             f"B={self.batch}")
+        return PathResult(lambdas=self.lambdas[0], betas=self.betas[0],
+                          stats=self.stats, masks=self.masks[0],
+                          query_converged=self.query_converged)
+
+
+def _gather_cols(X: torch.Tensor, idx: torch.Tensor,
+                 valid: torch.Tensor) -> torch.Tensor:
+    """The bucket: columns ``idx`` of X, zero where ``valid`` is 0."""
+    return X.index_select(1, idx) * valid[None, :]
+
+
+def _pad_indices(kept: np.ndarray, bucket: int, device, dtype):
+    idx = np.zeros((bucket,), dtype=np.int64)
+    idx[:kept.size] = kept
+    valid = np.zeros((bucket,), dtype=np.float32)
+    valid[:kept.size] = 1.0
+    return (torch.from_numpy(idx).to(device),
+            torch.from_numpy(valid).to(device=device, dtype=dtype))
+
+
+def lambda_grid(lam_max: float, num: int = 100, lo_frac: float = 0.05,
+                hi_frac: float = 1.0) -> np.ndarray:
+    """The paper's grid: ``num`` values equally spaced in λ/λ_max."""
+    return np.linspace(hi_frac, lo_frac, num) * lam_max
+
+
+def _path_driver(X: torch.Tensor, y: torch.Tensor, lambdas, cfg, *,
+                 screen_engine, solver_engine, need_kkt: bool,
+                 kkt_fn) -> PathResult:
+    """The screen → reduce → solve → KKT loop over a decreasing grid, for
+    one query. ``kkt_fn(beta_full, lam, discard, fitted)`` flags KKT
+    violations among the discarded features."""
+    p = X.shape[1]
+    bucket_min = cfg.bucket_min if cfg.bucket_min is not None else 32
+    lambdas = np.asarray(lambdas, dtype=np.float64)
+    if lambdas.ndim != 1 or np.any(np.diff(lambdas) > 1e-12):
+        raise ValueError("lambdas must be a decreasing (K,) grid")
+    K = lambdas.shape[0]
+    lmax = float(screen_engine.lam_max)
+    state = screen_engine.state_at_lambda_max()
+
+    betas = np.zeros((1, K, p), dtype=np.float64)
+    masks = np.ones((1, K, p), dtype=bool)
+    stats: list[PathStepStats] = []
+    beta_prev = torch.zeros((p,), dtype=X.dtype, device=X.device)
+    converged = True
+
+    for k in range(K):
+        lam = float(lambdas[k])
+        if not lam < lmax:            # β* = 0 in the trivial region (eq. 8)
+            stats.append(PathStepStats(lam, p, 0, 0, 0.0, 0, 0.0, 0.0,
+                                       queries_converged=1))
+            if cfg.checkpoint_fn:
+                cfg.checkpoint_fn(k, lam, np.zeros((p,)))
+            continue
+
+        # ---- screen: one streaming pass over X ------------------------
+        t0 = time.perf_counter()
+        discard = screen_engine.screen(lam, state, rule=cfg.rule)
+        discard_np = discard.cpu().numpy()
+        screen_time = time.perf_counter() - t0
+
+        # ---- reduced solve (+ KKT rounds) -----------------------------
+        t0 = time.perf_counter()
+        kkt_rounds = gap_checks = 0
+        solver_x_passes = solve_bytes = 0.0
+        while True:
+            kept = np.flatnonzero(~discard_np)
+            bucket = min(next_pow2(max(kept.size, bucket_min)), p)
+            if kept.size == 0:
+                beta_full = torch.zeros((p,), dtype=X.dtype, device=X.device)
+                fitted = torch.zeros_like(y)
+                iters, gap, conv = 0, 0.0, True
+            else:
+                idx, valid = _pad_indices(kept, bucket, X.device, X.dtype)
+                Xr = _gather_cols(X, idx, valid)
+                beta0 = beta_prev.index_select(0, idx) * valid
+                res = solver_engine.solve(Xr, lam, beta0)
+                beta_full = torch.zeros((p,), dtype=X.dtype, device=X.device)
+                beta_full[idx[:kept.size]] = res.beta[:kept.size]
+                iters, gap, conv = res.iters, res.gap, res.converged
+                # fitted values from the reduced bucket feed the next state
+                fitted = Xr @ res.beta
+                gap_checks += solver_engine.last_gap_checks
+                solver_x_passes += solver_engine.last_x_passes * bucket / p
+                solve_bytes += solver_engine.last_solve_bytes
+            if not need_kkt:
+                break
+            viol = kkt_fn(beta_full, lam, torch.from_numpy(discard_np)
+                          .to(X.device), fitted).cpu().numpy()
+            if not viol.any() or kkt_rounds >= cfg.max_kkt_rounds:
+                break
+            kkt_rounds += 1
+            discard_np = discard_np & ~viol
+        solve_time = time.perf_counter() - t0
+
+        betas[0, k] = beta_full.cpu().numpy()
+        masks[0, k] = discard_np
+        converged &= bool(conv)
+        stats.append(PathStepStats(
+            lam=lam, n_discarded=int(discard_np.sum()), n_kept=int(kept.size),
+            solver_iters=int(iters), gap=float(gap), kkt_rounds=kkt_rounds,
+            screen_time_s=screen_time, solve_time_s=solve_time,
+            x_passes=screen_engine.last_x_passes, gap_checks=gap_checks,
+            solver_backend=solver_engine.backend_name,
+            screen_backend=screen_engine.backend_name, bucket=bucket,
+            solver_x_passes=solver_x_passes,
+            queries_converged=int(bool(conv)),
+            x_passes_per_query=float(screen_engine.last_x_passes),
+            screen_bytes=screen_engine.last_screen_bytes,
+            screen_dtype_effective="float32",
+            solve_dtype_effective="float32", solve_bytes=solve_bytes))
+        if cfg.checkpoint_fn:
+            cfg.checkpoint_fn(k, lam, betas[0, k])
+
+        beta_prev = beta_full
+        if cfg.sequential:
+            state = screen_engine.make_state(beta_full, lam, fitted=fitted)
+        # basic variants keep `state` pinned at λ_max (paper §4.1.1)
+    return PathResult(lambdas=lambdas[None, :], betas=betas, stats=stats,
+                      masks=masks, query_converged=np.array([converged]))

@@ -1,0 +1,286 @@
+"""The port's kernel ops on the CPU: each plain PyTorch version against the
+reference's jnp oracle over SHAPES × BATCHES, and against its Pallas
+kernel in interpret mode over the reference's own sweep (every shape at
+one query, every batch at (60, 300)), on the same numpy inputs; the CUDA
+wrappers' routing and refusals; the build command. The CUDA kernels
+themselves run only on the card (``chip_smoke.py`` holds them against
+these plain versions there).
+
+Tolerance: rtol = atol = 2e-5, the reference's own float32 kernel sweep
+(tests/test_kernels.py) — the sums run in another order in each package.
+"""
+
+import ctypes
+import types
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import build, edpp_screen, ops, ref, solver_step
+
+SHAPES = [(8, 128), (60, 300), (128, 512), (100, 1000), (7, 130), (256, 131)]
+BATCHES = [1, 3, 8, 17]
+TOL = dict(rtol=2e-5, atol=2e-5)
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _case(shape, batch, seed):
+    """X (n, p), a (n,) query for batch 1 and a (B, n) block otherwise,
+    and (p,)/(B, p) vectors, all float32 from one numpy seed."""
+    n, p = shape
+    rng = np.random.default_rng(seed)
+    lead = () if batch == 1 else (batch,)
+    X = rng.standard_normal((n, p)).astype(np.float32)
+    c = rng.standard_normal(lead + (n,)).astype(np.float32)
+    z = rng.standard_normal(lead + (p,)).astype(np.float32)
+    b = rng.standard_normal(lead + (p,)).astype(np.float32)
+    per_q = rng.uniform(0.1, 1.0, batch).astype(np.float32)
+    return X, c, z, b, (float(per_q[0]) if batch == 1 else per_q)
+
+
+def _interpreted(shape, batch) -> bool:
+    """The reference's interpret-mode sweep (tests/test_kernels.py):
+    SHAPES with one query, BATCHES at (60, 300)."""
+    return batch == 1 or shape == (60, 300)
+
+
+def _close(port, *refs):
+    for r in refs:
+        np.testing.assert_allclose(np.asarray(port, np.float32),
+                                   np.asarray(r, np.float32), **TOL)
+
+
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_edpp_screen_plain_matches_reference(shape, batch):
+    X, c, _, _, rho = _case(shape, batch, 1)
+    s, ss = ref.edpp_screen_ref(torch.from_numpy(X), torch.from_numpy(c),
+                                torch.as_tensor(rho))
+    s_j, ss_j = jref.edpp_screen_ref(jnp.asarray(X), jnp.asarray(c),
+                                     jnp.asarray(rho))
+    assert s.shape == s_j.shape and ss.shape == (shape[1],)
+    _close(s, s_j)
+    _close(ss, ss_j)
+    if _interpreted(shape, batch):
+        s_k, ss_k = jops.edpp_screen_scores(jnp.asarray(X), jnp.asarray(c),
+                                            jnp.asarray(rho), interpret=True)
+        _close(s, s_k)
+        _close(ss, ss_k)
+
+
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_screen_matvec_plain_matches_reference(shape, batch):
+    X, c, _, _, _ = _case(shape, batch, 2)
+    d = ref.screen_matvec_ref(torch.from_numpy(X), torch.from_numpy(c))
+    d_j = jref.screen_matvec_ref(jnp.asarray(X), jnp.asarray(c))
+    assert d.shape == d_j.shape
+    _close(d, d_j)
+    if _interpreted(shape, batch):
+        _close(d, jops.screen_matvec(jnp.asarray(X), jnp.asarray(c),
+                                     interpret=True))
+
+
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_fista_step_plain_matches_reference(shape, batch):
+    X, r, z, b, lam = _case(shape, batch, 3)
+    out = ref.fista_step_ref(torch.from_numpy(X), torch.from_numpy(r),
+                             torch.from_numpy(z), torch.from_numpy(b),
+                             0.01, torch.as_tensor(lam), 0.6)
+    args = (jnp.asarray(X), jnp.asarray(r), jnp.asarray(z), jnp.asarray(b),
+            0.01, jnp.asarray(lam), 0.6)
+    for o, o_j in zip(out, jref.fista_step_ref(*args)):
+        assert o.shape == o_j.shape
+        _close(o, o_j)
+    if _interpreted(shape, batch):
+        for o, o_k in zip(out, jops.fista_step(*args, interpret=True)):
+            _close(o, o_k)
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+def test_fista_step_plain_float64(batch):
+    """float64 stays float64 (``_acc_dtype``); held against numpy in
+    float64 to rounding."""
+    X, r, z, b, lam = (np.asarray(a, np.float64)
+                       for a in _case((60, 300), batch, 4))
+    beta, znew = ref.fista_step_ref(*(torch.from_numpy(a)
+                                      for a in (X, r, z, b)),
+                                    0.01, torch.as_tensor(lam), 0.6)
+    assert beta.dtype == znew.dtype == torch.float64
+    g = r @ X
+    lam_c = lam[:, None] if batch > 1 else lam
+    u = z - 0.01 * g
+    want = np.sign(u) * np.maximum(np.abs(u) - 0.01 * lam_c, 0.0)
+    np.testing.assert_allclose(beta.numpy(), want, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(znew.numpy(), want + 0.6 * (want - b),
+                               rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+def test_zero_padding_is_an_exact_no_op(batch):
+    """Zero rows and zero columns are no-ops: padded columns come out
+    exactly 0 (score 0, β = z' = 0) and the real ones agree to the sweep's
+    tolerance (BLAS may sum a wider matrix in another order)."""
+    X, c, z, b, lam = _case((60, 300), batch, 5)
+    Xp = np.zeros((64, 320), np.float32)
+    Xp[:60, :300] = X
+    lead = c.shape[:-1]
+    cp = np.zeros(lead + (64,), np.float32)
+    cp[..., :60] = c
+    zp = np.zeros(lead + (320,), np.float32)
+    zp[..., :300] = z
+    bp = np.zeros(lead + (320,), np.float32)
+    bp[..., :300] = b
+    t = torch.from_numpy
+    s, ss = ref.edpp_screen_ref(t(X), t(c), 0.3)
+    s_p, ss_p = ref.edpp_screen_ref(t(Xp), t(cp), 0.3)
+    _close(s_p[..., :300], s)
+    _close(ss_p[:300], ss)
+    assert not s_p[..., 300:].any() and not ss_p[300:].any()
+    d_p = ref.screen_matvec_ref(t(Xp), t(cp))
+    _close(d_p[..., :300], ref.screen_matvec_ref(t(X), t(c)))
+    assert not d_p[..., 300:].any()
+    bn, zn = ref.fista_step_ref(t(X), t(c), t(z), t(b), 0.01,
+                                torch.as_tensor(lam), 0.6)
+    bn_p, zn_p = ref.fista_step_ref(t(Xp), t(cp), t(zp), t(bp), 0.01,
+                                    torch.as_tensor(lam), 0.6)
+    _close(bn_p[..., :300], bn)
+    _close(zn_p[..., :300], zn)
+    assert not bn_p[..., 300:].any() and not zn_p[..., 300:].any()
+
+
+def test_wrappers_take_the_plain_version_for_cpu_tensors():
+    X, c, z, b = (torch.from_numpy(a) for a in _case((60, 300), 3, 6)[:4])
+    ops.reset_counts()
+    s, ss = edpp_screen.edpp_screen_scores(X, c, 0.5)
+    d = edpp_screen.screen_matvec(X, c)
+    bn, zn = solver_step.fista_step(X, c, z, b, 0.01, 0.5, 0.6)
+    assert ops.launch_counts() == {"edpp_screen_scores": 0,
+                                   "screen_matvec": 0, "fista_step": 0}
+    assert ops.plain_counts() == {"edpp_screen_scores": 1,
+                                  "screen_matvec": 1, "fista_step": 1}
+    assert torch.equal(d, ref.screen_matvec_ref(X, c))
+    assert torch.equal(s, ref.edpp_screen_ref(X, c, 0.5)[0])
+    assert torch.equal(bn, ref.fista_step_ref(X, c, z, b, 0.01, 0.5, 0.6)[0])
+
+
+def test_per_query_parameters_never_copy_host_numbers():
+    """Host numbers pass by value; beside a device tensor they are filled
+    on the tensor's device (no host-to-device copy, so no sync)."""
+    assert edpp_screen.params(3, "cpu", 0.5, 2, 0.25) == (None,
+                                                         (0.5, 2.0, 0.25))
+    par, scal = edpp_screen.params(3, "cpu", 0.5, torch.tensor([1., 2., 3.]),
+                                   torch.tensor(0.25))
+    assert scal == (0.0, 0.0, 0.0) and par.dtype == torch.float32
+    assert torch.equal(par, torch.tensor([[0.5] * 3, [1., 2., 3.],
+                                          [0.25] * 3]))
+    sl, ptr = edpp_screen.chunk_ptr(par, 1, 2)
+    assert sl.is_contiguous() and ptr == sl.data_ptr()
+    assert torch.equal(sl, par[:, 1:3])
+
+
+def test_backend_follows_the_device():
+    assert ops.resolve_backend(None, "cpu").name == "torch"
+    assert ops.resolve_backend(None, "cuda").name == "cuda"
+    assert ops.resolve_backend("cuda", "cpu").fista_step \
+        is solver_step.fista_step
+    with pytest.raises(ValueError, match="unknown backend"):
+        ops.resolve_backend("pallas", "cpu")
+
+
+class _CudaLike:
+    """Stands in for a CUDA tensor on a machine without one: the wrappers
+    only read device, dtype, shape and contiguity before they launch."""
+
+    def __init__(self, *shape, dtype=torch.float32):
+        self.shape = torch.Size(shape)
+        self.dtype = dtype
+        self.device = torch.device("cuda", 0)
+
+    def dim(self):
+        return len(self.shape)
+
+    def is_contiguous(self):
+        return True
+
+    def unsqueeze(self, dim):
+        assert dim == 0
+        return _CudaLike(1, *self.shape, dtype=self.dtype)
+
+
+@pytest.fixture
+def no_toolkit(monkeypatch, tmp_path):
+    """No built library and no nvcc."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(build, "_LIBS", {})
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+
+
+def test_cuda_tensors_launch_or_raise_never_the_plain_version(no_toolkit):
+    X, c = _CudaLike(60, 300), _CudaLike(60)
+    z, b = _CudaLike(300), _CudaLike(300)
+    ops.reset_counts()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        edpp_screen.edpp_screen_scores(X, c, 0.5)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        edpp_screen.screen_matvec(X, c)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        solver_step.fista_step(X, c, z, b, 0.01, 0.5, 0.6)
+    assert sum(ops.plain_counts().values()) == 0
+    assert sum(ops.launch_counts().values()) == 0
+
+
+def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(no_toolkit):
+    X = _CudaLike(60, 300)
+    with pytest.raises(TypeError, match="float32"):
+        edpp_screen.screen_matvec(_CudaLike(60, 300, dtype=torch.float64),
+                                  _CudaLike(60))
+    with pytest.raises(ValueError, match=r"\(60,\) or \(B, 60\)"):
+        edpp_screen.screen_matvec(X, _CudaLike(61))
+    with pytest.raises(ValueError, match="is on cpu"):
+        edpp_screen.edpp_screen_scores(X, torch.zeros(60), 0.0)
+    with pytest.raises(ValueError, match="disagree on B"):
+        solver_step.fista_step(X, _CudaLike(2, 60), _CudaLike(3, 300),
+                               _CudaLike(3, 300), 0.1, 0.1, 0.1)
+
+
+def test_kernel_entry_points_get_their_c_signature(monkeypatch):
+    """Every pointer and the stream cross as c_void_p, the parameters as
+    c_float: without declared argtypes ctypes cannot pass a float and
+    would cut a pointer to 32 bits."""
+    libc = ctypes.CDLL(None)          # a fresh handle: fresh function objects
+    fns = {sym: getattr(libc, name) for sym, name in (
+        ("edpp_screen_scores_f32", "labs"), ("screen_matvec_f32", "abs"),
+        ("fista_step_f32", "llabs"))}
+    monkeypatch.setattr(build, "load",
+                        lambda source: types.SimpleNamespace(**fns))
+    for source, sym in (("edpp_screen", "edpp_screen_scores_f32"),
+                        ("edpp_screen", "screen_matvec_f32"),
+                        ("solver_step", "fista_step_f32")):
+        fn = edpp_screen.kernel_fn(source, sym)
+        assert fn is fns[sym] and fn.restype is ctypes.c_int
+        assert fn.argtypes[0] is ctypes.c_void_p
+        assert fn.argtypes[-1] is ctypes.c_void_p          # the stream
+        if sym != "screen_matvec_f32":
+            assert ctypes.c_float in fn.argtypes
+    n_args = {s: len(f.argtypes) for s, f in fns.items()}
+    assert n_args == {"edpp_screen_scores_f32": 10, "screen_matvec_f32": 7,
+                      "fista_step_f32": 14}
+
+
+def test_build_command_targets_sm90a_into_the_ignored_directory():
+    cmd = build.nvcc_command("edpp_screen", build.library_path("edpp_screen"))
+    assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
+    out = Path(cmd[cmd.index("-o") + 1])
+    assert out.parent == build.BUILD_DIR
+    assert cmd[-1] == str(build.CSRC / "edpp_screen.cu")
+    rel = build.BUILD_DIR.relative_to(REPO).as_posix() + "/"
+    assert rel in (REPO / ".gitignore").read_text().splitlines()
+    for name in build.SOURCES:
+        assert (build.CSRC / f"{name}.cu").exists()
