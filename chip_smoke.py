@@ -7,19 +7,44 @@ Phases, each printing its own lines and seconds:
 
 1. environment: the card's name and power limit (nvidia-smi), torch,
    and the TF32 flags the package sets;
-2. build: nvcc builds the CUDA kernels from this checkout's sources;
+2. build: nvcc builds the CUDA kernels from this checkout's sources, one
+   nvcc per source, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card,
    at the paper's MNIST-like 784 × 50 000 and SVHN-like 3072 × 99 288
    shapes (benchmarks/bench_sequential.py), narrow solver buckets and a
-   ragged shape, with times (CUDA events, median of 20) beside the
-   byte/flop bound and a torch.matmul yardstick;
+   ragged shape; the Gram CD sweep at buckets of 32, 256 and 1024
+   columns for 1 and 8 queries (and 8 with a ``valid`` mask); the group
+   scores at the paper's 250 × 200 000 group design
+   (benchmarks/bench_group.py) for m = 5, 10, 20 and a ragged shape; with
+   times (CUDA events, median of 20) beside the byte/flop bound and a
+   torch.matmul yardstick;
 4. main path: ``LassoSession.fit(X)`` then ``session.path(y,
    num_lambdas=100)`` with the default config at 784 × 50 000, with
    every kernel launch counter read just after and the plain versions'
    counters required to stay at 0;
 5. exactness: the EDPP path against the unscreened path (tol 1e-6, 20 λ);
-6. summary: one JSON line of per-kernel numbers, then, last,
+6. CD path: the same data and session entry points with
+   ``SolveSpec(strategy="cd", tol=1e-6)``, 100 λ: every solve converged
+   before max_epochs, and β held against the FISTA EDPP path at the same
+   tol (beta_err_tol and CD_REL_TOL·max|β_fista|);
+7. group path: ``LassoSession.fit(X, groups=10)`` and group EDPP at tol
+   1e-6, 100 λ, on the paper's 250 × 200 000 design with 20 000 groups;
+8. group exactness: group EDPP and group strong against the unscreened
+   group path on its grid at 250 × 20 000 (m = 10; the unscreened arm
+   solves every column each iteration, so this phase runs at a tenth of
+   the width): no unsafe group discard, β within beta_err_tol and
+   GROUP_REL_TOL·max|β_none|;
+9. summary: one JSON line of per-kernel numbers, then, last,
    ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --faults`` runs phases 1 and 2 and then the
+mutation check of phases 6 and 8: the sound arm and arms whose kernel
+output is faulted on purpose (``FAULTS``), with each check's readings
+and verdict; every faulted arm whose β the fault moves must fail.
+
+Each path phase sets every launch counter to 0 just before it and reads
+them just after: each kernel the path runs must have launched, and no
+plain version may have been called.
 
 Any failed phase raises and the script exits non-zero. It also exits
 non-zero, printing no result, without a CUDA device or outside a checkout
@@ -45,15 +70,27 @@ F32_FLOPS_PER_S = 67e12     # H100 SXM float32 rate outside the tensor cores
 REPS = 20
 MNIST = (784, 50000)
 SVHN = (3072, 99288)
+GROUP_FULL = (250, 200000, 10)     # bench_group.py --full, n_g = 20 000
+GROUP_EXACT = (250, 20000, 10)     # a tenth of the width, n_g = 2 000
+CD_SWEEPS = 10
+# The exactness phases' limits on max|Δβ|, relative to the largest entry
+# of the path they are held against (PERF.md §6, PR 12: the readings of
+# sound and faulted arms, ``--faults``, that they were set from)
+CD_REL_TOL = 1e-4
+GROUP_REL_TOL = 1e-2
 REPLACES = {
     "edpp_screen_scores": "src/repro/kernels/edpp_screen.py:140",
     "screen_matvec": "src/repro/kernels/edpp_screen.py:202",
     "fista_step": "src/repro/kernels/solver_step.py:146",
+    "cd_gram_sweep": "src/repro/kernels/solver_step.py:251",
+    "group_screen_scores": "src/repro/kernels/group_screen.py:68",
 }
 SOURCES = {
     "edpp_screen_scores": "src/repro_torch/kernels/csrc/edpp_screen.cu",
     "screen_matvec": "src/repro_torch/kernels/csrc/edpp_screen.cu",
     "fista_step": "src/repro_torch/kernels/csrc/solver_step.cu",
+    "cd_gram_sweep": "src/repro_torch/kernels/csrc/cd_gram.cu",
+    "group_screen_scores": "src/repro_torch/kernels/csrc/group_screen.cu",
 }
 
 
@@ -84,14 +121,15 @@ def beta_err_tol(y, solver_tol: float, kappa: float = 25.0) -> float:
     return kappa * float(np.sqrt(solver_tol * scale))
 
 
-def event_ms(torch, fn) -> float:
-    """Median device time of ``fn`` over REPS runs, by CUDA events. A sleep
-    kernel ahead of each run keeps the stream busy while the host enqueues
-    it, so the interval holds device work only, not Python launch time."""
+def event_ms(torch, fn, reps: int = REPS) -> float:
+    """Median device time of ``fn`` over ``reps`` runs, by CUDA events. A
+    sleep kernel ahead of each run keeps the stream busy while the host
+    enqueues it, so the interval holds device work only, not Python
+    launch time."""
     fn()
     torch.cuda.synchronize()
     pairs = []
-    for _ in range(REPS):
+    for _ in range(reps):
         torch.cuda._sleep(1_000_000)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -115,6 +153,308 @@ def bound(op: str, n: int, p: int, B: int) -> tuple[float, str]:
     t_bytes = 4.0 * words / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def cd_bound(p: int, B: int, sweeps: int,
+             masked: bool) -> tuple[float, str]:
+    """The Gram sweep's byte/flop bound: G, the (B, p) c and β (and
+    ``valid`` when given) read once, β' written once, the B per-query λ
+    read when B > 1 (one λ is passed by value), against
+    2·B·(sweeps + 1)·p² flops (q₀ = βG and one rank-1 update of q per
+    coordinate). Its real limit is the chain of sweeps·p dependent
+    coordinate steps, printed beside it."""
+    vectors = (4 if masked else 3) * B * p + (B if B > 1 else 0)
+    t_bytes = 4.0 * (p * p + vectors) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * B * (sweeps + 1) * p * p / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_cd(torch, kernels, ref, p: int, B: int, seed: int,
+             masked: bool = False) -> dict:
+    """The Gram CD sweep (CD_SWEEPS sweeps) against its plain version:
+    the reference's case, G = AᵀA with three zero columns, c = 0.1·rG,
+    a small warm start, λ = ½·max|c| per query. Tolerance, elementwise:
+    2e-5 + 2e-4·|plain| (the reference's own for this sweep: a rounding
+    difference in q₀ propagates along the chain)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    A = torch.randn(2 * p, p, generator=g, device="cuda")
+    A[:, -3:] = 0.0
+    G = A.T @ A
+    G = 0.5 * (G + G.T)                  # exactly symmetric
+    lead = () if B == 1 else (B,)
+    c = 0.1 * (torch.randn(*lead, p, generator=g, device="cuda") @ G)
+    beta = 0.1 * torch.randn(*lead, p, generator=g, device="cuda")
+    valid = None
+    if masked:
+        valid = (torch.rand(*lead, p, generator=g, device="cuda")
+                 > 0.3).float()
+        beta = beta * valid
+    lam = 0.5 * c.abs().amax(-1) if B > 1 else 0.5 * float(c.abs().max())
+    args = (G, c, beta, lam, CD_SWEEPS, valid)
+    out_k = kernels.cd_gram_sweep(*args)
+    out_p = ref.cd_gram_sweep_ref(*args)
+    torch.cuda.synchronize()
+    assert out_k.shape == out_p.shape and bool(torch.isfinite(out_k).all())
+    err = float((out_k - out_p).abs().max())
+    excess = float(((out_k - out_p).abs() - 2e-4 * out_p.abs()).max())
+    ok = excess <= 2e-5 and not out_k[..., -3:].any() and (
+        valid is None or not (out_k * (1 - valid)).any())
+    ms = event_ms(torch, lambda: kernels.cd_gram_sweep(*args))
+    plain_ms = event_ms(torch, lambda: ref.cd_gram_sweep_ref(*args), reps=3)
+    bound_ms, bound_by = cd_bound(p, B, CD_SWEEPS, masked)
+    steps = CD_SWEEPS * p
+    row = {"op": "cd_gram_sweep", "p": p, "B": B, "valid": masked,
+           "max_abs_err": err, "tol": "2e-5 + 2e-4*|plain|", "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "chain_steps": steps, "ns_per_step": ms * 1e6 / steps}
+    print(f"  cd_gram_sweep       p={p} B={B} valid={masked} sweeps="
+          f"{CD_SWEEPS}: max_abs_err={err:.3g} (2e-5 + 2e-4·|plain|) "
+          f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.6f} "
+          f"({bound_by}); chain of {steps} steps, "
+          f"{row['ns_per_step']:.1f} ns/step", flush=True)
+    if not ok:
+        raise AssertionError(f"cd_gram_sweep p={p} B={B}: kernel disagrees "
+                             f"with its plain version (excess {excess})")
+    return row
+
+
+def check_group(torch, kernels, ref, n: int, p: int, m: int,
+                seed: int) -> dict:
+    """The group scores against their plain version; tolerance
+    2e-5·max(1, max|plain|) (sums run in another order). Bound: the bytes
+    of X (2 flops per element); yardstick c @ X, which computes the dots
+    but not the group norms."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    X = torch.randn(n, p, generator=g, device="cuda")
+    c = torch.randn(n, generator=g, device="cuda")
+    out_k = kernels.group_screen_scores(X, c, m)
+    out_p = ref.group_screen_ref(X, c, m)
+    torch.cuda.synchronize()
+    assert out_k.shape == out_p.shape == (p // m,)
+    assert bool(torch.isfinite(out_k).all())
+    err = float((out_k - out_p).abs().max())
+    tol = 2e-5 * max(1.0, float(out_p.abs().max()))
+    ms = event_ms(torch, lambda: kernels.group_screen_scores(X, c, m))
+    plain_ms = event_ms(torch, lambda: ref.group_screen_ref(X, c, m))
+    matmul_ms = event_ms(torch, lambda: torch.matmul(c, X))
+    t_bytes = 4.0 * (n * p + n + p // m) / HBM_BYTES_PER_S * 1e3
+    t_ops = (2.0 * n * p + 2.0 * p) / F32_FLOPS_PER_S * 1e3
+    bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                          else (t_ops, "operations"))
+    row = {"op": "group_screen_scores", "n": n, "p": p, "m": m,
+           "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+           "matmul_ms": matmul_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"  group_screen_scores {n}x{p} m={m}: max_abs_err={err:.3g} "
+          f"(tol {tol:.3g}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"matmul_ms={matmul_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
+          f"{bound_ms / ms:.0%} of bound", flush=True)
+    if not err <= tol:
+        raise AssertionError(f"group_screen_scores {n}x{p} m={m}: kernel "
+                             f"disagrees with its plain version: {err}")
+    del X, c
+    torch.cuda.empty_cache()
+    return row
+
+
+def counted(ops, needed: tuple[str, ...]) -> dict:
+    """The launch counts read just after a path (set to 0 just before it):
+    every kernel in ``needed`` launched, no plain version was called."""
+    launches, plain = ops.launch_counts(), ops.plain_counts()
+    print(f"launches {launches} plain-version calls {plain}")
+    assert all(launches[k] > 0 for k in needed), (needed, launches)
+    assert not any(plain.values()), plain
+    return launches
+
+
+def deciles(res, units: int) -> str:
+    """The mean discard fraction over each tenth of the grid."""
+    frac = [s.n_discarded / units for s in res.stats]
+    step = max(1, len(frac) // 10)
+    return " ".join(f"{np.mean(frac[k:k + step]):.4f}"
+                    for k in range(0, len(frac), step))
+
+
+def cd_readings(res_cd, res_fi, max_epochs: int) -> dict:
+    """What the CD exactness check reads: whether every solve converged,
+    the steps that ran out of epochs, max|β_cd − β_fista| and, beside it,
+    max|β_fista|."""
+    live = [s for s in res_cd.stats if s.screen_backend]
+    return {"converged": bool(res_cd.query_converged[0]),
+            "at_max_epochs": sum(s.solver_iters >= max_epochs for s in live),
+            "err": float(np.abs(res_cd.betas - res_fi.betas).max()),
+            "scale": float(np.abs(res_fi.betas).max())}
+
+
+def cd_failures(r: dict, y) -> list[str]:
+    """The CD path's check: every solve converged (none at max_epochs),
+    and β within beta_err_tol and within CD_REL_TOL·max|β_fista| of the
+    FISTA path."""
+    fails = []
+    if not r["converged"]:
+        fails.append("a solve stopped above tol")
+    if r["at_max_epochs"]:
+        fails.append(f"{r['at_max_epochs']} steps at max_epochs")
+    if r["err"] > beta_err_tol(y, 1e-6):
+        fails.append("max|dbeta| > beta_err_tol")
+    if r["err"] > CD_REL_TOL * r["scale"]:
+        fails.append(f"max|dbeta| > {CD_REL_TOL:g}*max|beta_fista|")
+    return fails
+
+
+def group_readings(res, res_none, m: int) -> dict:
+    """What the group exactness check reads against the unscreened arm:
+    max|Δβ| beside max|β_none|, the discarded groups that the unscreened
+    solution needs (norm above 1e-6·max|β_none|), the discard fraction
+    and the KKT rounds."""
+    b_n = res_none.betas[0]
+    needed = (np.linalg.norm(b_n.reshape(b_n.shape[0], -1, m), axis=2)
+              > 1e-6 * np.abs(b_n).max())
+    return {"err": float(np.abs(res.betas[0] - b_n).max()),
+            "scale": float(np.abs(b_n).max()),
+            "unsafe": int((res.masks[0] & needed).sum()),
+            "discard": float(res.masks[0].mean()),
+            "kkt_rounds": sum(s.kkt_rounds for s in res.stats)}
+
+
+def group_failures(r: dict, y) -> list[str]:
+    """The group path's check: no unsafe group discard, and β within
+    beta_err_tol and within GROUP_REL_TOL·max|β_none| of the unscreened
+    arm."""
+    fails = []
+    if r["unsafe"]:
+        fails.append(f"{r['unsafe']} unsafe group discards")
+    if r["err"] > beta_err_tol(y, 1e-6):
+        fails.append("max|dbeta| > beta_err_tol")
+    if r["err"] > GROUP_REL_TOL * r["scale"]:
+        fails.append(f"max|dbeta| > {GROUP_REL_TOL:g}*max|beta_none|")
+    return fails
+
+
+# Faults for the mutation check (``--faults``): each wraps the real kernel
+# on the cuda backend the way a kernel bug would change its output.
+def _cd_lam_high(real):
+    """λ read 1 % high (another query's λ, say)."""
+    return lambda G, c, beta, lam, sweeps=1, valid=None: real(
+        G, c, beta, lam * 1.01, sweeps, valid)
+
+
+def _cd_first_frozen(real):
+    """The bucket's first coordinate never updated (an off-by-one in the
+    coordinate loop)."""
+    def sweep(G, c, beta, lam, sweeps=1, valid=None):
+        out = real(G, c, beta, lam, sweeps, valid)
+        out[..., 0] = beta[..., 0]
+        return out
+    return sweep
+
+
+def _cd_bf16_gram(real):
+    """G read at bfloat16 precision."""
+    return lambda G, c, beta, lam, sweeps=1, valid=None: real(
+        G.bfloat16().float(), c, beta, lam, sweeps, valid)
+
+
+def _group_scaled(factor):
+    """Every group score scaled by ``factor`` (a square left out of the
+    sum, say)."""
+    return lambda real: lambda X, c, m: factor * real(X, c, m)
+
+
+def _group_shifted(real):
+    """Group g's score written to g + 1 (an off-by-one in the output)."""
+    return lambda X, c, m: real(X, c, m).roll(1)
+
+
+FAULTS = {
+    "cd_gram_sweep": (("lambda 1% high", _cd_lam_high),
+                      ("first coordinate frozen", _cd_first_frozen),
+                      ("G read at bf16", _cd_bf16_gram)),
+    "group_scores": (("scores 5% low", _group_scaled(0.95)),
+                     ("scores 20% low", _group_scaled(0.8)),
+                     ("score of g written to g+1", _group_shifted)),
+}
+
+
+@contextlib.contextmanager
+def faulted(ops, field: str, make):
+    """The cuda backend with ``field`` wrapped by ``make`` (none: sound)."""
+    sound = ops.BACKENDS["cuda"]
+    if make is not None:
+        ops.BACKENDS["cuda"] = sound._replace(
+            **{field: make(getattr(sound, field))})
+    try:
+        yield
+    finally:
+        ops.BACKENDS["cuda"] = sound
+
+
+def fault_check() -> list[dict]:
+    """The mutation check of the CD and group exactness phases: the sound
+    arm and each fault of FAULTS run the phase as the smoke run does, and
+    their readings and failures are printed. Sound arms must pass, and
+    every faulted arm that the fault harmed must fail its check: harmed
+    means a solve that did not converge, a needed group discarded, or
+    max|Δβ| over ten times the sound arm's. A fault may leave β as it was
+    (a screen with room to spare; the KKT rounds behind group strong)."""
+    from repro_torch import LassoSession, PathConfig, ScreenSpec, SolveSpec
+    from repro_torch.data import group_lasso_problem
+    from repro_torch.kernels import ops
+
+    arms = []
+
+    def record(kind, fault, rule, run, readings, failures):
+        try:
+            r = readings(run())
+            r["failures"] = failures(r)
+        except Exception as e:          # a raise is a detection too
+            r = {"failures": [f"raised {type(e).__name__}: {e}"]}
+        r.update(kind=kind, fault=fault, rule=rule)
+        print(f"  {kind} {rule} [{fault}]: {r}", flush=True)
+        arms.append(r)
+
+    X, y = make_dataset(*MNIST)
+    cd_cfg = PathConfig(solve=SolveSpec(strategy="cd", tol=1e-6))
+    max_epochs = cd_cfg.solve.max_iter // 10 + 1
+    res_fi = LassoSession.fit(X).path(y, num_lambdas=100, config=PathConfig(
+        solve=SolveSpec(tol=1e-6)))
+    for fault, make in (("sound", None), *FAULTS["cd_gram_sweep"]):
+        with faulted(ops, "cd_gram_sweep", make):
+            record("cd", fault, "edpp",
+                   lambda: LassoSession.fit(X, config=cd_cfg).path(
+                       y, num_lambdas=100),
+                   lambda res: cd_readings(res, res_fi, max_epochs),
+                   lambda r: cd_failures(r, y))
+
+    n_e, p_e, m = GROUP_EXACT
+    X, y, _ = group_lasso_problem(n_e, p_e, m, active_groups=20, seed=0,
+                                  dtype=np.float32)
+    solve = SolveSpec(tol=1e-6)
+    res_none = LassoSession.fit(X, groups=m).path(
+        y, num_lambdas=20, hi_frac=0.95,
+        config=PathConfig(screen=ScreenSpec(rule="none"), solve=solve))
+    grid = res_none.lambdas[0]
+    for fault, make in (("sound", None), *FAULTS["group_scores"]):
+        with faulted(ops, "group_scores", make):
+            sess = LassoSession.fit(X, groups=m)
+            for rule in ("edpp", "strong"):
+                record("group", fault, rule,
+                       lambda: sess.path(y, grid, config=PathConfig(
+                           screen=ScreenSpec(rule=rule), solve=solve)),
+                       lambda res: group_readings(res, res_none, m),
+                       lambda r: group_failures(r, y))
+    sound = {(r["kind"], r["rule"]): r for r in arms if r["fault"] == "sound"}
+    for r in arms:
+        s = sound[r["kind"], r["rule"]]
+        r["harmed"] = "err" not in r or (
+            not r.get("converged", True) or r.get("unsafe", 0) > 0
+            or r["err"] > 10.0 * s["err"])
+    print(json.dumps({"faults": arms}), flush=True)
+    for r in arms:
+        if r["fault"] == "sound":
+            assert not r["failures"], r
+        elif r["harmed"]:
+            assert r["failures"], f"fault not caught: {r}"
+    return arms
 
 
 def check_kernel(torch, kernels, ref, op: str, n: int, p: int, B: int,
@@ -171,7 +511,10 @@ def check_kernel(torch, kernels, ref, op: str, n: int, p: int, B: int,
     return row
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    if argv not in ([], ["--faults"]):
+        print("usage: python3 chip_smoke.py [--faults]", file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -179,6 +522,7 @@ def main() -> int:
     import repro_torch
     from repro_torch import LassoSession, PathConfig, ScreenSpec, SolveSpec
     from repro_torch import kernels
+    from repro_torch.data import group_lasso_problem
     from repro_torch.kernels import build, ops, ref
 
     with phase("environment"):
@@ -208,6 +552,11 @@ def main() -> int:
                              if "spill" in line})
             print(f"  {name}: {regs}; {spills}")
 
+    if argv == ["--faults"]:
+        with phase("fault check of the CD and group exactness phases"):
+            fault_check()
+        return 0
+
     rows = {}
     with phase("kernels against their plain versions"):
         cases = [(op, *MNIST, B) for op in ("edpp_screen_scores",
@@ -220,6 +569,18 @@ def main() -> int:
                                                 "screen_matvec", "fista_step")]
         for i, case in enumerate(cases):
             rows[case] = check_kernel(torch, kernels, ref, *case, seed=i)
+        for i, (bp, B) in enumerate([(b, B) for b in (32, 256, 1024)
+                                     for B in (1, 8)]):
+            rows[("cd", bp, B)] = check_cd(torch, kernels, ref, bp, B,
+                                           seed=100 + i)
+        rows[("cd", 256, 8, "valid")] = check_cd(torch, kernels, ref, 256, 8,
+                                                 seed=110, masked=True)
+        n_g, p_g, _ = GROUP_FULL
+        for i, m in enumerate((5, 10, 20)):
+            rows[("group", n_g, p_g, m)] = check_group(
+                torch, kernels, ref, n_g, p_g, m, seed=120 + i)
+        rows[("group", 777, 1000, 5)] = check_group(torch, kernels, ref, 777,
+                                                    1000, 5, seed=130)
 
     X, y = make_dataset(*MNIST)
     n, p = MNIST
@@ -230,10 +591,8 @@ def main() -> int:
         res = sess.path(y, num_lambdas=100)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches, plain = ops.launch_counts(), ops.plain_counts()
-        print(f"launches {launches} plain-version calls {plain}")
-        assert all(v > 0 for v in launches.values()), launches
-        assert not any(plain.values()), plain
+        launches = counted(ops, ("edpp_screen_scores", "screen_matvec",
+                                 "fista_step"))
         assert sess.geometry.X.is_cuda and sess.backend_name == "cuda"
         assert sess.fit_passes == 1, sess.fit_passes
         live = [s for s in res.stats if s.screen_backend]   # λ < λ_max
@@ -241,9 +600,6 @@ def main() -> int:
         assert np.isfinite(res.betas).all()
         cfg = sess.config.solve
         at_max = sum(s.solver_iters >= cfg.max_iter for s in live)
-        dec = [float(np.mean([s.n_discarded / p
-                              for s in res.stats[k:k + 10]]))
-               for k in range(0, 100, 10)]
         iters = sum(s.solver_iters for s in res.stats)
         print(f"path wall {wall:.2f} s; {len(live)} live steps, all at "
               f"x_passes=1; fit_passes={sess.fit_passes}; steps at "
@@ -251,7 +607,7 @@ def main() -> int:
               f"solver iterations {iters}; query_converged "
               f"{bool(res.query_converged[0])}")
         print("discard fraction per decile of the grid: "
-              + " ".join(f"{d:.4f}" for d in dec))
+              + deciles(res, p))
         by_bucket: dict[int, int] = {}
         for s in live:
             by_bucket[s.bucket] = by_bucket.get(s.bucket, 0) + s.solver_iters
@@ -282,14 +638,124 @@ def main() -> int:
               f"{arms['edpp'].masks[0].mean():.4f}")
         assert err <= tol and unsafe == 0
 
-    with phase(f"kernels at the main path's shapes (fista bucket "
-               f"{main_bucket})"):
+    with phase("CD path: fit + 100-λ EDPP path, strategy='cd', tol 1e-6"):
+        cd_cfg = PathConfig(solve=SolveSpec(strategy="cd", tol=1e-6))
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        cd_sess = LassoSession.fit(X, config=cd_cfg)
+        res_cd = cd_sess.path(y, num_lambdas=100)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        cd_launches = counted(ops, ("edpp_screen_scores", "screen_matvec",
+                                    "cd_gram_sweep"))
+        live = [s for s in res_cd.stats if s.screen_backend]
+        max_epochs = cd_cfg.solve.max_iter // 10 + 1
+        at_max = sum(s.solver_iters >= max_epochs for s in live)
+        gram = sum(s.gram_step_frac == 1.0 for s in live)
+        by_bucket = {}
+        for s in live:
+            by_bucket[s.bucket] = by_bucket.get(s.bucket, 0) + s.solver_iters
+        cd_bucket = max(by_bucket, key=by_bucket.get)
+        print(f"CD path wall {wall:.2f} s; {len(live)} live steps, {gram} "
+              f"on the Gram system; steps at max_epochs={max_epochs}: "
+              f"{at_max}; sweeps per bucket {dict(sorted(by_bucket.items()))}"
+              f"; query_converged {bool(res_cd.query_converged[0])}")
+        print("discard fraction per decile of the grid: "
+              + deciles(res_cd, p))
+        assert np.isfinite(res_cd.betas).all() and gram > 0
+        t0 = time.perf_counter()
+        res_fi = cd_sess.path(y, num_lambdas=100, config=PathConfig(
+            solve=SolveSpec(tol=1e-6)))
+        r = cd_readings(res_cd, res_fi, max_epochs)
+        fails = cd_failures(r, y)
+        print(f"FISTA EDPP path at tol 1e-6: {time.perf_counter() - t0:.2f} "
+              f"s; max|beta_cd - beta_fista| = {r['err']:.3g} (limits "
+              f"{beta_err_tol(y, 1e-6):.3g} and {CD_REL_TOL:g}·max|beta_"
+              f"fista| = {CD_REL_TOL * r['scale']:.3g}); failures {fails}")
+        assert not fails, fails
+
+    del X, y, sess, cd_sess, res, res_cd, res_fi
+    n_g, p_g, m = GROUP_FULL
+    X, y, _ = group_lasso_problem(n_g, p_g, m, active_groups=200, seed=0,
+                                  dtype=np.float32)
+    units = p_g // m
+    with phase(f"group path: fit(groups={m}) + 100-λ group EDPP, tol 1e-6, "
+               f"{n_g} × {p_g}"):
+        g_cfg = PathConfig(solve=SolveSpec(tol=1e-6))
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        g_sess = LassoSession.fit(X, groups=m, config=g_cfg)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        res_g = g_sess.path(y, num_lambdas=100)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        group_launches = counted(ops, ("group_screen_scores",))
+        live = [s for s in res_g.stats if s.screen_backend]
+        at_max = sum(s.solver_iters >= g_cfg.solve.max_iter for s in live)
+        buckets = sorted({s.bucket // m for s in live})
+        print(f"group path wall {wall:.2f} s (fit, spectral norms of "
+              f"{units} groups: {fit_s:.2f} s); {len(live)} live steps; "
+              f"steps at max_iter={g_cfg.solve.max_iter}: {at_max}; "
+              f"solver iterations {sum(s.solver_iters for s in live)}; "
+              f"buckets (groups) {buckets}; query_converged "
+              f"{bool(res_g.query_converged[0])}")
+        print("group discard fraction per decile of the grid: "
+              + deciles(res_g, units))
+        assert np.isfinite(res_g.betas).all()
+        assert g_sess.fit_passes == 1 and g_sess.backend_name == "cuda"
+        assert all(s.x_passes == 1 for s in live)
+    del g_sess, res_g
+
+    n_e, p_e, m = GROUP_EXACT
+    X, y, _ = group_lasso_problem(n_e, p_e, m, active_groups=20, seed=0,
+                                  dtype=np.float32)
+    with phase(f"group exactness: EDPP and strong vs unscreened, tol 1e-6, "
+               f"20 λ, {n_e} × {p_e}, m = {m}"):
+        e_sess = LassoSession.fit(X, groups=m)
+        arms = {}
+        for rule in ("none", "edpp", "strong"):
+            e_sess.reset_solver_cache()
+            ops.reset_counts()
+            t0 = time.perf_counter()
+            # the screened arms solve on the unscreened arm's grid
+            grid = arms["none"].lambdas[0] if arms else None
+            arms[rule] = e_sess.path(y, grid, num_lambdas=20, hi_frac=0.95,
+                                     config=PathConfig(
+                                         screen=ScreenSpec(rule=rule),
+                                         solve=SolveSpec(tol=1e-6)))
+            counted(ops, () if rule == "none" else ("group_screen_scores",))
+            st = arms[rule].stats
+            print(f"  {rule}: {time.perf_counter() - t0:.2f} s, converged "
+                  f"{bool(arms[rule].query_converged[0])}, steps at max_iter "
+                  f"{sum(s.solver_iters >= 5000 for s in st)}, kkt rounds "
+                  f"{sum(s.kkt_rounds for s in st)}")
+        for rule in ("edpp", "strong"):
+            r = group_readings(arms[rule], arms["none"], m)
+            fails = group_failures(r, y)
+            print(f"group {rule}: max|beta - beta_none| = {r['err']:.3g} "
+                  f"(limits {beta_err_tol(y, 1e-6):.3g} and "
+                  f"{GROUP_REL_TOL:g}·max|beta_none| = "
+                  f"{GROUP_REL_TOL * r['scale']:.3g}); unsafe group discards "
+                  f"{r['unsafe']}; mean discard fraction {r['discard']:.4f}; "
+                  f"failures {fails}")
+            assert not fails, fails
+
+    with phase(f"kernels at the paths' shapes (fista bucket {main_bucket}, "
+               f"cd bucket {cd_bucket})"):
         rows["main_fista"] = check_kernel(torch, kernels, ref, "fista_step",
                                           n, main_bucket, 1, seed=99)
+        rows["main_cd"] = check_cd(torch, kernels, ref, cd_bucket, 1,
+                                   seed=98)
+    main_launches.update(cd_gram_sweep=cd_launches["cd_gram_sweep"],
+                         group_screen_scores=group_launches[
+                             "group_screen_scores"])
     summary = []
     for op, key in (("edpp_screen_scores", ("edpp_screen_scores", *MNIST, 1)),
                     ("screen_matvec", ("screen_matvec", *MNIST, 1)),
-                    ("fista_step", "main_fista")):
+                    ("fista_step", "main_fista"),
+                    ("cd_gram_sweep", "main_cd"),
+                    ("group_screen_scores", ("group", *GROUP_FULL))):
         r = rows[key]
         summary.append({
             "name": op, "route": "cuda", "source": SOURCES[op],
@@ -298,7 +764,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             # torch.matmul(c, X) computes screen_matvec's function exactly;
-            # the other two have no single library call
+            # the other four have no single library call
             "library_ms": r["matmul_ms"] if op == "screen_matvec" else None})
     print(json.dumps({"kernels": summary}))
     print(smi)
@@ -309,4 +775,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

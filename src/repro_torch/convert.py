@@ -10,32 +10,45 @@ arrays, as a caller reads it from a ``repro.LassoSession``::
     port = session_from_arrays(arrays, device="cpu")
 
 and returns a port session that adopts that geometry without a fit pass
-(``fit_passes == 0``). Carrying the per-bucket Lipschitz eigenvectors
-makes both packages' warm starts begin from the same vectors.
+(``fit_passes == 0``). A reference *group* session (``groups=m``) hands
+over ``{"X": ..., "groups": m, "spec_norms": np.asarray(
+sess.geometry.spec_norms)}`` instead of ``sumsq``. Carrying the
+per-bucket Lipschitz eigenvectors makes both packages' warm starts begin
+from the same vectors.
 """
 
 from __future__ import annotations
 
-from .core.engine import DictionaryGeometry
-from .core.session import LassoSession, PathConfig, as_tensor, resolve_device
+from .core.engine import DictionaryGeometry, GroupDictionaryGeometry
+from .core.session import (LassoSession, PathConfig, as_tensor,
+                           resolve_device)
 
 
 def session_from_arrays(arrays, *, config: PathConfig | None = None,
                         device=None) -> LassoSession:
     """A :class:`LassoSession` over ``arrays["X"]`` with the fitted
-    ``arrays["sumsq"]`` (‖x_j‖²) and, optionally, ``arrays["eig_cache"]``
-    (bucket size → eigenvector). ``device=None`` is the card."""
+    ``arrays["sumsq"]`` (‖x_j‖²) — or, for ``arrays["groups"] = m > 1``,
+    the fitted ``arrays["spec_norms"]`` (‖X_g‖₂) — and, optionally,
+    ``arrays["eig_cache"]`` (bucket size → eigenvector). ``device=None``
+    is the card."""
     cfg = config if config is not None else PathConfig()
     dev = resolve_device(device)
     X = as_tensor(arrays["X"], dev)
     if X.dim() != 2:
         raise ValueError(f"X must be (n, p), got shape {tuple(X.shape)}")
-    sumsq = as_tensor(arrays["sumsq"], dev, X.dtype)
-    if tuple(sumsq.shape) != (X.shape[1],):
-        raise ValueError(f"sumsq must be ({X.shape[1]},), got "
-                         f"{tuple(sumsq.shape)}")
-    sess = LassoSession._new(X, cfg)
-    geom = DictionaryGeometry(X, sess._default_backend, _sumsq=sumsq)
+    m = int(arrays.get("groups") or 1)
+    name, width = ("spec_norms", X.shape[1] // m) if m > 1 \
+        else ("sumsq", X.shape[1])
+    fitted = as_tensor(arrays[name], dev, X.dtype)
+    if tuple(fitted.shape) != (width,):
+        raise ValueError(f"{name} must be ({width},), got "
+                         f"{tuple(fitted.shape)}")
+    sess = LassoSession._new(X, cfg, m)
+    if m > 1:
+        geom = GroupDictionaryGeometry(X, m, sess._default_backend,
+                                       _spec_norms=fitted)
+    else:
+        geom = DictionaryGeometry(X, sess._default_backend, _sumsq=fitted)
     sess._geometries[geom.backend.name] = geom
     for bucket, v in (arrays.get("eig_cache") or {}).items():
         sess._eig_cache[int(bucket)] = as_tensor(v, dev, X.dtype)

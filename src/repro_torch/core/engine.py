@@ -11,10 +11,16 @@ pass, λ_max, the argmax feature, v₁). Every sphere screen is then one
 The ops dispatch through :mod:`repro_torch.kernels.ops`: the ``cuda``
 backend on the card, the plain ``torch`` versions on the CPU.
 
+The group twins (:class:`GroupDictionaryGeometry`,
+:class:`GroupScreeningEngine`) cache the per-group spectral norms ‖X_g‖₂
+at fit, λ̄_max and v̄₁ per query, and score every group screen with one
+``group_screen_scores`` pass over X.
+
 This is the main subset of ``repro.core.engine``: one query, float32
-screens, the sphere rules plus basic SAFE and ``none``. The batched
-workspace (ROADMAP.md queue 1 item 6), the other rules (item 8), the
-bf16 screen copy (item 9) and dictionary updates (item 10) come later.
+screens, the sphere rules plus basic SAFE and ``none``, and group EDPP,
+group strong and ``none``. The batched workspace (ROADMAP.md queue 1
+item 6), the other Lasso rules (item 8), the bf16 screen copy (item 9)
+and dictionary updates (item 10) come later.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from . import group_screening as gscr
 from . import screening as scr
 
 #: HBM passes over X that one screen takes through the engine, per rule.
@@ -30,6 +37,9 @@ ENGINE_X_PASSES = {"none": 0, "safe": 1}
 
 #: Rules the engine serves in this slice of the port.
 ENGINE_RULES = (*scr.SPHERE_RULES, "safe", "none")
+
+#: Rules the group engine serves (the reference's group subset).
+GROUP_ENGINE_RULES = (*gscr.GROUP_RULES, "none")
 
 
 def engine_x_passes(rule: str) -> int:
@@ -198,3 +208,97 @@ class ScreeningEngine:
                 f"{ENGINE_RULES}; the rest is ROADMAP.md queue 1 item 8)")
         return self._sphere_screen(
             scr.make_sphere(rule, ws.y, lam_next, state), self.eps, rule)
+
+
+class GroupDictionaryGeometry:
+    """The query-independent geometry of a fitted *group* dictionary: X,
+    the group size m and the per-group spectral norms ‖X_g‖₂ (Theorem 20;
+    an m × m eigendecomposition per group, the expensive y-independent
+    part of group screening). ``_spec_norms`` adopts a fit made elsewhere
+    (``fit_passes`` then stays 0)."""
+
+    def __init__(self, X: torch.Tensor, m: int, backend=None, *,
+                 _spec_norms=None):
+        self.X = X
+        self.m = m
+        self.backend = ops.resolve_backend(backend, X.device)
+        self.fit_passes = 0
+        self.query_passes = 0
+        if _spec_norms is None:
+            _spec_norms = gscr.group_spectral_norms(X, m)
+            self.fit_passes = 1
+        self.spec_norms = _spec_norms
+
+
+class GroupScreeningEngine:
+    """Group EDPP / group strong screens through the group kernel.
+
+    Caches ‖X_g‖₂ (from the geometry), λ̄_max (one ``group_scores`` pass
+    over y) and the λ̄_max ray v̄₁ = X*X*ᵀy once per query; each screen is
+    then one ``group_screen_scores`` pass over X."""
+
+    def __init__(self, X, y, m: int, backend=None,
+                 eps: float = gscr.EPS_DEFAULT, *,
+                 geometry: GroupDictionaryGeometry | None = None):
+        if geometry is None:
+            geometry = GroupDictionaryGeometry(X, m, backend)
+        geometry.query_passes += 1
+        self.geometry = geometry
+        self.backend = geometry.backend
+        self.X = geometry.X
+        self.y = y
+        self.m = m
+        self.eps = eps
+        self._state_max = gscr.group_state_at_lambda_max(
+            self.X, y, m, scores=self.backend.group_scores)
+        self.lam_max = float(self._state_max.lam)
+        self.spec_norms = geometry.spec_norms
+        self.total_x_passes = 0
+        self.last_x_passes = 0
+        self.last_screen_bytes = 0.0
+
+    @property
+    def backend_name(self) -> str:
+        return self.backend.name
+
+    def state_at_lambda_max(self) -> gscr.GroupDualState:
+        return self._state_max
+
+    def make_state(self, beta, lam: float, *,
+                   fitted=None) -> gscr.GroupDualState:
+        """The sequential state from the solution at λ, with the λ̄_max
+        branch served from the cache. ``fitted`` (= Xβ, from the reduced
+        bucket) skips the X·β pass."""
+        if _at_lmax(lam, self.lam_max):
+            return self._state_max
+        return gscr.group_state_from_solution(self.X, self.y, beta, lam,
+                                              fitted=fitted)
+
+    def _count(self, passes: int) -> None:
+        n, p = self.X.shape
+        self.last_x_passes = passes
+        self.total_x_passes += passes
+        self.last_screen_bytes = float(passes) * n * p * self.X.element_size()
+
+    def screen(self, lam_next: float, state: gscr.GroupDualState,
+               rule: str = "edpp") -> torch.Tensor:
+        """Discard mask bool[G] for λ_next: one pass over X (none for
+        ``rule="none"``)."""
+        if rule == "none":
+            self._count(0)
+            return torch.zeros((self.X.shape[1] // self.m,), dtype=torch.bool,
+                               device=self.X.device)
+        if rule == "strong":
+            mask = gscr.group_strong_mask(
+                self.X, self.y, lam_next, state, self.m, eps=self.eps,
+                scores=self.backend.group_scores)
+        elif rule == "edpp":
+            mask = gscr.group_edpp_mask(
+                self.X, self.y, lam_next, state, self.m,
+                spec_norms=self.spec_norms, eps=self.eps,
+                scores=self.backend.group_scores)
+        else:
+            raise ValueError(f"group screens take rules "
+                             f"{GROUP_ENGINE_RULES}, got {rule!r}")
+        self._count(1)
+        return mask

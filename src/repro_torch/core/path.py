@@ -10,9 +10,14 @@ computes the fitted values X_r·β_r from the reduced bucket for the next
 dual state. Pow-2 buckets keep the set of bucket sizes, and so the
 solver's Lipschitz cache entries, O(log p).
 
+The unit size ``m`` is 1 for the Lasso (units are features) and the
+group size for the group Lasso (units are groups: whole groups are
+gathered, buckets count groups, masks and ``n_discarded`` are per group).
+
 This slice drives one query (``batch=None``); the batched driver is
-ROADMAP.md queue 1 item 6. The KKT loop runs when ``paranoid=True`` asks
-for it (safe rules never trigger it).
+ROADMAP.md queue 1 item 6. The KKT loop runs when the rule is heuristic
+(group ``strong``) or ``paranoid=True`` asks for it (safe rules never
+trigger it).
 """
 
 from __future__ import annotations
@@ -116,13 +121,17 @@ def lambda_grid(lam_max: float, num: int = 100, lo_frac: float = 0.05,
 
 
 def _path_driver(X: torch.Tensor, y: torch.Tensor, lambdas, cfg, *,
-                 screen_engine, solver_engine, need_kkt: bool,
+                 m: int = 1, screen_engine, solver_engine, need_kkt: bool,
                  kkt_fn) -> PathResult:
     """The screen → reduce → solve → KKT loop over a decreasing grid, for
-    one query. ``kkt_fn(beta_full, lam, discard, fitted)`` flags KKT
-    violations among the discarded features."""
+    one query, over units of ``m`` columns. ``kkt_fn(beta_full, lam,
+    discard, fitted)`` flags KKT violations among the discarded units."""
     p = X.shape[1]
-    bucket_min = cfg.bucket_min if cfg.bucket_min is not None else 32
+    units = p // m
+    if units * m != p:
+        raise ValueError(f"p={p} is not divisible by the unit size m={m}")
+    bucket_min = cfg.bucket_min if cfg.bucket_min is not None \
+        else (32 if m == 1 else 16)
     lambdas = np.asarray(lambdas, dtype=np.float64)
     if lambdas.ndim != 1 or np.any(np.diff(lambdas) > 1e-12):
         raise ValueError("lambdas must be a decreasing (K,) grid")
@@ -130,8 +139,9 @@ def _path_driver(X: torch.Tensor, y: torch.Tensor, lambdas, cfg, *,
     lmax = float(screen_engine.lam_max)
     state = screen_engine.state_at_lambda_max()
 
+    arange_m = np.arange(m)[None, :]
     betas = np.zeros((1, K, p), dtype=np.float64)
-    masks = np.ones((1, K, p), dtype=bool)
+    masks = np.ones((1, K, units), dtype=bool)
     stats: list[PathStepStats] = []
     beta_prev = torch.zeros((p,), dtype=X.dtype, device=X.device)
     converged = True
@@ -139,7 +149,7 @@ def _path_driver(X: torch.Tensor, y: torch.Tensor, lambdas, cfg, *,
     for k in range(K):
         lam = float(lambdas[k])
         if not lam < lmax:            # β* = 0 in the trivial region (eq. 8)
-            stats.append(PathStepStats(lam, p, 0, 0, 0.0, 0, 0.0, 0.0,
+            stats.append(PathStepStats(lam, units, 0, 0, 0.0, 0, 0.0, 0.0,
                                        queries_converged=1))
             if cfg.checkpoint_fn:
                 cfg.checkpoint_fn(k, lam, np.zeros((p,)))
@@ -153,27 +163,32 @@ def _path_driver(X: torch.Tensor, y: torch.Tensor, lambdas, cfg, *,
 
         # ---- reduced solve (+ KKT rounds) -----------------------------
         t0 = time.perf_counter()
-        kkt_rounds = gap_checks = 0
+        kkt_rounds = gap_checks = solves = gram_solves = 0
         solver_x_passes = solve_bytes = 0.0
         while True:
             kept = np.flatnonzero(~discard_np)
-            bucket = min(next_pow2(max(kept.size, bucket_min)), p)
+            bucket = min(next_pow2(max(kept.size, bucket_min)), units)
             if kept.size == 0:
                 beta_full = torch.zeros((p,), dtype=X.dtype, device=X.device)
                 fitted = torch.zeros_like(y)
                 iters, gap, conv = 0, 0.0, True
             else:
-                idx, valid = _pad_indices(kept, bucket, X.device, X.dtype)
+                col_idx = (kept[:, None] * m + arange_m).reshape(-1)
+                idx, valid = _pad_indices(col_idx, bucket * m, X.device,
+                                          X.dtype)
                 Xr = _gather_cols(X, idx, valid)
                 beta0 = beta_prev.index_select(0, idx) * valid
-                res = solver_engine.solve(Xr, lam, beta0)
+                res = solver_engine.solve(Xr, lam, beta0, m=m)
                 beta_full = torch.zeros((p,), dtype=X.dtype, device=X.device)
-                beta_full[idx[:kept.size]] = res.beta[:kept.size]
+                beta_full[idx[:col_idx.size]] = res.beta[:col_idx.size]
                 iters, gap, conv = res.iters, res.gap, res.converged
                 # fitted values from the reduced bucket feed the next state
                 fitted = Xr @ res.beta
+                solves += 1
+                gram_solves += int(solver_engine.last_used_gram)
                 gap_checks += solver_engine.last_gap_checks
-                solver_x_passes += solver_engine.last_x_passes * bucket / p
+                solver_x_passes += (solver_engine.last_x_passes
+                                    * bucket * m / p)
                 solve_bytes += solver_engine.last_solve_bytes
             if not need_kkt:
                 break
@@ -193,8 +208,9 @@ def _path_driver(X: torch.Tensor, y: torch.Tensor, lambdas, cfg, *,
             solver_iters=int(iters), gap=float(gap), kkt_rounds=kkt_rounds,
             screen_time_s=screen_time, solve_time_s=solve_time,
             x_passes=screen_engine.last_x_passes, gap_checks=gap_checks,
+            gram_step_frac=gram_solves / solves if solves else 0.0,
             solver_backend=solver_engine.backend_name,
-            screen_backend=screen_engine.backend_name, bucket=bucket,
+            screen_backend=screen_engine.backend_name, bucket=bucket * m,
             solver_x_passes=solver_x_passes,
             queries_converged=int(bool(conv)),
             x_passes_per_query=float(screen_engine.last_x_passes),

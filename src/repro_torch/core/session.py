@@ -3,20 +3,24 @@
     sess = LassoSession.fit(X)                 # on the card; one fused pass
     res  = sess.path(y)                        # (n,) query -> B = 1 result
     cpu  = LassoSession.fit(X, device="cpu")   # plain versions on the CPU
+    grp  = LassoSession.fit(X, groups=m)       # group Lasso, groups of m
 
-The session owns the fitted :class:`~.engine.DictionaryGeometry` per
-backend (the fused fit pass runs exactly once per session —
-``fit_passes``; each query attaches with one matvec pass —
-``query_passes``), the resolved backends, and the per-bucket Lipschitz
-eigenvector cache shared by every :class:`~.solver.SolverEngine` it
-builds. Configs are the reference's :class:`ScreenSpec` +
-:class:`SolveSpec` composed into one :class:`PathConfig`, with the same
-fields, defaults, validation and legacy flat keywords.
+The session owns the fitted :class:`~.engine.DictionaryGeometry` (with
+``groups=m``: :class:`~.engine.GroupDictionaryGeometry`) per backend
+(the fit runs exactly once per session — ``fit_passes``; each query
+attaches with one pass over X — ``query_passes``), the resolved
+backends, and the per-bucket Lipschitz eigenvector cache shared by every
+:class:`~.solver.SolverEngine` it builds. Configs are the reference's
+:class:`ScreenSpec` + :class:`SolveSpec` composed into one
+:class:`PathConfig`, with the same fields, defaults, validation and
+legacy flat keywords.
 
 This slice of the port serves one (n,) query with the sphere rules,
-basic SAFE and ``none``, float32 screens and the ``fista`` strategy;
-everything else raises ``NotImplementedError`` naming the ROADMAP.md
-item (queue 1) that brings it.
+basic SAFE and ``none``, float32 screens and the ``fista`` and ``cd``
+strategies; and, on a session fitted with ``groups=m``, group EDPP,
+group strong and ``none`` with the ``group_fista`` strategy. Everything
+else raises ``NotImplementedError`` naming the ROADMAP.md item (queue 1)
+that brings it.
 
 Entry points run on the card unless the caller asks for the CPU:
 ``device=None`` means ``cuda``, and raises when no card is present.
@@ -31,24 +35,45 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from . import group_screening as gscr
 from . import screening as scr
-from .engine import ENGINE_RULES, DictionaryGeometry, ScreeningEngine
+from .engine import (ENGINE_RULES, GROUP_ENGINE_RULES, DictionaryGeometry,
+                     GroupDictionaryGeometry, GroupScreeningEngine,
+                     ScreeningEngine)
 from .path import PathResult, _path_driver, lambda_grid
-from .solver import SOLVERS, SolverEngine
+from .solver import GROUP_SOLVERS, SOLVERS, SolverEngine
 
-# Every rule the reference knows; ENGINE_RULES are the ones ported so far.
+# Every rule the reference knows; ENGINE_RULES are the ones ported so far
+# for the Lasso, GROUP_ENGINE_RULES (the reference's group subset) for
+# groups.
 KNOWN_RULES = ("dpp", "imp1", "imp2", "edpp", "seq_safe", "gap", "strong",
                *(f"{b}_cut" for b in ("dpp", "imp1", "imp2", "edpp",
                                       "seq_safe", "gap")),
                "safe", "dome", "none")
-# Strategies the reference registers that this slice has not ported.
-_LATER_STRATEGIES = {"cd": 7, "group_fista": 11}
 
 
 def _not_yet(what: str, item: int, title: str):
     return NotImplementedError(
         f"{what} is not ported yet: ROADMAP.md queue 1 item {item} "
         f"({title})")
+
+
+def _check_session_kind(cfg: "PathConfig", m: int) -> None:
+    """A group session (m > 1) serves only GROUP_ENGINE_RULES and solves
+    with a group strategy; a plain-Lasso session takes no group strategy.
+    Anything else would run one problem's rule or solver on the other's
+    buckets and return a wrong β under the right name."""
+    strategy = cfg.solve.resolved_strategy(m)
+    if m > 1:
+        if cfg.screen.rule not in GROUP_ENGINE_RULES:
+            raise ValueError(f"group sessions support rules "
+                             f"{GROUP_ENGINE_RULES}, got {cfg.screen.rule!r}")
+        if strategy not in GROUP_SOLVERS:
+            raise ValueError(f"group sessions solve with {GROUP_SOLVERS}, "
+                             f"got strategy {strategy!r}")
+    elif strategy in GROUP_SOLVERS:
+        raise ValueError(f"strategy {strategy!r} solves the group Lasso: fit "
+                         f"the session with groups=m")
 
 
 def _check_backend(name, what: str) -> None:
@@ -87,7 +112,8 @@ class ScreenSpec:
         if self.screen_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"screen_dtype must be 'float32' or 'bfloat16', "
                              f"got {self.screen_dtype!r}")
-        if self.rule not in ENGINE_RULES:
+        # "strong" serves group sessions; on a plain-Lasso path it raises
+        if self.rule not in ENGINE_RULES + GROUP_ENGINE_RULES:
             raise _not_yet(f"screening rule {self.rule!r}", 8,
                            "the other screening rules")
         if self.strong:
@@ -100,7 +126,8 @@ class ScreenSpec:
 @dataclasses.dataclass(frozen=True)
 class SolveSpec:
     """The solver for the reduced problems. ``strategy=None`` resolves to
-    ``fista``; ``bucket_min=None`` to 32 features."""
+    ``fista``, or ``group_fista`` on a session fitted with ``groups=m``;
+    ``bucket_min=None`` to 32 features or 16 groups."""
 
     strategy: str | None = None
     backend: str | ops.ScreenBackend | None = None  # None: follow the device
@@ -111,11 +138,6 @@ class SolveSpec:
     solve_dtype: str = "float32"
 
     def __post_init__(self):
-        if self.strategy in _LATER_STRATEGIES:
-            raise _not_yet(f"solver strategy {self.strategy!r}",
-                           _LATER_STRATEGIES[self.strategy],
-                           "CD strategy" if self.strategy == "cd"
-                           else "group lasso")
         if self.strategy is not None and self.strategy not in SOLVERS:
             raise ValueError(f"unknown solver strategy {self.strategy!r}; "
                              f"available: {tuple(SOLVERS)}")
@@ -134,8 +156,8 @@ class SolveSpec:
         if self.solve_dtype != "float32":
             raise _not_yet("solve_dtype='bfloat16'", 9, "mixed precision")
 
-    def resolved_strategy(self) -> str:
-        return self.strategy or "fista"
+    def resolved_strategy(self, m: int = 1) -> str:
+        return self.strategy or ("group_fista" if m > 1 else "fista")
 
 
 _SCREEN_KW = {
@@ -230,12 +252,18 @@ class LassoSession:
                         "LassoSession.fit(X, ...)")
 
     @classmethod
-    def _new(cls, X: torch.Tensor, cfg: PathConfig) -> "LassoSession":
+    def _new(cls, X: torch.Tensor, cfg: PathConfig,
+             m: int = 1) -> "LassoSession":
+        if X.shape[1] % m:
+            raise ValueError(f"p={X.shape[1]} is not divisible by "
+                             f"groups={m}")
+        _check_session_kind(cfg, m)
         self = object.__new__(cls)
         self.config = cfg
+        self.groups = m
         self.X = X
         self.device = X.device
-        self._geometries: dict[str, DictionaryGeometry] = {}
+        self._geometries: dict[str, object] = {}
         self._eig_cache: dict[int, torch.Tensor] = {}
         self._eig_stats = {"warm": 0, "cold": 0}
         self._default_backend = ops.resolve_backend(
@@ -247,31 +275,35 @@ class LassoSession:
             config: PathConfig | None = None,
             device=None) -> "LassoSession":
         """Fit the dictionary side once: X to the device, then one fused
-        ``edpp_screen_scores`` pass for ‖x_j‖². ``device=None`` is the
-        card; pass ``device="cpu"`` for the CPU."""
+        ``edpp_screen_scores`` pass for ‖x_j‖² — or, with ``groups=m``
+        (contiguous groups of m columns), the per-group spectral norms for
+        every later group path. ``device=None`` is the card; pass
+        ``device="cpu"`` for the CPU."""
         cfg = config if config is not None else PathConfig()
         if not isinstance(cfg, PathConfig):
             raise TypeError(f"config must be a PathConfig, got "
                             f"{type(cfg).__name__}")
-        if groups is not None and int(groups) != 1:
-            raise _not_yet("groups=", 11, "group lasso")
+        m = 1 if groups is None else int(groups)
+        if m < 1:
+            raise ValueError(f"groups must be ≥ 1, got {groups}")
         if mesh is not None:
             raise _not_yet("mesh=", 13, "distributed")
         Xt = as_tensor(X, resolve_device(device))
         if Xt.dim() != 2:
             raise ValueError(f"X must be (n, p), got shape {tuple(Xt.shape)}")
-        self = cls._new(Xt, cfg)
-        self._geometry(self._default_backend)     # the one fused fit pass
+        self = cls._new(Xt, cfg, m)
+        self._geometry(self._default_backend)     # the one fit
         return self
 
-    def _geometry(self, backend=None) -> DictionaryGeometry:
-        """The fitted geometry for a backend (built on first use)."""
+    def _geometry(self, backend=None):
+        """The fitted (group) geometry for a backend, built on first use."""
         inst = ops.resolve_backend(
             backend if backend is not None else self._default_backend,
             self.device)
         geom = self._geometries.get(inst.name)
         if geom is None:
-            geom = DictionaryGeometry(self.X, inst)
+            geom = (GroupDictionaryGeometry(self.X, self.groups, inst)
+                    if self.groups > 1 else DictionaryGeometry(self.X, inst))
             self._geometries[inst.name] = geom
         return geom
 
@@ -280,7 +312,7 @@ class LassoSession:
         return tuple(self.X.shape)
 
     @property
-    def geometry(self) -> DictionaryGeometry:
+    def geometry(self):
         return self._geometries[self._default_backend]
 
     @property
@@ -289,12 +321,12 @@ class LassoSession:
 
     @property
     def fit_passes(self) -> int:
-        """Fused fit passes over X: one per (backend, session)."""
+        """Fit passes over X: one per (backend, session)."""
         return sum(g.fit_passes for g in self._geometries.values())
 
     @property
     def query_passes(self) -> int:
-        """Per-query |Xᵀy| attach passes (one per ``path`` call)."""
+        """Per-query attach passes, |Xᵀy| or ‖X_gᵀy‖ (one per ``path``)."""
         return sum(g.query_passes for g in self._geometries.values())
 
     def reset_solver_cache(self) -> None:
@@ -302,17 +334,29 @@ class LassoSession:
         next solves start cold from the seed (bitwise replay)."""
         self._eig_cache.clear()
 
+    def update(self, add=None, drop=None, *, workspaces=()):
+        """Edit the fitted dictionary in place (reference
+        ``session.update``)."""
+        if self.groups > 1:
+            raise NotImplementedError(
+                "session.update is plain-Lasso only: group geometries "
+                "cache per-group spectral norms that a column edit "
+                "invalidates wholesale — refit instead")
+        raise _not_yet("session.update", 10, "incremental dictionaries")
+
     def path(self, Y, lambdas=None, *, num_lambdas: int = 100,
              lo_frac: float = 0.05, hi_frac: float = 1.0,
              config: PathConfig | None = None) -> PathResult:
-        """Solve the λ-path for one (n,) query with screening. ``lambdas``
-        is a decreasing (K,) grid, or None for
+        """Solve the λ-path for one (n,) query with screening; a session
+        fitted with ``groups=m`` runs the group path. ``lambdas`` is a
+        decreasing (K,) grid, or None for
         ``lambda_grid(λ_max, num_lambdas, lo_frac, hi_frac)``. Returns the
         :class:`PathResult` with its leading batch axis (B = 1)."""
         cfg = config if config is not None else self.config
         if not isinstance(cfg, PathConfig):
             raise TypeError(f"config must be a PathConfig, got "
                             f"{type(cfg).__name__}")
+        _check_session_kind(cfg, self.groups)   # per-call overrides too
         y = as_tensor(Y, self.device, self.X.dtype)
         if y.dim() == 2:
             raise _not_yet("a (B, n) query batch", 6, "batched multi-query "
@@ -320,17 +364,33 @@ class LassoSession:
         if y.dim() != 1 or y.shape[0] != self.X.shape[0]:
             raise ValueError(f"query must be ({self.X.shape[0]},), got "
                              f"shape {tuple(y.shape)}")
-        eng = ScreeningEngine(self.X, y, eps=cfg.screen.eps,
-                              geometry=self._geometry(cfg.screen.backend))
-        if lambdas is None:
-            lambdas = lambda_grid(eng.lam_max, num=num_lambdas,
-                                  lo_frac=lo_frac, hi_frac=hi_frac)
-        solver = SolverEngine(
-            y, solver=cfg.solve.resolved_strategy(),
+        grid_kw = dict(num=num_lambdas, lo_frac=lo_frac, hi_frac=hi_frac)
+        if self.groups > 1:
+            return self._group_path(y, lambdas, cfg, grid_kw)
+        if cfg.screen.rule == "strong":
+            raise _not_yet("screening rule 'strong' on a plain-Lasso path",
+                           8, "the other screening rules")
+        return self._lasso_path(y, lambdas, cfg, grid_kw)
+
+    def _solver_engine(self, y, cfg: PathConfig) -> SolverEngine:
+        return SolverEngine(
+            y, solver=cfg.solve.resolved_strategy(self.groups),
             backend=cfg.solve.backend, tol=cfg.solve.tol,
             max_iter=cfg.solve.max_iter,
             gap_check_cadence=cfg.solve.gap_check_cadence,
             eig_cache=self._eig_cache, eig_stats=self._eig_stats)
+
+    def _need_kkt(self, cfg: PathConfig) -> bool:
+        """The KKT loop backs the heuristic group strong rule (and runs
+        when ``paranoid`` asks for it)."""
+        heuristic = self.groups > 1 and cfg.screen.rule == "strong"
+        return heuristic or cfg.screen.paranoid
+
+    def _lasso_path(self, y, lambdas, cfg, grid_kw) -> PathResult:
+        eng = ScreeningEngine(self.X, y, eps=cfg.screen.eps,
+                              geometry=self._geometry(cfg.screen.backend))
+        if lambdas is None:
+            lambdas = lambda_grid(eng.lam_max, **grid_kw)
         X = self.X
 
         def kkt_fn(beta_full, lam, discard, fitted=None):
@@ -338,5 +398,21 @@ class LassoSession:
                                       cfg.screen.kkt_tol, fitted)
 
         return _path_driver(X, y, lambdas, cfg, screen_engine=eng,
-                            solver_engine=solver,
-                            need_kkt=cfg.screen.paranoid, kkt_fn=kkt_fn)
+                            solver_engine=self._solver_engine(y, cfg),
+                            need_kkt=self._need_kkt(cfg), kkt_fn=kkt_fn)
+
+    def _group_path(self, y, lambdas, cfg, grid_kw) -> PathResult:
+        m = self.groups
+        eng = GroupScreeningEngine(self.X, y, m, eps=cfg.screen.eps,
+                                   geometry=self._geometry(cfg.screen.backend))
+        if lambdas is None:
+            lambdas = lambda_grid(eng.lam_max, **grid_kw)
+        X = self.X
+
+        def kkt_fn(beta_full, lam, discard, fitted=None):
+            return gscr.group_kkt_violations(X, y, beta_full, lam, discard, m,
+                                             cfg.screen.kkt_tol, fitted)
+
+        return _path_driver(X, y, lambdas, cfg, m=m, screen_engine=eng,
+                            solver_engine=self._solver_engine(y, cfg),
+                            need_kkt=self._need_kkt(cfg), kkt_fn=kkt_fn)

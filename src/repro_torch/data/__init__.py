@@ -1,2 +1,6 @@
-"""Synthetic Lasso problems (numpy only)."""
-from .pipeline import design_matrix, lasso_problem  # noqa: F401
+"""Synthetic Lasso and group-Lasso problems (numpy only)."""
+from .pipeline import (  # noqa: F401
+    design_matrix,
+    group_lasso_problem,
+    lasso_problem,
+)

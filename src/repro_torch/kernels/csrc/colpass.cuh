@@ -137,10 +137,10 @@ int run(const float* X, const float* C, int n, int p, const Epilogue& ep,
   return (int)cudaGetLastError();
 }
 
-// Row phases per block: 32 when the column tiles alone cannot fill two
-// waves of the card's SMs (the narrow reduced buckets of the solver),
-// else 8 (the wide screening passes, where the grid already fills it).
-inline int row_phases(int p) {
+// Row phases per block: 32 when the blocks alone cannot fill two waves of
+// the card's SMs (the narrow reduced buckets of the solver), else 8 (the
+// wide screening passes, where the grid already fills it).
+inline int row_phases_for_blocks(int blocks) {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -148,9 +148,10 @@ inline int row_phases(int p) {
     if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
       sms = 132;
   }
-  const int tiles = (p + TILE_P - 1) / TILE_P;
-  return tiles < 2 * sms ? 32 : 8;
+  return blocks < 2 * sms ? 32 : 8;
 }
+
+inline int row_phases(int p) { return row_phases_for_blocks((p + TILE_P - 1) / TILE_P); }
 
 template <int MODE>
 int launch(const float* X, const float* C, int n, int p, int B,

@@ -48,6 +48,9 @@ _SIGNATURES = {
     "screen_matvec_f32": [_VP, _VP, _INT, _INT, _INT, _VP, _VP],
     "fista_step_f32": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP, _F32,
                        _F32, _F32, _VP, _VP, _VP],
+    "cd_gram_sweep_f32": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP, _F32,
+                          _VP, _VP],
+    "group_screen_scores_f32": [_VP, _VP, _INT, _INT, _INT, _VP, _VP],
 }
 
 
@@ -61,17 +64,17 @@ def kernel_fn(source: str, symbol: str):
     return fn
 
 
-def check_x(X: torch.Tensor, op: str) -> None:
-    """Raise on an X the CUDA kernels do not take."""
+def check_x(X: torch.Tensor, op: str, what: str = "X") -> None:
+    """Raise on an X (or G) the CUDA kernels do not take."""
     if X.device.type != "cuda":
-        raise ValueError(f"{op}: X must be a CPU or CUDA tensor, "
+        raise ValueError(f"{op}: {what} must be a CPU or CUDA tensor, "
                          f"got device {X.device}")
     if X.dtype != torch.float32:
-        raise TypeError(f"{op}: the CUDA kernel takes float32 X, got "
+        raise TypeError(f"{op}: the CUDA kernel takes float32 {what}, got "
                         f"{X.dtype} (float64 runs on CPU tensors only)")
     if X.dim() != 2 or not X.is_contiguous():
-        raise ValueError(f"{op}: X must be a contiguous (n, p) matrix, got "
-                         f"shape {tuple(X.shape)}")
+        raise ValueError(f"{op}: {what} must be a contiguous 2-D matrix, "
+                         f"got shape {tuple(X.shape)}")
 
 
 def check_rows(X: torch.Tensor, v: torch.Tensor, width: int, what: str,

@@ -1,4 +1,4 @@
-"""Fused FISTA iteration tail: gradient pass + prox + momentum in one kernel.
+"""Solver kernels: the fused FISTA iteration tail and the Gram CD sweep.
 
 ``fista_step(X, r, z, beta_old, step, lam, mom)`` returns
 ``(β', z')`` with
@@ -22,6 +22,18 @@ n = 784 rows): with 32 columns per block that is 1 to ~128 blocks, so the
 launch gives each block 32 row phases (1024 threads) where the column
 tiles alone would leave most SMs idle (``colpass::row_phases``). The
 gradient stays in registers and shared memory; only β' and z' are written.
+
+``cd_gram_sweep(G, c, beta, lam, sweeps, valid)`` runs ``sweeps`` cyclic
+coordinate-descent sweeps over the Gram system G = XᵀX, c = Xᵀy
+(``ref.cd_gram_sweep_ref`` states the update). Replaces ``cd_gram_sweep``
+of ``src/repro/kernels/solver_step.py`` (its ``pl.pallas_call`` at line
+251). G is (p, p) with p ≤ ``GRAM_BUCKET_MAX``, the crossover up to
+which the ``cd`` strategy solves on the Gram system; ``c``/``beta``/
+``valid`` are (p,) or (B, p), ``lam`` a host number, a device scalar or a
+(B,) tensor. A CUDA G launches ``csrc/cd_gram.cu`` (one block per query,
+one thread per coordinate, G read row by row from L2): its time is the
+latency of the chain of ``sweeps·p`` dependent coordinate steps, not the
+bytes of G nor its flops.
 """
 
 from __future__ import annotations
@@ -34,6 +46,7 @@ from . import ref
 from .edpp_screen import (MAX_B, check_error, check_rows, check_x, chunk_ptr,
                           kernel_fn, params)
 
+GRAM_BUCKET_MAX = 1024   # largest Gram system (columns) cd_gram_sweep takes
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -70,3 +83,49 @@ def fista_step(X: torch.Tensor, r: torch.Tensor, z: torch.Tensor,
     if squeeze:
         return beta_new[0], z_new[0]
     return beta_new, z_new
+
+
+def cd_gram_sweep(G: torch.Tensor, c: torch.Tensor, beta: torch.Tensor, lam,
+                  sweeps: int = 1, valid: torch.Tensor | None = None
+                  ) -> torch.Tensor:
+    """``sweeps`` cyclic CD sweeps over the Gram system; see the module
+    doc. Returns the new β, shaped like ``beta``."""
+    op = "cd_gram_sweep"
+    p = G.shape[0]
+    if p > GRAM_BUCKET_MAX:
+        raise ValueError(f"{op}: p={p} exceeds GRAM_BUCKET_MAX="
+                         f"{GRAM_BUCKET_MAX}")
+    if G.device.type == "cpu":
+        return ref.cd_gram_sweep_ref(G, c, beta, lam, sweeps, valid)
+    check_x(G, op, "G")
+    if G.shape != (p, p):
+        raise ValueError(f"{op}: G must be square, got {tuple(G.shape)}")
+    Bt, squeeze = check_rows(G, beta, p, "beta", op)
+    C, _ = check_rows(G, c, p, "c", op)
+    V = None
+    if valid is not None:
+        V, _ = check_rows(G, valid, p, "valid", op)
+    B = Bt.shape[0]
+    if c.dim() != beta.dim() or C.shape[0] != B or (
+            V is not None and (valid.dim() != beta.dim() or V.shape[0] != B)):
+        raise ValueError(f"{op}: c {tuple(c.shape)}, beta {tuple(beta.shape)}"
+                         f" and valid disagree on B")
+    sweeps = int(sweeps)
+    if sweeps < 0:
+        raise ValueError(f"{op}: sweeps must be ≥ 0, got {sweeps}")
+    par, (lam_s,) = params(B, G.device, lam)
+    fn = kernel_fn("cd_gram", "cd_gram_sweep_f32")
+    out = torch.empty((B, p), dtype=torch.float32, device=G.device)
+    if p:
+        with torch.cuda.device(G.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            for b0 in range(0, B, MAX_B):
+                nb = min(MAX_B, B - b0)
+                _keep, ptr = chunk_ptr(par, b0, nb)
+                check_error(fn(G.data_ptr(), C[b0].data_ptr(),
+                               Bt[b0].data_ptr(),
+                               None if V is None else V[b0].data_ptr(), p,
+                               nb, sweeps, ptr, lam_s, out[b0].data_ptr(),
+                               stream), op)
+                LAUNCHES[op] += 1
+    return out[0] if squeeze else out

@@ -7,7 +7,9 @@ themselves run only on the card (``chip_smoke.py`` holds them against
 these plain versions there).
 
 Tolerance: rtol = atol = 2e-5, the reference's own float32 kernel sweep
-(tests/test_kernels.py) — the sums run in another order in each package.
+(tests/test_kernels.py) — the sums run in another order in each package;
+for the Gram CD sweep rtol = 2e-4, atol = 2e-5, the reference's own (a
+rounding difference in q propagates through the sweeps' chain).
 """
 
 import ctypes
@@ -21,11 +23,13 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import build, edpp_screen, ops, ref, solver_step
+from repro_torch.kernels import (build, edpp_screen, group_screen, ops, ref,
+                                 solver_step)
 
 SHAPES = [(8, 128), (60, 300), (128, 512), (100, 1000), (7, 130), (256, 131)]
 BATCHES = [1, 3, 8, 17]
 TOL = dict(rtol=2e-5, atol=2e-5)
+CD_TOL = dict(rtol=2e-4, atol=2e-5)
 REPO = Path(__file__).resolve().parents[1]
 
 
@@ -122,6 +126,89 @@ def test_fista_step_plain_float64(batch):
                                rtol=1e-12, atol=1e-12)
 
 
+def _gram_case(b, seed, batch=1):
+    """The reference's Gram CD case: G = AᵀA with three zero (padded)
+    columns, c, a small warm start and λ = ½·max|c| (per query)."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((2 * b, b)).astype(np.float32)
+    A[:, -3:] = 0.0
+    G = A.T @ A
+    if batch == 1:
+        c = A.T @ rng.standard_normal(2 * b).astype(np.float32)
+        beta0 = rng.standard_normal(b).astype(np.float32) * 0.1
+        return G, c, beta0, 0.5 * float(np.abs(c).max()), None
+    c = rng.standard_normal((batch, b)).astype(np.float32)
+    beta0 = (rng.standard_normal((batch, b)) * 0.1).astype(np.float32)
+    valid = (rng.uniform(size=(batch, b)) > 0.3).astype(np.float32)
+    lam = rng.uniform(0.5, 2.0, batch).astype(np.float32)
+    return G, c, beta0 * valid, lam, valid
+
+
+@pytest.mark.parametrize("b", [17, 64, 130, 512])
+def test_cd_gram_sweep_plain_matches_reference(b):
+    """The reference's sweep (tests/test_kernels.py): 3 sweeps, three
+    zero-Gram columns that must stay at 0."""
+    G, c, beta0, lam, _ = _gram_case(b, b)
+    out = solver_step.cd_gram_sweep(*map(torch.from_numpy, (G, c, beta0)),
+                                    lam, sweeps=3)
+    args = (jnp.asarray(G), jnp.asarray(c), jnp.asarray(beta0), lam)
+    np.testing.assert_allclose(out.numpy(), np.asarray(
+        jref.cd_gram_sweep_ref(*args, sweeps=3)), **CD_TOL)
+    np.testing.assert_allclose(out.numpy(), np.asarray(
+        jops.cd_gram_sweep(*args, sweeps=3, interpret=True)), **CD_TOL)
+    assert not out[-3:].any()
+
+
+@pytest.mark.parametrize("batch", [2, 9])
+def test_cd_gram_sweep_plain_batched_with_valid(batch):
+    """Batched with per-query λ and ``valid``: screened-out and zero-Gram
+    columns stay at 0 (the reference's batched sweep)."""
+    G, c, beta0, lam, valid = _gram_case(48, 40 + batch, batch)
+    out = solver_step.cd_gram_sweep(*map(torch.from_numpy, (G, c, beta0)),
+                                    torch.from_numpy(lam), sweeps=2,
+                                    valid=torch.from_numpy(valid))
+    args = (jnp.asarray(G), jnp.asarray(c), jnp.asarray(beta0),
+            jnp.asarray(lam))
+    assert out.shape == (batch, 48)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jref.cd_gram_sweep_ref(
+        *args, sweeps=2, valid=jnp.asarray(valid))), **CD_TOL)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jops.cd_gram_sweep(
+        *args, sweeps=2, valid=jnp.asarray(valid), interpret=True)), **CD_TOL)
+    assert not (out.numpy() * (1 - valid)).any()
+    assert not out[:, -3:].any()
+
+
+def test_cd_gram_sweep_rejects_oversized():
+    b = solver_step.GRAM_BUCKET_MAX + 1
+    with pytest.raises(ValueError, match="GRAM_BUCKET_MAX"):
+        solver_step.cd_gram_sweep(torch.zeros(b, b), torch.zeros(b),
+                                  torch.zeros(b), 0.1)
+    assert ops.GRAM_BUCKET_MAX == jops.GRAM_BUCKET_MAX == 1024
+
+
+@pytest.mark.parametrize("m", [2, 5, 10])
+@pytest.mark.parametrize("shape", [(60, 300), (100, 1000)])
+def test_group_screen_plain_matches_reference(shape, m):
+    """The reference's group sweep: the plain version against its jnp
+    oracle and the Pallas kernel in interpret mode."""
+    n, p = shape
+    rng = np.random.default_rng(2)
+    X = rng.standard_normal((n, p)).astype(np.float32)
+    c = rng.standard_normal(n).astype(np.float32)
+    gs = group_screen.group_screen_scores(torch.from_numpy(X),
+                                          torch.from_numpy(c), m)
+    assert gs.shape == (p // m,)
+    _close(gs, jref.group_screen_ref(jnp.asarray(X), jnp.asarray(c), m),
+           jops.group_screen_scores(jnp.asarray(X), jnp.asarray(c), m,
+                                    interpret=True))
+
+
+def test_group_screen_refuses_a_group_size_that_does_not_divide_p():
+    with pytest.raises(ValueError, match="must divide p"):
+        group_screen.group_screen_scores(torch.zeros(4, 10), torch.zeros(4),
+                                         3)
+
+
 @pytest.mark.parametrize("batch", [1, 3])
 def test_zero_padding_is_an_exact_no_op(batch):
     """Zero rows and zero columns are no-ops: padded columns come out
@@ -157,17 +244,21 @@ def test_zero_padding_is_an_exact_no_op(batch):
 
 def test_wrappers_take_the_plain_version_for_cpu_tensors():
     X, c, z, b = (torch.from_numpy(a) for a in _case((60, 300), 3, 6)[:4])
+    G = X.T @ X
     ops.reset_counts()
     s, ss = edpp_screen.edpp_screen_scores(X, c, 0.5)
     d = edpp_screen.screen_matvec(X, c)
     bn, zn = solver_step.fista_step(X, c, z, b, 0.01, 0.5, 0.6)
-    assert ops.launch_counts() == {"edpp_screen_scores": 0,
-                                   "screen_matvec": 0, "fista_step": 0}
-    assert ops.plain_counts() == {"edpp_screen_scores": 1,
-                                  "screen_matvec": 1, "fista_step": 1}
+    gs = group_screen.group_screen_scores(X, c[0], 5)
+    cd = solver_step.cd_gram_sweep(G, z, b, 0.5, sweeps=1)
+    assert ops.launch_counts() == dict.fromkeys(ops.OPS, 0)
+    assert ops.plain_counts() == dict.fromkeys(ops.OPS, 1)
+    assert len(ops.OPS) == 5
     assert torch.equal(d, ref.screen_matvec_ref(X, c))
     assert torch.equal(s, ref.edpp_screen_ref(X, c, 0.5)[0])
     assert torch.equal(bn, ref.fista_step_ref(X, c, z, b, 0.01, 0.5, 0.6)[0])
+    assert torch.equal(gs, ref.group_screen_ref(X, c[0], 5))
+    assert torch.equal(cd, ref.cd_gram_sweep_ref(G, z, b, 0.5, sweeps=1))
 
 
 def test_per_query_parameters_never_copy_host_numbers():
@@ -190,6 +281,12 @@ def test_backend_follows_the_device():
     assert ops.resolve_backend(None, "cuda").name == "cuda"
     assert ops.resolve_backend("cuda", "cpu").fista_step \
         is solver_step.fista_step
+    cuda = ops.resolve_backend("cuda", "cpu")
+    assert cuda.group_scores is group_screen.group_screen_scores
+    assert cuda.cd_gram_sweep is solver_step.cd_gram_sweep
+    plain = ops.resolve_backend("torch", "cpu")
+    assert (plain.group_scores, plain.cd_gram_sweep) \
+        == (ref.group_screen_ref, ref.cd_gram_sweep_ref)
     with pytest.raises(ValueError, match="unknown backend"):
         ops.resolve_backend("pallas", "cpu")
 
@@ -198,20 +295,22 @@ class _CudaLike:
     """Stands in for a CUDA tensor on a machine without one: the wrappers
     only read device, dtype, shape and contiguity before they launch."""
 
-    def __init__(self, *shape, dtype=torch.float32):
+    def __init__(self, *shape, dtype=torch.float32, contiguous=True):
         self.shape = torch.Size(shape)
         self.dtype = dtype
         self.device = torch.device("cuda", 0)
+        self.contiguous = contiguous
 
     def dim(self):
         return len(self.shape)
 
     def is_contiguous(self):
-        return True
+        return self.contiguous
 
     def unsqueeze(self, dim):
         assert dim == 0
-        return _CudaLike(1, *self.shape, dtype=self.dtype)
+        return _CudaLike(1, *self.shape, dtype=self.dtype,
+                         contiguous=self.contiguous)
 
 
 @pytest.fixture
@@ -232,6 +331,11 @@ def test_cuda_tensors_launch_or_raise_never_the_plain_version(no_toolkit):
         edpp_screen.screen_matvec(X, c)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         solver_step.fista_step(X, c, z, b, 0.01, 0.5, 0.6)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        group_screen.group_screen_scores(X, c, 5)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        solver_step.cd_gram_sweep(_CudaLike(64, 64), _CudaLike(64),
+                                  _CudaLike(64), 0.5, sweeps=2)
     assert sum(ops.plain_counts().values()) == 0
     assert sum(ops.launch_counts().values()) == 0
 
@@ -248,6 +352,36 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(no_toolkit):
     with pytest.raises(ValueError, match="disagree on B"):
         solver_step.fista_step(X, _CudaLike(2, 60), _CudaLike(3, 300),
                                _CudaLike(3, 300), 0.1, 0.1, 0.1)
+    # the group pass: p % m, a batched centre, a non-contiguous X
+    with pytest.raises(ValueError, match="must divide p"):
+        group_screen.group_screen_scores(X, _CudaLike(60), 7)
+    with pytest.raises(ValueError, match="rank 1"):
+        group_screen.group_screen_scores(X, _CudaLike(2, 60), 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        group_screen.group_screen_scores(
+            _CudaLike(60, 300, contiguous=False), _CudaLike(60), 5)
+    # the Gram sweep: p > GRAM_BUCKET_MAX, a non-square or non-contiguous
+    # G, a non-contiguous β, c and valid that disagree with β on B
+    big = solver_step.GRAM_BUCKET_MAX + 1
+    with pytest.raises(ValueError, match="GRAM_BUCKET_MAX"):
+        solver_step.cd_gram_sweep(_CudaLike(big, big), _CudaLike(big),
+                                  _CudaLike(big), 0.1)
+    G, v = _CudaLike(64, 64), _CudaLike(64)
+    with pytest.raises(ValueError, match="square"):
+        solver_step.cd_gram_sweep(_CudaLike(64, 63), v, v, 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        solver_step.cd_gram_sweep(_CudaLike(64, 64, contiguous=False), v, v,
+                                  0.1)
+    with pytest.raises(ValueError, match="beta must be contiguous"):
+        solver_step.cd_gram_sweep(G, v, _CudaLike(64, contiguous=False), 0.1)
+    with pytest.raises(ValueError, match="disagree on B"):
+        solver_step.cd_gram_sweep(G, _CudaLike(2, 64), _CudaLike(3, 64), 0.1)
+    with pytest.raises(ValueError, match="disagree on B"):
+        solver_step.cd_gram_sweep(G, _CudaLike(3, 64), _CudaLike(3, 64), 0.1,
+                                  valid=_CudaLike(64))
+    with pytest.raises(TypeError, match="float32"):
+        solver_step.cd_gram_sweep(_CudaLike(64, 64, dtype=torch.float64), v,
+                                  v, 0.1)
 
 
 def test_kernel_entry_points_get_their_c_signature(monkeypatch):
@@ -257,21 +391,25 @@ def test_kernel_entry_points_get_their_c_signature(monkeypatch):
     libc = ctypes.CDLL(None)          # a fresh handle: fresh function objects
     fns = {sym: getattr(libc, name) for sym, name in (
         ("edpp_screen_scores_f32", "labs"), ("screen_matvec_f32", "abs"),
-        ("fista_step_f32", "llabs"))}
+        ("fista_step_f32", "llabs"), ("cd_gram_sweep_f32", "atoi"),
+        ("group_screen_scores_f32", "atol"))}
     monkeypatch.setattr(build, "load",
                         lambda source: types.SimpleNamespace(**fns))
     for source, sym in (("edpp_screen", "edpp_screen_scores_f32"),
                         ("edpp_screen", "screen_matvec_f32"),
-                        ("solver_step", "fista_step_f32")):
+                        ("solver_step", "fista_step_f32"),
+                        ("cd_gram", "cd_gram_sweep_f32"),
+                        ("group_screen", "group_screen_scores_f32")):
         fn = edpp_screen.kernel_fn(source, sym)
         assert fn is fns[sym] and fn.restype is ctypes.c_int
         assert fn.argtypes[0] is ctypes.c_void_p
         assert fn.argtypes[-1] is ctypes.c_void_p          # the stream
-        if sym != "screen_matvec_f32":
+        if sym not in ("screen_matvec_f32", "group_screen_scores_f32"):
             assert ctypes.c_float in fn.argtypes
     n_args = {s: len(f.argtypes) for s, f in fns.items()}
     assert n_args == {"edpp_screen_scores_f32": 10, "screen_matvec_f32": 7,
-                      "fista_step_f32": 14}
+                      "fista_step_f32": 14, "cd_gram_sweep_f32": 11,
+                      "group_screen_scores_f32": 7}
 
 
 def test_build_command_targets_sm90a_into_the_ignored_directory():
@@ -284,3 +422,16 @@ def test_build_command_targets_sm90a_into_the_ignored_directory():
     assert rel in (REPO / ".gitignore").read_text().splitlines()
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").exists()
+
+
+@pytest.mark.parametrize("source", ["cd_gram", "group_screen"])
+def test_new_kernel_sources_build_for_sm90a(source):
+    """The Gram sweep and the group pass build like the others: their own
+    library, for sm_90a, into the ignored build directory."""
+    assert source in build.SOURCES
+    out = build.library_path(source)
+    cmd = build.nvcc_command(source, out)
+    assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
+    assert Path(cmd[cmd.index("-o") + 1]) == out
+    assert out.parent == build.BUILD_DIR and source in out.name
+    assert cmd[-1] == str(build.CSRC / f"{source}.cu")

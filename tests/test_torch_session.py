@@ -1,5 +1,7 @@
 """End to end on the CPU: the port's ``LassoSession`` against the
-reference's on the same numpy problems (``repro.data.pipeline``).
+reference's on the same numpy problems (``repro.data.pipeline``): the
+default FISTA path, the ``cd`` strategy and group paths (``groups=m``)
+with ``edpp``, ``strong`` and ``none``.
 
 The contract (ROADMAP.md): λ_max agrees to float32 rounding; the λ grids
 match with ``hi_frac=0.95`` pinned (the λ = λ_max endpoint flips on the
@@ -24,9 +26,12 @@ import repro_torch
 from repro.core import LassoSession as JSession
 from repro.core import PathConfig as JConfig
 from repro.core import ScreeningEngine as JEngine
+from repro.core import ScreenSpec as JScreen
 from repro.core import SolveSpec as JSolve
+from repro.core import group_screening as jgs
 from repro.core import screening as jscr
-from repro.data.pipeline import lasso_problem
+from repro.core.engine import GroupScreeningEngine as JGroupEngine
+from repro.data.pipeline import group_lasso_problem, lasso_problem
 from repro_torch import (LassoSession, PathConfig, ScreenSpec, SolveSpec,
                          session_from_arrays)
 
@@ -195,13 +200,17 @@ def test_fit_runs_on_the_card_unless_asked_otherwise():
 
 @pytest.mark.parametrize("what, call, item", [
     ("batch", lambda s, y: s.path(np.stack([y, y])), 6),
-    ("groups", lambda s, y: LassoSession.fit(s.X, groups=2, device="cpu"),
-     11),
+    ("group_batch", lambda s, y: LassoSession.fit(
+        s.X, groups=2, device="cpu").path(np.stack([y, y])), 6),
     ("mesh", lambda s, y: LassoSession.fit(s.X, mesh=object(),
                                            device="cpu"), 13),
+    ("group_mesh", lambda s, y: LassoSession.fit(
+        s.X, groups=2, mesh=object(), device="cpu"), 13),
     ("gap", lambda s, y: ScreenSpec(rule="gap"), 8),
     ("hybrid", lambda s, y: ScreenSpec(strong=True), 8),
-    ("cd", lambda s, y: SolveSpec(strategy="cd"), 7),
+    ("lasso_strong", lambda s, y: s.path(y, config=PathConfig(
+        screen=ScreenSpec(rule="strong"))), 8),
+    ("update", lambda s, y: s.update(drop=[0]), 10),
     ("bf16", lambda s, y: ScreenSpec(screen_dtype="bfloat16"), 9),
 ])
 def test_later_slices_raise_naming_their_roadmap_item(what, call, item):
@@ -235,6 +244,9 @@ def test_package_imports_neither_jax_nor_the_reference():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
+        "for name in ('kernels.group_screen', 'core.group_lasso', "
+        "'core.group_screening'):\n"
+        "    assert 'repro_torch.' + name in sys.modules, name\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"
@@ -243,5 +255,162 @@ def test_package_imports_neither_jax_nor_the_reference():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert int(out.stdout) >= 15
+    assert int(out.stdout) >= 18
     assert repro_torch.LassoSession is LassoSession
+
+
+def test_cd_path_matches_reference_session():
+    """``SolveSpec(strategy="cd")`` end to end: Gram CD through the plain
+    sweep on the buckets up to min(n, GRAM_BUCKET_MAX) columns, matvec CD
+    above, against the reference's cd session on the same problem."""
+    X, y, _ = lasso_problem(50, 400, nnz=10, seed=50, dtype=np.float32)
+    js = JSession.fit(X, config=JConfig(solve=JSolve(strategy="cd",
+                                                     tol=TOL)))
+    ts = _carry(js, PathConfig(solve=SolveSpec(strategy="cd", tol=TOL)))
+    res_j = js.path(jnp.asarray(y), **GRID)
+    res_t = ts.path(y, **GRID)
+    _compare(js, X, y, res_j, res_t)
+    grams = [(s_t.gram_step_frac, s_j.gram_step_frac)
+             for s_t, s_j in zip(res_t.stats, res_j.stats)]
+    assert all(a == b for a, b in grams), grams
+    live = [s for s in res_t.stats if s.screen_backend]
+    assert any(s.gram_step_frac == 1.0 for s in live)     # G sweeps ran
+    assert all(s.solver_backend == "torch" for s in live)
+    assert ts.config.solve.resolved_strategy() == "cd"
+
+
+def _reference_group_scores(js, X, y, res_j, rule):
+    """Per step, the reference's group scores and threshold from its own
+    previous solution (float64 numpy on its float32 centre)."""
+    m = js.groups
+    eng = JGroupEngine(jnp.asarray(X), jnp.asarray(y), m, backend="jnp",
+                       geometry=js.geometry)
+    spec = np.asarray(js.geometry.spec_norms)
+    state, out = eng.state_at_lambda_max(), {}
+    for k, lam in enumerate(res_j.lambdas[0]):
+        if lam >= eng.lam_max:
+            continue
+        if rule == "edpp":
+            vp = np.asarray(jgs.group_v2_perp(jnp.asarray(y), lam, state))
+            centre = np.asarray(state.theta) + 0.5 * vp
+            thresh = np.sqrt(m) - 0.5 * np.linalg.norm(vp) * spec - 1e-6
+        else:
+            centre = np.asarray(state.theta) * float(state.lam)
+            thresh = np.sqrt(m) * (2 * lam - float(state.lam)) - 1e-6
+        scores = np.linalg.norm((X.T.astype(np.float64) @ centre)
+                                .reshape(-1, m), axis=1)
+        out[k] = (scores, thresh)
+        beta = res_j.betas[0, k].astype(np.float32)
+        state = eng.make_state(jnp.asarray(beta), lam,
+                               fitted=jnp.asarray(X @ beta))
+    return out
+
+
+@pytest.mark.parametrize("rule", ["edpp", "strong", "none"])
+def test_group_path_matches_reference_session(rule):
+    """Group paths on a reference group session carried over by
+    ``session_from_arrays`` (spectral norms and eigenvector cache), and on
+    a port fit of its own: λ grids, group masks in band, β within
+    ``beta_err_tol``, equal bucket / n_discarded / KKT rounds."""
+    m = 5
+    X, y, _ = group_lasso_problem(60, 300, m, active_groups=4, seed=7,
+                                  dtype=np.float32)
+    cfg_j = JConfig(screen=JScreen(rule=rule), solve=JSolve(tol=TOL))
+    cfg_t = PathConfig(screen=ScreenSpec(rule=rule), solve=SolveSpec(tol=TOL))
+    js = JSession.fit(X, groups=m, config=cfg_j)
+    rng = np.random.default_rng(m)
+    for b in (16 * m, 32 * m, 300):       # the group buckets, in columns
+        js._eig_cache[b] = jnp.asarray(
+            rng.standard_normal(b).astype(np.float32))
+    eig = {b: np.asarray(v) for b, v in js._eig_cache.items()}
+    ts = session_from_arrays(
+        {"X": X, "groups": m, "spec_norms": np.asarray(js.geometry.spec_norms),
+         "eig_cache": eig}, config=cfg_t, device="cpu")
+    assert ts.groups == m and ts.fit_passes == 0
+    res_j = js.path(jnp.asarray(y), **GRID)
+    res_t = ts.path(y, **GRID)
+    assert res_t.masks.shape == res_j.masks.shape == (1, 20, 300 // m)
+    np.testing.assert_allclose(res_t.lambdas, res_j.lambdas,
+                               rtol=2 ** -22, atol=0)
+    scores = (_reference_group_scores(js, X, y, res_j, rule)
+              if rule != "none" else {})
+    band_groups = 0
+    for k, (s_j, s_t) in enumerate(zip(res_j.stats, res_t.stats)):
+        diff = res_j.masks[0, k] != res_t.masks[0, k]
+        if k in scores:
+            sc, th = scores[k]
+            band = np.abs(sc - th) <= BAND
+            band_groups += int(band.sum())
+            assert not (diff & ~band).any(), f"step {k}: outside the band"
+        else:
+            assert not diff.any(), k
+        assert s_t.x_passes == s_j.x_passes
+        if not diff.any():
+            assert (s_t.n_discarded, s_t.bucket, s_t.kkt_rounds) == \
+                (s_j.n_discarded, s_j.bucket, s_j.kkt_rounds), k
+    err = float(np.abs(res_t.betas - res_j.betas).max())
+    print(f"group {rule}: {band_groups} step-groups in the band; max|Δβ| "
+          f"{err:.3g}; kkt rounds {sum(s.kkt_rounds for s in res_t.stats)}")
+    assert err <= beta_err_tol(y, TOL)
+    assert bool(res_t.query_converged[0]) == bool(res_j.query_converged[0])
+    if rule == "edpp":
+        # the port's own fit: the same spectral norms, one fit pass
+        fresh = LassoSession.fit(X, groups=m, config=cfg_t, device="cpu")
+        assert fresh.fit_passes == js.fit_passes == 1
+        np.testing.assert_allclose(fresh.geometry.spec_norms,
+                                   np.asarray(js.geometry.spec_norms),
+                                   rtol=1e-5)
+        res_f = fresh.path(y, **GRID)
+        assert np.abs(res_f.betas - res_j.betas).max() <= beta_err_tol(y,
+                                                                       TOL)
+        assert fresh.query_passes == 1
+
+
+def test_group_sessions_validate_rules_as_the_reference_does():
+    X, y, _ = group_lasso_problem(20, 40, 4, active_groups=2, seed=3,
+                                  dtype=np.float32)
+    for rule in ("dpp", "seq_safe", "safe"):
+        with pytest.raises(ValueError, match="group sessions support"):
+            JSession.fit(X, groups=4, config=JConfig(rule=rule))
+        with pytest.raises(ValueError, match="group sessions support"):
+            LassoSession.fit(X, groups=4, device="cpu",
+                             config=PathConfig(rule=rule))
+    sess = LassoSession.fit(X, groups=4, device="cpu")
+    assert sess.config.solve.resolved_strategy(4) == "group_fista"
+    with pytest.raises(ValueError, match="group sessions support"):
+        sess.path(y, config=PathConfig(rule="imp1"))
+    with pytest.raises(ValueError, match="not divisible"):
+        LassoSession.fit(X, groups=3, device="cpu")
+    with pytest.raises(ValueError, match="groups must be"):
+        LassoSession.fit(X, groups=0, device="cpu")
+    with pytest.raises(NotImplementedError, match="plain-Lasso only"):
+        sess.update(drop=[0])
+    with pytest.raises(NotImplementedError, match="plain-Lasso only"):
+        JSession.fit(X, groups=4).update(drop=[0])
+    for rule in ("edpp", "strong", "none"):
+        res = sess.path(y, num_lambdas=5, hi_frac=0.95,
+                        config=PathConfig(rule=rule, solver_tol=TOL))
+        assert res.masks.shape == (1, 5, 10) and np.isfinite(res.betas).all()
+    assert ScreenSpec(rule="strong").rule == "strong"
+
+
+@pytest.mark.parametrize("groups, strategy", [
+    (4, "fista"), (4, "cd"), (None, "group_fista")])
+def test_sessions_refuse_the_other_problems_strategy(groups, strategy):
+    """A group session solving with a Lasso strategy (or a plain session
+    with the group one) would return a wrong β under the right name: the
+    session refuses it at fit, at adoption and per call."""
+    X, y, _ = group_lasso_problem(20, 40, 4, active_groups=2, seed=3,
+                                  dtype=np.float32)
+    cfg = PathConfig(solve=SolveSpec(strategy=strategy))
+    match = "group sessions solve with" if groups else "solves the group"
+    with pytest.raises(ValueError, match=match):
+        LassoSession.fit(X, groups=groups, device="cpu", config=cfg)
+    arrays = {"X": X, "groups": groups,
+              "spec_norms": np.ones(10, np.float32),
+              "sumsq": (X * X).sum(0)}
+    with pytest.raises(ValueError, match=match):
+        session_from_arrays(arrays, config=cfg, device="cpu")
+    sess = LassoSession.fit(X, groups=groups, device="cpu")
+    with pytest.raises(ValueError, match=match):
+        sess.path(y, config=cfg)
