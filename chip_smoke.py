@@ -15,9 +15,10 @@ Phases, each printing its own lines and seconds:
    ragged shape; the Gram CD sweep at buckets of 32, 256 and 1024
    columns for 1 and 8 queries (and 8 with a ``valid`` mask); the group
    scores at the paper's 250 × 200 000 group design
-   (benchmarks/bench_group.py) for m = 5, 10, 20 and a ragged shape; with
-   times (CUDA events, median of 20) beside the byte/flop bound and a
-   torch.matmul yardstick;
+   (benchmarks/bench_group.py) for m = 5, 10, 20 and a ragged shape; the
+   prox step at p = 50 000 for 1 and 8 queries and a ragged p = 1 003 for
+   3 queries with per-query parameters; with times (CUDA events, median
+   of 20) beside the byte/flop bound and a torch.matmul yardstick;
 4. main path: ``LassoSession.fit(X)`` then ``session.path(y,
    num_lambdas=100)`` with the default config at 784 × 50 000, with
    every kernel launch counter read just after and the plain versions'
@@ -34,13 +35,26 @@ Phases, each printing its own lines and seconds:
    solves every column each iteration, so this phase runs at a tenth of
    the width): no unsafe group discard, β within beta_err_tol and
    GROUP_REL_TOL·max|β_none|;
-9. summary: one JSON line of per-kernel numbers, then, last,
+9. distributed: a process group of one rank over NCCL (a HashStore, the
+   card as its device) and a (1, 1) ``("query", "feature")`` mesh, on the
+   784 × 50 000 data at full width: ``LassoSession.fit(X, mesh=mesh)``
+   and a 100-λ path (tol 1e-6, hi_frac 0.95) against the unsharded
+   session (masks, β, passes equal); ``lambda_max_d`` against the
+   session's λ_max; the three single-query ``dist_edpp_screen*`` at
+   0.5·λ_max from β = 0 against the engine's EDPP mask;
+   ``dist_power_iteration`` against ‖X‖₂²; ``dist_fista`` ``"none"`` and
+   ``"chunked"`` (FISTA_ITERS iterations at 0.3·λ_max, from β = 0 and
+   from a dense start) against each other and an unsharded solve at tol
+   1e-8; ``dist_fista_batched`` and ``dist_edpp_screen_batched`` at
+   B = 8 against 8 single-query runs; the group is torn down after;
+10. summary: one JSON line of per-kernel numbers, then, last,
    ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --faults`` runs phases 1 and 2 and then the
-mutation check of phases 6 and 8: the sound arm and arms whose kernel
-output is faulted on purpose (``FAULTS``), with each check's readings
-and verdict; every faulted arm whose β the fault moves must fail.
+mutation check of phases 6, 8 and 9's ``dist_fista`` check: the sound arm
+and arms whose kernel output is faulted on purpose (``FAULTS``), with
+each check's readings and verdict; every faulted arm whose β the fault
+moves must fail.
 
 Each path phase sets every launch counter to 0 just before it and reads
 them just after: each kernel the path runs must have launched, and no
@@ -78,12 +92,17 @@ CD_SWEEPS = 10
 # sound and faulted arms, ``--faults``, that they were set from)
 CD_REL_TOL = 1e-4
 GROUP_REL_TOL = 1e-2
+# dist_fista: "chunked" against "none", max|Δβ| relative to max|β_none|
+FISTA_REL_TOL = 1e-4
+FISTA_ITERS = 500
+POWER_ITERS = 30
 REPLACES = {
     "edpp_screen_scores": "src/repro/kernels/edpp_screen.py:140",
     "screen_matvec": "src/repro/kernels/edpp_screen.py:202",
     "fista_step": "src/repro/kernels/solver_step.py:146",
     "cd_gram_sweep": "src/repro/kernels/solver_step.py:251",
     "group_screen_scores": "src/repro/kernels/group_screen.py:68",
+    "prox_step": "src/repro/kernels/prox_step.py:67",
 }
 SOURCES = {
     "edpp_screen_scores": "src/repro_torch/kernels/csrc/edpp_screen.cu",
@@ -91,6 +110,7 @@ SOURCES = {
     "fista_step": "src/repro_torch/kernels/csrc/solver_step.cu",
     "cd_gram_sweep": "src/repro_torch/kernels/csrc/cd_gram.cu",
     "group_screen_scores": "src/repro_torch/kernels/csrc/group_screen.cu",
+    "prox_step": "src/repro_torch/kernels/csrc/prox_step.cu",
 }
 
 
@@ -256,6 +276,126 @@ def check_group(torch, kernels, ref, n: int, p: int, m: int,
     return row
 
 
+def check_prox(torch, prox_step, ref, p: int, B: int, per_query: bool,
+               seed: int) -> dict:
+    """The prox step against its plain version. Both round each product
+    and difference alone, so they agree but for the threshold step·λ,
+    which the plain version's scalar path rounds from host numbers:
+    tolerance 1e-6·max(1, max|plain|). Bound: 5·B·p·4 bytes (z, g, β_old
+    read, β', z' written) against 8 flops per element; no single library
+    call computes it."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lead = () if B == 1 else (B,)
+    z, grad, b = (torch.randn(*lead, p, generator=g, device="cuda")
+                  for _ in range(3))
+    if per_query:
+        step, lam, mom = (torch.rand(B, generator=g, device="cuda")
+                          for _ in range(3))
+    else:
+        step, lam, mom = 1.0 / 65000, 300.0, 0.6
+    args = (z, grad, b, step, lam, mom)
+    out_k, out_p = prox_step(*args), ref.prox_step_ref(*args)
+    torch.cuda.synchronize()
+    err, tol = 0.0, 0.0
+    for a, w in zip(out_k, out_p):
+        assert a.shape == w.shape == z.shape and bool(torch.isfinite(a).all())
+        err = max(err, float((a - w).abs().max()))
+        tol = max(tol, 1e-6 * max(1.0, float(w.abs().max())))
+    ms = event_ms(torch, lambda: prox_step(*args))
+    plain_ms = event_ms(torch, lambda: ref.prox_step_ref(*args))
+    t_bytes = 4.0 * 5 * B * p / HBM_BYTES_PER_S * 1e3
+    t_ops = 8.0 * B * p / F32_FLOPS_PER_S * 1e3
+    bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                          else (t_ops, "operations"))
+    row = {"op": "prox_step", "p": p, "B": B, "per_query": per_query,
+           "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "matmul_ms": None}
+    print(f"  prox_step           p={p} B={B} per_query={per_query}: "
+          f"max_abs_err={err:.3g} (tol {tol:.3g}) ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.6f} ({bound_by}) "
+          f"{bound_ms / ms:.1%} of bound; library_ms none: no single call",
+          flush=True)
+    if not err <= tol:
+        raise AssertionError(f"prox_step p={p} B={B}: kernel disagrees with "
+                             f"its plain version: {err} > {tol}")
+    return row
+
+
+@contextlib.contextmanager
+def nccl_world(torch):
+    """A process group of one rank over NCCL on card 0 (a HashStore: no
+    address, no port) and its (1, 1) ("query", "feature") mesh; the group
+    is torn down on exit. An NCCL failure fails the phase."""
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import init_device_mesh
+    tdist.init_process_group("nccl", store=tdist.HashStore(), rank=0,
+                             world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        yield init_device_mesh("cuda", (1, 1),
+                               mesh_dim_names=("query", "feature"))
+    finally:
+        tdist.destroy_process_group()
+
+
+def fista_readings(torch, D, mesh, Xl, yt, lam: float, L: float, beta0,
+                   beta_solve) -> dict:
+    """What the dist_fista check reads: FISTA_ITERS iterations of "none"
+    and "chunked" from beta0, max|β_chunked − β_none| relative to
+    max|β_none|, and each one's max|Δβ| to the unsharded solve, with the
+    prox_step and fista_step launches of each run."""
+    from repro_torch.kernels import ops
+    out = {}
+    for mode in ("none", "chunked"):
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        out[mode] = D.dist_fista(mesh, Xl, yt, lam, beta0, L,
+                                 iters=FISTA_ITERS, overlap=mode)
+        torch.cuda.synchronize()
+        out[f"{mode}_s"] = time.perf_counter() - t0
+        out[f"{mode}_launches"] = ops.launch_counts()
+        assert not any(ops.plain_counts().values()), ops.plain_counts()
+    b_n, b_c = out.pop("none"), out.pop("chunked")
+    scale = float(b_n.abs().max())
+    return dict(out, rel=float((b_c - b_n).abs().max()) / max(scale, 1e-30),
+                err_none=float((b_n - beta_solve).abs().max()),
+                err_chunked=float((b_c - beta_solve).abs().max()),
+                scale=scale)
+
+
+def fista_failures(r: dict, y) -> list[str]:
+    """The dist_fista check: "chunked" within FISTA_REL_TOL·max|β_none| of
+    "none", both within beta_err_tol of the unsharded solve, and each
+    mode's kernel launched once per iteration."""
+    fails = []
+    if not r["rel"] <= FISTA_REL_TOL:
+        fails.append(f"chunked vs none {r['rel']:.3g} > {FISTA_REL_TOL:g}")
+    for mode in ("none", "chunked"):
+        if not r[f"err_{mode}"] <= beta_err_tol(y, 1e-6):
+            fails.append(f"{mode} vs the solve > beta_err_tol")
+    if r["none_launches"]["fista_step"] != FISTA_ITERS:
+        fails.append("fista_step not once per iteration")
+    if r["chunked_launches"]["prox_step"] != FISTA_ITERS:
+        fails.append("prox_step not once per iteration")
+    return fails
+
+
+def fista_problem(torch, D, mesh, X, y):
+    """The dist_fista check's set-up on the mesh: X's block and y, L =
+    1.05 × the power iteration, λ = 0.3·λ_max (``lambda_max_d``), the
+    unsharded FISTA solve at tol 1e-8 on the whole X, and the two starts
+    (β = 0; a dense 0.01·N(0, 1) from a CPU generator seeded 0)."""
+    from repro_torch.core import SolverEngine
+    Xl, yt = D.shard_problem(mesh, X, y)
+    L = 1.05 * float(D.dist_power_iteration(mesh, Xl, POWER_ITERS))
+    lam = 0.3 * float(D.make_dist_ops(mesh)[0](Xl, yt))
+    solve = SolverEngine(yt, tol=1e-8).solve(Xl, lam)
+    p = X.shape[1]
+    dense = 0.01 * torch.randn(p, generator=torch.Generator().manual_seed(0))
+    starts = {"zero": torch.zeros(p, device=Xl.device),
+              "dense": D.place_features(mesh, dense)}
+    return Xl, yt, L, lam, solve.beta, starts
+
+
 def counted(ops, needed: tuple[str, ...]) -> dict:
     """The launch counts read just after a path (set to 0 just before it):
     every kernel in ``needed`` launched, no plain version was called."""
@@ -365,6 +505,24 @@ def _group_shifted(real):
     return lambda X, c, m: real(X, c, m).roll(1)
 
 
+def _prox_threshold_high(real):
+    """The threshold step·λ 1 % high (λ read from the wrong query, say)."""
+    return lambda z, g, b, step, lam, mom: real(z, g, b, step, lam * 1.01,
+                                                mom)
+
+
+def _prox_tail_unwritten(real):
+    """The last 1 % of columns left unwritten (a grid that stops short):
+    β' and z' keep β_old and z there."""
+    def prox(z, g, b, step, lam, mom):
+        bn, zn = real(z, g, b, step, lam, mom)
+        k = max(1, z.shape[-1] // 100)
+        bn[..., -k:] = b[..., -k:]
+        zn[..., -k:] = z[..., -k:]
+        return bn, zn
+    return prox
+
+
 FAULTS = {
     "cd_gram_sweep": (("lambda 1% high", _cd_lam_high),
                       ("first coordinate frozen", _cd_first_frozen),
@@ -372,6 +530,8 @@ FAULTS = {
     "group_scores": (("scores 5% low", _group_scaled(0.95)),
                      ("scores 20% low", _group_scaled(0.8)),
                      ("score of g written to g+1", _group_shifted)),
+    "prox_step": (("threshold step*lambda 1% high", _prox_threshold_high),
+                  ("last 1% of columns unwritten", _prox_tail_unwritten)),
 }
 
 
@@ -388,15 +548,18 @@ def faulted(ops, field: str, make):
         ops.BACKENDS["cuda"] = sound
 
 
-def fault_check() -> list[dict]:
-    """The mutation check of the CD and group exactness phases: the sound
-    arm and each fault of FAULTS run the phase as the smoke run does, and
-    their readings and failures are printed. Sound arms must pass, and
-    every faulted arm that the fault harmed must fail its check: harmed
-    means a solve that did not converge, a needed group discarded, or
-    max|Δβ| over ten times the sound arm's. A fault may leave β as it was
-    (a screen with room to spare; the KKT rounds behind group strong)."""
+def fault_check(torch) -> list[dict]:
+    """The mutation check of the CD and group exactness phases and of the
+    dist_fista check: the sound arm and each fault of FAULTS run the
+    check as the smoke run does, and their readings and failures are
+    printed. Sound arms must pass, and every faulted arm that the fault
+    harmed must fail its check: harmed means a solve that did not
+    converge, a needed group discarded, or max|Δβ| (for dist_fista:
+    chunked against none) over ten times the sound arm's. A fault may
+    leave β as it was (a screen with room to spare; the KKT rounds behind
+    group strong; a prox fault in columns that stay 0)."""
     from repro_torch import LassoSession, PathConfig, ScreenSpec, SolveSpec
+    from repro_torch.core import distributed as D
     from repro_torch.data import group_lasso_problem
     from repro_torch.kernels import ops
 
@@ -413,6 +576,18 @@ def fault_check() -> list[dict]:
         arms.append(r)
 
     X, y = make_dataset(*MNIST)
+    with nccl_world(torch) as mesh:
+        Xl, yt, L, lam, beta_solve, starts = fista_problem(torch, D, mesh, X,
+                                                           y)
+        for fault, make in (("sound", None), *FAULTS["prox_step"]):
+            with faulted(ops, "prox_step", make):
+                for start, beta0 in starts.items():
+                    record("dist_fista", fault, start,
+                           lambda: fista_readings(torch, D, mesh, Xl, yt,
+                                                  lam, L, beta0, beta_solve),
+                           lambda r: {k: v for k, v in r.items()},
+                           lambda r: fista_failures(r, y))
+        del Xl, yt, beta_solve, starts
     cd_cfg = PathConfig(solve=SolveSpec(strategy="cd", tol=1e-6))
     max_epochs = cd_cfg.solve.max_iter // 10 + 1
     res_fi = LassoSession.fit(X).path(y, num_lambdas=100, config=PathConfig(
@@ -445,9 +620,10 @@ def fault_check() -> list[dict]:
     sound = {(r["kind"], r["rule"]): r for r in arms if r["fault"] == "sound"}
     for r in arms:
         s = sound[r["kind"], r["rule"]]
-        r["harmed"] = "err" not in r or (
+        key = "rel" if r["kind"] == "dist_fista" else "err"
+        r["harmed"] = key not in r or (
             not r.get("converged", True) or r.get("unsafe", 0) > 0
-            or r["err"] > 10.0 * s["err"])
+            or r[key] > 10.0 * s[key])
     print(json.dumps({"faults": arms}), flush=True)
     for r in arms:
         if r["fault"] == "sound":
@@ -511,6 +687,157 @@ def check_kernel(torch, kernels, ref, op: str, n: int, p: int, B: int,
     return row
 
 
+def distributed_phase(torch, X, y) -> dict:
+    """Phase 9 (see the module doc). Returns the launch counts of its
+    chunked dist_fista runs (set to 0 just before them)."""
+    from repro_torch import LassoSession, PathConfig, SolveSpec
+    from repro_torch.core import ScreeningEngine
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import ops
+    cfg = PathConfig(solve=SolveSpec(tol=1e-6))
+    grid = dict(num_lambdas=100, hi_frac=0.95)
+    with nccl_world(torch) as mesh:
+        walls, res = {}, {}
+        for arm in ("unsharded", "mesh", "mesh again", "unsharded again"):
+            ops.reset_counts()
+            t0 = time.perf_counter()
+            sess = LassoSession.fit(X, config=cfg, mesh=mesh if "mesh" in arm
+                                    else None)
+            res[arm] = sess.path(y, **grid)
+            torch.cuda.synchronize()
+            walls[arm] = time.perf_counter() - t0
+            counted(ops, ("edpp_screen_scores", "screen_matvec",
+                          "fista_step"))
+            if arm == "mesh":
+                mesh_sess = sess
+            elif arm == "unsharded":
+                plain = sess
+        print("path walls (100 λ, tol 1e-6): "
+              + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items()))
+        r_u, r_m = res["unsharded"], res["mesh"]
+        scale = float(np.abs(r_u.betas).max())
+        d_beta = float(np.abs(r_m.betas - r_u.betas).max())
+        same = [(a.x_passes, a.n_discarded) == (b.x_passes, b.n_discarded)
+                for a, b in zip(r_m.stats, r_u.stats)]
+        print(f"mesh session {mesh_sess.backend_name}: masks equal "
+              f"{np.array_equal(r_m.masks, r_u.masks)}; max|dbeta| {d_beta:.3g}"
+              f" (limit {1e-6 * scale:.3g}); x_passes and n_discarded equal "
+              f"at {sum(same)} of {len(same)} steps; fit_passes "
+              f"{mesh_sess.fit_passes}")
+        assert mesh_sess.backend_name == "shard:cuda"
+        assert mesh_sess.fit_passes == 1 and mesh_sess.X.is_cuda
+        assert np.array_equal(r_m.masks, r_u.masks) and all(same)
+        assert d_beta <= 1e-6 * scale
+
+        ops.reset_counts()
+        Xl, yt = D.shard_problem(mesh, X, y)
+        lmd = D.make_dist_ops(mesh)[0]
+        eng = ScreeningEngine(plain.X, yt, geometry=plain.geometry)
+        lam_max = float(lmd(Xl, yt))
+        print(f"lambda_max_d {lam_max!r}, session {eng.lam_max!r}")
+        assert lam_max == eng.lam_max
+        lam_next = 0.5 * lam_max
+        mask_e = eng.screen(lam_next, eng.state_at_lambda_max(), "edpp")
+        zero = torch.zeros(X.shape[1], device=Xl.device)
+        norms = D.place_features(mesh, plain.geometry.col_norms)
+        args = (lam_next, eng.lam_max, zero, eng.lam_max, eng.ws.v1_at_lmax)
+        xstar = eng.ws.istar
+        screens = {
+            "dist_edpp_screen": D.dist_edpp_screen(mesh, Xl, yt, *args)[0],
+            "dist_edpp_screen_cached": D.dist_edpp_screen_cached(
+                mesh, Xl, yt, *args, norms)[1],
+            "dist_edpp_screen_sparse": D.dist_edpp_screen_sparse(
+                mesh, Xl, Xl[:, [xstar]], yt, lam_next, eng.lam_max,
+                zero[[xstar]], eng.lam_max, eng.ws.v1_at_lmax, norms)[1]}
+        for name, mask in screens.items():
+            diff = int((D.gather_features(mesh, mask) != mask_e).sum())
+            print(f"  {name} at 0.5·λ_max from β = 0: {int(mask.sum())} "
+                  f"discarded, {diff} differ from the engine's EDPP mask")
+            assert diff == 0, name
+
+        t0 = time.perf_counter()
+        power = float(D.dist_power_iteration(mesh, Xl, POWER_ITERS))
+        torch.cuda.synchronize()
+        power_s = time.perf_counter() - t0
+        norm2 = float(torch.linalg.matrix_norm(plain.X, 2)) ** 2
+        print(f"dist_power_iteration ({POWER_ITERS} iterations, "
+              f"{power_s:.3f} s) {power:.6g}, ||X||_2^2 {norm2:.6g}, ratio "
+              f"{power / norm2:.6f} (limits [1/1.05, 1 + 1e-5])")
+        assert norm2 / 1.05 <= power <= norm2 * (1 + 1e-5)
+        counted(ops, ("edpp_screen_scores", "screen_matvec"))
+
+        ops.reset_counts()
+        Xl, yt, L, lam, beta_solve, starts = fista_problem(torch, D, mesh, X,
+                                                           y)
+        counted(ops, ("screen_matvec", "fista_step"))
+        fista = {}
+        for start, beta0 in starts.items():
+            fista[start] = r = fista_readings(torch, D, mesh, Xl, yt, lam, L,
+                                              beta0, beta_solve)
+            fails = fista_failures(r, y)
+            print(f"  dist_fista from {start}, {FISTA_ITERS} iterations at "
+                  f"0.3·λ_max: none {r['none_s']:.3f} s "
+                  f"({r['none_s'] / FISTA_ITERS * 1e3:.3f} ms/iter), "
+                  f"chunked {r['chunked_s']:.3f} s "
+                  f"({r['chunked_s'] / FISTA_ITERS * 1e3:.3f} ms/iter); "
+                  f"chunked vs none {r['rel']:.3g} of max|beta| "
+                  f"{r['scale']:.4g} (limit {FISTA_REL_TOL:g}); vs the "
+                  f"unsharded solve {r['err_none']:.3g} / "
+                  f"{r['err_chunked']:.3g} (limit "
+                  f"{beta_err_tol(y, 1e-6):.3g}); failures {fails}")
+            assert not fails, fails
+        launches = {"prox_step": sum(r["chunked_launches"]["prox_step"]
+                                     for r in fista.values())}
+
+        B = 8
+        rng = np.random.default_rng(1)
+        Y = [y]
+        for _ in range(B - 1):
+            w = np.zeros(X.shape[1], np.float32)
+            idx = rng.choice(X.shape[1], 16, replace=False)
+            w[idx] = rng.standard_normal(16)
+            Y.append(X @ w + 0.05 * rng.standard_normal(X.shape[0]).astype(
+                np.float32))
+        Yq = D.place_queries(mesh, np.stack(Y))
+        ops.reset_counts()
+        dots = plain.geometry.backend.matvec(plain.X, Yq)
+        istar = dots.abs().argmax(dim=1)
+        lam_max_b = dots.abs().amax(dim=1)
+        v1_b = torch.sign(dots[torch.arange(B), istar])[:, None] \
+            * plain.X[:, istar].T
+        zeros = torch.zeros(B, X.shape[1], device=Xl.device)
+        mask_b, scores_b = D.dist_edpp_screen_batched(
+            mesh, Xl, Yq, 0.5 * lam_max_b, lam_max_b, zeros, lam_max_b, v1_b,
+            norms)
+        beta_b = D.dist_fista_batched(mesh, Xl, Yq, 0.3 * lam_max_b, zeros, L,
+                                      iters=FISTA_ITERS)
+        torch.cuda.synchronize()
+        batch_launches = ops.launch_counts()
+        band = flips = 0
+        rel = 0.0
+        for b in range(B):
+            lm = float(lam_max_b[b])
+            scores_1, mask_1 = D.dist_edpp_screen_cached(
+                mesh, Xl, Yq[b], 0.5 * lm, lm, zero, lm, v1_b[b], norms)
+            near = (scores_1 - (1.0 - 1e-6)).abs() < 1e-4
+            band += int(near.sum())
+            flips += int((mask_1 != mask_b[b]).sum())
+            assert not bool(((mask_1 != mask_b[b]) & ~near).any()), b
+            beta_1 = D.dist_fista(mesh, Xl, Yq[b], 0.3 * lm, zero, L,
+                                  iters=FISTA_ITERS)
+            rel = max(rel, float((beta_1 - beta_b[b]).abs().max())
+                      / max(float(beta_1.abs().max()), 1e-30))
+        print(f"batched B={B}: dist_edpp_screen_batched vs {B} single "
+              f"screens: {flips} mask flips, all within the 1e-4 band "
+              f"({band} columns in it); dist_fista_batched vs {B} single "
+              f"runs: max relative {rel:.3g} (limit {FISTA_REL_TOL:g}); "
+              f"launches {batch_launches}")
+        assert rel <= FISTA_REL_TOL
+        assert batch_launches["fista_step"] == FISTA_ITERS
+        assert not any(ops.plain_counts().values()), ops.plain_counts()
+    return launches
+
+
 def main(argv: list[str]) -> int:
     if argv not in ([], ["--faults"]):
         print("usage: python3 chip_smoke.py [--faults]", file=sys.stderr)
@@ -553,8 +880,8 @@ def main(argv: list[str]) -> int:
             print(f"  {name}: {regs}; {spills}")
 
     if argv == ["--faults"]:
-        with phase("fault check of the CD and group exactness phases"):
-            fault_check()
+        with phase("fault check of the CD, group and dist_fista checks"):
+            fault_check(torch)
         return 0
 
     rows = {}
@@ -581,6 +908,11 @@ def main(argv: list[str]) -> int:
                 torch, kernels, ref, n_g, p_g, m, seed=120 + i)
         rows[("group", 777, 1000, 5)] = check_group(torch, kernels, ref, 777,
                                                     1000, 5, seed=130)
+        for i, (pp, B, per_query) in enumerate([(MNIST[1], 1, False),
+                                                (MNIST[1], 8, False),
+                                                (1003, 3, True)]):
+            rows[("prox", pp, B)] = check_prox(torch, kernels.prox_step, ref,
+                                               pp, B, per_query, seed=140 + i)
 
     X, y = make_dataset(*MNIST)
     n, p = MNIST
@@ -674,6 +1006,9 @@ def main(argv: list[str]) -> int:
               f"fista| = {CD_REL_TOL * r['scale']:.3g}); failures {fails}")
         assert not fails, fails
 
+    with phase("distributed: NCCL world of 1, (1, 1) mesh, 784 × 50 000"):
+        dist_launches = distributed_phase(torch, X, y)
+
     del X, y, sess, cd_sess, res, res_cd, res_fi
     n_g, p_g, m = GROUP_FULL
     X, y, _ = group_lasso_problem(n_g, p_g, m, active_groups=200, seed=0,
@@ -749,13 +1084,15 @@ def main(argv: list[str]) -> int:
                                    seed=98)
     main_launches.update(cd_gram_sweep=cd_launches["cd_gram_sweep"],
                          group_screen_scores=group_launches[
-                             "group_screen_scores"])
+                             "group_screen_scores"],
+                         prox_step=dist_launches["prox_step"])
     summary = []
     for op, key in (("edpp_screen_scores", ("edpp_screen_scores", *MNIST, 1)),
                     ("screen_matvec", ("screen_matvec", *MNIST, 1)),
                     ("fista_step", "main_fista"),
                     ("cd_gram_sweep", "main_cd"),
-                    ("group_screen_scores", ("group", *GROUP_FULL))):
+                    ("group_screen_scores", ("group", *GROUP_FULL)),
+                    ("prox_step", ("prox", MNIST[1], 1))):
         r = rows[key]
         summary.append({
             "name": op, "route": "cuda", "source": SOURCES[op],
@@ -764,7 +1101,7 @@ def main(argv: list[str]) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             # torch.matmul(c, X) computes screen_matvec's function exactly;
-            # the other four have no single library call
+            # the other five have no single library call
             "library_ms": r["matmul_ms"] if op == "screen_matvec" else None})
     print(json.dumps({"kernels": summary}))
     print(smi)

@@ -3,6 +3,8 @@
     from repro_torch import LassoSession
     sess = LassoSession.fit(X)          # on the GPU; device="cpu" for CPU
     res = sess.path(y).squeeze()
+    shard = LassoSession.fit(X, mesh=mesh)   # X split by columns over a
+                                             # torch.distributed DeviceMesh
 
 It mirrors ``repro`` (the JAX reference, which it never imports): the
 screening and solver kernels are hand-written CUDA (``kernels/``), the

@@ -20,8 +20,8 @@ from the same vectors.
 from __future__ import annotations
 
 from .core.engine import DictionaryGeometry, GroupDictionaryGeometry
-from .core.session import (LassoSession, PathConfig, as_tensor,
-                           resolve_device)
+from .core.device import as_tensor, resolve_device
+from .core.session import LassoSession, PathConfig
 
 
 def session_from_arrays(arrays, *, config: PathConfig | None = None,

@@ -2,7 +2,10 @@
 (``lasso``, ``group_lasso``), the screening rules (``screening``,
 ``group_screening``), the screening engines (``engine``), the solver
 engine with its fista/cd/group_fista strategies (``solver``), the path
-driver (``path``) and the session front door (``session``)."""
+driver (``path``), the session front door (``session``) and the
+feature-sharded ops over ``torch.distributed`` (``distributed``, used as
+a module, as in the reference)."""
+from . import distributed  # noqa: F401
 from .engine import (  # noqa: F401
     DictionaryGeometry,
     GroupDictionaryGeometry,

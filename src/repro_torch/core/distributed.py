@@ -1,0 +1,527 @@
+"""Feature-sharded EDPP screening and Lasso solving over ``torch.distributed``.
+
+The layout is the reference's 2-D mesh: a
+:class:`~torch.distributed.device_mesh.DeviceMesh` with named axes, where
+the axis ``"query"`` carries query batches and every other axis is a
+feature axis. X (n × p) is split by columns over the feature axis; y and
+every dual-geometry n-vector are replicated. Then
+
+  * screening scores |x_jᵀc| + ρ‖x_j‖ are local to each column block:
+    no communication;
+  * λ_max and ‖Xᵀr‖_∞ take one scalar MAX all-reduce;
+  * the fit Xβ takes one SUM all-reduce of an n-vector per solver
+    iteration, over the feature group only.
+
+A batch of B queries is split over the ``query`` axis when B divides its
+size (replicated otherwise), so the recurring collective is one
+(B_local, n) all-reduce per query shard.
+
+**One process per rank.** The reference is single-controller: its
+functions take and return global arrays whose columns JAX shards. Here
+every rank calls with the same global host arrays, the ``place_*``
+helpers keep the rank's part, and the ``dist_*`` functions take and
+return the rank's local blocks (what the reference's ``shard_map``
+bodies see): X (n, p/F), β (p/F,) or (B_local, p/F), per-query arrays
+(B_local, ...). :func:`gather_features` and :func:`gather_queries`
+rebuild global arrays in global order. p must be divisible by the
+feature size F.
+
+**Kernels.** The per-shard tile work runs the tile backend's kernels of
+:mod:`repro_torch.kernels.ops` on the local block: ``matvec`` and
+``fused_scores`` in the screens, ``lambda_max_d``, ``sup_corr_d`` and
+the power iteration; ``fista_step`` in :func:`dist_fista` (``"none"``)
+and :func:`dist_fista_batched`; ``prox_step`` in :func:`dist_fista`
+(``"chunked"``, ``"stale"``). The forward fits ``X_b @ z`` and the
+chunked gradient are plain matrix products (``torch.matmul``), as the
+reference leaves them to XLA. :func:`sharded_backend` packages the
+screening dispatch as a backend (``"shard:<tile>"``) whose outputs come
+back gathered in global column order; ``LassoSession.fit(X, mesh=...)``
+drops it into the unsharded engines.
+
+This slice serves meshes with one feature axis (and an optional
+``query`` axis); the reference's GSPMD baseline ``pjit_screen`` has no
+counterpart here (ROADMAP.md queue 1 item 13).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..kernels import ops
+from . import screening as scr
+from .device import as_tensor
+from .screening import EPS_DEFAULT
+from .solver import fista_momentum, fista_step_size, host_float
+
+#: Mesh axis carrying query batches; every other axis is a feature axis.
+QUERY_AXIS = "query"
+
+
+def _names(mesh) -> tuple[str, ...]:
+    if not mesh.mesh_dim_names:
+        raise ValueError("the mesh needs named axes, e.g. init_device_mesh("
+                         "..., mesh_dim_names=('query', 'feature'))")
+    return tuple(mesh.mesh_dim_names)
+
+
+def query_axes(mesh) -> tuple[str, ...]:
+    """The mesh's query axes: () or (``QUERY_AXIS``,)."""
+    return tuple(a for a in _names(mesh) if a == QUERY_AXIS)
+
+
+def feature_axes(mesh) -> tuple[str, ...]:
+    """Every non-query axis; together they form one logical feature axis."""
+    return tuple(a for a in _names(mesh) if a != QUERY_AXIS)
+
+
+def _size(mesh, axes) -> int:
+    names = _names(mesh)
+    return int(np.prod([mesh.size(names.index(a)) for a in axes], initial=1))
+
+
+def query_size(mesh) -> int:
+    """Ranks along the query axis (1 if the mesh has none)."""
+    return _size(mesh, query_axes(mesh))
+
+
+def feature_size(mesh) -> int:
+    """Ranks along the feature axes: the number of column blocks of X."""
+    return _size(mesh, feature_axes(mesh))
+
+
+def _axis(mesh, axes):
+    """(group, size, this rank's index, group ranks in axis order) of one
+    axis; (None, 1, 0, (0,)) when the mesh has no such axis. An axis of
+    size 1 keeps its group, so its collectives run (as exact copies)."""
+    if not axes:
+        return None, 1, 0, (0,)
+    if len(axes) > 1:
+        raise NotImplementedError(
+            f"meshes with more than one feature axis {axes} are not ported "
+            f"yet: ROADMAP.md queue 1 item 13 (distributed)")
+    name = axes[0]
+    dim = _names(mesh).index(name)
+    group = mesh.get_group(name)
+    where = list(mesh.get_coordinate())
+    where[dim] = slice(None)
+    ranks = mesh.mesh[tuple(where)].tolist()
+    order = tuple(dist.get_group_rank(group, r) for r in ranks)
+    return group, len(ranks), mesh.get_local_rank(name), order
+
+
+def _feature(mesh):
+    return _axis(mesh, feature_axes(mesh))
+
+
+def mesh_device(mesh) -> torch.device:
+    """The device this rank's tensors live on: its current CUDA device on
+    a ``"cuda"`` mesh, the CPU on a ``"cpu"`` one."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def feature_range(mesh, p: int) -> tuple[int, int]:
+    """The global columns [lo, hi) of this rank's block of a width-p
+    array; ``ValueError`` unless the feature size divides p."""
+    _, size, index, _ = _feature(mesh)
+    if p % size:
+        raise ValueError(f"p={p} is not divisible by the mesh's feature "
+                         f"size {size}: pad X with zero columns to a "
+                         f"multiple of {size}")
+    width = p // size
+    return index * width, (index + 1) * width
+
+
+# ---------------------------------------------------------------------------
+# Collectives over the feature (or query) group; identity where the mesh
+# has no such axis
+# ---------------------------------------------------------------------------
+
+def _reduce(x: torch.Tensor, group, op, async_op: bool = False):
+    """All-reduce ``x`` in place over ``group`` (a fresh tensor: callers
+    pass results they own)."""
+    if group is None:
+        return None if async_op else x
+    work = dist.all_reduce(x, op=op, group=group, async_op=async_op)
+    return work if async_op else x
+
+
+def _psum(mesh, x: torch.Tensor) -> torch.Tensor:
+    """Sum over the feature axes (in place)."""
+    return _reduce(x, _feature(mesh)[0], dist.ReduceOp.SUM)
+
+
+def _pmax(mesh, x: torch.Tensor) -> torch.Tensor:
+    """Max over the feature axes (in place)."""
+    return _reduce(x, _feature(mesh)[0], dist.ReduceOp.MAX)
+
+
+def _gather(local: torch.Tensor, axis, dim: int) -> torch.Tensor:
+    group, size, _, order = axis
+    if group is None:
+        return local
+    local = local.contiguous()
+    parts = [torch.empty_like(local) for _ in range(size)]
+    dist.all_gather(parts, local, group=group)
+    return torch.cat([parts[r] for r in order], dim=dim)
+
+
+def gather_features(mesh, local: torch.Tensor) -> torch.Tensor:
+    """The global (..., p) array from every rank's (..., p/F) block, in
+    global column order, on every rank of the feature group."""
+    return _gather(local, _feature(mesh), -1)
+
+
+def gather_queries(mesh, local: torch.Tensor, batch: int) -> torch.Tensor:
+    """The global (B, ...) array from every rank's query block, when the
+    batch of ``batch`` queries was split over the query axis (else the
+    local array is already whole)."""
+    axis = _axis(mesh, query_axes(mesh))
+    if batch % axis[1]:
+        return local
+    return _gather(local, axis, 0)
+
+
+def gather_columns(mesh, X: torch.Tensor, cols, width: int | None = None
+                   ) -> torch.Tensor:
+    """Columns ``cols`` (global indices, a host sequence) of the global X,
+    as an (n, width) block zero-padded past ``len(cols)``, the same on
+    every rank of the feature group, from each rank's block X (n, p/F).
+
+    Every rank knows ``cols``, so each knows how many columns every rank
+    owns: each contributes its own, padded to the largest count, one
+    all-gather brings them together, and they are put back in the order
+    of ``cols``. Values are copied, never recomputed."""
+    cols = np.asarray(cols, dtype=np.int64)
+    width = cols.size if width is None else width
+    n, p_local = X.shape
+    axis = _feature(mesh)
+    size, index = axis[1], axis[2]
+    owner, local = np.divmod(cols, p_local)
+    counts = np.bincount(owner, minlength=size)
+    order = np.argsort(owner, kind="stable")
+    starts = np.cumsum(counts) - counts
+    slot = np.empty_like(cols)          # position among its owner's columns
+    slot[order] = np.arange(cols.size) - starts[owner[order]]
+    common = int(counts.max())
+    mine = torch.from_numpy(local[owner == index]).to(X.device)
+    part = torch.zeros((n, common), dtype=X.dtype, device=X.device)
+    part[:, :mine.numel()] = X.index_select(1, mine)
+    whole = _gather(part, axis, 1)                     # (n, F·common)
+    out = torch.zeros((n, width), dtype=X.dtype, device=X.device)
+    pick = torch.from_numpy(owner * common + slot).to(X.device)
+    out[:, :cols.size] = whole.index_select(1, pick)
+    return out
+
+
+def fitted_values(mesh, X: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """Xβ for a global β (p,), replicated: one n-vector all-reduce."""
+    lo, hi = feature_range(mesh, beta.shape[-1])
+    return _psum(mesh, X @ beta[..., lo:hi])
+
+
+# ---------------------------------------------------------------------------
+# Placement: every rank holds the same global host arrays
+# ---------------------------------------------------------------------------
+
+def place_dictionary(mesh, X, device=None) -> torch.Tensor:
+    """This rank's contiguous column block of the global X (n, p), on
+    ``device`` (default: the mesh's). ``ValueError`` unless the mesh's
+    feature size divides p."""
+    lo, hi = feature_range(mesh, X.shape[-1])
+    return as_tensor(X[:, lo:hi], device or mesh_device(mesh))
+
+
+def place_features(mesh, a, device=None) -> torch.Tensor:
+    """This rank's block of the last (feature) axis of a global (..., p)
+    array: β, ‖x_j‖, scores."""
+    lo, hi = feature_range(mesh, a.shape[-1])
+    return as_tensor(a[..., lo:hi], device or mesh_device(mesh))
+
+
+def place_queries(mesh, a, device=None, *, batched: bool | None = None
+                  ) -> torch.Tensor:
+    """This rank's rows of a per-query array when its leading batch axis
+    B is divisible by the query size, else all of it. ``batched`` (default:
+    ``a.ndim == 2``) says whether the leading axis is a batch: a single
+    y (n,) is replicated, a λ vector (B,) needs ``batched=True``."""
+    t = as_tensor(a, device or mesh_device(mesh))
+    batched = t.dim() == 2 if batched is None else batched
+    _, size, index, _ = _axis(mesh, query_axes(mesh))
+    if not batched or t.shape[0] % size:
+        return t
+    rows = t.shape[0] // size
+    return t[index * rows:(index + 1) * rows].contiguous()
+
+
+def shard_problem(mesh, X, y, device=None):
+    """(X's column block, y replicated or query-split) on the mesh."""
+    return (place_dictionary(mesh, X, device),
+            place_queries(mesh, y, device))
+
+
+# ---------------------------------------------------------------------------
+# Per-shard backend dispatch
+# ---------------------------------------------------------------------------
+
+def _tile(mesh, backend) -> ops.ScreenBackend:
+    return ops.resolve_backend(backend, mesh.device_type)
+
+
+def sharded_backend(mesh, tile=None) -> ops.ScreenBackend:
+    """A :class:`~repro_torch.kernels.ops.ScreenBackend` named
+    ``"shard:<tile>"`` whose screening ops run ``tile``'s kernels on the
+    rank's column block and gather the result in global column order:
+
+    * ``matvec(X_b, centre)``: the block's dots, one all-gather;
+    * ``fused_scores(X_b, centre, ρ)``: scores and ‖x_j‖² of the block,
+      one all-gather for both.
+
+    The solver ops pass through to the tile unchanged: the path's reduced
+    buckets come replicated (``DictionaryGeometry.columns``), so they run
+    on whole arrays.
+    So do the group scores, which would have to respect group boundaries
+    (group mesh sessions are not served yet). ``tile`` is a backend name,
+    a ScreenBackend, or None (follow the mesh's device)."""
+    tile = _tile(mesh, tile)
+
+    def matvec(X, centre):
+        return gather_features(mesh, tile.matvec(X, centre))
+
+    def fused_scores(X, centre, rho):
+        scores, sumsq = tile.fused_scores(X, centre, rho)
+        p_local = sumsq.shape[0]
+        both = gather_features(mesh, torch.cat(
+            [scores.reshape(-1, p_local), sumsq[None]]))
+        return both[:-1].reshape(*scores.shape[:-1], -1), both[-1]
+
+    return ops.ScreenBackend(
+        name=f"shard:{tile.name}", matvec=matvec, fused_scores=fused_scores,
+        fista_step=tile.fista_step, group_scores=tile.group_scores,
+        cd_gram_sweep=tile.cd_gram_sweep, prox_step=tile.prox_step)
+
+
+def make_dist_ops(mesh, backend=None):
+    """The distributed op suite on local blocks, each with the collectives
+    its docstring names; the local matvecs run ``backend``'s (or the mesh
+    device's) ``screen_matvec`` / ``edpp_screen_scores`` kernels.
+
+    Returns ``(lambda_max_d, matvec_d, screen_scores_d, sup_corr_d)``."""
+    tile = _tile(mesh, backend)
+
+    def lambda_max_d(Xb, y):
+        """λ_max = max_j |x_jᵀy|. Collectives: one scalar MAX."""
+        return _pmax(mesh, torch.max(torch.abs(tile.matvec(Xb, y))))
+
+    def matvec_d(Xb, bb, y):
+        """r = y − Xβ. Collectives: one n-vector SUM."""
+        return y - _psum(mesh, Xb @ bb)
+
+    def screen_scores_d(Xb, centre, rho, eps=EPS_DEFAULT):
+        """EDPP scores and the discard mask of the local block, in one
+        fused pass. No collective."""
+        scores, _ = tile.fused_scores(Xb, centre, rho)
+        return scores, scores < 1.0 - eps
+
+    def sup_corr_d(Xb, r):
+        """‖Xᵀr‖_∞. Collectives: one scalar MAX."""
+        return _pmax(mesh, torch.max(torch.abs(tile.matvec(Xb, r))))
+
+    return lambda_max_d, matvec_d, screen_scores_d, sup_corr_d
+
+
+def _edpp_ball(y, lam_next, lam_prev, r, lam_max_val, v1_at_lmax):
+    """The EDPP sphere (Corollary 17) from the residual r = y − Xβ at
+    λ_prev: θ = r/λ_prev, v₁ from the λ_max cache where λ_prev is at
+    λ_max (compared in float32), else y/λ_prev − θ. A single query takes
+    host λ's and the engine's arithmetic, so from the same residual it
+    builds the engine's ball bit for bit; a batch carries (B,) λ's and
+    (B, n) y, r, v₁."""
+    if y.dim() == 2:
+        def col(v):
+            return torch.as_tensor(v, dtype=y.dtype, device=y.device)[:, None]
+
+        lp = col(lam_prev)
+        theta = r / lp
+        at_max = lp >= col(lam_max_val) * (1.0 - 1e-12)
+        v1 = torch.where(at_max, v1_at_lmax, y / lp - theta)
+        lam_next = col(lam_next)[:, 0]
+    else:
+        lam_prev = float(lam_prev)
+        theta = r / lam_prev
+        at_max = scr.at_lmax(lam_prev, float(lam_max_val))
+        v1 = v1_at_lmax if at_max else y / lam_prev - theta
+        lam_next = float(lam_next)
+    state = scr.DualState(theta=theta, lam=lam_prev, v1=v1, at_lmax=at_max)
+    return scr.edpp_sphere(y, lam_next, state)
+
+
+def dist_edpp_screen(mesh, X, y, lam_next, lam_prev, beta_prev, lam_max_val,
+                     v1_at_lmax, eps: float = EPS_DEFAULT, backend=None):
+    """The sequential EDPP screen (Corollary 17) on local blocks: the dual
+    geometry (θ, v₁, v₂⊥) replicated from one n-vector SUM for the
+    residual, then one fused ``edpp_screen_scores`` pass per block.
+    ``v1_at_lmax`` is sign(x*ᵀy)·x* (eq. 17).
+
+    Returns (discard mask, scores) of the local block."""
+    _, matvec_d, screen_scores_d, _ = make_dist_ops(mesh, backend)
+    test = _edpp_ball(y, lam_next, lam_prev, matvec_d(X, beta_prev, y),
+                      lam_max_val, v1_at_lmax)
+    scores, mask = screen_scores_d(X, test.centre, test.rho, eps)
+    return mask, scores
+
+
+def _cached_scores(tile, X, test, col_norms, eps):
+    """(scores, mask) of the local block from one matvec pass and the
+    cached norms, in the engine's arithmetic."""
+    scores = torch.abs(tile.matvec(X, test.centre)) \
+        + (test.rho[:, None] if test.rho.dim() else test.rho) * col_norms
+    return scores, scores < 1.0 - eps
+
+
+def dist_edpp_screen_cached(mesh, X, y, lam_next, lam_prev, beta_prev,
+                            lam_max_val, v1_at_lmax, col_norms,
+                            eps: float = EPS_DEFAULT, backend=None):
+    """Sequential EDPP with the cached column norms of the local block
+    (λ-independent): the residual SUM, then one ``screen_matvec`` pass per
+    block. Returns (scores, discard mask) of the local block, in the
+    reference's order for this function."""
+    _, matvec_d, _, _ = make_dist_ops(mesh, backend)
+    test = _edpp_ball(y, lam_next, lam_prev, matvec_d(X, beta_prev, y),
+                      lam_max_val, v1_at_lmax)
+    return _cached_scores(_tile(mesh, backend), X, test, col_norms, eps)
+
+
+def dist_edpp_screen_sparse(mesh, X, X_active, y, lam_next, lam_prev,
+                            beta_active, lam_max_val, v1_at_lmax, col_norms,
+                            eps: float = EPS_DEFAULT, backend=None):
+    """Sequential EDPP whose residual needs only the active columns: the
+    fit runs over each rank's active block X_active (n, p_a/F) with its
+    β_active, one n-vector SUM, and the score pass streams the whole
+    local block once. Returns (scores, discard mask) of the local block,
+    in the reference's order for this function."""
+    r = y - _psum(mesh, X_active @ beta_active)
+    test = _edpp_ball(y, lam_next, lam_prev, r, lam_max_val, v1_at_lmax)
+    return _cached_scores(_tile(mesh, backend), X, test, col_norms, eps)
+
+
+def dist_edpp_screen_batched(mesh, X, Y, lam_next, lam_prev, beta_prev,
+                             lam_max_val, v1_at_lmax, col_norms,
+                             eps: float = EPS_DEFAULT, backend=None):
+    """Sequential EDPP for the rank's B_local queries, cached norms:
+    Y (B_local, n), β_prev (B_local, p/F), λ_next/λ_prev/λ_max (B_local,),
+    v₁ (B_local, n). Two passes over the block for the whole batch: one
+    (B_local, n) SUM for the residuals, one batched ``screen_matvec``.
+
+    Returns (discard mask, scores), each (B_local, p/F)."""
+    R = Y - _psum(mesh, beta_prev @ X.T)
+    test = _edpp_ball(Y, lam_next, lam_prev, R, lam_max_val, v1_at_lmax)
+    scores, mask = _cached_scores(_tile(mesh, backend), X, test, col_norms,
+                                  eps)
+    return mask, scores
+
+
+def dist_fista_batched(mesh, X, Y, lam, beta0, lipschitz, *, iters: int = 200,
+                       solver_backend=None):
+    """FISTA over the rank's B_local queries on its column block, a fixed
+    number of iterations: per iteration one (B_local, n) SUM of the fits
+    Z X_bᵀ, then the backend's fused ``fista_step`` kernel (gradient, prox
+    and momentum) on the block with per-query λ (scalar or (B_local,)).
+    Returns β (B_local, p/F)."""
+    fista_op = ops.resolve_backend(solver_backend, X.device).fista_step
+    fl = host_float(X)
+    step = fista_step_size(lipschitz, fl)
+    group = _feature(mesh)[0]
+    beta, z, t = beta0, beta0, fl(1.0)
+    for _ in range(iters):
+        XZ = _reduce(z @ X.T, group, dist.ReduceOp.SUM)
+        t, mom = fista_momentum(t, fl)
+        beta, z = fista_op(X, XZ - Y, z, beta, step, lam, mom)
+    return beta
+
+
+def dist_power_iteration(mesh, X, iters: int = 30, backend=None
+                         ) -> torch.Tensor:
+    """‖X‖₂² by power iteration on the column blocks: per iteration one
+    n-vector SUM for u = Xv, the block's w = Xᵀu by the backend's
+    ``screen_matvec`` kernel, one scalar SUM for ‖w‖; then the Rayleigh
+    quotient ‖Xv‖² (at most ‖X‖₂²). The start is a fixed N(0, 1/p) draw
+    (a CPU generator seeded 0, as the reference's ``PRNGKey(0)``), the
+    same on every rank. Returns a 0-d tensor."""
+    tile = _tile(mesh, backend)
+    p = X.shape[1] * feature_size(mesh)
+    v0 = torch.randn(p, generator=torch.Generator().manual_seed(0),
+                     dtype=X.dtype) / np.sqrt(p)
+    v = place_features(mesh, v0, X.device)
+    for _ in range(iters):
+        u = _psum(mesh, X @ v)
+        w = tile.matvec(X, u).to(X.dtype)
+        nrm = torch.sqrt(_psum(mesh, torch.sum(w * w).reshape(1)))[0]
+        v = w / (nrm + 1e-30)
+    u = _psum(mesh, X @ v)
+    return torch.sum(u * u)
+
+
+OVERLAP_MODES = ("none", "chunked", "stale")
+
+
+def dist_fista(mesh, X, y, lam, beta0, lipschitz, *, iters: int = 200,
+               overlap: str = "none", n_chunks: int = 4,
+               solver_backend=None) -> torch.Tensor:
+    """Feature-sharded FISTA on the rank's column block X (n, p/F) from
+    β0 (p/F,), a fixed number of iterations; returns the block of β.
+
+    Per iteration one n-vector SUM of the fit, local work otherwise,
+    through the solver backend's kernels (``solver_backend``: a name, a
+    ScreenBackend, or None to follow X's device). Collective modes:
+
+    * ``"none"``: one SUM of X_b z, then the backend's fused
+      ``fista_step`` kernel (gradient, prox, momentum) on the block.
+    * ``"chunked"``: the rows split into ``n_chunks``; each chunk's fit
+      is all-reduced asynchronously, all at once, and each chunk's
+      gradient part X_cᵀ(X_c z − y_c) is taken as its reduction lands, so
+      the collectives overlap the local products. The parts are summed
+      in chunk order, then the backend's ``prox_step`` kernel. Exact, up
+      to the order of the gradient sums.
+    * ``"stale"``: the gradient from the previous iterate's fit. Hides the
+      collective but breaks FISTA's momentum contraction: it oscillates
+      instead of converging (kept for the record, as in the reference).
+    """
+    if overlap not in OVERLAP_MODES:
+        raise ValueError(f"overlap must be one of {OVERLAP_MODES}, got "
+                         f"{overlap!r}")
+    backend = ops.resolve_backend(solver_backend, X.device)
+    fl = host_float(X)
+    step = fista_step_size(lipschitz, fl)
+    n = X.shape[0]
+    chunk = -(-n // n_chunks)
+    group = _feature(mesh)[0]
+    beta, z, t = beta0, beta0, fl(1.0)
+    if overlap == "stale":        # X·β₀, as the reference forms it
+        Xz = y - (y - _psum(mesh, X @ beta0))
+    for _ in range(iters):
+        t, mom = fista_momentum(t, fl)
+        if overlap == "none":
+            r = _reduce(X @ z, group, dist.ReduceOp.SUM) - y
+            beta, z = backend.fista_step(X, r, z, beta, step, lam, mom)
+            continue
+        if overlap == "chunked":
+            bounds = [(lo, min(n, lo + chunk)) for lo in range(0, n, chunk)]
+            fits = [X[lo:hi] @ z for lo, hi in bounds]
+            works = [_reduce(f, group, dist.ReduceOp.SUM, async_op=True)
+                     for f in fits]
+            g = None
+            for (lo, hi), fit, work in zip(bounds, fits, works):
+                if work is not None:
+                    work.wait()
+                part = X[lo:hi].T @ (fit - y[lo:hi])
+                g = part if g is None else g + part
+        else:
+            Xz_next = _reduce(X @ z, group, dist.ReduceOp.SUM)
+            g = X.T @ (Xz - y)
+            Xz = Xz_next
+        beta, z = backend.prox_step(z, g, beta, step, lam, mom)
+    return beta

@@ -9,7 +9,12 @@ pass, λ_max, the argmax feature, v₁). Every sphere screen is then one
 ``screen_matvec`` pass with the cached norms (``last_x_passes == 1``).
 
 The ops dispatch through :mod:`repro_torch.kernels.ops`: the ``cuda``
-backend on the card, the plain ``torch`` versions on the CPU.
+backend on the card, the plain ``torch`` versions on the CPU. On a mesh
+(``DictionaryGeometry(..., mesh=)``) X is the rank's column block and
+the backend is :func:`.distributed.sharded_backend`, whose dots and norms
+come back gathered in global column order: λ_max and its feature
+``istar`` are then the global maximum and its lowest global index, and
+the λ_max column is gathered from the rank that holds it.
 
 The group twins (:class:`GroupDictionaryGeometry`,
 :class:`GroupScreeningEngine`) cache the per-group spectral norms ‖X_g‖₂
@@ -29,6 +34,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from . import distributed as dist
 from . import group_screening as gscr
 from . import screening as scr
 
@@ -47,19 +53,22 @@ def engine_x_passes(rule: str) -> int:
     return ENGINE_X_PASSES.get(rule, 1)
 
 
-def _stream_fit_single(X: torch.Tensor, istar: int, y: torch.Tensor):
+def _stream_fit_single(xstar: torch.Tensor, y: torch.Tensor):
     """The λ_max ray v₁ = sign(x*ᵀy)·x* (eq. 17 at λ₀ = λ_max)."""
-    xstar = X[:, istar]
     return torch.sign(torch.dot(xstar, y)) * xstar
 
 
 class DictionaryGeometry:
     """The query-independent geometry of a fitted dictionary X: X on its
-    device, ‖x_j‖² and ‖x_j‖. ``_sumsq`` adopts a fit made elsewhere
-    (``fit_passes`` then stays 0)."""
+    device, ‖x_j‖² and ‖x_j‖ (global, p of them). ``_sumsq`` adopts a fit
+    made elsewhere (``fit_passes`` then stays 0). With ``mesh``, X is the
+    rank's column block of a global X with ``p`` columns."""
 
-    def __init__(self, X: torch.Tensor, backend=None, *, _sumsq=None):
+    def __init__(self, X: torch.Tensor, backend=None, *, _sumsq=None,
+                 mesh=None):
         self.X = X
+        self.mesh = mesh
+        self.p = X.shape[1] * (1 if mesh is None else dist.feature_size(mesh))
         self.backend = ops.resolve_backend(backend, X.device)
         self.fit_passes = 0       # fused workspace passes over X
         self.query_passes = 0     # per-query |Xᵀy| attach passes
@@ -69,6 +78,31 @@ class DictionaryGeometry:
             self.fit_passes = 1
         self.sumsq = _sumsq
         self.col_norms = torch.sqrt(_sumsq)
+
+    def columns(self, cols, width: int | None = None) -> torch.Tensor:
+        """Global columns ``cols`` (host indices) of X as an (n, width)
+        block zero-padded past ``len(cols)`` (``width`` defaults to it),
+        the same on every rank: the path's reduced buckets."""
+        if self.mesh is not None:
+            return dist.gather_columns(self.mesh, self.X, cols, width)
+        cols = np.asarray(cols, dtype=np.int64)
+        out = torch.zeros((self.X.shape[0], cols.size if width is None
+                           else width), dtype=self.X.dtype,
+                          device=self.X.device)
+        out[:, :cols.size] = self.X[:, cols]
+        return out
+
+    def correlations(self, r: torch.Tensor) -> torch.Tensor:
+        """Xᵀr (p,) in global column order, the same on every rank."""
+        if self.mesh is None:
+            return self.X.T @ r
+        return dist.gather_features(self.mesh, self.X.T @ r)
+
+    def fitted(self, beta: torch.Tensor) -> torch.Tensor:
+        """Xβ for a global β (p,), the same on every rank."""
+        if self.mesh is None:
+            return self.X @ beta
+        return dist.fitted_values(self.mesh, self.X, beta)
 
 
 class PathWorkspace:
@@ -97,7 +131,8 @@ class PathWorkspace:
         # torch.argmax returns the first maximal index, like jnp.argmax
         self.istar = int(torch.argmax(scores))
         self.lam_max = float(scores[self.istar])
-        self.v1_at_lmax = _stream_fit_single(self.X, self.istar, y)
+        self.v1_at_lmax = _stream_fit_single(
+            geometry.columns([self.istar])[:, 0], y)
 
     @property
     def X(self) -> torch.Tensor:
@@ -117,12 +152,6 @@ class PathWorkspace:
             theta=self.y / self.lam_max, lam=self.lam_max,
             v1=self.v1_at_lmax, at_lmax=True,
             beta_l1=torch.zeros((), dtype=self.X.dtype, device=self.X.device))
-
-
-def _at_lmax(lam: float, lmax: float) -> bool:
-    """λ ≥ λ_max·(1 − 1e-12), compared in float32 as the reference's
-    jitted state builder does."""
-    return bool(np.float32(lam) >= np.float32(lmax) * np.float32(1.0 - 1e-12))
 
 
 class ScreeningEngine:
@@ -159,6 +188,11 @@ class ScreeningEngine:
     def backend_name(self) -> str:
         return self.ws.backend.name
 
+    @property
+    def p(self) -> int:
+        """Columns of the global X."""
+        return self.ws.geometry.p
+
     def state_at_lambda_max(self) -> scr.DualState:
         return self.ws.state_at_lambda_max()
 
@@ -167,21 +201,20 @@ class ScreeningEngine:
         λ_max branch served from the cache. ``fitted`` (= Xβ, from the
         reduced bucket) skips the X·β pass."""
         ws = self.ws
-        if _at_lmax(lam, ws.lam_max):
+        if scr.at_lmax(lam, ws.lam_max):
             return ws.state_at_lambda_max()
         if fitted is None:
-            fitted = ws.X @ beta
+            fitted = ws.geometry.fitted(beta)
         theta = (ws.y - fitted) / lam
         return scr.DualState(theta=theta, lam=lam, v1=ws.y / lam - theta,
                              at_lmax=False,
                              beta_l1=torch.sum(torch.abs(beta)))
 
     def _count(self, passes: int) -> None:
-        n, p = self.ws.X.shape
         self.last_x_passes = passes
         self.total_x_passes += passes
-        self.last_screen_bytes = float(passes) * n * p \
-            * self.ws.X.element_size()
+        self.last_screen_bytes = float(passes) * self.ws.X.shape[0] \
+            * self.p * self.ws.X.element_size()
 
     def _sphere_screen(self, test: scr.SphereTest, eps,
                        rule: str) -> torch.Tensor:
@@ -196,7 +229,7 @@ class ScreeningEngine:
         ws = self.ws
         if rule == "none":
             self._count(engine_x_passes(rule))
-            return torch.zeros((ws.X.shape[1],), dtype=torch.bool,
+            return torch.zeros((self.p,), dtype=torch.bool,
                                device=ws.X.device)
         if rule == "safe":
             test = scr.safe_sphere(ws.y, lam_next, ws.lam_max)
@@ -261,6 +294,10 @@ class GroupScreeningEngine:
     def backend_name(self) -> str:
         return self.backend.name
 
+    @property
+    def p(self) -> int:
+        return self.X.shape[1]
+
     def state_at_lambda_max(self) -> gscr.GroupDualState:
         return self._state_max
 
@@ -269,7 +306,7 @@ class GroupScreeningEngine:
         """The sequential state from the solution at λ, with the λ̄_max
         branch served from the cache. ``fitted`` (= Xβ, from the reduced
         bucket) skips the X·β pass."""
-        if _at_lmax(lam, self.lam_max):
+        if scr.at_lmax(lam, self.lam_max):
             return self._state_max
         return gscr.group_state_from_solution(self.X, self.y, beta, lam,
                                               fitted=fitted)

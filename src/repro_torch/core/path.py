@@ -14,6 +14,15 @@ The unit size ``m`` is 1 for the Lasso (units are features) and the
 group size for the group Lasso (units are groups: whole groups are
 gathered, buckets count groups, masks and ``n_discarded`` are per group).
 
+The bucket comes from a ``columns`` callable. On a mesh session it is
+the geometry's (:meth:`.engine.DictionaryGeometry.columns`): X is the
+rank's column block of the global X, every rank contributes its kept
+columns, and one all-gather puts them in the order of the unsharded
+gather, replicated. Every rank then solves the same bucket with the
+tile kernels, and the fitted values X_r·β_r (not a psum-ordered X·β) feed
+the next dual state, so the masks and β do not depend on the mesh's
+shape (the reference's ``reshard``, ``src/repro/core/path.py``).
+
 This slice drives one query (``batch=None``); the batched driver is
 ROADMAP.md queue 1 item 6. The KKT loop runs when the rule is heuristic
 (group ``strong``) or ``paranoid=True`` asks for it (safe rules never
@@ -99,10 +108,13 @@ class PathResult:
                           query_converged=self.query_converged)
 
 
-def _gather_cols(X: torch.Tensor, idx: torch.Tensor,
-                 valid: torch.Tensor) -> torch.Tensor:
-    """The bucket: columns ``idx`` of X, zero where ``valid`` is 0."""
-    return X.index_select(1, idx) * valid[None, :]
+def _gather_cols(X: torch.Tensor, cols: np.ndarray,
+                 width: int) -> torch.Tensor:
+    """The bucket: columns ``cols`` (host indices) of X, zero-padded to
+    ``width`` columns."""
+    out = torch.zeros((X.shape[0], width), dtype=X.dtype, device=X.device)
+    out[:, :cols.size] = X[:, cols]
+    return out
 
 
 def _pad_indices(kept: np.ndarray, bucket: int, device, dtype):
@@ -122,11 +134,17 @@ def lambda_grid(lam_max: float, num: int = 100, lo_frac: float = 0.05,
 
 def _path_driver(X: torch.Tensor, y: torch.Tensor, lambdas, cfg, *,
                  m: int = 1, screen_engine, solver_engine, need_kkt: bool,
-                 kkt_fn) -> PathResult:
+                 kkt_fn, columns=None) -> PathResult:
     """The screen → reduce → solve → KKT loop over a decreasing grid, for
     one query, over units of ``m`` columns. ``kkt_fn(beta_full, lam,
-    discard, fitted)`` flags KKT violations among the discarded units."""
-    p = X.shape[1]
+    discard, fitted)`` flags KKT violations among the discarded units.
+    The path's width p is the screen engine's. ``columns(cols, width)``
+    returns the (n, width) bucket of the global columns ``cols`` (host
+    indices), zero-padded; by default they are gathered from X."""
+    p = screen_engine.p
+    if columns is None:
+        def columns(cols, width):
+            return _gather_cols(X, cols, width)
     units = p // m
     if units * m != p:
         raise ValueError(f"p={p} is not divisible by the unit size m={m}")
@@ -176,7 +194,7 @@ def _path_driver(X: torch.Tensor, y: torch.Tensor, lambdas, cfg, *,
                 col_idx = (kept[:, None] * m + arange_m).reshape(-1)
                 idx, valid = _pad_indices(col_idx, bucket * m, X.device,
                                           X.dtype)
-                Xr = _gather_cols(X, idx, valid)
+                Xr = columns(col_idx, bucket * m)
                 beta0 = beta_prev.index_select(0, idx) * valid
                 res = solver_engine.solve(Xr, lam, beta0, m=m)
                 beta_full = torch.zeros((p,), dtype=X.dtype, device=X.device)

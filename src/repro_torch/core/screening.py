@@ -24,6 +24,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 EPS_DEFAULT = 1e-6
@@ -64,6 +65,13 @@ class DualState(NamedTuple):
         at_lmax = False if lam_max is None else bool(lam >= lam_max)
         return DualState(theta=theta, lam=lam, v1=y / lam - theta,
                          at_lmax=at_lmax, beta_l1=torch.sum(torch.abs(beta)))
+
+
+def at_lmax(lam: float, lmax: float) -> bool:
+    """λ ≥ λ_max·(1 − 1e-12), compared in float32 as the reference's
+    jitted state builder does: whether the sequential state at λ is the
+    λ_max one."""
+    return bool(np.float32(lam) >= np.float32(lmax) * np.float32(1.0 - 1e-12))
 
 
 def lambda_max(X: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

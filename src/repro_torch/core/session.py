@@ -17,10 +17,16 @@ legacy flat keywords.
 
 This slice of the port serves one (n,) query with the sphere rules,
 basic SAFE and ``none``, float32 screens and the ``fista`` and ``cd``
-strategies; and, on a session fitted with ``groups=m``, group EDPP,
-group strong and ``none`` with the ``group_fista`` strategy. Everything
-else raises ``NotImplementedError`` naming the ROADMAP.md item (queue 1)
-that brings it.
+strategies; on a session fitted with ``groups=m``, group EDPP, group
+strong and ``none`` with the ``group_fista`` strategy; and, with
+``mesh=`` (a :class:`~torch.distributed.device_mesh.DeviceMesh` under an
+initialised process group, one process per rank), the plain-Lasso path
+on X split by columns over the mesh's feature axis: each rank keeps its
+column block, the screens run per block and gather
+(``backend_name == "shard:<tile>"``), and each reduced bucket is
+gathered replicated and solved alike on every rank. Everything else
+raises ``NotImplementedError`` naming the ROADMAP.md item (queue 1) that
+brings it.
 
 Entry points run on the card unless the caller asks for the CPU:
 ``device=None`` means ``cuda``, and raises when no card is present.
@@ -35,8 +41,10 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from . import distributed as dist
 from . import group_screening as gscr
 from . import screening as scr
+from .device import as_tensor, resolve_device
 from .engine import (ENGINE_RULES, GROUP_ENGINE_RULES, DictionaryGeometry,
                      GroupDictionaryGeometry, GroupScreeningEngine,
                      ScreeningEngine)
@@ -215,33 +223,6 @@ class PathConfig:
     bucket_min = property(lambda self: self.solve.bucket_min)
 
 
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card; without one, raise instead of silently
-    running on the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch runs on the GPU unless asked otherwise, and no CUDA "
-            "device is available; pass device='cpu' to run on the CPU")
-    return dev
-
-
-def as_tensor(a, device: torch.device, dtype=None) -> torch.Tensor:
-    """Host or device array → contiguous tensor on ``device``. Float64
-    numpy input becomes float32, as ``jnp.asarray`` does without x64; a
-    float64 tensor stays float64 (solved with the plain versions)."""
-    if isinstance(a, torch.Tensor):
-        t = a
-    else:
-        arr = np.asarray(a)
-        if dtype is None and arr.dtype != np.float32:
-            arr = arr.astype(np.float32)
-        if not arr.flags.writeable:      # e.g. a view of a jax array
-            arr = arr.copy()
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-    return t.to(device=device, dtype=dtype or t.dtype).contiguous()
-
-
 class LassoSession:
     """A fitted dictionary + resolved engine choices; query it many times.
     Construct with :meth:`fit` (or :func:`repro_torch.convert.
@@ -252,8 +233,8 @@ class LassoSession:
                         "LassoSession.fit(X, ...)")
 
     @classmethod
-    def _new(cls, X: torch.Tensor, cfg: PathConfig,
-             m: int = 1) -> "LassoSession":
+    def _new(cls, X: torch.Tensor, cfg: PathConfig, m: int = 1,
+             mesh=None) -> "LassoSession":
         if X.shape[1] % m:
             raise ValueError(f"p={X.shape[1]} is not divisible by "
                              f"groups={m}")
@@ -262,23 +243,33 @@ class LassoSession:
         self.config = cfg
         self.groups = m
         self.X = X
+        self.mesh = mesh
         self.device = X.device
         self._geometries: dict[str, object] = {}
+        self._shard_backends: dict[str, ops.ScreenBackend] = {}
         self._eig_cache: dict[int, torch.Tensor] = {}
         self._eig_stats = {"warm": 0, "cold": 0}
-        self._default_backend = ops.resolve_backend(
-            cfg.screen.backend, X.device).name
+        self._default_backend = self._resolve_for_session(
+            cfg.screen.backend).name
         return self
 
     @classmethod
     def fit(cls, X, *, groups: int | None = None, mesh=None,
-            config: PathConfig | None = None,
-            device=None) -> "LassoSession":
+            config: PathConfig | None = None, device=None,
+            geometry: DictionaryGeometry | None = None) -> "LassoSession":
         """Fit the dictionary side once: X to the device, then one fused
         ``edpp_screen_scores`` pass for ‖x_j‖² — or, with ``groups=m``
         (contiguous groups of m columns), the per-group spectral norms for
         every later group path. ``device=None`` is the card; pass
-        ``device="cpu"`` for the CPU."""
+        ``device="cpu"`` for the CPU.
+
+        ``mesh`` (a DeviceMesh of the initialised process group, with a
+        feature axis and optionally a ``"query"`` axis) keeps this rank's
+        column block of X — every rank calls with the same global X — and
+        resolves the configured screen backend per block
+        (:func:`.distributed.sharded_backend`; an explicit backend is
+        honoured). ``geometry`` adopts a prefitted
+        :class:`DictionaryGeometry` instead of fitting."""
         cfg = config if config is not None else PathConfig()
         if not isinstance(cfg, PathConfig):
             raise TypeError(f"config must be a PathConfig, got "
@@ -286,30 +277,84 @@ class LassoSession:
         m = 1 if groups is None else int(groups)
         if m < 1:
             raise ValueError(f"groups must be ≥ 1, got {groups}")
-        if mesh is not None:
-            raise _not_yet("mesh=", 13, "distributed")
-        Xt = as_tensor(X, resolve_device(device))
+        if geometry is not None:
+            if mesh is not None:
+                raise ValueError(
+                    "mesh= and geometry= cannot be combined: an adopted "
+                    "geometry was fitted off the mesh, so its X would "
+                    "bypass the column-sharded placement")
+            if m > 1:
+                raise ValueError("geometry= adoption is for the plain Lasso "
+                                 "(groups=None)")
+            self = cls._new(geometry.X, cfg)
+            self._geometries[geometry.backend.name] = geometry
+            self._default_backend = geometry.backend.name
+            return self
+        dev = resolve_device(device)
+        if mesh is None:
+            Xt = as_tensor(X, dev)
+        else:
+            Xt = cls._place_on_mesh(X, mesh, m, dev)
         if Xt.dim() != 2:
             raise ValueError(f"X must be (n, p), got shape {tuple(Xt.shape)}")
-        self = cls._new(Xt, cfg, m)
+        self = cls._new(Xt, cfg, m, mesh)
         self._geometry(self._default_backend)     # the one fit
         return self
 
+    @staticmethod
+    def _place_on_mesh(X, mesh, m: int, dev: torch.device) -> torch.Tensor:
+        """This rank's column block of X, after refusing what a mesh
+        session does not serve."""
+        if m > 1:
+            raise _not_yet("groups=m on a mesh session", 13, "distributed")
+        if not torch.distributed.is_initialized():
+            raise RuntimeError(
+                "mesh= needs an initialised process group, and none is up: "
+                "call torch.distributed.init_process_group(...) on every "
+                "rank and build the mesh with init_device_mesh first")
+        if dev.type != mesh.device_type:
+            raise ValueError(f"device {dev} does not match the mesh's "
+                             f"device type {mesh.device_type!r}")
+        if np.ndim(X) != 2:
+            raise ValueError(f"X must be (n, p), got shape {np.shape(X)}")
+        if dev.type == "cuda" and dev.index is None:
+            dev = dist.mesh_device(mesh)
+        return dist.place_dictionary(mesh, X, dev)
+
+    def _resolve_for_session(self, backend) -> ops.ScreenBackend:
+        """The backend instance this session runs for a configured one.
+        Off the mesh: :func:`~repro_torch.kernels.ops.resolve_backend`. On
+        a mesh the tile backend (an explicit one included) is wrapped in
+        :func:`.distributed.sharded_backend`, one per tile."""
+        if self.mesh is None or (isinstance(backend, ops.ScreenBackend)
+                                 and backend.name.startswith("shard:")):
+            return ops.resolve_backend(backend, self.device)
+        if isinstance(backend, str) and backend.startswith("shard:"):
+            backend = backend[len("shard:"):]
+        tile = ops.resolve_backend(backend, self.device)
+        shard = self._shard_backends.get(tile.name)
+        if shard is None:
+            shard = dist.sharded_backend(self.mesh, tile)
+            self._shard_backends[tile.name] = shard
+        return shard
+
     def _geometry(self, backend=None):
         """The fitted (group) geometry for a backend, built on first use."""
-        inst = ops.resolve_backend(
-            backend if backend is not None else self._default_backend,
-            self.device)
+        inst = self._resolve_for_session(
+            backend if backend is not None else self._default_backend)
         geom = self._geometries.get(inst.name)
         if geom is None:
             geom = (GroupDictionaryGeometry(self.X, self.groups, inst)
-                    if self.groups > 1 else DictionaryGeometry(self.X, inst))
+                    if self.groups > 1
+                    else DictionaryGeometry(self.X, inst, mesh=self.mesh))
             self._geometries[inst.name] = geom
         return geom
 
     @property
     def shape(self) -> tuple[int, int]:
-        return tuple(self.X.shape)
+        """(n, p) of the global X (on a mesh, X holds this rank's block)."""
+        n, p = self.X.shape
+        return n, p * (1 if self.mesh is None else dist.feature_size(self.mesh))
 
     @property
     def geometry(self):
@@ -387,19 +432,20 @@ class LassoSession:
         return heuristic or cfg.screen.paranoid
 
     def _lasso_path(self, y, lambdas, cfg, grid_kw) -> PathResult:
-        eng = ScreeningEngine(self.X, y, eps=cfg.screen.eps,
-                              geometry=self._geometry(cfg.screen.backend))
+        geom = self._geometry(cfg.screen.backend)
+        eng = ScreeningEngine(self.X, y, eps=cfg.screen.eps, geometry=geom)
         if lambdas is None:
             lambdas = lambda_grid(eng.lam_max, **grid_kw)
-        X = self.X
 
         def kkt_fn(beta_full, lam, discard, fitted=None):
-            return scr.kkt_violations(X, y, beta_full, lam, discard,
-                                      cfg.screen.kkt_tol, fitted)
+            r = y - (geom.fitted(beta_full) if fitted is None else fitted)
+            return (torch.abs(geom.correlations(r))
+                    > lam * (1.0 + cfg.screen.kkt_tol)) & discard
 
-        return _path_driver(X, y, lambdas, cfg, screen_engine=eng,
+        return _path_driver(self.X, y, lambdas, cfg, screen_engine=eng,
                             solver_engine=self._solver_engine(y, cfg),
-                            need_kkt=self._need_kkt(cfg), kkt_fn=kkt_fn)
+                            need_kkt=self._need_kkt(cfg), kkt_fn=kkt_fn,
+                            columns=geom.columns)
 
     def _group_path(self, y, lambdas, cfg, grid_kw) -> PathResult:
         m = self.groups

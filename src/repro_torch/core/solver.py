@@ -43,6 +43,25 @@ from .lasso import gap_from_residual, top_eigenpair
 _F32 = np.float32
 
 
+def host_float(X: torch.Tensor):
+    """The numpy scalar type FISTA's host-side numbers round in: float32
+    for float32 X (as the reference computes them), else float64."""
+    return _F32 if X.dtype == torch.float32 else np.float64
+
+
+def fista_step_size(lipschitz, fl) -> float:
+    """FISTA's step 1/max(L, 1e-12), rounded in ``fl``."""
+    return float(fl(1.0) / fl(max(float(lipschitz), 1e-12)))
+
+
+def fista_momentum(t, fl):
+    """FISTA's next t and the momentum (t − 1)/t', in ``fl`` on the host:
+    the sequence does not depend on the data, so no iteration waits on
+    the device."""
+    t_new = fl(0.5) * (fl(1.0) + np.sqrt(fl(1.0) + fl(4.0) * t * t))
+    return t_new, float((t - fl(1.0)) / t_new)
+
+
 class SolveResult(NamedTuple):
     """One reduced solve: β (on the device) and host-side telemetry."""
 
@@ -61,8 +80,8 @@ def _fista_solve(step_op: Callable, X, y, lam: float, beta0, lipschitz: float,
     gap is checked before the first block and after every block of
     ``cadence`` iterations, so ``iters`` is a multiple of ``cadence``.
     Zero columns are fixed points, so padded buckets pass through."""
-    fl = _F32 if X.dtype == torch.float32 else np.float64
-    step = float(fl(1.0) / fl(max(lipschitz, 1e-12)))
+    fl = host_float(X)
+    step = fista_step_size(lipschitz, fl)
     thresh = tol * (0.5 * float(torch.sum(y * y)) + 1e-30)
 
     def gap_of(beta) -> float:
@@ -74,10 +93,8 @@ def _fista_solve(step_op: Callable, X, y, lam: float, beta0, lipschitz: float,
     while k < max_iter and gap > thresh:
         for _ in range(cadence):
             rz = X @ z - y
-            t_new = fl(0.5) * (fl(1.0) + np.sqrt(fl(1.0) + fl(4.0) * t * t))
-            mom = (t - fl(1.0)) / t_new
-            beta, z = step_op(X, rz, z, beta, step, lam, float(mom))
-            t = t_new
+            t, mom = fista_momentum(t, fl)
+            beta, z = step_op(X, rz, z, beta, step, lam, mom)
         k += cadence
         gap = gap_of(beta)
         checks += 1
@@ -152,8 +169,8 @@ def _group_fista_solve(X, y, lam: float, m: int, beta0, lipschitz: float,
     """Block FISTA for the group Lasso, plain torch: g = Xᵀ(Xz − y), the
     block soft-threshold, momentum. Zero-padded groups are fixed points,
     so group buckets pass through."""
-    fl = _F32 if X.dtype == torch.float32 else np.float64
-    step = float(fl(1.0) / fl(max(lipschitz, 1e-12)))
+    fl = host_float(X)
+    step = fista_step_size(lipschitz, fl)
     thresh = tol * (0.5 * float(torch.sum(y * y)) + 1e-30)
 
     def gap_of(beta) -> float:
@@ -166,9 +183,9 @@ def _group_fista_solve(X, y, lam: float, m: int, beta0, lipschitz: float,
         for _ in range(cadence):
             g = X.T @ (X @ z - y)
             beta_new = group_soft_threshold(z - step * g, step * lam, m)
-            t_new = fl(0.5) * (fl(1.0) + np.sqrt(fl(1.0) + fl(4.0) * t * t))
-            z = beta_new + float((t - fl(1.0)) / t_new) * (beta_new - beta)
-            beta, t = beta_new, t_new
+            t, mom = fista_momentum(t, fl)
+            z = beta_new + mom * (beta_new - beta)
+            beta = beta_new
         k += cadence
         gap = gap_of(beta)
         checks += 1

@@ -1,8 +1,9 @@
 """Kernels of the PyTorch port, each beside its plain PyTorch version.
 
   edpp_screen.py   fused |Xᵀc| + ρ‖x_j‖ scores and the screening matvec
-  solver_step.py   fused FISTA iteration (gradient pass + prox + momentum)
-                   and the Gram coordinate-descent sweep
+  solver_step.py   fused FISTA iteration (gradient pass + prox + momentum),
+                   the Gram coordinate-descent sweep and the FISTA prox
+                   and momentum over p-vectors, given g
   group_screen.py  group scores ‖X_gᵀc‖ over contiguous groups
   ref.py           the plain versions (CPU route and on-card yardstick)
   build.py         nvcc build of csrc/*.cu on first use, loaded via ctypes
@@ -22,4 +23,5 @@ from .solver_step import (  # noqa: F401
     GRAM_BUCKET_MAX,
     cd_gram_sweep,
     fista_step,
+    prox_step,
 )

@@ -51,6 +51,8 @@ _SIGNATURES = {
     "cd_gram_sweep_f32": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP, _F32,
                           _VP, _VP],
     "group_screen_scores_f32": [_VP, _VP, _INT, _INT, _INT, _VP, _VP],
+    "prox_step_f32": [_VP, _VP, _VP, _INT, _INT, _VP, _F32, _F32, _F32, _VP,
+                      _VP, _VP],
 }
 
 

@@ -1,17 +1,18 @@
 """Backend registry the screening and solver engines dispatch through.
 
-A :class:`ScreenBackend` bundles the five ops of the ported paths:
+A :class:`ScreenBackend` bundles the six ops of the ported paths:
 
     matvec(X, centre)                          -> dot = centre·X
     fused_scores(X, centre, rho)               -> (|dot| + ρ‖x_j‖, ‖x_j‖²)
     fista_step(X, r, z, beta_old, step, lam, mom) -> (β', z')
     group_scores(X, centre, m)                 -> ‖X_gᵀ·centre‖ per group
     cd_gram_sweep(G, c, beta, lam, sweeps, valid) -> β after the sweeps
+    prox_step(z, g, beta_old, step, lam, mom)  -> (β', z')
 
 Backends: ``cuda`` (the hand-written kernels of :mod:`.edpp_screen`,
 :mod:`.solver_step` and :mod:`.group_screen`; their wrappers take the
 plain versions for CPU tensors) and ``torch`` (the plain versions of
-:mod:`.ref`). Every backend carries all five ops. With no explicit
+:mod:`.ref`). Every backend carries all six ops. With no explicit
 choice the backend follows the tensor's device: ``cuda`` for CUDA
 tensors, ``torch`` for CPU tensors.
 """
@@ -26,7 +27,7 @@ from . import edpp_screen, group_screen, ref, solver_step
 from .solver_step import GRAM_BUCKET_MAX  # noqa: F401
 
 OPS = ("edpp_screen_scores", "screen_matvec", "fista_step",
-       "group_screen_scores", "cd_gram_sweep")
+       "group_screen_scores", "cd_gram_sweep", "prox_step")
 
 
 class ScreenBackend(NamedTuple):
@@ -36,6 +37,7 @@ class ScreenBackend(NamedTuple):
     fista_step: Callable
     group_scores: Callable
     cd_gram_sweep: Callable
+    prox_step: Callable
 
 
 BACKENDS: dict[str, ScreenBackend] = {
@@ -43,10 +45,11 @@ BACKENDS: dict[str, ScreenBackend] = {
                           edpp_screen.edpp_screen_scores,
                           solver_step.fista_step,
                           group_screen.group_screen_scores,
-                          solver_step.cd_gram_sweep),
+                          solver_step.cd_gram_sweep, solver_step.prox_step),
     "torch": ScreenBackend("torch", ref.screen_matvec_ref,
                            ref.edpp_screen_ref, ref.fista_step_ref,
-                           ref.group_screen_ref, ref.cd_gram_sweep_ref),
+                           ref.group_screen_ref, ref.cd_gram_sweep_ref,
+                           ref.prox_step_ref),
 }
 
 

@@ -2,11 +2,13 @@
 
 These define the semantics of the hand-written CUDA kernels in
 ``csrc/`` and are the CPU route of every wrapper: ``edpp_screen_ref``,
-``screen_matvec_ref``, ``fista_step_ref``, ``cd_gram_sweep_ref`` and
-``group_screen_ref`` mirror ``repro.kernels.ref`` op for op.
+``screen_matvec_ref``, ``fista_step_ref``, ``prox_step_ref``,
+``cd_gram_sweep_ref`` and ``group_screen_ref`` mirror
+``repro.kernels.ref`` op for op.
 
 Batch axis: the query operand (``centre`` for the screens, ``r``/``z``/
-``beta_old`` for the solver step, ``c``/``beta``/``valid`` for the Gram
+``beta_old`` for the solver step, ``z``/``g``/``beta_old`` for the prox
+step, ``c``/``beta``/``valid`` for the Gram
 sweep) may be ``(n,)``/``(p,)`` or carry a leading batch axis B;
 per-query parameters (``rho``, ``step``, ``lam``, ``mom``) are then a
 scalar or a ``(B,)`` vector. X and G are never batched; the group scores
@@ -67,11 +69,38 @@ def screen_matvec_ref(X: torch.Tensor, centre: torch.Tensor) -> torch.Tensor:
 
 
 def _prox(z, g, beta_old, step, lam, mom):
-    """``β = S(z − step·g, step·λ)``, ``z' = β + mom·(β − β_old)``."""
+    """``β = S(z − step·g, step·λ)``, ``z' = β + mom·(β − β_old)``; the
+    parameters come as tensors of z's dtype, shaped to broadcast."""
     u = z - step * g
     t = step * lam
     beta_new = torch.sign(u) * torch.clamp(torch.abs(u) - t, min=0.0)
     return beta_new, beta_new + mom * (beta_new - beta_old)
+
+
+def _prox_params(z: torch.Tensor, step, lam, mom):
+    """step, λ, mom as tensors of z's dtype: (B, 1) for a (B, p) z, 0-d
+    for a (p,) z, so ``step·λ`` rounds in that dtype, as the kernels
+    compute it."""
+    if z.dim() == 2:
+        return tuple(_per_query(s, z.shape[0], z.dtype, z.device)[:, None]
+                     for s in (step, lam, mom))
+    return tuple(torch.as_tensor(s, dtype=z.dtype, device=z.device)
+                 for s in (step, lam, mom))
+
+
+def prox_step_ref(z: torch.Tensor, g: torch.Tensor, beta_old: torch.Tensor,
+                  step, lam, mom):
+    """The FISTA prox and momentum over p-vectors, given the gradient g:
+
+        u  = z − step·g
+        β' = sign(u)·max(|u| − step·λ, 0)
+        z' = β' + mom·(β' − β_old)
+
+    z/g/beta_old are (p,) or (B, p) with step/λ/mom scalar-or-(B,); the
+    result has z's dtype. Zero columns (z = g = β_old = 0) stay 0."""
+    PLAIN_CALLS["prox_step"] += 1
+    return _prox(z, g.to(z.dtype), beta_old.to(z.dtype),
+                 *_prox_params(z, step, lam, mom))
 
 
 def fista_step_ref(X: torch.Tensor, r: torch.Tensor, z: torch.Tensor,
@@ -85,14 +114,9 @@ def fista_step_ref(X: torch.Tensor, r: torch.Tensor, z: torch.Tensor,
     za, ba = z.to(acc), beta_old.to(acc)
     if r.ndim == 2:
         g = r.to(acc) @ X.to(acc)
-        b = r.shape[0]
-        step, lam, mom = (_per_query(s, b, acc, X.device)[:, None]
-                          for s in (step, lam, mom))
     else:
         g = X.to(acc).T @ r.to(acc)
-        step, lam, mom = (torch.as_tensor(s, dtype=acc, device=X.device)
-                          for s in (step, lam, mom))
-    return _prox(za, g, ba, step, lam, mom)
+    return _prox(za, g, ba, *_prox_params(za, step, lam, mom))
 
 
 def group_screen_ref(X: torch.Tensor, centre: torch.Tensor,

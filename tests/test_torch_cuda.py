@@ -1,21 +1,28 @@
 """The CUDA kernels on the card, against their plain versions on the same
 card, over the kernel sweep's shapes and batches; the wrappers' refusals;
-and the sessions (default FISTA, ``cd``, groups) on the card against the
-same sessions on the CPU.
+the sessions (default FISTA, ``cd``, groups) on the card against the
+same sessions on the CPU; the prox step over its shapes and parameter
+kinds; and a mesh session over NCCL at world size 1 against the
+unsharded session on the card.
 
 Marked ``gpu``: without a CUDA device every test skips. On a machine with
 one card: ``python -m pytest -q -m gpu tests/test_torch_cuda.py``.
 (No JAX here: the machine with the card need not have it.)
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
 
 from repro_torch import LassoSession, PathConfig, ScreenSpec, SolveSpec
 from repro_torch.data import group_lasso_problem, lasso_problem
 from repro_torch.kernels import (edpp_screen, group_screen, ops, ref,
                                  solver_step)
+
 
 pytestmark = pytest.mark.gpu
 
@@ -64,7 +71,7 @@ def test_kernels_match_plain_versions(cuda, shape, batch):
                                    "screen_matvec": launches,
                                    "fista_step": launches,
                                    "group_screen_scores": 0,
-                                   "cd_gram_sweep": 0}
+                                   "cd_gram_sweep": 0, "prox_step": 0}
     torch.cuda.synchronize()
 
 
@@ -206,3 +213,76 @@ def test_cd_and_group_sessions_on_the_card_match_the_cpu(cuda):
                                    rtol=2 ** -22)
         assert np.abs(res_g.betas - res_c.betas).max() <= tol
         assert (res_g.masks != res_c.masks).sum() <= 2
+
+
+@pytest.mark.parametrize("per_query", [False, True])
+@pytest.mark.parametrize("shape", [(1,), (4,), (50000,), (1003,), (3, 1003),
+                                   (8, 50000), (17, 131)])
+def test_prox_step_matches_plain_version(cuda, shape, per_query):
+    """The kernel rounds each product and difference alone, as the plain
+    version does: equal up to 1 ulp of the threshold step·λ (atol 1e-6
+    at these magnitudes); zero columns stay 0; one launch per call."""
+    g = torch.Generator(device=cuda).manual_seed(sum(shape) + per_query)
+    z, grad, b = (torch.randn(*shape, generator=g, device=cuda)
+                  for _ in range(3))
+    for a in (z, grad, b):
+        a[..., -1:] = 0.0
+    if per_query and len(shape) == 2:
+        step, lam, mom = (torch.rand(shape[0], generator=g, device=cuda)
+                          for _ in range(3))
+    elif per_query:
+        step, lam, mom = (torch.rand((), generator=g, device=cuda)
+                          for _ in range(3))
+    else:
+        step, lam, mom = 0.01, 0.5, 0.6
+    ops.reset_counts()
+    out = solver_step.prox_step(z, grad, b, step, lam, mom)
+    assert ops.launch_counts()["prox_step"] == 1
+    want = ref.prox_step_ref(z, grad, b, step, lam, mom)
+    torch.cuda.synchronize()
+    for a, w in zip(out, want):
+        assert a.shape == w.shape == z.shape and a.dtype == torch.float32
+        assert float((a - w).abs().max()) <= 1e-6
+        assert not a[..., -1:].any()
+    # an unaligned view takes the scalar path and agrees as well
+    zz, gg, bb = (a.reshape(-1)[1:].contiguous() for a in (z, grad, b))
+    if zz.numel():
+        for a, w in zip(solver_step.prox_step(zz, gg, bb, 0.01, 0.5, 0.6),
+                        ref.prox_step_ref(zz, gg, bb, 0.01, 0.5, 0.6)):
+            assert float((a - w).abs().max()) <= 1e-6
+
+
+def test_mesh_session_over_nccl_matches_the_unsharded_session(cuda, tmp_path):
+    """World size 1 over NCCL: the mesh session's masks, β and pass
+    counts equal the unsharded session's on the card, bit for bit, and
+    dist_fista("chunked") launches prox_step once per iteration."""
+    from repro_torch.core import distributed as D
+    X, y, _ = lasso_problem(100, 1000, nnz=10, seed=0, dtype=np.float32)
+    cfg = PathConfig(solve=SolveSpec(tol=1e-6))
+    plain = LassoSession.fit(X, config=cfg)
+    res_u = plain.path(y, num_lambdas=20, hi_frac=0.95)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp_path, "store"), 1), rank=0, world_size=1,
+        device_id=torch.device("cuda", 0))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("query", "feature"))
+        sess = LassoSession.fit(X, mesh=mesh, config=cfg)
+        res_m = sess.path(y, num_lambdas=20, hi_frac=0.95)
+        assert sess.backend_name == "shard:cuda" and sess.fit_passes == 1
+        np.testing.assert_array_equal(res_m.masks, res_u.masks)
+        np.testing.assert_array_equal(res_m.betas, res_u.betas)
+        assert [s.x_passes for s in res_m.stats] \
+            == [s.x_passes for s in res_u.stats]
+        Xl, yt = D.shard_problem(mesh, X, y)
+        ops.reset_counts()
+        lam = 0.3 * float(plain.geometry.backend.matvec(
+            plain.X, yt).abs().max())
+        beta = D.dist_fista(mesh, Xl, yt, lam, torch.zeros(1000, device=cuda),
+                            1.05 * float(D.dist_power_iteration(mesh, Xl)),
+                            iters=50, overlap="chunked")
+        assert ops.launch_counts()["prox_step"] == 50
+        assert not any(ops.plain_counts().values())
+        assert bool(torch.isfinite(beta).all())
+    finally:
+        dist.destroy_process_group()

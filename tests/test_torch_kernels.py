@@ -26,6 +26,7 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import (build, edpp_screen, group_screen, ops, ref,
                                  solver_step)
 
+
 SHAPES = [(8, 128), (60, 300), (128, 512), (100, 1000), (7, 130), (256, 131)]
 BATCHES = [1, 3, 8, 17]
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -251,14 +252,17 @@ def test_wrappers_take_the_plain_version_for_cpu_tensors():
     bn, zn = solver_step.fista_step(X, c, z, b, 0.01, 0.5, 0.6)
     gs = group_screen.group_screen_scores(X, c[0], 5)
     cd = solver_step.cd_gram_sweep(G, z, b, 0.5, sweeps=1)
+    pb, pz = solver_step.prox_step(z, b, z, 0.01, 0.5, 0.6)
     assert ops.launch_counts() == dict.fromkeys(ops.OPS, 0)
     assert ops.plain_counts() == dict.fromkeys(ops.OPS, 1)
-    assert len(ops.OPS) == 5
+    assert len(ops.OPS) == 6
     assert torch.equal(d, ref.screen_matvec_ref(X, c))
     assert torch.equal(s, ref.edpp_screen_ref(X, c, 0.5)[0])
     assert torch.equal(bn, ref.fista_step_ref(X, c, z, b, 0.01, 0.5, 0.6)[0])
     assert torch.equal(gs, ref.group_screen_ref(X, c[0], 5))
     assert torch.equal(cd, ref.cd_gram_sweep_ref(G, z, b, 0.5, sweeps=1))
+    want = ref.prox_step_ref(z, b, z, 0.01, 0.5, 0.6)
+    assert torch.equal(pb, want[0]) and torch.equal(pz, want[1])
 
 
 def test_per_query_parameters_never_copy_host_numbers():
@@ -284,9 +288,10 @@ def test_backend_follows_the_device():
     cuda = ops.resolve_backend("cuda", "cpu")
     assert cuda.group_scores is group_screen.group_screen_scores
     assert cuda.cd_gram_sweep is solver_step.cd_gram_sweep
+    assert cuda.prox_step is solver_step.prox_step
     plain = ops.resolve_backend("torch", "cpu")
-    assert (plain.group_scores, plain.cd_gram_sweep) \
-        == (ref.group_screen_ref, ref.cd_gram_sweep_ref)
+    assert (plain.group_scores, plain.cd_gram_sweep, plain.prox_step) \
+        == (ref.group_screen_ref, ref.cd_gram_sweep_ref, ref.prox_step_ref)
     with pytest.raises(ValueError, match="unknown backend"):
         ops.resolve_backend("pallas", "cpu")
 
@@ -336,6 +341,8 @@ def test_cuda_tensors_launch_or_raise_never_the_plain_version(no_toolkit):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         solver_step.cd_gram_sweep(_CudaLike(64, 64), _CudaLike(64),
                                   _CudaLike(64), 0.5, sweeps=2)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        solver_step.prox_step(z, z, b, 0.01, 0.5, 0.6)
     assert sum(ops.plain_counts().values()) == 0
     assert sum(ops.launch_counts().values()) == 0
 
@@ -382,6 +389,22 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(no_toolkit):
     with pytest.raises(TypeError, match="float32"):
         solver_step.cd_gram_sweep(_CudaLike(64, 64, dtype=torch.float64), v,
                                   v, 0.1)
+    # the prox step: z, g and beta_old of one (p,) or (B, p) shape,
+    # float32, contiguous, on z's device
+    z = _CudaLike(3, 64)
+    with pytest.raises(ValueError, match="share one"):
+        solver_step.prox_step(z, _CudaLike(2, 64), z, 0.1, 0.1, 0.1)
+    with pytest.raises(ValueError, match="share one"):
+        solver_step.prox_step(_CudaLike(1, 3, 64), _CudaLike(1, 3, 64),
+                            _CudaLike(1, 3, 64), 0.1, 0.1, 0.1)
+    with pytest.raises(TypeError, match="float32"):
+        solver_step.prox_step(z, _CudaLike(3, 64, dtype=torch.float64), z,
+                            0.1, 0.1, 0.1)
+    with pytest.raises(ValueError, match="beta_old must be contiguous"):
+        solver_step.prox_step(z, z, _CudaLike(3, 64, contiguous=False), 0.1,
+                            0.1, 0.1)
+    with pytest.raises(ValueError, match="is on cpu"):
+        solver_step.prox_step(z, torch.zeros(3, 64), z, 0.1, 0.1, 0.1)
 
 
 def test_kernel_entry_points_get_their_c_signature(monkeypatch):
@@ -392,14 +415,15 @@ def test_kernel_entry_points_get_their_c_signature(monkeypatch):
     fns = {sym: getattr(libc, name) for sym, name in (
         ("edpp_screen_scores_f32", "labs"), ("screen_matvec_f32", "abs"),
         ("fista_step_f32", "llabs"), ("cd_gram_sweep_f32", "atoi"),
-        ("group_screen_scores_f32", "atol"))}
+        ("group_screen_scores_f32", "atol"), ("prox_step_f32", "atoll"))}
     monkeypatch.setattr(build, "load",
                         lambda source: types.SimpleNamespace(**fns))
     for source, sym in (("edpp_screen", "edpp_screen_scores_f32"),
                         ("edpp_screen", "screen_matvec_f32"),
                         ("solver_step", "fista_step_f32"),
                         ("cd_gram", "cd_gram_sweep_f32"),
-                        ("group_screen", "group_screen_scores_f32")):
+                        ("group_screen", "group_screen_scores_f32"),
+                        ("prox_step", "prox_step_f32")):
         fn = edpp_screen.kernel_fn(source, sym)
         assert fn is fns[sym] and fn.restype is ctypes.c_int
         assert fn.argtypes[0] is ctypes.c_void_p
@@ -409,7 +433,7 @@ def test_kernel_entry_points_get_their_c_signature(monkeypatch):
     n_args = {s: len(f.argtypes) for s, f in fns.items()}
     assert n_args == {"edpp_screen_scores_f32": 10, "screen_matvec_f32": 7,
                       "fista_step_f32": 14, "cd_gram_sweep_f32": 11,
-                      "group_screen_scores_f32": 7}
+                      "group_screen_scores_f32": 7, "prox_step_f32": 12}
 
 
 def test_build_command_targets_sm90a_into_the_ignored_directory():
@@ -424,7 +448,7 @@ def test_build_command_targets_sm90a_into_the_ignored_directory():
         assert (build.CSRC / f"{name}.cu").exists()
 
 
-@pytest.mark.parametrize("source", ["cd_gram", "group_screen"])
+@pytest.mark.parametrize("source", ["cd_gram", "group_screen", "prox_step"])
 def test_new_kernel_sources_build_for_sm90a(source):
     """The Gram sweep and the group pass build like the others: their own
     library, for sm_90a, into the ignored build directory."""

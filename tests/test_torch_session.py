@@ -23,6 +23,7 @@ import pytest
 import torch
 
 import repro_torch
+import torch_dist_worker
 from repro.core import LassoSession as JSession
 from repro.core import PathConfig as JConfig
 from repro.core import ScreeningEngine as JEngine
@@ -198,12 +199,18 @@ def test_fit_runs_on_the_card_unless_asked_otherwise():
     assert LassoSession.fit(X, device="cpu").X.device.type == "cpu"
 
 
+def _on_a_mesh(fn):
+    """``fn(mesh)`` under a 1-rank gloo group (torn down after)."""
+    with torch_dist_worker.one_rank() as mesh:
+        return fn(mesh)
+
+
 @pytest.mark.parametrize("what, call, item", [
     ("batch", lambda s, y: s.path(np.stack([y, y])), 6),
     ("group_batch", lambda s, y: LassoSession.fit(
         s.X, groups=2, device="cpu").path(np.stack([y, y])), 6),
-    ("mesh", lambda s, y: LassoSession.fit(s.X, mesh=object(),
-                                           device="cpu"), 13),
+    ("mesh", lambda s, y: _on_a_mesh(lambda mesh: LassoSession.fit(
+        s.X, mesh=mesh, device="cpu").path(np.stack([y, y]))), 6),
     ("group_mesh", lambda s, y: LassoSession.fit(
         s.X, groups=2, mesh=object(), device="cpu"), 13),
     ("gap", lambda s, y: ScreenSpec(rule="gap"), 8),
@@ -245,7 +252,7 @@ def test_package_imports_neither_jax_nor_the_reference():
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
         "for name in ('kernels.group_screen', 'core.group_lasso', "
-        "'core.group_screening'):\n"
+        "'core.group_screening', 'core.distributed'):\n"
         "    assert 'repro_torch.' + name in sys.modules, name\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"

@@ -1,0 +1,171 @@
+"""One rank of a gloo world for tests/test_torch_distributed.py.
+
+``spawn_world(world, mesh_shape, workdir)`` starts ``world`` processes,
+each of which joins a gloo process group through a FileStore under
+``workdir``, builds a CPU DeviceMesh ``("query", "feature")`` of
+``mesh_shape``, runs :func:`compute` on the problem in
+``workdir/inputs.npz`` and, on rank 0, writes the global results to
+``workdir/out_<world>.npz``. The processes are joined with a timeout, so
+a rendezvous that hangs fails its test instead of stalling the suite.
+
+:func:`compute` is also what the tests run in-process at world size 1,
+inside :func:`one_rank`. It imports no JAX: the reference runs in the
+test process only.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import tempfile
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+from torch.distributed.device_mesh import init_device_mesh
+
+from repro_torch import LassoSession, PathConfig, SolveSpec
+from repro_torch.core import distributed as D
+from repro_torch.kernels import ops
+
+JOIN_TIMEOUT_S = 120
+FISTA_ITERS = 100
+STALE_ITERS = 5          # "stale" diverges by design: a few steps only
+PATH_TOL = 1e-6
+GRID = dict(num_lambdas=20, hi_frac=0.95)
+
+
+def compute(mesh, inp) -> dict[str, np.ndarray]:
+    """Every distributed op of the port on ``inp`` (global numpy arrays),
+    gathered back to global arrays: λ_max, ‖Xᵀr‖_∞, the four EDPP screens,
+    the power iteration, FISTA in the three overlap modes and batched,
+    and a mesh session's path; with the launch and plain-version counts
+    of the solver runs."""
+    X, y, Y = inp["X"], inp["y"], inp["Y"]
+    B = Y.shape[0]
+    Xl = D.place_dictionary(mesh, X)
+    yt = D.place_queries(mesh, y)
+    lmd, _, _, sup_d = D.make_dist_ops(mesh)
+    out = {"lambda_max": lmd(Xl, yt),
+           "sup_corr": sup_d(Xl, D.place_queries(mesh, inp["r"]))}
+
+    def feat(a):
+        return D.place_features(mesh, a)
+
+    def rows(a):
+        return D.place_queries(mesh, a, batched=True)
+
+    def whole(a, batched=False):
+        mask = a.dtype == torch.bool        # gloo gathers no bool tensors
+        a = D.gather_features(mesh, a.to(torch.uint8) if mask else a)
+        a = D.gather_queries(mesh, a, B) if batched else a
+        return a.bool() if mask else a
+
+    lam_max, v1max = float(inp["lam_max"]), D.place_queries(mesh, inp["v1"])
+    col_norms = feat(inp["col_norms"])
+    for tag, beta, lam_prev in (("zero", np.zeros_like(inp["beta"]), lam_max),
+                                ("warm", inp["beta"], float(inp["lam_prev"]))):
+        lam_next = float(inp["lam_next"])
+        args = (lam_next, lam_prev, feat(beta), lam_max, v1max)
+        mask, scores = D.dist_edpp_screen(mesh, Xl, yt, *args)
+        out[f"edpp_{tag}"] = whole(scores)
+        out[f"edpp_mask_{tag}"] = whole(mask)
+        scores, mask = D.dist_edpp_screen_cached(mesh, Xl, yt, *args,
+                                                 col_norms)
+        out[f"cached_{tag}"] = whole(scores)
+        out[f"cached_mask_{tag}"] = whole(mask)
+        act = inp["active"]
+        scores, mask = D.dist_edpp_screen_sparse(
+            mesh, Xl, D.place_dictionary(mesh, X[:, act]), yt, lam_next,
+            lam_prev, feat(beta[act]), lam_max, v1max, col_norms)
+        out[f"sparse_{tag}"] = whole(scores)
+        out[f"sparse_mask_{tag}"] = whole(mask)
+
+    Yq = rows(Y)
+    mask, scores = D.dist_edpp_screen_batched(
+        mesh, Xl, Yq, rows(inp["lam_next_b"]), rows(inp["lam_prev_b"]),
+        rows(feat(inp["beta_b"])), rows(inp["lam_max_b"]), rows(inp["v1_b"]),
+        col_norms)
+    out["batched"] = whole(scores, True)
+    out["batched_mask"] = whole(mask, True)
+
+    out["power"] = D.dist_power_iteration(mesh, Xl)
+    L, lam = float(inp["lipschitz"]), 0.3 * lam_max
+    zero = feat(np.zeros(X.shape[1], np.float32))
+    for mode in ("none", "chunked", "stale"):
+        iters = STALE_ITERS if mode == "stale" else FISTA_ITERS
+        ops.reset_counts()
+        out[f"fista_{mode}"] = whole(D.dist_fista(
+            mesh, Xl, yt, lam, zero, L, iters=iters, overlap=mode))
+        out[f"launches_{mode}"] = np.array(
+            [ops.plain_counts()[k] for k in ("fista_step", "prox_step")])
+    out["fista_batched"] = whole(D.dist_fista_batched(
+        mesh, Xl, Yq, rows(inp["lam_b"]), rows(feat(np.zeros(
+            (B, X.shape[1]), np.float32))), L, iters=FISTA_ITERS), True)
+
+    Xs, ys = inp["Xs"], inp["ys"]
+    sess = LassoSession.fit(Xs, mesh=mesh, device="cpu",
+                            config=PathConfig(solve=SolveSpec(tol=PATH_TOL)))
+    res = sess.path(ys, **GRID)
+    out.update(
+        path_lambdas=res.lambdas, path_betas=res.betas, path_masks=res.masks,
+        path_stats=np.array([(s.n_discarded, s.x_passes, s.bucket)
+                             for s in res.stats]),
+        path_fit_passes=np.array(sess.fit_passes),
+        path_backend=np.array(sess.backend_name),
+        path_shape=np.array(sess.shape))
+    try:                                 # a width the mesh cannot split
+        LassoSession.fit(Xs[:, :-1], mesh=mesh, device="cpu")
+        out["indivisible"] = np.array("")
+    except ValueError as e:
+        out["indivisible"] = np.array(str(e))
+    return {k: v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+            for k, v in out.items()}
+
+
+@contextlib.contextmanager
+def one_rank():
+    """A 1-rank gloo process group in this process and its (1, 1) CPU mesh
+    ``("query", "feature")``; the group is torn down on exit, so none
+    outlives its test."""
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+        try:
+            yield init_device_mesh("cpu", (1, 1),
+                                   mesh_dim_names=("query", "feature"))
+        finally:
+            dist.destroy_process_group()
+
+
+def _run(rank: int, world: int, mesh_shape, workdir: str) -> None:
+    torch.set_num_threads(1)
+    store = dist.FileStore(os.path.join(workdir, f"store_{world}"), world)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
+    try:
+        mesh = init_device_mesh("cpu", tuple(mesh_shape),
+                                mesh_dim_names=("query", "feature"))
+        with np.load(os.path.join(workdir, "inputs.npz")) as f:
+            inp = dict(f)
+        out = compute(mesh, inp)
+        if rank == 0:
+            np.savez(os.path.join(workdir, f"out_{world}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_world(world: int, mesh_shape, workdir: str) -> dict:
+    """Run :func:`compute` in a spawned world; its global results."""
+    ctx = mp.start_processes(_run, args=(world, mesh_shape, workdir),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + JOIN_TIMEOUT_S
+    while not ctx.join(timeout=1):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            raise TimeoutError(f"world of {world} ranks did not finish in "
+                               f"{JOIN_TIMEOUT_S} s")
+    with np.load(os.path.join(workdir, f"out_{world}.npz")) as f:
+        return dict(f)
