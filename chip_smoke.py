@@ -18,7 +18,15 @@ Phases, each printing its own lines and seconds:
    (benchmarks/bench_group.py) for m = 5, 10, 20 and a ragged shape; the
    prox step at p = 50 000 for 1 and 8 queries and a ragged p = 1 003 for
    3 queries with per-query parameters; with times (CUDA events, median
-   of 20) beside the byte/flop bound and a torch.matmul yardstick;
+   of 20) beside the byte/flop bound and a torch.matmul yardstick. For
+   the three column-pass kernels each row also prints its launch plan
+   (grid, block, cluster, vector width, staged rows), the registers and
+   spills of the kernel it launches (``-Xptxas -v``), its share of the
+   bound and its ratio to torch.matmul; ``fista_step`` prints the launch
+   floor (a 1-element ``zero_()`` timed the same way) beside it, and is
+   timed at 784 × 32 and 784 × 512 with the rows split over clusters of
+   8, 4, 2 and 1 CTAs, in turns, on zero rows, and per launch in runs of
+   back-to-back launches beside torch.matmul and ``zero_()``;
 4. main path: ``LassoSession.fit(X)`` then ``session.path(y,
    num_lambdas=100)`` with the default config at 784 × 50 000, with
    every kernel launch counter read just after and the plain versions'
@@ -50,6 +58,13 @@ Phases, each printing its own lines and seconds:
 10. summary: one JSON line of per-kernel numbers, then, last,
    ``{"ok": true, "device": {...}}``.
 
+``python3 chip_smoke.py --kernels [--tree DIR]`` runs phases 1 to 3 only
+and prints their rows as one JSON line; with ``--tree`` it imports the
+package (and builds the kernels) of the checkout at DIR instead of this
+one, so that two trees are timed in one call by the same code (the
+plans, registers and cluster comparison print only where that tree has
+them).
+
 ``python3 chip_smoke.py --faults`` runs phases 1 and 2 and then the
 mutation check of phases 6, 8 and 9's ``dist_fista`` check: the sound arm
 and arms whose kernel output is faulted on purpose (``FAULTS``), with
@@ -70,6 +85,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -82,6 +98,7 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 rate outside the tensor cores
 REPS = 20
+RUN = 4          # back-to-back launches timed together (cluster_choice)
 MNIST = (784, 50000)
 SVHN = (3072, 99288)
 GROUP_FULL = (250, 200000, 10)     # bench_group.py --full, n_g = 20 000
@@ -187,6 +204,56 @@ def cd_bound(p: int, B: int, sweeps: int,
     t_bytes = 4.0 * (p * p + vectors) / HBM_BYTES_PER_S * 1e3
     t_ops = 2.0 * B * (sweeps + 1) * p * p / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# The column pass's MODE template argument per op (csrc/colpass.cuh)
+COLPASS_MODE = {"screen_matvec": 0, "edpp_screen_scores": 1, "fista_step": 2}
+
+
+def ptxas_table(logs: dict[str, str]) -> dict[str, tuple[int, int, int]]:
+    """Registers and spill bytes (stores, loads) of every kernel in the
+    build's ``-Xptxas -v`` logs, by mangled name."""
+    table, fn, spills = {}, None, (0, 0)
+    for log in logs.values():
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn, spills = m.group(1), (0, 0)
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                spills = (int(m.group(1)), int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn:
+                table[fn] = (int(m.group(1)), *spills)
+    return table
+
+
+def colpass_ptxas(table: dict, op: str, nb: int, vec: int) -> str:
+    """The registers and spills of the column-pass instantiation that a
+    launch of ``op`` with ``nb`` queries and loads of width ``vec`` runs."""
+    key = (f"colpass_kernelILi{COLPASS_MODE[op]}ELi{nb}"
+           f"ELb{int(vec == 4)}E")
+    hits = [v for k, v in table.items() if key in k]
+    if not hits:
+        return "ptxas n/a (libraries not rebuilt here)"
+    regs, st, ld = hits[0]
+    return f"{regs} registers, spills {st}/{ld} bytes (stores/loads)"
+
+
+def plan_line(kernels, X, B: int, op: str, ptxas: dict) -> str:
+    """The launch plan of a column-pass kernel on X for B queries, with the
+    registers and spills of the kernel it runs; 'n/a' for a tree whose
+    wrappers choose no plan."""
+    plan_for = getattr(kernels.edpp_screen, "plan_for", None)
+    if plan_for is None:
+        return "plan n/a"
+    pl = plan_for(X, min(B, kernels.edpp_screen.MAX_B))
+    return (f"plan grid={pl.grid} block={pl.block} cluster={pl.split} "
+            f"vec={pl.vec} tile={pl.tile} stage_rows={pl.stage_rows} "
+            f"smem={pl.smem} B; "
+            f"{colpass_ptxas(ptxas, op, min(B, 8), pl.vec)}")
 
 
 def check_cd(torch, kernels, ref, p: int, B: int, seed: int,
@@ -634,9 +701,10 @@ def fault_check(torch) -> list[dict]:
 
 
 def check_kernel(torch, kernels, ref, op: str, n: int, p: int, B: int,
-                 seed: int) -> dict:
+                 seed: int, floor_ms: float, ptxas: dict) -> dict:
     """One case: the kernel against its plain version on the same inputs,
-    then their times, the bound and the c @ X yardstick."""
+    then their times, the bound and the c @ X yardstick, with the launch
+    plan and, for fista_step, the launch floor beside it."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rand(*shape):
@@ -672,19 +740,81 @@ def check_kernel(torch, kernels, ref, op: str, n: int, p: int, B: int,
     plain_ms = event_ms(torch, lambda: plain(*args))
     matmul_ms = event_ms(torch, lambda: torch.matmul(c, X))
     bound_ms, bound_by = bound(op, n, p, B)
+    plan = plan_line(kernels, X, B, op, ptxas)
     row = {"op": op, "n": n, "p": p, "B": B, "max_abs_err": err, "tol": tol,
            "ms": ms, "plain_ms": plain_ms, "matmul_ms": matmul_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by}
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "of_bound": bound_ms / ms, "matmul_ratio": ms / matmul_ms,
+           "floor_ms": floor_ms, "plan": plan}
+    floor = (f"; launch floor {floor_ms:.4f} ms ({ms / floor_ms:.2f}x)"
+             if op == "fista_step" else "")
     print(f"  {op:<19} {n}x{p} B={B}: max_abs_err={err:.3g} (tol {tol:.3g}) "
           f"ms={ms:.4f} plain_ms={plain_ms:.4f} matmul_ms={matmul_ms:.4f} "
           f"bound_ms={bound_ms:.4f} ({bound_by}) "
-          f"{bound_ms / ms:.0%} of bound", flush=True)
+          f"{bound_ms / ms:.0%} of bound, {ms / matmul_ms:.2f}x torch.matmul"
+          f"{floor}\n      {plan}", flush=True)
     if not err <= tol:
         raise AssertionError(f"{op} {n}x{p} B={B}: kernel disagrees with its "
                              f"plain version: {err} > {tol}")
     del X, c, args, out_k, out_p
     torch.cuda.empty_cache()
     return row
+
+
+def cluster_choice(torch, kernels, ref, n: int, p: int, B: int,
+                   seed: int) -> dict | None:
+    """fista_step at (n, p, B) with its plan's tiles and the rows split over
+    clusters of 8, 4 and 2 CTAs and over none (``max_split``), timed in
+    turns (8, 4, 2, 1, 1, 2, 4, 8) on the same inputs, each held against
+    the plain version (2e-5 of scale); each plan on no rows, its fixed
+    cost; and, per launch, runs of RUN back-to-back launches of the plan,
+    of ``torch.matmul(r, X)`` and of a 1-element ``zero_()`` (a loop's
+    cost, which a single timed launch overstates). None for a tree whose
+    wrappers choose no plan."""
+    es = kernels.edpp_screen
+    if not hasattr(es, "launch_plan"):
+        return None
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lead = () if B == 1 else (B,)
+    X = torch.randn(n, p, generator=g, device="cuda")
+    r, z, bo = (torch.randn(*lead, k, generator=g, device="cuda")
+                for k in (n, p, p))
+    args = (X, r, z, bo, 1.0 / (n + p), 0.7, 0.6)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = {k: es.launch_plan(n, p, B, sms, X.data_ptr() % 16 == 0,
+                               max_split=k) for k in (8, 4, 2, 1)}
+    want = ref.fista_step_ref(*args)
+    tol = 2e-5 * max(1.0, max(float(w.abs().max()) for w in want))
+    times = {k: [] for k in plans}
+    for k in (8, 4, 2, 1, 1, 2, 4, 8):
+        out = kernels.fista_step(*args, plan=plans[k])
+        err = max(float((a - w).abs().max()) for a, w in zip(out, want))
+        assert err <= tol, (k, err, tol)
+        times[k].append(event_ms(
+            torch, lambda: kernels.fista_step(*args, plan=plans[k])))
+    # the fixed cost of each launch: the same plan on no rows (no loads,
+    # no FMAs; the barriers, the cluster's sums and the epilogue remain)
+    fixed = {k: event_ms(torch, lambda: kernels.fista_step(
+        X[:0], r[..., :0], z, bo, 1.0 / (n + p), 0.7, 0.6,
+        plan=plans[k]._replace(stage_rows=1))) for k in plans}
+    # what a loop pays: ms per launch in a run of RUN back-to-back launches
+    one = torch.zeros(1, device="cuda")
+    run = {name: event_ms(torch, lambda: [fn() for _ in range(RUN)]) / RUN
+           for name, fn in (("fista_step", lambda: kernels.fista_step(*args)),
+                            ("torch.matmul", lambda: torch.matmul(r, X)),
+                            ("zero_", lambda: one.zero_()))}
+    chosen = es.plan_for(X, B).split
+    print(f"  fista_step {n}x{p} B={B}, ms by cluster size (turns 8, 4, 2, "
+          f"1, 1, 2, 4, 8; the plan takes {chosen}): "
+          + "; ".join(f"{plans[k].split}: {times[k][0]:.4f} / "
+                      f"{times[k][1]:.4f} (0 rows: {fixed[k]:.4f})"
+                      for k in plans)
+          + f"; ms per launch in runs of {RUN}: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in run.items()), flush=True)
+    return {"n": n, "p": p, "B": B, "chosen": chosen,
+            "ms": {plans[k].split: times[k] for k in plans},
+            "zero_rows_ms": {plans[k].split: fixed[k] for k in plans},
+            "ms_per_launch_in_a_run": run}
 
 
 def distributed_phase(torch, X, y) -> dict:
@@ -839,8 +969,13 @@ def distributed_phase(torch, X, y) -> dict:
 
 
 def main(argv: list[str]) -> int:
-    if argv not in ([], ["--faults"]):
-        print("usage: python3 chip_smoke.py [--faults]", file=sys.stderr)
+    tree = None
+    if len(argv) == 3 and argv[:2] == ["--kernels", "--tree"]:
+        tree, argv = os.path.abspath(argv[2]), ["--kernels"]
+        sys.path.insert(0, os.path.join(tree, "src"))
+    if argv not in ([], ["--faults"], ["--kernels"]):
+        print("usage: python3 chip_smoke.py [--faults | --kernels "
+              "[--tree DIR]]", file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -872,12 +1007,13 @@ def main(argv: list[str]) -> int:
         logs = build.build_all()
         print(f"nvcc build of {sorted(logs)}: "
               f"{time.perf_counter() - t0:.2f} s")
-        for name, log in logs.items():       # ptxas -v, one line per kernel
-            regs = sorted({line.split("ptxas info    :")[-1].strip()
-                           for line in log.splitlines() if "registers" in line})
-            spills = sorted({line.strip() for line in log.splitlines()
-                             if "spill" in line})
-            print(f"  {name}: {regs}; {spills}")
+        ptxas = ptxas_table(logs)
+        for name, log in logs.items():       # ptxas -v, per library
+            t = ptxas_table({name: log})
+            regs = sorted({v[0] for v in t.values()})
+            spill = sum(v[1] + v[2] for v in t.values())
+            print(f"  {name}: {len(t)} kernels, registers {regs}, spill "
+                  f"bytes {spill}")
 
     if argv == ["--faults"]:
         with phase("fault check of the CD, group and dist_fista checks"):
@@ -886,16 +1022,25 @@ def main(argv: list[str]) -> int:
 
     rows = {}
     with phase("kernels against their plain versions"):
+        one = torch.zeros(1, device="cuda")
+        floor_ms = event_ms(torch, lambda: one.zero_())
+        print(f"  launch floor (1-element zero_(), CUDA events, median of "
+              f"{REPS}): {floor_ms:.4f} ms", flush=True)
         cases = [(op, *MNIST, B) for op in ("edpp_screen_scores",
                                             "screen_matvec") for B in (1, 8)]
         cases += [(op, *SVHN, 1) for op in ("edpp_screen_scores",
                                             "screen_matvec")]
         cases += [("fista_step", 784, p, B) for p in (32, 512, 4096)
                   for B in (1, 8)]
+        cases += [("fista_step", *MNIST, 1)]          # the unscreened arm
         cases += [(op, 777, 1001, 3) for op in ("edpp_screen_scores",
                                                 "screen_matvec", "fista_step")]
         for i, case in enumerate(cases):
-            rows[case] = check_kernel(torch, kernels, ref, *case, seed=i)
+            rows[case] = check_kernel(torch, kernels, ref, *case, seed=i,
+                                      floor_ms=floor_ms, ptxas=ptxas)
+        choices = [cluster_choice(torch, kernels, ref, 784, pp, B,
+                                  seed=90 + B) for pp in (32, 512)
+                   for B in (1, 8)]
         for i, (bp, B) in enumerate([(b, B) for b in (32, 256, 1024)
                                      for B in (1, 8)]):
             rows[("cd", bp, B)] = check_cd(torch, kernels, ref, bp, B,
@@ -913,6 +1058,16 @@ def main(argv: list[str]) -> int:
                                                 (1003, 3, True)]):
             rows[("prox", pp, B)] = check_prox(torch, kernels.prox_step, ref,
                                                pp, B, per_query, seed=140 + i)
+        floor_end = event_ms(torch, lambda: one.zero_())
+        print(f"  launch floor again: {floor_end:.4f} ms", flush=True)
+
+    if argv == ["--kernels"]:
+        print(json.dumps({"tree": tree or HERE, "launch_floor_ms":
+                          [floor_ms, floor_end], "cluster": choices,
+                          "rows": [dict(r, key=str(k))
+                                   for k, r in rows.items()]}))
+        print(smi)
+        return 0
 
     X, y = make_dataset(*MNIST)
     n, p = MNIST
@@ -1079,7 +1234,8 @@ def main(argv: list[str]) -> int:
     with phase(f"kernels at the paths' shapes (fista bucket {main_bucket}, "
                f"cd bucket {cd_bucket})"):
         rows["main_fista"] = check_kernel(torch, kernels, ref, "fista_step",
-                                          n, main_bucket, 1, seed=99)
+                                          n, main_bucket, 1, seed=99,
+                                          floor_ms=floor_ms, ptxas=ptxas)
         rows["main_cd"] = check_cd(torch, kernels, ref, cd_bucket, 1,
                                    seed=98)
     main_launches.update(cd_gram_sweep=cd_launches["cd_gram_sweep"],

@@ -11,30 +11,74 @@
 //           out0[b, j] = S(u, step_b * lam_b)                       (beta')
 //           out1[b, j] = out0 + mom_b * (out0 - beta_old[b, j])     (z')
 //
-// Layout: a block owns TILE_P consecutive columns (threadIdx.x) and all n
-// rows, split over blockDim.y row phases. A warp is 32 threads of one row
-// phase on 32 consecutive columns, so every row read is one coalesced
-// 128-byte segment. The centre rows C[:, i0:i0+CHUNK_N] are staged in
-// shared memory and read back as broadcasts. Each thread keeps NB dot
-// partials (and the sum of squares) in registers; the row phases are then
-// summed through shared memory in a fixed order, so results do not change
-// from run to run. Columns past p are masked; a zero row or a zero column
+// What bounds it. The pass reads X once and writes each output once; for
+// B <= 8 it does at most 2*B flops per 4-byte element of X, far below the
+// card's flop/byte balance. On the wide screens (784 x 50 000: 157 MB) it
+// is bound by the bytes of X at 3.35 TB/s. On the solver's narrow buckets
+// (784 x 32: 100 KB, resident in L2 across iterations) it is bound by
+// latency: the launch, one round trip to L2 and the reductions.
+//
+// Layout (a Plan, chosen on the host by launch_plan in edpp_screen.py):
+// every CTA has 256 threads (8 warps) and owns `tile` consecutive columns
+// and a contiguous range of rows. Each lane owns 4 adjacent columns:
+//   tile 128  32 lanes on one row, a warp reads 512 contiguous bytes of it
+//             (the wide pass: p / 128 tiles already fill the card);
+//   tile 32   8 lanes on a row, 4 rows per warp step (the narrow pass,
+//             where a 32-lane row would leave 24 lanes idle).
+// vec = 4 loads the 4 columns as one float4 (p % 4 == 0 and X 16-byte
+// aligned), streamed past L1; vec = 1 loads them as 4 scalars. Both sum in
+// the same order, so the choice never changes a bit of the result.
+//
+// Rows: within a CTA, warp w and row group g take rows w*R + g, + 8R, ...
+// (R rows per warp step). A thread issues U row loads (8 for B <= 4, else
+// 4) before their FMAs, and its first batch before the centre is staged.
+// The CTA's centre rows are staged in shared memory once when they fit
+// the 96 KB budget, else in stages of `stage_rows` with two barriers
+// between stages; nothing else stops the streaming loop. Where the column
+// tiles alone would leave SMs idle, `split` CTAs of one tile (a
+// thread-block cluster, split <= 8) each take n / split rows, and each
+// runs the epilogue for tile / split of the columns: the others write
+// their sums for those columns into its shared memory (distributed shared
+// memory), and one cluster barrier later it adds them in rank order; no
+// CTA reads another's memory. Partials are folded by warp shuffles, then
+// over the 8 warps through shared memory, then over the ranks, each in a
+// fixed order and without atomics: two launches on the same inputs give
+// the same bits. Columns past p are masked; a zero row or a zero column
 // of X adds exactly nothing.
 //
-// The kernel reads X once and writes each output once: for the main
-// path's B <= 8 it does at most 2*B flops per 4-byte element of X, far
-// below the card's flop/byte balance, so it is bound by the bytes of X.
+// Measured (chip_smoke.py --kernels, NVIDIA H100 80GB HBM3, 700.00 W; the
+// rest in PERF.md section 6): MATVEC at 784 x 50 000, B = 1, 0.0567 ms,
+// 83 % of its byte bound (torch.matmul(c, X) 0.0587 ms in the same run);
+// at 3072 x 99 288, 0.401 ms, 91 %. FISTA at 784 x 32, B = 1, on a
+// cluster of 4: 0.0078 ms, where a 1-element zero_() takes 0.0050 ms and
+// the same launch on zero rows 0.0070 ms: the launch and the cluster's
+// barriers, not the rows, set its time.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace colpass {
 
-constexpr int TILE_P = 32;   // columns per block: one warp-wide segment
-constexpr int CHUNK_N = 128; // centre rows staged in shared memory per step
-constexpr int MAX_B = 8;     // queries per launch; the wrapper splits more
+namespace cg = cooperative_groups;
+
+constexpr int WARPS = 8;                 // warps per CTA, every launch
+constexpr int THREADS = 32 * WARPS;
+constexpr int MAX_B = 8;                 // queries per launch; the wrapper splits more
+constexpr int MAX_SPLIT = 8;             // portable cluster size
+constexpr size_t MAX_SMEM = 232448;      // 227 KB: the opt-in limit of sm_90
+constexpr size_t DEFAULT_SMEM = 49152;   // above this a kernel must opt in
 
 enum Mode { MATVEC = 0, SCORES = 1, FISTA = 2 };
+
+struct Plan {
+  int vec;         // 4: one float4 load per lane and row; 1: four scalar loads
+  int tile;        // columns per CTA: 32 or 128
+  int split;       // CTAs per column tile (the cluster), each on its own rows
+  int stage_rows;  // centre rows staged in shared memory at a time
+};
 
 // Per-query parameters: `params` is null (then the scalars s0..s2 hold for
 // every query) or a device array (3, B) row-major: rho | step, lam, mom.
@@ -47,127 +91,356 @@ struct Epilogue {
   float* out1;            // SCORES: (p,); FISTA: (B, p)
 };
 
+// Shared memory, in floats: the staged centre [NB][stage_rows] (rounded
+// up to 16 bytes) and the warps' partials [WARPS][NB + 1][tile]. Without a
+// cluster the partials reuse the centre's space once the stream is done;
+// with one they have their own, followed by the inbox [split][NB + 1]
+// [tile / split] that the cluster's CTAs write their sums into.
+__host__ __device__ inline size_t centre_floats(const Plan& pl, int nb) {
+  return ((size_t)nb * pl.stage_rows + 3) / 4 * 4;
+}
+
+__host__ __device__ inline size_t red_floats(const Plan& pl, int nb) {
+  return (size_t)WARPS * (nb + 1) * pl.tile;
+}
+
+__host__ __device__ inline size_t smem_bytes(const Plan& pl, int nb) {
+  const size_t c = centre_floats(pl, nb), r = red_floats(pl, nb);
+  const size_t floats =
+      pl.split == 1 ? (c > r ? c : r) : c + r + (size_t)(nb + 1) * pl.tile;
+  return floats * sizeof(float);
+}
+
+// The cluster barrier in its two halves: `arrive` (release; relaxed for
+// the first, which orders nothing) and `wait` (acquire).
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
 __device__ __forceinline__ float param(const Epilogue& ep, int row, int b,
                                        int nb, float fallback) {
   return ep.params ? ep.params[row * nb + b] : fallback;
 }
 
-template <int MODE, int NB>
-__global__ void __launch_bounds__(1024)
-colpass_kernel(const float* __restrict__ X, const float* __restrict__ C,
-               int n, int p, Epilogue ep) {
-  extern __shared__ float smem[];
-  float* c_s = smem;                     // [NB][CHUNK_N]
-  float* red = smem + NB * CHUNK_N;      // [blockDim.y][NB + 1][TILE_P]
+// The lane's 4 columns of one row; `xc` points at X[row, col].
+template <bool VEC>
+__device__ __forceinline__ float4 load4(const float* __restrict__ xc, int col,
+                                        int p) {
+  if (VEC) {  // read-only, and not kept in L1: no other lane reads it
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (col < p)
+      asm volatile("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];"
+                   : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+                   : "l"(xc));
+    return v;
+  }
+  float4 v;
+  v.x = col < p ? __ldg(xc) : 0.f;
+  v.y = col + 1 < p ? __ldg(xc + 1) : 0.f;
+  v.z = col + 2 < p ? __ldg(xc + 2) : 0.f;
+  v.w = col + 3 < p ? __ldg(xc + 3) : 0.f;
+  return v;
+}
 
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int ry = blockDim.y;
-  const int tid = ty * TILE_P + tx;
-  const int nthreads = ry * TILE_P;
-  const int col = blockIdx.x * TILE_P + tx;
-  const bool live = col < p;
-
-  float acc[NB];
+// Rows i, i + stride, ... of the stage that starts at row s0 (rows of it).
+template <bool VEC, int U>
+__device__ __forceinline__ void load_batch(float4 (&v)[U],
+                                           const float* __restrict__ xc,
+                                           int col, int p, int s0, int i,
+                                           int rows, int stride) {
 #pragma unroll
-  for (int b = 0; b < NB; ++b) acc[b] = 0.f;
-  float ss = 0.f;
+  for (int u = 0; u < U; ++u) {
+    const int r = i + u * stride;
+    v[u] = r < rows ? load4<VEC>(xc + (size_t)(s0 + r) * p, col, p)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
 
-  for (int i0 = 0; i0 < n; i0 += CHUNK_N) {
-    const int rows = min(CHUNK_N, n - i0);
-    __syncthreads();  // the previous chunk is fully consumed
-    for (int e = tid; e < NB * CHUNK_N; e += nthreads) {
-      const int b = e / CHUNK_N;
-      const int i = e - b * CHUNK_N;
-      c_s[e] = i < rows ? C[(size_t)b * n + i0 + i] : 0.f;
-    }
-    __syncthreads();
-    if (live) {
-      const float* xp = X + (size_t)i0 * p + col;
-#pragma unroll 4
-      for (int i = ty; i < rows; i += ry) {
-        const float x = __ldg(xp + (size_t)i * p);
-        if (MODE == SCORES) ss = fmaf(x, x, ss);
+template <int MODE, int NB, int U>
+__device__ __forceinline__ void fma_batch(const float4 (&v)[U],
+                                          const float* c_s, int ld, int i,
+                                          int rows, int stride,
+                                          float (&acc)[NB][4],
+                                          float (&ss)[4]) {
 #pragma unroll
-        for (int b = 0; b < NB; ++b) acc[b] = fmaf(c_s[b * CHUNK_N + i], x, acc[b]);
+  for (int u = 0; u < U; ++u) {
+    const int r = i + u * stride;
+    if (r < rows) {
+      const float x[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+      if (MODE == SCORES) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) ss[k] = fmaf(x[k], x[k], ss[k]);
+      }
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        const float c = c_s[b * ld + r];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[b][k] = fmaf(c, x[k], acc[b][k]);
       }
     }
   }
+}
 
-#pragma unroll
-  for (int b = 0; b < NB; ++b) red[(ty * (NB + 1) + b) * TILE_P + tx] = acc[b];
-  red[(ty * (NB + 1) + NB) * TILE_P + tx] = ss;
-  __syncthreads();
-  if (ty != 0 || !live) return;
-
-  float sq = 0.f;
-  if (MODE == SCORES) {
-    for (int y = 0; y < ry; ++y) sq += red[(y * (NB + 1) + NB) * TILE_P + tx];
-    ep.out1[col] = sq;
-  }
-#pragma unroll
-  for (int b = 0; b < NB; ++b) {
-    float d = 0.f;
-    for (int y = 0; y < ry; ++y) d += red[(y * (NB + 1) + b) * TILE_P + tx];
-    const size_t o = (size_t)b * p + col;
-    if (MODE == MATVEC) {
-      ep.out0[o] = d;
-    } else if (MODE == SCORES) {
-      ep.out0[o] = fabsf(d) + param(ep, 0, b, NB, ep.s0) * sqrtf(sq);
-    } else {
-      const float step = param(ep, 0, b, NB, ep.s0);
-      const float lam = param(ep, 1, b, NB, ep.s1);
-      const float mom = param(ep, 2, b, NB, ep.s2);
-      const float u = ep.z[o] - step * d;
-      const float m = fmaxf(fabsf(u) - step * lam, 0.f);
-      const float beta = u > 0.f ? m : (u < 0.f ? -m : 0.f);
-      ep.out0[o] = beta;
-      ep.out1[o] = beta + mom * (beta - ep.beta_old[o]);
+// c_s[b * ld + i] = C[b, s0 + i] for i < rows: float4 copies when the rows
+// are 16-byte aligned, else scalar ones.
+template <int NB>
+__device__ __forceinline__ void stage_centre(const float* __restrict__ C,
+                                             int n, int s0, int rows, int ld,
+                                             float* c_s) {
+  const bool v4 = ((reinterpret_cast<uintptr_t>(C + s0) & 15u) == 0) &&
+                  n % 4 == 0 && rows % 4 == 0 && ld % 4 == 0;
+  if (v4) {
+    const int q = rows / 4;
+#pragma unroll 4
+    for (int e = threadIdx.x; e < NB * q; e += THREADS) {
+      const int b = e / q, i = e - b * q;
+      reinterpret_cast<float4*>(c_s + b * ld)[i] =
+          __ldg(reinterpret_cast<const float4*>(C + (size_t)b * n + s0) + i);
+    }
+  } else {
+#pragma unroll 4
+    for (int e = threadIdx.x; e < NB * rows; e += THREADS) {
+      const int b = e / rows, i = e - b * rows;
+      c_s[b * ld + i] = __ldg(C + (size_t)b * n + s0 + i);
     }
   }
 }
 
+// The epilogue of one output column j of query b, given its dot d (and,
+// for SCORES, its sum of squares sq). FISTA reads z and beta_old there,
+// or takes them as fetched before the pass (`pre`).
 template <int MODE, int NB>
-int run(const float* X, const float* C, int n, int p, const Epilogue& ep,
-        int ry, cudaStream_t stream) {
-  const dim3 block(TILE_P, ry);
-  const dim3 grid((p + TILE_P - 1) / TILE_P);
-  const size_t smem = (size_t)(NB * CHUNK_N + ry * (NB + 1) * TILE_P) * sizeof(float);
-  colpass_kernel<MODE, NB><<<grid, block, smem, stream>>>(X, C, n, p, ep);
-  return (int)cudaGetLastError();
-}
-
-// Row phases per block: 32 when the blocks alone cannot fill two waves of
-// the card's SMs (the narrow reduced buckets of the solver), else 8 (the
-// wide screening passes, where the grid already fills it).
-inline int row_phases_for_blocks(int blocks) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      sms = 132;
+__device__ __forceinline__ void finish(const Epilogue& ep, int p, int b,
+                                       int j, float d, float sq, bool pre,
+                                       float z_pre, float bo_pre) {
+  const size_t o = (size_t)b * p + j;
+  if (MODE == MATVEC) {
+    ep.out0[o] = d;
+  } else if (MODE == SCORES) {
+    ep.out0[o] = fabsf(d) + param(ep, 0, b, NB, ep.s0) * sqrtf(sq);
+    if (b == 0) ep.out1[j] = sq;
+  } else {
+    const float step = param(ep, 0, b, NB, ep.s0);
+    const float lam = param(ep, 1, b, NB, ep.s1);
+    const float mom = param(ep, 2, b, NB, ep.s2);
+    const float zv = pre ? z_pre : ep.z[o];
+    const float bo = pre ? bo_pre : ep.beta_old[o];
+    const float u = zv - step * d;
+    const float m = fmaxf(fabsf(u) - step * lam, 0.f);
+    const float beta = u > 0.f ? m : (u < 0.f ? -m : 0.f);
+    ep.out0[o] = beta;
+    ep.out1[o] = beta + mom * (beta - bo);
   }
-  return blocks < 2 * sms ? 32 : 8;
 }
 
-inline int row_phases(int p) { return row_phases_for_blocks((p + TILE_P - 1) / TILE_P); }
+// Registers: at most 128 a thread (two CTAs an SM); the single-query
+// float4 pass, the wide screens' case, at most 80 (three CTAs an SM, so
+// that 391 tiles of 784 x 50 000 run in one wave on 132 SMs).
+template <int MODE, int NB, bool VEC>
+__global__ void __launch_bounds__(THREADS, VEC && NB == 1 ? 3 : 2)
+colpass_kernel(const float* __restrict__ X, const float* __restrict__ C,
+               int n, int p, Plan pl, Epilogue ep) {
+  constexpr int U = NB <= 4 ? 8 : 4;  // row loads in flight per thread
+  constexpr int NS = MODE == SCORES ? NB + 1 : NB;  // sums per column
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  const int tile = pl.tile, ld = pl.stage_rows, split = pl.split;
+  float* const c_s = smem;                                // [NB][ld]
+  float* const red = split == 1 ? smem : smem + centre_floats(pl, NB);
+  float* const inbox = red + red_floats(pl, NB);          // [split][NB + 1][cols]
 
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int lpr = tile >> 2;                  // lanes per row: 8 or 32
+  const int rpw = 32 / lpr;                   // rows per warp step: 4 or 1
+  const int stride = WARPS * rpw;             // rows per CTA step
+  const int rowoff = warp * rpw + lane / lpr;
+  const int cl = 4 * (lane % lpr);            // the lane's first column in the tile
+  const int col0 = blockIdx.x * tile;
+  const int col = col0 + cl;
+  const int rank = blockIdx.y;                // rank in the cluster
+  const int r0 = (int)((long long)n * rank / split);
+  const int r1 = (int)((long long)n * (rank + 1) / split);
+  const int cols = tile / split;              // this CTA's share of the epilogue
+  const int c_lo = rank * cols;
+  if (split > 1) cluster_arrive_relaxed();    // this CTA has started
+
+  // FISTA: z and beta_old of the thread's first epilogue element, fetched
+  // now so that their latency hides under the pass.
+  float z_pre = 0.f, bo_pre = 0.f;
+  if (MODE == FISTA && tid < NB * cols) {
+    const int j = col0 + c_lo + tid % cols;
+    if (j < p) {
+      const size_t o = (size_t)(tid / cols) * p + j;
+      z_pre = __ldg(ep.z + o);
+      bo_pre = __ldg(ep.beta_old + o);
+    }
+  }
+
+  float acc[NB][4], ss[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    ss[k] = 0.f;
+#pragma unroll
+    for (int b = 0; b < NB; ++b) acc[b][k] = 0.f;
+  }
+
+  const float* const xc = X + col;
+  float4 v[U];
+  int s0 = r0;
+  int rows = min(ld, r1 - s0);
+  load_batch<VEC, U>(v, xc, col, p, s0, rowoff, rows, stride);
+  stage_centre<NB>(C, n, s0, rows, ld, c_s);
+  __syncthreads();
+  for (;;) {
+    for (int i = rowoff;;) {
+      fma_batch<MODE, NB, U>(v, c_s, ld, i, rows, stride, acc, ss);
+      i += U * stride;
+      if (i >= rows) break;
+      load_batch<VEC, U>(v, xc, col, p, s0, i, rows, stride);
+    }
+    s0 += ld;
+    if (s0 >= r1) break;
+    rows = min(ld, r1 - s0);
+    load_batch<VEC, U>(v, xc, col, p, s0, rowoff, rows, stride);
+    __syncthreads();  // every warp is done with the previous stage
+    stage_centre<NB>(C, n, s0, rows, ld, c_s);
+    __syncthreads();
+  }
+
+  // Lanes lane ^ lpr, lane ^ 2 lpr, ... hold the same columns: fold them.
+  for (int off = lpr; off < 32; off <<= 1) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (MODE == SCORES) ss[k] += __shfl_xor_sync(0xffffffffu, ss[k], off);
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+        acc[b][k] += __shfl_xor_sync(0xffffffffu, acc[b][k], off);
+    }
+  }
+  if (split == 1) __syncthreads();  // the centre is consumed: red overlays it
+  if (lane < lpr) {
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+      *reinterpret_cast<float4*>(red + (warp * (NB + 1) + b) * tile + cl) =
+          make_float4(acc[b][0], acc[b][1], acc[b][2], acc[b][3]);
+    if (MODE == SCORES)
+      *reinterpret_cast<float4*>(red + (warp * (NB + 1) + NB) * tile + cl) =
+          make_float4(ss[0], ss[1], ss[2], ss[3]);
+  }
+  __syncthreads();
+
+  if (split == 1) {
+    for (int e = tid; e < NB * tile; e += THREADS) {
+      const int b = e / tile, c = e % tile, j = col0 + c;
+      if (j >= p) continue;
+      float d = 0.f, sq = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) {  // warps in order
+        d += red[(w * (NB + 1) + b) * tile + c];
+        if (MODE == SCORES) sq += red[(w * (NB + 1) + NB) * tile + c];
+      }
+      finish<MODE, NB>(ep, p, b, j, d, sq, e == tid, z_pre, bo_pre);
+    }
+    return;
+  }
+
+  // The cluster: each CTA sums its warps and writes the sums of column c
+  // into the inbox of the CTA that owns c, slot [rank].
+  cluster_wait();  // every CTA of the cluster has started
+  cg::cluster_group cluster = cg::this_cluster();
+  for (int e = tid; e < NS * tile; e += THREADS) {
+    const int slot = e / tile, c = e % tile, owner = c / cols;
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) s += red[(w * (NB + 1) + slot) * tile + c];
+    cluster.map_shared_rank(inbox, owner)[(rank * (NB + 1) + slot) * cols +
+                                          c - owner * cols] = s;
+  }
+  cluster_arrive();  // release: the sums are written
+  cluster_wait();    // acquire: every rank's sums have arrived
+  for (int e = tid; e < NB * cols; e += THREADS) {
+    const int b = e / cols, c = e % cols, j = col0 + c_lo + c;
+    if (j >= p) continue;
+    float d = 0.f, sq = 0.f;
+#pragma unroll 8
+    for (int q = 0; q < split; ++q) {  // ranks in order
+      d += inbox[(q * (NB + 1) + b) * cols + c];
+      if (MODE == SCORES) sq += inbox[(q * (NB + 1) + NB) * cols + c];
+    }
+    finish<MODE, NB>(ep, p, b, j, d, sq, e == tid, z_pre, bo_pre);
+  }
+}
+
+inline bool aligned16(const void* ptr) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
+}
+
+inline bool plan_ok(const Plan& pl) {
+  return (pl.vec == 1 || pl.vec == 4) && (pl.tile == 32 || pl.tile == 128) &&
+         pl.split >= 1 && pl.split <= MAX_SPLIT &&
+         (pl.split & (pl.split - 1)) == 0 && pl.stage_rows >= 1;
+}
+
+template <int MODE, int NB, bool VEC>
+int run(const float* X, const float* C, int n, int p, const Plan& pl,
+        const Epilogue& ep, cudaStream_t stream) {
+  const auto kernel = colpass_kernel<MODE, NB, VEC>;
+  const size_t smem = smem_bytes(pl, NB);
+  if (smem > DEFAULT_SMEM) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = pl.split;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((p + pl.tile - 1) / pl.tile, pl.split);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = pl.split > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, X, C, n, p, pl, ep);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+template <int MODE, bool VEC>
+int run_b(const float* X, const float* C, int n, int p, int B,
+          const Plan& pl, const Epilogue& ep, cudaStream_t stream) {
+  switch (B) {
+    case 1: return run<MODE, 1, VEC>(X, C, n, p, pl, ep, stream);
+    case 2: return run<MODE, 2, VEC>(X, C, n, p, pl, ep, stream);
+    case 3: return run<MODE, 3, VEC>(X, C, n, p, pl, ep, stream);
+    case 4: return run<MODE, 4, VEC>(X, C, n, p, pl, ep, stream);
+    case 5: return run<MODE, 5, VEC>(X, C, n, p, pl, ep, stream);
+    case 6: return run<MODE, 6, VEC>(X, C, n, p, pl, ep, stream);
+    case 7: return run<MODE, 7, VEC>(X, C, n, p, pl, ep, stream);
+    default: return run<MODE, 8, VEC>(X, C, n, p, pl, ep, stream);
+  }
+}
+
+// Refuses a plan it cannot run (cudaErrorInvalidValue) and the float4 path
+// on a p or an X that is not 16-byte aligned (cudaErrorMisalignedAddress);
+// it never changes the plan it was given.
 template <int MODE>
 int launch(const float* X, const float* C, int n, int p, int B,
-           const Epilogue& ep, cudaStream_t stream) {
-  if (n < 0 || p < 1 || B < 1 || B > MAX_B) return (int)cudaErrorInvalidValue;
-  const int ry = row_phases(p);
-  switch (B) {
-    case 1: return run<MODE, 1>(X, C, n, p, ep, ry, stream);
-    case 2: return run<MODE, 2>(X, C, n, p, ep, ry, stream);
-    case 3: return run<MODE, 3>(X, C, n, p, ep, ry, stream);
-    case 4: return run<MODE, 4>(X, C, n, p, ep, ry, stream);
-    case 5: return run<MODE, 5>(X, C, n, p, ep, ry, stream);
-    case 6: return run<MODE, 6>(X, C, n, p, ep, ry, stream);
-    case 7: return run<MODE, 7>(X, C, n, p, ep, ry, stream);
-    default: return run<MODE, 8>(X, C, n, p, ep, ry, stream);
-  }
+           const Plan& pl, const Epilogue& ep, cudaStream_t stream) {
+  if (n < 0 || p < 1 || B < 1 || B > MAX_B || !plan_ok(pl) ||
+      smem_bytes(pl, B) > MAX_SMEM)
+    return (int)cudaErrorInvalidValue;
+  if (pl.vec == 4 && (p % 4 != 0 || !aligned16(X)))
+    return (int)cudaErrorMisalignedAddress;
+  return pl.vec == 4 ? run_b<MODE, true>(X, C, n, p, B, pl, ep, stream)
+                     : run_b<MODE, false>(X, C, n, p, B, pl, ep, stream);
 }
 
 }  // namespace colpass

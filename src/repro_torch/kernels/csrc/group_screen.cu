@@ -9,9 +9,9 @@
 // What bounds it: it reads X once (n*p*4 bytes) for 2 flops per element, so
 // it is bound by the bytes of X, as the column passes of colpass.cuh are.
 //
-// Design: the column-pass layout of colpass.cuh (32 lanes on 32 consecutive
-// columns, blockDim.y row phases, the centre staged in shared memory in
-// CHUNK_N-row pieces, row phases summed in a fixed order), with a block's
+// Design: a column pass of its own (32 lanes on 32 consecutive columns,
+// blockDim.y row phases, the centre staged in shared memory in CHUNK_N-row
+// pieces, row phases summed in a fixed order), with a block's
 // columns cut on group boundaries: a block owns gpb whole groups, gpb*m
 // columns, walked 32 at a time. gpb = 32 / gcd(m, 32) makes the tile
 // lcm(m, 32) columns wide (160 for m = 5, 10, 20), so every 32-column step
@@ -20,13 +20,26 @@
 // column's dot, and lane g adds the squares of its group's columns in
 // column order; the lane's running sum is the group's. Only the p/m group
 // scores reach device memory: the p dots stay in registers and shared memory.
-#include "colpass.cuh"
+#include <cuda_runtime.h>
 
 namespace {
 
-constexpr int LANES = colpass::TILE_P;
-constexpr int CHUNK_N = colpass::CHUNK_N;
+constexpr int LANES = 32;     // columns per step: one warp-wide segment
+constexpr int CHUNK_N = 128;  // centre rows staged in shared memory per step
 constexpr int MAX_RY = 32;
+
+// Row phases per block: 32 when the blocks alone cannot fill two waves of
+// the card's SMs, else 8.
+int row_phases_for_blocks(int blocks) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 132;
+  }
+  return blocks < 2 * sms ? 32 : 8;
+}
 
 __global__ void __launch_bounds__(LANES * MAX_RY)
 group_scores_kernel(const float* __restrict__ X, const float* __restrict__ c,
@@ -101,7 +114,7 @@ extern "C" int group_screen_scores_f32(const float* X, const float* c, int n,
   int gpb = LANES / gcd(m, LANES);
   if ((long long)gpb * m > 1024) gpb = m >= 1024 ? 1 : 1024 / m;
   const int blocks = (p / m + gpb - 1) / gpb;
-  const dim3 block(LANES, colpass::row_phases_for_blocks(blocks));
+  const dim3 block(LANES, row_phases_for_blocks(blocks));
   group_scores_kernel<<<blocks, block, 0, static_cast<cudaStream_t>(stream)>>>(
       X, c, n, p, m, gpb, gscores);
   return (int)cudaGetLastError();

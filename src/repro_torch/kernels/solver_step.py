@@ -17,12 +17,25 @@ needs no host sync per iteration. A CPU X takes the plain version of
 contiguous) or raises.
 
 Bound on an H100: one read of the reduced bucket X (n·b·4 bytes) plus
-4·B·b·4 bytes of vectors, 2·B flops per element of X, so it is bound by
-bytes. The solver's buckets are narrow (32 to a few thousand columns of
-n = 784 rows): with 32 columns per block that is 1 to ~128 blocks, so the
-launch gives each block 32 row phases (1024 threads) where the column
-tiles alone would leave most SMs idle (``colpass::row_phases``). The
-gradient stays in registers and shared memory; only β' and z' are written.
+4·B·b·4 bytes of vectors, 2·B flops per element of X. At the unscreened
+width (p = 50 000) that is the bytes of X, and the pass takes the wide
+layout of the screens (``edpp_screen.launch_plan``). The solver's
+buckets are narrow (32 to a few thousand columns of n = 784 rows) and
+stay in L2 across iterations, so there the bound is latency: the launch,
+one round trip to L2 and the reductions. For them the plan takes
+32-column tiles (8 lanes × float4 per row, 4 rows per warp step) and
+splits the rows over the CTAs of a thread-block cluster (4 CTAs of 196
+rows at 784 × 32), each staging only its rows of r; a thread issues all
+its row loads before its FMAs (and its first ones before r is staged),
+each CTA writes its sums into the shared memory of the CTA that owns
+those columns, and the prox and momentum epilogue is spread over the
+cluster's CTAs, with z and β_old fetched before the pass. The gradient
+stays in registers and shared memory; only β' and z' are written.
+Measured on an NVIDIA H100 80GB HBM3 at 700 W (``chip_smoke.py``,
+``PERF.md`` §6): 0.0078 ms at 784 × 32, B = 1, against 0.0130 for the
+earlier one-block design; the same launch on zero rows takes 0.0070 ms
+and a 1-element ``zero_()`` 0.0050, so the launch and the cluster's
+barriers set the time, not the rows.
 
 ``cd_gram_sweep(G, c, beta, lam, sweeps, valid)`` runs ``sweeps`` cyclic
 coordinate-descent sweeps over the Gram system G = XᵀX, c = Xᵀy
@@ -63,16 +76,18 @@ import collections
 import torch
 
 from . import ref
-from .edpp_screen import (MAX_B, check_error, check_rows, check_x, chunk_ptr,
-                          kernel_fn, params)
+from .edpp_screen import (MAX_B, LaunchPlan, check_error, check_rows, check_x,
+                          chunk_ptr, kernel_fn, params, plan_for)
 
 GRAM_BUCKET_MAX = 1024   # largest Gram system (columns) cd_gram_sweep takes
 LAUNCHES: collections.Counter = collections.Counter()
 
 
 def fista_step(X: torch.Tensor, r: torch.Tensor, z: torch.Tensor,
-               beta_old: torch.Tensor, step, lam, mom):
-    """One fused FISTA iteration tail; see the module doc."""
+               beta_old: torch.Tensor, step, lam, mom, *,
+               plan: LaunchPlan | None = None):
+    """One fused FISTA iteration tail; see the module doc. ``plan``
+    replaces ``edpp_screen.launch_plan``'s choice on a CUDA X."""
     if X.device.type == "cpu":
         return ref.fista_step_ref(X, r, z, beta_old, step, lam, mom)
     op = "fista_step"
@@ -95,10 +110,12 @@ def fista_step(X: torch.Tensor, r: torch.Tensor, z: torch.Tensor,
             for b0 in range(0, B, MAX_B):
                 nb = min(MAX_B, B - b0)
                 _keep, ptr = chunk_ptr(par, b0, nb)
+                pl = plan or plan_for(X, nb)
                 check_error(fn(X.data_ptr(), R[b0].data_ptr(),
                                Z[b0].data_ptr(), Bo[b0].data_ptr(), n, p,
-                               nb, ptr, *scal, beta_new[b0].data_ptr(),
-                               z_new[b0].data_ptr(), stream), op)
+                               nb, *pl.c_args, ptr, *scal,
+                               beta_new[b0].data_ptr(), z_new[b0].data_ptr(),
+                               stream), op)
                 LAUNCHES[op] += 1
     if squeeze:
         return beta_new[0], z_new[0]

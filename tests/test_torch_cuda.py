@@ -1,5 +1,8 @@
 """The CUDA kernels on the card, against their plain versions on the same
-card, over the kernel sweep's shapes and batches; the wrappers' refusals;
+card, over the kernel sweep's shapes and batches; the column pass over
+every branch of its launch plan (float4 and scalar loads, an unaligned
+X, clusters, a centre staged in pieces), its repeatability and its exact
+zero padding; the wrappers' refusals;
 the sessions (default FISTA, ``cd``, groups) on the card against the
 same sessions on the CPU; the prox step over its shapes and parameter
 kinds; and a mesh session over NCCL at world size 1 against the
@@ -85,6 +88,129 @@ def test_zero_columns_stay_zero_on_the_card(cuda):
     z[64:] = 0.0
     bn, zn = solver_step.fista_step(X, c, z, z.clone(), 0.01, 0.3, 0.5)
     assert not bn[64:].any() and not zn[64:].any()
+
+
+def _column_pass_inputs(cuda, n, p, batch, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    lead = () if batch == 1 else (batch,)
+
+    def rand(*s):
+        return torch.randn(*s, generator=g, device=cuda)
+
+    per_q = torch.rand(batch, generator=g, device=cuda) if batch > 1 \
+        else 0.4
+    return rand(n, p), rand(*lead, n), rand(*lead, p), rand(*lead, p), per_q
+
+
+def _column_passes(X, c, z, b, per_q, **kw):
+    """The three column-pass kernels on one set of inputs."""
+    n, p = X.shape
+    return (*edpp_screen.edpp_screen_scores(X, c, per_q, **kw),
+            edpp_screen.screen_matvec(X, c, **kw),
+            *solver_step.fista_step(X, c, z, b, 1.0 / (n + p), per_q, 0.6,
+                                    **kw))
+
+
+def _unaligned(X):
+    """A contiguous copy of X whose base pointer is 4 bytes past a 16-byte
+    boundary (a view at storage offset 1)."""
+    buf = torch.empty(X.numel() + 1, device=X.device)
+    view = buf[1:].view(X.shape)
+    view.copy_(X)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+# Shapes that reach every branch of the launch plan: p % 4 != 0, p < 32,
+# p = 32 (a cluster of 8), the solver's buckets, a centre above the
+# staging budget (20 000 and 40 000 rows), 3072 x 4096, the wide screen.
+PLAN_SHAPES = [(777, 1001), (100, 20), (784, 32), (784, 512), (784, 4096),
+               (20000, 256), (40000, 256), (3072, 4096), (784, 50000)]
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8, 9])
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_column_pass_plans_match_plain_versions(cuda, shape, batch):
+    """Every branch of the plan against the plain versions (2e-5 of
+    scale); the same X at a base pointer 4 bytes off 16-byte alignment
+    takes the scalar loads and gives the same bits; two launches on the
+    same inputs give the same bits."""
+    n, p = shape
+    X, c, z, b, per_q = _column_pass_inputs(cuda, n, p, batch, n + p + batch)
+    out = _column_passes(X, c, z, b, per_q)
+    want = (*ref.edpp_screen_ref(X, c, per_q), ref.screen_matvec_ref(X, c),
+            *ref.fista_step_ref(X, c, z, b, 1.0 / (n + p), per_q, 0.6))
+    _close(out, want)
+    again = _column_passes(X, c, z, b, per_q)
+    assert all(torch.equal(a, w) for a, w in zip(out, again))
+    Xu = _unaligned(X)
+    assert edpp_screen.plan_for(Xu, min(batch, 8)).vec == 1
+    assert all(torch.equal(a, w) for a, w in
+               zip(_column_passes(Xu, c, z, b, per_q), out))
+    if shape == (40000, 256) and batch >= 8:   # 160 KB of centre a CTA
+        pl = edpp_screen.plan_for(X, 8)
+        assert pl.stage_rows < -(-n // pl.split)
+    del X, Xu
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("shape", [(784, 32), (777, 1001), (784, 50000)])
+def test_column_pass_zero_padding_is_exact_on_the_card(cuda, shape):
+    """Zero columns give exactly 0 on the float4, scalar and cluster paths,
+    and zero rows (with a centre that is not 0 there) add nothing: the
+    result equals the one without those rows, to the plain versions'
+    tolerance, and stays exactly 0 in the zero columns."""
+    n, p = shape
+    X, c, z, b, per_q = _column_pass_inputs(cuda, n, p, 3, n + p)
+    zc = torch.arange(0, p, 7, device=cuda)
+    X[:, zc] = 0.0
+    z[:, zc] = 0.0
+    b[:, zc] = 0.0
+    X[n // 2:n // 2 + 40] = 0.0
+    for Xk in (X, _unaligned(X)):
+        out = _column_passes(Xk, c, z, b, per_q)
+        for o in out:
+            assert not o[..., zc].any()
+    live = torch.ones(n, dtype=torch.bool, device=cuda)
+    live[n // 2:n // 2 + 40] = False
+    _close(_column_passes(X, c, z, b, per_q),
+           (*ref.edpp_screen_ref(X[live], c[:, live], per_q),
+            ref.screen_matvec_ref(X[live], c[:, live]),
+            *ref.fista_step_ref(X[live], c[:, live], z, b, 1.0 / (n + p),
+                                per_q, 0.6)))
+
+
+@pytest.mark.parametrize("shape", [(784, 32), (784, 512), (777, 1001)])
+def test_cluster_and_single_cta_plans_agree(cuda, shape):
+    """A plan whose rows are split over a cluster and the same tiles on one
+    CTA each (``max_split=1``) agree to the sums' rounding, and one launch
+    per call is counted either way."""
+    n, p = shape
+    X, c, z, b, per_q = _column_pass_inputs(cuda, n, p, 1, n * p)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    one = edpp_screen.launch_plan(n, p, 1, sms, X.data_ptr() % 16 == 0,
+                                  max_split=1)
+    assert edpp_screen.plan_for(X, 1).split > 1 and one.split == 1
+    ops.reset_counts()
+    _close(_column_passes(X, c, z, b, per_q, plan=one),
+           _column_passes(X, c, z, b, per_q))
+    assert ops.launch_counts()["fista_step"] == 2
+
+
+def test_column_pass_refuses_a_plan_it_cannot_run(cuda):
+    """float4 loads on an unaligned X, or on p % 4 != 0, and a cluster
+    above 8 are refused by the C entry point: the wrapper raises."""
+    X = torch.randn(64, 128, device=cuda)
+    c = torch.randn(64, device=cuda)
+    pl = edpp_screen.plan_for(X, 1)
+    assert pl.vec == 4
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        edpp_screen.screen_matvec(_unaligned(X), c, plan=pl)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        edpp_screen.screen_matvec(X[:, :127].contiguous(), c, plan=pl)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        edpp_screen.screen_matvec(X, c, plan=pl._replace(split=16))
+    torch.cuda.synchronize()
 
 
 def test_session_on_the_card_matches_the_cpu(cuda):

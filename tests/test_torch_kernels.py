@@ -430,9 +430,13 @@ def test_kernel_entry_points_get_their_c_signature(monkeypatch):
         assert fn.argtypes[-1] is ctypes.c_void_p          # the stream
         if sym not in ("screen_matvec_f32", "group_screen_scores_f32"):
             assert ctypes.c_float in fn.argtypes
+    # the column passes take the launch plan's four ints after B
+    for sym, at in (("edpp_screen_scores_f32", 5), ("screen_matvec_f32", 5),
+                    ("fista_step_f32", 7)):
+        assert fns[sym].argtypes[at - 1:at + 4] == [ctypes.c_int] * 5
     n_args = {s: len(f.argtypes) for s, f in fns.items()}
-    assert n_args == {"edpp_screen_scores_f32": 10, "screen_matvec_f32": 7,
-                      "fista_step_f32": 14, "cd_gram_sweep_f32": 11,
+    assert n_args == {"edpp_screen_scores_f32": 14, "screen_matvec_f32": 11,
+                      "fista_step_f32": 18, "cd_gram_sweep_f32": 11,
                       "group_screen_scores_f32": 7, "prox_step_f32": 12}
 
 
@@ -459,3 +463,97 @@ def test_new_kernel_sources_build_for_sm90a(source):
     assert Path(cmd[cmd.index("-o") + 1]) == out
     assert out.parent == build.BUILD_DIR and source in out.name
     assert cmd[-1] == str(build.CSRC / f"{source}.cu")
+
+
+# The column pass's launch plan (``edpp_screen.launch_plan``): the paper's
+# wide screens, the solver's narrow buckets, ragged and tiny shapes, a
+# centre above the staging budget, on the H100's 132 SMs and a small card.
+PLAN_CASES = [(784, 50000, 1), (784, 50000, 8), (3072, 99288, 1),
+              (3072, 99288, 8), (784, 32, 1), (784, 32, 8), (784, 512, 1),
+              (784, 4096, 8), (777, 1001, 3), (20000, 256, 8),
+              (40000, 256, 8), (3072, 4096, 8), (100, 1000, 1), (7, 130, 5),
+              (100, 20, 2), (0, 5, 1), (1, 1, 1)]
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("n, p, B", PLAN_CASES)
+def test_launch_plan_covers_every_column_and_row_once(n, p, B, sms, aligned):
+    """The kernel's own indexing (csrc/colpass.cuh), replayed: every column
+    of X falls to one lane of each row group of one tile, every row to one
+    thread of one CTA of the cluster; shared memory, cluster and staged
+    centre stay within the card's limits; float4 only where p % 4 == 0
+    and X is aligned; the layout does not depend on B or the alignment."""
+    pl = edpp_screen.launch_plan(n, p, B, sms, aligned)
+    lpr = pl.tile // 4                     # lanes on one row
+    rpw = 32 // lpr                        # rows per warp step
+    tiles, split = pl.grid
+    assert pl.tile in (edpp_screen.WIDE_TILE, edpp_screen.NARROW_TILE)
+    assert tiles == -(-p // pl.tile) and split == pl.split
+    lanes = np.arange(32)
+    cols = np.zeros(tiles * pl.tile, int)
+    for t in range(tiles):
+        first = t * pl.tile + 4 * (lanes % lpr)
+        np.add.at(cols, (first[:, None] + np.arange(4)).ravel(), 1)
+    assert (cols[:p] == rpw).all()         # once per row group of a warp
+    # rank k of a column tile's cluster takes rows [n*k/split, n*(k+1)/split)
+    ranges = [(n * k // split, n * (k + 1) // split) for k in range(split)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    stride = edpp_screen.WARPS * rpw
+    for r0, r1 in ranges:
+        seen = np.zeros(r1 - r0, int)
+        for s0 in range(r0, max(r1, r0 + 1), pl.stage_rows):
+            rows = min(pl.stage_rows, r1 - s0)
+            for off in range(stride):      # warp * rpw + lane // lpr
+                seen[s0 - r0 + off:s0 - r0 + rows:stride] += 1
+        assert (seen == 1).all()
+        if r1 - r0 > pl.stage_rows:        # stages keep each thread's rows
+            assert pl.stage_rows % 32 == 0
+    assert 4 * B * pl.stage_rows <= edpp_screen.CENTRE_BUDGET
+    centre = -(-B * pl.stage_rows // 4) * 4
+    red = edpp_screen.WARPS * (B + 1) * pl.tile
+    inbox = (B + 1) * pl.tile             # the cluster's sums
+    assert pl.smem == 4 * (max(centre, red) if pl.split == 1
+                           else centre + red + inbox) <= edpp_screen.SMEM_MAX
+    assert 1 <= pl.split <= 8 and pl.split & (pl.split - 1) == 0
+    assert pl.block == 256
+    assert pl.vec == (4 if aligned and p % 4 == 0 else 1)
+    other = edpp_screen.launch_plan(n, p, 1, sms, not aligned)
+    assert (other.tile, other.split) == (pl.tile, pl.split)
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("n, p", [(784, 50000), (3072, 99288)])
+def test_wide_screen_plan_fills_whole_waves(n, p, B):
+    """The wide screens take 128-column tiles read as float4, no cluster,
+    and a grid whose CTAs spread over the 132 SMs to within 5 % of even."""
+    pl = edpp_screen.launch_plan(n, p, B, 132, True)
+    assert (pl.vec, pl.tile, pl.split, pl.stage_rows) == (4, 128, 1, n)
+    ctas = pl.grid[0] * pl.grid[1]
+    assert ctas >= 132 and ctas / (132 * -(-ctas // 132)) >= 0.95
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("p, split", [(32, 4), (512, 4), (4096, 2)])
+def test_narrow_bucket_plan_splits_rows_over_a_cluster(p, split, B):
+    """The solver's buckets (784 rows) take 32-column tiles with the rows
+    split over a cluster (of at most ``CLUSTER`` CTAs) until about two
+    CTAs run on each SM; a cluster of 4 at 32 columns stages 196 rows of
+    r per CTA, one of 8 98 rows."""
+    pl = edpp_screen.launch_plan(784, p, B, 132, True)
+    assert (pl.tile, pl.split) == (32, split)
+    assert pl.stage_rows == -(-784 // split)
+    assert edpp_screen.launch_plan(784, p, B, 132, True,
+                                   max_split=1).split == 1
+    if p < 4096:
+        eight = edpp_screen.launch_plan(784, p, B, 132, True, max_split=8)
+        assert (eight.split, eight.stage_rows) == (8, 98)
+
+
+def test_launch_plan_refuses_what_no_launch_takes():
+    for args in ((784, 0, 1), (784, 32, 0), (784, 32, 9), (-1, 32, 1)):
+        with pytest.raises(ValueError, match="no plan"):
+            edpp_screen.launch_plan(*args, 132, True)
+    with pytest.raises(ValueError, match="no plan"):
+        edpp_screen.launch_plan(784, 32, 1, 132, True, max_split=16)
