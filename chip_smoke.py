@@ -13,9 +13,13 @@ Phases, each printing its own lines and seconds:
    at the paper's MNIST-like 784 × 50 000 and SVHN-like 3072 × 99 288
    shapes (benchmarks/bench_sequential.py), narrow solver buckets and a
    ragged shape; the Gram CD sweep at buckets of 32, 256 and 1024
-   columns for 1 and 8 queries (and 8 with a ``valid`` mask); the group
-   scores at the paper's 250 × 200 000 group design
-   (benchmarks/bench_group.py) for m = 5, 10, 20 and a ragged shape; the
+   columns for 1 and 8 queries (and 8 with a ``valid`` mask), each beside
+   its chain bound (sweeps·p × the latency of one dependent step, timed
+   on a one-warp kernel of ``csrc/cd_gram.cu`` that runs the step's
+   arithmetic without loads); the group scores at the paper's
+   250 × 200 000 group design (benchmarks/bench_group.py) for m = 5, 10,
+   20 and 200 (a group wider than a tile) and at 777 × 1 000 (m = 5) and
+   777 × 1 001 (m = 7, scalar loads), each with its launch plan; the
    prox step at p = 50 000 for 1 and 8 queries and a ragged p = 1 003 for
    3 queries with per-query parameters; with times (CUDA events, median
    of 20) beside the byte/flop bound and a torch.matmul yardstick. For
@@ -207,7 +211,31 @@ def cd_bound(p: int, B: int, sweeps: int,
 
 
 # The column pass's MODE template argument per op (csrc/colpass.cuh)
-COLPASS_MODE = {"screen_matvec": 0, "edpp_screen_scores": 1, "fista_step": 2}
+COLPASS_MODE = {"screen_matvec": 0, "edpp_screen_scores": 1, "fista_step": 2,
+                "group_screen_scores": 3}
+CHAIN_TURNS = 4096   # turns of 32 steps the chain kernel runs per launch
+
+
+def chain_step_ns(torch, kernels) -> float | None:
+    """The latency of one dependent coordinate step of the Gram sweep: the
+    one-warp ``cd_chain_f32`` kernel of ``csrc/cd_gram.cu`` runs
+    CHAIN_TURNS turns of 32 steps (the sweep's own ``turn``: the update,
+    the IEEE division, the shuffle broadcast, the rank-1 update of q) on
+    values in registers, timed by CUDA events (median of 5). None for a
+    tree without that kernel."""
+    try:
+        fn = kernels.edpp_screen.kernel_fn("cd_gram", "cd_chain_f32")
+    except (AttributeError, KeyError):
+        return None
+    out = torch.empty(32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        err = fn(CHAIN_TURNS, 32, 0.1, 2.0, out.data_ptr(), stream)
+        assert err == 0, f"cd_chain_f32: cudaError_t {err}"
+    ms = event_ms(torch, run, reps=5)
+    assert bool(torch.isfinite(out).all())
+    return ms * 1e6 / (CHAIN_TURNS * 32)
 
 
 def ptxas_table(logs: dict[str, str]) -> dict[str, tuple[int, int, int]]:
@@ -230,16 +258,21 @@ def ptxas_table(logs: dict[str, str]) -> dict[str, tuple[int, int, int]]:
     return table
 
 
-def colpass_ptxas(table: dict, op: str, nb: int, vec: int) -> str:
-    """The registers and spills of the column-pass instantiation that a
-    launch of ``op`` with ``nb`` queries and loads of width ``vec`` runs."""
-    key = (f"colpass_kernelILi{COLPASS_MODE[op]}ELi{nb}"
-           f"ELb{int(vec == 4)}E")
+def kernel_ptxas(table: dict, key: str) -> str:
+    """The registers and spills of the kernel whose mangled name holds
+    ``key``."""
     hits = [v for k, v in table.items() if key in k]
     if not hits:
         return "ptxas n/a (libraries not rebuilt here)"
     regs, st, ld = hits[0]
     return f"{regs} registers, spills {st}/{ld} bytes (stores/loads)"
+
+
+def colpass_ptxas(table: dict, op: str, nb: int, vec: int) -> str:
+    """The registers and spills of the column-pass instantiation that a
+    launch of ``op`` with ``nb`` queries and loads of width ``vec`` runs."""
+    return kernel_ptxas(table, f"colpass_kernelILi{COLPASS_MODE[op]}ELi{nb}"
+                               f"ELb{int(vec == 4)}E")
 
 
 def plan_line(kernels, X, B: int, op: str, ptxas: dict) -> str:
@@ -257,12 +290,16 @@ def plan_line(kernels, X, B: int, op: str, ptxas: dict) -> str:
 
 
 def check_cd(torch, kernels, ref, p: int, B: int, seed: int,
-             masked: bool = False) -> dict:
+             masked: bool = False, step_ns: float | None = None,
+             ptxas: dict | None = None) -> dict:
     """The Gram CD sweep (CD_SWEEPS sweeps) against its plain version:
     the reference's case, G = AᵀA with three zero columns, c = 0.1·rG,
     a small warm start, λ = ½·max|c| per query. Tolerance, elementwise:
     2e-5 + 2e-4·|plain| (the reference's own for this sweep: a rounding
-    difference in q₀ propagates along the chain)."""
+    difference in q₀ propagates along the chain). Beside the byte/flop
+    bound, the chain bound: CD_SWEEPS·p steps × ``step_ns``, the
+    latency of one step (``chain_step_ns``), with the registers and
+    spills of the kernel the launch runs."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     A = torch.randn(2 * p, p, generator=g, device="cuda")
     A[:, -3:] = 0.0
@@ -290,23 +327,44 @@ def check_cd(torch, kernels, ref, p: int, B: int, seed: int,
     plain_ms = event_ms(torch, lambda: ref.cd_gram_sweep_ref(*args), reps=3)
     bound_ms, bound_by = cd_bound(p, B, CD_SWEEPS, masked)
     steps = CD_SWEEPS * p
+    chain_ms = None if step_ns is None else steps * step_ns * 1e-6
+    which = "cd_warp_kernel" if p <= 32 else "cd_block_kernel"
+    regs = kernel_ptxas(ptxas or {}, which)
     row = {"op": "cd_gram_sweep", "p": p, "B": B, "valid": masked,
            "max_abs_err": err, "tol": "2e-5 + 2e-4*|plain|", "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-           "chain_steps": steps, "ns_per_step": ms * 1e6 / steps}
+           "chain_steps": steps, "ns_per_step": ms * 1e6 / steps,
+           "chain_ms": chain_ms, "ptxas": f"{which}: {regs}"}
+    chain = ("chain bound n/a" if chain_ms is None else
+             f"chain bound {chain_ms:.4f} ms ({step_ns:.1f} ns/step), "
+             f"kernel {ms / chain_ms:.2f}x it")
     print(f"  cd_gram_sweep       p={p} B={B} valid={masked} sweeps="
           f"{CD_SWEEPS}: max_abs_err={err:.3g} (2e-5 + 2e-4·|plain|) "
           f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.6f} "
           f"({bound_by}); chain of {steps} steps, "
-          f"{row['ns_per_step']:.1f} ns/step", flush=True)
+          f"{row['ns_per_step']:.1f} ns/step; {chain}\n      "
+          f"{row['ptxas']}", flush=True)
     if not ok:
         raise AssertionError(f"cd_gram_sweep p={p} B={B}: kernel disagrees "
                              f"with its plain version (excess {excess})")
     return row
 
 
+def group_plan_line(kernels, X, m: int, ptxas: dict) -> str:
+    """The group pass's launch plan on X with the registers and spills of
+    the kernel it runs; 'n/a' for a tree without a group plan."""
+    plan_for = getattr(kernels.group_screen, "group_plan_for", None)
+    if plan_for is None:
+        return "plan n/a"
+    pl = plan_for(X, m)
+    return (f"plan grid={pl.grid} block={pl.block} cluster={pl.split} "
+            f"vec={pl.vec} tile={pl.tile} steps={-(-pl.tile // 128)} "
+            f"stage_rows={pl.stage_rows} smem={pl.smem} B; "
+            f"{colpass_ptxas(ptxas, 'group_screen_scores', 1, pl.vec)}")
+
+
 def check_group(torch, kernels, ref, n: int, p: int, m: int,
-                seed: int) -> dict:
+                seed: int, ptxas: dict | None = None) -> dict:
     """The group scores against their plain version; tolerance
     2e-5·max(1, max|plain|) (sums run in another order). Bound: the bytes
     of X (2 flops per element); yardstick c @ X, which computes the dots
@@ -328,13 +386,17 @@ def check_group(torch, kernels, ref, n: int, p: int, m: int,
     t_ops = (2.0 * n * p + 2.0 * p) / F32_FLOPS_PER_S * 1e3
     bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
                           else (t_ops, "operations"))
+    plan = group_plan_line(kernels, X, m, ptxas or {})
     row = {"op": "group_screen_scores", "n": n, "p": p, "m": m,
            "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-           "matmul_ms": matmul_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+           "matmul_ms": matmul_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "of_bound": bound_ms / ms, "matmul_ratio": ms / matmul_ms,
+           "plan": plan}
     print(f"  group_screen_scores {n}x{p} m={m}: max_abs_err={err:.3g} "
           f"(tol {tol:.3g}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
           f"matmul_ms={matmul_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
-          f"{bound_ms / ms:.0%} of bound", flush=True)
+          f"{bound_ms / ms:.0%} of bound, {ms / matmul_ms:.2f}x torch.matmul"
+          f"\n      {plan}", flush=True)
     if not err <= tol:
         raise AssertionError(f"group_screen_scores {n}x{p} m={m}: kernel "
                              f"disagrees with its plain version: {err}")
@@ -1041,18 +1103,26 @@ def main(argv: list[str]) -> int:
         choices = [cluster_choice(torch, kernels, ref, 784, pp, B,
                                   seed=90 + B) for pp in (32, 512)
                    for B in (1, 8)]
+        step_ns = chain_step_ns(torch, kernels)
+        print("  cd chain: one dependent coordinate step "
+              + ("n/a (no cd_chain_f32 in this tree)" if step_ns is None
+                 else f"{step_ns:.2f} ns ({CHAIN_TURNS} turns of 32 steps, "
+                      f"one warp, no loads)"), flush=True)
         for i, (bp, B) in enumerate([(b, B) for b in (32, 256, 1024)
                                      for B in (1, 8)]):
             rows[("cd", bp, B)] = check_cd(torch, kernels, ref, bp, B,
-                                           seed=100 + i)
-        rows[("cd", 256, 8, "valid")] = check_cd(torch, kernels, ref, 256, 8,
-                                                 seed=110, masked=True)
+                                           seed=100 + i, step_ns=step_ns,
+                                           ptxas=ptxas)
+        rows[("cd", 256, 8, "valid")] = check_cd(
+            torch, kernels, ref, 256, 8, seed=110, masked=True,
+            step_ns=step_ns, ptxas=ptxas)
         n_g, p_g, _ = GROUP_FULL
-        for i, m in enumerate((5, 10, 20)):
+        for i, m in enumerate((5, 10, 20, 200)):
             rows[("group", n_g, p_g, m)] = check_group(
-                torch, kernels, ref, n_g, p_g, m, seed=120 + i)
-        rows[("group", 777, 1000, 5)] = check_group(torch, kernels, ref, 777,
-                                                    1000, 5, seed=130)
+                torch, kernels, ref, n_g, p_g, m, seed=120 + i, ptxas=ptxas)
+        for i, (pp, m) in enumerate(((1000, 5), (1001, 7))):
+            rows[("group", 777, pp, m)] = check_group(
+                torch, kernels, ref, 777, pp, m, seed=130 + i, ptxas=ptxas)
         for i, (pp, B, per_query) in enumerate([(MNIST[1], 1, False),
                                                 (MNIST[1], 8, False),
                                                 (1003, 3, True)]):
@@ -1237,7 +1307,7 @@ def main(argv: list[str]) -> int:
                                           n, main_bucket, 1, seed=99,
                                           floor_ms=floor_ms, ptxas=ptxas)
         rows["main_cd"] = check_cd(torch, kernels, ref, cd_bucket, 1,
-                                   seed=98)
+                                   seed=98, step_ns=step_ns, ptxas=ptxas)
     main_launches.update(cd_gram_sweep=cd_launches["cd_gram_sweep"],
                          group_screen_scores=group_launches[
                              "group_screen_scores"],
@@ -1258,7 +1328,9 @@ def main(argv: list[str]) -> int:
             "bound_by": r["bound_by"],
             # torch.matmul(c, X) computes screen_matvec's function exactly;
             # the other five have no single library call
-            "library_ms": r["matmul_ms"] if op == "screen_matvec" else None})
+            "library_ms": r["matmul_ms"] if op == "screen_matvec" else None,
+            **({"chain_bound_ms": r["chain_ms"]}
+               if op == "cd_gram_sweep" else {})})
     print(json.dumps({"kernels": summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

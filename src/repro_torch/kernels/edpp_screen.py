@@ -114,14 +114,29 @@ def launch_plan(n: int, p: int, B: int, sms: int, aligned: bool,
         tile, split = WIDE_TILE, 1
     else:
         tile = NARROW_TILE
-        want = min(max_split, _cdiv(2 * sms, _cdiv(p, tile)),
-                   max(1, n // MIN_SPLIT_ROWS))
-        split = 1 << (want.bit_length() - 1)       # a power of 2
+        split = cluster_split(n, _cdiv(p, tile), sms, max_split)
+    return finish_plan(n, p, B, vec, tile, split, tile)
+
+
+def cluster_split(n: int, tiles: int, sms: int, max_split: int) -> int:
+    """CTAs a column tile's rows are split over: a power of 2 ≤
+    ``max_split`` that brings the ``tiles`` to about two CTAs an SM, each
+    with ≥ ``MIN_SPLIT_ROWS`` rows."""
+    want = min(max_split, _cdiv(2 * sms, tiles), max(1, n // MIN_SPLIT_ROWS))
+    return 1 << (want.bit_length() - 1)
+
+
+def finish_plan(n: int, p: int, B: int, vec: int, tile: int, split: int,
+                span: int) -> LaunchPlan:
+    """The plan with its staged centre and shared memory: the CTA's whole
+    centre staged at once when B·rows·4 bytes fit ``CENTRE_BUDGET``, else
+    stages of a multiple of 32 rows; ``span`` columns of partials a warp
+    (``colpass::smem_bytes``)."""
     rows = _cdiv(n, split)
     cap = CENTRE_BUDGET // (4 * B) // 32 * 32
     stage_rows = max(1, rows) if rows <= cap else cap
-    centre = _cdiv(B * stage_rows, 4) * 4     # colpass::smem_bytes
-    red = WARPS * (B + 1) * tile
+    centre = _cdiv(B * stage_rows, 4) * 4
+    red = WARPS * (B + 1) * span
     smem = 4 * (max(centre, red) if split == 1
                 else centre + red + (B + 1) * tile)
     return LaunchPlan(vec, tile, split, stage_rows, (_cdiv(p, tile), split),
@@ -131,15 +146,20 @@ def launch_plan(n: int, p: int, B: int, sms: int, aligned: bool,
 _SMS: dict[int, int] = {}
 
 
-def plan_for(X: torch.Tensor, B: int) -> LaunchPlan:
-    """:func:`launch_plan` for a CUDA X and a launch of B queries."""
+def sms_of(X: torch.Tensor) -> int:
+    """The SM count of the card that holds the CUDA tensor X."""
     idx = X.device.index if X.device.index is not None else 0
     sms = _SMS.get(idx)
     if sms is None:
         sms = _SMS[idx] = torch.cuda.get_device_properties(
             idx).multi_processor_count
+    return sms
+
+
+def plan_for(X: torch.Tensor, B: int) -> LaunchPlan:
+    """:func:`launch_plan` for a CUDA X and a launch of B queries."""
     n, p = X.shape
-    return launch_plan(n, p, B, sms, X.data_ptr() % 16 == 0)
+    return launch_plan(n, p, B, sms_of(X), X.data_ptr() % 16 == 0)
 
 _VP, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PLAN = [_INT] * 4   # LaunchPlan.c_args: vec, tile, split, stage_rows
@@ -151,7 +171,9 @@ _SIGNATURES = {
                        _F32, _F32, _F32, _VP, _VP, _VP],
     "cd_gram_sweep_f32": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP, _F32,
                           _VP, _VP],
-    "group_screen_scores_f32": [_VP, _VP, _INT, _INT, _INT, _VP, _VP],
+    "cd_chain_f32": [_INT, _INT, _F32, _F32, _VP, _VP],
+    "group_screen_scores_f32": [_VP, _VP, _INT, _INT, _INT, *_PLAN, _VP,
+                                _VP],
     "prox_step_f32": [_VP, _VP, _VP, _INT, _INT, _VP, _F32, _F32, _F32, _VP,
                       _VP, _VP],
 }

@@ -44,10 +44,15 @@ of ``src/repro/kernels/solver_step.py`` (its ``pl.pallas_call`` at line
 251). G is (p, p) with p ≤ ``GRAM_BUCKET_MAX``, the crossover up to
 which the ``cd`` strategy solves on the Gram system; ``c``/``beta``/
 ``valid`` are (p,) or (B, p), ``lam`` a host number, a device scalar or a
-(B,) tensor. A CUDA G launches ``csrc/cd_gram.cu`` (one block per query,
-one thread per coordinate, G read row by row from L2): its time is the
-latency of the chain of ``sweeps·p`` dependent coordinate steps, not the
-bytes of G nor its flops.
+(B,) tensor. A CUDA G launches ``csrc/cd_gram.cu``: one block per query,
+the coordinates in chunks of 32, one warp a chunk. The owning warp runs
+its chunk's steps with G's entries in registers and each step's change
+broadcast by a warp shuffle; one block barrier follows each chunk (none
+for p ≤ 32, where one warp holds the whole system), after which the other
+warps add the chunk's changes to their q in coordinate order. Its time
+is the latency of the chain of ``sweeps·p`` dependent steps, not the
+bytes of G nor its flops; ``cd_chain_f32`` in the same source runs that
+step alone, without loads, so that ``chip_smoke.py`` can time it.
 
 ``prox_step(z, g, beta_old, step, lam, mom)`` returns ``(β', z')`` with
 

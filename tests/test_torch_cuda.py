@@ -2,7 +2,12 @@
 card, over the kernel sweep's shapes and batches; the column pass over
 every branch of its launch plan (float4 and scalar loads, an unaligned
 X, clusters, a centre staged in pieces), its repeatability and its exact
-zero padding; the wrappers' refusals;
+zero padding, and the bits of its MATVEC, SCORES and FISTA passes held
+against digests of the PR 14 kernels; the group pass over every branch
+of its plan (tiles of whole groups, scalar loads, clusters, a group
+walked in steps) and the Gram CD sweep over both of its kernels (one
+warp, one warp a chunk), each repeatable, blind to alignment and exact
+on zero columns; the wrappers' refusals;
 the sessions (default FISTA, ``cd``, groups) on the card against the
 same sessions on the CPU; the prox step over its shapes and parameter
 kinds; and a mesh session over NCCL at world size 1 against the
@@ -13,6 +18,8 @@ one card: ``python -m pytest -q -m gpu tests/test_torch_cuda.py``.
 (No JAX here: the machine with the card need not have it.)
 """
 
+import hashlib
+import math
 import os
 
 import numpy as np
@@ -412,3 +419,162 @@ def test_mesh_session_over_nccl_matches_the_unsharded_session(cuda, tmp_path):
         assert bool(torch.isfinite(beta).all())
     finally:
         dist.destroy_process_group()
+
+
+def _det(shape, salt):
+    """Float32 values in [-1, 1] from integer arithmetic: the same bits on
+    every machine, whatever its random number generators."""
+    idx = torch.arange(math.prod(shape), dtype=torch.int64)
+    v = (idx * 7919 + salt * 104729) % 2003 - 1001
+    return (v.double() / 1001.0).float().reshape(shape)
+
+
+# Shapes and batches whose pinned plans (132 SMs, aligned) reach float4 and
+# scalar loads, clusters of 8, 4 and 2, and the wide one-wave tiles.
+DIGEST_CASES = [(777, 1001, 3), (784, 32, 1), (784, 512, 8), (256, 4096, 1),
+                (100, 20, 2), (784, 50000, 1)]
+# column_pass_digests of the PR 14 kernels (the parent of the GROUP
+# epilogue), taken on an NVIDIA H100 80GB HBM3
+PR14_DIGESTS = {"777x1001xB3": "72081f00e49b47e3",
+                "784x32xB1": "c9124d8bd5cbbe08",
+                "784x512xB8": "5b6649e00f3c1485",
+                "256x4096xB1": "dc86589e3830ce31",
+                "100x20xB2": "03b69187376a780e",
+                "784x50000xB1": "f786bd55bd6baae0"}
+
+
+def column_pass_digests(edpp_screen, solver_step, device="cuda"):
+    """SHA-256 (16 hex digits) of the SCORES, MATVEC and FISTA outputs at
+    each of DIGEST_CASES, every launch on the plan ``launch_plan`` picks
+    for 132 SMs: the bits of the three column passes, comparable across
+    trees and cards."""
+    out = {}
+    for n, p, B in DIGEST_CASES:
+        lead = () if B == 1 else (B,)
+        X = _det((n, p), 1).to(device)
+        c, z, b = (_det(lead + (k,), s).to(device)
+                   for k, s in ((n, 2), (p, 3), (p, 4)))
+        per_q = torch.linspace(0.2, 0.9, B, device=device) if B > 1 else 0.4
+        pl = edpp_screen.launch_plan(n, p, B, 132, True)
+        outs = (*edpp_screen.edpp_screen_scores(X, c, per_q, plan=pl),
+                edpp_screen.screen_matvec(X, c, plan=pl),
+                *solver_step.fista_step(X, c, z, b, 1.0 / (n + p), per_q, 0.6,
+                                        plan=pl))
+        h = hashlib.sha256()
+        for o in outs:
+            h.update(o.cpu().numpy().tobytes())
+        out[f"{n}x{p}xB{B}"] = h.hexdigest()[:16]
+    return out
+
+
+def test_column_pass_bits_are_those_of_the_pr14_kernels(cuda):
+    """The GROUP epilogue shares the template: MATVEC, SCORES and FISTA
+    must keep every bit they had before it."""
+    assert column_pass_digests(edpp_screen, solver_step) == PR14_DIGESTS
+
+
+# Shapes and group sizes that reach every branch of the group plan: tiles
+# of 120 columns (float4, wide and clustered), p % 4 != 0 with a cluster
+# of 4, m = 33 (99-column tiles, scalar loads), groups of 200 and 1 100
+# walked in steps, groups of one column, a cluster of 2 at m = 20, and a
+# centre staged in pieces (200 000 rows).
+GROUP_PLAN_SHAPES = [((250, 20000), 10), ((250, 2400), 10),
+                     ((777, 1001), 7), ((60, 330), 33), ((250, 20000), 200),
+                     ((40, 2200), 1100), ((7, 130), 1), ((784, 240), 20),
+                     ((200000, 120), 5), ((250, 200000), 10)]
+
+
+@pytest.mark.parametrize("shape, m", GROUP_PLAN_SHAPES)
+def test_group_pass_plans_match_plain_version(cuda, shape, m):
+    """Every branch of the group plan against the plain version (2e-5 of
+    scale), one launch a call; two launches give the same bits, and the
+    same X 4 bytes off 16-byte alignment (scalar loads, the same tiles)
+    gives the same bits as well."""
+    n, p = shape
+    X, c = (_det(s, k).to(cuda) for s, k in (((n, p), 5), ((n,), 6)))
+    ops.reset_counts()
+    out = group_screen.group_screen_scores(X, c, m)
+    assert ops.launch_counts()["group_screen_scores"] == 1
+    _close((out,), (ref.group_screen_ref(X, c, m),))
+    assert torch.equal(out, group_screen.group_screen_scores(X, c, m))
+    Xu = _unaligned(X)
+    assert group_screen.group_plan_for(Xu, m).vec == 1
+    assert torch.equal(group_screen.group_screen_scores(Xu, c, m), out)
+    if shape == (200000, 120):
+        pl = group_screen.group_plan_for(X, m)
+        assert pl.split > 1 and pl.stage_rows < -(-n // pl.split)
+    del X, Xu
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("shape, m", [((250, 2400), 10), ((777, 1001), 7),
+                                      ((250, 2000), 200), ((60, 330), 33)])
+def test_group_pass_zero_padding_is_exact(cuda, shape, m):
+    """Groups of zero columns score exactly 0, on every plan branch; zero
+    rows (with a centre that is not 0 there) add nothing; the clustered
+    plans agree with the same tiles on one CTA each."""
+    n, p = shape
+    g = torch.Generator(device=cuda).manual_seed(n + p + m)
+    X = torch.randn(n, p, generator=g, device=cuda)
+    c = torch.randn(n, generator=g, device=cuda)
+    dead = torch.arange(0, p // m, 3, device=cuda)
+    X.view(n, p // m, m)[:, dead] = 0.0
+    X[n // 2:n // 2 + 20] = 0.0
+    out = group_screen.group_screen_scores(X, c, m)
+    assert not out[dead].any()
+    live = torch.ones(n, dtype=torch.bool, device=cuda)
+    live[n // 2:n // 2 + 20] = False
+    _close((out,), (ref.group_screen_ref(X[live], c[live], m),))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    one = group_screen.group_plan(n, p, m, sms, X.data_ptr() % 16 == 0,
+                                  max_split=1)
+    _close((group_screen.group_screen_scores(X, c, m, plan=one),), (out,))
+
+
+def test_group_pass_refuses_a_plan_it_cannot_run(cuda):
+    """A tile that cuts a group, a cluster whose ranks would cut one,
+    float4 loads on an unaligned X or on 99-column tiles: the C entry
+    point refuses, the wrapper raises."""
+    X = torch.randn(64, 1200, device=cuda)
+    c = torch.randn(64, device=cuda)
+    pl = group_screen.group_plan_for(X, 10)
+    assert (pl.vec, pl.tile) == (4, 120)
+    for bad in (pl._replace(tile=128), pl._replace(split=8),
+                pl._replace(tile=240)):
+        with pytest.raises(RuntimeError, match="cudaError_t"):
+            group_screen.group_screen_scores(X, c, 10, plan=bad)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        group_screen.group_screen_scores(_unaligned(X), c, 10, plan=pl)
+    X33 = torch.randn(64, 990, device=cuda)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        group_screen.group_screen_scores(
+            X33, c, 33, plan=group_screen.group_plan_for(X33, 33)._replace(
+                vec=4))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("b", [5, 32, 33, 96, 1000, 1024])
+def test_cd_gram_sweep_is_repeatable_and_blind_to_alignment(cuda, b, batch):
+    """Both kernels (one warp for p <= 32, one warp a chunk above): two
+    launches give the same bits, a G 4 bytes off 16-byte alignment gives
+    them too, both match the plain version, and the
+    zero-Gram and screened-out columns stay exactly 0."""
+    G, g = _gram(cuda, b, b + batch)
+    lead = () if batch == 1 else (batch,)
+    c = 0.1 * (torch.randn(*lead, b, generator=g, device=cuda) @ G)
+    beta = 0.1 * torch.randn(*lead, b, generator=g, device=cuda)
+    valid = (torch.rand(*lead, b, generator=g, device=cuda) > 0.3).float()
+    beta = beta * valid
+    lam = 0.5 * c.abs().amax(-1) if batch > 1 else 0.5 * float(c.abs().max())
+    out = solver_step.cd_gram_sweep(G, c, beta, lam, sweeps=4, valid=valid)
+    want = ref.cd_gram_sweep_ref(G, c, beta, lam, sweeps=4, valid=valid)
+    assert bool(((out - want).abs() <= 2e-5 + 2e-4 * want.abs()).all())
+    assert torch.equal(out, solver_step.cd_gram_sweep(G, c, beta, lam,
+                                                      sweeps=4, valid=valid))
+    Gu = _unaligned(G)
+    assert torch.equal(out, solver_step.cd_gram_sweep(Gu, c, beta, lam,
+                                                      sweeps=4, valid=valid))
+    assert not out[..., -3:].any() and not (out * (1 - valid)).any()
+    assert torch.equal(solver_step.cd_gram_sweep(G, c, beta, lam, sweeps=0),
+                       beta)

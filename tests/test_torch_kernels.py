@@ -13,6 +13,7 @@ rounding difference in q propagates through the sweeps' chain).
 """
 
 import ctypes
+import math
 import types
 from pathlib import Path
 
@@ -430,14 +431,15 @@ def test_kernel_entry_points_get_their_c_signature(monkeypatch):
         assert fn.argtypes[-1] is ctypes.c_void_p          # the stream
         if sym not in ("screen_matvec_f32", "group_screen_scores_f32"):
             assert ctypes.c_float in fn.argtypes
-    # the column passes take the launch plan's four ints after B
+    # the column passes take the launch plan's four ints after B (the
+    # group pass: after m)
     for sym, at in (("edpp_screen_scores_f32", 5), ("screen_matvec_f32", 5),
-                    ("fista_step_f32", 7)):
+                    ("fista_step_f32", 7), ("group_screen_scores_f32", 5)):
         assert fns[sym].argtypes[at - 1:at + 4] == [ctypes.c_int] * 5
     n_args = {s: len(f.argtypes) for s, f in fns.items()}
     assert n_args == {"edpp_screen_scores_f32": 14, "screen_matvec_f32": 11,
                       "fista_step_f32": 18, "cd_gram_sweep_f32": 11,
-                      "group_screen_scores_f32": 7, "prox_step_f32": 12}
+                      "group_screen_scores_f32": 11, "prox_step_f32": 12}
 
 
 def test_build_command_targets_sm90a_into_the_ignored_directory():
@@ -557,3 +559,184 @@ def test_launch_plan_refuses_what_no_launch_takes():
             edpp_screen.launch_plan(*args, 132, True)
     with pytest.raises(ValueError, match="no plan"):
         edpp_screen.launch_plan(784, 32, 1, 132, True, max_split=16)
+
+
+# The group pass's launch plan (``group_screen.group_plan``): the paper's
+# group design at m = 5, 10, 20 and a group wider than a tile (m = 200),
+# ragged and tiny shapes, p % 4 != 0, group sizes whose lcm with 4 exceeds
+# a tile (m = 33), groups of 1 and of the whole row, on 132 SMs and 8.
+GROUP_PLAN_CASES = [(250, 200000, 10), (250, 200000, 5), (250, 200000, 20),
+                    (250, 200000, 200), (777, 1000, 5), (777, 1001, 7),
+                    (60, 330, 33), (40, 2200, 1100), (7, 130, 1),
+                    (100, 1000, 10), (60, 300, 2), (250, 20000, 20),
+                    (784, 96, 3), (3, 36, 36), (0, 20, 5), (50, 129, 129)]
+
+
+def _group_layout(pl, p, m):
+    """The kernel's own indexing (csrc/colpass.cuh, MODE GROUP), replayed:
+    the columns each tile's lanes read per step, the groups each thread
+    of each cluster rank sums, and the score each writes."""
+    cols = np.zeros(p, int)
+    written = np.zeros(p // m, int)
+    tiles, split = pl.grid
+    share = pl.tile // split
+    for t in range(tiles):
+        col0 = t * pl.tile
+        lim = min(p, col0 + pl.tile)
+        for cs in range(0, pl.tile, 128):              # column steps
+            first = col0 + cs + 4 * np.arange(32)
+            c = (first[:, None] + np.arange(4)).ravel()
+            np.add.at(cols, c[c < lim], 1)
+        for rank in range(split):
+            c_lo = col0 + rank * share
+            for g in range(share // m):
+                if c_lo + g * m < p:
+                    assert c_lo + g * m + m <= min(lim, c_lo + share)
+                    written[(c_lo + g * m) // m] += 1
+    return cols, written
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("n, p, m", GROUP_PLAN_CASES)
+def test_group_plan_keeps_whole_groups_in_one_cta(n, p, m, sms, aligned):
+    """Every tile holds whole groups (tile % m == 0): at most 128 columns,
+    or one group walked in steps of 128; float4 only where the tile, p and
+    X allow it; every column read once a row by one lane, every group's
+    score written once by the rank that owns all its columns; the rows
+    of a cluster split as in the column pass; tile and cluster do not
+    depend on the alignment."""
+    pl = group_screen.group_plan(n, p, m, sms, aligned)
+    assert pl.tile % m == 0 and (pl.tile <= 128 or pl.tile == m)
+    if math.lcm(m, 4) <= 128:
+        assert pl.tile == 128 // math.lcm(m, 4) * math.lcm(m, 4)
+    elif m <= 128:
+        assert pl.tile == 128 // m * m and pl.vec == 1
+    assert pl.vec == 1 or (pl.tile % 4 == 0 and p % 4 == 0 and aligned)
+    if aligned and p % 4 == 0 and pl.tile % 4 == 0:
+        assert pl.vec == 4
+    cols, written = _group_layout(pl, p, m)
+    assert (cols == 1).all() and (written == 1).all()
+    tiles, split = pl.grid
+    assert tiles == -(-p // pl.tile) and split == pl.split
+    assert 1 <= split <= 8 and split & (split - 1) == 0
+    assert pl.tile % split == 0 and pl.tile // split % m == 0
+    assert split == 1 or pl.tile <= 128
+    ranges = [(n * k // split, n * (k + 1) // split) for k in range(split)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == n
+    assert pl.stage_rows >= -(-n // split) or pl.stage_rows % 32 == 0
+    assert 4 * pl.stage_rows <= edpp_screen.CENTRE_BUDGET
+    centre = -(-pl.stage_rows // 4) * 4
+    red = edpp_screen.WARPS * 2 * group_screen.GROUP_SPAN
+    assert pl.smem == 4 * (max(centre, red) if split == 1
+                           else centre + red + 2 * pl.tile)
+    assert pl.smem <= edpp_screen.SMEM_MAX and pl.block == 256
+    other = group_screen.group_plan(n, p, m, sms, not aligned)
+    assert (other.tile, other.split) == (pl.tile, pl.split)
+
+
+@pytest.mark.parametrize("m, tile, vec, steps", [(5, 120, 4, 1),
+                                                 (10, 120, 4, 1),
+                                                 (20, 120, 4, 1),
+                                                 (200, 200, 4, 2)])
+def test_group_plan_at_the_paper_design(m, tile, vec, steps):
+    """250 × 200 000 on the H100: tiles of 120 columns read as float4, no
+    cluster; m = 200 walks one group a tile in two steps."""
+    pl = group_screen.group_plan(250, 200000, m, 132, True)
+    assert (pl.tile, pl.vec, pl.split, pl.stage_rows) == (tile, vec, 1, 250)
+    assert -(-pl.tile // group_screen.GROUP_SPAN) == steps
+    assert pl.grid == (-(-200000 // tile), 1)
+
+
+def test_group_plan_fallbacks_and_refusals():
+    """lcm(m, 4) > 128: m = 33 takes three groups a tile with scalar
+    loads, m = 200 one group a tile; a cluster never cuts a group: at
+    777 × 1 001, m = 7, each of 4 ranks owns 28 columns, 4 groups; and
+    m = 20 at 120 columns takes 2 ranks, not 4 (30 columns would cut a
+    group). No plan where m does not divide p."""
+    assert group_screen.group_plan(60, 330, 33, 132, True)[:3] == (1, 99, 1)
+    assert group_screen.group_plan(250, 2000, 200, 132, True)[:3] == (4, 200,
+                                                                      1)
+    assert group_screen.group_plan(250, 2200, 1100, 132, True)[:2] == (4,
+                                                                       1100)
+    assert group_screen.group_plan(777, 1001, 7, 132, True)[:3] == (1, 112, 4)
+    assert group_screen.group_plan(784, 240, 20, 132, True)[1:3] == (120, 2)
+    for args in ((250, 1000, 3), (250, 0, 5), (250, 1000, 0), (-1, 10, 5)):
+        with pytest.raises(ValueError, match="no plan"):
+            group_screen.group_plan(*args, 132, True)
+
+
+def _cd_chunked(G, c, beta, lam, sweeps, valid=None, chunk=32):
+    """The Gram sweep as csrc/cd_gram.cu schedules it, in torch: q0 as the
+    plain version takes it; the coordinates in chunks of 32; inside a
+    chunk each step's delta is added at once to the q of the chunk's own
+    coordinates (the owning warp's lanes), and to every other q only at
+    the chunk's end, in coordinate order, from G's row j (G is
+    symmetric); the update rounded as the kernel rounds it (every lane
+    divides, a zero magnitude by way of the dividend 1, and the quotient
+    is signed after the division)."""
+    p = G.shape[0]
+    beta = beta.clone()
+    batched = beta.dim() == 2
+    lam_t = (torch.as_tensor(lam, dtype=beta.dtype).broadcast_to(
+        (beta.shape[0],)) if batched else torch.as_tensor(lam,
+                                                          dtype=beta.dtype))
+    q = beta @ G if batched else G @ beta
+    for _ in range(sweeps):
+        for lo in range(0, p, chunk):
+            hi = min(p, lo + chunk)
+            rest = torch.cat([torch.arange(0, lo), torch.arange(hi, p)])
+            deltas = []
+            for j in range(lo, hi):
+                gjj, bj = G[j, j], beta[..., j]
+                rho = (c[..., j] - q[..., j]) + gjj * bj
+                mag = torch.clamp(torch.abs(rho) - lam_t, min=0.0)
+                den = torch.clamp(gjj, min=1e-30) if gjj > 0 else \
+                    torch.ones_like(gjj)
+                div = torch.where(mag > 0, mag, torch.ones_like(mag)) / den
+                quo = torch.where(mag > 0, div, torch.zeros_like(mag))
+                bn = torch.where(gjj > 0, torch.where(rho < 0, -quo, quo),
+                                 torch.zeros_like(quo))
+                if valid is not None:
+                    bn = bn * valid[..., j]
+                delta = bn - bj
+                d = delta[:, None] if batched else delta
+                q[..., lo:hi] = q[..., lo:hi] + G[j, lo:hi] * d
+                beta[..., j] = bn
+                deltas.append(d)
+            for j, d in zip(range(lo, hi), deltas):
+                q[..., rest] = q[..., rest] + G[j, rest] * d
+    return beta
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("p", [32, 96, 1000])
+def test_cd_chunked_schedule_equals_the_plain_sweep(p, masked):
+    """The kernel's schedule (chunks of 32, deltas to the other
+    coordinates deferred to the chunk's end and added in coordinate
+    order) gives the plain version's bits: every q_k sees the same
+    operations in the same order. One query at p = 32, three with
+    per-query λ above it; three zero-Gram (padded) columns."""
+    batch = 1 if p == 32 else 3
+    rng = np.random.default_rng(p + masked)
+    A = rng.standard_normal((2 * p, p)).astype(np.float32)
+    A[:, -3:] = 0.0
+    G = torch.from_numpy(A.T @ A)
+    G = 0.5 * (G + G.T)
+    lead = () if batch == 1 else (batch,)
+    c = torch.from_numpy(rng.standard_normal(lead + (p,)).astype(
+        np.float32)) @ G * 0.1
+    beta = torch.from_numpy((0.1 * rng.standard_normal(lead + (p,))).astype(
+        np.float32))
+    valid = None
+    if masked:
+        valid = torch.from_numpy((rng.uniform(size=lead + (p,)) > 0.3).astype(
+            np.float32))
+        beta = beta * valid
+    lam = (0.5 * c.abs().amax(-1) if batch > 1
+           else 0.5 * float(c.abs().max()))
+    sweeps = 3 if p < 1000 else 1
+    want = ref.cd_gram_sweep_ref(G, c, beta, lam, sweeps, valid)
+    got = _cd_chunked(G, c, beta, lam, sweeps, valid)
+    assert torch.equal(got, want)
+    assert (want != beta).any() and not want[..., -3:].any()
