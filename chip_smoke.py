@@ -21,7 +21,12 @@ Phases, each printing its own lines and seconds:
    20 and 200 (a group wider than a tile) and at 777 × 1 000 (m = 5) and
    777 × 1 001 (m = 7, scalar loads), each with its launch plan; the
    prox step at p = 50 000 for 1 and 8 queries and a ragged p = 1 003 for
-   3 queries with per-query parameters; with times (CUDA events, median
+   3 queries with per-query parameters, and on a stack of 4 gradient
+   parts with its parameters in a (3, B) device block at the same shapes
+   (bit for bit its plain version; ``torch.sum`` over the parts beside
+   it), each also per launch in a run of 25 launches from Python and
+   replayed from a CUDA graph of 25, beside a 1-element ``zero_()``
+   timed the same two ways; with times (CUDA events, median
    of 20) beside the byte/flop bound and a torch.matmul yardstick. For
    the three column-pass kernels each row also prints its launch plan
    (grid, block, cluster, vector width, staged rows), the registers and
@@ -56,8 +61,11 @@ Phases, each printing its own lines and seconds:
    0.5·λ_max from β = 0 against the engine's EDPP mask;
    ``dist_power_iteration`` against ‖X‖₂²; ``dist_fista`` ``"none"`` and
    ``"chunked"`` (FISTA_ITERS iterations at 0.3·λ_max, from β = 0 and
-   from a dense start) against each other and an unsharded solve at tol
-   1e-8; ``dist_fista_batched`` and ``dist_edpp_screen_batched`` at
+   from a dense start), each replayed from CUDA graphs and run eagerly
+   (``capture=False``), with ms per iteration: captured β bit for bit
+   the eager β, the modes against each other and an unsharded solve at
+   tol 1e-8, and the pieces of one iteration of each mode timed in a
+   graph; ``dist_fista_batched`` and ``dist_edpp_screen_batched`` at
    B = 8 against 8 single-query runs; the group is torn down after;
 10. summary: one JSON line of per-kernel numbers, then, last,
    ``{"ok": true, "device": {...}}``.
@@ -103,6 +111,8 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 rate outside the tensor cores
 REPS = 20
 RUN = 4          # back-to-back launches timed together (cluster_choice)
+GRAPH_RUN = 25   # calls per timed run or graph (prox step, dist_fista pieces)
+PARTS = 4        # dist_fista's n_chunks: the gradient parts prox_step sums
 MNIST = (784, 50000)
 SVHN = (3072, 99288)
 GROUP_FULL = (250, 200000, 10)     # bench_group.py --full, n_g = 20 000
@@ -180,6 +190,28 @@ def event_ms(torch, fn, reps: int = REPS) -> float:
         pairs.append((a, b))
     torch.cuda.synchronize()
     return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
+def run_ms(torch, fn, k: int) -> float:
+    """ms per call of ``fn`` in a run of ``k`` back-to-back calls launched
+    from Python (what an eager loop pays), by :func:`event_ms`."""
+    return event_ms(torch, lambda: [fn() for _ in range(k)]) / k
+
+
+def graph_ms(torch, fn, k: int) -> float:
+    """ms per call of ``fn`` replayed from a CUDA graph of ``k``
+    back-to-back calls (one warm-up call on a side stream, then one
+    capture), by :func:`event_ms` on the replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(k):
+            fn()
+    return event_ms(torch, graph.replay) / k
 
 
 def bound(op: str, n: int, p: int, B: int) -> tuple[float, str]:
@@ -405,48 +437,83 @@ def check_group(torch, kernels, ref, n: int, p: int, m: int,
     return row
 
 
+def prox_bound(p: int, B: int, parts: int = 1) -> tuple[float, str]:
+    """The prox step's bound: z, β_old and the ``parts`` gradient parts
+    read, β' and z' written, (parts + 4)·B·p·4 bytes, against
+    (parts + 7)·B·p flops (the parts' sums, then 8 per element)."""
+    t_bytes = 4.0 * (parts + 4) * B * p / HBM_BYTES_PER_S * 1e3
+    t_ops = (parts + 7.0) * B * p / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def check_prox(torch, prox_step, ref, p: int, B: int, per_query: bool,
-               seed: int) -> dict:
-    """The prox step against its plain version. Both round each product
-    and difference alone, so they agree but for the threshold step·λ,
-    which the plain version's scalar path rounds from host numbers:
-    tolerance 1e-6·max(1, max|plain|). Bound: 5·B·p·4 bytes (z, g, β_old
-    read, β', z' written) against 8 flops per element; no single library
+               seed: int, floors: dict, parts: int | None = None) -> dict:
+    """The prox step against its plain version, timed alone, per launch
+    in a run of GRAPH_RUN launches from Python and per launch replayed
+    from a CUDA graph of GRAPH_RUN launches, beside the launch floors of
+    the same kinds (``floors``). Bound: :func:`prox_bound`.
+
+    With ``parts``, g is a (parts, B, p) stack of gradient parts and the
+    parameters a (3, B) device block (the distributed FISTA's
+    ``"chunked"`` call): bit for bit the plain version (the parts summed
+    in index order, then the prox), with ``torch.sum`` over the parts
+    beside it (the parts' sum alone: no library call computes the prox).
+    Without, g is plain and the parameters host numbers or (B,) tensors:
+    both round each product and difference alone, so they agree but for
+    the threshold step·λ, which the plain version's scalar path rounds
+    from host numbers: tolerance 1e-6·max(1, max|plain|); no library
     call computes it."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     lead = () if B == 1 else (B,)
-    z, grad, b = (torch.randn(*lead, p, generator=g, device="cuda")
-                  for _ in range(3))
-    if per_query:
-        step, lam, mom = (torch.rand(B, generator=g, device="cuda")
-                          for _ in range(3))
+    z, b = (torch.randn(*lead, p, generator=g, device="cuda")
+            for _ in range(2))
+    if parts:
+        stack = torch.randn(parts, *lead, p, generator=g, device="cuda")
+        par = torch.stack([torch.full((B,), 1.0 / 65000, device="cuda"),
+                           300.0 * torch.rand(B, generator=g, device="cuda"),
+                           torch.rand(B, generator=g, device="cuda")])
+        args, kw = (z, stack, b), {"params": par}
     else:
-        step, lam, mom = 1.0 / 65000, 300.0, 0.6
-    args = (z, grad, b, step, lam, mom)
-    out_k, out_p = prox_step(*args), ref.prox_step_ref(*args)
+        grad = torch.randn(*lead, p, generator=g, device="cuda")
+        if per_query:
+            par = tuple(torch.rand(B, generator=g, device="cuda")
+                        for _ in range(3))
+        else:
+            par = (1.0 / 65000, 300.0, 0.6)
+        args, kw = (z, grad, b, *par), {}
+    out_k, out_p = prox_step(*args, **kw), ref.prox_step_ref(*args, **kw)
     torch.cuda.synchronize()
     err, tol = 0.0, 0.0
     for a, w in zip(out_k, out_p):
         assert a.shape == w.shape == z.shape and bool(torch.isfinite(a).all())
         err = max(err, float((a - w).abs().max()))
-        tol = max(tol, 1e-6 * max(1.0, float(w.abs().max())))
-    ms = event_ms(torch, lambda: prox_step(*args))
-    plain_ms = event_ms(torch, lambda: ref.prox_step_ref(*args))
-    t_bytes = 4.0 * 5 * B * p / HBM_BYTES_PER_S * 1e3
-    t_ops = 8.0 * B * p / F32_FLOPS_PER_S * 1e3
-    bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
-                          else (t_ops, "operations"))
+        tol = max(tol, 0.0 if parts else 1e-6 * max(1.0, float(
+            w.abs().max())))
+    ms = event_ms(torch, lambda: prox_step(*args, **kw))
+    in_run = run_ms(torch, lambda: prox_step(*args, **kw), GRAPH_RUN)
+    in_graph = graph_ms(torch, lambda: prox_step(*args, **kw), GRAPH_RUN)
+    plain_ms = event_ms(torch, lambda: ref.prox_step_ref(*args, **kw))
+    library_ms = event_ms(torch, lambda: torch.sum(stack, 0)) if parts \
+        else None
+    bound_ms, bound_by = prox_bound(p, B, parts or 1)
     row = {"op": "prox_step", "p": p, "B": B, "per_query": per_query,
-           "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by, "matmul_ms": None}
-    print(f"  prox_step           p={p} B={B} per_query={per_query}: "
-          f"max_abs_err={err:.3g} (tol {tol:.3g}) ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.6f} ({bound_by}) "
-          f"{bound_ms / ms:.1%} of bound; library_ms none: no single call",
-          flush=True)
+           "parts": parts, "max_abs_err": err, "tol": tol, "ms": ms,
+           "run_ms": in_run, "graph_ms": in_graph, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": library_ms, "floors": floors}
+    library = ("none: no single call" if library_ms is None else
+               f"{library_ms:.4f} (torch.sum over the parts)")
+    print(f"  prox_step {parts or 'no'} parts p={p} B={B} per_query="
+          f"{per_query}: max_abs_err={err:.3g} (tol {tol:.3g}) "
+          f"ms={ms:.4f} per launch in a run of {GRAPH_RUN} "
+          f"{in_run:.4f} (zero_ {floors['run']:.4f}), in a graph "
+          f"{in_graph:.4f} (zero_ {floors['graph']:.4f}) plain_ms="
+          f"{plain_ms:.4f} bound_ms={bound_ms:.6f} ({bound_by}); "
+          f"library_ms {library}", flush=True)
     if not err <= tol:
-        raise AssertionError(f"prox_step p={p} B={B}: kernel disagrees with "
-                             f"its plain version: {err} > {tol}")
+        raise AssertionError(f"prox_step {parts} parts p={p} B={B}: kernel "
+                             f"disagrees with its plain version: {err} > "
+                             f"{tol}")
     return row
 
 
@@ -469,43 +536,137 @@ def nccl_world(torch):
 def fista_readings(torch, D, mesh, Xl, yt, lam: float, L: float, beta0,
                    beta_solve) -> dict:
     """What the dist_fista check reads: FISTA_ITERS iterations of "none"
-    and "chunked" from beta0, max|β_chunked − β_none| relative to
-    max|β_none|, and each one's max|Δβ| to the unsharded solve, with the
-    prox_step and fista_step launches of each run."""
+    and "chunked" from beta0, each replayed from CUDA graphs (the default)
+    and with ``capture=False`` (keys ``<mode>_eager``); whether the two
+    gave the same bits; max|β_chunked − β_none| relative to max|β_none|,
+    and each mode's max|Δβ| to the unsharded solve, with the kernel
+    launches and seconds of each run."""
     from repro_torch.kernels import ops
-    out = {}
+    out, betas = {}, {}
     for mode in ("none", "chunked"):
-        ops.reset_counts()
-        t0 = time.perf_counter()
-        out[mode] = D.dist_fista(mesh, Xl, yt, lam, beta0, L,
-                                 iters=FISTA_ITERS, overlap=mode)
-        torch.cuda.synchronize()
-        out[f"{mode}_s"] = time.perf_counter() - t0
-        out[f"{mode}_launches"] = ops.launch_counts()
-        assert not any(ops.plain_counts().values()), ops.plain_counts()
-    b_n, b_c = out.pop("none"), out.pop("chunked")
+        for key, capture in ((mode, True), (f"{mode}_eager", False)):
+            ops.reset_counts()
+            t0 = time.perf_counter()
+            betas[key] = D.dist_fista(mesh, Xl, yt, lam, beta0, L,
+                                      iters=FISTA_ITERS, overlap=mode,
+                                      capture=capture)
+            torch.cuda.synchronize()
+            out[f"{key}_s"] = time.perf_counter() - t0
+            out[f"{key}_launches"] = ops.launch_counts()
+            assert not any(ops.plain_counts().values()), ops.plain_counts()
+    b_n, b_c = betas["none"], betas["chunked"]
     scale = float(b_n.abs().max())
     return dict(out, rel=float((b_c - b_n).abs().max()) / max(scale, 1e-30),
                 err_none=float((b_n - beta_solve).abs().max()),
                 err_chunked=float((b_c - beta_solve).abs().max()),
-                scale=scale)
+                scale=scale, bits_equal={
+                    m: torch.equal(betas[m], betas[f"{m}_eager"])
+                    for m in ("none", "chunked")})
 
 
 def fista_failures(r: dict, y) -> list[str]:
     """The dist_fista check: "chunked" within FISTA_REL_TOL·max|β_none| of
-    "none", both within beta_err_tol of the unsharded solve, and each
-    mode's kernel launched once per iteration."""
+    "none", both within beta_err_tol of the unsharded solve, the
+    captured runs bit for bit the eager ones, and each run's kernel
+    launched once per iteration."""
     fails = []
     if not r["rel"] <= FISTA_REL_TOL:
         fails.append(f"chunked vs none {r['rel']:.3g} > {FISTA_REL_TOL:g}")
-    for mode in ("none", "chunked"):
+    for mode, op in (("none", "fista_step"), ("chunked", "prox_step")):
         if not r[f"err_{mode}"] <= beta_err_tol(y, 1e-6):
             fails.append(f"{mode} vs the solve > beta_err_tol")
-    if r["none_launches"]["fista_step"] != FISTA_ITERS:
-        fails.append("fista_step not once per iteration")
-    if r["chunked_launches"]["prox_step"] != FISTA_ITERS:
-        fails.append("prox_step not once per iteration")
+        if not r["bits_equal"][mode]:
+            fails.append(f"{mode}: captured beta differs from eager")
+        for key in (mode, f"{mode}_eager"):
+            if r[f"{key}_launches"][op] != FISTA_ITERS:
+                fails.append(f"{key}: {op} not once per iteration")
     return fails
+
+
+def fista_breakdown(torch, D, mesh, Xl, yt) -> dict:
+    """ms per iteration of each piece of a dist_fista iteration, each
+    replayed from a CUDA graph of GRAPH_RUN repetitions at the path's
+    shapes: "none" = the fit X_b z, its n-vector SUM, the fused
+    fista_step; "chunked" = the PARTS chunk fits, their PARTS async SUMs
+    (with the waits), the PARTS gradient products X_cᵀ(f − y_c) and the
+    prox on the stack. The parameters sit in a (3, 1) device block."""
+    from repro_torch.kernels import ops
+    SUM = torch.distributed.ReduceOp.SUM
+    n, p = Xl.shape
+    group = D._feature(mesh)[0]
+    z = 0.01 * torch.randn(p, generator=torch.Generator(device="cuda")
+                           .manual_seed(7), device="cuda")
+    par = torch.tensor([[1.0 / 65000], [300.0], [0.6]], device="cuda")
+    chunk = -(-n // PARTS)
+    bounds = [(lo, min(n, lo + chunk)) for lo in range(0, n, chunk)]
+    fits = [Xl[lo:hi] @ z for lo, hi in bounds]
+    parts = torch.empty(len(bounds), p, device="cuda")
+    r = Xl @ z - yt
+    vec = torch.zeros(n, device="cuda")
+
+    def reduce_chunks():
+        works = [D._reduce(f, group, SUM, async_op=True)
+                 for f in fits]
+        for w in works:
+            w.wait()
+
+    def products():
+        for c, (lo, hi) in enumerate(bounds):
+            torch.matmul(Xl[lo:hi].T, fits[c] - yt[lo:hi], out=parts[c])
+
+    pieces = {
+        "none": {"fit": lambda: Xl @ z,
+                 "sum": lambda: D._reduce(vec, group, SUM),
+                 "fista_step": lambda: ops.BACKENDS["cuda"].fista_step(
+                     Xl, r, z, z, params=par)},
+        "chunked": {"fits": lambda: [Xl[lo:hi] @ z for lo, hi in bounds],
+                    "sums": reduce_chunks, "products": products,
+                    "prox": lambda: ops.BACKENDS["cuda"].prox_step(
+                        z, parts, z, params=par)}}
+    out = {mode: {k: graph_ms(torch, fn, GRAPH_RUN) for k, fn in ps.items()}
+           for mode, ps in pieces.items()}
+    t_bytes = 4.0 * 2 * n * p / HBM_BYTES_PER_S * 1e3
+    print(f"  dist_fista pieces, ms per iteration replayed from a graph of "
+          f"{GRAPH_RUN} (X read twice an iteration: byte bound "
+          f"{t_bytes:.4f} ms): " + "; ".join(
+              f"{mode}: " + ", ".join(f"{k} {v:.4f}" for k, v in ps.items())
+              + f" (sum {sum(ps.values()):.4f})" for mode, ps in out.items()),
+          flush=True)
+    return dict(out, bound_ms=t_bytes)
+
+
+BLOCKS = (1, 5, 10, 25, 50)     # iterations per captured block, swept
+
+
+def block_sweep(torch, D, mesh, Xl, yt, lam: float, L: float, beta0) -> dict:
+    """ms per iteration of FISTA_ITERS captured iterations of "none" and
+    "chunked" from beta0 with each block size of BLOCKS (the capture's
+    eager prefix, its capture and the replays all inside the wall), each
+    run's β bit for bit the eager run's."""
+    from repro_torch.core import graphs
+    out = {}
+    for mode in ("none", "chunked"):
+        want = D.dist_fista(mesh, Xl, yt, lam, beta0, L, iters=FISTA_ITERS,
+                            overlap=mode, capture=False)
+        out[mode] = {}
+        for k in BLOCKS:
+            graphs.BLOCK, default = k, graphs.BLOCK
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                beta = D.dist_fista(mesh, Xl, yt, lam, beta0, L,
+                                    iters=FISTA_ITERS, overlap=mode)
+                torch.cuda.synchronize()
+                out[mode][k] = (time.perf_counter() - t0) / FISTA_ITERS * 1e3
+            finally:
+                graphs.BLOCK = default
+            assert torch.equal(beta, want), (mode, k)
+    print(f"  dist_fista ms per iteration by block size {BLOCKS} (default "
+          f"{graphs.BLOCK}), captured bits equal to eager at each: "
+          + "; ".join(f"{mode} " + ", ".join(f"{k}: {v:.4f}"
+                                             for k, v in ms.items())
+                      for mode, ms in out.items()), flush=True)
+    return out
 
 
 def fista_problem(torch, D, mesh, X, y):
@@ -636,15 +797,21 @@ def _group_shifted(real):
 
 def _prox_threshold_high(real):
     """The threshold step·λ 1 % high (λ read from the wrong query, say)."""
-    return lambda z, g, b, step, lam, mom: real(z, g, b, step, lam * 1.01,
-                                                mom)
+    def prox(z, g, b, step=None, lam=None, mom=None, *, params=None):
+        if params is not None:
+            params = params.clone()
+            params[1] *= 1.01
+        else:
+            lam = lam * 1.01
+        return real(z, g, b, step, lam, mom, params=params)
+    return prox
 
 
 def _prox_tail_unwritten(real):
     """The last 1 % of columns left unwritten (a grid that stops short):
     β' and z' keep β_old and z there."""
-    def prox(z, g, b, step, lam, mom):
-        bn, zn = real(z, g, b, step, lam, mom)
+    def prox(z, g, b, *args, **kw):
+        bn, zn = real(z, g, b, *args, **kw)
         k = max(1, z.shape[-1] // 100)
         bn[..., -k:] = b[..., -k:]
         zn[..., -k:] = z[..., -k:]
@@ -967,19 +1134,23 @@ def distributed_phase(torch, X, y) -> dict:
             fista[start] = r = fista_readings(torch, D, mesh, Xl, yt, lam, L,
                                               beta0, beta_solve)
             fails = fista_failures(r, y)
+            per_iter = ", ".join(
+                f"{key} {r[f'{key}_s'] / FISTA_ITERS * 1e3:.4f}"
+                for key in ("none", "none_eager", "chunked", "chunked_eager"))
             print(f"  dist_fista from {start}, {FISTA_ITERS} iterations at "
-                  f"0.3·λ_max: none {r['none_s']:.3f} s "
-                  f"({r['none_s'] / FISTA_ITERS * 1e3:.3f} ms/iter), "
-                  f"chunked {r['chunked_s']:.3f} s "
-                  f"({r['chunked_s'] / FISTA_ITERS * 1e3:.3f} ms/iter); "
-                  f"chunked vs none {r['rel']:.3g} of max|beta| "
-                  f"{r['scale']:.4g} (limit {FISTA_REL_TOL:g}); vs the "
-                  f"unsharded solve {r['err_none']:.3g} / "
+                  f"0.3·λ_max, ms per iteration (captured; eager): "
+                  f"{per_iter}; captured bits equal to eager "
+                  f"{r['bits_equal']}; chunked vs none {r['rel']:.3g} of "
+                  f"max|beta| {r['scale']:.4g} (limit {FISTA_REL_TOL:g}); vs "
+                  f"the unsharded solve {r['err_none']:.3g} / "
                   f"{r['err_chunked']:.3g} (limit "
                   f"{beta_err_tol(y, 1e-6):.3g}); failures {fails}")
             assert not fails, fails
-        launches = {"prox_step": sum(r["chunked_launches"]["prox_step"]
-                                     for r in fista.values())}
+        fista_breakdown(torch, D, mesh, Xl, yt)
+        block_sweep(torch, D, mesh, Xl, yt, lam, L, starts["zero"])
+        launches = {"prox_step": sum(r[f"{key}_launches"]["prox_step"]
+                                     for r in fista.values()
+                                     for key in ("chunked", "chunked_eager"))}
 
         B = 8
         rng = np.random.default_rng(1)
@@ -1123,17 +1294,31 @@ def main(argv: list[str]) -> int:
         for i, (pp, m) in enumerate(((1000, 5), (1001, 7))):
             rows[("group", 777, pp, m)] = check_group(
                 torch, kernels, ref, 777, pp, m, seed=130 + i, ptxas=ptxas)
+        floors = {"alone": floor_ms,
+                  "run": run_ms(torch, lambda: one.zero_(), GRAPH_RUN),
+                  "graph": graph_ms(torch, lambda: one.zero_(), GRAPH_RUN)}
+        print(f"  launch floor per 1-element zero_() in a run of {GRAPH_RUN} "
+              f"from Python {floors['run']:.4f} ms, replayed from a graph of "
+              f"{GRAPH_RUN} {floors['graph']:.4f} ms", flush=True)
         for i, (pp, B, per_query) in enumerate([(MNIST[1], 1, False),
                                                 (MNIST[1], 8, False),
                                                 (1003, 3, True)]):
             rows[("prox", pp, B)] = check_prox(torch, kernels.prox_step, ref,
-                                               pp, B, per_query, seed=140 + i)
+                                               pp, B, per_query, seed=140 + i,
+                                               floors=floors)
+        if hasattr(kernels.solver_step, "MAX_PARTS"):   # trees with parts
+            for i, (pp, B) in enumerate([(MNIST[1], 1), (MNIST[1], 8),
+                                         (1003, 3)]):
+                rows[("prox_parts", pp, B)] = check_prox(
+                    torch, kernels.prox_step, ref, pp, B, True, seed=150 + i,
+                    floors=floors, parts=PARTS)
         floor_end = event_ms(torch, lambda: one.zero_())
         print(f"  launch floor again: {floor_end:.4f} ms", flush=True)
 
     if argv == ["--kernels"]:
         print(json.dumps({"tree": tree or HERE, "launch_floor_ms":
-                          [floor_ms, floor_end], "cluster": choices,
+                          [floor_ms, floor_end], "floors": floors,
+                          "cluster": choices,
                           "rows": [dict(r, key=str(k))
                                    for k, r in rows.items()]}))
         print(smi)
@@ -1318,7 +1503,7 @@ def main(argv: list[str]) -> int:
                     ("fista_step", "main_fista"),
                     ("cd_gram_sweep", "main_cd"),
                     ("group_screen_scores", ("group", *GROUP_FULL)),
-                    ("prox_step", ("prox", MNIST[1], 1))):
+                    ("prox_step", ("prox_parts", MNIST[1], 1))):
         r = rows[key]
         summary.append({
             "name": op, "route": "cuda", "source": SOURCES[op],
@@ -1327,10 +1512,14 @@ def main(argv: list[str]) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             # torch.matmul(c, X) computes screen_matvec's function exactly;
-            # the other five have no single library call
-            "library_ms": r["matmul_ms"] if op == "screen_matvec" else None,
+            # torch.sum(parts, 0) the prox step's sum of its parts (not the
+            # prox); the other four have no single library call
+            "library_ms": (r["matmul_ms"] if op == "screen_matvec" else
+                           r.get("library_ms")),
             **({"chain_bound_ms": r["chain_ms"]}
-               if op == "cd_gram_sweep" else {})})
+               if op == "cd_gram_sweep" else {}),
+            **({"graph_ms": r["graph_ms"], "run_ms": r["run_ms"],
+                "parts": r["parts"]} if op == "prox_step" else {})})
     print(json.dumps({"kernels": summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,10 @@
 (``lasso``, ``group_lasso``), the screening rules (``screening``,
 ``group_screening``), the screening engines (``engine``), the solver
 engine with its fista/cd/group_fista strategies (``solver``), the path
-driver (``path``), the session front door (``session``) and the
+driver (``path``), the session front door (``session``), the
 feature-sharded ops over ``torch.distributed`` (``distributed``, used as
-a module, as in the reference)."""
+a module, as in the reference) and the solver loops it replays from CUDA
+graphs (``graphs``)."""
 from . import distributed  # noqa: F401
 from .engine import (  # noqa: F401
     DictionaryGeometry,

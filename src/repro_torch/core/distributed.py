@@ -31,9 +31,13 @@ feature size F.
 ``fused_scores`` in the screens, ``lambda_max_d``, ``sup_corr_d`` and
 the power iteration; ``fista_step`` in :func:`dist_fista` (``"none"``)
 and :func:`dist_fista_batched`; ``prox_step`` in :func:`dist_fista`
-(``"chunked"``, ``"stale"``). The forward fits ``X_b @ z`` and the
-chunked gradient are plain matrix products (``torch.matmul``), as the
-reference leaves them to XLA. :func:`sharded_backend` packages the
+(``"chunked"``, ``"stale"``; in ``"chunked"`` it also sums the gradient's
+per-chunk parts). The forward fits ``X_b @ z`` and the chunked gradient's
+parts are plain matrix products (``torch.matmul``), as the reference
+leaves them to XLA. On the card :func:`dist_fista` replays its
+iterations, collectives included, from CUDA graphs
+(:mod:`repro_torch.core.graphs`), as the reference runs them as one
+``lax.scan``. :func:`sharded_backend` packages the
 screening dispatch as a backend (``"shard:<tile>"``) whose outputs come
 back gathered in global column order; ``LassoSession.fit(X, mesh=...)``
 drops it into the unsharded engines.
@@ -50,6 +54,7 @@ import torch
 import torch.distributed as dist
 
 from ..kernels import ops
+from . import graphs
 from . import screening as scr
 from .device import as_tensor
 from .screening import EPS_DEFAULT
@@ -470,7 +475,7 @@ OVERLAP_MODES = ("none", "chunked", "stale")
 
 def dist_fista(mesh, X, y, lam, beta0, lipschitz, *, iters: int = 200,
                overlap: str = "none", n_chunks: int = 4,
-               solver_backend=None) -> torch.Tensor:
+               solver_backend=None, capture: bool = True) -> torch.Tensor:
     """Feature-sharded FISTA on the rank's column block X (n, p/F) from
     β0 (p/F,), a fixed number of iterations; returns the block of β.
 
@@ -480,48 +485,65 @@ def dist_fista(mesh, X, y, lam, beta0, lipschitz, *, iters: int = 200,
 
     * ``"none"``: one SUM of X_b z, then the backend's fused
       ``fista_step`` kernel (gradient, prox, momentum) on the block.
-    * ``"chunked"``: the rows split into ``n_chunks``; each chunk's fit
-      is all-reduced asynchronously, all at once, and each chunk's
-      gradient part X_cᵀ(X_c z − y_c) is taken as its reduction lands, so
-      the collectives overlap the local products. The parts are summed
-      in chunk order, then the backend's ``prox_step`` kernel. Exact, up
-      to the order of the gradient sums.
+    * ``"chunked"``: the rows split into ``n_chunks`` (at most
+      ``MAX_PARTS`` = 8 on the card); each chunk's fit is all-reduced
+      asynchronously, all at once, and each chunk's gradient part
+      X_cᵀ(X_c z − y_c) is taken as its reduction lands, into row c of
+      one (chunks, p/F) buffer, so the collectives overlap the local
+      products. The backend's ``prox_step`` kernel sums the parts in
+      chunk order (the reference's ``functools.reduce(jnp.add, parts)``,
+      bit for bit) and applies the prox. Exact, up to the order of the
+      gradient sums.
     * ``"stale"``: the gradient from the previous iterate's fit. Hides the
       collective but breaks FISTA's momentum contraction: it oscillates
       instead of converging (kept for the record, as in the reference).
+
+    Each iteration reads its step | λ | mom from a row of one parameter
+    table (:func:`~repro_torch.core.graphs.param_table`). On a CUDA X the
+    iterations are replayed from a CUDA graph in blocks
+    (:func:`~repro_torch.core.graphs.run_loop`), collectives included;
+    ``capture=False`` runs the same iterations one launch at a time, with
+    the same bits. A CPU X runs them eagerly.
     """
     if overlap not in OVERLAP_MODES:
         raise ValueError(f"overlap must be one of {OVERLAP_MODES}, got "
                          f"{overlap!r}")
     backend = ops.resolve_backend(solver_backend, X.device)
-    fl = host_float(X)
-    step = fista_step_size(lipschitz, fl)
-    n = X.shape[0]
-    chunk = -(-n // n_chunks)
+    step = fista_step_size(lipschitz, host_float(X))
+    batch = 1 if beta0.dim() == 1 else beta0.shape[0]
+    table = graphs.param_table(iters, step, lam, batch, X)
     group = _feature(mesh)[0]
-    beta, z, t = beta0, beta0, fl(1.0)
-    if overlap == "stale":        # X·β₀, as the reference forms it
-        Xz = y - (y - _psum(mesh, X @ beta0))
-    for _ in range(iters):
-        t, mom = fista_momentum(t, fl)
-        if overlap == "none":
-            r = _reduce(X @ z, group, dist.ReduceOp.SUM) - y
-            beta, z = backend.fista_step(X, r, z, beta, step, lam, mom)
-            continue
-        if overlap == "chunked":
-            bounds = [(lo, min(n, lo + chunk)) for lo in range(0, n, chunk)]
+    state = (beta0, beta0)
+
+    def fit(z):
+        return _reduce(X @ z, group, dist.ReduceOp.SUM)
+
+    if overlap == "none":
+        def body(state, par):
+            beta, z = state
+            return backend.fista_step(X, fit(z) - y, z, beta, params=par)
+    elif overlap == "chunked":
+        n = X.shape[0]
+        chunk = -(-n // n_chunks)
+        bounds = [(lo, min(n, lo + chunk)) for lo in range(0, n, chunk)]
+        parts = torch.empty((len(bounds), *beta0.shape), dtype=X.dtype,
+                            device=X.device)
+
+        def body(state, par):
+            beta, z = state
             fits = [X[lo:hi] @ z for lo, hi in bounds]
             works = [_reduce(f, group, dist.ReduceOp.SUM, async_op=True)
                      for f in fits]
-            g = None
-            for (lo, hi), fit, work in zip(bounds, fits, works):
+            for c, ((lo, hi), f, work) in enumerate(zip(bounds, fits, works)):
                 if work is not None:
                     work.wait()
-                part = X[lo:hi].T @ (fit - y[lo:hi])
-                g = part if g is None else g + part
-        else:
-            Xz_next = _reduce(X @ z, group, dist.ReduceOp.SUM)
-            g = X.T @ (Xz - y)
-            Xz = Xz_next
-        beta, z = backend.prox_step(z, g, beta, step, lam, mom)
-    return beta
+                torch.matmul(X[lo:hi].T, f - y[lo:hi], out=parts[c])
+            return backend.prox_step(z, parts, beta, params=par)
+    else:
+        def body(state, par):
+            beta, z, Xz = state
+            Xz_next = fit(z)
+            beta, z = backend.prox_step(z, X.T @ (Xz - y), beta, params=par)
+            return beta, z, Xz_next
+        state += (y - (y - fit(beta0)),)     # X·β₀, as the reference
+    return graphs.run_loop(body, state, table, capture=capture)[0]

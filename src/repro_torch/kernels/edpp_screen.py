@@ -174,8 +174,8 @@ _SIGNATURES = {
     "cd_chain_f32": [_INT, _INT, _F32, _F32, _VP, _VP],
     "group_screen_scores_f32": [_VP, _VP, _INT, _INT, _INT, *_PLAN, _VP,
                                 _VP],
-    "prox_step_f32": [_VP, _VP, _VP, _INT, _INT, _VP, _F32, _F32, _F32, _VP,
-                      _VP, _VP],
+    "prox_step_f32": [_VP, _VP, _INT, _VP, _INT, _INT, _VP, _F32, _F32, _F32,
+                      _VP, _VP, _VP],
 }
 
 

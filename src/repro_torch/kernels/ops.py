@@ -9,6 +9,10 @@ A :class:`ScreenBackend` bundles the six ops of the ported paths:
     cd_gram_sweep(G, c, beta, lam, sweeps, valid) -> β after the sweeps
     prox_step(z, g, beta_old, step, lam, mom)  -> (β', z')
 
+``fista_step`` and ``prox_step`` also take ``params=``, a (3, B) block of
+step | λ | mom in place of the three (a row of a solver's parameter
+table), and ``prox_step`` a (k, …) stack of the gradient's parts as g.
+
 Backends: ``cuda`` (the hand-written kernels of :mod:`.edpp_screen`,
 :mod:`.solver_step` and :mod:`.group_screen`; their wrappers take the
 plain versions for CPU tensors) and ``torch`` (the plain versions of
@@ -72,6 +76,12 @@ def resolve_backend(name: str | ScreenBackend | None,
 
 _LAUNCH_COUNTERS = (edpp_screen.LAUNCHES, solver_step.LAUNCHES,
                     group_screen.LAUNCHES)
+_COUNTER_OF = {"edpp_screen_scores": edpp_screen.LAUNCHES,
+               "screen_matvec": edpp_screen.LAUNCHES,
+               "group_screen_scores": group_screen.LAUNCHES,
+               "fista_step": solver_step.LAUNCHES,
+               "cd_gram_sweep": solver_step.LAUNCHES,
+               "prox_step": solver_step.LAUNCHES}
 
 
 def launch_counts() -> dict[str, int]:
@@ -87,6 +97,18 @@ def plain_counts() -> dict[str, int]:
     counts = dict.fromkeys(OPS, 0)
     counts.update(ref.PLAIN_CALLS)
     return counts
+
+
+def add_counts(launches: dict[str, int], plain: dict[str, int],
+               times: int = 1) -> None:
+    """Add ``times`` × the given launches and plain-version calls to the
+    counts: a CUDA graph's replay runs what its capture recorded
+    (``repro_torch.core.graphs``), and a negative ``times`` takes back
+    what the capture itself counted, which ran nothing."""
+    for op, k in launches.items():
+        _COUNTER_OF[op][op] += times * k
+    for op, k in plain.items():
+        ref.PLAIN_CALLS[op] += times * k
 
 
 def reset_counts() -> None:

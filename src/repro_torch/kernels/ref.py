@@ -77,10 +77,19 @@ def _prox(z, g, beta_old, step, lam, mom):
     return beta_new, beta_new + mom * (beta_new - beta_old)
 
 
-def _prox_params(z: torch.Tensor, step, lam, mom):
+def _prox_params(z: torch.Tensor, step, lam, mom, params=None):
     """step, λ, mom as tensors of z's dtype: (B, 1) for a (B, p) z, 0-d
     for a (p,) z, so ``step·λ`` rounds in that dtype, as the kernels
-    compute it."""
+    compute it. ``params``, a (3, B) block of step | λ | mom rows (B = 1
+    for a (p,) z), replaces the three when given."""
+    if params is not None:
+        B = z.shape[0] if z.dim() == 2 else 1
+        if tuple(params.shape) != (3, B):
+            raise ValueError(f"params must be (3, {B}): step | lam | mom, "
+                             f"got {tuple(params.shape)}")
+        step, lam, mom = params if z.dim() == 2 else params[:, 0]
+    elif step is None or lam is None or mom is None:
+        raise TypeError("give step, lam and mom, or params")
     if z.dim() == 2:
         return tuple(_per_query(s, z.shape[0], z.dtype, z.device)[:, None]
                      for s in (step, lam, mom))
@@ -88,27 +97,44 @@ def _prox_params(z: torch.Tensor, step, lam, mom):
                  for s in (step, lam, mom))
 
 
+def _sum_parts(z: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The gradient from ``g``: itself when it has z's shape, else the sum
+    of its parts along the leading axis, in index order, one rounded
+    addition at a time (the reference's ``functools.reduce(jnp.add,
+    parts)``), in z's dtype."""
+    g = g.to(z.dtype)
+    if g.dim() == z.dim():
+        return g
+    total = g[0]
+    for part in g[1:]:
+        total = total + part
+    return total
+
+
 def prox_step_ref(z: torch.Tensor, g: torch.Tensor, beta_old: torch.Tensor,
-                  step, lam, mom):
+                  step=None, lam=None, mom=None, *, params=None):
     """The FISTA prox and momentum over p-vectors, given the gradient g:
 
         u  = z − step·g
         β' = sign(u)·max(|u| − step·λ, 0)
         z' = β' + mom·(β' − β_old)
 
-    z/g/beta_old are (p,) or (B, p) with step/λ/mom scalar-or-(B,); the
-    result has z's dtype. Zero columns (z = g = β_old = 0) stay 0."""
+    z/g/beta_old are (p,) or (B, p) with step/λ/mom scalar-or-(B,), or
+    ``params`` a (3, B) block of them; g may also be a (k, …) stack of
+    the gradient's parts, summed in index order first (:func:`_sum_parts`).
+    The result has z's dtype. Zero columns (z = g = β_old = 0) stay 0."""
     PLAIN_CALLS["prox_step"] += 1
-    return _prox(z, g.to(z.dtype), beta_old.to(z.dtype),
-                 *_prox_params(z, step, lam, mom))
+    return _prox(z, _sum_parts(z, g), beta_old.to(z.dtype),
+                 *_prox_params(z, step, lam, mom, params))
 
 
 def fista_step_ref(X: torch.Tensor, r: torch.Tensor, z: torch.Tensor,
-                   beta_old: torch.Tensor, step, lam, mom):
+                   beta_old: torch.Tensor, step=None, lam=None, mom=None, *,
+                   params=None):
     """One fused FISTA iteration tail given the residual ``r = Xz − y``:
     ``g = Xᵀr``, ``β = S(z − step·g, step·λ)``,
     ``z' = β + mom·(β − β_old)``. Batched: r (B, n), z/β_old (B, p),
-    step/λ/mom scalar-or-(B,)."""
+    step/λ/mom scalar-or-(B,), or ``params`` a (3, B) block of them."""
     PLAIN_CALLS["fista_step"] += 1
     acc = _acc_dtype(X)
     za, ba = z.to(acc), beta_old.to(acc)
@@ -116,7 +142,7 @@ def fista_step_ref(X: torch.Tensor, r: torch.Tensor, z: torch.Tensor,
         g = r.to(acc) @ X.to(acc)
     else:
         g = X.to(acc).T @ r.to(acc)
-    return _prox(za, g, ba, *_prox_params(za, step, lam, mom))
+    return _prox(za, g, ba, *_prox_params(za, step, lam, mom, params))
 
 
 def group_screen_ref(X: torch.Tensor, centre: torch.Tensor,

@@ -63,15 +63,30 @@ step alone, without loads, so that ``chip_smoke.py`` can time it.
 Replaces ``prox_step`` of ``src/repro/kernels/prox_step.py`` (its
 ``pl.pallas_call`` at line 67). The distributed FISTA's ``"chunked"`` and
 ``"stale"`` modes (:func:`repro_torch.core.distributed.dist_fista`) call
-it on each rank's feature block, after the gradient came together from
-the per-chunk collectives. ``z``/``g``/``beta_old`` are (p,) or (B, p);
-``step``/``lam``/``mom`` are taken as by ``fista_step``. A CUDA z launches
-``csrc/prox_step.cu`` (float32, contiguous) or raises. It reads z, g and
-β_old and writes β' and z', 20 bytes per element for 8 flops, so it is
-bound by the bytes (1.0 MB at p = 50 000: 0.3 µs at 3.35 TB/s), and at
-the distributed solver's widths by the launch itself. One thread per 4
-elements, float4 accesses where p % 4 == 0 and the pointers are 16-byte
-aligned.
+it on each rank's feature block. ``z``/``beta_old`` are (p,) or (B, p);
+``g`` is shaped like them or is a (k, …) stack of the gradient's parts
+(k ≤ ``MAX_PARTS``), which the kernel sums in index order, each addition
+rounded alone: the bits of the reference's ``functools.reduce(jnp.add,
+parts)``, without its k − 1 launches. ``step``/``lam``/``mom`` are taken
+as by ``fista_step``. A CUDA z launches ``csrc/prox_step.cu`` (float32,
+contiguous) or raises. It reads z, the parts and β_old and writes β' and
+z', (k + 4)·4 bytes per element, so its body is bound by the bytes (1.0
+MB at p = 50 000, k = 1: 0.3 µs at 3.35 TB/s), and a launch from Python
+by the launch (0.0055 ms alone against 0.0049 for a 1-element
+``zero_()``). So the design takes the launch off the host: the solver
+replays its iterations from a CUDA graph (:mod:`repro_torch.core.graphs`)
+and each launch reads its iteration's step | λ | mom from a row of a
+device table through ``params``. Measured on an NVIDIA H100 80GB HBM3 at
+700 W (``chip_smoke.py``, ``PERF.md`` §6): 0.0015 ms per launch in
+a graph at p = 50 000, B = 1 (0.0018–0.0020 with 4 parts), against
+0.0010 for ``zero_()`` in the same graph. One thread per 4 elements,
+float4 accesses where p % 4 == 0 and the pointers are 16-byte aligned;
+a plain g takes an instantiation without the parts' loop.
+
+``fista_step`` and ``prox_step`` take ``params=``, a ready (3, B) float32
+block of step | λ | mom on the tensors' device, in place of the three:
+the kernels read it through their ``params`` pointer as it is, so no
+launch is spent building it.
 """
 
 from __future__ import annotations
@@ -85,16 +100,21 @@ from .edpp_screen import (MAX_B, LaunchPlan, check_error, check_rows, check_x,
                           chunk_ptr, kernel_fn, params, plan_for)
 
 GRAM_BUCKET_MAX = 1024   # largest Gram system (columns) cd_gram_sweep takes
+MAX_PARTS = 8            # gradient parts prox_step sums (csrc/prox_step.cu)
 LAUNCHES: collections.Counter = collections.Counter()
 
 
 def fista_step(X: torch.Tensor, r: torch.Tensor, z: torch.Tensor,
-               beta_old: torch.Tensor, step, lam, mom, *,
+               beta_old: torch.Tensor, step=None, lam=None, mom=None, *,
+               params: torch.Tensor | None = None,
                plan: LaunchPlan | None = None):
-    """One fused FISTA iteration tail; see the module doc. ``plan``
-    replaces ``edpp_screen.launch_plan``'s choice on a CUDA X."""
+    """One fused FISTA iteration tail; see the module doc. ``params``, a
+    ready (3, B) float32 block of step | λ | mom on X's device, replaces
+    the three and goes to the kernel as it is. ``plan`` replaces
+    ``edpp_screen.launch_plan``'s choice on a CUDA X."""
     if X.device.type == "cpu":
-        return ref.fista_step_ref(X, r, z, beta_old, step, lam, mom)
+        return ref.fista_step_ref(X, r, z, beta_old, step, lam, mom,
+                                  params=params)
     op = "fista_step"
     check_x(X, op)
     n, p = X.shape
@@ -105,7 +125,7 @@ def fista_step(X: torch.Tensor, r: torch.Tensor, z: torch.Tensor,
     if Z.shape[0] != B or Bo.shape[0] != B or z.dim() != r.dim():
         raise ValueError(f"{op}: r {tuple(r.shape)}, z {tuple(z.shape)} and "
                          f"beta_old {tuple(beta_old.shape)} disagree on B")
-    par, scal = params(B, X.device, step, lam, mom)
+    par, scal = _param_block(params, B, X.device, op, step, lam, mom)
     fn = kernel_fn("solver_step", "fista_step_f32")
     beta_new = torch.empty((B, p), dtype=torch.float32, device=X.device)
     z_new = torch.empty((B, p), dtype=torch.float32, device=X.device)
@@ -173,6 +193,22 @@ def cd_gram_sweep(G: torch.Tensor, c: torch.Tensor, beta: torch.Tensor, lam,
     return out[0] if squeeze else out
 
 
+def _param_block(block, B: int, device, op: str, step, lam, mom):
+    """``(device array or None, by-value floats)`` for a launch: a given
+    (3, B) ``block`` as it is, else ``edpp_screen.params`` of the three."""
+    if block is None:
+        if step is None or lam is None or mom is None:
+            raise TypeError(f"{op}: give step, lam and mom, or params")
+        return params(B, device, step, lam, mom)
+    if block.device != device or block.dtype != torch.float32:
+        raise ValueError(f"{op}: params must be float32 on {device}, got "
+                         f"{block.dtype} on {block.device}")
+    if tuple(block.shape) != (3, B) or not block.is_contiguous():
+        raise ValueError(f"{op}: params must be a contiguous (3, {B}) block "
+                         f"of step | lam | mom, got {tuple(block.shape)}")
+    return block, (0.0, 0.0, 0.0)
+
+
 def _check_vec(v: torch.Tensor, what: str, like: torch.Tensor,
                op: str) -> None:
     if v.device != like.device:
@@ -189,26 +225,40 @@ def _check_vec(v: torch.Tensor, what: str, like: torch.Tensor,
 
 
 def prox_step(z: torch.Tensor, g: torch.Tensor, beta_old: torch.Tensor,
-              step, lam, mom):
-    """``(β', z')``, shaped like ``z``; see the module doc."""
+              step=None, lam=None, mom=None, *,
+              params: torch.Tensor | None = None):
+    """``(β', z')``, shaped like ``z``; see the module doc. ``g`` is the
+    gradient, shaped like ``z``, or a (k, …) stack of its parts (k ≤
+    ``MAX_PARTS``), summed in index order in the kernel. ``params`` is
+    taken as by :func:`fista_step`."""
     if z.device.type == "cpu":
-        return ref.prox_step_ref(z, g, beta_old, step, lam, mom)
+        return ref.prox_step_ref(z, g, beta_old, step, lam, mom,
+                                 params=params)
     op = "prox_step"
     if z.device.type != "cuda":
         raise ValueError(f"{op}: z must be a CPU or CUDA tensor, got device "
                          f"{z.device}")
-    for v, what in ((z, "z"), (g, "g"), (beta_old, "beta_old")):
+    stacked = g.dim() == z.dim() + 1
+    parts = g.shape[0] if stacked else 1
+    if not 1 <= parts <= MAX_PARTS:
+        raise ValueError(f"{op}: a stack of {parts} gradient parts; the "
+                         f"kernel sums 1 to {MAX_PARTS}")
+    for v, what in ((z, "z"), (g[0] if stacked else g, "g"),
+                    (beta_old, "beta_old")):
         _check_vec(v, what, z, op)
+    if not g.is_contiguous():
+        raise ValueError(f"{op}: g must be contiguous")
     B, p = (1, z.shape[0]) if z.dim() == 1 else tuple(z.shape)
-    par, scal = params(B, z.device, step, lam, mom)
+    par, scal = _param_block(params, B, z.device, op, step, lam, mom)
     fn = kernel_fn("prox_step", "prox_step_f32")
     beta_new = torch.empty_like(z)
     z_new = torch.empty_like(z)
     if B and p:
         with torch.cuda.device(z.device):
             stream = torch.cuda.current_stream().cuda_stream
-            check_error(fn(z.data_ptr(), g.data_ptr(), beta_old.data_ptr(), B,
-                           p, None if par is None else par.data_ptr(), *scal,
+            check_error(fn(z.data_ptr(), g.data_ptr(), parts,
+                           beta_old.data_ptr(), B, p,
+                           None if par is None else par.data_ptr(), *scal,
                            beta_new.data_ptr(), z_new.data_ptr(), stream), op)
             LAUNCHES[op] += 1
     return beta_new, z_new

@@ -10,8 +10,12 @@ warp, one warp a chunk), each repeatable, blind to alignment and exact
 on zero columns; the wrappers' refusals;
 the sessions (default FISTA, ``cd``, groups) on the card against the
 same sessions on the CPU; the prox step over its shapes and parameter
-kinds; and a mesh session over NCCL at world size 1 against the
-unsharded session on the card.
+kinds, and with a stack of gradient parts bit for bit; solver loops
+replayed from a CUDA graph (``repro_torch.core.graphs``) bit for bit
+against the same launches run eagerly, with each replay's launches
+counted; and a mesh session over NCCL at world size 1 against the
+unsharded session on the card, with ``dist_fista`` captured against
+eager in its three modes.
 
 Marked ``gpu``: without a CUDA device every test skips. On a machine with
 one card: ``python -m pytest -q -m gpu tests/test_torch_cuda.py``.
@@ -29,6 +33,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
 from repro_torch import LassoSession, PathConfig, ScreenSpec, SolveSpec
+from repro_torch.core import graphs
 from repro_torch.data import group_lasso_problem, lasso_problem
 from repro_torch.kernels import (edpp_screen, group_screen, ops, ref,
                                  solver_step)
@@ -385,6 +390,109 @@ def test_prox_step_matches_plain_version(cuda, shape, per_query):
             assert float((a - w).abs().max()) <= 1e-6
 
 
+@pytest.mark.parametrize("parts", [1, 2, 4, 8])
+@pytest.mark.parametrize("shape", [(50000,), (8, 50000), (1003,), (3, 1003),
+                                   (17, 131)])
+def test_prox_step_sums_its_parts_bit_for_bit(cuda, shape, parts):
+    """g as a stack of k parts: the kernel adds them in index order, each
+    sum rounded alone, so with the parameters in a (3, B) device block
+    it equals the plain version (the chained sum, then the prox) bit for
+    bit, on float4 loads and on an unaligned view's scalar loads alike;
+    one launch per call."""
+    B = shape[0] if len(shape) == 2 else 1
+    g = torch.Generator(device=cuda).manual_seed(sum(shape) + parts)
+    z, b = (torch.randn(*shape, generator=g, device=cuda) for _ in range(2))
+    stack = torch.randn(parts, *shape, generator=g, device=cuda)
+    par = torch.stack([torch.rand(B, generator=g, device=cuda) * 0.5,
+                       torch.rand(B, generator=g, device=cuda),
+                       torch.rand(B, generator=g, device=cuda)])
+    ops.reset_counts()
+    out = solver_step.prox_step(z, stack, b, params=par)
+    assert ops.launch_counts()["prox_step"] == 1
+    chained = stack[0]
+    for part in stack[1:]:
+        chained = chained + part
+    for want in (ref.prox_step_ref(z, stack, b, params=par),
+                 ref.prox_step_ref(z, chained, b, params=par),
+                 solver_step.prox_step(z, chained, b, params=par)):
+        for a, w in zip(out, want):
+            assert a.shape == z.shape and torch.equal(a, w)
+    flat = (z.reshape(-1)[1:].contiguous(), stack.reshape(parts, -1)[:, 1:]
+            .contiguous(), b.reshape(-1)[1:].contiguous())
+    one = par[:, :1].contiguous()
+    for a, w in zip(solver_step.prox_step(*flat, params=one),
+                    ref.prox_step_ref(*flat, params=one)):
+        assert torch.equal(a, w)
+    with pytest.raises(ValueError, match="gradient parts"):
+        solver_step.prox_step(z, torch.zeros(9, *shape, device=cuda), b,
+                              params=par)
+    with pytest.raises(ValueError, match="params"):
+        solver_step.prox_step(z, stack, b, params=par[:2])
+
+
+def _loop_problem(cuda, n=96, p=4000, parts=4):
+    """A single-query FISTA loop on the card whose body launches
+    ``fista_step`` and then ``prox_step`` on a (parts, p) stack, each
+    reading its parameters from the table's row."""
+    g = torch.Generator(device=cuda).manual_seed(n + p)
+    X = torch.randn(n, p, generator=g, device=cuda) / math.sqrt(n)
+    y = torch.randn(n, generator=g, device=cuda)
+    step = 1.0 / (1.05 * float(torch.linalg.matrix_norm(X, 2)) ** 2)
+    bounds = [(lo, min(n, lo + n // parts)) for lo in range(0, n, n // parts)]
+    stack = torch.empty(len(bounds), p, device=cuda)
+
+    def body(state, par):
+        beta, z = state
+        beta, z = solver_step.fista_step(X, X @ z - y, z, beta, params=par)
+        for c, (lo, hi) in enumerate(bounds):
+            torch.matmul(X[lo:hi].T, X[lo:hi] @ z - y[lo:hi], out=stack[c])
+        return solver_step.prox_step(z, stack, beta, params=par)
+
+    def table(iters):
+        return graphs.param_table(iters, step, 0.2 * float((X.T @ y).abs()
+                                                           .max()), 1, X)
+    return body, table, torch.zeros(p, device=cuda)
+
+
+@pytest.mark.parametrize("iters", [51, 13, 6, 3])
+def test_a_captured_block_replays_the_eager_launches(cuda, iters):
+    """run_loop captured (an eager prefix of 1 + (iters − 1) % BLOCK, then
+    replays of one block: at BLOCK = 5, 10, 2, 1 and none) against
+    capture=False on the same table: β and z equal bit for bit, and
+    launch_counts() credits each replay with the block's launches, so
+    both count one fista_step and one prox_step per iteration and nothing
+    for the capture itself."""
+    body, table, zero = _loop_problem(cuda)
+    rows = table(iters)
+    runs = {}
+    for capture in (False, True):
+        ops.reset_counts()
+        runs[capture] = graphs.run_loop(body, (zero, zero), rows,
+                                        capture=capture)
+        torch.cuda.synchronize()
+        assert ops.launch_counts() == dict(
+            dict.fromkeys(ops.OPS, 0), fista_step=iters, prox_step=iters)
+        assert not any(ops.plain_counts().values())
+    for a, b in zip(runs[True], runs[False]):
+        assert torch.equal(a, b)
+    assert bool(torch.isfinite(runs[True][0]).all())
+    assert runs[True][0].abs().max() > 0
+
+
+def test_the_parameter_table_is_the_host_momentum_sequence(cuda):
+    """The table's rows on the card: step and λ in every row, mom the host
+    fista_momentum sequence, all as float32 bits; a (B,) λ on the card is
+    copied in per query."""
+    X = torch.zeros(3, 4, device=cuda)
+    lam = torch.tensor([0.25, 0.5], device=cuda)
+    t = graphs.param_table(7, 0.125, lam, 2, X)
+    assert t.shape == (7, 3, 2) and t.dtype == torch.float32 and t.is_cuda
+    moms = graphs.momentum_sequence(7, np.float32)
+    assert np.array_equal(t[:, 2].cpu().numpy(), np.stack([moms] * 2, 1))
+    assert torch.equal(t[:, 1], lam.expand(7, 2))
+    assert bool((t[:, 0] == 0.125).all())
+
+
 def test_mesh_session_over_nccl_matches_the_unsharded_session(cuda, tmp_path):
     """World size 1 over NCCL: the mesh session's masks, β and pass
     counts equal the unsharded session's on the card, bit for bit, and
@@ -417,6 +525,20 @@ def test_mesh_session_over_nccl_matches_the_unsharded_session(cuda, tmp_path):
         assert ops.launch_counts()["prox_step"] == 50
         assert not any(ops.plain_counts().values())
         assert bool(torch.isfinite(beta).all())
+        # the iterations replayed from a CUDA graph, collectives included,
+        # give the eager loop's bits in every mode
+        L = 1.05 * float(D.dist_power_iteration(mesh, Xl))
+        for mode, iters in (("none", 60), ("chunked", 60), ("stale", 30)):
+            runs = {}
+            for capture in (True, False):
+                ops.reset_counts()
+                runs[capture] = D.dist_fista(
+                    mesh, Xl, yt, lam, torch.zeros(1000, device=cuda), L,
+                    iters=iters, overlap=mode, capture=capture)
+                torch.cuda.synchronize()
+                op = "fista_step" if mode == "none" else "prox_step"
+                assert ops.launch_counts()[op] == iters, (mode, capture)
+            assert torch.equal(runs[True], runs[False]), mode
     finally:
         dist.destroy_process_group()
 

@@ -22,6 +22,7 @@ Tolerances, stated per test:
   ``beta_err_tol(y, 1e-6)``, the pass counts equal.
 """
 
+import functools
 import os
 
 import jax
@@ -438,6 +439,48 @@ def test_prox_step_plain_matches_reference(shape, params):
             np.testing.assert_allclose(port.numpy(), np.asarray(r),
                                        rtol=1e-6, atol=1e-6)
     assert not bn[..., -7:].any() and not zn[..., -7:].any()
+
+
+@pytest.mark.parametrize("shape", [(300,), (3, 257)])
+@pytest.mark.parametrize("parts", [1, 2, 3, 4])
+def test_prox_step_plain_sums_parts_as_the_reference(shape, parts):
+    """g as a (k, …) stack of the chunked gradient's parts: the plain
+    version equals the chained sum g = part₀; g = g + partᵢ followed by
+    the prox, bit for bit, with the parameters as host numbers or as a
+    (3, B) block; and it matches the reference's Pallas prox_step
+    (interpret mode) on ``functools.reduce(jnp.add, parts)`` within the
+    tolerance of test_prox_step_plain_matches_reference (1e-6)."""
+    rng = np.random.default_rng(10 * parts + len(shape))
+    z, b = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+    stack = rng.standard_normal((parts, *shape)).astype(np.float32)
+    B = shape[0] if len(shape) == 2 else 1
+    step, lam, mom = (rng.uniform(0.005, 0.5, B).astype(np.float32)
+                      for _ in range(3))
+    scalars = (step, lam, mom) if B > 1 else (float(step[0]), float(lam[0]),
+                                              float(mom[0]))
+    block = torch.from_numpy(np.stack([step, lam, mom]))
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a))
+
+    chained = t(stack[0])
+    for part in stack[1:]:
+        chained = chained + t(part)
+    want = ref.prox_step_ref(t(z), chained, t(b), *(
+        t(s) if B > 1 else s for s in scalars))
+    ops.reset_counts()
+    for got in (ref.prox_step_ref(t(z), t(stack), t(b), *(
+                    t(s) if B > 1 else s for s in scalars)),
+                ref.prox_step_ref(t(z), t(stack), t(b), params=block)):
+        for a, w in zip(got, want):
+            assert a.shape == shape and torch.equal(a, w)
+    assert ops.plain_counts()["prox_step"] == 2
+    g = functools.reduce(jnp.add, [jnp.asarray(a) for a in stack])
+    jargs = [jnp.asarray(z), g, jnp.asarray(b)] + [
+        jnp.asarray(s) if B > 1 else s for s in scalars]
+    for port, r in zip(want, jprox_step(*jargs, interpret=True)):
+        np.testing.assert_allclose(port.numpy(), np.asarray(r), rtol=1e-6,
+                                   atol=1e-6)
 
 
 def test_prox_step_plain_float64_keeps_its_dtype():

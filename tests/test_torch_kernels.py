@@ -436,10 +436,12 @@ def test_kernel_entry_points_get_their_c_signature(monkeypatch):
     for sym, at in (("edpp_screen_scores_f32", 5), ("screen_matvec_f32", 5),
                     ("fista_step_f32", 7), ("group_screen_scores_f32", 5)):
         assert fns[sym].argtypes[at - 1:at + 4] == [ctypes.c_int] * 5
+    # the prox step takes its count of gradient parts after g
+    assert fns["prox_step_f32"].argtypes[2] is ctypes.c_int
     n_args = {s: len(f.argtypes) for s, f in fns.items()}
     assert n_args == {"edpp_screen_scores_f32": 14, "screen_matvec_f32": 11,
                       "fista_step_f32": 18, "cd_gram_sweep_f32": 11,
-                      "group_screen_scores_f32": 11, "prox_step_f32": 12}
+                      "group_screen_scores_f32": 11, "prox_step_f32": 13}
 
 
 def test_build_command_targets_sm90a_into_the_ignored_directory():

@@ -1,7 +1,9 @@
 """End to end on the CPU: the port's ``LassoSession`` against the
 reference's on the same numpy problems (``repro.data.pipeline``): the
-default FISTA path, the ``cd`` strategy and group paths (``groups=m``)
-with ``edpp``, ``strong`` and ``none``.
+default FISTA path; the other ported Lasso rules (dpp, imp1, imp2,
+seq_safe, safe, none) and EDPP's basic and paranoid variants; the ``cd``
+strategy; and group paths (``groups=m``) with ``edpp``, ``strong`` and
+``none``.
 
 The contract (ROADMAP.md): λ_max agrees to float32 rounding; the λ grids
 match with ``hi_frac=0.95`` pinned (the λ = λ_max endpoint flips on the
@@ -57,9 +59,15 @@ def _carry(js, config):
     return session_from_arrays(arrays, config=config, device="cpu")
 
 
-def _reference_scores(js, X, y, res_j):
-    """Per step, the reference's EDPP scores |Xᵀc| + ρ‖x_j‖ from its own
-    previous solution (float64 numpy on its float32 centre)."""
+def _reference_scores(js, X, y, res_j, rule="edpp", sequential=True):
+    """Per step, the reference's sphere scores |Xᵀc| + ρ‖x_j‖ for ``rule``
+    and the threshold they are held to, from its own previous solution
+    (float64 numpy on its float32 centre): 1 − eps, and 1 − eps/λ for
+    basic SAFE (eq. 15's margin at λ scale). The basic variants
+    (``sequential=False``) keep the state at λ_max; ``none`` has no
+    scores."""
+    if rule == "none":
+        return {}
     eng = JEngine(jnp.asarray(X), jnp.asarray(y), backend="jnp",
                   geometry=js.geometry)
     lams, betas = res_j.lambdas[0], res_j.betas[0]
@@ -68,26 +76,32 @@ def _reference_scores(js, X, y, res_j):
     for k, lam in enumerate(lams):
         if lam >= eng.lam_max:
             continue
-        sp = jscr.edpp_sphere(jnp.asarray(y), lam, state)
-        out[k] = np.abs(X.T.astype(np.float64) @ np.asarray(sp.centre)) \
-            + float(sp.rho) * col_norms
-        beta = betas[k].astype(np.float32)
-        state = eng.make_state(jnp.asarray(beta), lam,
-                               fitted=jnp.asarray(X @ beta))
+        if rule == "safe":
+            sp = jscr.safe_sphere(jnp.asarray(y), lam, eng.lam_max)
+            thresh = 1.0 - 1e-6 / lam
+        else:
+            sp = jscr.SPHERE_RULES[rule](jnp.asarray(y), lam, state)
+            thresh = 1.0 - 1e-6
+        out[k] = (np.abs(X.T.astype(np.float64) @ np.asarray(sp.centre))
+                  + float(sp.rho) * col_norms, thresh)
+        if sequential:
+            beta = betas[k].astype(np.float32)
+            state = eng.make_state(jnp.asarray(beta), lam,
+                                   fitted=jnp.asarray(X @ beta))
     return out
 
 
-def _compare(js, X, y, res_j, res_t):
+def _compare(js, X, y, res_j, res_t, rule="edpp", sequential=True):
     lmax = float(np.abs(X.T.astype(np.float64) @ y).max())
     np.testing.assert_allclose(res_t.lambdas, res_j.lambdas,
                                rtol=2 ** -22, atol=0)
-    scores = _reference_scores(js, X, y, res_j)
+    scores = _reference_scores(js, X, y, res_j, rule, sequential)
     band_cols = 0
     for k, (s_j, s_t) in enumerate(zip(res_j.stats, res_t.stats)):
         m_j, m_t = res_j.masks[0, k], res_t.masks[0, k]
         diff = m_j != m_t
         if k in scores:
-            band = np.abs(scores[k] - (1.0 - 1e-6)) <= BAND
+            band = np.abs(scores[k][0] - scores[k][1]) <= BAND
             band_cols += int(band.sum())
             assert not (diff & ~band).any(), f"step {k}: outside the band"
         else:
@@ -127,6 +141,34 @@ def test_path_matches_reference_session(shape):
         assert not ts._eig_cache
         _compare(js, X, y, js.path(jnp.asarray(y), **GRID),
                  ts.path(y, **GRID))
+
+
+@pytest.mark.parametrize("rule, sequential, paranoid", [
+    ("dpp", True, False), ("imp1", True, False), ("imp2", True, False),
+    ("seq_safe", True, False), ("safe", True, False), ("none", True, False),
+    ("edpp", False, False), ("edpp", True, True)])
+def test_other_rules_match_reference_session(rule, sequential, paranoid):
+    """The other ported Lasso rules end to end, and EDPP's basic variant
+    (the state kept at λ_max) and its paranoid KKT backstop: the same
+    contract as the default path against a reference session carried
+    over by ``session_from_arrays``, masks held to each rule's own sphere
+    and threshold."""
+    X, y, _ = lasso_problem(50, 400, nnz=10, seed=60, dtype=np.float32)
+    js = JSession.fit(X, config=JConfig(
+        screen=JScreen(rule=rule, sequential=sequential, paranoid=paranoid),
+        solve=JSolve(tol=TOL)))
+    ts = _carry(js, PathConfig(
+        screen=ScreenSpec(rule=rule, sequential=sequential,
+                          paranoid=paranoid), solve=SolveSpec(tol=TOL)))
+    res_j = js.path(jnp.asarray(y), **GRID)
+    res_t = ts.path(y, **GRID)
+    _compare(js, X, y, res_j, res_t, rule, sequential)
+    assert [s.kkt_rounds for s in res_t.stats] \
+        == [s.kkt_rounds for s in res_j.stats]
+    live = [s for s in res_t.stats if s.screen_backend]
+    assert all(s.x_passes == (0 if rule == "none" else 1) for s in live)
+    if rule == "none":
+        assert not res_t.masks.any()
 
 
 def test_default_tol_stops_on_float32_noise_in_both_packages():
