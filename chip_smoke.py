@@ -66,8 +66,27 @@ Phases, each printing its own lines and seconds:
    the eager β, the modes against each other and an unsharded solve at
    tol 1e-8, and the pieces of one iteration of each mode timed in a
    graph; ``dist_fista_batched`` and ``dist_edpp_screen_batched`` at
-   B = 8 against 8 single-query runs; the group is torn down after;
-10. summary: one JSON line of per-kernel numbers, then, last,
+   B = 8 against 8 single-query runs; the (8, n) batch of those queries
+   through the mesh session against the unsharded session (masks,
+   n_discarded, x_passes equal, max|Δβ| ≤ 1e-6·max|β|); the group is
+   torn down after;
+10. batched path: ``QueryStream(n=784, p=50 000, batch=8, nnz=16,
+   sigma=0.05, seed=0)``, ``LassoSession.fit(X)`` then ``path(Y)`` with
+   Y (8, n), 100 λ per query (``hi_frac=0.95``), EDPP, FISTA at tol 1e-6:
+   against 8 single-query runs of the same session on the same grids
+   (masks equal outside the ±1e-4 band of the threshold, band columns
+   counted; β within beta_err_tol per query), ``screen_matvec`` launched
+   at most once per live step plus the |Xᵀy| attach, the union bucket per
+   decile and the batched wall beside the single runs' walls; the same
+   batch with ``strategy="cd"`` (every step on ``cd_gram_sweep`` at B = 8
+   with ``valid``, every solve converged, β within beta_err_tol and
+   CD_REL_TOL·max|β| of the FISTA arm); and one EDPP screen at B = 12 (two
+   launches), masks and dots bit for bit the 12 single-query screens.
+   The group exactness phase also holds a (2, n) group batch bit for bit
+   against its two single runs;
+11. summary: one JSON line of per-kernel numbers (with, for
+   ``screen_matvec``, ``fista_step`` and ``cd_gram_sweep``, the batched
+   path's launches and its B = 8 row at its own shapes), then, last,
    ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --kernels [--tree DIR]`` runs phases 1 to 3 only
@@ -95,6 +114,7 @@ of the repository (it imports the package from ``src/``).
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import re
@@ -930,10 +950,14 @@ def fault_check(torch) -> list[dict]:
 
 
 def check_kernel(torch, kernels, ref, op: str, n: int, p: int, B: int,
-                 seed: int, floor_ms: float, ptxas: dict) -> dict:
+                 seed: int, floor_ms: float, ptxas: dict,
+                 block: bool = False) -> dict:
     """One case: the kernel against its plain version on the same inputs,
     then their times, the bound and the c @ X yardstick, with the launch
-    plan and, for fista_step, the launch floor beside it."""
+    plan and, for fista_step, the launch floor beside it. ``block``:
+    fista_step takes its step | λ | mom as a ready (3, B) device block
+    (``params=``), as the batched solver passes them, instead of a (B,)
+    λ the wrapper stacks into one per call."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rand(*shape):
@@ -948,6 +972,12 @@ def check_kernel(torch, kernels, ref, op: str, n: int, p: int, B: int,
         step = 1.0 / (n + p)
         args = (X, c, z, bo, step, lam, 0.6)
         kern, plain = kernels.fista_step, ref.fista_step_ref
+        if block:
+            par = torch.stack([torch.full((B,), step, device="cuda"), lam,
+                               torch.full((B,), 0.6, device="cuda")])
+            args = (X, c, z, bo)
+            kern = functools.partial(kernels.fista_step, params=par)
+            plain = functools.partial(ref.fista_step_ref, params=par)
     elif op == "edpp_screen_scores":
         rho = torch.rand(B, generator=g, device="cuda") if B > 1 else 0.37
         args = (X, c, rho)
@@ -970,14 +1000,16 @@ def check_kernel(torch, kernels, ref, op: str, n: int, p: int, B: int,
     matmul_ms = event_ms(torch, lambda: torch.matmul(c, X))
     bound_ms, bound_by = bound(op, n, p, B)
     plan = plan_line(kernels, X, B, op, ptxas)
-    row = {"op": op, "n": n, "p": p, "B": B, "max_abs_err": err, "tol": tol,
+    row = {"op": op, "n": n, "p": p, "B": B, "params_block": block,
+           "max_abs_err": err, "tol": tol,
            "ms": ms, "plain_ms": plain_ms, "matmul_ms": matmul_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
            "of_bound": bound_ms / ms, "matmul_ratio": ms / matmul_ms,
            "floor_ms": floor_ms, "plan": plan}
     floor = (f"; launch floor {floor_ms:.4f} ms ({ms / floor_ms:.2f}x)"
              if op == "fista_step" else "")
-    print(f"  {op:<19} {n}x{p} B={B}: max_abs_err={err:.3g} (tol {tol:.3g}) "
+    print(f"  {op:<19} {n}x{p} B={B}{' params=(3, B)' if block else ''}: "
+          f"max_abs_err={err:.3g} (tol {tol:.3g}) "
           f"ms={ms:.4f} plain_ms={plain_ms:.4f} matmul_ms={matmul_ms:.4f} "
           f"bound_ms={bound_ms:.4f} ({bound_by}) "
           f"{bound_ms / ms:.0%} of bound, {ms / matmul_ms:.2f}x torch.matmul"
@@ -1198,7 +1230,241 @@ def distributed_phase(torch, X, y) -> dict:
         assert rel <= FISTA_REL_TOL
         assert batch_launches["fista_step"] == FISTA_ITERS
         assert not any(ops.plain_counts().values()), ops.plain_counts()
+
+        # the (B, n) batch through the mesh session and the unsharded one
+        res_b, walls_b = {}, {}
+        for arm, s_ in (("unsharded", plain), ("mesh", mesh_sess)):
+            s_.reset_solver_cache()
+            ops.reset_counts()
+            t0 = time.perf_counter()
+            res_b[arm] = s_.path(np.stack(Y), **grid)
+            torch.cuda.synchronize()
+            walls_b[arm] = time.perf_counter() - t0
+            counted(ops, ("screen_matvec", "fista_step"))
+        r_u, r_m = res_b["unsharded"], res_b["mesh"]
+        scale = float(np.abs(r_u.betas).max())
+        d_beta = float(np.abs(r_m.betas - r_u.betas).max())
+        same = [(a.x_passes, a.n_discarded) == (b.x_passes, b.n_discarded)
+                for a, b in zip(r_m.stats, r_u.stats)]
+        print(f"mesh session, (B={B}, n) batch, 100 λ: walls "
+              + ", ".join(f"{k} {v:.2f} s" for k, v in walls_b.items())
+              + f"; masks equal {np.array_equal(r_m.masks, r_u.masks)}; "
+              f"max|dbeta| {d_beta:.3g} (limit {1e-6 * scale:.3g}); x_passes"
+              f" and n_discarded equal at {sum(same)} of {len(same)} steps; "
+              f"betas {r_m.betas.shape}")
+        assert r_m.betas.shape == (B, 100, X.shape[1])
+        assert np.array_equal(r_m.masks, r_u.masks) and all(same)
+        assert d_beta <= 1e-6 * scale
     return launches
+
+
+def batch_entry(op: str, rows: dict, batched: dict) -> dict:
+    """The batched path's reading of a kernel for the summary line: its
+    launches in the counted batched run (FISTA; CD for the Gram sweep)
+    and, for the three kernels the batch runs at its own shapes, the
+    B = BATCH row's times and bound."""
+    key = {"screen_matvec": ("screen_matvec", *MNIST, BATCH),
+           "fista_step": "batch_fista", "cd_gram_sweep": "batch_cd"}.get(op)
+    if key is None:
+        return {}
+    r = rows[key]
+    src = batched["cd_launches" if op == "cd_gram_sweep" else "launches"]
+    return {"batched": {
+        "B": BATCH, "launches": src[op],
+        "shape": [r["n"], r["p"]] if "n" in r else [r["p"], r["p"]],
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r.get("matmul_ms")}}
+
+
+BATCH = 8          # the batched phase's queries: one launch (MAX_B)
+BATCH_WIDE = 12    # the screen past MAX_B: two launches
+BAND = 1e-4        # score units around 1 − eps where a mask may flip
+
+
+def path_scores(torch, X64, y, lambdas, betas):
+    """Per step, the float64 EDPP scores |x_jᵀc| + ρ‖x_j‖ a path's screen
+    tested, from that path's own previous solution, on the card (None at
+    λ ≥ λ_max): what a mask flip is held to."""
+    yd = torch.as_tensor(y, dtype=torch.float64, device="cuda")
+    norms = torch.linalg.vector_norm(X64, dim=0)
+    corr = X64.T @ yd
+    i = int(torch.argmax(corr.abs()))
+    lmax = float(corr[i].abs())
+    theta, v1 = yd / lmax, torch.sign(corr[i]) * X64[:, i]
+    out = []
+    for lam, beta in zip(lambdas, betas):
+        if lam >= lmax:
+            out.append(None)
+            continue
+        v2 = yd / lam - theta
+        vp = v2 - (v1 @ v2) / (v1 @ v1) * v1
+        out.append((X64.T @ (theta + 0.5 * vp)).abs()
+                   + 0.5 * torch.linalg.vector_norm(vp) * norms)
+        b = torch.as_tensor(beta, dtype=torch.float64, device="cuda")
+        theta = (yd - X64 @ b) / lam
+        v1 = yd / lam - theta
+    return out
+
+
+def band_flips(torch, X64, y, res_one, mask_b) -> tuple[int, int]:
+    """(flips, columns in the band) of a batched query's masks against its
+    single run; raises if a flip lies outside the band of the scores the
+    single run tested."""
+    flips = band = 0
+    scores = path_scores(torch, X64, y, res_one.lambdas[0], res_one.betas[0])
+    for k, sc in enumerate(scores):
+        diff = mask_b[k] != res_one.masks[0, k]
+        if sc is None:
+            assert not diff.any(), k
+            continue
+        near = ((sc - (1.0 - 1e-6)).abs() < BAND).cpu().numpy()
+        band += int(near.sum())
+        flips += int(diff.sum())
+        assert not (diff & ~near).any(), f"step {k}: a flip outside the band"
+    return flips, band
+
+
+def split(res, what: str) -> float:
+    """A path's seconds in its screens or its solves (``PathStepStats``'
+    ``screen_time_s`` / ``solve_time_s``, the host clock)."""
+    return sum(getattr(s, f"{what}_time_s") for s in res.stats)
+
+
+def batched_phase(torch) -> dict:
+    """The batched multi-query path at full width (see the module doc):
+    FISTA and CD arms of one (BATCH, n) batch against single runs, and one
+    screen past MAX_B. Returns the launches of the counted batched FISTA
+    run, the CD arm's, and the union buckets the kernel rows are timed
+    at."""
+    from repro_torch import LassoSession, PathConfig, SolveSpec
+    from repro_torch.core import ScreeningEngine
+    from repro_torch.core import screening as scr
+    from repro_torch.data import QueryStream
+    from repro_torch.kernels import ops
+    stream = QueryStream(n=MNIST[0], p=MNIST[1], batch=BATCH, nnz=16,
+                         sigma=0.05, seed=0)
+    X = stream.dictionary(np.float32)
+    Y = stream.host_batch(0)["y"].astype(np.float32)
+    cfg = PathConfig(solve=SolveSpec(tol=1e-6))
+    grid = dict(num_lambdas=100, hi_frac=0.95)
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    sess = LassoSession.fit(X)
+    res = sess.path(Y, **grid, config=cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counted(ops, ("edpp_screen_scores", "screen_matvec",
+                             "fista_step"))
+    live = [s for s in res.stats if s.screen_backend]
+    assert res.betas.shape == (BATCH, 100, MNIST[1]), res.betas.shape
+    assert np.isfinite(res.betas).all()
+    assert launches["screen_matvec"] <= len(live) + 1, launches
+    assert all(s.x_passes == 1 and s.batch_size == BATCH for s in live)
+    buckets = [s.bucket for s in live]
+    print(f"batched path (B={BATCH}, 100 λ, tol 1e-6) wall {wall:.2f} s; "
+          f"{len(live)} live steps; screen_matvec launches "
+          f"{launches['screen_matvec']} (limit {len(live) + 1}); fista_step "
+          f"{launches['fista_step']}; batched iterations "
+          f"{sum(s.solver_iters for s in live)}; query_converged "
+          f"{res.query_converged.tolist()}")
+    print("union bucket per decile of the grid: " + " ".join(
+        f"{np.mean(buckets[k:k + 10]):.0f}" for k in range(0, len(buckets),
+                                                          10))
+          + f"; median {int(np.median(buckets))}")
+
+    X64 = torch.as_tensor(X, dtype=torch.float64, device="cuda")
+    walls, singles, conv1 = [], {}, []
+    ops.reset_counts()
+    for b in range(BATCH):
+        sess.reset_solver_cache()
+        t0 = time.perf_counter()
+        singles[b] = sess.path(Y[b], res.lambdas[b], config=cfg)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        conv1.append(bool(singles[b].query_converged[0]))
+    single_launches = counted(ops, ("screen_matvec", "fista_step"))
+    flips = band = 0
+    for b in range(BATCH):
+        f, n_band = band_flips(torch, X64, Y[b], singles[b], res.masks[b])
+        flips, band = flips + f, band + n_band
+        err = float(np.abs(res.betas[b] - singles[b].betas[0]).max())
+        assert err <= beta_err_tol(Y[b], 1e-6), (b, err)
+    print(f"against {BATCH} single runs: {flips} mask flips, all in the "
+          f"±{BAND:g} band ({band} step-columns in it); beta within "
+          f"beta_err_tol per query; single query_converged {conv1}; walls: "
+          f"batched {wall:.2f} s, the {BATCH} single runs {sum(walls):.2f} s "
+          f"({' '.join(f'{w:.2f}' for w in walls)}); screen_matvec launches "
+          f"batched {launches['screen_matvec']}, singles "
+          f"{single_launches['screen_matvec']}; fista_step batched "
+          f"{launches['fista_step']}, singles {single_launches['fista_step']}")
+    print("host-clock split, batched / the 8 single runs: "
+          + "; ".join(f"{what} {split(res, what):.3f} / "
+                      f"{sum(split(r, what) for r in singles.values()):.3f}"
+                      f" s" for what in ("screen", "solve")))
+    del singles, X64
+
+    cd_cfg = PathConfig(solve=SolveSpec(strategy="cd", tol=1e-6))
+    sess.reset_solver_cache()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    res_cd = sess.path(Y, res.lambdas, config=cd_cfg)
+    torch.cuda.synchronize()
+    cd_wall = time.perf_counter() - t0
+    cd_launches = counted(ops, ("screen_matvec", "cd_gram_sweep"))
+    live_cd = [s for s in res_cd.stats if s.screen_backend]
+    max_epochs = cd_cfg.solve.max_iter // 10 + 1
+    gram = [s.gram_step_frac == 1.0 for s in live_cd]
+    at_max = sum(s.solver_iters >= max_epochs for s in live_cd)
+    errs = [float(np.abs(res_cd.betas[b] - res.betas[b]).max())
+            for b in range(BATCH)]
+    limits = [min(beta_err_tol(Y[b], 1e-6),
+                  CD_REL_TOL * float(np.abs(res.betas[b]).max()))
+              for b in range(BATCH)]
+    cd_buckets = [s.bucket for s in live_cd]
+    print(f"CD arm (B={BATCH}, tol 1e-6) wall {cd_wall:.2f} s; {sum(gram)} "
+          f"of {len(live_cd)} steps on cd_gram_sweep at B={BATCH} with "
+          f"valid; steps at max_epochs {at_max}; query_converged "
+          f"{res_cd.query_converged.tolist()}; cd_gram_sweep launches "
+          f"{cd_launches['cd_gram_sweep']}; max|beta_cd - beta_fista| per "
+          f"query {[f'{e:.3g}' for e in errs]} (limits "
+          f"{[f'{x:.3g}' for x in limits]})")
+    assert all(gram) and at_max == 0 and res_cd.query_converged.all()
+    assert all(e <= x for e, x in zip(errs, limits))
+    del res_cd
+
+    wide = QueryStream(n=MNIST[0], p=MNIST[1], batch=BATCH_WIDE, nnz=16,
+                       sigma=0.05, seed=0)
+    Yw = torch.as_tensor(wide.host_batch(0)["y"].astype(np.float32),
+                         device="cuda")
+    geom = sess.geometry
+    eng = ScreeningEngine(sess.X, Yw, geometry=geom)
+    st = eng.state_at_lambda_max()
+    lam = 0.5 * np.asarray(eng.lam_max)
+    ops.reset_counts()
+    mask_w = eng.screen(lam, st, "edpp")
+    torch.cuda.synchronize()
+    wide_launches = ops.launch_counts()["screen_matvec"]
+    centres = torch.stack([scr.make_sphere("edpp", Yw[b].clone(),
+                                           float(lam[b]), st.query(b)).centre
+                           for b in range(BATCH_WIDE)])
+    dots = geom.backend.matvec(sess.X, centres)
+    same = 0
+    for b in range(BATCH_WIDE):
+        one = ScreeningEngine(sess.X, Yw[b].clone(), geometry=geom)
+        st1 = one.state_at_lambda_max()
+        same += int(torch.equal(mask_w[b], one.screen(float(lam[b]), st1,
+                                                      "edpp"))
+                    and torch.equal(dots[b], geom.backend.matvec(
+                        sess.X, scr.make_sphere("edpp", one.ws.y,
+                                                float(lam[b]),
+                                                st1).centre)))
+    print(f"screen past MAX_B: B={BATCH_WIDE} in {wide_launches} "
+          f"screen_matvec launches; masks and dots bit for bit the single "
+          f"screens for {same} of {BATCH_WIDE} queries")
+    assert wide_launches == 2 and same == BATCH_WIDE
+    return {"launches": launches, "cd_launches": cd_launches,
+            "bucket": int(np.median(buckets)),
+            "cd_bucket": int(np.median(cd_buckets))}
 
 
 def main(argv: list[str]) -> int:
@@ -1419,7 +1685,12 @@ def main(argv: list[str]) -> int:
     with phase("distributed: NCCL world of 1, (1, 1) mesh, 784 × 50 000"):
         dist_launches = distributed_phase(torch, X, y)
 
-    del X, y, sess, cd_sess, res, res_cd, res_fi
+    del X, y, res, res_cd, res_fi
+    with phase(f"batched path: QueryStream B={BATCH}, 784 × 50 000, 100 λ, "
+               f"FISTA and CD, tol 1e-6"):
+        batched = batched_phase(torch)
+
+    del sess, cd_sess
     n_g, p_g, m = GROUP_FULL
     X, y, _ = group_lasso_problem(n_g, p_g, m, active_groups=200, seed=0,
                                   dtype=np.float32)
@@ -1485,14 +1756,46 @@ def main(argv: list[str]) -> int:
                   f"{r['unsafe']}; mean discard fraction {r['discard']:.4f}; "
                   f"failures {fails}")
             assert not fails, fails
+        # a (2, n) group batch against its two single runs, in the same
+        # order from the same cold eigenvector cache: the same bits
+        rng = np.random.default_rng(1)
+        w = np.zeros(p_e)
+        for g in rng.choice(p_e // m, 20, replace=False):
+            w[g * m:(g + 1) * m] = rng.uniform(-1.0, 1.0, m)
+        Y2 = np.stack([y, (X @ w + 0.1 * rng.standard_normal(n_e))
+                       .astype(np.float32)])
+        g_cfg = PathConfig(solve=SolveSpec(tol=1e-6))
+        e_sess.reset_solver_cache()
+        ops.reset_counts()
+        res2 = e_sess.path(Y2, num_lambdas=20, hi_frac=0.95, config=g_cfg)
+        counted(ops, ("group_screen_scores",))
+        e_sess.reset_solver_cache()
+        ones = [e_sess.path(Y2[b], res2.lambdas[b], config=g_cfg)
+                for b in range(2)]
+        equal = [np.array_equal(res2.masks[b], ones[b].masks[0])
+                 and np.array_equal(res2.betas[b], ones[b].betas[0])
+                 for b in range(2)]
+        print(f"group batch (2, {n_e}): masks and betas bit for bit its two "
+              f"single runs {equal}; query_converged "
+              f"{res2.query_converged.tolist()}; batch_size "
+              f"{res2.stats[-1].batch_size}")
+        assert all(equal) and res2.betas.shape == (2, 20, p_e)
+        assert all(s.batch_size == 2 for s in res2.stats)
 
     with phase(f"kernels at the paths' shapes (fista bucket {main_bucket}, "
-               f"cd bucket {cd_bucket})"):
+               f"cd bucket {cd_bucket}; batched B={BATCH}: fista bucket "
+               f"{batched['bucket']}, cd bucket {batched['cd_bucket']})"):
         rows["main_fista"] = check_kernel(torch, kernels, ref, "fista_step",
                                           n, main_bucket, 1, seed=99,
                                           floor_ms=floor_ms, ptxas=ptxas)
         rows["main_cd"] = check_cd(torch, kernels, ref, cd_bucket, 1,
                                    seed=98, step_ns=step_ns, ptxas=ptxas)
+        rows["batch_fista"] = check_kernel(
+            torch, kernels, ref, "fista_step", n, batched["bucket"], BATCH,
+            seed=97, floor_ms=floor_ms, ptxas=ptxas, block=True)
+        rows["batch_cd"] = check_cd(torch, kernels, ref,
+                                    batched["cd_bucket"], BATCH, seed=96,
+                                    masked=True, step_ns=step_ns, ptxas=ptxas)
     main_launches.update(cd_gram_sweep=cd_launches["cd_gram_sweep"],
                          group_screen_scores=group_launches[
                              "group_screen_scores"],
@@ -1519,7 +1822,8 @@ def main(argv: list[str]) -> int:
             **({"chain_bound_ms": r["chain_ms"]}
                if op == "cd_gram_sweep" else {}),
             **({"graph_ms": r["graph_ms"], "run_ms": r["run_ms"],
-                "parts": r["parts"]} if op == "prox_step" else {})})
+                "parts": r["parts"]} if op == "prox_step" else {}),
+            **batch_entry(op, rows, batched)})
     print(json.dumps({"kernels": summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,6 +3,7 @@
     from repro_torch import LassoSession
     sess = LassoSession.fit(X)          # on the GPU; device="cpu" for CPU
     res = sess.path(y).squeeze()
+    bat = sess.path(Y)                  # Y (B, n): one PathResult, B queries
     shard = LassoSession.fit(X, mesh=mesh)   # X split by columns over a
                                              # torch.distributed DeviceMesh
 
@@ -23,6 +24,7 @@ from .core import (  # noqa: E402,F401
     LassoSession,
     PathConfig,
     PathResult,
+    PathStepStats,
     ScreenSpec,
     SolveSpec,
     lambda_grid,

@@ -1,11 +1,12 @@
 """The Lasso λ-path core of the PyTorch port: objective and gap
 (``lasso``, ``group_lasso``), the screening rules (``screening``,
 ``group_screening``), the screening engines (``engine``), the solver
-engine with its fista/cd/group_fista strategies (``solver``), the path
-driver (``path``), the session front door (``session``), the
-feature-sharded ops over ``torch.distributed`` (``distributed``, used as
-a module, as in the reference) and the solver loops it replays from CUDA
-graphs (``graphs``)."""
+engine with its fista/cd/group_fista strategies and their batched twins
+(``solver``), the path driver for one query or a batch (``path``), the
+session front door (``session``), the feature-sharded ops over
+``torch.distributed`` (``distributed``, used as a module, as in the
+reference) and the solver loops it replays from CUDA graphs
+(``graphs``)."""
 from . import distributed  # noqa: F401
 from .engine import (  # noqa: F401
     DictionaryGeometry,
@@ -47,4 +48,10 @@ from .screening import (  # noqa: F401
     v2_perp,
 )
 from .session import LassoSession, PathConfig, ScreenSpec, SolveSpec  # noqa: F401
-from .solver import SOLVERS, SolveResult, SolverEngine, register_solver  # noqa: F401
+from .solver import (  # noqa: F401
+    BATCHED_SOLVERS,
+    SOLVERS,
+    SolveResult,
+    SolverEngine,
+    register_solver,
+)

@@ -12,9 +12,16 @@ every dual-geometry n-vector are replicated. Then
   * the fit Xβ takes one SUM all-reduce of an n-vector per solver
     iteration, over the feature group only.
 
-A batch of B queries is split over the ``query`` axis when B divides its
-size (replicated otherwise), so the recurring collective is one
-(B_local, n) all-reduce per query shard.
+For the ``dist_*`` ops a batch of B queries is split over the ``query``
+axis when B divides its size (replicated otherwise), so the recurring
+collective is one (B_local, n) all-reduce per query shard. A mesh
+*session* keeps a (B, n) batch whole on every rank instead: each rank
+screens the batch on its column block (one batched ``screen_matvec``
+launch and one all-gather a step), gathers the union bucket replicated
+and solves the whole batch, so every rank returns the whole batch's
+``PathResult``, equal to the unsharded session's. Ranks along the query
+axis repeat the same work; splitting the batch over them is left for
+the serving loop (ROADMAP.md queue 1 item 12).
 
 **One process per rank.** The reference is single-controller: its
 functions take and return global arrays whose columns JAX shards. Here
@@ -223,9 +230,11 @@ def gather_columns(mesh, X: torch.Tensor, cols, width: int | None = None
 
 
 def fitted_values(mesh, X: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
-    """Xβ for a global β (p,), replicated: one n-vector all-reduce."""
+    """Xβ (n,) for a global β (p,), or βXᵀ (B, n) for β (B, p),
+    replicated: one all-reduce of the n-vectors."""
     lo, hi = feature_range(mesh, beta.shape[-1])
-    return _psum(mesh, X @ beta[..., lo:hi])
+    local = beta[..., lo:hi]
+    return _psum(mesh, local @ X.T if beta.dim() == 2 else X @ local)
 
 
 # ---------------------------------------------------------------------------

@@ -21,11 +21,21 @@ The group twins (:class:`GroupDictionaryGeometry`,
 at fit, λ̄_max and v̄₁ per query, and score every group screen with one
 ``group_screen_scores`` pass over X.
 
-This is the main subset of ``repro.core.engine``: one query, float32
-screens, the sphere rules plus basic SAFE and ``none``, and group EDPP,
-group strong and ``none``. The batched workspace (ROADMAP.md queue 1
-item 6), the other Lasso rules (item 8), the bf16 screen copy (item 9)
-and dictionary updates (item 10) come later.
+A (B, n) query batch fits all B queries with the same one pass (one
+``edpp_screen_scores`` launch without a geometry, one ``screen_matvec``
+launch with one): ``lam_max`` and ``istar`` become (B,) host arrays, v₁
+(B, n). A batched screen takes a (B,) λ and is still one ``screen_matvec``
+launch (``last_x_passes == 1`` for the batch). Its spheres are built per
+query by the rank-1 rules on host-float λ and fresh rows, so each query's
+centre, radius and threshold round as a single query's do, and the
+kernel's dots do not depend on B: a batched mask is bit for bit the
+single query's mask from the same state.
+
+This is the main subset of ``repro.core.engine``: float32 screens, the
+sphere rules plus basic SAFE and ``none``, and group EDPP, group strong
+and ``none`` (rank-1 queries; a group batch loops them, as the
+reference does). The other Lasso rules (ROADMAP.md queue 1 item 8), the
+bf16 screen copy (item 9) and dictionary updates (item 10) come later.
 """
 
 from __future__ import annotations
@@ -56,6 +66,13 @@ def engine_x_passes(rule: str) -> int:
 def _stream_fit_single(xstar: torch.Tensor, y: torch.Tensor):
     """The λ_max ray v₁ = sign(x*ᵀy)·x* (eq. 17 at λ₀ = λ_max)."""
     return torch.sign(torch.dot(xstar, y)) * xstar
+
+
+def _stream_fit_batched(xstar: torch.Tensor, Y: torch.Tensor):
+    """v₁ per query from the (B, n) argmax columns, f32 accumulation."""
+    acc = torch.promote_types(xstar.dtype, torch.float32)
+    sgn = torch.sign(torch.sum(xstar.to(acc) * Y.to(acc), dim=-1))
+    return sgn.to(xstar.dtype)[:, None] * xstar
 
 
 class DictionaryGeometry:
@@ -93,28 +110,33 @@ class DictionaryGeometry:
         return out
 
     def correlations(self, r: torch.Tensor) -> torch.Tensor:
-        """Xᵀr (p,) in global column order, the same on every rank."""
+        """Xᵀr (p,) for r (n,), or rX (B, p) for r (B, n), in global column
+        order, the same on every rank."""
+        local = r @ self.X if r.dim() == 2 else self.X.T @ r
         if self.mesh is None:
-            return self.X.T @ r
-        return dist.gather_features(self.mesh, self.X.T @ r)
+            return local
+        return dist.gather_features(self.mesh, local)
 
     def fitted(self, beta: torch.Tensor) -> torch.Tensor:
-        """Xβ for a global β (p,), the same on every rank."""
+        """Xβ (n,) for a global β (p,), or βXᵀ (B, n) for β (B, p), the
+        same on every rank."""
         if self.mesh is None:
-            return self.X @ beta
+            return beta @ self.X.T if beta.dim() == 2 else self.X @ beta
         return dist.fitted_values(self.mesh, self.X, beta)
 
 
 class PathWorkspace:
-    """A :class:`DictionaryGeometry` plus one query's fit: |Xᵀy|, λ_max,
-    the first index attaining it (``istar``) and v₁. Without
-    ``geometry`` one fused pass fits X and the query together."""
+    """A :class:`DictionaryGeometry` plus the query fit: |Xᵀy|, λ_max, the
+    first index attaining it (``istar``) and v₁. Without ``geometry`` one
+    fused pass fits X and the query together. ``y`` (B, n) fits a batch
+    in the same one pass: ``lam_max`` (float64) and ``istar`` are then
+    (B,) host arrays and v₁ is (B, n)."""
 
     def __init__(self, X, y: torch.Tensor, backend=None, *,
                  geometry: DictionaryGeometry | None = None):
-        if y.dim() != 1:
-            raise NotImplementedError(
-                "batched queries come with ROADMAP.md queue 1 item 6")
+        if y.dim() not in (1, 2):
+            raise ValueError(f"queries must be (n,) or (B, n), got shape "
+                             f"{tuple(y.shape)}")
         if geometry is None:
             backend_r = ops.resolve_backend(backend, X.device)
             scores, sumsq = backend_r.fused_scores(X, y, 0.0)
@@ -126,13 +148,22 @@ class PathWorkspace:
         self.geometry = geometry
         self.backend = geometry.backend
         self.y = y
-        self.batch = None
+        self.batch = None if y.dim() == 1 else y.shape[0]
         self.abs_xty = scores
+        self._state_max = None
         # torch.argmax returns the first maximal index, like jnp.argmax
-        self.istar = int(torch.argmax(scores))
-        self.lam_max = float(scores[self.istar])
-        self.v1_at_lmax = _stream_fit_single(
-            geometry.columns([self.istar])[:, 0], y)
+        if self.batch is None:
+            self.istar = int(torch.argmax(scores))
+            self.lam_max = float(scores[self.istar])
+            self.v1_at_lmax = _stream_fit_single(
+                geometry.columns([self.istar])[:, 0], y)
+        else:
+            istar = torch.argmax(scores, dim=-1)
+            self.istar = istar.cpu().numpy()
+            self.lam_max = scores.gather(1, istar[:, None])[:, 0].cpu() \
+                .numpy().astype(np.float64)
+            self.v1_at_lmax = _stream_fit_batched(
+                geometry.columns(self.istar).T, y)
 
     @property
     def X(self) -> torch.Tensor:
@@ -147,11 +178,25 @@ class PathWorkspace:
         return self.geometry.col_norms
 
     def state_at_lambda_max(self) -> scr.DualState:
-        """β* = 0, θ* = y/λ_max (eq. 9), from the cache."""
-        return scr.DualState(
-            theta=self.y / self.lam_max, lam=self.lam_max,
-            v1=self.v1_at_lmax, at_lmax=True,
-            beta_l1=torch.zeros((), dtype=self.X.dtype, device=self.X.device))
+        """β* = 0, θ* = y/λ_max (eq. 9), from the cache. Batched, each row
+        of θ is the single query's y/λ_max (a host-float division)."""
+        if self._state_max is not None:
+            return self._state_max
+        dev, dt = self.X.device, self.X.dtype
+        if self.batch is None:
+            st = scr.DualState(
+                theta=self.y / self.lam_max, lam=self.lam_max,
+                v1=self.v1_at_lmax, at_lmax=True,
+                beta_l1=torch.zeros((), dtype=dt, device=dev))
+        else:
+            st = scr.DualState(
+                theta=torch.stack([yb / float(lm) for yb, lm
+                                   in zip(self.y, self.lam_max)]),
+                lam=self.lam_max.copy(), v1=self.v1_at_lmax,
+                at_lmax=np.ones((self.batch,), dtype=bool),
+                beta_l1=torch.zeros((self.batch,), dtype=dt, device=dev))
+        self._state_max = st
+        return st
 
 
 class ScreeningEngine:
@@ -196,11 +241,19 @@ class ScreeningEngine:
     def state_at_lambda_max(self) -> scr.DualState:
         return self.ws.state_at_lambda_max()
 
-    def make_state(self, beta, lam: float, *, fitted=None) -> scr.DualState:
+    @property
+    def batch(self) -> int | None:
+        return self.ws.batch
+
+    def make_state(self, beta, lam, *, fitted=None) -> scr.DualState:
         """Sequential DualState from the solution at λ (KKT eq. 3), with the
         λ_max branch served from the cache. ``fitted`` (= Xβ, from the
-        reduced bucket) skips the X·β pass."""
+        reduced bucket) skips the X·β pass. Batched: β (B, p), λ (B,) host
+        values, fitted (B, n); the rows at their λ_max take the cached
+        rows (the reference's ``_make_state_batched_fit``)."""
         ws = self.ws
+        if ws.batch is not None:
+            return self._make_state_batched(beta, lam, fitted)
         if scr.at_lmax(lam, ws.lam_max):
             return ws.state_at_lambda_max()
         if fitted is None:
@@ -209,6 +262,28 @@ class ScreeningEngine:
         return scr.DualState(theta=theta, lam=lam, v1=ws.y / lam - theta,
                              at_lmax=False,
                              beta_l1=torch.sum(torch.abs(beta)))
+
+    def _make_state_batched(self, beta, lam, fitted) -> scr.DualState:
+        ws = self.ws
+        lam = _host_rows(lam)
+        at = scr.at_lmax_rows(lam, ws.lam_max)
+        st_max = ws.state_at_lambda_max()
+        if at.all():
+            return st_max
+        if fitted is None:
+            fitted = ws.geometry.fitted(beta)
+        lam_t = torch.as_tensor(lam, dtype=ws.y.dtype,
+                                device=ws.y.device)[:, None]
+        theta = (ws.y - fitted) / lam_t
+        v1 = ws.y / lam_t - theta
+        beta_l1 = torch.sum(torch.abs(beta), dim=-1)
+        if at.any():
+            at_t = torch.from_numpy(at).to(ws.y.device)
+            theta = torch.where(at_t[:, None], st_max.theta, theta)
+            v1 = torch.where(at_t[:, None], st_max.v1, v1)
+            beta_l1 = torch.where(at_t, st_max.beta_l1, beta_l1)
+        return scr.DualState(theta=theta, lam=np.where(at, ws.lam_max, lam),
+                             v1=v1, at_lmax=at, beta_l1=beta_l1)
 
     def _count(self, passes: int) -> None:
         self.last_x_passes = passes
@@ -223,24 +298,62 @@ class ScreeningEngine:
         self._count(engine_x_passes(rule))
         return torch.abs(dot) + test.rho * ws.col_norms < 1.0 - eps
 
-    def screen(self, lam_next: float, state: scr.DualState | None,
-               rule: str = "edpp") -> torch.Tensor:
-        """Discard mask bool[p] for λ_next: one streaming pass over X."""
-        ws = self.ws
-        if rule == "none":
-            self._count(engine_x_passes(rule))
-            return torch.zeros((self.p,), dtype=torch.bool,
-                               device=ws.X.device)
+    def _sphere(self, rule: str, y, lam: float, lam_max: float, state):
+        """One query's sphere test at λ and its eps, from the rank-1 rules
+        on host floats."""
         if rule == "safe":
-            test = scr.safe_sphere(ws.y, lam_next, ws.lam_max)
             # eq. 15's eps margin is at λ scale: eps/λ once unit-normalised
-            return self._sphere_screen(test, self.eps / lam_next, rule)
+            return scr.safe_sphere(y, lam, lam_max), self.eps / lam
         if rule not in scr.SPHERE_RULES:
             raise NotImplementedError(
                 f"rule {rule!r} is not ported yet (this slice serves "
                 f"{ENGINE_RULES}; the rest is ROADMAP.md queue 1 item 8)")
+        return scr.make_sphere(rule, y, lam, state), self.eps
+
+    def screen(self, lam_next, state: scr.DualState | None,
+               rule: str = "edpp") -> torch.Tensor:
+        """Discard mask bool[p] for λ_next: one streaming pass over X.
+        Batched: λ_next (B,) → bool[B, p], one pass for the whole batch."""
+        ws = self.ws
+        if ws.batch is not None:
+            return self._screen_batched(_host_rows(lam_next), state, rule)
+        if rule == "none":
+            self._count(engine_x_passes(rule))
+            return torch.zeros((self.p,), dtype=torch.bool,
+                               device=ws.X.device)
         return self._sphere_screen(
-            scr.make_sphere(rule, ws.y, lam_next, state), self.eps, rule)
+            *self._sphere(rule, ws.y, lam_next, ws.lam_max, state), rule)
+
+    def _screen_batched(self, lams: np.ndarray, state, rule: str):
+        """The batched screen: each query's sphere from the rank-1 rule
+        (host-float λ, fresh rows), one ``screen_matvec`` launch for the
+        stacked centres, and each query's threshold 1 − eps (1 − eps/λ for
+        basic SAFE) rounded from the same host float as a single query's."""
+        ws = self.ws
+        if rule == "none":
+            self._count(engine_x_passes(rule))
+            return torch.zeros((ws.batch, self.p), dtype=torch.bool,
+                               device=ws.X.device)
+        spheres = [self._sphere(rule, ws.y[b].clone(), float(lam),
+                                float(ws.lam_max[b]),
+                                None if rule == "safe" else state.query(b))
+                   for b, lam in enumerate(lams)]
+        centre = torch.stack([t.centre for t, _ in spheres])
+        rho = torch.stack([scr._like(t.rho, centre) for t, _ in spheres])
+        dot = ws.backend.matvec(ws.X, centre)
+        self._count(engine_x_passes(rule))
+        thr = torch.tensor([1.0 - eps for _, eps in spheres],
+                           dtype=dot.dtype, device=dot.device)
+        return (torch.abs(dot) + rho[:, None] * ws.col_norms
+                < thr[:, None])
+
+
+def _host_rows(lam) -> np.ndarray:
+    """Per-query λ as a float64 host (B,) array (from a tensor, an array or
+    a sequence)."""
+    if isinstance(lam, torch.Tensor):
+        lam = lam.detach().cpu().numpy()
+    return np.asarray(lam, dtype=np.float64).reshape(-1)
 
 
 class GroupDictionaryGeometry:

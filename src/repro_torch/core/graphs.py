@@ -13,7 +13,7 @@ block.
 * :func:`param_table` holds each iteration's step | λ | mom as a row of
   an ``(iters, 3, B)`` table. The momentum sequence depends only on the
   iteration count, so it is computed once on the host
-  (:func:`~repro_torch.core.solver.fista_momentum`, in the loop's own
+  (:func:`~repro_torch.core.solver.momentum_sequence`, in the loop's own
   rounding) and uploaded in one copy; a captured launch reads its row
   through the kernels' ``params`` pointer instead of by value.
 * :func:`run_loop` runs ``state = body(state, row)`` over the table's
@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
-from .solver import fista_momentum, host_float
+from .solver import host_float, momentum_sequence
 
 #: Iterations per captured block. The eager prefix and the capture each
 #: cost about an eager iteration per iteration of the block, so a short
@@ -59,27 +59,17 @@ Body = Callable[[tuple[torch.Tensor, ...], torch.Tensor],
                 tuple[torch.Tensor, ...]]
 
 
-def momentum_sequence(iters: int, fl) -> np.ndarray:
-    """FISTA's momentum (t − 1)/t' for iterations 0 … iters − 1 from
-    t = 1, by :func:`fista_momentum` in ``fl``: the numbers an eager loop
-    computes one per iteration."""
-    moms = np.empty(iters, dtype=fl)
-    t = fl(1.0)
-    for i in range(iters):
-        t, moms[i] = fista_momentum(t, fl)
-    return moms
-
-
 def param_table(iters: int, step: float, lam, batch: int,
                 X: torch.Tensor) -> torch.Tensor:
     """The ``(iters, 3, batch)`` table of step | λ | mom rows in X's dtype
-    on X's device. ``step`` is a host number, ``lam`` a host number or a
-    (batch,) tensor; the momentum comes from :func:`momentum_sequence` in
-    the loop's host rounding (``host_float(X)``)."""
+    on X's device. ``step`` is a host number, ``lam`` a host number, a
+    host (batch,) array or a (batch,) tensor; the momentum comes from
+    :func:`momentum_sequence` in the loop's host rounding
+    (``host_float(X)``)."""
     on_device = isinstance(lam, torch.Tensor)
     host = np.empty((iters, 3, batch), dtype=np.float64)
     host[:, 0] = step
-    host[:, 1] = 0.0 if on_device else float(lam)
+    host[:, 1] = 0.0 if on_device else np.asarray(lam, dtype=np.float64)
     host[:, 2] = momentum_sequence(iters, host_float(X))[:, None]
     table = torch.from_numpy(host).to(device=X.device, dtype=X.dtype)
     if on_device:

@@ -23,10 +23,16 @@ tile kernels, and the fitted values X_r·β_r (not a psum-ordered X·β) feed
 the next dual state, so the masks and β do not depend on the mesh's
 shape (the reference's ``reshard``, ``src/repro/core/path.py``).
 
-This slice drives one query (``batch=None``); the batched driver is
-ROADMAP.md queue 1 item 6. The KKT loop runs when the rule is heuristic
-(group ``strong``) or ``paranoid=True`` asks for it (safe rules never
-trigger it).
+``batch=B`` drives B queries against one fitted dictionary (the
+reference's batched driver): per-query (B, K) grids; per step one
+screen for the whole batch (a query whose λ ≥ its own λ_max — its
+trivial region — keeps nothing and stays at β = 0); the survivors of
+every query gathered into one **union bucket**, each query solving only
+its own columns of it (a (B, bucket) validity mask), in one batched
+solve; per-query KKT rounds; and ``fitted = β·X_rᵀ`` (B, n) for the next
+batched state. The KKT loop runs when the rule is heuristic (group
+``strong``) or ``paranoid=True`` asks for it (safe rules never trigger
+it).
 """
 
 from __future__ import annotations
@@ -102,10 +108,21 @@ class PathResult:
             return self
         if self.batch != 1:
             raise ValueError(f"squeeze() needs a single-query result, got "
-                             f"B={self.batch}")
+                             f"B={self.batch}; use query(b) to select one "
+                             f"query")
         return PathResult(lambdas=self.lambdas[0], betas=self.betas[0],
                           stats=self.stats, masks=self.masks[0],
                           query_converged=self.query_converged)
+
+    def query(self, b: int) -> "PathResult":
+        """Query b in the squeezed layout (the stats stay shared;
+        ``query_converged`` narrows to query b's flag)."""
+        if not self.batched:
+            raise ValueError("query(b) needs a batched result")
+        qc = self.query_converged
+        return PathResult(lambdas=self.lambdas[b], betas=self.betas[b],
+                          stats=self.stats, masks=self.masks[b],
+                          query_converged=None if qc is None else qc[b:b + 1])
 
 
 def _gather_cols(X: torch.Tensor, cols: np.ndarray,
@@ -134,13 +151,16 @@ def lambda_grid(lam_max: float, num: int = 100, lo_frac: float = 0.05,
 
 def _path_driver(X: torch.Tensor, y: torch.Tensor, lambdas, cfg, *,
                  m: int = 1, screen_engine, solver_engine, need_kkt: bool,
-                 kkt_fn, columns=None) -> PathResult:
+                 kkt_fn, columns=None, batch: int | None = None
+                 ) -> PathResult:
     """The screen → reduce → solve → KKT loop over a decreasing grid, for
-    one query, over units of ``m`` columns. ``kkt_fn(beta_full, lam,
-    discard, fitted)`` flags KKT violations among the discarded units.
-    The path's width p is the screen engine's. ``columns(cols, width)``
-    returns the (n, width) bucket of the global columns ``cols`` (host
-    indices), zero-padded; by default they are gathered from X."""
+    one query (``batch=None``) or a batch of B (y (B, n), lambdas (B, K);
+    :func:`_batched_driver`), over units of ``m`` columns.
+    ``kkt_fn(beta_full, lam, discard, fitted)`` flags KKT violations among
+    the discarded units. The path's width p is the screen engine's.
+    ``columns(cols, width)`` returns the (n, width) bucket of the global
+    columns ``cols`` (host indices), zero-padded; by default they are
+    gathered from X."""
     p = screen_engine.p
     if columns is None:
         def columns(cols, width):
@@ -150,6 +170,13 @@ def _path_driver(X: torch.Tensor, y: torch.Tensor, lambdas, cfg, *,
         raise ValueError(f"p={p} is not divisible by the unit size m={m}")
     bucket_min = cfg.bucket_min if cfg.bucket_min is not None \
         else (32 if m == 1 else 16)
+    if batch is not None:
+        return _batched_driver(X, y, lambdas, cfg, m=m, units=units,
+                               bucket_min=bucket_min,
+                               screen_engine=screen_engine,
+                               solver_engine=solver_engine,
+                               need_kkt=need_kkt, kkt_fn=kkt_fn,
+                               columns=columns)
     lambdas = np.asarray(lambdas, dtype=np.float64)
     if lambdas.ndim != 1 or np.any(np.diff(lambdas) > 1e-12):
         raise ValueError("lambdas must be a decreasing (K,) grid")
@@ -244,3 +271,125 @@ def _path_driver(X: torch.Tensor, y: torch.Tensor, lambdas, cfg, *,
         # basic variants keep `state` pinned at λ_max (paper §4.1.1)
     return PathResult(lambdas=lambdas[None, :], betas=betas, stats=stats,
                       masks=masks, query_converged=np.array([converged]))
+
+
+def _batched_driver(X: torch.Tensor, Y: torch.Tensor, lambdas, cfg, *,
+                    m: int, units: int, bucket_min: int, screen_engine,
+                    solver_engine, need_kkt: bool, kkt_fn,
+                    columns) -> PathResult:
+    """:func:`_path_driver` for B queries (the reference's ``batch=B``
+    branch, ``src/repro/core/path.py``): one screen a step for the batch,
+    the union bucket with per-query validity, one batched solve, per-query
+    KKT rounds, the trivial region per query."""
+    B, p = Y.shape[0], screen_engine.p
+    dev = X.device
+    lambdas = np.asarray(lambdas, dtype=np.float64)
+    if lambdas.ndim != 2 or lambdas.shape[0] != B \
+            or np.any(np.diff(lambdas, axis=1) > 1e-12):
+        raise ValueError(f"lambdas must be decreasing (B, K) grids with "
+                         f"B={B}, got shape {lambdas.shape}")
+    K = lambdas.shape[1]
+    lmax = np.asarray(screen_engine.lam_max, dtype=np.float64)
+    state = screen_engine.state_at_lambda_max()
+
+    arange_m = np.arange(m)[None, :]
+    betas = np.zeros((B, K, p), dtype=np.float64)
+    masks = np.ones((B, K, units), dtype=bool)
+    stats: list[PathStepStats] = []
+    beta_prev = torch.zeros((B, p), dtype=X.dtype, device=dev)
+    q_converged = np.ones((B,), dtype=bool)
+
+    for k in range(K):
+        lam_vec = lambdas[:, k]
+        live = lam_vec < lmax          # per-query trivial region (eq. 8)
+        if not live.any():             # β* = 0 for the whole batch
+            stats.append(PathStepStats(float(lam_vec.max()), units, 0, 0,
+                                       0.0, 0, 0.0, 0.0, batch_size=B,
+                                       queries_converged=B))
+            if cfg.checkpoint_fn:
+                cfg.checkpoint_fn(k, lam_vec, np.zeros((B, p)))
+            continue
+
+        # ---- screen: one streaming pass over X for the batch ----------
+        t0 = time.perf_counter()
+        discard = screen_engine.screen(lam_vec, state, rule=cfg.rule)
+        discard_np = discard.cpu().numpy() | ~live[:, None]
+        screen_time = time.perf_counter() - t0
+        screen_passes = screen_engine.last_x_passes
+
+        # ---- one batched solve on the union bucket (+ KKT rounds) ------
+        t0 = time.perf_counter()
+        kkt_rounds = gap_checks = solves = gram_solves = 0
+        solver_x_passes = solve_bytes = 0.0
+        while True:
+            kept = np.flatnonzero((~discard_np).any(axis=0))
+            bucket = min(next_pow2(max(kept.size, bucket_min)), units)
+            if kept.size == 0:
+                beta_full = torch.zeros((B, p), dtype=X.dtype, device=dev)
+                fitted = torch.zeros_like(Y)
+                iters, gap, q_conv = 0, 0.0, B
+                conv_vec = np.ones((B,), dtype=bool)
+            else:
+                col_idx = (kept[:, None] * m + arange_m).reshape(-1)
+                idx, _ = _pad_indices(col_idx, bucket * m, dev, X.dtype)
+                vq_np = np.zeros((B, bucket * m), dtype=np.float32)
+                vq_np[:, :col_idx.size] = np.repeat(~discard_np[:, kept], m,
+                                                    axis=1)
+                vq = torch.from_numpy(vq_np).to(device=dev, dtype=X.dtype)
+                Xr = columns(col_idx, bucket * m)
+                beta0 = beta_prev.index_select(1, idx) * vq
+                res = solver_engine.solve_batched(Xr, lam_vec, beta0,
+                                                  valid=vq, m=m)
+                beta_full = torch.zeros((B, p), dtype=X.dtype, device=dev)
+                beta_full[:, idx[:col_idx.size]] = res.beta[:, :col_idx.size]
+                iters, gap = int(np.max(res.iters)), float(np.max(res.gap))
+                conv_vec = np.asarray(res.converged, dtype=bool)
+                q_conv = int(conv_vec.sum())
+                # fitted values from the reduced bucket feed the next state
+                fitted = res.beta @ Xr.T
+                solves += 1
+                gram_solves += int(solver_engine.last_used_gram)
+                gap_checks += solver_engine.last_gap_checks
+                solver_x_passes += (solver_engine.last_x_passes
+                                    * bucket * m / p)
+                solve_bytes += solver_engine.last_solve_bytes
+            if not need_kkt:
+                break
+            viol = kkt_fn(beta_full, lam_vec,
+                          torch.from_numpy(discard_np).to(dev),
+                          fitted).cpu().numpy() & live[:, None]
+            if not viol.any() or kkt_rounds >= cfg.max_kkt_rounds:
+                break
+            kkt_rounds += 1
+            discard_np = discard_np & ~viol
+        solve_time = time.perf_counter() - t0
+
+        betas[:, k] = beta_full.cpu().numpy()
+        masks[:, k] = discard_np
+        # a query in its trivial region is vacuously converged
+        q_converged &= conv_vec | ~live
+        stats.append(PathStepStats(
+            lam=float(lam_vec.max()),
+            n_discarded=int(discard_np.all(axis=0).sum()),
+            n_kept=int(kept.size), solver_iters=iters, gap=gap,
+            kkt_rounds=kkt_rounds, screen_time_s=screen_time,
+            solve_time_s=solve_time, x_passes=screen_passes,
+            gap_checks=gap_checks,
+            gram_step_frac=gram_solves / solves if solves else 0.0,
+            solver_backend=solver_engine.backend_name,
+            screen_backend=screen_engine.backend_name, bucket=bucket * m,
+            solver_x_passes=solver_x_passes, batch_size=B,
+            queries_converged=q_conv,
+            x_passes_per_query=screen_passes / B,
+            screen_bytes=screen_engine.last_screen_bytes,
+            screen_dtype_effective="float32",
+            solve_dtype_effective="float32", solve_bytes=solve_bytes))
+        if cfg.checkpoint_fn:
+            cfg.checkpoint_fn(k, lam_vec, betas[:, k])
+
+        beta_prev = beta_full
+        if cfg.sequential:
+            state = screen_engine.make_state(beta_full, lam_vec,
+                                             fitted=fitted)
+    return PathResult(lambdas=lambdas, betas=betas, stats=stats,
+                      masks=masks, query_converged=q_converged)

@@ -41,10 +41,20 @@ class DualState(NamedTuple):
     """
 
     theta: torch.Tensor
-    lam: torch.Tensor | float
+    lam: torch.Tensor | float | np.ndarray
     v1: torch.Tensor
-    at_lmax: bool | torch.Tensor
+    at_lmax: bool | torch.Tensor | np.ndarray
     beta_l1: torch.Tensor | float = 0.0
+
+    def query(self, b: int) -> "DualState":
+        """Query b of a batched state (θ, v₁ (B, n); λ, at_lmax host (B,)
+        arrays) as the single-query state the rank-1 rules take: λ a host
+        float, θ and v₁ fresh copies of their rows, so its sphere rounds
+        as a single query's does."""
+        return DualState(theta=self.theta[b].clone(), lam=float(self.lam[b]),
+                         v1=self.v1[b].clone(),
+                         at_lmax=bool(self.at_lmax[b]),
+                         beta_l1=self.beta_l1[b])
 
     @staticmethod
     def at_lambda_max(X: torch.Tensor, y: torch.Tensor) -> "DualState":
@@ -72,6 +82,13 @@ def at_lmax(lam: float, lmax: float) -> bool:
     jitted state builder does: whether the sequential state at λ is the
     λ_max one."""
     return bool(np.float32(lam) >= np.float32(lmax) * np.float32(1.0 - 1e-12))
+
+
+def at_lmax_rows(lam, lmax) -> np.ndarray:
+    """:func:`at_lmax` per query: λ_b ≥ λ_max,b·(1 − 1e-12) in float32,
+    as the reference's batched state builder compares (B,) rows."""
+    return (np.asarray(lam, np.float32)
+            >= np.asarray(lmax, np.float32) * np.float32(1.0 - 1e-12))
 
 
 def lambda_max(X: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -2,6 +2,7 @@
 
     sess = LassoSession.fit(X)                 # on the card; one fused pass
     res  = sess.path(y)                        # (n,) query -> B = 1 result
+    bat  = sess.path(Y)                        # (B, n) batch -> B results
     cpu  = LassoSession.fit(X, device="cpu")   # plain versions on the CPU
     grp  = LassoSession.fit(X, groups=m)       # group Lasso, groups of m
 
@@ -15,18 +16,21 @@ backends, and the per-bucket Lipschitz eigenvector cache shared by every
 :class:`PathConfig`, with the same fields, defaults, validation and
 legacy flat keywords.
 
-This slice of the port serves one (n,) query with the sphere rules,
-basic SAFE and ``none``, float32 screens and the ``fista`` and ``cd``
-strategies; on a session fitted with ``groups=m``, group EDPP, group
-strong and ``none`` with the ``group_fista`` strategy; and, with
-``mesh=`` (a :class:`~torch.distributed.device_mesh.DeviceMesh` under an
+This slice of the port serves (n,) queries and (B, n) batches with the
+sphere rules, basic SAFE and ``none``, float32 screens and the ``fista``
+and ``cd`` strategies (a batch runs the batched driver: one screen and
+one solve a step for all B queries, their kernels launched once for the
+batch); on a session fitted with ``groups=m``, group EDPP, group strong
+and ``none`` with the ``group_fista`` strategy (a batch loops the
+single-query group driver, as the reference does); and, with ``mesh=``
+(a :class:`~torch.distributed.device_mesh.DeviceMesh` under an
 initialised process group, one process per rank), the plain-Lasso path
 on X split by columns over the mesh's feature axis: each rank keeps its
 column block, the screens run per block and gather
 (``backend_name == "shard:<tile>"``), and each reduced bucket is
-gathered replicated and solved alike on every rank. Everything else
-raises ``NotImplementedError`` naming the ROADMAP.md item (queue 1) that
-brings it.
+gathered replicated and solved alike on every rank (a batch stays whole
+on every rank). Everything else raises ``NotImplementedError`` naming
+the ROADMAP.md item (queue 1) that brings it.
 
 Entry points run on the card unless the caller asks for the CPU:
 ``device=None`` means ``cuda``, and raises when no card is present.
@@ -48,7 +52,7 @@ from .device import as_tensor, resolve_device
 from .engine import (ENGINE_RULES, GROUP_ENGINE_RULES, DictionaryGeometry,
                      GroupDictionaryGeometry, GroupScreeningEngine,
                      ScreeningEngine)
-from .path import PathResult, _path_driver, lambda_grid
+from .path import PathResult, PathStepStats, _path_driver, lambda_grid
 from .solver import GROUP_SOLVERS, SOLVERS, SolverEngine
 
 # Every rule the reference knows; ENGINE_RULES are the ones ported so far
@@ -392,30 +396,35 @@ class LassoSession:
     def path(self, Y, lambdas=None, *, num_lambdas: int = 100,
              lo_frac: float = 0.05, hi_frac: float = 1.0,
              config: PathConfig | None = None) -> PathResult:
-        """Solve the λ-path for one (n,) query with screening; a session
-        fitted with ``groups=m`` runs the group path. ``lambdas`` is a
-        decreasing (K,) grid, or None for
-        ``lambda_grid(λ_max, num_lambdas, lo_frac, hi_frac)``. Returns the
-        :class:`PathResult` with its leading batch axis (B = 1)."""
+        """Solve the λ-path for one (n,) query or a (B, n) batch with
+        screening; a session fitted with ``groups=m`` runs the group path.
+        ``lambdas`` is a decreasing grid, (K,) shared or (B, K) per query,
+        or None for each query's ``lambda_grid(λ_max, num_lambdas,
+        lo_frac, hi_frac)``. Returns the :class:`PathResult` with its
+        leading batch axis (B = 1 for an (n,) query)."""
         cfg = config if config is not None else self.config
         if not isinstance(cfg, PathConfig):
             raise TypeError(f"config must be a PathConfig, got "
                             f"{type(cfg).__name__}")
         _check_session_kind(cfg, self.groups)   # per-call overrides too
         y = as_tensor(Y, self.device, self.X.dtype)
-        if y.dim() == 2:
-            raise _not_yet("a (B, n) query batch", 6, "batched multi-query "
-                           "path")
-        if y.dim() != 1 or y.shape[0] != self.X.shape[0]:
-            raise ValueError(f"query must be ({self.X.shape[0]},), got "
-                             f"shape {tuple(y.shape)}")
+        if y.dim() not in (1, 2):
+            raise ValueError(f"queries must be (n,) or (B, n), got shape "
+                             f"{tuple(y.shape)}")
+        if y.shape[-1] != self.X.shape[0]:
+            raise ValueError(f"query length {y.shape[-1]} != dictionary rows "
+                             f"{self.X.shape[0]}")
         grid_kw = dict(num=num_lambdas, lo_frac=lo_frac, hi_frac=hi_frac)
         if self.groups > 1:
-            return self._group_path(y, lambdas, cfg, grid_kw)
+            if y.dim() == 1:
+                return self._group_path(y, lambdas, cfg, grid_kw)
+            return self._group_path_batched(y, lambdas, cfg, grid_kw)
         if cfg.screen.rule == "strong":
             raise _not_yet("screening rule 'strong' on a plain-Lasso path",
                            8, "the other screening rules")
-        return self._lasso_path(y, lambdas, cfg, grid_kw)
+        if y.dim() == 1:
+            return self._lasso_path(y, lambdas, cfg, grid_kw)
+        return self._lasso_path_batched(y, lambdas, cfg, grid_kw)
 
     def _solver_engine(self, y, cfg: PathConfig) -> SolverEngine:
         return SolverEngine(
@@ -447,6 +456,56 @@ class LassoSession:
                             need_kkt=self._need_kkt(cfg), kkt_fn=kkt_fn,
                             columns=geom.columns)
 
+    def _lasso_path_batched(self, Y, lambdas, cfg, grid_kw) -> PathResult:
+        """B queries through the batched driver; a (1, n) batch takes the
+        single-query driver (the union machinery only adds overhead there)
+        and keeps the batched layout."""
+        B = Y.shape[0]
+        if B == 1:
+            return self._lasso_path(Y[0], _squeeze_grid(lambdas), cfg,
+                                    grid_kw)
+        geom = self._geometry(cfg.screen.backend)
+        eng = ScreeningEngine(self.X, Y, eps=cfg.screen.eps, geometry=geom)
+        lambdas = _batch_grids(lambdas, eng.lam_max, grid_kw)
+        tol = cfg.screen.kkt_tol
+
+        def kkt_fn(beta_full, lam, discard, fitted=None):
+            r = Y - (geom.fitted(beta_full) if fitted is None else fitted)
+            thr = torch.tensor(np.asarray(lam) * (1.0 + tol),
+                               dtype=r.dtype, device=r.device)
+            return (torch.abs(geom.correlations(r)) > thr[:, None]) & discard
+
+        return _path_driver(self.X, Y, lambdas, cfg, screen_engine=eng,
+                            solver_engine=self._solver_engine(Y, cfg),
+                            need_kkt=self._need_kkt(cfg), kkt_fn=kkt_fn,
+                            columns=geom.columns, batch=B)
+
+    def _group_path_batched(self, Y, lambdas, cfg, grid_kw) -> PathResult:
+        """B group paths: the single-query group driver once per query
+        (there is no batched group kernel, in the reference either), the
+        fitted spectral norms shared; the result in the batched layout,
+        each step's stats merged over the batch."""
+        B = Y.shape[0]
+        if B == 1:
+            return self._group_path(Y[0], _squeeze_grid(lambdas), cfg,
+                                    grid_kw)
+        if lambdas is None:
+            per_query = [None] * B
+        else:
+            lam = np.asarray(lambdas, dtype=np.float64)
+            per_query = list(np.broadcast_to(lam, (B, lam.shape[-1])))
+        results = [self._group_path(Y[b], per_query[b], cfg, grid_kw)
+                   for b in range(B)]
+        K = results[0].betas.shape[1]
+        return PathResult(
+            lambdas=np.stack([r.lambdas[0] for r in results]),
+            betas=np.stack([r.betas[0] for r in results]),
+            stats=[_merge_step_stats([r.stats[k] for r in results])
+                   for k in range(K)],
+            masks=np.stack([r.masks[0] for r in results]),
+            query_converged=np.concatenate([r.query_converged
+                                            for r in results]))
+
     def _group_path(self, y, lambdas, cfg, grid_kw) -> PathResult:
         m = self.groups
         eng = GroupScreeningEngine(self.X, y, m, eps=cfg.screen.eps,
@@ -462,3 +521,58 @@ class LassoSession:
         return _path_driver(X, y, lambdas, cfg, m=m, screen_engine=eng,
                             solver_engine=self._solver_engine(y, cfg),
                             need_kkt=self._need_kkt(cfg), kkt_fn=kkt_fn)
+
+
+def _squeeze_grid(lambdas):
+    """A (1, K) grid as the (K,) grid of the single-query driver ((K,) and
+    None pass through)."""
+    if lambdas is None:
+        return None
+    lam = np.asarray(lambdas, dtype=np.float64)
+    return lam[0] if lam.ndim == 2 else lam
+
+
+def _batch_grids(lambdas, lam_max: np.ndarray, grid_kw) -> np.ndarray:
+    """(B, K) grids: None → each query's own ``lambda_grid``; a shared (K,)
+    grid → repeated per query."""
+    if lambdas is None:
+        return np.stack([lambda_grid(float(lm), **grid_kw) for lm in lam_max])
+    lam = np.asarray(lambdas, dtype=np.float64)
+    if lam.ndim == 1:
+        lam = np.broadcast_to(lam, (lam_max.shape[0], lam.shape[0])).copy()
+    return lam
+
+
+def _merge_step_stats(steps: list[PathStepStats]) -> PathStepStats:
+    """One grid step's per-query stats as a batch's: additive telemetry
+    (times, passes, checks, bytes) summed, worst cases (iterations, gap,
+    KKT rounds, bucket) the max, ``n_discarded`` the least any query
+    discarded, ``batch_size`` = B (the reference's
+    ``_merge_step_stats``)."""
+    B = len(steps)
+    x_passes = sum(s.x_passes for s in steps)
+    return PathStepStats(
+        lam=max(s.lam for s in steps),
+        n_discarded=min(s.n_discarded for s in steps),
+        n_kept=max(s.n_kept for s in steps),
+        solver_iters=max(s.solver_iters for s in steps),
+        gap=max(s.gap for s in steps),
+        kkt_rounds=max(s.kkt_rounds for s in steps),
+        screen_time_s=sum(s.screen_time_s for s in steps),
+        solve_time_s=sum(s.solve_time_s for s in steps),
+        x_passes=x_passes,
+        gap_checks=sum(s.gap_checks for s in steps),
+        gram_step_frac=float(np.mean([s.gram_step_frac for s in steps])),
+        solver_backend=steps[0].solver_backend,
+        screen_backend=steps[0].screen_backend,
+        bucket=max(s.bucket for s in steps),
+        solver_x_passes=sum(s.solver_x_passes for s in steps),
+        batch_size=B,
+        queries_converged=sum(s.queries_converged for s in steps),
+        x_passes_per_query=x_passes / B,
+        screen_bytes=sum(s.screen_bytes for s in steps),
+        screen_dtype_effective=steps[0].screen_dtype_effective,
+        solve_dtype_effective=steps[0].solve_dtype_effective,
+        solver_lo_iters=sum(s.solver_lo_iters for s in steps),
+        solve_bytes=sum(s.solve_bytes for s in steps),
+        geometry_version=steps[0].geometry_version)

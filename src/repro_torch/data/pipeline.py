@@ -1,12 +1,17 @@
 """The paper's synthetic problems, numpy only: the §4.1.2 Lasso problems
-(eq. 74) and the §4.2 group-Lasso problems.
+(eq. 74), the §4.2 group-Lasso problems, and :class:`QueryStream`, a
+deterministic stream of Lasso queries against one fixed dictionary.
 
-A copy of ``design_matrix``, ``lasso_problem`` and ``group_lasso_problem``
-from the reference's ``data/pipeline.py``: the same seed gives the same
-arrays, so both packages can be fed identical problems.
+A copy of ``design_matrix``, ``lasso_problem``, ``_cached_design``,
+``QueryStream`` and ``group_lasso_problem`` from the reference's
+``data/pipeline.py``: the same seed gives the same arrays, so both
+packages can be fed identical problems.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import numpy as np
 
@@ -40,6 +45,66 @@ def lasso_problem(n: int, p: int, *, nnz: int, corr: float = 0.0,
     beta[idx] = rng.uniform(-1.0, 1.0, nnz)
     y = X @ beta + sigma * rng.standard_normal(n)
     return X.astype(dtype), y.astype(dtype), beta
+
+
+@functools.lru_cache(maxsize=8)
+def _cached_design(n: int, p: int, corr: float, seed: int) -> np.ndarray:
+    """The dictionary of a :class:`QueryStream`, made once per (n, p,
+    corr, seed) and marked read-only (consumers get copies)."""
+    X = design_matrix(n, p, corr=corr, seed=seed)
+    X.setflags(write=False)
+    return X
+
+
+@dataclasses.dataclass(frozen=True)
+class QueryStream:
+    """Lasso queries against ONE fixed dictionary: X is a pure function of
+    ``(n, p, corr, seed)``; each query is the §4.1.2 recipe (a ``nnz``-
+    sparse uniform(−1, 1) β*, y = Xβ* + σ·ε) drawn from
+    ``SeedSequence([seed, step, shard, q])``, so any slice of the stream
+    replays in isolation."""
+
+    n: int
+    p: int
+    batch: int                    # queries per (step, shard) batch
+    nnz: int = 10
+    corr: float = 0.0
+    sigma: float = 0.1
+    seed: int = 0
+
+    def dictionary(self, dtype=np.float64) -> np.ndarray:
+        """The fixed design matrix X (n, p), a fresh copy."""
+        return _cached_design(self.n, self.p, self.corr,
+                              self.seed).astype(dtype)
+
+    def host_batch(self, step: int, shard: int = 0, n_shards: int = 1,
+                   dtype=np.float64) -> dict:
+        """``{"y": (b, n), "beta": (b, p)}`` for (step, shard), with
+        b = batch // n_shards."""
+        b = self.batch // n_shards
+        X = _cached_design(self.n, self.p, self.corr, self.seed)
+        ys = np.empty((b, self.n))
+        betas = np.zeros((b, self.p))
+        for q in range(b):
+            rng = np.random.default_rng(
+                np.random.SeedSequence([self.seed, step, shard, q]))
+            idx = rng.choice(self.p, self.nnz, replace=False)
+            betas[q, idx] = rng.uniform(-1.0, 1.0, self.nnz)
+            ys[q] = X @ betas[q] + self.sigma * rng.standard_normal(self.n)
+        return {"y": ys.astype(dtype), "beta": betas.astype(dtype)}
+
+    def queries(self, count: int, shard: int = 0, n_shards: int = 1,
+                dtype=np.float64):
+        """The first ``count`` queries in (step, query) order, the same
+        draws as :meth:`host_batch`."""
+        served, step = 0, 0
+        while served < count:
+            for y in self.host_batch(step, shard, n_shards, dtype)["y"]:
+                if served >= count:
+                    return
+                yield y
+                served += 1
+            step += 1
 
 
 def group_lasso_problem(n: int, p: int, m: int, *, active_groups: int,

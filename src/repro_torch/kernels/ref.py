@@ -41,6 +41,15 @@ def _per_query(s, batch: int, dtype, device) -> torch.Tensor:
         (batch,))
 
 
+def _rowwise_dots(X: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    """(B, p) dots of each centre row with X, one matrix-vector product per
+    row on a fresh copy of it: a query's dots are those of the rank-1
+    call, whatever the batch around it (the kernels' bits do not depend
+    on B either)."""
+    return torch.stack([X.T @ c.clone() for c in C]) if len(C) else \
+        C.new_zeros((0, X.shape[1]))
+
+
 def edpp_screen_ref(X: torch.Tensor, centre: torch.Tensor, rho):
     """Fused screening pass: ``scores[j] = |x_jᵀc| + ρ‖x_j‖``,
     ``sumsq[j] = ‖x_j‖²``. Batched centre (B, n) gives scores (B, p);
@@ -51,7 +60,7 @@ def edpp_screen_ref(X: torch.Tensor, centre: torch.Tensor, rho):
     ca = centre.to(acc)
     sumsq = torch.sum(Xa * Xa, dim=0)
     if ca.ndim == 2:
-        dot = ca @ Xa
+        dot = _rowwise_dots(Xa, ca)
         rho_b = _per_query(rho, ca.shape[0], acc, X.device)
         return torch.abs(dot) + rho_b[:, None] * torch.sqrt(sumsq), sumsq
     dot = Xa.T @ ca
@@ -64,7 +73,7 @@ def screen_matvec_ref(X: torch.Tensor, centre: torch.Tensor) -> torch.Tensor:
     PLAIN_CALLS["screen_matvec"] += 1
     acc = _acc_dtype(X)
     if centre.ndim == 2:
-        return centre.to(acc) @ X.to(acc)
+        return _rowwise_dots(X.to(acc), centre.to(acc))
     return X.to(acc).T @ centre.to(acc)
 
 

@@ -8,9 +8,11 @@ of its plan (tiles of whole groups, scalar loads, clusters, a group
 walked in steps) and the Gram CD sweep over both of its kernels (one
 warp, one warp a chunk), each repeatable, blind to alignment and exact
 on zero columns; the wrappers' refusals;
-the sessions (default FISTA, ``cd``, groups) on the card against the
-same sessions on the CPU; the prox step over its shapes and parameter
-kinds, and with a stack of gradient parts bit for bit; solver loops
+the sessions (default FISTA, ``cd``, groups, and (B, n) batches with
+``fista`` and ``cd``) on the card against the same sessions on the CPU,
+and batched screens (B = 8 and 12) bit for bit the single-query ones;
+the prox step over its shapes and parameter kinds, and with a stack of
+gradient parts bit for bit; solver loops
 replayed from a CUDA graph (``repro_torch.core.graphs``) bit for bit
 against the same launches run eagerly, with each replay's launches
 counted; and a mesh session over NCCL at world size 1 against the
@@ -33,8 +35,8 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
 from repro_torch import LassoSession, PathConfig, ScreenSpec, SolveSpec
-from repro_torch.core import graphs
-from repro_torch.data import group_lasso_problem, lasso_problem
+from repro_torch.core import DictionaryGeometry, ScreeningEngine, graphs
+from repro_torch.data import QueryStream, group_lasso_problem, lasso_problem
 from repro_torch.kernels import (edpp_screen, group_screen, ops, ref,
                                  solver_step)
 
@@ -351,6 +353,65 @@ def test_cd_and_group_sessions_on_the_card_match_the_cpu(cuda):
                                    rtol=2 ** -22)
         assert np.abs(res_g.betas - res_c.betas).max() <= tol
         assert (res_g.masks != res_c.masks).sum() <= 2
+
+
+def _batch_problem(seed=3, batch=8, n=40, p=200):
+    """tests/test_torch_batched.py's size: QueryStream(40, 200, B = 8) and
+    per-query grids inside (0, λ_max)."""
+    st = QueryStream(n=n, p=p, batch=batch, nnz=10, seed=seed)
+    X = st.dictionary(np.float32)
+    Y = st.host_batch(0)["y"].astype(np.float32)
+    lmax = np.abs(Y.astype(np.float64) @ X.astype(np.float64)).max(axis=1)
+    return X, Y, np.linspace(0.95, 0.05, 8)[None, :] * lmax[:, None]
+
+
+@pytest.mark.parametrize("strategy", ["fista", "cd"])
+def test_batched_path_on_the_card_matches_the_cpu(cuda, strategy):
+    """The (B, n) path on the card: each kernel launched once per batched
+    call (one ``screen_matvec`` per live step, plus the |Xᵀy| attach),
+    no plain version; against the same path on the CPU, β within
+    ``beta_err_tol`` per query and at most 2 mask flips; against the
+    card's own single-query runs, masks equal."""
+    X, Y, grids = _batch_problem()
+    cfg = PathConfig(solve=SolveSpec(strategy=strategy, tol=1e-6))
+    sess = LassoSession.fit(X, config=cfg)
+    ops.reset_counts()
+    res_g = sess.path(Y, grids)
+    counts = ops.launch_counts()
+    live = [s for s in res_g.stats if s.screen_backend]
+    assert counts["screen_matvec"] == len(live) + 1
+    kernel = "fista_step" if strategy == "fista" else "cd_gram_sweep"
+    assert counts[kernel] > 0 and not any(ops.plain_counts().values())
+    res_c = LassoSession.fit(X, config=cfg, device="cpu").path(Y, grids)
+    assert (res_g.masks != res_c.masks).sum() <= 2
+    for b in range(Y.shape[0]):
+        tol = 25.0 * float(np.sqrt(1e-6 * 0.5 * float(Y[b] @ Y[b])))
+        assert np.abs(res_g.betas[b] - res_c.betas[b]).max() <= tol
+        one = sess.path(Y[b], grids[b])
+        np.testing.assert_array_equal(res_g.masks[b], one.masks[0])
+        assert np.abs(res_g.betas[b] - one.betas[0]).max() <= tol
+
+
+@pytest.mark.parametrize("batch", [8, 12])
+@pytest.mark.parametrize("rule", ["dpp", "imp1", "imp2", "edpp", "seq_safe",
+                                  "safe"])
+def test_batched_screens_on_the_card_are_the_single_screens(cuda, rule,
+                                                            batch):
+    """A batched screen on the card (two launches past MAX_B = 8) gives
+    each query's single-query mask bit for bit, from the λ_max state."""
+    X, Y, _ = _batch_problem(batch=batch)
+    Xt, Yt = torch.from_numpy(X).to(cuda), torch.from_numpy(Y).to(cuda)
+    geom = DictionaryGeometry(Xt)
+    eng = ScreeningEngine(Xt, Yt, geometry=geom)
+    lam = 0.5 * np.asarray(eng.lam_max)
+    ops.reset_counts()
+    got = eng.screen(lam, eng.state_at_lambda_max(), rule)
+    assert ops.launch_counts()["screen_matvec"] == -(-batch // 8)
+    for b in range(batch):
+        one = ScreeningEngine(Xt, Yt[b].clone(), geometry=geom)
+        assert one.lam_max == eng.lam_max[b]
+        want = one.screen(float(lam[b]), one.state_at_lambda_max(), rule)
+        assert torch.equal(got[b], want), (rule, b)
 
 
 @pytest.mark.parametrize("per_query", [False, True])

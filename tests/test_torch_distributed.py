@@ -79,6 +79,13 @@ def problem():
     # queries 0, 1 from β = 0 at λ_max; queries 2, 3 from β* at 0.6·λ_max
     beta_b = np.stack([np.zeros_like(beta)] * 2 + [beta] * 2)
     Xs, ys, _ = lasso_problem(50, 400, nnz=10, seed=4, dtype=np.float32)
+    # a (4, n) batch against the session's dictionary: 10-sparse truths
+    rng = np.random.default_rng(5)
+    W = np.zeros((4, Xs.shape[1]))
+    for w in W:
+        w[rng.choice(Xs.shape[1], 10, replace=False)] = rng.uniform(-1, 1, 10)
+    Ys = (W @ Xs.T.astype(np.float64)
+          + 0.1 * rng.standard_normal((4, Xs.shape[0]))).astype(np.float32)
     return dict(
         X=X, y=y, Y=Y, beta=beta, r=(y - X @ beta).astype(np.float32),
         lam_max=lam_max, v1=v1, lam_prev=np.float32(0.6 * lam_max),
@@ -94,7 +101,7 @@ def problem():
         beta_b=beta_b, lam_b=(0.3 * lam_max_b).astype(np.float32),
         lipschitz=np.float32(1.05 * np.linalg.norm(X.astype(np.float64),
                                                    2) ** 2),
-        Xs=Xs, ys=ys)
+        Xs=Xs, ys=ys, Ys=Ys)
 
 
 @pytest.fixture(scope="module")
@@ -156,6 +163,14 @@ def unsharded(problem):
     sess = LassoSession.fit(problem["Xs"], device="cpu", config=PathConfig(
         solve=SolveSpec(tol=worker.PATH_TOL)))
     return sess.path(problem["ys"], **worker.GRID)
+
+
+@pytest.fixture(scope="module")
+def unsharded_batch(problem):
+    """The port's unsharded session on the (4, n) path batch."""
+    sess = LassoSession.fit(problem["Xs"], device="cpu", config=PathConfig(
+        solve=SolveSpec(tol=worker.PATH_TOL)))
+    return sess.path(problem["Ys"], **worker.GRID)
 
 
 @pytest.fixture(scope="module")
@@ -335,6 +350,43 @@ def test_mesh_session_matches_unsharded_and_reference(
         f"world {world} vs reference")
 
 
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_mesh_session_batch_matches_unsharded(worlds, unsharded_batch,
+                                              problem, world):
+    """A (4, n) batch on a mesh session: every rank returns the whole
+    batch (the 2×2 mesh's query axis splits nothing), at world size 1 bit
+    for bit the unsharded session's; at every size each query's masks
+    equal outside the band of the scores its unsharded path tested, β
+    within ``beta_err_tol(y_b, 1e-6)``, x_passes equal, and n_discarded
+    and bucket equal at the steps where no mask flipped."""
+    out, plain = worlds[world], unsharded_batch
+    port = tuple(out[f"batch_{k}"] for k in ("lambdas", "betas", "masks",
+                                              "stats", "converged"))
+    want = (plain.lambdas, plain.betas, plain.masks, _stats(plain),
+            plain.query_converged)
+    assert port[1].shape == (4, worker.GRID["num_lambdas"], 400)
+    if world == 1:
+        for a, b in zip(port, want):
+            np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(port[0], want[0])
+    np.testing.assert_array_equal(port[4], want[4])
+    X, Y = problem["Xs"], problem["Ys"]
+    flips = port[2] != want[2]
+    for b in range(4):
+        for k, scores in enumerate(_path_scores(X, Y[b], want[0][b],
+                                                want[1][b])):
+            band = np.zeros_like(flips[b, k]) if scores is None \
+                else np.abs(scores - (1.0 - EPS)) < BAND
+            assert not (flips[b, k] & ~band).any(), (world, b, k)
+        assert np.abs(port[1][b] - want[1][b]).max() \
+            <= beta_err_tol(Y[b], worker.PATH_TOL)
+    still = ~flips.any(axis=(0, 2))
+    assert (port[3][:, 1] == want[3][:, 1]).all()
+    assert (port[3][still][:, [0, 2]] == want[3][still][:, [0, 2]]).all()
+    print(f"world {world}: {int(flips.sum())} batch mask flips, all in the "
+          f"band")
+
+
 @pytest.mark.parametrize("world", [2, 4])
 def test_a_width_the_mesh_cannot_split_is_refused(worlds, world):
     msg = str(worlds[world]["indivisible"])
@@ -352,10 +404,15 @@ def test_mesh_sessions_refuse_what_this_slice_does_not_serve(problem):
         geom = DictionaryGeometry(torch.from_numpy(X))
         with pytest.raises(ValueError, match="cannot be combined"):
             LassoSession.fit(X, mesh=mesh, geometry=geom, device="cpu")
-        sess = LassoSession.fit(X, mesh=mesh, device="cpu")
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1 item 6 "):
-            sess.path(np.stack([y, y]))
+        cfg = PathConfig(solve=SolveSpec(tol=worker.PATH_TOL))
+        sess = LassoSession.fit(X, mesh=mesh, device="cpu", config=cfg)
+        Y = np.stack([y, 0.5 * y])
+        res = sess.path(Y, **worker.GRID)     # a batch is served: parity
+        plain = LassoSession.fit(X, device="cpu", config=cfg).path(
+            Y, **worker.GRID)
+        assert res.betas.shape == (2, worker.GRID["num_lambdas"], 400)
+        np.testing.assert_array_equal(res.masks, plain.masks)
+        np.testing.assert_array_equal(res.betas, plain.betas)
         with pytest.raises(NotImplementedError,
                            match="ROADMAP.md queue 1 item 10 "):
             sess.update(drop=[0])

@@ -25,7 +25,6 @@ import pytest
 import torch
 
 import repro_torch
-import torch_dist_worker
 from repro.core import LassoSession as JSession
 from repro.core import PathConfig as JConfig
 from repro.core import ScreeningEngine as JEngine
@@ -241,18 +240,7 @@ def test_fit_runs_on_the_card_unless_asked_otherwise():
     assert LassoSession.fit(X, device="cpu").X.device.type == "cpu"
 
 
-def _on_a_mesh(fn):
-    """``fn(mesh)`` under a 1-rank gloo group (torn down after)."""
-    with torch_dist_worker.one_rank() as mesh:
-        return fn(mesh)
-
-
 @pytest.mark.parametrize("what, call, item", [
-    ("batch", lambda s, y: s.path(np.stack([y, y])), 6),
-    ("group_batch", lambda s, y: LassoSession.fit(
-        s.X, groups=2, device="cpu").path(np.stack([y, y])), 6),
-    ("mesh", lambda s, y: _on_a_mesh(lambda mesh: LassoSession.fit(
-        s.X, mesh=mesh, device="cpu").path(np.stack([y, y]))), 6),
     ("group_mesh", lambda s, y: LassoSession.fit(
         s.X, groups=2, mesh=object(), device="cpu"), 13),
     ("gap", lambda s, y: ScreenSpec(rule="gap"), 8),

@@ -41,8 +41,8 @@ def compute(mesh, inp) -> dict[str, np.ndarray]:
     """Every distributed op of the port on ``inp`` (global numpy arrays),
     gathered back to global arrays: λ_max, ‖Xᵀr‖_∞, the four EDPP screens,
     the power iteration, FISTA in the three overlap modes and batched,
-    and a mesh session's path; with the launch and plain-version counts
-    of the solver runs."""
+    and a mesh session's path for one query and for a (B, n) batch; with
+    the launch and plain-version counts of the solver runs."""
     X, y, Y = inp["X"], inp["y"], inp["Y"]
     B = Y.shape[0]
     Xl = D.place_dictionary(mesh, X)
@@ -116,6 +116,13 @@ def compute(mesh, inp) -> dict[str, np.ndarray]:
         path_fit_passes=np.array(sess.fit_passes),
         path_backend=np.array(sess.backend_name),
         path_shape=np.array(sess.shape))
+    sess.reset_solver_cache()              # start cold, as a fresh session
+    res = sess.path(inp["Ys"], **GRID)     # the whole batch on every rank
+    out.update(
+        batch_lambdas=res.lambdas, batch_betas=res.betas,
+        batch_masks=res.masks, batch_converged=res.query_converged,
+        batch_stats=np.array([(s.n_discarded, s.x_passes, s.bucket)
+                              for s in res.stats]))
     try:                                 # a width the mesh cannot split
         LassoSession.fit(Xs[:, :-1], mesh=mesh, device="cpu")
         out["indivisible"] = np.array("")
