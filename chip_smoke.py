@@ -84,9 +84,33 @@ Phases, each printing its own lines and seconds:
    launches), masks and dots bit for bit the 12 single-query screens.
    The group exactness phase also holds a (2, n) group batch bit for bit
    against its two single runs;
-11. summary: one JSON line of per-kernel numbers (with, for
+11. serve: ``repro_torch.launch.serve.main`` in-process, as a user runs
+   ``python -m repro_torch.launch.serve``, at 784 × 50 000 (``--nnz 16
+   --seed 0``, the stream's own σ), 44 queries of 16 λ (``--hi-frac 0.95
+   --lo-frac 0.1 --solver-tol 1e-6``), ``--b-max 8 --deadline-ms 20
+   --queue-cap 64 --max-in-flight 2``, ``--mode compare --repeats 1
+   --check-masks 0`` with the bench JSON in a temporary directory: both
+   arms serve 44 of 44 with 0 errors, every served mask equals the direct
+   ``session.path`` call on its grid outside the ±1e-4 band of the
+   threshold (the queries not bit for bit and their flips counted and
+   printed), the fixed arm's trace is
+   5 × (fill, 8/8) then (drain, 4/8) and the continuous arm's 5 × (fill,
+   8/8) then (deadline or drain, 4/4) (``tail_reason``: the deadline is
+   checked first); queries/sec, p50 and p99 of both arms and each
+   kernel's launches are printed as readings. Then ``--solver cd --mode
+   continuous`` on the same data: 0 errors, every live step whose union
+   bucket has at most min(n, ``GRAM_BUCKET_MAX``) columns on
+   ``cd_gram_sweep`` and every wider one on matvec CD (the Gram
+   crossover), no ``fista_step``;
+12. solve: ``repro_torch.launch.solve.main`` in-process at 784 × 50 000
+   (``--no-x64``, 20 λ, the default tol 1e-8) with ``--ckpt-dir``: the
+   latest checkpoint is step 19, holds the result's last β, and only the
+   newest 3 steps are kept; then ``--group-size 10`` at 250 × 20 000,
+   which launches ``group_screen_scores``;
+13. summary: one JSON line of per-kernel numbers (with, for
    ``screen_matvec``, ``fista_step`` and ``cd_gram_sweep``, the batched
-   path's launches and its B = 8 row at its own shapes), then, last,
+   path's launches and its B = 8 row at its own shapes, and for every
+   kernel the serve and solve phases' launches), then, last,
    ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --kernels [--tree DIR]`` runs phases 1 to 3 only
@@ -120,6 +144,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1306,11 +1331,13 @@ def path_scores(torch, X64, y, lambdas, betas):
     return out
 
 
-def band_flips(torch, X64, y, res_one, mask_b) -> tuple[int, int]:
-    """(flips, columns in the band) of a batched query's masks against its
-    single run; raises if a flip lies outside the band of the scores the
-    single run tested."""
+def band_flips(torch, X64, y, res_one, mask_b) -> tuple[int, int, float]:
+    """(flips, columns in the band, the largest |score − threshold| of a
+    flipped column) of a batched query's masks against its single run;
+    raises if a flip lies outside the band of the scores the single run
+    tested."""
     flips = band = 0
+    worst = 0.0
     scores = path_scores(torch, X64, y, res_one.lambdas[0], res_one.betas[0])
     for k, sc in enumerate(scores):
         diff = mask_b[k] != res_one.masks[0, k]
@@ -1321,7 +1348,10 @@ def band_flips(torch, X64, y, res_one, mask_b) -> tuple[int, int]:
         band += int(near.sum())
         flips += int(diff.sum())
         assert not (diff & ~near).any(), f"step {k}: a flip outside the band"
-    return flips, band
+        if diff.any():
+            worst = max(worst, float((sc - (1.0 - 1e-6)).abs().cpu()
+                                     .numpy()[diff].max()))
+    return flips, band, worst
 
 
 def split(res, what: str) -> float:
@@ -1385,7 +1415,7 @@ def batched_phase(torch) -> dict:
     single_launches = counted(ops, ("screen_matvec", "fista_step"))
     flips = band = 0
     for b in range(BATCH):
-        f, n_band = band_flips(torch, X64, Y[b], singles[b], res.masks[b])
+        f, n_band, _ = band_flips(torch, X64, Y[b], singles[b], res.masks[b])
         flips, band = flips + f, band + n_band
         err = float(np.abs(res.betas[b] - singles[b].betas[0]).max())
         assert err <= beta_err_tol(Y[b], 1e-6), (b, err)
@@ -1465,6 +1495,171 @@ def batched_phase(torch) -> dict:
     return {"launches": launches, "cd_launches": cd_launches,
             "bucket": int(np.median(buckets)),
             "cd_bucket": int(np.median(cd_buckets))}
+
+
+SERVE_QUERIES = 44      # five fill batches of 8, then a 4-query tail
+SERVE_ARGV = ["--n", str(MNIST[0]), "--p", str(MNIST[1]), "--nnz", "16",
+              "--seed", "0", "--b-max", str(BATCH), "--deadline-ms", "20",
+              "--queue-cap", "64", "--max-in-flight", "2", "--num-queries",
+              str(SERVE_QUERIES), "--num-lambdas", "16", "--hi-frac", "0.95",
+              "--lo-frac", "0.1", "--solver-tol", "1e-6"]
+
+
+def tail_reason(report) -> str:
+    """The reason the loop must give the last, partial batch: "deadline"
+    when its oldest query had waited the policy's deadline at dispatch
+    (checked first), else "drain" (the source is exhausted)."""
+    last = report.trace[-1]
+    waited = last.t - min(t.t_admit for t in report.tickets
+                          if t.batch_id == last.batch_id)
+    return "deadline" if waited >= report.policy.deadline_s else "drain"
+
+
+def serve_readings(report) -> str:
+    s = report.summary()
+    return (f"served {s['n_ok']}/{s['n_queries']} in {s['wall_time_s']:.3f} "
+            f"s: {s['queries_per_sec']:.2f} queries/sec, latency p50 "
+            f"{s['p50_latency_s'] * 1e3:.1f} ms p99 "
+            f"{s['p99_latency_s'] * 1e3:.1f} ms, errors {s['n_errors']}, "
+            f"unconverged {s['n_unconverged']}, trace "
+            + " ".join(f"{r.reason}:{r.n_live}/{r.padded_b}"
+                       for r in report.trace))
+
+
+def serve_phase(torch, tmp: str) -> dict:
+    """``repro_torch.launch.serve.main`` in-process at the batched path's
+    width: compare mode (both arms served whole, every mask bit for bit the
+    direct call, the traces the policy gives), then a continuous ``--solver
+    cd`` run, every live step on ``cd_gram_sweep``. Returns the launches of
+    each run."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    bench = os.path.join(tmp, "serve.json")
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    out = serve.main([*SERVE_ARGV, "--mode", "compare", "--repeats",
+                      "1", "--check-masks", "0", "--bench-json", bench])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counted(ops, ("edpp_screen_scores", "screen_matvec",
+                             "fista_step"))
+    reps = out["reports"]
+    for mode, rep in reps.items():
+        print(f"  {mode}: {serve_readings(rep)}")
+    print(f"serve compare wall {wall:.2f} s (fit, 2 warm-up and 2 timed "
+          f"arms, {2 * SERVE_QUERIES} direct replays); continuous / fixed "
+          f"queries/sec {out['ratio']:.3f}; launches "
+          + ", ".join(f"{k} {launches[k]}" for k in ops.OPS))
+    full = [("fill", BATCH, BATCH)] * (SERVE_QUERIES // BATCH)
+    tail = SERVE_QUERIES % BATCH
+    want = {"fixed": full + [("drain", tail, BATCH)],
+            "continuous": full + [(tail_reason(reps["continuous"]), tail,
+                                   tail)]}
+    for mode, rep in reps.items():
+        s = rep.summary()
+        assert s["n_ok"] == s["n_queries"] == SERVE_QUERIES, (mode, s)
+        assert s["n_errors"] == 0 and all(t.ok for t in rep.tickets)
+        assert [(r.reason, r.n_live, r.padded_b)
+                for r in rep.trace] == want[mode], (mode, rep.trace)
+    assert os.path.exists(bench)
+    # a served query's masks against its direct call: bit for bit except
+    # for columns within the rounding band of the threshold (the batch's
+    # solve runs on the union bucket, the single one on its own)
+    sess = out["session"]
+    X64 = sess.X.to(torch.float64)
+    flips = band = 0
+    worst = 0.0
+    for mode, qids in out["mismatched"].items():
+        for t in reps[mode].tickets:
+            if t.qid in qids:
+                f, n_band, w = band_flips(torch, X64, t.y, sess.path(
+                    t.y, t.result.lambdas), t.result.masks)
+                flips, band, worst = flips + f, band + n_band, max(worst, w)
+    print(f"served masks against the direct calls: queries not bit for bit "
+          f"{out['mismatched']}; {flips} mask flips, all in the ±{BAND:g} "
+          f"band ({band} step-columns of those queries in it), the "
+          f"farthest {worst:.3g} from the threshold")
+    del X64, sess, out
+
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    cd = serve.main([*SERVE_ARGV, "--solver", "cd", "--mode",
+                     "continuous"])["reports"]["continuous"]
+    torch.cuda.synchronize()
+    cd_wall = time.perf_counter() - t0
+    cd_launches = counted(ops, ("edpp_screen_scores", "screen_matvec",
+                                "cd_gram_sweep"))
+    steps = {id(st): st for t in cd.tickets for st in t.result.stats
+             if st.screen_backend}.values()
+    # the Gram crossover: a bucket of at most min(n, GRAM_BUCKET_MAX)
+    # columns runs on cd_gram_sweep, a wider one on matvec CD (plain torch
+    # in both packages)
+    limit = min(MNIST[0], ops.GRAM_BUCKET_MAX)
+    gram = [st for st in steps if st.bucket <= limit]
+    wide = sorted(st.bucket for st in steps if st.bucket > limit)
+    print(f"  cd: {serve_readings(cd)}")
+    print(f"serve --solver cd wall {cd_wall:.2f} s (fit, a warm-up and a "
+          f"timed run); {len(gram)} of {len(steps)} live batch steps with "
+          f"union buckets ≤ {limit} columns, all on cd_gram_sweep; the "
+          f"other {len(wide)} (buckets {wide}) on matvec CD; launches "
+          f"cd_gram_sweep {cd_launches['cd_gram_sweep']}, fista_step "
+          f"{cd_launches['fista_step']}")
+    assert cd.summary()["n_errors"] == 0 and all(t.ok for t in cd.tickets)
+    assert cd.summary()["n_ok"] == SERVE_QUERIES
+    assert gram and all(st.gram_step_frac == 1.0 for st in gram)
+    assert all(st.gram_step_frac == 0.0 for st in steps
+               if st.bucket > limit)
+    assert cd_launches["fista_step"] == 0
+    return {"launches": launches, "cd_launches": cd_launches}
+
+
+def solve_phase(torch, tmp: str) -> dict:
+    """``repro_torch.launch.solve.main`` in-process: the plain path at the
+    main path's width with checkpoints (the last one holds the result's
+    last β), and the group path. Returns the launches of each run."""
+    from repro_torch.checkpoint import latest_step, restore
+    from repro_torch.kernels import ops
+    from repro_torch.launch import solve
+    ckpt = os.path.join(tmp, "ckpt")
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    n, p = MNIST
+    res = solve.main(["--n", str(n), "--p", str(p), "--nnz", "16",
+                      "--no-x64", "--num-lambdas", "20", "--ckpt-dir",
+                      ckpt])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counted(ops, ("edpp_screen_scores", "screen_matvec",
+                             "fista_step"))
+    step = latest_step(ckpt)
+    tree, extra = restore(ckpt, step, {"beta": 0}, device="cpu")
+    same = np.array_equal(tree["beta"].numpy().astype(np.float64),
+                          res.betas[-1])
+    live = [s for s in res.stats if s.screen_backend]
+    print(f"solve wall {wall:.2f} s ({n} × {p}, 20 λ, tol "
+          f"1e-8): {sum(s.solver_iters >= 5000 for s in live)} of "
+          f"{len(live)} live steps at max_iter; latest checkpoint step "
+          f"{step}, its beta equal to the result's last {same}, its λ "
+          f"{extra['lam']:.6g}; launches "
+          + ", ".join(f"{k} {launches[k]}" for k in ops.OPS))
+    assert step == 19 and same and np.isfinite(res.betas).all()
+    assert sorted(os.listdir(ckpt)) == [f"step_{k:08d}" for k in (17, 18,
+                                                                    19)]
+    n_g, p_g, m = GROUP_EXACT
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    res_g = solve.main(["--n", str(n_g), "--p", str(p_g), "--group-size",
+                        str(m), "--nnz", "200", "--no-x64", "--num-lambdas",
+                        "20"])
+    torch.cuda.synchronize()
+    g_wall = time.perf_counter() - t0
+    g_launches = counted(ops, ("group_screen_scores",))
+    print(f"solve --group-size {m} wall {g_wall:.2f} s ({n_g} × {p_g}, 20 "
+          f"λ); launches group_screen_scores "
+          f"{g_launches['group_screen_scores']}")
+    assert res_g.masks.shape == (20, p_g // m)
+    assert np.isfinite(res_g.betas).all()
+    return {"launches": launches, "group_launches": g_launches}
 
 
 def main(argv: list[str]) -> int:
@@ -1782,6 +1977,15 @@ def main(argv: list[str]) -> int:
         assert all(equal) and res2.betas.shape == (2, 20, p_e)
         assert all(s.batch_size == 2 for s in res2.stats)
 
+    with tempfile.TemporaryDirectory() as tmp:
+        with phase(f"serve: repro_torch.launch.serve.main, compare then "
+                   f"--solver cd, {SERVE_QUERIES} queries, {n} × {p}, "
+                   f"B_max {BATCH}, 16 λ"):
+            served = serve_phase(torch, tmp)
+        with phase(f"solve: repro_torch.launch.solve.main, {n} × {p} with "
+                   f"checkpoints and {n_e} × {p_e} groups of {m}, 20 λ"):
+            solved = solve_phase(torch, tmp)
+
     with phase(f"kernels at the paths' shapes (fista bucket {main_bucket}, "
                f"cd bucket {cd_bucket}; batched B={BATCH}: fista bucket "
                f"{batched['bucket']}, cd bucket {batched['cd_bucket']})"):
@@ -1823,7 +2027,15 @@ def main(argv: list[str]) -> int:
                if op == "cd_gram_sweep" else {}),
             **({"graph_ms": r["graph_ms"], "run_ms": r["run_ms"],
                 "parts": r["parts"]} if op == "prox_step" else {}),
-            **batch_entry(op, rows, batched)})
+            **batch_entry(op, rows, batched),
+            # the serve phase's compare run (fit, four arms, the direct
+            # replays) and, for cd_gram_sweep, its --solver cd run
+            "serve_launches": served["launches"][op],
+            **({"serve_cd_launches": served["cd_launches"][op]}
+               if op == "cd_gram_sweep" else {}),
+            "solve_launches": (solved["group_launches"] if op ==
+                               "group_screen_scores" else
+                               solved["launches"])[op]})
     print(json.dumps({"kernels": summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -103,6 +103,14 @@ class PathResult:
     def batch(self) -> int:
         return self.betas.shape[0] if self.batched else 1
 
+    @property
+    def total_solve_time(self) -> float:
+        return sum(s.solve_time_s for s in self.stats)
+
+    @property
+    def total_screen_time(self) -> float:
+        return sum(s.screen_time_s for s in self.stats)
+
     def squeeze(self) -> "PathResult":
         if not self.batched:
             return self
@@ -178,7 +186,9 @@ def _path_driver(X: torch.Tensor, y: torch.Tensor, lambdas, cfg, *,
                                need_kkt=need_kkt, kkt_fn=kkt_fn,
                                columns=columns)
     lambdas = np.asarray(lambdas, dtype=np.float64)
-    if lambdas.ndim != 1 or np.any(np.diff(lambdas) > 1e-12):
+    # written so that a NaN grid (a NaN query's λ_max) fails, as the
+    # reference's assertion does
+    if lambdas.ndim != 1 or not np.all(np.diff(lambdas) <= 1e-12):
         raise ValueError("lambdas must be a decreasing (K,) grid")
     K = lambdas.shape[0]
     lmax = float(screen_engine.lam_max)
@@ -285,7 +295,7 @@ def _batched_driver(X: torch.Tensor, Y: torch.Tensor, lambdas, cfg, *,
     dev = X.device
     lambdas = np.asarray(lambdas, dtype=np.float64)
     if lambdas.ndim != 2 or lambdas.shape[0] != B \
-            or np.any(np.diff(lambdas, axis=1) > 1e-12):
+            or not np.all(np.diff(lambdas, axis=1) <= 1e-12):
         raise ValueError(f"lambdas must be decreasing (B, K) grids with "
                          f"B={B}, got shape {lambdas.shape}")
     K = lambdas.shape[1]

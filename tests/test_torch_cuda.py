@@ -11,6 +11,7 @@ on zero columns; the wrappers' refusals;
 the sessions (default FISTA, ``cd``, groups, and (B, n) batches with
 ``fista`` and ``cd``) on the card against the same sessions on the CPU,
 and batched screens (B = 8 and 12) bit for bit the single-query ones;
+served masks at B = 8 through the serve loop, each the direct call's;
 the prox step over its shapes and parameter kinds, and with a stack of
 gradient parts bit for bit; solver loops
 replayed from a CUDA graph (``repro_torch.core.graphs``) bit for bit
@@ -390,6 +391,35 @@ def test_batched_path_on_the_card_matches_the_cpu(cuda, strategy):
         one = sess.path(Y[b], grids[b])
         np.testing.assert_array_equal(res_g.masks[b], one.masks[0])
         assert np.abs(res_g.betas[b] - one.betas[0]).max() <= tol
+
+
+@pytest.mark.parametrize("pad, tail", [("pow2", 4), ("full", 8)])
+def test_served_masks_on_the_card_are_the_direct_calls(cuda, pad, tail):
+    """The serve loop over a session on the card at B = 8 (two fill
+    batches and a 3-live drain padded to ``tail``, the last query repeated
+    into the padded lanes): every served mask equals a direct
+    ``session.path`` call on its grid, bit for bit, and the batches ran on
+    the kernels, no plain version."""
+    from repro_torch.launch import serve_loop as sl
+    st = QueryStream(n=100, p=2000, batch=8, nnz=10, seed=5)
+    ys = list(st.queries(19, dtype=np.float32))
+    sess = LassoSession.fit(st.dictionary(np.float32),
+                            config=PathConfig(solve=SolveSpec(tol=1e-6)))
+    ops.reset_counts()
+    rep = sl.ServeLoop(
+        sl.ScriptedArrivals([(0.0, y) for y in ys]),
+        sl.SessionExecutor(sess, num_lambdas=16, hi_frac=0.95),
+        policy=sl.ServePolicy(b_max=8, queue_cap=32, pad=pad),
+        clock=sl.VirtualClock()).run()
+    counts = ops.launch_counts()
+    assert counts["screen_matvec"] > 0 and counts["fista_step"] > 0
+    assert not any(ops.plain_counts().values())
+    assert [(r.reason, r.n_live, r.padded_b) for r in rep.trace] \
+        == [("fill", 8, 8), ("fill", 8, 8), ("drain", 3, tail)]
+    assert rep.summary()["n_errors"] == 0
+    for t in rep.tickets:
+        direct = sess.path(ys[t.qid], t.result.lambdas)
+        np.testing.assert_array_equal(direct.masks[0], t.result.masks)
 
 
 @pytest.mark.parametrize("batch", [8, 12])

@@ -282,7 +282,9 @@ def test_package_imports_neither_jax_nor_the_reference():
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
         "for name in ('kernels.group_screen', 'core.group_lasso', "
-        "'core.group_screening', 'core.distributed'):\n"
+        "'core.group_screening', 'core.distributed', 'launch.serve_loop', "
+        "'launch.serve', 'launch.solve', 'launch.cli', "
+        "'checkpoint.checkpoint'):\n"
         "    assert 'repro_torch.' + name in sys.modules, name\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
