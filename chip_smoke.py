@@ -11,8 +11,10 @@ Phases, each printing its own lines and seconds:
    nvcc per source, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card,
    at the paper's MNIST-like 784 × 50 000 and SVHN-like 3072 × 99 288
-   shapes (benchmarks/bench_sequential.py), narrow solver buckets and a
-   ragged shape; the Gram CD sweep at buckets of 32, 256 and 1024
+   shapes (benchmarks/bench_sequential.py), ``screen_matvec`` also on the
+   ``*_cut`` screens' stacked rows (2 for one query, 16 for a batch of 8:
+   two launches, timed as the pair the path pays), narrow solver buckets
+   and a ragged shape; the Gram CD sweep at buckets of 32, 256 and 1024
    columns for 1 and 8 queries (and 8 with a ``valid`` mask), each beside
    its chain bound (sweeps·p × the latency of one dependent step, timed
    on a one-warp kernel of ``csrc/cd_gram.cu`` that runs the step's
@@ -68,8 +70,10 @@ Phases, each printing its own lines and seconds:
    graph; ``dist_fista_batched`` and ``dist_edpp_screen_batched`` at
    B = 8 against 8 single-query runs; the (8, n) batch of those queries
    through the mesh session against the unsharded session (masks,
-   n_discarded, x_passes equal, max|Δβ| ≤ 1e-6·max|β|); the group is
-   torn down after;
+   n_discarded, x_passes equal, max|Δβ| ≤ 1e-6·max|β|); then ``gap_cut``
+   and ``dome`` paths (100 λ) on the mesh session against the unsharded
+   one (the same checks, and the ``screen_matvec`` launches per screen);
+   the group is torn down after;
 10. batched path: ``QueryStream(n=784, p=50 000, batch=8, nnz=16,
    sigma=0.05, seed=0)``, ``LassoSession.fit(X)`` then ``path(Y)`` with
    Y (8, n), 100 λ per query (``hi_frac=0.95``), EDPP, FISTA at tol 1e-6:
@@ -107,10 +111,30 @@ Phases, each printing its own lines and seconds:
    latest checkpoint is step 19, holds the result's last β, and only the
    newest 3 steps are kept; then ``--group-size 10`` at 250 × 20 000,
    which launches ``group_screen_scores``;
-13. summary: one JSON line of per-kernel numbers (with, for
+13. rules: the other screening rules at 784 × 50 000 on phase 4's data,
+   every arm a counted path ending in a device sync (the plain versions
+   uncalled, ``backend_name == "cuda"``): (a) the paper's Fig. 2 basic
+   rules ``safe``, ``dome``, ``strong``, ``edpp`` (``sequential=False``)
+   on unit-normalised columns and y, 100 λ, tol 1e-6; (b) ``gap``,
+   ``strong``, ``edpp_cut``, ``gap_cut`` and hybrid ``edpp`` +
+   ``strong`` on the default data, 100 λ — each printing its discard
+   fraction per decile, x_passes per live step (held to the engine's
+   count), ``screen_matvec`` launches per screen, KKT rounds and wall;
+   (c) every new rule on phase 5's 20-λ grid against its unscreened β
+   (max|Δβ| ≤ beta_err_tol(y, 1e-6), no discarded feature that the
+   unscreened solution needs, after the KKT loop for the strong rule and
+   hybrid), and each ``*_cut`` screen ⊇ its base screen from the base
+   path's state at every step; (d) ``gap``, ``edpp_cut`` and ``strong``
+   on phase 10's batch against 8 single runs (masks outside the ±1e-4
+   band of the thresholds the single run tested, flips counted; β within
+   beta_err_tol; a GAP flip may also be explained by the two paths' own
+   states, since its radius is the duality gap each solve stopped at,
+   and GAP's band is widened by its radius' float32 rounding);
+14. summary: one JSON line of per-kernel numbers (with, for
    ``screen_matvec``, ``fista_step`` and ``cd_gram_sweep``, the batched
-   path's launches and its B = 8 row at its own shapes, and for every
-   kernel the serve and solve phases' launches), then, last,
+   path's launches and its B = 8 row at its own shapes, for
+   ``screen_matvec`` the stacked rows, and for every kernel the serve,
+   solve and rules phases' launches), then, last,
    ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --kernels [--tree DIR]`` runs phases 1 to 3 only
@@ -1010,7 +1034,10 @@ def check_kernel(torch, kernels, ref, op: str, n: int, p: int, B: int,
     else:
         args = (X, c)
         kern, plain = kernels.screen_matvec, ref.screen_matvec_ref
-    out_k, out_p = kern(*args), plain(*args)
+    before = kernels.ops.launch_counts()[op]
+    out_k = kern(*args)
+    launches = kernels.ops.launch_counts()[op] - before
+    out_p = plain(*args)
     torch.cuda.synchronize()
     if op == "screen_matvec":
         out_k, out_p = (out_k,), (out_p,)
@@ -1025,7 +1052,8 @@ def check_kernel(torch, kernels, ref, op: str, n: int, p: int, B: int,
     matmul_ms = event_ms(torch, lambda: torch.matmul(c, X))
     bound_ms, bound_by = bound(op, n, p, B)
     plan = plan_line(kernels, X, B, op, ptxas)
-    row = {"op": op, "n": n, "p": p, "B": B, "params_block": block,
+    row = {"op": op, "n": n, "p": p, "B": B, "launches_per_call": launches,
+           "params_block": block,
            "max_abs_err": err, "tol": tol,
            "ms": ms, "plain_ms": plain_ms, "matmul_ms": matmul_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1033,7 +1061,9 @@ def check_kernel(torch, kernels, ref, op: str, n: int, p: int, B: int,
            "floor_ms": floor_ms, "plan": plan}
     floor = (f"; launch floor {floor_ms:.4f} ms ({ms / floor_ms:.2f}x)"
              if op == "fista_step" else "")
-    print(f"  {op:<19} {n}x{p} B={B}{' params=(3, B)' if block else ''}: "
+    calls = f" ({launches} launches a call)" if launches > 1 else ""
+    print(f"  {op:<19} {n}x{p} B={B}{' params=(3, B)' if block else ''}"
+          f"{calls}: "
           f"max_abs_err={err:.3g} (tol {tol:.3g}) "
           f"ms={ms:.4f} plain_ms={plain_ms:.4f} matmul_ms={matmul_ms:.4f} "
           f"bound_ms={bound_ms:.4f} ({bound_by}) "
@@ -1103,10 +1133,14 @@ def cluster_choice(torch, kernels, ref, n: int, p: int, B: int,
             "ms_per_launch_in_a_run": run}
 
 
+MESH_RULES = ("gap_cut", "dome")   # the rules phase's mesh arms
+
+
 def distributed_phase(torch, X, y) -> dict:
     """Phase 9 (see the module doc). Returns the launch counts of its
-    chunked dist_fista runs (set to 0 just before them)."""
-    from repro_torch import LassoSession, PathConfig, SolveSpec
+    chunked dist_fista runs (set to 0 just before them), and under
+    ``"rules"`` those of the MESH_RULES mesh paths."""
+    from repro_torch import LassoSession, PathConfig, ScreenSpec, SolveSpec
     from repro_torch.core import ScreeningEngine
     from repro_torch.core import distributed as D
     from repro_torch.kernels import ops
@@ -1280,6 +1314,42 @@ def distributed_phase(torch, X, y) -> dict:
         assert r_m.betas.shape == (B, 100, X.shape[1])
         assert np.array_equal(r_m.masks, r_u.masks) and all(same)
         assert d_beta <= 1e-6 * scale
+
+        # the other screening rules on the mesh session (one all-gather a
+        # screen, two for DOME; ĝ from the gathered λ_max column)
+        launches["rules"] = dict.fromkeys(ops.OPS, 0)
+        for rule in MESH_RULES:
+            rcfg = PathConfig(screen=ScreenSpec(rule=rule),
+                              solve=SolveSpec(tol=1e-6))
+            res_r, walls_r, per_screen = {}, {}, {}
+            for arm, s_ in (("unsharded", plain), ("mesh", mesh_sess)):
+                s_.reset_solver_cache()
+                ops.reset_counts()
+                t0 = time.perf_counter()
+                res_r[arm] = s_.path(y, **grid, config=rcfg)
+                torch.cuda.synchronize()
+                walls_r[arm] = time.perf_counter() - t0
+                got = counted(ops, ("screen_matvec", "fista_step"))
+                live = [s for s in res_r[arm].stats if s.screen_backend]
+                per_screen[arm] = (got["screen_matvec"] - 1) / len(live)
+                if arm == "mesh":
+                    for k, v in got.items():
+                        launches["rules"][k] += v
+            r_u, r_m = res_r["unsharded"], res_r["mesh"]
+            scale = float(np.abs(r_u.betas).max())
+            d_beta = float(np.abs(r_m.betas - r_u.betas).max())
+            same = [(a.x_passes, a.n_discarded) == (b.x_passes, b.n_discarded)
+                    for a, b in zip(r_m.stats, r_u.stats)]
+            passes = sorted({s.x_passes for s in r_m.stats if s.screen_backend})
+            print(f"mesh session, rule {rule}, 100 λ, tol 1e-6: walls "
+                  + ", ".join(f"{k} {v:.2f} s" for k, v in walls_r.items())
+                  + f"; masks equal {np.array_equal(r_m.masks, r_u.masks)}; "
+                  f"max|dbeta| {d_beta:.3g} (limit {1e-6 * scale:.3g}); "
+                  f"x_passes and n_discarded equal at {sum(same)} of "
+                  f"{len(same)} steps; x_passes {passes}; screen_matvec "
+                  f"launches per screen {per_screen}")
+            assert np.array_equal(r_m.masks, r_u.masks) and all(same)
+            assert d_beta <= 1e-6 * scale
     return launches
 
 
@@ -1301,56 +1371,41 @@ def batch_entry(op: str, rows: dict, batched: dict) -> dict:
         "bound_by": r["bound_by"], "library_ms": r.get("matmul_ms")}}
 
 
+STACKED = (2, 16)  # rows of a *_cut screen's stacked matvec: B = 1 and 8
+def stacked_entry(r: dict) -> dict:
+    """A stacked screen_matvec row of phase 3 for the summary line."""
+    return {"rows": r["B"], "launches_per_call": r["launches_per_call"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["matmul_ms"]}
+
+
 BATCH = 8          # the batched phase's queries: one launch (MAX_B)
 BATCH_WIDE = 12    # the screen past MAX_B: two launches
 BAND = 1e-4        # score units around 1 − eps where a mask may flip
 
 
-def path_scores(torch, X64, y, lambdas, betas):
-    """Per step, the float64 EDPP scores |x_jᵀc| + ρ‖x_j‖ a path's screen
-    tested, from that path's own previous solution, on the card (None at
-    λ ≥ λ_max): what a mask flip is held to."""
-    yd = torch.as_tensor(y, dtype=torch.float64, device="cuda")
-    norms = torch.linalg.vector_norm(X64, dim=0)
-    corr = X64.T @ yd
-    i = int(torch.argmax(corr.abs()))
-    lmax = float(corr[i].abs())
-    theta, v1 = yd / lmax, torch.sign(corr[i]) * X64[:, i]
-    out = []
-    for lam, beta in zip(lambdas, betas):
-        if lam >= lmax:
-            out.append(None)
-            continue
-        v2 = yd / lam - theta
-        vp = v2 - (v1 @ v2) / (v1 @ v1) * v1
-        out.append((X64.T @ (theta + 0.5 * vp)).abs()
-                   + 0.5 * torch.linalg.vector_norm(vp) * norms)
-        b = torch.as_tensor(beta, dtype=torch.float64, device="cuda")
-        theta = (yd - X64 @ b) / lam
-        v1 = yd / lam - theta
-    return out
-
-
 def band_flips(torch, X64, y, res_one, mask_b) -> tuple[int, int, float]:
     """(flips, columns in the band, the largest |score − threshold| of a
-    flipped column) of a batched query's masks against its single run;
-    raises if a flip lies outside the band of the scores the single run
-    tested."""
+    flipped column) of a batched query's EDPP masks against its single
+    run; raises if a flip lies outside the band of the scores the single
+    run tested (:func:`rule_margins`)."""
+    from repro_torch.core import screening as scr
     flips = band = 0
     worst = 0.0
-    scores = path_scores(torch, X64, y, res_one.lambdas[0], res_one.betas[0])
-    for k, sc in enumerate(scores):
+    for k, pairs in enumerate(rule_margins(torch, scr, X64, y,
+                                           res_one.lambdas[0],
+                                           res_one.betas[0], "edpp", False)):
         diff = mask_b[k] != res_one.masks[0, k]
-        if sc is None:
+        if pairs is None:
             assert not diff.any(), k
             continue
-        near = ((sc - (1.0 - 1e-6)).abs() < BAND).cpu().numpy()
-        band += int(near.sum())
+        in_band = near(pairs)
+        band += int(in_band.sum())
         flips += int(diff.sum())
-        assert not (diff & ~near).any(), f"step {k}: a flip outside the band"
+        assert not (diff & ~in_band).any(), f"step {k}: a flip outside the band"
         if diff.any():
-            worst = max(worst, float((sc - (1.0 - 1e-6)).abs().cpu()
-                                     .numpy()[diff].max()))
+            worst = max(worst, float(np.abs(pairs[0][0])[diff].max()))
     return flips, band, worst
 
 
@@ -1495,6 +1550,304 @@ def batched_phase(torch) -> dict:
     return {"launches": launches, "cd_launches": cd_launches,
             "bucket": int(np.median(buckets)),
             "cd_bucket": int(np.median(cd_buckets))}
+
+
+BASIC_RULES = ("safe", "dome", "strong", "edpp")   # the paper's Fig. 2
+SEQ_RULES = (("gap", False), ("strong", False), ("edpp_cut", False),
+             ("gap_cut", False), ("edpp", True))  # (rule, hybrid strong)
+EXACT_RULES = (("gap", False), ("strong", False), ("dome", False),
+               ("dpp_cut", False), ("imp1_cut", False), ("imp2_cut", False),
+               ("edpp_cut", False), ("seq_safe_cut", False),
+               ("gap_cut", False), ("edpp", True))
+BATCH_RULES = ("gap", "edpp_cut", "strong")
+# GAP's radius √(2G)/λ is the duality gap at which the previous solve
+# stopped: a batched and a single solve of one query both meet the tol,
+# at other gaps, so their spheres differ by more than rounding and a flip
+# is held to the two paths' own states as well
+STATE_RULES = ("gap",)
+KKT_TOL = 1e-4     # ScreenSpec's default kkt_tol
+DEVICE = "cuda"    # the band scores' and rules phase's device ("cpu" to rehearse)
+
+
+def rule_name(rule: str, hybrid: bool) -> str:
+    return f"{rule}+strong" if hybrid else rule
+
+
+def rule_margins(torch, scr, X64, y, lambdas, betas, rule: str,
+                 kkt: bool) -> list:
+    """Per step of a path, each threshold the step tested as a pair of
+    numpy arrays (d, w) over the columns: d the float64 score minus the
+    threshold, w how close to it a float32 evaluation may flip (BAND;
+    for GAP also ‖x_j‖ times the float32 rounding of its radius,
+    :func:`gap_radius_err`). The thresholds: the rule's (GAP's rescaled
+    sphere, another sequential sphere, a cut's sup over ball ∩
+    half-space, the strong rule's 2λ − λ₀) and, with ``kkt``, the KKT
+    check's |x_jᵀr|/λ against 1 + tol. Scores come from the path's own
+    previous solution, on the card, through the port's screening
+    functions in float64; None at λ ≥ λ_max."""
+    yd = torch.as_tensor(y, dtype=torch.float64, device=DEVICE)
+    norms = scr.col_norms(X64)
+    corr = X64.T @ yd
+    i = int(torch.argmax(corr.abs()))
+    lmax = float(corr[i].abs())
+    cut = scr.cut_from_ray(torch.sign(corr[i]) * X64[:, i])
+    state = scr.DualState(theta=yd / lmax, lam=lmax,
+                          v1=torch.sign(corr[i]) * X64[:, i], at_lmax=True,
+                          beta_l1=torch.zeros((), dtype=torch.float64,
+                                              device=DEVICE))
+    base = rule[:-4] if rule.endswith("_cut") else rule
+    out = []
+    for lam, beta in zip(lambdas, betas):
+        if lam >= lmax:
+            out.append(None)
+            continue
+        width = torch.full_like(norms, BAND)
+        if rule == "strong":
+            d = (X64.T @ (state.theta * state.lam)).abs() \
+                - scr.strong_threshold(lam, state.lam)
+        elif base == "gap":
+            dot = X64.T @ state.theta
+            sup = scr.sup_corr(dot)
+            test = scr.gap_sphere(yd, lam, state, sup_corr=sup)
+            d = (scr.gap_scores(dot, test, sup, norms) if base == rule
+                 else scr.halfspace_sup(dot / torch.clamp(sup, min=1.0),
+                                        X64.T @ cut.ghat, norms, test,
+                                        cut)) - (1.0 - 1e-6)
+            # the radius √(2·G)/λ rounds with the float32 gap G = P − D
+            width += gap_radius_err(torch, yd, lam, state, sup) * norms
+        elif base == rule:
+            test = scr.make_sphere(rule, yd, lam, state)
+            d = (X64.T @ test.centre).abs() + test.rho * norms \
+                - (1.0 - 1e-6)
+        else:
+            test = scr.make_sphere(base, yd, lam, state)
+            d = scr.halfspace_sup(X64.T @ test.centre, X64.T @ cut.ghat,
+                                  norms, test, cut) - (1.0 - 1e-6)
+        pairs = [(d.cpu().numpy(), width.cpu().numpy())]
+        b = torch.as_tensor(beta, dtype=torch.float64, device=DEVICE)
+        if kkt:
+            kc = (X64.T @ (yd - X64 @ b)).abs() / lam - (1.0 + KKT_TOL)
+            pairs.append((kc.cpu().numpy(), np.full(kc.shape[0], BAND)))
+        out.append(pairs)
+        theta = (yd - X64 @ b) / lam
+        state = scr.DualState(theta=theta, lam=lam, v1=yd / lam - theta,
+                              at_lmax=False, beta_l1=b.abs().sum())
+    return out
+
+
+def near(pairs) -> np.ndarray:
+    """The columns within their flip width of a threshold of the step."""
+    return np.any([np.abs(d) <= w for d, w in pairs], axis=0)
+
+
+def straddle(pairs_a, pairs_b) -> np.ndarray:
+    """The columns that the two paths' own states put on opposite sides
+    of a threshold of the step (their float64 scores)."""
+    return np.any([da * db < 0 for (da, _), (db, _) in zip(pairs_a,
+                                                          pairs_b)], axis=0)
+
+
+def gap_radius_err(torch, y, lam: float, state, sup) -> float:
+    """How far GAP's float32 radius √(2·G)/λ may round from its float64
+    value: G = P − D cancels primal and dual values far larger than it,
+    and each is a float32 tree sum of depth ≤ 16 (n, p ≤ 65 536), so G
+    may be off by δG = 16·2⁻²⁴·(|P| + |D|); the radius then lies within
+    [√(2(G − δG)₊), √(2(G + δG))]/λ."""
+    centre = state.theta / torch.clamp(sup, min=1.0)
+    resid = state.theta * state.lam
+    primal = 0.5 * float(resid @ resid) + lam * float(state.beta_l1)
+    dual = 0.5 * float(y @ y) - 0.5 * lam * lam * float(
+        torch.sum(torch.square(centre - y / lam)))
+    gap = max(primal - dual, 0.0)
+    d_gap = 16 * 2.0 ** -24 * (abs(primal) + abs(dual))
+    return (np.sqrt(2 * (gap + d_gap))
+            - np.sqrt(2 * max(gap - d_gap, 0.0))) / lam
+
+
+def rule_arm(torch, ops, sess, Y, cfg, needed, total, **grid):
+    """One path of the rules phase, counted: the launch counters set to 0
+    just before it and read after its device sync (every kernel in
+    ``needed`` launched, no plain version called), added to ``total``.
+    Returns (result, wall seconds, launches)."""
+    sess.reset_solver_cache()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    res = sess.path(Y, config=cfg, **grid)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counted(ops, needed)
+    for k, v in launches.items():
+        total[k] += v
+    assert sess.backend_name == "cuda" and np.isfinite(res.betas).all()
+    return res, wall, launches
+
+
+def rule_readings(name: str, res, wall: float, launches: dict, units: int,
+                  passes: int) -> str:
+    """The readings of one rule's path: discards per decile, x_passes per
+    live step (required to be the engine's count, +1 for hybrid), the
+    screen_matvec launches per screen (the |Xᵀy| attach taken out), the
+    KKT rounds, and the wall with its host-clock screens and solves."""
+    live = [s for s in res.stats if s.screen_backend]
+    got = sorted({s.x_passes for s in live})
+    assert got == [passes], (name, got, passes)
+    per_screen = (launches["screen_matvec"] - 1) / len(live)
+    return (f"  {name:<14} deciles {deciles(res, units)}; x_passes {got}; "
+            f"screen_matvec launches {launches['screen_matvec']} "
+            f"({per_screen:.2f} a screen); kkt rounds "
+            f"{sum(s.kkt_rounds for s in res.stats)}; wall {wall:.2f} s "
+            f"(screens {split(res, 'screen'):.3f} s, solves "
+            f"{split(res, 'solve'):.3f} s)")
+
+
+def rules_phase(torch, X, y, none_arm) -> dict:
+    """The other screening rules at 784 × 50 000 (see the module doc):
+    the paper's Fig. 2 basic rules, the sequential rules and hybrid, each
+    new rule's exactness against ``none_arm`` (phase 5's unscreened path)
+    with cut ⊇ base, and three rules on phase 10's batch against single
+    runs. Returns the launches of every arm, summed per op."""
+    from repro_torch import LassoSession, PathConfig, ScreenSpec, SolveSpec
+    from repro_torch.core import ScreeningEngine
+    from repro_torch.core import screening as scr
+    from repro_torch.core.engine import engine_x_passes
+    from repro_torch.data import QueryStream
+    from repro_torch.kernels import ops
+    n, p = X.shape
+    total = dict.fromkeys(ops.OPS, 0)
+    solve = SolveSpec(tol=1e-6)
+    needed = ("screen_matvec", "fista_step")
+
+    def cfg(rule, hybrid=False, sequential=True):
+        return PathConfig(screen=ScreenSpec(rule=rule, strong=hybrid,
+                                            sequential=sequential),
+                          solve=solve)
+
+    # 1. the paper's Fig. 2: basic rules on unit-normalised columns and y
+    X64 = X.astype(np.float64)
+    Xn = (X64 / (np.linalg.norm(X64, axis=0, keepdims=True) + 1e-30))
+    yn = y.astype(np.float64) / np.linalg.norm(y.astype(np.float64))
+    sess = LassoSession.fit(Xn.astype(np.float32), device=DEVICE)
+    print("basic rules (sequential=False), unit-normalised columns and y, "
+          "100 λ, tol 1e-6:")
+    for rule in BASIC_RULES:
+        res, wall, got = rule_arm(torch, ops, sess, yn.astype(np.float32),
+                                  cfg(rule, sequential=False), needed, total,
+                                  num_lambdas=100)
+        print(rule_readings(rule, res, wall, got, p, engine_x_passes(rule)))
+    del sess
+
+    # 2. the sequential rules and hybrid safe+strong on the default data
+    sess = LassoSession.fit(X, device=DEVICE)
+    print("sequential rules, 100 λ, tol 1e-6:")
+    for rule, hybrid in SEQ_RULES:
+        res, wall, got = rule_arm(torch, ops, sess, y, cfg(rule, hybrid),
+                                  needed, total, num_lambdas=100)
+        print(rule_readings(rule_name(rule, hybrid), res, wall, got, p,
+                            engine_x_passes(rule) + int(hybrid)))
+
+    # 3. exactness against phase 5's unscreened path, on its grid
+    b_n = none_arm.betas[0]
+    grid = none_arm.lambdas[0]
+    needed_cols = np.abs(b_n) > 1e-6 * np.abs(b_n).max()
+    tol = beta_err_tol(y, 1e-6)
+    print(f"exactness against the unscreened path (20 λ, hi_frac 0.95, tol "
+          f"1e-6; limit {tol:.3g}):")
+    paths = {}
+    for rule, hybrid in EXACT_RULES:
+        name = rule_name(rule, hybrid)
+        res, wall, got = rule_arm(torch, ops, sess, y, cfg(rule, hybrid),
+                                  needed, total, lambdas=grid)
+        paths[name] = res
+        err = float(np.abs(res.betas[0] - b_n).max())
+        unsafe = int((res.masks[0] & needed_cols).sum())
+        print(f"  {name:<14} max|beta - beta_none| {err:.3g}; unsafe "
+              f"discards {unsafe}; mean discard fraction "
+              f"{res.masks[0].mean():.4f}; kkt rounds "
+              f"{sum(s.kkt_rounds for s in res.stats)}; wall {wall:.2f} s")
+        assert err <= tol and unsafe == 0, name
+    # cut ⊇ base: from the base path's own state at every step, the cut
+    # screen discards whatever the base screen does (the same state, so
+    # the same sphere); the two paths' masks are printed beside it
+    eng = ScreeningEngine(sess.X, torch.as_tensor(y, device=DEVICE),
+                          geometry=sess.geometry)
+    for base in ("dpp", "imp1", "imp2", "edpp", "seq_safe", "gap"):
+        ref_path = paths.get(base)
+        if ref_path is None:
+            ops.reset_counts()
+            ref_path = sess.path(y, grid, config=cfg(base))
+            torch.cuda.synchronize()
+            counted(ops, needed)
+        cut_path = paths[base + "_cut"]
+        state, missed, extra = eng.state_at_lambda_max(), 0, 0
+        for k, lam in enumerate(grid):
+            if lam >= eng.lam_max:
+                continue
+            m_base = eng.screen(float(lam), state, base)
+            m_cut = eng.screen(float(lam), state, base + "_cut")
+            missed += int((m_base & ~m_cut).sum())
+            extra += int((m_cut & ~m_base).sum())
+            beta = torch.as_tensor(ref_path.betas[0, k], dtype=torch.float32,
+                                   device=DEVICE)
+            state = eng.make_state(beta, float(lam))
+        on_paths = int((ref_path.masks[0] & ~cut_path.masks[0]).sum())
+        print(f"  {base}_cut ⊇ {base}: from {base}'s states, columns the cut "
+              f"keeps and {base} discards {missed} (cut discards {extra} "
+              f"more); on the two paths {on_paths}")
+        assert missed == 0, base
+    del sess, eng, paths
+
+    # 4. phase 10's batch: each query against its single run
+    stream = QueryStream(n=n, p=p, batch=BATCH, nnz=16, sigma=0.05, seed=0)
+    Xb = stream.dictionary(np.float32)
+    Y = stream.host_batch(0)["y"].astype(np.float32)
+    sess = LassoSession.fit(Xb, device=DEVICE)
+    Xd64 = torch.as_tensor(Xb, dtype=torch.float64, device=DEVICE)
+    print(f"batched (B={BATCH}) against single runs, 100 λ, hi_frac 0.95, "
+          f"tol 1e-6:")
+    for rule in BATCH_RULES:
+        res, wall, got = rule_arm(torch, ops, sess, Y, cfg(rule), needed,
+                                  total, num_lambdas=100, hi_frac=0.95)
+        print(rule_readings(f"{rule} B={BATCH}", res, wall, got, p,
+                            engine_x_passes(rule)))
+        flips = band = by_state = 0
+        walls = []
+        for b in range(BATCH):
+            one, w1, _ = rule_arm(torch, ops, sess, Y[b], cfg(rule), needed,
+                                  total, lambdas=res.lambdas[b])
+            walls.append(w1)
+            kkt = rule == "strong"
+            single = rule_margins(torch, scr, Xd64, Y[b], one.lambdas[0],
+                                  one.betas[0], rule, kkt)
+            own = rule_margins(torch, scr, Xd64, Y[b], res.lambdas[b],
+                               res.betas[b], rule, kkt) \
+                if rule in STATE_RULES else single
+            for k, (m_one, m_own) in enumerate(zip(single, own)):
+                diff = res.masks[b, k] != one.masks[0, k]
+                if m_one is None:
+                    assert not diff.any(), (rule, b, k)
+                    continue
+                in_band = near(m_one)
+                band += int(in_band.sum())
+                flips += int(diff.sum())
+                if rule in STATE_RULES:
+                    # a flip the two paths' states explain: one of them
+                    # puts the column on the threshold, or they put it on
+                    # opposite sides
+                    by_state += int((diff & ~in_band).sum())
+                    in_band = in_band | near(m_own) | straddle(m_one, m_own)
+                assert not (diff & ~in_band).any(), (rule, b, k, "outside")
+            err = float(np.abs(res.betas[b] - one.betas[0]).max())
+            assert err <= beta_err_tol(Y[b], 1e-6), (rule, b, err)
+        widened = (" (widened by the radius' float32 rounding)"
+                   if rule in STATE_RULES else "")
+        print(f"    against {BATCH} single runs: {flips} mask flips, "
+              f"{flips - by_state} in the single run's ±{BAND:g} "
+              f"band{widened} ({band} step-columns in it), {by_state} "
+              f"explained by the two paths' states, none else; beta within "
+              f"beta_err_tol per query; walls batched {wall:.2f} s, singles "
+              f"{sum(walls):.2f} s")
+    del sess, Xd64
+    return total
 
 
 SERVE_QUERIES = 44      # five fill batches of 8, then a 4-query tail
@@ -1722,6 +2075,9 @@ def main(argv: list[str]) -> int:
               f"{REPS}): {floor_ms:.4f} ms", flush=True)
         cases = [(op, *MNIST, B) for op in ("edpp_screen_scores",
                                             "screen_matvec") for B in (1, 8)]
+        # the *_cut screens' stacked [centre; ĝ] rows: one query (2) and a
+        # batch of 8 (16 rows: two launches of MAX_B)
+        cases += [("screen_matvec", *MNIST, B) for B in STACKED]
         cases += [(op, *SVHN, 1) for op in ("edpp_screen_scores",
                                             "screen_matvec")]
         cases += [("fista_step", 784, p, B) for p in (32, 512, 4096)
@@ -1832,6 +2188,7 @@ def main(argv: list[str]) -> int:
             print(f"  {rule}: {time.perf_counter() - t0:.2f} s, "
                   f"converged {bool(arms[rule].query_converged[0])}, "
                   f"steps at max_iter {at_max}")
+        none_arm = arms["none"]
         b_e, b_n = arms["edpp"].betas[0], arms["none"].betas[0]
         err, tol = float(np.abs(b_e - b_n).max()), beta_err_tol(y, 1e-6)
         unsafe = int((arms["edpp"].masks[0]
@@ -1986,6 +2343,13 @@ def main(argv: list[str]) -> int:
                    f"checkpoints and {n_e} × {p_e} groups of {m}, 20 λ"):
             solved = solve_phase(torch, tmp)
 
+    X, y = make_dataset(*MNIST)
+    with phase(f"rules: the other screening rules, {n} × {p}"):
+        rules_launches = rules_phase(torch, X, y, none_arm)
+    for op, k in dist_launches["rules"].items():
+        rules_launches[op] += k
+    del X, y, none_arm
+
     with phase(f"kernels at the paths' shapes (fista bucket {main_bucket}, "
                f"cd bucket {cd_bucket}; batched B={BATCH}: fista bucket "
                f"{batched['bucket']}, cd bucket {batched['cd_bucket']})"):
@@ -2028,6 +2392,12 @@ def main(argv: list[str]) -> int:
             **({"graph_ms": r["graph_ms"], "run_ms": r["run_ms"],
                 "parts": r["parts"]} if op == "prox_step" else {}),
             **batch_entry(op, rows, batched),
+            # the *_cut screens' stacked matvecs (phase 3)
+            **({"stacked": [stacked_entry(rows[("screen_matvec", *MNIST, B)])
+                            for B in STACKED]}
+               if op == "screen_matvec" else {}),
+            # every counted arm of the rules phase and its mesh arms
+            "rules_launches": rules_launches[op],
             # the serve phase's compare run (fit, four arms, the direct
             # replays) and, for cd_gram_sweep, its --solver cd run
             "serve_launches": served["launches"][op],

@@ -1,12 +1,13 @@
-"""ScreeningEngine: every sphere rule through one streaming pass over X.
+"""ScreeningEngine: every screening rule through the streaming matvec.
 
 X is fixed along the λ-path, so the column norms, |Xᵀy|, λ_max and the
 λ_max ray v₁ are λ-independent. :class:`DictionaryGeometry` caches the
 query-independent part (X, ‖x_j‖², ‖x_j‖ — one fused
 ``edpp_screen_scores`` pass with a zero centre at fit);
 :class:`PathWorkspace` adds one query (|Xᵀy| from one ``screen_matvec``
-pass, λ_max, the argmax feature, v₁). Every sphere screen is then one
-``screen_matvec`` pass with the cached norms (``last_x_passes == 1``).
+pass, λ_max, the argmax feature, v₁ and its cut normal ĝ = v₁/‖v₁‖).
+Every screen is then one ``screen_matvec`` pass with the cached norms
+(``last_x_passes == 1``; two for DOME, none for ``none``).
 
 The ops dispatch through :mod:`repro_torch.kernels.ops`: the ``cuda``
 backend on the card, the plain ``torch`` versions on the CPU. On a mesh
@@ -24,21 +25,28 @@ at fit, λ̄_max and v̄₁ per query, and score every group screen with one
 A (B, n) query batch fits all B queries with the same one pass (one
 ``edpp_screen_scores`` launch without a geometry, one ``screen_matvec``
 launch with one): ``lam_max`` and ``istar`` become (B,) host arrays, v₁
-(B, n). A batched screen takes a (B,) λ and is still one ``screen_matvec``
-launch (``last_x_passes == 1`` for the batch). Its spheres are built per
-query by the rank-1 rules on host-float λ and fresh rows, so each query's
-centre, radius and threshold round as a single query's do, and the
-kernel's dots do not depend on B: a batched mask is bit for bit the
-single query's mask from the same state.
+and ĝ (B, n). A batched screen takes a (B,) λ and streams the same
+passes as one query's, each one ``screen_matvec`` call for the whole
+batch (``last_x_passes`` counts the batch once). Every per-query scalar
+— a sphere's centre and radius, GAP's ‖Xᵀθ₀‖∞ and gap radius, the cut
+offset b = 1/‖g‖, DOME's and the cuts' t_b, each threshold — is built
+by the rank-1 rule on host-float λ and fresh rows, and the combine is
+elementwise, so a batched mask is bit for bit the single query's mask
+from the same state.
 
-This is the main subset of ``repro.core.engine``: float32 screens, the
-sphere rules plus basic SAFE and ``none``, and group EDPP, group strong
-and ``none`` (rank-1 queries; a group batch loops them, as the
-reference does). The other Lasso rules (ROADMAP.md queue 1 item 8), the
-bf16 screen copy (item 9) and dictionary updates (item 10) come later.
+Rules (the reference's float32 screens): the sequential spheres, GAP
+(its feasibility rescale ‖Xᵀθ₀‖∞ from the same matvec as its scores),
+basic SAFE, the strong rule, DOME (two passes: the centre's and ĝ's
+dots), every ``<base>_cut`` (the centre and the cached cut normal ĝ
+stacked into one matvec: one pass), and ``none``; group EDPP, group
+strong and ``none`` (rank-1 queries; a group batch loops them, as the
+reference does). The bf16 screen copy (ROADMAP.md queue 1 item 9) and
+dictionary updates (item 10) come later.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -48,11 +56,15 @@ from . import distributed as dist
 from . import group_screening as gscr
 from . import screening as scr
 
-#: HBM passes over X that one screen takes through the engine, per rule.
-ENGINE_X_PASSES = {"none": 0, "safe": 1}
+#: HBM passes over X that one screen takes through the engine, per rule:
+#: the ``<base>_cut`` rules stack ĝ into the centre's matvec (one pass),
+#: DOME streams the centre and ĝ separately (two).
+ENGINE_X_PASSES = {"strong": 1, "dome": 2, "none": 0, "safe": 1,
+                   **{f"{b}_cut": 1 for b in scr.SPHERE_RULES}}
 
-#: Rules the engine serves in this slice of the port.
-ENGINE_RULES = (*scr.SPHERE_RULES, "safe", "none")
+#: Every Lasso rule the engine serves (the reference's float32 screens).
+ENGINE_RULES = (*scr.SPHERE_RULES, *scr.CUT_RULES, "safe", "dome", "strong",
+                "none")
 
 #: Rules the group engine serves (the reference's group subset).
 GROUP_ENGINE_RULES = (*gscr.GROUP_RULES, "none")
@@ -64,15 +76,19 @@ def engine_x_passes(rule: str) -> int:
 
 
 def _stream_fit_single(xstar: torch.Tensor, y: torch.Tensor):
-    """The λ_max ray v₁ = sign(x*ᵀy)·x* (eq. 17 at λ₀ = λ_max)."""
-    return torch.sign(torch.dot(xstar, y)) * xstar
+    """The λ_max ray v₁ = sign(x*ᵀy)·x* (eq. 17 at λ₀ = λ_max) and its
+    feasibility cut (ĝ = v₁/(‖v₁‖ + 1e-30), b = 1/(‖v₁‖ + 1e-30))."""
+    v1 = torch.sign(torch.dot(xstar, y)) * xstar
+    return v1, scr.cut_from_ray(v1)
 
 
 def _stream_fit_batched(xstar: torch.Tensor, Y: torch.Tensor):
-    """v₁ per query from the (B, n) argmax columns, f32 accumulation."""
+    """v₁ per query from the (B, n) argmax columns, f32 accumulation, and
+    each row's cut from the rank-1 rule (a list of B cuts)."""
     acc = torch.promote_types(xstar.dtype, torch.float32)
     sgn = torch.sign(torch.sum(xstar.to(acc) * Y.to(acc), dim=-1))
-    return sgn.to(xstar.dtype)[:, None] * xstar
+    v1 = sgn.to(xstar.dtype)[:, None] * xstar
+    return v1, [scr.cut_from_ray(v.clone()) for v in v1]
 
 
 class DictionaryGeometry:
@@ -127,10 +143,12 @@ class DictionaryGeometry:
 
 class PathWorkspace:
     """A :class:`DictionaryGeometry` plus the query fit: |Xᵀy|, λ_max, the
-    first index attaining it (``istar``) and v₁. Without ``geometry`` one
-    fused pass fits X and the query together. ``y`` (B, n) fits a batch
-    in the same one pass: ``lam_max`` (float64) and ``istar`` are then
-    (B,) host arrays and v₁ is (B, n)."""
+    first index attaining it (``istar``), v₁ and the λ_max feasibility
+    cut (``cuts``: one :class:`~.screening.HalfSpaceCut` per query, its
+    normal ĝ = v₁/‖v₁‖). Without ``geometry`` one fused pass fits X and
+    the query together. ``y`` (B, n) fits a batch in the same one pass:
+    ``lam_max`` (float64) and ``istar`` are then (B,) host arrays and v₁
+    is (B, n)."""
 
     def __init__(self, X, y: torch.Tensor, backend=None, *,
                  geometry: DictionaryGeometry | None = None):
@@ -155,14 +173,15 @@ class PathWorkspace:
         if self.batch is None:
             self.istar = int(torch.argmax(scores))
             self.lam_max = float(scores[self.istar])
-            self.v1_at_lmax = _stream_fit_single(
+            self.v1_at_lmax, cut = _stream_fit_single(
                 geometry.columns([self.istar])[:, 0], y)
+            self.cuts = [cut]
         else:
             istar = torch.argmax(scores, dim=-1)
             self.istar = istar.cpu().numpy()
             self.lam_max = scores.gather(1, istar[:, None])[:, 0].cpu() \
                 .numpy().astype(np.float64)
-            self.v1_at_lmax = _stream_fit_batched(
+            self.v1_at_lmax, self.cuts = _stream_fit_batched(
                 geometry.columns(self.istar).T, y)
 
     @property
@@ -276,7 +295,8 @@ class ScreeningEngine:
                                 device=ws.y.device)[:, None]
         theta = (ws.y - fitted) / lam_t
         v1 = ws.y / lam_t - theta
-        beta_l1 = torch.sum(torch.abs(beta), dim=-1)
+        # ‖β‖₁ per row, each summed as a single query's (GAP's radius)
+        beta_l1 = torch.stack([torch.sum(torch.abs(b)) for b in beta])
         if at.any():
             at_t = torch.from_numpy(at).to(ws.y.device)
             theta = torch.where(at_t[:, None], st_max.theta, theta)
@@ -291,61 +311,125 @@ class ScreeningEngine:
         self.last_screen_bytes = float(passes) * self.ws.X.shape[0] \
             * self.p * self.ws.X.element_size()
 
-    def _sphere_screen(self, test: scr.SphereTest, eps,
-                       rule: str) -> torch.Tensor:
+    def _query(self, b: int | None, lam: float, state) -> "_Query":
+        """Query b of the batch (None: the single query) at λ, with the
+        state the rank-1 rules take: host floats and fresh rows."""
         ws = self.ws
-        dot = ws.backend.matvec(ws.X, test.centre)
-        self._count(engine_x_passes(rule))
-        return torch.abs(dot) + test.rho * ws.col_norms < 1.0 - eps
-
-    def _sphere(self, rule: str, y, lam: float, lam_max: float, state):
-        """One query's sphere test at λ and its eps, from the rank-1 rules
-        on host floats."""
-        if rule == "safe":
-            # eq. 15's eps margin is at λ scale: eps/λ once unit-normalised
-            return scr.safe_sphere(y, lam, lam_max), self.eps / lam
-        if rule not in scr.SPHERE_RULES:
-            raise NotImplementedError(
-                f"rule {rule!r} is not ported yet (this slice serves "
-                f"{ENGINE_RULES}; the rest is ROADMAP.md queue 1 item 8)")
-        return scr.make_sphere(rule, y, lam, state), self.eps
+        if b is None:
+            return _Query(ws.y, lam, ws.lam_max, state, ws.cuts[0],
+                          ws.istar)
+        return _Query(ws.y[b].clone(), lam, float(ws.lam_max[b]),
+                      None if state is None else state.query(b),
+                      ws.cuts[b], int(ws.istar[b]))
 
     def screen(self, lam_next, state: scr.DualState | None,
                rule: str = "edpp") -> torch.Tensor:
-        """Discard mask bool[p] for λ_next: one streaming pass over X.
-        Batched: λ_next (B,) → bool[B, p], one pass for the whole batch."""
+        """Discard mask bool[p] for λ_next (``engine_x_passes(rule)``
+        streaming passes over X). Batched: λ_next (B,) → bool[B, p], the
+        same passes for the whole batch."""
         ws = self.ws
-        if ws.batch is not None:
-            return self._screen_batched(_host_rows(lam_next), state, rule)
-        if rule == "none":
-            self._count(engine_x_passes(rule))
-            return torch.zeros((self.p,), dtype=torch.bool,
-                               device=ws.X.device)
-        return self._sphere_screen(
-            *self._sphere(rule, ws.y, lam_next, ws.lam_max, state), rule)
+        if ws.batch is None:
+            return self._screen_rows([self._query(None, float(lam_next),
+                                                  state)], rule)[0]
+        lams = _host_rows(lam_next)
+        return self._screen_rows([self._query(b, float(lam), state)
+                                  for b, lam in enumerate(lams)], rule)
 
-    def _screen_batched(self, lams: np.ndarray, state, rule: str):
-        """The batched screen: each query's sphere from the rank-1 rule
-        (host-float λ, fresh rows), one ``screen_matvec`` launch for the
-        stacked centres, and each query's threshold 1 − eps (1 − eps/λ for
-        basic SAFE) rounded from the same host float as a single query's."""
+    def _matvec(self, rows: list[torch.Tensor]) -> torch.Tensor:
+        """The stacked rows' dots with X in one ``screen_matvec`` call
+        (one launch per MAX_B rows; one all-gather on a mesh)."""
         ws = self.ws
+        return ws.backend.matvec(ws.X, torch.stack(rows))
+
+    def _rows_of(self, values, ref: torch.Tensor) -> torch.Tensor:
+        """Per-query scalars (host floats or 0-d tensors) as a (B, 1)
+        column of ref's dtype and device."""
+        return torch.stack([scr._like(v, ref) for v in values])[:, None]
+
+    def _screen_rows(self, qs: list["_Query"], rule: str) -> torch.Tensor:
+        """The (B, p) mask of B queries: the rule's rows stacked into its
+        passes, each query's scalars from the rank-1 rules, one
+        elementwise combine."""
+        ws = self.ws
+        B, norms = len(qs), ws.col_norms
         if rule == "none":
-            self._count(engine_x_passes(rule))
-            return torch.zeros((ws.batch, self.p), dtype=torch.bool,
+            self._count(0)
+            return torch.zeros((B, self.p), dtype=torch.bool,
                                device=ws.X.device)
-        spheres = [self._sphere(rule, ws.y[b].clone(), float(lam),
-                                float(ws.lam_max[b]),
-                                None if rule == "safe" else state.query(b))
-                   for b, lam in enumerate(lams)]
-        centre = torch.stack([t.centre for t, _ in spheres])
-        rho = torch.stack([scr._like(t.rho, centre) for t, _ in spheres])
-        dot = ws.backend.matvec(ws.X, centre)
+        if rule not in ENGINE_RULES:
+            raise ValueError(f"unknown screening rule {rule!r}; available: "
+                             f"{ENGINE_RULES}")
+        base = rule[:-4] if rule.endswith("_cut") else None
+        eps = [self.eps] * B
+        if rule == "strong":
+            # |x_iᵀ(y − Xβ*(λ₀))| < 2λ − λ₀ (basic: the λ_max state)
+            dot = self._matvec([q.state.theta * q.state.lam for q in qs])
+            thr = [scr.strong_threshold(q.lam, q.state.lam, self.eps)
+                   for q in qs]
+            mask = torch.abs(dot) < self._rows_of(thr, dot)
+        elif rule == "dome":
+            c = [q.y / q.lam for q in qs]
+            rho = [scr._norm(q.y) * (1.0 / q.lam - 1.0 / q.lam_max)
+                   for q in qs]
+            scores_c = self._matvec(c)
+            gdot = self._matvec([q.cut.ghat for q in qs])
+            t_b = [scr.dome_t_b(cb, r, q.cut.ghat, q.cut.b)
+                   for cb, r, q in zip(c, rho, qs)]
+            mask = scr.cap_scores(scores_c, gdot, norms,
+                                  self._rows_of(rho, gdot),
+                                  self._rows_of(t_b, gdot)) \
+                < self._rows_of([1.0 - e for e in eps], gdot)
+            # the dome sup at x* is identically 1, on the threshold
+            mask[torch.arange(B), torch.tensor([q.istar for q in qs])] = False
+        else:
+            # a sphere (the rule's, or a cut's base) and, for a cut, ĝ
+            # stacked into the same matvec
+            sphere = base or rule
+            if sphere == "gap":
+                # the centre θ₀/max(1, ‖Xᵀθ₀‖∞) is rescaled from the same
+                # dots (never the sphere with θ₀ assumed feasible)
+                rows = [q.state.theta for q in qs]
+            else:
+                tests = [scr.safe_sphere(q.y, q.lam, q.lam_max)
+                         if rule == "safe" else
+                         scr.make_sphere(sphere, q.y, q.lam, q.state)
+                         for q in qs]
+                rows = [t.centre for t in tests]
+                if rule == "safe":
+                    # eq. 15's eps is at λ scale: eps/λ once normalised
+                    eps = [self.eps / q.lam for q in qs]
+            dot = self._matvec(rows + ([q.cut.ghat for q in qs] if base
+                                       else []))
+            dot_c = dot[:B]
+            if sphere == "gap":
+                sup = scr.sup_corr(dot_c)
+                tests = [scr.gap_sphere(q.y, q.lam, q.state, sup_corr=sup[b])
+                         for b, q in enumerate(qs)]
+                s = torch.clamp(sup, min=1.0)[:, None]
+            rho = self._rows_of([t.rho for t in tests], dot)
+            if base:
+                t_b = [scr.dome_t_b(t.centre, t.rho, q.cut.ghat, q.cut.b)
+                       for t, q in zip(tests, qs)]
+                scores = scr.cap_scores(
+                    dot_c / s if sphere == "gap" else dot_c, dot[B:], norms,
+                    rho, self._rows_of(t_b, dot))
+            else:
+                scores = (torch.abs(dot_c) / s if sphere == "gap"
+                          else torch.abs(dot_c)) + rho * norms
+            mask = scores < self._rows_of([1.0 - e for e in eps], dot)
         self._count(engine_x_passes(rule))
-        thr = torch.tensor([1.0 - eps for _, eps in spheres],
-                           dtype=dot.dtype, device=dot.device)
-        return (torch.abs(dot) + rho[:, None] * ws.col_norms
-                < thr[:, None])
+        return mask
+
+
+class _Query(NamedTuple):
+    """One query of a screen: its row of y, λ and λ_max as host floats,
+    its (rank-1) state, its feasibility cut and its λ_max feature."""
+    y: torch.Tensor
+    lam: float
+    lam_max: float
+    state: scr.DualState | None
+    cut: scr.HalfSpaceCut
+    istar: int
 
 
 def _host_rows(lam) -> np.ndarray:

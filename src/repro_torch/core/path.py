@@ -30,9 +30,14 @@ trivial region — keeps nothing and stays at β = 0); the survivors of
 every query gathered into one **union bucket**, each query solving only
 its own columns of it (a (B, bucket) validity mask), in one batched
 solve; per-query KKT rounds; and ``fitted = β·X_rᵀ`` (B, n) for the next
-batched state. The KKT loop runs when the rule is heuristic (group
-``strong``) or ``paranoid=True`` asks for it (safe rules never trigger
-it).
+batched state. The KKT loop runs when the rule is heuristic (the Lasso
+or group ``strong`` rule), for hybrid safe+strong, or when
+``paranoid=True`` asks for it (safe rules never trigger it).
+
+Hybrid safe+strong (``ScreenSpec(strong=True)``, Zeng et al. 2017): each
+step ORs the strong rule's discards into the safe rule's, with the KKT
+loop as the backstop; the step's ``x_passes`` and ``screen_bytes`` add
+the strong screen's to the safe rule's.
 """
 
 from __future__ import annotations
@@ -157,6 +162,20 @@ def lambda_grid(lam_max: float, num: int = 100, lo_frac: float = 0.05,
     return np.linspace(hi_frac, lo_frac, num) * lam_max
 
 
+def _screen(screen_engine, lam, state, cfg):
+    """One step's discard mask with its passes over X and their bytes:
+    the configured rule's screen, and with hybrid safe+strong the strong
+    rule's screen ORed in (its passes and bytes added)."""
+    discard = screen_engine.screen(lam, state, rule=cfg.rule)
+    passes = screen_engine.last_x_passes
+    nbytes = screen_engine.last_screen_bytes
+    if cfg.hybrid_strong and cfg.rule not in ("strong", "none"):
+        discard = discard | screen_engine.screen(lam, state, rule="strong")
+        passes += screen_engine.last_x_passes
+        nbytes += screen_engine.last_screen_bytes
+    return discard, passes, nbytes
+
+
 def _path_driver(X: torch.Tensor, y: torch.Tensor, lambdas, cfg, *,
                  m: int = 1, screen_engine, solver_engine, need_kkt: bool,
                  kkt_fn, columns=None, batch: int | None = None
@@ -212,7 +231,8 @@ def _path_driver(X: torch.Tensor, y: torch.Tensor, lambdas, cfg, *,
 
         # ---- screen: one streaming pass over X ------------------------
         t0 = time.perf_counter()
-        discard = screen_engine.screen(lam, state, rule=cfg.rule)
+        discard, screen_passes, screen_bytes = _screen(screen_engine, lam,
+                                                       state, cfg)
         discard_np = discard.cpu().numpy()
         screen_time = time.perf_counter() - t0
 
@@ -262,14 +282,14 @@ def _path_driver(X: torch.Tensor, y: torch.Tensor, lambdas, cfg, *,
             lam=lam, n_discarded=int(discard_np.sum()), n_kept=int(kept.size),
             solver_iters=int(iters), gap=float(gap), kkt_rounds=kkt_rounds,
             screen_time_s=screen_time, solve_time_s=solve_time,
-            x_passes=screen_engine.last_x_passes, gap_checks=gap_checks,
+            x_passes=screen_passes, gap_checks=gap_checks,
             gram_step_frac=gram_solves / solves if solves else 0.0,
             solver_backend=solver_engine.backend_name,
             screen_backend=screen_engine.backend_name, bucket=bucket * m,
             solver_x_passes=solver_x_passes,
             queries_converged=int(bool(conv)),
-            x_passes_per_query=float(screen_engine.last_x_passes),
-            screen_bytes=screen_engine.last_screen_bytes,
+            x_passes_per_query=float(screen_passes),
+            screen_bytes=screen_bytes,
             screen_dtype_effective="float32",
             solve_dtype_effective="float32", solve_bytes=solve_bytes))
         if cfg.checkpoint_fn:
@@ -322,10 +342,10 @@ def _batched_driver(X: torch.Tensor, Y: torch.Tensor, lambdas, cfg, *,
 
         # ---- screen: one streaming pass over X for the batch ----------
         t0 = time.perf_counter()
-        discard = screen_engine.screen(lam_vec, state, rule=cfg.rule)
+        discard, screen_passes, screen_bytes = _screen(screen_engine,
+                                                       lam_vec, state, cfg)
         discard_np = discard.cpu().numpy() | ~live[:, None]
         screen_time = time.perf_counter() - t0
-        screen_passes = screen_engine.last_x_passes
 
         # ---- one batched solve on the union bucket (+ KKT rounds) ------
         t0 = time.perf_counter()
@@ -391,7 +411,7 @@ def _batched_driver(X: torch.Tensor, Y: torch.Tensor, lambdas, cfg, *,
             solver_x_passes=solver_x_passes, batch_size=B,
             queries_converged=q_conv,
             x_passes_per_query=screen_passes / B,
-            screen_bytes=screen_engine.last_screen_bytes,
+            screen_bytes=screen_bytes,
             screen_dtype_effective="float32",
             solve_dtype_effective="float32", solve_bytes=solve_bytes))
         if cfg.checkpoint_fn:

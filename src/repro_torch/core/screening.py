@@ -1,4 +1,4 @@
-"""Safe sphere screening rules for the Lasso (main subset of the port).
+"""Safe (and heuristic) screening rules for the Lasso.
 
 Every ball rule is the same test with a different ball: for a sphere
 B(centre, ρ) that provably contains θ*(λ),
@@ -8,16 +8,25 @@ B(centre, ρ) that provably contains θ*(λ),
 This module holds the paper's sequential rules as explicit
 :class:`SphereTest` constructors — DPP (Theorem 3), Improvement 1
 (Theorem 11), Improvement 2 (Theorem 14), EDPP (Theorem 16 /
-Corollary 17), sequential SAFE and basic SAFE — with their plain mask
-functions, the :class:`DualState` they thread along the λ-path, and the
-KKT violation check. The engine (:mod:`.engine`) evaluates the same tests
-through the screening kernel; these masks are its oracle.
+Corollary 17), sequential SAFE, basic SAFE and the GAP-safe sphere
+(Fercoq, Gramfort & Salmon 2015) — with their plain mask functions, the
+:class:`DualState` they thread along the λ-path, and the KKT violation
+check; and the rules that are not one ball:
+
+* the strong rule (Tibshirani et al. 2012), heuristic: the path backs it
+  with the KKT loop;
+* DOME (Xiang et al.), basic only: the exact sup over the SAFE ball cut
+  by the λ_max feature's half-space;
+* ``<base>_cut`` for every sequential sphere: the base ball intersected
+  with the λ_max feasibility cut {θ : ĝᵀθ ≤ 1/‖g‖}
+  (:class:`HalfSpaceCut`), the same closed form as DOME's.
+
+The engine (:mod:`.engine`) evaluates the same tests through the
+screening kernel; these masks are its oracle. Column norms are
+``sqrt(Σ x_ij²)``, the sum the fit's fused pass caches.
 
 Query operands may carry a leading batch axis B (y/θ/v₁ (B, n), λ/ρ
 (B,)); rank-1 inputs take the single-query arithmetic.
-
-The GAP, DOME, strong and half-space-cut rules are not ported yet
-(ROADMAP.md, queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -183,26 +192,64 @@ def safe_sphere(y, lam_next, lam_max_val) -> SphereTest:
     return SphereTest(centre=centre, rho=rho)
 
 
+def gap_sphere(y, lam_next, state: DualState, sup_corr=None) -> SphereTest:
+    """GAP-safe sphere (Fercoq, Gramfort & Salmon 2015, Theorem 2):
+    B(θ_c, √(2·G_λ(β₀, θ_c))/λ) with G the duality gap at λ of the previous
+    grid point's pair, so it stays safe when β₀ is an inexact solve.
+
+    ``sup_corr`` = ‖Xᵀθ₀‖∞ rescales θ₀ into the feasible polytope,
+    θ_c = θ₀/max(1, sup_corr); the engine takes it from the screen's own
+    matvec. None trusts θ₀ to be feasible."""
+    if _is_batched(y):
+        s = (torch.ones(y.shape[:1], dtype=y.dtype, device=y.device)
+             if sup_corr is None else torch.clamp(sup_corr, min=1.0))
+        centre = state.theta / _col(s)
+        resid = state.theta * _col(_like(state.lam, y))   # y − Xβ*(λ₀)
+        lam_t = _like(lam_next, y)
+        primal = 0.5 * torch.sum(resid * resid, dim=-1) \
+            + lam_t * state.beta_l1
+        dual = 0.5 * torch.sum(y * y, dim=-1) - 0.5 * lam_t * lam_t \
+            * torch.sum(torch.square(centre - y / _col(lam_t)), dim=-1)
+        gap = torch.clamp(primal - dual, min=0.0)
+        return SphereTest(centre=centre, rho=torch.sqrt(2.0 * gap) / lam_t)
+    s = 1.0 if sup_corr is None else torch.clamp(sup_corr, min=1.0)
+    centre = state.theta / s
+    resid = state.theta * state.lam                       # y − Xβ*(λ₀)
+    primal = 0.5 * torch.sum(resid * resid) + lam_next * state.beta_l1
+    dual = 0.5 * torch.sum(y * y) - 0.5 * lam_next * lam_next * torch.sum(
+        torch.square(centre - y / lam_next))
+    gap = torch.clamp(primal - dual, min=0.0)
+    return SphereTest(centre=centre, rho=torch.sqrt(2.0 * gap) / lam_next)
+
+
 SPHERE_RULES = {
     "dpp": dpp_sphere,
     "imp1": imp1_sphere,
     "imp2": imp2_sphere,
     "edpp": edpp_sphere,
     "seq_safe": seq_safe_sphere,
+    "gap": gap_sphere,
 }
 
 
 def make_sphere(rule: str, y, lam_next, state: DualState) -> SphereTest:
+    """The sphere of a sequential rule; ``gap``'s without its feasibility
+    rescale (the engine and :func:`gap_mask` supply ``sup_corr``)."""
     return SPHERE_RULES[rule](y, lam_next, state)
+
+
+def col_norms(X: torch.Tensor) -> torch.Tensor:
+    """‖x_j‖ as the fit's fused pass computes it: sqrt(Σ_i x_ij²)."""
+    return torch.sqrt(torch.sum(X * X, dim=0))
 
 
 def sphere_mask(X, test: SphereTest, eps: float = EPS_DEFAULT):
     """Plain mask for a SphereTest: |x_iᵀc| + ρ‖x_i‖ < 1 − eps."""
-    col_norms = torch.linalg.vector_norm(X, dim=0)
+    norms = col_norms(X)
     if _is_batched(test.centre):
-        scores = torch.abs(test.centre @ X) + _col(test.rho) * col_norms
+        scores = torch.abs(test.centre @ X) + _col(test.rho) * norms
         return scores < 1.0 - _col(torch.as_tensor(eps))
-    scores = torch.abs(X.T @ test.centre) + test.rho * col_norms
+    scores = torch.abs(X.T @ test.centre) + test.rho * norms
     return scores < 1.0 - eps
 
 
@@ -233,6 +280,214 @@ def safe_mask(X, y, lam_next, lam_max_val, eps: float = EPS_DEFAULT):
                        eps / lam_next)
 
 
+def _dots(X, v) -> torch.Tensor:
+    """Xᵀv (p,) for v (n,), vX (B, p) for v (B, n)."""
+    return v @ X if _is_batched(v) else X.T @ v
+
+
+def sup_corr(dot: torch.Tensor) -> torch.Tensor:
+    """‖Xᵀθ₀‖∞ from the screen's dots: () or (B,)."""
+    return torch.amax(torch.abs(dot), dim=-1)
+
+
+def gap_scores(dot, test: SphereTest, sup, norms) -> torch.Tensor:
+    """GAP's sphere scores from the dots Xᵀθ₀ that also gave ``sup``:
+    |x_jᵀθ₀|/max(1, sup) + ρ‖x_j‖."""
+    s = torch.clamp(sup, min=1.0)
+    if dot.dim() == 2:
+        return torch.abs(dot) / _col(s) + _col(test.rho) * norms
+    return torch.abs(dot) / s + test.rho * norms
+
+
+def gap_mask(X, y, lam_next, state: DualState, eps: float = EPS_DEFAULT):
+    """GAP-safe sphere rule: one matvec Xᵀθ₀ serves the feasibility
+    rescale ‖Xᵀθ₀‖∞ and the scores."""
+    dot = _dots(X, state.theta)
+    sup = sup_corr(dot)
+    test = gap_sphere(y, lam_next, state, sup_corr=sup)
+    return gap_scores(dot, test, sup, col_norms(X)) < 1.0 - eps
+
+
+def strong_threshold(lam_next, lam_prev, eps: float = EPS_DEFAULT):
+    """The strong rule's bound 2λ − λ₀ − eps."""
+    return 2.0 * lam_next - lam_prev - eps
+
+
+def strong_mask(X, y, lam_next, state: DualState, eps: float = EPS_DEFAULT):
+    """Sequential strong rule (Tibshirani et al. 2012), *heuristic*:
+    discard i iff |x_iᵀ(y − Xβ*(λ₀))| < 2λ − λ₀. It may discard active
+    features, so the path runs the KKT loop after it. Basic variant: the
+    state at λ_max gives |x_iᵀy| < 2λ − λ_max."""
+    if _is_batched(y):
+        lam_prev = _like(state.lam, y)
+        resid_corr = torch.abs((state.theta * _col(lam_prev)) @ X)
+        return resid_corr < _col(strong_threshold(_like(lam_next, y),
+                                                  lam_prev, eps))
+    resid_corr = torch.abs(X.T @ (state.theta * state.lam))
+    return resid_corr < strong_threshold(lam_next, state.lam, eps)
+
+
+def dome_t_b(c, rho, ghat, b):
+    """The clipped cap threshold t_b = clip((b − ĝᵀc)/ρ, −1, 1) of the
+    ball B(c, ρ) cut by {ĝᵀθ ≤ b}."""
+    if _is_batched(c):
+        return torch.clamp((b - torch.sum(ghat * c, dim=-1))
+                           / (rho + 1e-30), -1.0, 1.0)
+    return torch.clamp((b - torch.dot(ghat, c)) / (rho + 1e-30), -1.0, 1.0)
+
+
+def _sup_over_cap(a_scores, a_gdot, a_norms, rho, t_b):
+    """sup aᵀθ over B(c, ρ) ∩ {ĝᵀθ ≤ b} from a_scores = aᵀc, a_gdot = aᵀĝ,
+    a_norms = ‖a‖ and the cap threshold ``t_b`` (:func:`dome_t_b`):
+    decompose a along ĝ; the cut clips the sphere maximiser at t_b.
+    ``rho`` and ``t_b`` are () for a (p,) row, (B, 1) for (B, p) rows."""
+    t_star = a_gdot / (a_norms + 1e-30)           # unconstrained maximiser
+    a_perp = torch.sqrt(torch.clamp(a_norms * a_norms - a_gdot * a_gdot,
+                                    min=0.0))
+    unclipped = a_scores + rho * a_norms
+    clipped = a_scores + rho * (
+        a_gdot * t_b
+        + a_perp * torch.sqrt(torch.clamp(1.0 - t_b * t_b, min=0.0)))
+    return torch.where(t_star <= t_b, unclipped, clipped)
+
+
+def cap_scores(scores_c, gdot, norms, rho, t_b):
+    """max(sup ±x_jᵀθ) over the ball ∩ half-space, elementwise in the two
+    dots (the engine's combine; ``rho``/``t_b`` as in
+    :func:`_sup_over_cap`)."""
+    return torch.maximum(_sup_over_cap(scores_c, gdot, norms, rho, t_b),
+                         _sup_over_cap(-scores_c, -gdot, norms, rho, t_b))
+
+
+def _sup_over_dome(a_scores, a_gdot, a_norms, c, rho, ghat, b):
+    """sup_{θ ∈ B(c,ρ) ∩ {ĝᵀθ ≤ b}} aᵀθ for a batch of directions a."""
+    t_b = dome_t_b(c, rho, ghat, b)
+    if _is_batched(c):
+        return _sup_over_cap(a_scores, a_gdot, a_norms, _col(rho), _col(t_b))
+    return _sup_over_cap(a_scores, a_gdot, a_norms, rho, t_b)
+
+
+def dome_scores(scores_c, gdot, norms, c, rho, ghat, b):
+    """max(sup ±x_iᵀθ) over the dome, from the two matvecs."""
+    return torch.maximum(
+        _sup_over_dome(scores_c, gdot, norms, c, rho, ghat, b),
+        _sup_over_dome(-scores_c, -gdot, norms, c, rho, ghat, b))
+
+
+def _lmax_ray(X, y):
+    """(g, istar): the λ_max feature's ray g = sign(x*ᵀy)·x* and x*'s
+    index, () or (B,)."""
+    corr = _dots(X, y)
+    istar = torch.argmax(torch.abs(corr), dim=-1)
+    if _is_batched(y):
+        sgn = torch.sign(corr.gather(1, istar[:, None])[:, 0])
+        return _col(sgn) * X[:, istar].T, istar
+    return torch.sign(corr[istar]) * X[:, istar], istar
+
+
+def dome_mask(X, y, lam_next, lam_max_val, eps: float = EPS_DEFAULT):
+    """DOME (Xiang et al.), basic rule only (paper §4.1): the exact sup
+    of ±x_iᵀθ over B(y/λ, ‖y‖(1/λ − 1/λ_max)) ∩ {ĝᵀθ ≤ 1/‖g‖}, with
+    g = sign(x*ᵀy)·x* the λ_max feature's ray. Both sets contain θ*(λ).
+
+    The sup at x* itself is identically 1 (θ = y/λ_max lies on both
+    boundaries with x*ᵀθ = 1), exactly on the threshold, so rounding
+    could evict the λ_max feature: it is pinned kept. Batched: y (B, n),
+    λ and λ_max (B,) → (B, p), each query its own x*."""
+    g, istar = _lmax_ray(X, y)
+    cut = cut_from_ray(g)
+    norms = col_norms(X)
+    if _is_batched(y):
+        lam_t, lmax_t = _like(lam_next, y), _like(lam_max_val, y)
+        c = y / _col(lam_t)
+        rho = _norm(y) * (1.0 / lam_t - 1.0 / lmax_t)
+    else:
+        c = y / lam_next
+        rho = _norm(y) * (1.0 / lam_next - 1.0 / lam_max_val)
+    dec = dome_scores(_dots(X, c), _dots(X, cut.ghat), norms, c, rho,
+                      cut.ghat, cut.b) < 1.0 - eps
+    if _is_batched(y):
+        return dec & (torch.arange(X.shape[1], device=X.device)[None, :]
+                      != istar[:, None])
+    dec[istar] = False
+    return dec
+
+
+class HalfSpaceCut(NamedTuple):
+    """A dual cutting half-space {θ : ĝᵀθ ≤ b}, composable with any
+    :class:`SphereTest`: the sup of ±x_jᵀθ over ball ∩ half-space has
+    DOME's closed form and needs one more dot per column (Xᵀĝ), which the
+    engine stacks into the sphere centre's matvec. A cut that misses the
+    ball clips t_b to 1 and gives the sphere's own sup.
+
+    ghat: unit normal, (n,) or (B, n);  b: offset, () or (B,)."""
+
+    ghat: torch.Tensor
+    b: torch.Tensor
+
+
+def cut_from_ray(v1) -> HalfSpaceCut:
+    """The λ_max feasibility cut from the ray g = sign(x*ᵀy)·x*: every
+    θ ∈ F has gᵀθ ≤ 1, i.e. ĝᵀθ ≤ 1/‖g‖. Batched: v1 (B, n)."""
+    gnorm = _norm(v1) + 1e-30
+    if _is_batched(v1):
+        return HalfSpaceCut(ghat=v1 / _col(gnorm), b=1.0 / gnorm)
+    return HalfSpaceCut(ghat=v1 / gnorm, b=1.0 / gnorm)
+
+
+def feasibility_cut(X, y) -> HalfSpaceCut:
+    """The λ_max feasibility cut computed from scratch (Xᵀy, x*)."""
+    return cut_from_ray(_lmax_ray(X, y)[0])
+
+
+def halfspace_sup(scores_c, gdot, norms, test: SphereTest,
+                  cut: HalfSpaceCut):
+    """sup |x_jᵀθ| over B(centre, ρ) ∩ {ĝᵀθ ≤ b} from scores_c = Xᵀ·centre
+    and gdot = Xᵀĝ. A cut whose half-space holds the whole ball gives the
+    sphere sup |scores_c| + ρ‖x_j‖ bit for bit."""
+    return dome_scores(scores_c, gdot, norms, test.centre, test.rho,
+                       cut.ghat, cut.b)
+
+
+def cut_mask(X, test: SphereTest, cut: HalfSpaceCut,
+             eps: float = EPS_DEFAULT):
+    """Plain mask for sphere ∩ half-space: discard j iff the sup of
+    |x_jᵀθ| over the intersection is < 1 − eps; a superset of
+    ``sphere_mask(X, test, eps)``'s discards."""
+    return halfspace_sup(_dots(X, test.centre), _dots(X, cut.ghat),
+                         col_norms(X), test, cut) < 1.0 - eps
+
+
+def _make_cut_rule(base: str):
+    """The mask of ``<base>_cut``: the base rule's sphere intersected with
+    the λ_max feasibility cut. Signature as :data:`RULES`."""
+    def mask(X, y, lam_next, state: DualState, eps: float = EPS_DEFAULT):
+        cut = feasibility_cut(X, y)
+        norms = col_norms(X)
+        if base == "gap":
+            # as gap_mask: one dot gives the rescale and the centre scores
+            dot = _dots(X, state.theta)
+            sup = sup_corr(dot)
+            test = gap_sphere(y, lam_next, state, sup_corr=sup)
+            s = torch.clamp(sup, min=1.0)
+            scores_c = dot / (_col(s) if dot.dim() == 2 else s)
+        else:
+            test = SPHERE_RULES[base](y, lam_next, state)
+            scores_c = _dots(X, test.centre)
+        return halfspace_sup(scores_c, _dots(X, cut.ghat), norms, test,
+                             cut) < 1.0 - eps
+
+    mask.__name__ = f"{base}_cut_mask"
+    mask.__doc__ = (f"The {base!r} sphere ∩ the λ_max feasibility cut "
+                    f"{{θ : ĝᵀθ ≤ 1/‖g‖}}: safe, and discards ⊇ the "
+                    f"{base!r} rule's.")
+    return mask
+
+
+#: ``<base>_cut`` for every sequential sphere rule.
+CUT_RULES = {f"{base}_cut": _make_cut_rule(base) for base in SPHERE_RULES}
+
+
 def kkt_violations(X, y, beta, lam, discarded, tol: float = 1e-4,
                    fitted=None):
     """Discarded features whose KKT condition |x_iᵀr| ≤ λ(1 + tol) fails.
@@ -251,7 +506,14 @@ RULES = {
     "imp2": imp2_mask,
     "edpp": edpp_mask,
     "seq_safe": seq_safe_mask,
+    "gap": gap_mask,
+    "strong": strong_mask,
+    **CUT_RULES,
 }
+
+SAFE_RULES = ("dpp", "imp1", "imp2", "edpp", "seq_safe", "gap", "safe",
+              "dome", "none", *CUT_RULES)
+HEURISTIC_RULES = ("strong",)
 
 
 def screen(X, y, lam_next, state: DualState, rule: str = "edpp",

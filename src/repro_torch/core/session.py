@@ -16,13 +16,16 @@ backends, and the per-bucket Lipschitz eigenvector cache shared by every
 :class:`PathConfig`, with the same fields, defaults, validation and
 legacy flat keywords.
 
-This slice of the port serves (n,) queries and (B, n) batches with the
-sphere rules, basic SAFE and ``none``, float32 screens and the ``fista``
-and ``cd`` strategies (a batch runs the batched driver: one screen and
-one solve a step for all B queries, their kernels launched once for the
-batch); on a session fitted with ``groups=m``, group EDPP, group strong
-and ``none`` with the ``group_fista`` strategy (a batch loops the
-single-query group driver, as the reference does); and, with ``mesh=``
+The port serves (n,) queries and (B, n) batches with every Lasso rule
+of the reference (the sequential spheres, GAP, the ``*_cut`` composites,
+basic SAFE, DOME, the strong rule with its KKT loop, ``none``, and
+hybrid safe+strong, ``ScreenSpec(strong=True)``), float32 screens and
+the ``fista`` and ``cd`` strategies (a batch runs the batched driver:
+one screen and one solve a step for all B queries, their kernels
+launched once for the batch); on a session fitted with ``groups=m``,
+group EDPP, group strong, ``none`` and hybrid group EDPP + group strong
+with the ``group_fista`` strategy (a batch loops the single-query group
+driver, as the reference does); and, with ``mesh=``
 (a :class:`~torch.distributed.device_mesh.DeviceMesh` under an
 initialised process group, one process per rank), the plain-Lasso path
 on X split by columns over the mesh's feature axis: each rank keeps its
@@ -55,13 +58,9 @@ from .engine import (ENGINE_RULES, GROUP_ENGINE_RULES, DictionaryGeometry,
 from .path import PathResult, PathStepStats, _path_driver, lambda_grid
 from .solver import GROUP_SOLVERS, SOLVERS, SolverEngine
 
-# Every rule the reference knows; ENGINE_RULES are the ones ported so far
-# for the Lasso, GROUP_ENGINE_RULES (the reference's group subset) for
-# groups.
-KNOWN_RULES = ("dpp", "imp1", "imp2", "edpp", "seq_safe", "gap", "strong",
-               *(f"{b}_cut" for b in ("dpp", "imp1", "imp2", "edpp",
-                                      "seq_safe", "gap")),
-               "safe", "dome", "none")
+# Every Lasso rule the reference knows (GROUP_ENGINE_RULES, the
+# reference's group subset, is what a group session takes).
+KNOWN_RULES = ENGINE_RULES
 
 
 def _not_yet(what: str, item: int, title: str):
@@ -124,13 +123,6 @@ class ScreenSpec:
         if self.screen_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"screen_dtype must be 'float32' or 'bfloat16', "
                              f"got {self.screen_dtype!r}")
-        # "strong" serves group sessions; on a plain-Lasso path it raises
-        if self.rule not in ENGINE_RULES + GROUP_ENGINE_RULES:
-            raise _not_yet(f"screening rule {self.rule!r}", 8,
-                           "the other screening rules")
-        if self.strong:
-            raise _not_yet("hybrid strong screening", 8,
-                           "the other screening rules")
         if self.screen_dtype != "float32":
             raise _not_yet("screen_dtype='bfloat16'", 9, "mixed precision")
 
@@ -222,6 +214,7 @@ class PathConfig:
 
     # the flat fields the path driver reads
     rule = property(lambda self: self.screen.rule)
+    hybrid_strong = property(lambda self: self.screen.strong)
     sequential = property(lambda self: self.screen.sequential)
     max_kkt_rounds = property(lambda self: self.screen.max_kkt_rounds)
     bucket_min = property(lambda self: self.solve.bucket_min)
@@ -419,9 +412,6 @@ class LassoSession:
             if y.dim() == 1:
                 return self._group_path(y, lambdas, cfg, grid_kw)
             return self._group_path_batched(y, lambdas, cfg, grid_kw)
-        if cfg.screen.rule == "strong":
-            raise _not_yet("screening rule 'strong' on a plain-Lasso path",
-                           8, "the other screening rules")
         if y.dim() == 1:
             return self._lasso_path(y, lambdas, cfg, grid_kw)
         return self._lasso_path_batched(y, lambdas, cfg, grid_kw)
@@ -435,10 +425,14 @@ class LassoSession:
             eig_cache=self._eig_cache, eig_stats=self._eig_stats)
 
     def _need_kkt(self, cfg: PathConfig) -> bool:
-        """The KKT loop backs the heuristic group strong rule (and runs
-        when ``paranoid`` asks for it)."""
-        heuristic = self.groups > 1 and cfg.screen.rule == "strong"
-        return heuristic or cfg.screen.paranoid
+        """The KKT loop backs the heuristic strong rule (the Lasso's or the
+        group one) and hybrid safe+strong, and runs when ``paranoid`` asks
+        for it."""
+        rule = cfg.screen.rule
+        heuristic = (rule in scr.HEURISTIC_RULES if self.groups == 1
+                     else rule == "strong")
+        hybrid = cfg.screen.strong and rule not in ("strong", "none")
+        return heuristic or hybrid or cfg.screen.paranoid
 
     def _lasso_path(self, y, lambdas, cfg, grid_kw) -> PathResult:
         geom = self._geometry(cfg.screen.backend)

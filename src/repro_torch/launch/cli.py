@@ -54,8 +54,11 @@ def add_engine_args(ap: argparse.ArgumentParser, *, rule: str = "edpp",
     or dtype the port does not serve yet raises where the session raises,
     naming its ROADMAP.md item."""
     ap.add_argument("--rule", default=rule,
-                    help="screening rule (edpp|dpp|imp1|imp2|seq_safe|safe|"
-                         "none; strong on group sessions)")
+                    help="screening rule (edpp|dpp|imp1|imp2|seq_safe|gap|"
+                         "<sphere>_cut|safe|dome|strong|none; *_cut "
+                         "composes the sphere with the λ_max feasibility "
+                         "half-space in the same pass; group sessions take "
+                         "edpp|strong|none)")
     ap.add_argument("--solver", default=solver,
                     help="any registered solver strategy (fista|cd|"
                          "group_fista)")

@@ -244,8 +244,8 @@ def test_engine_screen_matches_reference_engine(rule):
             + float(sp.rho) * np.linalg.norm(X, axis=0)
         eps = 1e-6 / lam if rule == "safe" else 1e-6
         _band_agree(m_t, m_j, scores, eps, f"engine {rule} at {frac}·λmax")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        eng.screen(0.5 * lmax, states[1][0], rule="gap")
+    with pytest.raises(ValueError, match="unknown screening rule"):
+        eng.screen(0.5 * lmax, states[1][0], rule="bogus")
 
 
 @pytest.mark.parametrize("frac", [0.7, 0.3, 0.1])

@@ -12,6 +12,10 @@ the sessions (default FISTA, ``cd``, groups, and (B, n) batches with
 ``fista`` and ``cd``) on the card against the same sessions on the CPU,
 and batched screens (B = 8 and 12) bit for bit the single-query ones;
 served masks at B = 8 through the serve loop, each the direct call's;
+the other screening rules (GAP, strong, DOME, the cuts, hybrid): the
+stacked cut matvecs (2 rows, and 16 in two launches) bit for bit their
+rank-1 launches, batched screens bit for bit the single ones, and their
+paths on the card against the CPU;
 the prox step over its shapes and parameter kinds, and with a stack of
 gradient parts bit for bit; solver loops
 replayed from a CUDA graph (``repro_torch.core.graphs``) bit for bit
@@ -442,6 +446,93 @@ def test_batched_screens_on_the_card_are_the_single_screens(cuda, rule,
         assert one.lam_max == eng.lam_max[b]
         want = one.screen(float(lam[b]), one.state_at_lambda_max(), rule)
         assert torch.equal(got[b], want), (rule, b)
+
+
+@pytest.mark.parametrize("rows", [2, 16])
+def test_stacked_cut_matvecs_are_the_single_launches(cuda, rows):
+    """The ``*_cut`` screens' stacked ``[centres; ĝ]`` matvec at 784 ×
+    50 000: 2 rows (one query) in one launch, 16 rows (a B = 8 batch) in
+    two launches of MAX_B = 8; every row bit for bit its own rank-1
+    launch, and the stack within 2e-5 of scale of the plain version (it
+    sums in another order)."""
+    X = _det((784, 50000), 7).to(cuda)
+    C = _det((rows, 784), 8).to(cuda)
+    ops.reset_counts()
+    got = edpp_screen.screen_matvec(X, C)
+    assert ops.launch_counts()["screen_matvec"] == -(-rows // 8)
+    for b in range(rows):
+        assert torch.equal(got[b], edpp_screen.screen_matvec(X, C[b]
+                                                             .clone())), b
+    _close((got,), (ref.screen_matvec_ref(X, C),))
+    del X, C, got
+    torch.cuda.empty_cache()
+
+
+NEW_RULES = ["gap", "strong", "dome", "edpp_cut", "gap_cut", "dpp_cut"]
+
+
+@pytest.mark.parametrize("batch", [8, 12])
+@pytest.mark.parametrize("rule", NEW_RULES)
+def test_new_rules_batched_screens_on_the_card_are_the_single_screens(
+        cuda, rule, batch):
+    """GAP, strong, DOME and the cuts on the card: a batched screen from
+    the λ_max state and from a sequential state gives each query's
+    single-query mask bit for bit; its launches are the rule's passes,
+    each split at MAX_B = 8 rows (a cut stacks 2B rows, DOME streams two
+    passes of B)."""
+    X, Y, _ = _batch_problem(batch=batch)
+    Xt, Yt = torch.from_numpy(X).to(cuda), torch.from_numpy(Y).to(cuda)
+    geom = DictionaryGeometry(Xt)
+    eng = ScreeningEngine(Xt, Yt, geometry=geom)
+    singles = [ScreeningEngine(Xt, Yt[b].clone(), geometry=geom)
+               for b in range(batch)]
+    lam_prev = 0.6 * np.asarray(eng.lam_max)
+    beta = torch.zeros((batch, X.shape[1]), device=cuda)
+    beta[:, :5] = 0.01
+    fitted = beta @ Xt.T
+    states = [(eng.state_at_lambda_max(),
+               [s.state_at_lambda_max() for s in singles]),
+              (eng.make_state(beta, lam_prev, fitted=fitted),
+               [s.make_state(beta[b].clone(), float(lam_prev[b]),
+                             fitted=fitted[b].clone())
+                for b, s in enumerate(singles)])]
+    rows = 2 * batch if rule.endswith("_cut") else batch
+    launches = (2 if rule == "dome" else 1) * -(-rows // 8)
+    lam = 0.5 * np.asarray(eng.lam_max)
+    for state, per_query in states:
+        ops.reset_counts()
+        got = eng.screen(lam, state, rule)
+        assert ops.launch_counts()["screen_matvec"] == launches
+        assert not any(ops.plain_counts().values())
+        for b in range(batch):
+            want = singles[b].screen(float(lam[b]), per_query[b], rule)
+            assert torch.equal(got[b], want), (rule, b)
+
+
+@pytest.mark.parametrize("rule, strong", [
+    ("gap", False), ("strong", False), ("dome", False), ("edpp_cut", False),
+    ("gap_cut", False), ("edpp", True)])
+def test_new_rules_on_the_card_match_the_cpu(cuda, rule, strong):
+    """Each new rule's path on the card: ``screen_matvec`` and
+    ``fista_step`` launched, no plain version called, β within
+    ``beta_err_tol`` of the same session on the CPU, masks apart only
+    where a score rounds across a threshold."""
+    X, y, _ = lasso_problem(100, 1000, nnz=10, seed=0, dtype=np.float32)
+    cfg = PathConfig(screen=ScreenSpec(rule=rule, strong=strong),
+                     solve=SolveSpec(tol=1e-6))
+    ops.reset_counts()
+    gpu = LassoSession.fit(X, config=cfg)
+    res_g = gpu.path(y, num_lambdas=20, hi_frac=0.95)
+    counts = ops.launch_counts()
+    assert counts["screen_matvec"] > 0 and counts["fista_step"] > 0
+    assert not any(ops.plain_counts().values())
+    res_c = LassoSession.fit(X, config=cfg, device="cpu").path(
+        y, num_lambdas=20, hi_frac=0.95)
+    tol = 25.0 * float(np.sqrt(1e-6 * 0.5 * float(y @ y)))
+    assert np.abs(res_g.betas - res_c.betas).max() <= tol
+    assert (res_g.masks != res_c.masks).sum() <= 2
+    assert [s.x_passes for s in res_g.stats] \
+        == [s.x_passes for s in res_c.stats]
 
 
 @pytest.mark.parametrize("per_query", [False, True])

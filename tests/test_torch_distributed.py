@@ -16,10 +16,10 @@ Tolerances, stated per test:
   BAND of the threshold 1 − eps (counted and printed);
 * FISTA iterates: 1e-5·max(1, max|β|), float32 rounding carried through
   the iterations; between world sizes of the port the same;
-* the mesh session: at world size 1 bit for bit the unsharded port's
-  session; at 2 and 4 (and against the reference) the contract of
-  tests/test_torch_session.py: masks outside the band, β within
-  ``beta_err_tol(y, 1e-6)``, the pass counts equal.
+* the mesh session (EDPP, and GAP, DOME and edpp_cut): at world size 1
+  bit for bit the unsharded port's session; at 2 and 4 (and against the
+  reference) the contract of tests/test_torch_session.py: masks outside
+  the band, β within ``beta_err_tol(y, 1e-6)``, the pass counts equal.
 """
 
 import functools
@@ -36,6 +36,7 @@ from jax.sharding import Mesh
 import torch_dist_worker as worker
 from repro.core import LassoSession as JSession
 from repro.core import PathConfig as JConfig
+from repro.core import ScreenSpec as JScreen
 from repro.core import SolveSpec as JSolve
 from repro.core import distributed as JD
 from repro.data.pipeline import lasso_problem
@@ -154,6 +155,13 @@ def reference(problem):
                path_masks=res.masks, path_stats=_stats(res),
                path_fit_passes=np.array(js.fit_passes),
                path_backend=np.array(js.backend_name))
+    for rule in worker.MESH_RULES:
+        js.reset_solver_cache()
+        res = js.path(P["ys"], **worker.GRID, config=JConfig(
+            screen=JScreen(rule=rule), solve=JSolve(tol=worker.PATH_TOL)))
+        out.update({f"{rule}_lambdas": res.lambdas,
+                    f"{rule}_betas": res.betas, f"{rule}_masks": res.masks,
+                    f"{rule}_stats": _stats(res)})
     return {k: np.asarray(v) for k, v in out.items()}
 
 
@@ -163,6 +171,19 @@ def unsharded(problem):
     sess = LassoSession.fit(problem["Xs"], device="cpu", config=PathConfig(
         solve=SolveSpec(tol=worker.PATH_TOL)))
     return sess.path(problem["ys"], **worker.GRID)
+
+
+@pytest.fixture(scope="module")
+def unsharded_rules(problem):
+    """The port's unsharded session on the path problem, per rule of
+    ``worker.MESH_RULES``."""
+    sess = LassoSession.fit(problem["Xs"], device="cpu")
+    out = {}
+    for rule in worker.MESH_RULES:
+        sess.reset_solver_cache()
+        out[rule] = sess.path(problem["ys"], **worker.GRID,
+                              config=worker.rule_config(rule))
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -385,6 +406,46 @@ def test_mesh_session_batch_matches_unsharded(worlds, unsharded_batch,
     assert (port[3][still][:, [0, 2]] == want[3][still][:, [0, 2]]).all()
     print(f"world {world}: {int(flips.sum())} batch mask flips, all in the "
           f"band")
+
+
+@pytest.mark.parametrize("rule", worker.MESH_RULES)
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_mesh_rules_match_unsharded_and_reference(
+        worlds, reference, unsharded_rules, problem, world, rule):
+    """GAP, DOME and edpp_cut on mesh sessions (one all-gather per
+    screen, two for DOME; the cut normal from the gathered λ_max column):
+    at world size 1 bit for bit the unsharded session; at every size,
+    against the unsharded session and the reference's 1×1 mesh session,
+    masks equal outside the band of the scores the rule tested (counted),
+    β within ``beta_err_tol(y, 1e-6)``, x_passes equal, n_discarded off by
+    at most the step's flips and buckets equal where nothing flipped."""
+    from test_torch_rules import path_bands
+    out = worlds[world]
+    keys = ("lambdas", "betas", "masks", "stats")
+    port = tuple(out[f"{rule}_{k}"] for k in keys)
+    res = unsharded_rules[rule]
+    plain = (res.lambdas, res.betas, res.masks, _stats(res))
+    if world == 1:
+        for a, b in zip(port, plain):
+            np.testing.assert_array_equal(a, b)
+    X, y = problem["Xs"], problem["ys"]
+    live = port[3][:, 1][port[3][:, 1] > 0]
+    assert (live == (2 if rule == "dome" else 1)).all()
+    for what, want in (("unsharded", plain), ("reference", tuple(
+            reference[f"{rule}_{k}"] for k in keys))):
+        flips = port[2][0] != want[2][0]
+        bands = path_bands(X, y, want[0][0], want[1][0], rule)
+        for k, band in enumerate(bands):
+            outside = flips[k] if band is None else flips[k] & ~band
+            assert not outside.any(), (what, k)
+        assert np.abs(port[1] - want[1]).max() <= beta_err_tol(y, 1e-6)
+        n_flip = flips.sum(axis=1)
+        stats, stats_w = port[3], want[3]
+        assert (np.abs(stats[:, 0] - stats_w[:, 0]) <= n_flip).all(), what
+        assert (stats[:, 1] == stats_w[:, 1]).all(), what
+        assert (stats[n_flip == 0, 2] == stats_w[n_flip == 0, 2]).all()
+        print(f"{rule} world {world} vs {what}: {int(flips.sum())} mask "
+              f"flips, all in the band")
 
 
 @pytest.mark.parametrize("world", [2, 4])

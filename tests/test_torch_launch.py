@@ -6,7 +6,8 @@ solve's printed λ_max and discard counts against the reference's ``solve
 --no-x64`` (run in a subprocess, so no JAX setting changes here), the
 refusals (``--x64`` on the card, the bf16 flags, no card, a mesh wider
 than the process group), ``--mesh 1x1`` over gloo against the unsharded
-run, and ``repro_torch.checkpoint`` against ``repro.checkpoint`` in both
+run, ``solve --rule gap_cut`` and ``serve --rule strong`` against the
+reference, and ``repro_torch.checkpoint`` against ``repro.checkpoint`` in both
 directions.
 """
 
@@ -161,6 +162,71 @@ def test_mesh_1x1_over_gloo_gives_the_unsharded_output(capsys):
     assert [(r.n_live, r.padded_b) for r in rep.trace] == [(8, 8), (1, 1)]
     with pytest.raises(SystemExit, match="torchrun"):
         solve.main(SOLVE + ["--no-x64", "--mesh", "2x2"])
+
+
+# ---------------------------------------------------------------------------
+# the other screening rules through the CLI
+# ---------------------------------------------------------------------------
+
+def test_solve_gap_cut_prints_the_references_lambda_max_and_discards(
+        capsys, subproc):
+    """``--rule gap_cut`` (one stacked pass a step) against the reference's
+    ``solve --rule gap_cut --no-x64`` on the same flags."""
+    flags = SOLVE + ["--no-x64", "--rule", "gap_cut"]
+    res = solve.main(flags)
+    port = capsys.readouterr().out
+    ref = subproc("from repro.launch.solve import main\n"
+                  f"main({flags[2:]!r})\n", devices=1, timeout=300)
+    assert _solve_lines(port) == _solve_lines(ref), (port, ref)
+    assert "rule=gap_cut solver=fista grid=20" in port
+    assert res.masks.shape == (20, 400) and res.masks[1:].any()
+
+
+def test_serve_strong_masks_match_the_references(capsys):
+    """``--rule strong`` at the ``--quick`` sizes and tol (n 30, p 128, 40
+    queries of 6 λ, B_max 16, the default tol 1e-8), compare mode. Each
+    served mask is held to the batched path's contract against two direct
+    calls on its grid: the port's ``session.path`` and the reference's
+    with the same flags (what the reference's serve CLI checks its served
+    masks against): equal outside the band of the scores each step tested
+    (the strong and KKT thresholds, from that call's own β), the flips
+    counted; β within ``beta_err_tol(y, 1e-8)``. A batch solves on the
+    union bucket, so its β differs from a single run's in the last bits
+    and a column on the threshold can flip (the serve reports it in
+    ``mismatched``)."""
+    from repro.core import LassoSession as JSession
+    from repro.core import PathConfig as JConfig
+    from test_torch_rules import path_bands
+    out = serve.main(["--device", "cpu", "--n", "30", "--p", "128", "--nnz",
+                      "8", "--num-queries", "40", "--num-lambdas", "6",
+                      "--b-max", "16", "--mode", "compare", "--repeats",
+                      "1", "--check-masks", "0", "--rule", "strong"])
+    text = capsys.readouterr().out
+    assert text.count("served 40/40 queries") == 2
+    sess = out["session"]
+    X = sess.X.numpy()
+    js = JSession.fit(X, config=JConfig(rule="strong"))
+    flips = {"port": 0, "reference": 0}
+    for t in out["reports"]["continuous"].ok_tickets:
+        y = np.asarray(t.y, np.float32)
+        scale = 25.0 * np.sqrt(1e-8 * 0.5 * float(y.astype(np.float64)
+                                                  @ y.astype(np.float64)))
+        for who, direct in (("port", sess.path(t.y, t.result.lambdas)),
+                            ("reference", js.path(jnp.asarray(y),
+                                                  t.result.lambdas))):
+            bands = path_bands(X, y, direct.lambdas[0], direct.betas[0],
+                               "strong", kkt=True)
+            diff = t.result.masks != direct.masks[0]
+            for k, band in enumerate(bands):
+                outside = diff[k] if band is None else diff[k] & ~band
+                assert not outside.any(), (who, t.qid, k)
+            flips[who] += int(diff.sum())
+            assert np.abs(t.result.betas - direct.betas[0]).max() <= scale
+    mismatched = out["mismatched"]["continuous"]
+    assert (flips["port"] == 0) == (not mismatched)
+    print(f"served strong masks: flips against the port's direct calls "
+          f"{flips['port']} (queries {mismatched}), against the "
+          f"reference's {flips['reference']}, all in the band")
 
 
 # ---------------------------------------------------------------------------

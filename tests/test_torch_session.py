@@ -243,10 +243,11 @@ def test_fit_runs_on_the_card_unless_asked_otherwise():
 @pytest.mark.parametrize("what, call, item", [
     ("group_mesh", lambda s, y: LassoSession.fit(
         s.X, groups=2, mesh=object(), device="cpu"), 13),
-    ("gap", lambda s, y: ScreenSpec(rule="gap"), 8),
-    ("hybrid", lambda s, y: ScreenSpec(strong=True), 8),
-    ("lasso_strong", lambda s, y: s.path(y, config=PathConfig(
-        screen=ScreenSpec(rule="strong"))), 8),
+    ("gap_bf16", lambda s, y: ScreenSpec(rule="gap",
+                                         screen_dtype="bfloat16"), 9),
+    ("cut_bf16", lambda s, y: ScreenSpec(rule="edpp_cut",
+                                         screen_dtype="bfloat16"), 9),
+    ("update_add", lambda s, y: s.update(add=s.X[:, :2]), 10),
     ("update", lambda s, y: s.update(drop=[0]), 10),
     ("bf16", lambda s, y: ScreenSpec(screen_dtype="bfloat16"), 9),
 ])

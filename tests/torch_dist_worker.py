@@ -26,7 +26,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 from torch.distributed.device_mesh import init_device_mesh
 
-from repro_torch import LassoSession, PathConfig, SolveSpec
+from repro_torch import LassoSession, PathConfig, ScreenSpec, SolveSpec
 from repro_torch.core import distributed as D
 from repro_torch.kernels import ops
 
@@ -35,13 +35,21 @@ FISTA_ITERS = 100
 STALE_ITERS = 5          # "stale" diverges by design: a few steps only
 PATH_TOL = 1e-6
 GRID = dict(num_lambdas=20, hi_frac=0.95)
+MESH_RULES = ("gap", "dome", "edpp_cut")
+
+
+def rule_config(rule: str) -> PathConfig:
+    """The mesh session's config for one of MESH_RULES."""
+    return PathConfig(screen=ScreenSpec(rule=rule),
+                      solve=SolveSpec(tol=PATH_TOL))
 
 
 def compute(mesh, inp) -> dict[str, np.ndarray]:
     """Every distributed op of the port on ``inp`` (global numpy arrays),
     gathered back to global arrays: λ_max, ‖Xᵀr‖_∞, the four EDPP screens,
     the power iteration, FISTA in the three overlap modes and batched,
-    and a mesh session's path for one query and for a (B, n) batch; with
+    and a mesh session's path for one query (EDPP and each of
+    MESH_RULES) and for a (B, n) batch; with
     the launch and plain-version counts of the solver runs."""
     X, y, Y = inp["X"], inp["y"], inp["Y"]
     B = Y.shape[0]
@@ -123,6 +131,14 @@ def compute(mesh, inp) -> dict[str, np.ndarray]:
         batch_masks=res.masks, batch_converged=res.query_converged,
         batch_stats=np.array([(s.n_discarded, s.x_passes, s.bucket)
                               for s in res.stats]))
+    for rule in MESH_RULES:              # the other screening rules
+        sess.reset_solver_cache()
+        res = sess.path(ys, **GRID, config=rule_config(rule))
+        out.update({f"{rule}_lambdas": res.lambdas, f"{rule}_betas": res.betas,
+                    f"{rule}_masks": res.masks,
+                    f"{rule}_stats": np.array([(s.n_discarded, s.x_passes,
+                                                s.bucket)
+                                               for s in res.stats])})
     try:                                 # a width the mesh cannot split
         LassoSession.fit(Xs[:, :-1], mesh=mesh, device="cpu")
         out["indivisible"] = np.array("")
