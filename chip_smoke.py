@@ -13,8 +13,10 @@ Phases, each printing its own lines and seconds:
    at the paper's MNIST-like 784 × 50 000 and SVHN-like 3072 × 99 288
    shapes (benchmarks/bench_sequential.py), ``screen_matvec`` also on the
    ``*_cut`` screens' stacked rows (2 for one query, 16 for a batch of 8:
-   two launches, timed as the pair the path pays), narrow solver buckets
-   and a ragged shape; the Gram CD sweep at buckets of 32, 256 and 1024
+   two launches, timed as the pair the path pays) and on the bf16 screen
+   copy X̂ (1, 8 and 16 rows and the SVHN width, beside
+   ``torch.matmul(c.bfloat16(), X̂)``), narrow solver buckets and a
+   ragged shape; the Gram CD sweep at buckets of 32, 256 and 1024
    columns for 1 and 8 queries (and 8 with a ``valid`` mask), each beside
    its chain bound (sweeps·p × the latency of one dependent step, timed
    on a one-warp kernel of ``csrc/cd_gram.cu`` that runs the step's
@@ -115,7 +117,9 @@ Phases, each printing its own lines and seconds:
    every arm a counted path ending in a device sync (the plain versions
    uncalled, ``backend_name == "cuda"``): (a) the paper's Fig. 2 basic
    rules ``safe``, ``dome``, ``strong``, ``edpp`` (``sequential=False``)
-   on unit-normalised columns and y, 100 λ, tol 1e-6; (b) ``gap``,
+   on unit-normalised columns and y, 50 λ (cut from 100 to keep the
+   smoke near its earlier time once phase 14 was added), tol 1e-6;
+   (b) ``gap``,
    ``strong``, ``edpp_cut``, ``gap_cut`` and hybrid ``edpp`` +
    ``strong`` on the default data, 100 λ — each printing its discard
    fraction per decile, x_passes per live step (held to the engine's
@@ -130,11 +134,26 @@ Phases, each printing its own lines and seconds:
    beta_err_tol; a GAP flip may also be explained by the two paths' own
    states, since its radius is the duality gap each solve stopped at,
    and GAP's band is widened by its radius' float32 rounding);
-14. summary: one JSON line of per-kernel numbers (with, for
+14. bf16 screen (``screen_dtype="bfloat16"``) at 784 × 50 000: the
+   float32 re-test's dots (gathers of 8, 24 and 48 columns, 16 rows,
+   launched with ``wide_p``) bit for bit the wide pass's; the 100-λ EDPP
+   path (tol 1e-6) in bf16 against float32, both counted after
+   ``reset_solver_cache()`` (``screen_matvec_bf16`` launched, no plain
+   version called): masks equal at every step, and per tenth of the grid
+   the re-tested columns, passes, screen bytes and screen seconds of both
+   arms; every rule of ``BF16_FAST_RULES`` on phase 5's 20-λ grid against
+   its float32 arm (phase 13's where it ran one); phase 10's B = 8 batch
+   with ``edpp``, ``gap`` and ``edpp_cut`` against its float32 batch;
+   ``solve --screen-dtype bfloat16`` (20 λ) against phase 12's solve;
+15. summary: one JSON line of per-kernel numbers (with, for
    ``screen_matvec``, ``fista_step`` and ``cd_gram_sweep``, the batched
    path's launches and its B = 8 row at its own shapes, for
    ``screen_matvec`` the stacked rows, and for every kernel the serve,
-   solve and rules phases' launches), then, last,
+   solve and rules phases' launches; and a ``screen_matvec_bf16`` row:
+   the bf16 instantiation's launches on phase 14's bf16 EDPP path and
+   its times at 784 × 50 000 for 1, 8 and 16 rows and at 3072 × 99 288,
+   beside its byte bound at 2 bytes an element of X and
+   ``torch.matmul(c.bfloat16(), X̂)``), then, last,
    ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --kernels [--tree DIR]`` runs phases 1 to 3 only
@@ -283,16 +302,18 @@ def graph_ms(torch, fn, k: int) -> float:
     return event_ms(torch, graph.replay) / k
 
 
-def bound(op: str, n: int, p: int, B: int) -> tuple[float, str]:
+def bound(op: str, n: int, p: int, B: int,
+          x_bytes: int = 4) -> tuple[float, str]:
     """Least time on an H100 SXM: each input read once, each output written
-    once, over 3.35 TB/s, against the flops over the float32 rate."""
-    words = {"screen_matvec": n * p + B * n + B * p,
-             "edpp_screen_scores": n * p + B * n + B * p + p,
-             "fista_step": n * p + B * n + 4 * B * p}[op]
+    once, over 3.35 TB/s, against the flops over the float32 rate; X's
+    elements take ``x_bytes`` (2 for the bf16 screen copy), the rest 4."""
+    words = {"screen_matvec": B * n + B * p,
+             "edpp_screen_scores": B * n + B * p + p,
+             "fista_step": B * n + 4 * B * p}[op]
     flops = {"screen_matvec": 2 * B * n * p,
              "edpp_screen_scores": 2 * B * n * p + 2 * n * p + 3 * B * p,
              "fista_step": 2 * B * n * p + 6 * B * p}[op]
-    t_bytes = 4.0 * words / HBM_BYTES_PER_S * 1e3
+    t_bytes = (4.0 * words + x_bytes * n * p) / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -369,11 +390,14 @@ def kernel_ptxas(table: dict, key: str) -> str:
     return f"{regs} registers, spills {st}/{ld} bytes (stores/loads)"
 
 
-def colpass_ptxas(table: dict, op: str, nb: int, vec: int) -> str:
+def colpass_ptxas(table: dict, op: str, nb: int, vec: int,
+                  bf16: bool = False) -> str:
     """The registers and spills of the column-pass instantiation that a
-    launch of ``op`` with ``nb`` queries and loads of width ``vec`` runs."""
+    launch of ``op`` with ``nb`` queries and loads of width ``vec`` runs,
+    on float32 or bf16 X (the template's last argument)."""
+    elem = "13__nv_bfloat16" if bf16 else "f"
     return kernel_ptxas(table, f"colpass_kernelILi{COLPASS_MODE[op]}ELi{nb}"
-                               f"ELb{int(vec == 4)}E")
+                               f"ELb{int(vec > 1)}E{elem}E")
 
 
 def plan_line(kernels, X, B: int, op: str, ptxas: dict) -> str:
@@ -384,10 +408,10 @@ def plan_line(kernels, X, B: int, op: str, ptxas: dict) -> str:
     if plan_for is None:
         return "plan n/a"
     pl = plan_for(X, min(B, kernels.edpp_screen.MAX_B))
+    ptx = colpass_ptxas(ptxas, op, min(B, 8), pl.vec, X.element_size() == 2)
     return (f"plan grid={pl.grid} block={pl.block} cluster={pl.split} "
             f"vec={pl.vec} tile={pl.tile} stage_rows={pl.stage_rows} "
-            f"smem={pl.smem} B; "
-            f"{colpass_ptxas(ptxas, op, min(B, 8), pl.vec)}")
+            f"smem={pl.smem} B; {ptx}")
 
 
 def check_cd(torch, kernels, ref, p: int, B: int, seed: int,
@@ -760,7 +784,7 @@ def counted(ops, needed: tuple[str, ...]) -> dict:
     every kernel in ``needed`` launched, no plain version was called."""
     launches, plain = ops.launch_counts(), ops.plain_counts()
     print(f"launches {launches} plain-version calls {plain}")
-    assert all(launches[k] > 0 for k in needed), (needed, launches)
+    assert all(launches.get(k, 0) > 0 for k in needed), (needed, launches)
     assert not any(plain.values()), plain
     return launches
 
@@ -1000,19 +1024,24 @@ def fault_check(torch) -> list[dict]:
 
 def check_kernel(torch, kernels, ref, op: str, n: int, p: int, B: int,
                  seed: int, floor_ms: float, ptxas: dict,
-                 block: bool = False) -> dict:
+                 block: bool = False, bf16: bool = False) -> dict:
     """One case: the kernel against its plain version on the same inputs,
     then their times, the bound and the c @ X yardstick, with the launch
     plan and, for fista_step, the launch floor beside it. ``block``:
     fista_step takes its step | λ | mom as a ready (3, B) device block
     (``params=``), as the batched solver passes them, instead of a (B,)
-    λ the wrapper stacks into one per call."""
+    λ the wrapper stacks into one per call. ``bf16``: screen_matvec on
+    the bf16 screen copy X̂ (its launches counted as
+    ``screen_matvec_bf16``; the yardstick ``torch.matmul(c.bfloat16(),
+    X̂)``)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rand(*shape):
         return torch.randn(*shape, generator=g, device="cuda")
 
     X = rand(n, p)
+    if bf16:
+        X = X.to(torch.bfloat16)
     lead = () if B == 1 else (B,)
     c = rand(*lead, n)
     if op == "fista_step":
@@ -1034,9 +1063,10 @@ def check_kernel(torch, kernels, ref, op: str, n: int, p: int, B: int,
     else:
         args = (X, c)
         kern, plain = kernels.screen_matvec, ref.screen_matvec_ref
-    before = kernels.ops.launch_counts()[op]
+    key = "screen_matvec_bf16" if bf16 else op
+    before = kernels.ops.launch_counts().get(key, 0)
     out_k = kern(*args)
-    launches = kernels.ops.launch_counts()[op] - before
+    launches = kernels.ops.launch_counts().get(key, 0) - before
     out_p = plain(*args)
     torch.cuda.synchronize()
     if op == "screen_matvec":
@@ -1049,10 +1079,11 @@ def check_kernel(torch, kernels, ref, op: str, n: int, p: int, B: int,
         tol = max(tol, 2e-5 * max(1.0, float(b.abs().max())))
     ms = event_ms(torch, lambda: kern(*args))
     plain_ms = event_ms(torch, lambda: plain(*args))
-    matmul_ms = event_ms(torch, lambda: torch.matmul(c, X))
-    bound_ms, bound_by = bound(op, n, p, B)
+    c_lib = c.to(X.dtype)
+    matmul_ms = event_ms(torch, lambda: torch.matmul(c_lib, X))
+    bound_ms, bound_by = bound(op, n, p, B, X.element_size())
     plan = plan_line(kernels, X, B, op, ptxas)
-    row = {"op": op, "n": n, "p": p, "B": B, "launches_per_call": launches,
+    row = {"op": key, "n": n, "p": p, "B": B, "launches_per_call": launches,
            "params_block": block,
            "max_abs_err": err, "tol": tol,
            "ms": ms, "plain_ms": plain_ms, "matmul_ms": matmul_ms,
@@ -1062,7 +1093,7 @@ def check_kernel(torch, kernels, ref, op: str, n: int, p: int, B: int,
     floor = (f"; launch floor {floor_ms:.4f} ms ({ms / floor_ms:.2f}x)"
              if op == "fista_step" else "")
     calls = f" ({launches} launches a call)" if launches > 1 else ""
-    print(f"  {op:<19} {n}x{p} B={B}{' params=(3, B)' if block else ''}"
+    print(f"  {key:<19} {n}x{p} B={B}{' params=(3, B)' if block else ''}"
           f"{calls}: "
           f"max_abs_err={err:.3g} (tol {tol:.3g}) "
           f"ms={ms:.4f} plain_ms={plain_ms:.4f} matmul_ms={matmul_ms:.4f} "
@@ -1553,6 +1584,7 @@ def batched_phase(torch) -> dict:
 
 
 BASIC_RULES = ("safe", "dome", "strong", "edpp")   # the paper's Fig. 2
+BASIC_LAMBDAS = 50   # phase 13(a)'s depth, cut from 100 when phase 14 came
 SEQ_RULES = (("gap", False), ("strong", False), ("edpp_cut", False),
              ("gap_cut", False), ("edpp", True))  # (rule, hybrid strong)
 EXACT_RULES = (("gap", False), ("strong", False), ("dome", False),
@@ -1723,16 +1755,17 @@ def rules_phase(torch, X, y, none_arm) -> dict:
                           solve=solve)
 
     # 1. the paper's Fig. 2: basic rules on unit-normalised columns and y
+    # (BASIC_LAMBDAS λ: the depth cut of this phase)
     X64 = X.astype(np.float64)
     Xn = (X64 / (np.linalg.norm(X64, axis=0, keepdims=True) + 1e-30))
     yn = y.astype(np.float64) / np.linalg.norm(y.astype(np.float64))
     sess = LassoSession.fit(Xn.astype(np.float32), device=DEVICE)
-    print("basic rules (sequential=False), unit-normalised columns and y, "
-          "100 λ, tol 1e-6:")
+    print(f"basic rules (sequential=False), unit-normalised columns and y, "
+          f"{BASIC_LAMBDAS} λ, tol 1e-6:")
     for rule in BASIC_RULES:
         res, wall, got = rule_arm(torch, ops, sess, yn.astype(np.float32),
                                   cfg(rule, sequential=False), needed, total,
-                                  num_lambdas=100)
+                                  num_lambdas=BASIC_LAMBDAS)
         print(rule_readings(rule, res, wall, got, p, engine_x_passes(rule)))
     del sess
 
@@ -1794,7 +1827,7 @@ def rules_phase(torch, X, y, none_arm) -> dict:
               f"keeps and {base} discards {missed} (cut discards {extra} "
               f"more); on the two paths {on_paths}")
         assert missed == 0, base
-    del sess, eng, paths
+    del sess, eng
 
     # 4. phase 10's batch: each query against its single run
     stream = QueryStream(n=n, p=p, batch=BATCH, nnz=16, sigma=0.05, seed=0)
@@ -1847,7 +1880,171 @@ def rules_phase(torch, X, y, none_arm) -> dict:
               f"beta_err_tol per query; walls batched {wall:.2f} s, singles "
               f"{sum(walls):.2f} s")
     del sess, Xd64
-    return total
+    return {"launches": total, "exact": paths, "grid": grid}
+
+
+BF16_CASES = ((*MNIST, 1), (*MNIST, 8), (*MNIST, 16), (*SVHN, 1))
+BF16_BATCH_RULES = ("edpp", "gap", "edpp_cut")
+
+
+def bf16_deciles(arms: dict) -> str:
+    """Per tenth of a 100-λ path, for each arm: the band columns re-tested
+    in float32, the passes over X, the screen bytes (MB) and the screens'
+    host-clock seconds, summed over the tenth's steps."""
+    lines = []
+    for name, res in arms.items():
+        st = res.stats
+        parts = []
+        for k in range(0, len(st), 10):
+            d = st[k:k + 10]
+            parts.append(f"{sum(s.fallback_cols for s in d)}/"
+                         f"{sum(s.x_passes for s in d)}/"
+                         f"{sum(s.screen_bytes for s in d) / 1e6:.0f}/"
+                         f"{sum(s.screen_time_s for s in d):.3f}")
+        lines.append(f"    {name:<8} " + " ".join(parts))
+    return "\n".join(lines)
+
+
+def bf16_phase(torch, X, y, rules: dict, solved: dict) -> dict:
+    """The mixed-precision screen at 784 × 50 000 (see the module doc):
+    the 100-λ EDPP path in bf16 against float32, every bf16 rule on phase
+    5's 20-λ grid against its float32 arm (phase 13's where it ran one),
+    phase 10's batch in bf16 against float32, and ``solve --screen-dtype
+    bfloat16`` against phase 12's solve; the float32 re-test's dots against
+    the wide pass's. Each bf16 mask must equal its float32 mask at every
+    step. Returns the launches of the bf16 EDPP path and of every arm."""
+    import collections
+
+    from repro_torch import LassoSession, PathConfig, ScreenSpec, SolveSpec
+    from repro_torch.core.engine import BF16_FAST_RULES, _narrow_bucket
+    from repro_torch.data import QueryStream
+    from repro_torch.kernels import edpp_screen, ops
+    from repro_torch.launch import solve as solve_cli
+    n, p = X.shape
+    total = collections.Counter()
+    solve = SolveSpec(tol=1e-6)
+    needed = {"float32": ("screen_matvec", "fista_step"),
+              "bfloat16": ("screen_matvec_bf16", "fista_step")}
+
+    def cfg(rule, dtype):
+        return PathConfig(screen=ScreenSpec(rule=rule, screen_dtype=dtype),
+                          solve=solve)
+
+    def same(a, b, what):
+        eq = np.array_equal(a.masks, b.masks)
+        beq = np.array_equal(a.betas, b.betas)
+        live = [s for s in b.stats if s.screen_backend]
+        assert eq, f"{what}: bf16 masks differ from float32 at " \
+            f"{int((a.masks != b.masks).sum())} step-columns"
+        assert all(s.screen_dtype_effective == "bfloat16" for s in live), \
+            what
+        return beq, live
+
+    # 0. the float32 re-test's bits: gathers of the data's columns (16
+    # stacked rows, a cut's batch) summed as the wide pass sums them
+    Xd = torch.as_tensor(X, device=DEVICE)
+    C = torch.as_tensor(np.random.default_rng(7).standard_normal((16, n)),
+                        dtype=torch.float32, device=DEVICE)
+    wide = edpp_screen.screen_matvec(Xd, C)
+    for k in (8, 24, 48):
+        cols = np.sort(np.random.default_rng(k).choice(p, k, replace=False))
+        bucket = _narrow_bucket(k + 1, p)
+        Xn = torch.zeros((n, bucket), device=DEVICE)
+        Xn[:, :k] = Xd[:, cols]
+        got = edpp_screen.screen_matvec(Xn, C, wide_p=p)
+        idx = torch.as_tensor(cols, device=DEVICE)
+        assert torch.equal(got[:, :k], wide[:, idx]), k
+    print("float32 re-test: gathers of 8, 24 and 48 columns (buckets 16, "
+          "32, 64; 16 rows) give the wide pass's dots bit for bit")
+    del Xd, C, wide, Xn, got
+
+    # 1. the 100-λ EDPP path, float32 then bf16, each counted
+    sess = LassoSession.fit(X, device=DEVICE)
+    arms, walls, main = {}, {}, {}
+    for dtype in ("float32", "bfloat16"):
+        res, walls[dtype], got = rule_arm(torch, ops, sess, y,
+                                          cfg("edpp", dtype),
+                                          needed[dtype], total,
+                                          num_lambdas=100)
+        arms[dtype] = res
+        main[dtype] = got
+    beq, live = same(arms["float32"], arms["bfloat16"], "edpp 100 λ")
+    b32 = sum(s.screen_bytes for s in arms["float32"].stats)
+    b16 = sum(s.screen_bytes for s in arms["bfloat16"].stats)
+    print(f"edpp, 100 λ, tol 1e-6: bf16 masks equal to float32 at every "
+          f"step, betas bit for bit {beq}; re-tested columns "
+          f"{sum(s.fallback_cols for s in live)} over {len(live)} screens "
+          f"({sum(s.x_passes == 2 for s in live)} with a re-test); screen "
+          f"bytes {b16 / 1e6:.1f} MB against {b32 / 1e6:.1f} MB "
+          f"({b16 / b32:.3f}); screens "
+          f"{split(arms['bfloat16'], 'screen'):.3f} s against "
+          f"{split(arms['float32'], 'screen'):.3f} s; walls "
+          f"{walls['bfloat16']:.2f} s against {walls['float32']:.2f} s")
+    print("  per tenth of the grid: re-tested columns / passes / screen MB "
+          "/ screen s")
+    print(bf16_deciles(arms))
+
+    # 2. every bf16 rule on phase 5's 20-λ grid
+    grid = rules["grid"]
+    print(f"every bf16 rule on phase 5's grid (20 λ, tol 1e-6), against "
+          f"its float32 arm:")
+    for rule in BF16_FAST_RULES:
+        f32 = rules["exact"].get(rule)
+        src = "phase 13's arm"
+        if f32 is None:
+            f32, _, _ = rule_arm(torch, ops, sess, y, cfg(rule, "float32"),
+                                 needed["float32"], total, lambdas=grid)
+            src = "its own arm"
+        res, wall, _ = rule_arm(torch, ops, sess, y, cfg(rule, "bfloat16"),
+                                needed["bfloat16"], total, lambdas=grid)
+        beq, live = same(f32, res, rule)
+        ratio = (sum(s.screen_bytes for s in res.stats)
+                 / sum(s.screen_bytes for s in f32.stats))
+        print(f"  {rule:<13} masks equal ({src}), betas bit for bit {beq}; "
+              f"re-tested columns {sum(s.fallback_cols for s in live)}; "
+              f"x_passes {sorted({s.x_passes for s in live})}; screen "
+              f"bytes {ratio:.3f} of float32; wall {wall:.2f} s")
+    del sess
+
+    # 3. phase 10's batch
+    stream = QueryStream(n=n, p=p, batch=BATCH, nnz=16, sigma=0.05, seed=0)
+    Xb = stream.dictionary(np.float32)
+    Y = stream.host_batch(0)["y"].astype(np.float32)
+    sess = LassoSession.fit(Xb, device=DEVICE)
+    print(f"phase 10's batch (B={BATCH}), 100 λ, hi_frac 0.95, tol 1e-6:")
+    for rule in BF16_BATCH_RULES:
+        out, w = {}, {}
+        for dtype in ("float32", "bfloat16"):
+            out[dtype], w[dtype], _ = rule_arm(
+                torch, ops, sess, Y, cfg(rule, dtype), needed[dtype], total,
+                num_lambdas=100, hi_frac=0.95)
+        beq, live = same(out["float32"], out["bfloat16"], f"{rule} B=8")
+        print(f"  {rule:<9} B={BATCH}: masks equal at every step, betas bit "
+              f"for bit {beq}; re-tested columns "
+              f"{sum(s.fallback_cols for s in live)}; walls "
+              f"{w['bfloat16']:.2f} s against {w['float32']:.2f} s")
+    del sess
+
+    # 4. solve --screen-dtype bfloat16 against phase 12's solve
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    res = solve_cli.main(["--n", str(n), "--p", str(p), "--nnz", "16",
+                          "--no-x64", "--num-lambdas", "20",
+                          "--screen-dtype", "bfloat16"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counted(ops, needed["bfloat16"])
+    total.update(launches)
+    f32 = solved["result"]
+    assert np.array_equal(res.masks, f32.masks), "solve: masks differ"
+    live = [s for s in res.stats if s.screen_backend]
+    assert all(s.screen_dtype_effective == "bfloat16" for s in live)
+    print(f"solve --screen-dtype bfloat16 (20 λ, tol 1e-8): masks equal to "
+          f"phase 12's float32 solve, betas bit for bit "
+          f"{np.array_equal(res.betas, f32.betas)}; wall {wall:.2f} s; "
+          f"launches screen_matvec_bf16 "
+          f"{launches.get('screen_matvec_bf16', 0)}")
+    return {"main": main["bfloat16"], "total": dict(total)}
 
 
 SERVE_QUERIES = 44      # five fill batches of 8, then a 4-query tail
@@ -2012,7 +2209,8 @@ def solve_phase(torch, tmp: str) -> dict:
           f"{g_launches['group_screen_scores']}")
     assert res_g.masks.shape == (20, p_g // m)
     assert np.isfinite(res_g.betas).all()
-    return {"launches": launches, "group_launches": g_launches}
+    return {"launches": launches, "group_launches": g_launches,
+            "result": res}
 
 
 def main(argv: list[str]) -> int:
@@ -2088,6 +2286,13 @@ def main(argv: list[str]) -> int:
         for i, case in enumerate(cases):
             rows[case] = check_kernel(torch, kernels, ref, *case, seed=i,
                                       floor_ms=floor_ms, ptxas=ptxas)
+        if hasattr(kernels.edpp_screen, "retest_plan"):   # trees with bf16
+            # the bf16 screen copy's wide pass: one query, the batch, a
+            # batch's stacked cut rows (two launches), the SVHN width
+            for i, (nn, pp, B) in enumerate(BF16_CASES):
+                rows[("screen_matvec_bf16", nn, pp, B)] = check_kernel(
+                    torch, kernels, ref, "screen_matvec", nn, pp, B,
+                    seed=160 + i, floor_ms=floor_ms, ptxas=ptxas, bf16=True)
         choices = [cluster_choice(torch, kernels, ref, 784, pp, B,
                                   seed=90 + B) for pp in (32, 512)
                    for B in (1, 8)]
@@ -2345,10 +2550,13 @@ def main(argv: list[str]) -> int:
 
     X, y = make_dataset(*MNIST)
     with phase(f"rules: the other screening rules, {n} × {p}"):
-        rules_launches = rules_phase(torch, X, y, none_arm)
+        rules = rules_phase(torch, X, y, none_arm)
+    rules_launches = rules["launches"]
     for op, k in dist_launches["rules"].items():
         rules_launches[op] += k
-    del X, y, none_arm
+    with phase(f"bf16 screen: screen_dtype='bfloat16', {n} × {p}"):
+        bf16 = bf16_phase(torch, X, y, rules, solved)
+    del X, y, none_arm, rules
 
     with phase(f"kernels at the paths' shapes (fista bucket {main_bucket}, "
                f"cd bucket {cd_bucket}; batched B={BATCH}: fista bucket "
@@ -2406,6 +2614,23 @@ def main(argv: list[str]) -> int:
             "solve_launches": (solved["group_launches"] if op ==
                                "group_screen_scores" else
                                solved["launches"])[op]})
+    # the bf16 screen copy's wide pass (the same kernel source, its bf16
+    # instantiation): its launches on the 100-λ bf16 EDPP path, its row at
+    # 784 × 50 000 with one query, and the batch, stacked and SVHN rows
+    r = rows[("screen_matvec_bf16", *MNIST, 1)]
+    summary.append({
+        "name": "screen_matvec_bf16", "route": "cuda",
+        "source": SOURCES["screen_matvec"],
+        "replaces": REPLACES["screen_matvec"],
+        "launches": bf16["main"].get("screen_matvec_bf16", 0),
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"],
+        # torch.matmul(c.bfloat16(), X̂): a bf16 product (bf16 output)
+        "library_ms": r["matmul_ms"],
+        "rows": [stacked_entry(rows[("screen_matvec_bf16", *case)])
+                 | {"shape": list(case[:2])} for case in BF16_CASES],
+        "phase_launches": bf16["total"].get("screen_matvec_bf16", 0)})
     print(json.dumps({"kernels": summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -34,19 +34,38 @@ by the rank-1 rule on host-float λ and fresh rows, and the combine is
 elementwise, so a batched mask is bit for bit the single query's mask
 from the same state.
 
-Rules (the reference's float32 screens): the sequential spheres, GAP
-(its feasibility rescale ‖Xᵀθ₀‖∞ from the same matvec as its scores),
-basic SAFE, the strong rule, DOME (two passes: the centre's and ĝ's
-dots), every ``<base>_cut`` (the centre and the cached cut normal ĝ
-stacked into one matvec: one pass), and ``none``; group EDPP, group
-strong and ``none`` (rank-1 queries; a group batch loops them, as the
-reference does). The bf16 screen copy (ROADMAP.md queue 1 item 9) and
-dictionary updates (item 10) come later.
+Rules (the reference's screens): the sequential spheres, GAP (its
+feasibility rescale ‖Xᵀθ₀‖∞ from the same matvec as its scores), basic
+SAFE, the strong rule, DOME (two passes: the centre's and ĝ's dots),
+every ``<base>_cut`` (the centre and the cached cut normal ĝ stacked
+into one matvec: one pass), and ``none``; group EDPP, group strong and
+``none`` (rank-1 queries; a group batch loops them, as the reference
+does). Dictionary updates (ROADMAP.md queue 1 item 10) come later.
+
+Mixed precision (``screen_dtype="bfloat16"``, every rule but ``none``:
+:data:`BF16_FAST_RULES`, one query or a batch, off a mesh). The wide
+pass streams the geometry's bf16 copy of X (half the bytes; DOME's two
+directions stacked into one pass), and each score gets a certified band
+from the measured per-column error (``kernels.ops.bf16_score_margin``):
+one scalar band for the spheres and the strong rule, per-piece
+intervals through :func:`~.screening.dome_score_bounds` for DOME and the
+cuts. Outside the band the bf16 decision is provably the float32 one;
+the band's columns are gathered into a bucket of
+:func:`_narrow_bucket` width and re-tested in float32 with the dots the
+wide float32 pass gives at those columns (``matvec(..., wide_p=p)``),
+so the mask is the float32 engine's bit for bit. GAP first recovers its
+rescale ‖Xᵀθ₀‖∞ exactly from a narrow float32 gather of the argmax
+candidates (:func:`_gap_cand`). Passes and bytes are counted as the
+reference counts them: the wide pass at 2 bytes an element, plus one
+pass of n·bucket·4 bytes when a band is re-tested (GAP and gap_cut
+always pay their candidate gather as that one pass).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
+
+import warnings
 
 import numpy as np
 import torch
@@ -70,9 +89,56 @@ ENGINE_RULES = (*scr.SPHERE_RULES, *scr.CUT_RULES, "safe", "dome", "strong",
 GROUP_ENGINE_RULES = (*gscr.GROUP_RULES, "none")
 
 
+#: Rules the bf16 fast pass serves with a certified margin (the
+#: reference's ``ScreeningEngine.BF16_FAST_RULES``): every rule of
+#: ENGINE_RULES but ``none``, which streams nothing.
+BF16_FAST_RULES = ("dpp", "imp1", "imp2", "edpp", "seq_safe", "safe",
+                   "strong", "gap", "dome",
+                   *(f"{b}_cut" for b in scr.SPHERE_RULES))
+
+
 def engine_x_passes(rule: str) -> int:
     """HBM passes over X per screen through the engine (1 for ball rules)."""
     return ENGINE_X_PASSES.get(rule, 1)
+
+
+def _narrow_bucket(k: int, p: int) -> int:
+    """Width of a narrow float32 gather of k columns: the smallest of
+    8, 16, 24, 32, 48, 64, 96, … (powers of two and their 3/4 points,
+    all multiples of 8) that holds k, capped at p."""
+    b = 1 << max(0, (max(k, 8) - 1).bit_length())
+    if b >= 32 and 3 * b // 4 >= k:
+        b = 3 * b // 4
+    return min(b, p)
+
+
+def _gap_cand(dot: torch.Tensor, margin: torch.Tensor) -> torch.Tensor:
+    """GAP's argmax candidates for the exact rescale, per row of (B, p)
+    bf16 dots: the columns whose upper bound |d̃_j| + m_j reaches the best
+    lower bound max_k(|d̃_k| − m_k), floored at 1 (every consumer reads
+    ‖Xᵀθ₀‖∞ through max(1, ·), so a column whose bound stays under 1
+    cannot move it). The true float32 argmax is a candidate whenever
+    the sup exceeds 1."""
+    a = torch.abs(dot)
+    lo = torch.clamp(a - margin, min=0.0)
+    t = torch.clamp(torch.amax(lo, dim=-1), min=1.0)
+    return a + margin >= t[:, None]
+
+
+# Rules asked to screen in bfloat16 that no certified margin covers run
+# float32, with one warning per rule and process (the effective dtype is
+# also in PathStepStats.screen_dtype_effective).
+_BF16_FALLBACK_WARNED: set[str] = set()
+
+
+def _note_f32_fallback(rule: str) -> None:
+    if rule in _BF16_FALLBACK_WARNED:
+        return
+    _BF16_FALLBACK_WARNED.add(rule)
+    warnings.warn(f"screen_dtype='bfloat16' has no certified margin for "
+                  f"rule {rule!r}; screening it in float32 instead (masks "
+                  f"unchanged, no byte saving)", RuntimeWarning,
+                  stacklevel=4)
 
 
 def _stream_fit_single(xstar: torch.Tensor, y: torch.Tensor):
@@ -111,6 +177,33 @@ class DictionaryGeometry:
             self.fit_passes = 1
         self.sumsq = _sumsq
         self.col_norms = torch.sqrt(_sumsq)
+        self._screen_copies: dict[str, torch.Tensor] = {}
+
+    def screen_copy(self, dtype: torch.dtype) -> torch.Tensor:
+        """A reduced-precision copy of X for the screens' wide pass, made
+        on first use (``X.to(dtype)``: round to nearest even) and kept for
+        the geometry's lifetime. ``sumsq``, the column norms and every
+        query's |Xᵀy| stay the full-precision fit's."""
+        if dtype == self.X.dtype:
+            return self.X
+        key = str(dtype)
+        cached = self._screen_copies.get(key)
+        if cached is None:
+            cached = self._screen_copies[key] = self.X.to(dtype)
+        return cached
+
+    def screen_err(self, dtype: torch.dtype) -> torch.Tensor:
+        """The per-column dot-error bound (p,) of ``screen_copy(dtype)``
+        (``kernels.ops.bf16_column_err``), kept like the copy; zero when
+        the copy is X itself."""
+        if dtype == self.X.dtype:
+            return torch.zeros_like(self.col_norms)
+        key = f"{dtype}:err"
+        cached = self._screen_copies.get(key)
+        if cached is None:
+            cached = self._screen_copies[key] = ops.bf16_column_err(
+                self.X, self.screen_copy(dtype))
+        return cached
 
     def columns(self, cols, width: int | None = None) -> torch.Tensor:
         """Global columns ``cols`` (host indices) of X as an (n, width)
@@ -229,16 +322,36 @@ class ScreeningEngine:
             state = eng.make_state(beta, lam, fitted=fitted)
 
     ``last_x_passes`` / ``total_x_passes`` / ``last_screen_bytes`` count
-    full passes over X (and their bytes) for the path stats.
+    full passes over X (and their bytes) for the path stats;
+    ``last_effective_dtype`` is the dtype the last screen's wide pass
+    streamed and ``last_fallback_cols`` the band columns it re-tested in
+    float32 (``screen_dtype="bfloat16"``; see the module doc).
     """
 
     def __init__(self, X, y, backend=None, eps: float = scr.EPS_DEFAULT, *,
-                 geometry: DictionaryGeometry | None = None):
+                 geometry: DictionaryGeometry | None = None,
+                 screen_dtype: str = "float32"):
+        if screen_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"screen_dtype must be 'float32' or "
+                             f"'bfloat16', got {screen_dtype!r}")
         self.ws = PathWorkspace(X, y, backend, geometry=geometry)
         self.eps = eps
+        self.screen_dtype = screen_dtype
+        self._x_fast = self._x_fast_err = None
+        if screen_dtype == "bfloat16":
+            geom = self.ws.geometry
+            if geom.mesh is not None:
+                raise NotImplementedError(
+                    "screen_dtype='bfloat16' on a mesh session is not "
+                    "ported yet: ROADMAP.md queue 1 item 9 (mixed "
+                    "precision)")
+            self._x_fast = geom.screen_copy(torch.bfloat16)
+            self._x_fast_err = geom.screen_err(torch.bfloat16)
         self.total_x_passes = 0
         self.last_x_passes = 0
         self.last_screen_bytes = 0.0
+        self.last_fallback_cols = 0
+        self.last_effective_dtype = "float32"
 
     @property
     def lam_max(self) -> float:
@@ -305,11 +418,25 @@ class ScreeningEngine:
         return scr.DualState(theta=theta, lam=np.where(at, ws.lam_max, lam),
                              v1=v1, at_lmax=at, beta_l1=beta_l1)
 
-    def _count(self, passes: int) -> None:
+    def _count(self, passes: int, screen_bytes: float | None = None) -> None:
         self.last_x_passes = passes
         self.total_x_passes += passes
-        self.last_screen_bytes = float(passes) * self.ws.X.shape[0] \
-            * self.p * self.ws.X.element_size()
+        if screen_bytes is None:
+            screen_bytes = float(passes) * self.ws.X.shape[0] * self.p \
+                * self.ws.X.element_size()
+        self.last_screen_bytes = screen_bytes
+
+    def _use_bf16(self, rule: str) -> bool:
+        """Whether this screen streams the bf16 copy (then
+        ``last_effective_dtype`` says so); a requested rule without a
+        certified margin runs float32 with a one-time warning."""
+        if self._x_fast is None:
+            return False
+        if rule in BF16_FAST_RULES:
+            self.last_effective_dtype = "bfloat16"
+            return True
+        _note_f32_fallback(rule)
+        return False
 
     def _query(self, b: int | None, lam: float, state) -> "_Query":
         """Query b of the batch (None: the single query) at λ, with the
@@ -349,9 +476,12 @@ class ScreeningEngine:
     def _screen_rows(self, qs: list["_Query"], rule: str) -> torch.Tensor:
         """The (B, p) mask of B queries: the rule's rows stacked into its
         passes, each query's scalars from the rank-1 rules, one
-        elementwise combine."""
+        elementwise combine (:meth:`_decide`); through the bf16 copy with
+        the margin fallback when ``screen_dtype`` asks for it."""
         ws = self.ws
-        B, norms = len(qs), ws.col_norms
+        B = len(qs)
+        self.last_effective_dtype = "float32"
+        self.last_fallback_cols = 0
         if rule == "none":
             self._count(0)
             return torch.zeros((B, self.p), dtype=torch.bool,
@@ -360,31 +490,20 @@ class ScreeningEngine:
             raise ValueError(f"unknown screening rule {rule!r}; available: "
                              f"{ENGINE_RULES}")
         base = rule[:-4] if rule.endswith("_cut") else None
+        sphere = base or rule
         eps = [self.eps] * B
+        tests = None
         if rule == "strong":
             # |x_iᵀ(y − Xβ*(λ₀))| < 2λ − λ₀ (basic: the λ_max state)
-            dot = self._matvec([q.state.theta * q.state.lam for q in qs])
-            thr = [scr.strong_threshold(q.lam, q.state.lam, self.eps)
-                   for q in qs]
-            mask = torch.abs(dot) < self._rows_of(thr, dot)
+            passes = [[q.state.theta * q.state.lam for q in qs]]
         elif rule == "dome":
             c = [q.y / q.lam for q in qs]
-            rho = [scr._norm(q.y) * (1.0 / q.lam - 1.0 / q.lam_max)
-                   for q in qs]
-            scores_c = self._matvec(c)
-            gdot = self._matvec([q.cut.ghat for q in qs])
-            t_b = [scr.dome_t_b(cb, r, q.cut.ghat, q.cut.b)
-                   for cb, r, q in zip(c, rho, qs)]
-            mask = scr.cap_scores(scores_c, gdot, norms,
-                                  self._rows_of(rho, gdot),
-                                  self._rows_of(t_b, gdot)) \
-                < self._rows_of([1.0 - e for e in eps], gdot)
-            # the dome sup at x* is identically 1, on the threshold
-            mask[torch.arange(B), torch.tensor([q.istar for q in qs])] = False
+            tests = [scr.SphereTest(cb, scr._norm(q.y) * (
+                1.0 / q.lam - 1.0 / q.lam_max)) for cb, q in zip(c, qs)]
+            passes = [c, [q.cut.ghat for q in qs]]
         else:
             # a sphere (the rule's, or a cut's base) and, for a cut, ĝ
             # stacked into the same matvec
-            sphere = base or rule
             if sphere == "gap":
                 # the centre θ₀/max(1, ‖Xᵀθ₀‖∞) is rescaled from the same
                 # dots (never the sphere with θ₀ assumed feasible)
@@ -398,27 +517,159 @@ class ScreeningEngine:
                 if rule == "safe":
                     # eq. 15's eps is at λ scale: eps/λ once normalised
                     eps = [self.eps / q.lam for q in qs]
-            dot = self._matvec(rows + ([q.cut.ghat for q in qs] if base
-                                       else []))
-            dot_c = dot[:B]
+            passes = [rows + ([q.cut.ghat for q in qs] if base else [])]
+
+        def geometry(sup) -> dict:
+            """Each query's scalars as (B, 1) columns: the threshold, the
+            sphere's radius and cap threshold t_b, GAP's rescale."""
+            ref = ws.col_norms
+            if rule == "strong":
+                return {"thr": self._rows_of(
+                    [scr.strong_threshold(q.lam, q.state.lam, self.eps)
+                     for q in qs], ref)}
+            g = {"thr": self._rows_of([1.0 - e for e in eps], ref)}
+            ts = tests
             if sphere == "gap":
-                sup = scr.sup_corr(dot_c)
-                tests = [scr.gap_sphere(q.y, q.lam, q.state, sup_corr=sup[b])
-                         for b, q in enumerate(qs)]
-                s = torch.clamp(sup, min=1.0)[:, None]
-            rho = self._rows_of([t.rho for t in tests], dot)
-            if base:
-                t_b = [scr.dome_t_b(t.centre, t.rho, q.cut.ghat, q.cut.b)
-                       for t, q in zip(tests, qs)]
-                scores = scr.cap_scores(
-                    dot_c / s if sphere == "gap" else dot_c, dot[B:], norms,
-                    rho, self._rows_of(t_b, dot))
-            else:
-                scores = (torch.abs(dot_c) / s if sphere == "gap"
-                          else torch.abs(dot_c)) + rho * norms
-            mask = scores < self._rows_of([1.0 - e for e in eps], dot)
-        self._count(engine_x_passes(rule))
+                ts = [scr.gap_sphere(q.y, q.lam, q.state, sup_corr=sup[b])
+                      for b, q in enumerate(qs)]
+                g["s"] = torch.clamp(sup, min=1.0)[:, None]
+            g["rho"] = self._rows_of([t.rho for t in ts], ref)
+            if base or rule == "dome":
+                g["t_b"] = self._rows_of(
+                    [scr.dome_t_b(t.centre, t.rho, q.cut.ghat, q.cut.b)
+                     for t, q in zip(ts, qs)], ref)
+            return g
+
+        if self._use_bf16(rule):
+            mask = self._fast_screen(rule, sphere, base, B, passes,
+                                     geometry)
+        else:
+            dot = torch.cat([self._matvec(rows) for rows in passes])
+            sup = scr.sup_corr(dot[:B]) if sphere == "gap" else None
+            mask = self._decide(rule, sphere, base, dot, ws.col_norms,
+                                geometry(sup))
+            self._count(engine_x_passes(rule))
+        if rule == "dome":
+            # the dome sup at x* is identically 1, on the threshold
+            mask[torch.arange(B), torch.tensor([q.istar for q in qs])] = False
         return mask
+
+    @staticmethod
+    def _decide(rule: str, sphere: str, base, dot: torch.Tensor,
+                norms: torch.Tensor, g: dict) -> torch.Tensor:
+        """The float32 decision from the stacked rows' dots (the centres'
+        B rows, then ĝ's for DOME and the cuts) at the columns whose norms
+        are ``norms``: elementwise, so a gather of columns gives the
+        decisions of the whole width at those columns."""
+        if rule == "strong":
+            return torch.abs(dot) < g["thr"]
+        B = g["thr"].shape[0]
+        dot_c = dot[:B] / g["s"] if sphere == "gap" and base else dot[:B]
+        if base or rule == "dome":
+            scores = scr.cap_scores(dot_c, dot[B:], norms, g["rho"],
+                                    g["t_b"])
+        elif sphere == "gap":
+            scores = torch.abs(dot_c) / g["s"] + g["rho"] * norms
+        else:
+            scores = torch.abs(dot_c) + g["rho"] * norms
+        return scores < g["thr"]
+
+    @staticmethod
+    def _certify(rule: str, sphere: str, base, dot: torch.Tensor,
+                 margin: torch.Tensor, norms: torch.Tensor, g: dict):
+        """(decision, band) from the bf16 pass's dots and their margins
+        (one row of margins per stacked row): outside the band the
+        decision is provably the float32 one; the band is what the
+        float32 re-test must decide (the reference's ``*_margin``
+        combines)."""
+        B = g["thr"].shape[0]
+        thr = g["thr"]
+        if rule == "strong":
+            a = torch.abs(dot)
+            return a < thr, torch.abs(a - thr) <= margin
+        e_c = margin[:B]
+        if base or rule == "dome":
+            s = g["s"] if sphere == "gap" else 1.0
+            dc, e_g, dg = dot[:B], margin[B:], dot[B:]
+            lo, hi = scr.dome_score_bounds(
+                (dc - e_c) / s, (dc + e_c) / s, dg - e_g, dg + e_g, norms,
+                g["rho"][:, 0], g["rho"][:, 0], g["t_b"][:, 0],
+                g["t_b"][:, 0])
+        elif sphere == "gap":
+            a = torch.abs(dot)
+            hi = (a + e_c) / g["s"] + g["rho"] * norms
+            lo = torch.clamp(a - e_c, min=0.0) / g["s"] + g["rho"] * norms
+        else:
+            scores = torch.abs(dot) + g["rho"] * norms
+            return scores < thr, torch.abs(scores - thr) <= e_c
+        return hi < thr, (hi >= thr) & (lo < thr)
+
+    def _fast_screen(self, rule: str, sphere: str, base, B: int, passes,
+                     geometry) -> torch.Tensor:
+        """One screen through the bf16 copy: every pass's rows stacked
+        into one wide bf16 pass, GAP's exact rescale from its candidate
+        gather, the certified decisions, and the band re-tested in
+        float32 (:meth:`_retest`)."""
+        ws = self.ws
+        rows = [r for rs in passes for r in rs]
+        stacked = torch.stack(rows)
+        dot = ws.backend.matvec(self._x_fast, stacked)
+        margin = ops.bf16_score_margin(
+            self._x_fast_err, torch.stack([scr._norm(r) for r in rows]))
+        sup, sup_bytes = None, 0.0
+        if sphere == "gap":
+            # stage 1: the exact rescale from the candidates' float32 dots
+            # (the argmax is among them whenever the sup exceeds 1)
+            cand = _gap_cand(dot[:B], margin[:B])
+            dn, sup_bytes = self._gather_dots(_any_col(cand), stacked[:B])
+            sup = scr.sup_corr(dn)
+        g = geometry(sup)
+        dec, band = self._certify(rule, sphere, base, dot, margin,
+                                  ws.col_norms, g)
+        mask, extra, narrow_bytes = self._retest(
+            dec, band, stacked,
+            lambda dn, cols: self._decide(rule, sphere, base, dn,
+                                          ws.col_norms[cols], g))
+        if sphere == "gap":
+            # the candidate gather always runs: one narrow extra pass
+            extra, narrow_bytes = 1, narrow_bytes + sup_bytes
+        n = ws.X.shape[0]
+        self._count(1 + extra, float(n) * self.p
+                    * self._x_fast.element_size() + narrow_bytes)
+        return mask
+
+    def _gather_dots(self, cols: np.ndarray, rows: torch.Tensor):
+        """The float32 dots of ``rows`` with the columns ``cols`` (host
+        indices), gathered into a zero-padded bucket of
+        :func:`_narrow_bucket` width and summed as the wide float32 pass
+        sums them (``wide_p``). Returns (dots (R, bucket), the gather's
+        bytes)."""
+        ws = self.ws
+        bucket = _narrow_bucket(int(cols.size), self.p)
+        Xn = ws.geometry.columns(cols, bucket)
+        dn = ws.backend.matvec(Xn, rows, wide_p=self.p)
+        return dn, float(ws.X.shape[0]) * bucket * ws.X.element_size()
+
+    def _retest(self, dec: torch.Tensor, band: torch.Tensor,
+                rows: torch.Tensor, decide):
+        """Re-test the band's columns in float32 and take their decisions:
+        outside the band the bf16 decision is the float32 one, inside it
+        the gathered float32 dots are the wide pass's, so the mask is the
+        float32 engine's bit for bit. Returns (mask, extra passes, extra
+        bytes)."""
+        cols = _any_col(band)
+        self.last_fallback_cols = int(cols.size)
+        if cols.size == 0:
+            return dec, 0, 0.0
+        dn, nbytes = self._gather_dots(cols, rows)
+        idx = torch.from_numpy(cols).to(dec.device)
+        dec[:, idx] = decide(dn[:, :cols.size], idx)
+        return dec, 1, nbytes
+
+
+def _any_col(flags: torch.Tensor) -> np.ndarray:
+    """The columns (host indices) that any row of a (B, p) bool flags."""
+    return np.flatnonzero(flags.cpu().numpy().any(axis=0))
 
 
 class _Query(NamedTuple):

@@ -74,8 +74,9 @@ class PathStepStats:
     queries_converged: int = 0
     x_passes_per_query: float = 0.0
     screen_bytes: float = 0.0     # HBM bytes this step's screens streamed
-    screen_dtype_effective: str = ""
+    screen_dtype_effective: str = ""  # dtype the screens' wide pass streamed
     solve_dtype_effective: str = ""
+    fallback_cols: int = 0        # band columns re-tested in float32
     solver_lo_iters: int = 0
     solve_bytes: float = 0.0      # HBM bytes this step's solves streamed
     geometry_version: int = 0
@@ -163,17 +164,22 @@ def lambda_grid(lam_max: float, num: int = 100, lo_frac: float = 0.05,
 
 
 def _screen(screen_engine, lam, state, cfg):
-    """One step's discard mask with its passes over X and their bytes:
-    the configured rule's screen, and with hybrid safe+strong the strong
-    rule's screen ORed in (its passes and bytes added)."""
+    """One step's discard mask with its screen telemetry (passes over X,
+    their bytes, the dtype the configured rule's wide pass streamed, the
+    band columns re-tested in float32): the configured rule's screen, and
+    with hybrid safe+strong the strong rule's screen ORed in (its passes,
+    bytes and re-tested columns added)."""
     discard = screen_engine.screen(lam, state, rule=cfg.rule)
-    passes = screen_engine.last_x_passes
-    nbytes = screen_engine.last_screen_bytes
+    eng = screen_engine
+    tele = [eng.last_x_passes, eng.last_screen_bytes,
+            getattr(eng, "last_effective_dtype", "float32"),
+            getattr(eng, "last_fallback_cols", 0)]
     if cfg.hybrid_strong and cfg.rule not in ("strong", "none"):
         discard = discard | screen_engine.screen(lam, state, rule="strong")
-        passes += screen_engine.last_x_passes
-        nbytes += screen_engine.last_screen_bytes
-    return discard, passes, nbytes
+        tele[0] += eng.last_x_passes
+        tele[1] += eng.last_screen_bytes
+        tele[3] += getattr(eng, "last_fallback_cols", 0)
+    return discard, tele
 
 
 def _path_driver(X: torch.Tensor, y: torch.Tensor, lambdas, cfg, *,
@@ -231,8 +237,8 @@ def _path_driver(X: torch.Tensor, y: torch.Tensor, lambdas, cfg, *,
 
         # ---- screen: one streaming pass over X ------------------------
         t0 = time.perf_counter()
-        discard, screen_passes, screen_bytes = _screen(screen_engine, lam,
-                                                       state, cfg)
+        discard, (screen_passes, screen_bytes, screen_dtype,
+                  fallback_cols) = _screen(screen_engine, lam, state, cfg)
         discard_np = discard.cpu().numpy()
         screen_time = time.perf_counter() - t0
 
@@ -290,8 +296,9 @@ def _path_driver(X: torch.Tensor, y: torch.Tensor, lambdas, cfg, *,
             queries_converged=int(bool(conv)),
             x_passes_per_query=float(screen_passes),
             screen_bytes=screen_bytes,
-            screen_dtype_effective="float32",
-            solve_dtype_effective="float32", solve_bytes=solve_bytes))
+            screen_dtype_effective=screen_dtype,
+            solve_dtype_effective="float32", solve_bytes=solve_bytes,
+            fallback_cols=fallback_cols))
         if cfg.checkpoint_fn:
             cfg.checkpoint_fn(k, lam, betas[0, k])
 
@@ -342,8 +349,9 @@ def _batched_driver(X: torch.Tensor, Y: torch.Tensor, lambdas, cfg, *,
 
         # ---- screen: one streaming pass over X for the batch ----------
         t0 = time.perf_counter()
-        discard, screen_passes, screen_bytes = _screen(screen_engine,
-                                                       lam_vec, state, cfg)
+        discard, (screen_passes, screen_bytes, screen_dtype,
+                  fallback_cols) = _screen(screen_engine, lam_vec, state,
+                                           cfg)
         discard_np = discard.cpu().numpy() | ~live[:, None]
         screen_time = time.perf_counter() - t0
 
@@ -412,8 +420,9 @@ def _batched_driver(X: torch.Tensor, Y: torch.Tensor, lambdas, cfg, *,
             queries_converged=q_conv,
             x_passes_per_query=screen_passes / B,
             screen_bytes=screen_bytes,
-            screen_dtype_effective="float32",
-            solve_dtype_effective="float32", solve_bytes=solve_bytes))
+            screen_dtype_effective=screen_dtype,
+            solve_dtype_effective="float32", solve_bytes=solve_bytes,
+            fallback_cols=fallback_cols))
         if cfg.checkpoint_fn:
             cfg.checkpoint_fn(k, lam_vec, betas[:, k])
 

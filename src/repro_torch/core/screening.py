@@ -22,8 +22,11 @@ check; and the rules that are not one ball:
   (:class:`HalfSpaceCut`), the same closed form as DOME's.
 
 The engine (:mod:`.engine`) evaluates the same tests through the
-screening kernel; these masks are its oracle. Column norms are
-``sqrt(Σ x_ij²)``, the sum the fit's fused pass caches.
+screening kernel; these masks are its oracle, their dots summed as the
+kernels' plain version sums them. Column norms are ``sqrt(Σ x_ij²)``,
+the sum the fit's fused pass caches. :func:`dome_score_bounds` bounds
+the cap sup over intervals of its inputs, for the bf16 screen's
+per-piece margins.
 
 Query operands may carry a leading batch axis B (y/θ/v₁ (B, n), λ/ρ
 (B,)); rank-1 inputs take the single-query arithmetic.
@@ -35,6 +38,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..kernels.ref import column_dots
 
 EPS_DEFAULT = 1e-6
 
@@ -247,9 +252,9 @@ def sphere_mask(X, test: SphereTest, eps: float = EPS_DEFAULT):
     """Plain mask for a SphereTest: |x_iᵀc| + ρ‖x_i‖ < 1 − eps."""
     norms = col_norms(X)
     if _is_batched(test.centre):
-        scores = torch.abs(test.centre @ X) + _col(test.rho) * norms
+        scores = torch.abs(_dots(X, test.centre)) + _col(test.rho) * norms
         return scores < 1.0 - _col(torch.as_tensor(eps))
-    scores = torch.abs(X.T @ test.centre) + test.rho * norms
+    scores = torch.abs(_dots(X, test.centre)) + test.rho * norms
     return scores < 1.0 - eps
 
 
@@ -281,8 +286,13 @@ def safe_mask(X, y, lam_next, lam_max_val, eps: float = EPS_DEFAULT):
 
 
 def _dots(X, v) -> torch.Tensor:
-    """Xᵀv (p,) for v (n,), vX (B, p) for v (B, n)."""
-    return v @ X if _is_batched(v) else X.T @ v
+    """Xᵀv (p,) for v (n,), vX (B, p) for v (B, n), row by row in the
+    screening kernels' plain arithmetic (:func:`~repro_torch.kernels.ref.
+    column_dots`), so the engine's CPU screens equal these oracles bit for
+    bit."""
+    if _is_batched(v):
+        return torch.stack([column_dots(X, row) for row in v])
+    return column_dots(X, v)
 
 
 def sup_corr(dot: torch.Tensor) -> torch.Tensor:
@@ -320,10 +330,10 @@ def strong_mask(X, y, lam_next, state: DualState, eps: float = EPS_DEFAULT):
     state at λ_max gives |x_iᵀy| < 2λ − λ_max."""
     if _is_batched(y):
         lam_prev = _like(state.lam, y)
-        resid_corr = torch.abs((state.theta * _col(lam_prev)) @ X)
+        resid_corr = torch.abs(_dots(X, state.theta * _col(lam_prev)))
         return resid_corr < _col(strong_threshold(_like(lam_next, y),
                                                   lam_prev, eps))
-    resid_corr = torch.abs(X.T @ (state.theta * state.lam))
+    resid_corr = torch.abs(_dots(X, state.theta * state.lam))
     return resid_corr < strong_threshold(lam_next, state.lam, eps)
 
 
@@ -372,6 +382,61 @@ def dome_scores(scores_c, gdot, norms, c, rho, ghat, b):
     return torch.maximum(
         _sup_over_dome(scores_c, gdot, norms, c, rho, ghat, b),
         _sup_over_dome(-scores_c, -gdot, norms, c, rho, ghat, b))
+
+
+def _cap_sup(g, t_b, a_norms):
+    """h(g, t_b): the unit-ρ cap term of :func:`_sup_over_cap` as a
+    function of one dot g = aᵀĝ,
+
+        h = ‖a‖                                 if g/‖a‖ ≤ t_b (unclipped)
+            g·t_b + √(‖a‖²−g²)₊·√(1−t_b²)₊       otherwise   (clipped)
+
+    for the interval bounds below (the exact combines keep
+    :func:`_sup_over_cap`)."""
+    perp = torch.sqrt(torch.clamp(a_norms * a_norms - g * g, min=0.0))
+    clipped = g * t_b + perp * torch.sqrt(
+        torch.clamp(1.0 - t_b * t_b, min=0.0))
+    return torch.where(g <= t_b * (a_norms + 1e-30), a_norms, clipped)
+
+
+def dome_sup_bounds(s_lo, s_hi, g_lo, g_hi, a_norms, rho_lo, rho_hi,
+                    tb_lo, tb_hi):
+    """Interval bound on the cap sup s + ρ·h(g, t_b) given intervals on
+    its inputs: s ∈ [s_lo, s_hi], g ∈ [g_lo, g_hi], ρ ∈ [rho_lo, rho_hi]
+    (ρ ≥ 0), t_b ∈ [tb_lo, tb_hi]; ρ and t_b are () or (B,) for (p,) or
+    (B, p) dots. Returns (lo, hi) with the exact sup inside.
+
+    h is piecewise in g (constant ‖a‖ while unclipped, concave decreasing
+    on the cap up to g = ‖a‖, then linear g·t_b), so its max over
+    [g_lo, g_hi] lies at an endpoint and its min may need the breakpoint
+    g = ‖a‖ as a third candidate; h is non-decreasing in t_b, so hi takes
+    tb_hi and lo tb_lo."""
+    if s_lo.dim() == 2:
+        rho_lo, rho_hi = _col(rho_lo), _col(rho_hi)
+        tb_lo, tb_hi = _col(tb_lo), _col(tb_hi)
+    g_brk = torch.minimum(torch.maximum(a_norms, g_lo), g_hi)
+    h_hi = torch.maximum(_cap_sup(g_lo, tb_hi, a_norms),
+                         _cap_sup(g_hi, tb_hi, a_norms))
+    h_lo = torch.minimum(
+        torch.minimum(_cap_sup(g_lo, tb_lo, a_norms),
+                      _cap_sup(g_hi, tb_lo, a_norms)),
+        _cap_sup(g_brk, tb_lo, a_norms))
+    # ρ ≥ 0 but h may be negative: take both corners of ρ·h
+    hi = s_hi + torch.maximum(rho_lo * h_hi, rho_hi * h_hi)
+    lo = s_lo + torch.minimum(rho_lo * h_lo, rho_hi * h_lo)
+    return lo, hi
+
+
+def dome_score_bounds(s_lo, s_hi, g_lo, g_hi, a_norms, rho_lo, rho_hi,
+                      tb_lo, tb_hi):
+    """Interval bound on :func:`cap_scores` = max(sup over ±x_j): the +
+    branch takes (s, g), the − branch (−s, −g) with the endpoints swapped
+    and negated. The exact max lies in [lo, hi]."""
+    lo_p, hi_p = dome_sup_bounds(s_lo, s_hi, g_lo, g_hi, a_norms,
+                                 rho_lo, rho_hi, tb_lo, tb_hi)
+    lo_n, hi_n = dome_sup_bounds(-s_hi, -s_lo, -g_hi, -g_lo, a_norms,
+                                 rho_lo, rho_hi, tb_lo, tb_hi)
+    return torch.maximum(lo_p, lo_n), torch.maximum(hi_p, hi_n)
 
 
 def _lmax_ray(X, y):

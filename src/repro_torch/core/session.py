@@ -19,8 +19,10 @@ legacy flat keywords.
 The port serves (n,) queries and (B, n) batches with every Lasso rule
 of the reference (the sequential spheres, GAP, the ``*_cut`` composites,
 basic SAFE, DOME, the strong rule with its KKT loop, ``none``, and
-hybrid safe+strong, ``ScreenSpec(strong=True)``), float32 screens and
-the ``fista`` and ``cd`` strategies (a batch runs the batched driver:
+hybrid safe+strong, ``ScreenSpec(strong=True)``), float32 screens or
+bf16 ones (``ScreenSpec(screen_dtype="bfloat16")``: masks bit for bit
+the float32 ones; plain sessions off a mesh) and the ``fista`` and
+``cd`` strategies (a batch runs the batched driver:
 one screen and one solve a step for all B queries, their kernels
 launched once for the batch); on a session fitted with ``groups=m``,
 group EDPP, group strong, ``none`` and hybrid group EDPP + group strong
@@ -79,12 +81,25 @@ def _check_session_kind(cfg: "PathConfig", m: int) -> None:
         if cfg.screen.rule not in GROUP_ENGINE_RULES:
             raise ValueError(f"group sessions support rules "
                              f"{GROUP_ENGINE_RULES}, got {cfg.screen.rule!r}")
+        if cfg.screen.screen_dtype != "float32":
+            # the group score ‖X_gᵀc‖ has no margin bound (the reference
+            # refuses it too)
+            raise ValueError(
+                "group sessions support screen_dtype='float32' only, got "
+                f"{cfg.screen.screen_dtype!r}")
         if strategy not in GROUP_SOLVERS:
             raise ValueError(f"group sessions solve with {GROUP_SOLVERS}, "
                              f"got strategy {strategy!r}")
     elif strategy in GROUP_SOLVERS:
         raise ValueError(f"strategy {strategy!r} solves the group Lasso: fit "
                          f"the session with groups=m")
+
+
+def _check_mesh_dtype(cfg: "PathConfig", mesh) -> None:
+    """A mesh session screens in float32 only, for now."""
+    if mesh is not None and cfg.screen.screen_dtype != "float32":
+        raise _not_yet("screen_dtype='bfloat16' on a mesh session", 9,
+                       "mixed precision")
 
 
 def _check_backend(name, what: str) -> None:
@@ -123,8 +138,6 @@ class ScreenSpec:
         if self.screen_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"screen_dtype must be 'float32' or 'bfloat16', "
                              f"got {self.screen_dtype!r}")
-        if self.screen_dtype != "float32":
-            raise _not_yet("screen_dtype='bfloat16'", 9, "mixed precision")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -288,6 +301,7 @@ class LassoSession:
             self._default_backend = geometry.backend.name
             return self
         dev = resolve_device(device)
+        _check_mesh_dtype(cfg, mesh)
         if mesh is None:
             Xt = as_tensor(X, dev)
         else:
@@ -400,6 +414,7 @@ class LassoSession:
             raise TypeError(f"config must be a PathConfig, got "
                             f"{type(cfg).__name__}")
         _check_session_kind(cfg, self.groups)   # per-call overrides too
+        _check_mesh_dtype(cfg, self.mesh)
         y = as_tensor(Y, self.device, self.X.dtype)
         if y.dim() not in (1, 2):
             raise ValueError(f"queries must be (n,) or (B, n), got shape "
@@ -436,7 +451,8 @@ class LassoSession:
 
     def _lasso_path(self, y, lambdas, cfg, grid_kw) -> PathResult:
         geom = self._geometry(cfg.screen.backend)
-        eng = ScreeningEngine(self.X, y, eps=cfg.screen.eps, geometry=geom)
+        eng = ScreeningEngine(self.X, y, eps=cfg.screen.eps, geometry=geom,
+                              screen_dtype=cfg.screen.screen_dtype)
         if lambdas is None:
             lambdas = lambda_grid(eng.lam_max, **grid_kw)
 
@@ -459,7 +475,8 @@ class LassoSession:
             return self._lasso_path(Y[0], _squeeze_grid(lambdas), cfg,
                                     grid_kw)
         geom = self._geometry(cfg.screen.backend)
-        eng = ScreeningEngine(self.X, Y, eps=cfg.screen.eps, geometry=geom)
+        eng = ScreeningEngine(self.X, Y, eps=cfg.screen.eps, geometry=geom,
+                              screen_dtype=cfg.screen.screen_dtype)
         lambdas = _batch_grids(lambdas, eng.lam_max, grid_kw)
         tol = cfg.screen.kkt_tol
 
@@ -567,6 +584,7 @@ def _merge_step_stats(steps: list[PathStepStats]) -> PathStepStats:
         screen_bytes=sum(s.screen_bytes for s in steps),
         screen_dtype_effective=steps[0].screen_dtype_effective,
         solve_dtype_effective=steps[0].solve_dtype_effective,
+        fallback_cols=sum(s.fallback_cols for s in steps),
         solver_lo_iters=sum(s.solver_lo_iters for s in steps),
         solve_bytes=sum(s.solve_bytes for s in steps),
         geometry_version=steps[0].geometry_version)

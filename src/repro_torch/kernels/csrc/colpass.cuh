@@ -1,4 +1,5 @@
-// One streaming pass over the columns of a row-major float32 X (n, p):
+// One streaming pass over the columns of a row-major float32 (MATVEC: or
+// bf16) X (n, p):
 //
 //     dot[b, j] = sum_i C[b, i] * X[i, j]          for b < NB queries
 //
@@ -30,6 +31,17 @@
 // vec = 4 loads the 4 columns as one float4 (p % 4 == 0 and X 16-byte
 // aligned), streamed past L1; vec = 1 loads them as 4 scalars. Both sum in
 // the same order, so the choice never changes a bit of the result.
+//
+// bf16 X (MATVEC only; the mixed-precision screen's wide pass, which
+// replaces the bf16 input of the Pallas screen_matvec): a lane owns 8
+// adjacent columns, one 16-byte load of a row (vec = 8; else 8 scalar
+// loads of the same columns), so tile 128 puts 16 lanes on a row and 2 rows
+// in a warp step, tile 32 4 lanes and 8 rows; each value is widened with
+// __bfloat162float (exact) where it meets the float centre, and every sum
+// runs in float, in the order below. The pass reads half the bytes of the
+// float pass and is bound by them. Its bits differ from the float pass's
+// (the mixed-precision margins cover that) but not with B, alignment or
+// the run.
 //
 // Rows: within a CTA, warp w and row group g take rows w*R + g, + 8R, ...
 // (R rows per warp step). A thread issues U row loads (8 for B <= 4, else
@@ -70,6 +82,7 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -89,10 +102,28 @@ enum Mode { MATVEC = 0, SCORES = 1, FISTA = 2, GROUP = 3 };
 constexpr int GROUP_SPAN = 128;          // GROUP: columns a step, 32 lanes x 4
 
 struct Plan {
-  int vec;         // 4: one float4 load per lane and row; 1: four scalar loads
+  int vec;         // 16 / sizeof(T): one 16-byte load per lane and row (4
+                   // floats or 8 bf16); 1: the same columns as scalar loads
   int tile;        // columns per CTA: 32 or 128 (GROUP: whole groups)
   int split;       // CTAs per column tile (the cluster), each on its own rows
   int stage_rows;  // centre rows staged in shared memory at a time
+};
+
+// X's element type: float, or bf16 for MATVEC (the mixed-precision screen
+// pass). A lane owns COLS adjacent columns, one 16-byte load of a row;
+// `Raw` holds them as loaded, converted to float (exactly: every bf16 is a
+// float) only where they meet the centre, and every sum runs in float.
+template <typename T>
+struct Elem;
+template <>
+struct Elem<float> {
+  static constexpr int COLS = 4;
+  using Raw = float4;
+};
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr int COLS = 8;
+  using Raw = uint4;
 };
 
 // Per-query parameters: `params` is null (then the scalars s0..s2 hold for
@@ -155,8 +186,8 @@ __device__ __forceinline__ float param(const Epilogue& ep, int row, int b,
 // The lane's 4 columns of one row; `xc` points at X[row, col]. Columns
 // from `lim` on (p, or the end of a GROUP tile) read as 0.
 template <bool VEC>
-__device__ __forceinline__ float4 load4(const float* __restrict__ xc, int col,
-                                        int lim) {
+__device__ __forceinline__ float4 load_raw(const float* __restrict__ xc,
+                                           int col, int lim) {
   if (VEC) {  // read-only, and not kept in L1: no other lane reads it
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (col < lim)
@@ -173,40 +204,84 @@ __device__ __forceinline__ float4 load4(const float* __restrict__ xc, int col,
   return v;
 }
 
-// Rows i, i + stride, ... of the stage that starts at row s0 (rows of it).
-template <bool VEC, int U>
-__device__ __forceinline__ void load_batch(float4 (&v)[U],
-                                           const float* __restrict__ xc,
-                                           int col, int lim, int p, int s0,
-                                           int i, int rows, int stride) {
+// The lane's 8 bf16 columns of one row, as loaded: element 2k in the low
+// half of word k (memory order). Columns from `lim` on read as 0.
+template <bool VEC>
+__device__ __forceinline__ uint4 load_raw(const __nv_bfloat16* __restrict__ xc,
+                                          int col, int lim) {
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (VEC) {
+    if (col < lim)
+      asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+                   : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                   : "l"(xc));
+    return v;
+  }
+  const unsigned short* const h = reinterpret_cast<const unsigned short*>(xc);
+  unsigned w[4];
 #pragma unroll
-  for (int u = 0; u < U; ++u) {
-    const int r = i + u * stride;
-    v[u] = r < rows ? load4<VEC>(xc + (size_t)(s0 + r) * p, col, lim)
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int k = 0; k < 4; ++k) {
+    const unsigned lo = col + 2 * k < lim ? __ldg(h + 2 * k) : 0u;
+    const unsigned hi = col + 2 * k + 1 < lim ? __ldg(h + 2 * k + 1) : 0u;
+    w[k] = lo | (hi << 16);
+  }
+  v.x = w[0], v.y = w[1], v.z = w[2], v.w = w[3];
+  return v;
+}
+
+__device__ __forceinline__ void to_floats(const float4& v, float (&x)[4]) {
+  x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+}
+
+__device__ __forceinline__ float bf16_bits(unsigned short h) {
+  return __bfloat162float(__ushort_as_bfloat16(h));
+}
+
+__device__ __forceinline__ void to_floats(const uint4& v, float (&x)[8]) {
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    x[2 * k] = bf16_bits((unsigned short)(w[k] & 0xffffu));
+    x[2 * k + 1] = bf16_bits((unsigned short)(w[k] >> 16));
   }
 }
 
-template <int MODE, int NB, int U>
-__device__ __forceinline__ void fma_batch(const float4 (&v)[U],
+// Rows i, i + stride, ... of the stage that starts at row s0 (rows of it).
+template <typename T, bool VEC, int U>
+__device__ __forceinline__ void load_batch(typename Elem<T>::Raw (&v)[U],
+                                           const T* __restrict__ xc, int col,
+                                           int lim, int p, int s0, int i,
+                                           int rows, int stride) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int r = i + u * stride;
+    v[u] = r < rows ? load_raw<VEC>(xc + (size_t)(s0 + r) * p, col, lim)
+                    : typename Elem<T>::Raw{};
+  }
+}
+
+template <int MODE, int NB, int U, typename T>
+__device__ __forceinline__ void fma_batch(const typename Elem<T>::Raw (&v)[U],
                                           const float* c_s, int ld, int i,
                                           int rows, int stride,
-                                          float (&acc)[NB][4],
-                                          float (&ss)[4]) {
+                                          float (&acc)[NB][Elem<T>::COLS],
+                                          float (&ss)[Elem<T>::COLS]) {
+  constexpr int COLS = Elem<T>::COLS;
 #pragma unroll
   for (int u = 0; u < U; ++u) {
     const int r = i + u * stride;
     if (r < rows) {
-      const float x[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+      float x[COLS];
+      to_floats(v[u], x);
       if (MODE == SCORES) {
 #pragma unroll
-        for (int k = 0; k < 4; ++k) ss[k] = fmaf(x[k], x[k], ss[k]);
+        for (int k = 0; k < COLS; ++k) ss[k] = fmaf(x[k], x[k], ss[k]);
       }
 #pragma unroll
       for (int b = 0; b < NB; ++b) {
         const float c = c_s[b * ld + r];
 #pragma unroll
-        for (int k = 0; k < 4; ++k) acc[b][k] = fmaf(c, x[k], acc[b][k]);
+        for (int k = 0; k < COLS; ++k) acc[b][k] = fmaf(c, x[k], acc[b][k]);
       }
     }
   }
@@ -283,12 +358,15 @@ __device__ __forceinline__ void group_squares(const float* dots, int m,
 // Registers: at most 128 a thread (two CTAs an SM); the single-query
 // float4 pass, the wide screens' case, at most 80 (three CTAs an SM, so
 // that 391 tiles of 784 x 50 000 run in one wave on 132 SMs). GROUP keeps
-// 128 (two CTAs an SM): at 80 its float4 pass spills.
-template <int MODE, int NB, bool VEC>
+// 128 (two CTAs an SM): at 80 its float4 pass spills. T is bf16 for
+// MATVEC only.
+template <int MODE, int NB, bool VEC, typename T>
 __global__ void __launch_bounds__(THREADS,
                                   VEC && NB == 1 && MODE != GROUP ? 3 : 2)
-colpass_kernel(const float* __restrict__ X, const float* __restrict__ C,
+colpass_kernel(const T* __restrict__ X, const float* __restrict__ C,
                int n, int p, Plan pl, Epilogue ep) {
+  constexpr int COLS = Elem<T>::COLS;  // columns per lane: 4, bf16 8
+  static_assert(MODE == MATVEC || COLS == 4, "bf16 X: MATVEC only");
   constexpr int U = NB <= 4 ? 8 : 4;  // row loads in flight per thread
   constexpr int NS = MODE == SCORES ? NB + 1 : NB;  // sums per column
   extern __shared__ float4 smem4[];
@@ -300,11 +378,11 @@ colpass_kernel(const float* __restrict__ X, const float* __restrict__ C,
   float* const inbox = red + red_floats<MODE>(pl, NB);    // [split][NB + 1][cols]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int lpr = span >> 2;                  // lanes per row: 8 or 32
-  const int rpw = 32 / lpr;                   // rows per warp step: 4 or 1
+  const int lpr = span / COLS;                // lanes per row: 8 or 32 (bf16 4 or 16)
+  const int rpw = 32 / lpr;                   // rows per warp step: 4 or 1 (8 or 2)
   const int stride = WARPS * rpw;             // rows per CTA step
   const int rowoff = warp * rpw + lane / lpr;
-  const int cl = 4 * (lane % lpr);            // the lane's first column
+  const int cl = COLS * (lane % lpr);         // the lane's first column
   const int col0 = blockIdx.x * tile;
   // GROUP: the tile's columns end on a group boundary; the lanes past it
   // read nothing
@@ -335,34 +413,34 @@ colpass_kernel(const float* __restrict__ X, const float* __restrict__ C,
   for (int step = 0; step < steps; ++step) {
     const int cs = step * span;               // the step's first column
     const int col = col0 + cs + cl;
-    float acc[NB][4], ss[4];
+    float acc[NB][COLS], ss[COLS];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
+    for (int k = 0; k < COLS; ++k) {
       ss[k] = 0.f;
 #pragma unroll
       for (int b = 0; b < NB; ++b) acc[b][k] = 0.f;
     }
 
-    const float* const xc = X + col;
-    float4 v[U];
+    const T* const xc = X + col;
+    typename Elem<T>::Raw v[U];
     int s0 = r0;
     int rows = min(ld, r1 - s0);
-    load_batch<VEC, U>(v, xc, col, lim, p, s0, rowoff, rows, stride);
+    load_batch<T, VEC, U>(v, xc, col, lim, p, s0, rowoff, rows, stride);
     if (MODE == GROUP && step > 0)
       __syncthreads();  // every thread has read the last step's dots
     stage_centre<NB>(C, n, s0, rows, ld, c_s);
     __syncthreads();
     for (;;) {
       for (int i = rowoff;;) {
-        fma_batch<MODE, NB, U>(v, c_s, ld, i, rows, stride, acc, ss);
+        fma_batch<MODE, NB, U, T>(v, c_s, ld, i, rows, stride, acc, ss);
         i += U * stride;
         if (i >= rows) break;
-        load_batch<VEC, U>(v, xc, col, lim, p, s0, i, rows, stride);
+        load_batch<T, VEC, U>(v, xc, col, lim, p, s0, i, rows, stride);
       }
       s0 += ld;
       if (s0 >= r1) break;
       rows = min(ld, r1 - s0);
-      load_batch<VEC, U>(v, xc, col, lim, p, s0, rowoff, rows, stride);
+      load_batch<T, VEC, U>(v, xc, col, lim, p, s0, rowoff, rows, stride);
       __syncthreads();  // every warp is done with the previous stage
       stage_centre<NB>(C, n, s0, rows, ld, c_s);
       __syncthreads();
@@ -371,7 +449,7 @@ colpass_kernel(const float* __restrict__ X, const float* __restrict__ C,
     // Lanes lane ^ lpr, lane ^ 2 lpr, ... hold the same columns: fold them.
     for (int off = lpr; off < 32; off <<= 1) {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
+      for (int k = 0; k < COLS; ++k) {
         if (MODE == SCORES) ss[k] += __shfl_xor_sync(0xffffffffu, ss[k], off);
 #pragma unroll
         for (int b = 0; b < NB; ++b)
@@ -382,8 +460,12 @@ colpass_kernel(const float* __restrict__ X, const float* __restrict__ C,
     if (lane < lpr) {
 #pragma unroll
       for (int b = 0; b < NB; ++b)
-        *reinterpret_cast<float4*>(red + (warp * (NB + 1) + b) * span + cl) =
-            make_float4(acc[b][0], acc[b][1], acc[b][2], acc[b][3]);
+#pragma unroll
+        for (int k = 0; k < COLS; k += 4)
+          *reinterpret_cast<float4*>(red + (warp * (NB + 1) + b) * span + cl +
+                                     k) =
+              make_float4(acc[b][k], acc[b][k + 1], acc[b][k + 2],
+                          acc[b][k + 3]);
       if (MODE == SCORES)
         *reinterpret_cast<float4*>(red + (warp * (NB + 1) + NB) * span + cl) =
             make_float4(ss[0], ss[1], ss[2], ss[3]);
@@ -475,8 +557,8 @@ inline bool aligned16(const void* ptr) {
 // at most GROUP_SPAN columns or one group walked in steps; a cluster only
 // on a tile of one step whose ranks each own whole groups.
 template <int MODE>
-inline bool plan_ok(const Plan& pl, int m) {
-  const bool common = (pl.vec == 1 || pl.vec == 4) && pl.split >= 1 &&
+inline bool plan_ok(const Plan& pl, int m, int cols) {
+  const bool common = (pl.vec == 1 || pl.vec == cols) && pl.split >= 1 &&
                       pl.split <= MAX_SPLIT &&
                       (pl.split & (pl.split - 1)) == 0 && pl.stage_rows >= 1;
   if (MODE != GROUP) return common && (pl.tile == 32 || pl.tile == 128);
@@ -486,10 +568,10 @@ inline bool plan_ok(const Plan& pl, int m) {
                             pl.tile / pl.split % m == 0));
 }
 
-template <int MODE, int NB, bool VEC>
-int run(const float* X, const float* C, int n, int p, const Plan& pl,
+template <int MODE, int NB, bool VEC, typename T>
+int run(const T* X, const float* C, int n, int p, const Plan& pl,
         const Epilogue& ep, cudaStream_t stream) {
-  const auto kernel = colpass_kernel<MODE, NB, VEC>;
+  const auto kernel = colpass_kernel<MODE, NB, VEC, T>;
   const size_t smem = smem_bytes<MODE>(pl, NB);
   if (smem > DEFAULT_SMEM) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -512,8 +594,8 @@ int run(const float* X, const float* C, int n, int p, const Plan& pl,
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-template <int MODE, bool VEC>
-int run_b(const float* X, const float* C, int n, int p, int B,
+template <int MODE, bool VEC, typename T>
+int run_b(const T* X, const float* C, int n, int p, int B,
           const Plan& pl, const Epilogue& ep, cudaStream_t stream) {
   if constexpr (MODE == GROUP) {  // a rank-1 centre
     return run<MODE, 1, VEC>(X, C, n, p, pl, ep, stream);
@@ -531,20 +613,28 @@ int run_b(const float* X, const float* C, int n, int p, int B,
   }
 }
 
-// Refuses a plan it cannot run (cudaErrorInvalidValue) and the float4 path
-// on a p, an X or a GROUP tile that is not 16-byte aligned
+// Refuses a plan it cannot run (cudaErrorInvalidValue) and the 16-byte
+// path on a p, an X or a GROUP tile that is not 16-byte aligned
 // (cudaErrorMisalignedAddress); it never changes the plan it was given.
-template <int MODE>
-int launch(const float* X, const float* C, int n, int p, int B,
+// T is float, or bf16 for MATVEC.
+template <int MODE, typename T>
+int launch(const T* X, const float* C, int n, int p, int B,
            const Plan& pl, const Epilogue& ep, cudaStream_t stream) {
+  constexpr int COLS = Elem<T>::COLS;
   if (n < 0 || p < 1 || B < 1 || B > (MODE == GROUP ? 1 : MAX_B) ||
-      !plan_ok<MODE>(pl, ep.m) || (MODE == GROUP && p % ep.m != 0) ||
+      !plan_ok<MODE>(pl, ep.m, COLS) || (MODE == GROUP && p % ep.m != 0) ||
       smem_bytes<MODE>(pl, B) > MAX_SMEM)
     return (int)cudaErrorInvalidValue;
-  if (pl.vec == 4 && (p % 4 != 0 || !aligned16(X) || pl.tile % 4 != 0))
+  if (pl.vec == COLS &&
+      (p % COLS != 0 || !aligned16(X) || pl.tile % COLS != 0))
     return (int)cudaErrorMisalignedAddress;
-  return pl.vec == 4 ? run_b<MODE, true>(X, C, n, p, B, pl, ep, stream)
-                     : run_b<MODE, false>(X, C, n, p, B, pl, ep, stream);
+  if constexpr (MODE != MATVEC && COLS != 4) {
+    return (int)cudaErrorInvalidValue;  // bf16 X: MATVEC only
+  } else {
+    return pl.vec == COLS
+               ? run_b<MODE, true>(X, C, n, p, B, pl, ep, stream)
+               : run_b<MODE, false>(X, C, n, p, B, pl, ep, stream);
+  }
 }
 
 }  // namespace colpass

@@ -9,12 +9,20 @@
 ``screen_matvec(X, centre)``
     ``dot[b, j] = x_jᵀc_b``. Replaces ``screen_matvec`` of the same file
     (``pl.pallas_call`` at line 202); one call attaches each query
-    (|Xᵀy|) and one serves every sphere screen on the λ-path.
+    (|Xᵀy|) and one serves every sphere screen on the λ-path. X may be
+    the bf16 screen copy (``screen_dtype="bfloat16"``): the centre, the
+    sums and the dots stay float32, as in the reference's kernel.
 
 Both take X (n, p) and a centre (n,) or (B, n). A CPU X takes the plain
 versions of :mod:`.ref`. A CUDA X launches the kernels of
-``csrc/edpp_screen.cu`` (float32, contiguous, built by :mod:`.build`) or
-raises; there is no fallback.
+``csrc/edpp_screen.cu`` (float32, or bf16 for the matvec; contiguous;
+built by :mod:`.build`) or raises; there is no fallback.
+
+The mixed-precision screen re-tests a narrow band of columns in float32
+on an (n, k) gather of X, and its dots must be the wide float32 pass's
+bits at those columns: ``screen_matvec(Xn, c, wide_p=p)`` launches the
+gather with the tile and cluster of the pass over all p columns
+(:func:`retest_plan`), so each column is summed in the same order.
 
 Bound on an H100: the pass reads X once (n·p·4 bytes) and does 2·B
 flops per element, so for B ≤ 8 it is bound by the bytes of X at
@@ -33,10 +41,13 @@ a thread-block cluster. Measured on an NVIDIA H100 80GB HBM3 at 700 W
 (``chip_smoke.py``, ``PERF.md`` §6): ``screen_matvec`` at 784 × 50 000,
 one query, 0.0567 ms, 83 % of the byte bound and 0.97× ``torch.matmul(c,
 X)`` in the same run (the earlier 32-column design: 0.0985 ms); at
-3072 × 99 288, 0.401 ms, 91 % of the bound.
+3072 × 99 288, 0.401 ms, 91 % of the bound. On bf16 X the pass reads
+n·p·2 bytes (78 MB at 784 × 50 000: 23 µs at 3.35 TB/s), each lane 8
+adjacent columns in one 16-byte load, the same tiles and row split.
 
 ``LAUNCHES`` counts kernel launches per op (one per launch of up to
-``MAX_B`` queries; a larger batch is split into several launches).
+``MAX_B`` queries; a larger batch is split into several launches); a
+launch on bf16 X counts as ``screen_matvec_bf16``.
 """
 
 from __future__ import annotations
@@ -85,13 +96,14 @@ def _cdiv(a: int, b: int) -> int:
 
 @functools.lru_cache(maxsize=4096)
 def launch_plan(n: int, p: int, B: int, sms: int, aligned: bool,
-                max_split: int = CLUSTER) -> LaunchPlan:
+                max_split: int = CLUSTER, elem: int = 4) -> LaunchPlan:
     """The launch of one column pass over X (n, p) for B ≤ ``MAX_B``
     queries on a card with ``sms`` SMs; ``aligned``: X's base pointer is
-    16-byte aligned.
+    16-byte aligned; ``elem``: bytes of X's elements (4, or 2 for bf16).
 
-    - float4 loads when p % 4 == 0 and X is aligned, else scalar loads of
-      the same 4 columns per lane (the sums do not change);
+    - 16-byte loads (4 float or 8 bf16 columns a lane, ``vec`` = 16 /
+      elem) when p % vec == 0 and X is aligned, else scalar loads of the
+      same columns (the sums do not change);
     - 128-column tiles when p / 128 tiles fill every SM (the wide
       screens), else 32-column tiles whose rows are split over a cluster
       of ``split`` CTAs (a power of 2 ≤ ``max_split``) so that about two
@@ -99,23 +111,37 @@ def launch_plan(n: int, p: int, B: int, sms: int, aligned: bool,
       depends on B or on the alignment, so a query's result is the same
       in every batch;
     - the CTA's whole centre staged at once when B·rows·4 bytes fit
-      ``CENTRE_BUDGET``, else stages of a multiple of 32 rows.
+      ``CENTRE_BUDGET``, else stages of a multiple of the rows a CTA step
+      takes at most (32; bf16 64), so a thread keeps its rows.
 
     ``max_split`` caps the cluster: ``CLUSTER`` by default (clusters of 8
     were no faster at 784 × 32 and slower at 784 × 512 with 8 queries on
     the H100, PERF.md §6), up to ``MAX_SPLIT``, 1 for none.
     """
     if (n < 0 or p < 1 or not 1 <= B <= MAX_B or sms < 1
-            or not 1 <= max_split <= MAX_SPLIT):
+            or not 1 <= max_split <= MAX_SPLIT or elem not in (2, 4)):
         raise ValueError(f"launch_plan: no plan for n={n}, p={p}, B={B}, "
-                         f"sms={sms}")
-    vec = 4 if aligned and p % 4 == 0 else 1
+                         f"sms={sms}, elem={elem}")
+    cols = 16 // elem
+    vec = cols if aligned and p % cols == 0 else 1
     if _cdiv(p, WIDE_TILE) >= sms:
         tile, split = WIDE_TILE, 1
     else:
         tile = NARROW_TILE
         split = cluster_split(n, _cdiv(p, tile), sms, max_split)
-    return finish_plan(n, p, B, vec, tile, split, tile)
+    return finish_plan(n, p, B, vec, tile, split, tile, quantum=128 // elem)
+
+
+def retest_plan(n: int, k: int, wide_p: int, B: int, sms: int,
+                aligned: bool) -> LaunchPlan:
+    """The plan of a float32 pass over an (n, k) gather of X's columns
+    that sums each column in the order of the pass over all ``wide_p``
+    columns: that pass's tile and cluster (the row split, the lanes of a
+    row, the fold of warps and ranks; none depends on B or the loads),
+    with the gather's own loads and grid."""
+    wide = launch_plan(n, wide_p, B, sms, aligned)
+    vec = 4 if aligned and k % 4 == 0 else 1
+    return finish_plan(n, k, B, vec, wide.tile, wide.split, wide.tile)
 
 
 def cluster_split(n: int, tiles: int, sms: int, max_split: int) -> int:
@@ -127,13 +153,13 @@ def cluster_split(n: int, tiles: int, sms: int, max_split: int) -> int:
 
 
 def finish_plan(n: int, p: int, B: int, vec: int, tile: int, split: int,
-                span: int) -> LaunchPlan:
+                span: int, quantum: int = 32) -> LaunchPlan:
     """The plan with its staged centre and shared memory: the CTA's whole
     centre staged at once when B·rows·4 bytes fit ``CENTRE_BUDGET``, else
-    stages of a multiple of 32 rows; ``span`` columns of partials a warp
-    (``colpass::smem_bytes``)."""
+    stages of a multiple of ``quantum`` rows; ``span`` columns of partials
+    a warp (``colpass::smem_bytes``)."""
     rows = _cdiv(n, split)
-    cap = CENTRE_BUDGET // (4 * B) // 32 * 32
+    cap = CENTRE_BUDGET // (4 * B) // quantum * quantum
     stage_rows = max(1, rows) if rows <= cap else cap
     centre = _cdiv(B * stage_rows, 4) * 4
     red = WARPS * (B + 1) * span
@@ -156,10 +182,16 @@ def sms_of(X: torch.Tensor) -> int:
     return sms
 
 
-def plan_for(X: torch.Tensor, B: int) -> LaunchPlan:
-    """:func:`launch_plan` for a CUDA X and a launch of B queries."""
+def plan_for(X: torch.Tensor, B: int, wide_p: int | None = None
+             ) -> LaunchPlan:
+    """:func:`launch_plan` for a CUDA X and a launch of B queries; with
+    ``wide_p``, :func:`retest_plan` for a float32 gather of X's columns."""
     n, p = X.shape
-    return launch_plan(n, p, B, sms_of(X), X.data_ptr() % 16 == 0)
+    aligned = X.data_ptr() % 16 == 0
+    if wide_p is not None:
+        return retest_plan(n, p, wide_p, B, sms_of(X), aligned)
+    return launch_plan(n, p, B, sms_of(X), aligned,
+                       elem=X.element_size())
 
 _VP, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PLAN = [_INT] * 4   # LaunchPlan.c_args: vec, tile, split, stage_rows
@@ -167,6 +199,7 @@ _SIGNATURES = {
     "edpp_screen_scores_f32": [_VP, _VP, _INT, _INT, _INT, *_PLAN, _VP, _F32,
                                _VP, _VP, _VP],
     "screen_matvec_f32": [_VP, _VP, _INT, _INT, _INT, *_PLAN, _VP, _VP],
+    "screen_matvec_bf16": [_VP, _VP, _INT, _INT, _INT, *_PLAN, _VP, _VP],
     "fista_step_f32": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, *_PLAN, _VP,
                        _F32, _F32, _F32, _VP, _VP, _VP],
     "cd_gram_sweep_f32": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP, _F32,
@@ -189,13 +222,15 @@ def kernel_fn(source: str, symbol: str):
     return fn
 
 
-def check_x(X: torch.Tensor, op: str, what: str = "X") -> None:
+def check_x(X: torch.Tensor, op: str, what: str = "X",
+            dtypes: tuple = (torch.float32,)) -> None:
     """Raise on an X (or G) the CUDA kernels do not take."""
     if X.device.type != "cuda":
         raise ValueError(f"{op}: {what} must be a CPU or CUDA tensor, "
                          f"got device {X.device}")
-    if X.dtype != torch.float32:
-        raise TypeError(f"{op}: the CUDA kernel takes float32 {what}, got "
+    if X.dtype not in dtypes:
+        names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise TypeError(f"{op}: the CUDA kernel takes {names} {what}, got "
                         f"{X.dtype} (float64 runs on CPU tensors only)")
     if X.dim() != 2 or not X.is_contiguous():
         raise ValueError(f"{op}: {what} must be a contiguous 2-D matrix, "
@@ -282,25 +317,35 @@ def edpp_screen_scores(X: torch.Tensor, centre: torch.Tensor, rho, *,
 
 
 def screen_matvec(X: torch.Tensor, centre: torch.Tensor, *,
-                  plan: LaunchPlan | None = None) -> torch.Tensor:
-    """``dot = centre · X``: (p,) for a (n,) centre, (B, p) for (B, n).
-    ``plan`` replaces :func:`launch_plan`'s choice on a CUDA X."""
+                  plan: LaunchPlan | None = None,
+                  wide_p: int | None = None) -> torch.Tensor:
+    """``dot = centre · X``: (p,) for a (n,) centre, (B, p) for (B, n); X
+    float32 or its bf16 screen copy, the dots float32. ``wide_p``: X is
+    a float32 gather of the columns of an X with ``wide_p`` columns, and
+    each dot is summed as that X's pass sums it (:func:`retest_plan`).
+    ``plan`` replaces either choice on a CUDA X."""
     if X.device.type == "cpu":
-        return ref.screen_matvec_ref(X, centre)
+        return ref.screen_matvec_ref(X, centre, wide_p=wide_p)
     op = "screen_matvec"
-    check_x(X, op)
+    check_x(X, op, dtypes=(torch.float32, torch.bfloat16))
+    bf16 = X.dtype == torch.bfloat16
+    if bf16 and wide_p is not None:
+        raise ValueError(f"{op}: wide_p orders a float32 re-test; X is "
+                         f"bfloat16")
     n, p = X.shape
     C, squeeze = check_rows(X, centre, n, "centre", op)
     B = C.shape[0]
-    fn = kernel_fn("edpp_screen", "screen_matvec_f32")
+    symbol = "screen_matvec_bf16" if bf16 else "screen_matvec_f32"
+    fn = kernel_fn("edpp_screen", symbol)
+    key = "screen_matvec_bf16" if bf16 else op
     dot = torch.empty((B, p), dtype=torch.float32, device=X.device)
     if p:
         with torch.cuda.device(X.device):
             stream = torch.cuda.current_stream().cuda_stream
             for b0 in range(0, B, MAX_B):
                 nb = min(MAX_B, B - b0)
-                pl = plan or plan_for(X, nb)
+                pl = plan or plan_for(X, nb, wide_p)
                 check_error(fn(X.data_ptr(), C[b0].data_ptr(), n, p, nb,
                                *pl.c_args, dot[b0].data_ptr(), stream), op)
-                LAUNCHES[op] += 1
+                LAUNCHES[key] += 1
     return dot[0] if squeeze else dot

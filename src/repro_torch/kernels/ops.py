@@ -2,7 +2,8 @@
 
 A :class:`ScreenBackend` bundles the six ops of the ported paths:
 
-    matvec(X, centre)                          -> dot = centre·X
+    matvec(X, centre, wide_p=None)             -> dot = centre·X (X f32
+                                                  or its bf16 copy)
     fused_scores(X, centre, rho)               -> (|dot| + ρ‖x_j‖, ‖x_j‖²)
     fista_step(X, r, z, beta_old, step, lam, mom) -> (β', z')
     group_scores(X, centre, m)                 -> ‖X_gᵀ·centre‖ per group
@@ -12,6 +13,9 @@ A :class:`ScreenBackend` bundles the six ops of the ported paths:
 ``fista_step`` and ``prox_step`` also take ``params=``, a (3, B) block of
 step | λ | mom in place of the three (a row of a solver's parameter
 table), and ``prox_step`` a (k, …) stack of the gradient's parts as g.
+
+The mixed-precision screen's margins, :func:`bf16_column_err` and
+:func:`bf16_score_margin`, are the reference's (``repro.kernels.ops``).
 
 Backends: ``cuda`` (the hand-written kernels of :mod:`.edpp_screen`,
 :mod:`.solver_step` and :mod:`.group_screen`; their wrappers take the
@@ -72,6 +76,42 @@ def resolve_backend(name: str | ScreenBackend | None,
     except KeyError:
         raise ValueError(f"unknown backend {name!r}; available: "
                          f"{tuple(BACKENDS)}") from None
+
+
+# The mixed-precision screen (``screen_dtype="bfloat16"``). X may be
+# stored in bf16 while every dot accumulates in float32, so the only
+# storage error is the rounding of X itself: with Δx_j = x_j − x̂_j,
+# |x̂_jᵀc − x_jᵀc| ≤ ‖Δx_j‖·‖c‖ for any centre c. ‖Δx_j‖ is measured per
+# column when the screen copy is made (:func:`bf16_column_err`); on top
+# ride the float32 accumulation noise of both the wide and the narrow
+# pass (about n·2⁻²⁴ relative, F32_ACC_ROUND) and a 2× safety factor.
+
+BF16_ROUND = 2.0 ** -8         # bf16 unit roundoff (worst case, 8-bit mant.)
+F32_ACC_ROUND = 2.0 ** -24     # float32 accumulation unit roundoff
+BF16_MARGIN_SAFETY = 2.0
+
+
+def bf16_column_err(X: torch.Tensor, X_lo: torch.Tensor) -> torch.Tensor:
+    """Per-column dot-error bound for screening through the low-precision
+    copy ``X_lo``: ``err[j] = ‖x_j − x̂_j‖ + 2·n·u_f32·‖x_j‖`` (the
+    measured quantisation residual and the accumulation noise of the wide
+    and the narrow pass), float32 (p,)."""
+    Xf = X.to(torch.float32)
+    quant = torch.linalg.vector_norm(Xf - X_lo.to(torch.float32), dim=0)
+    col_norms = torch.linalg.vector_norm(Xf, dim=0)
+    n = Xf.shape[0]
+    return quant + 2.0 * n * F32_ACC_ROUND * col_norms
+
+
+def bf16_score_margin(col_err: torch.Tensor, centre_norm) -> torch.Tensor:
+    """Per-column bound on the error of a linear screen score evaluated
+    through the bf16 copy: ``margin[j] = 2·err_j·‖centre‖``. The ρ‖x_j‖
+    term of a sphere score is exact (both factors stay full precision),
+    so this bounds the whole score. ``centre_norm`` scalar or (B,) →
+    margin (p,) or (B, p)."""
+    cn = torch.as_tensor(centre_norm, dtype=torch.float32,
+                         device=col_err.device)[..., None]
+    return BF16_MARGIN_SAFETY * cn * col_err
 
 
 _LAUNCH_COUNTERS = (edpp_screen.LAUNCHES, solver_step.LAUNCHES,

@@ -41,12 +41,30 @@ def _per_query(s, batch: int, dtype, device) -> torch.Tensor:
         (batch,))
 
 
+def column_dots(X: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``dot[j] = x_jᵀc`` for X (n, p) and c (n,) in X's dtype: the n
+    products of each column, rounded once each, summed by a fixed tree
+    of elementwise additions (each step adds the lower half of the rows
+    to the upper half; an odd row carries to the next step). Every
+    column's sum is the same sequence of roundings whatever the other
+    columns, so the dots of an (n, k) gather of X are bit for bit those
+    of the whole X at the gathered columns (a BLAS matrix-vector product
+    blocks by p and does not keep that)."""
+    P = X * c[:, None]
+    if P.shape[0] == 0:
+        return P.new_zeros((X.shape[1],))
+    while P.shape[0] > 1:
+        h = P.shape[0] // 2
+        top = P[:h] + P[h:2 * h]
+        P = torch.cat([top, P[2 * h:]]) if P.shape[0] % 2 else top
+    return P[0]
+
+
 def _rowwise_dots(X: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
-    """(B, p) dots of each centre row with X, one matrix-vector product per
-    row on a fresh copy of it: a query's dots are those of the rank-1
-    call, whatever the batch around it (the kernels' bits do not depend
-    on B either)."""
-    return torch.stack([X.T @ c.clone() for c in C]) if len(C) else \
+    """(B, p) dots of each centre row with X, :func:`column_dots` per row:
+    a query's dots are those of the rank-1 call, whatever the batch
+    around it (the kernels' bits do not depend on B either)."""
+    return torch.stack([column_dots(X, c) for c in C]) if len(C) else \
         C.new_zeros((0, X.shape[1]))
 
 
@@ -63,18 +81,22 @@ def edpp_screen_ref(X: torch.Tensor, centre: torch.Tensor, rho):
         dot = _rowwise_dots(Xa, ca)
         rho_b = _per_query(rho, ca.shape[0], acc, X.device)
         return torch.abs(dot) + rho_b[:, None] * torch.sqrt(sumsq), sumsq
-    dot = Xa.T @ ca
+    dot = column_dots(Xa, ca)
     rho_a = torch.as_tensor(rho, dtype=acc, device=X.device)
     return torch.abs(dot) + rho_a * torch.sqrt(sumsq), sumsq
 
 
-def screen_matvec_ref(X: torch.Tensor, centre: torch.Tensor) -> torch.Tensor:
-    """``dot[j] = x_jᵀc``; batched centre (B, n) gives (B, p)."""
+def screen_matvec_ref(X: torch.Tensor, centre: torch.Tensor, *,
+                      wide_p: int | None = None) -> torch.Tensor:
+    """``dot[j] = x_jᵀc``; batched centre (B, n) gives (B, p). X may be
+    the bf16 screen copy (summed in float32 over ``X.float()``).
+    ``wide_p`` (the kernel's re-test order) changes nothing here: these
+    sums do not depend on the width (:func:`column_dots`)."""
     PLAIN_CALLS["screen_matvec"] += 1
     acc = _acc_dtype(X)
     if centre.ndim == 2:
         return _rowwise_dots(X.to(acc), centre.to(acc))
-    return X.to(acc).T @ centre.to(acc)
+    return column_dots(X.to(acc), centre.to(acc))
 
 
 def _prox(z, g, beta_old, step, lam, mom):

@@ -69,8 +69,9 @@ def add_engine_args(ap: argparse.ArgumentParser, *, rule: str = "edpp",
                     help="solver backend (default: follow the device)")
     ap.add_argument("--screen-dtype", choices=("float32", "bfloat16"),
                     default="float32",
-                    help="dtype of the X copy the screens stream "
-                         "(bfloat16: ROADMAP.md queue 1 item 9, not ported)")
+                    help="dtype of the X copy the screens' wide pass "
+                         "streams (bfloat16: half the bytes, masks bit for "
+                         "bit the float32 ones; plain sessions off a mesh)")
     ap.add_argument("--solve-dtype", choices=("float32", "bfloat16"),
                     default="float32",
                     help="dtype of the FISTA iteration matvec stream "

@@ -20,9 +20,14 @@ the prox step over its shapes and parameter kinds, and with a stack of
 gradient parts bit for bit; solver loops
 replayed from a CUDA graph (``repro_torch.core.graphs``) bit for bit
 against the same launches run eagerly, with each replay's launches
-counted; and a mesh session over NCCL at world size 1 against the
+counted; a mesh session over NCCL at world size 1 against the
 unsharded session on the card, with ``dist_fista`` captured against
-eager in its three modes.
+eager in its three modes; and the bf16 screen: ``screen_matvec`` on bf16
+X against its plain version over 16-byte and scalar loads, clusters and
+a staged centre (a zero column exactly 0; the same bits alone and in a
+batch, and in two runs), the float32 re-test's gathers (``wide_p``) bit
+for bit the wide pass at the gathered columns, and bf16 session paths
+bit for bit the float32 paths.
 
 Marked ``gpu``: without a CUDA device every test skips. On a machine with
 one card: ``python -m pytest -q -m gpu tests/test_torch_cuda.py``.
@@ -882,3 +887,142 @@ def test_cd_gram_sweep_is_repeatable_and_blind_to_alignment(cuda, b, batch):
     assert not out[..., -3:].any() and not (out * (1 - valid)).any()
     assert torch.equal(solver_step.cd_gram_sweep(G, c, beta, lam, sweeps=0),
                        beta)
+
+
+# ---------------------------------------------------------------------------
+# the mixed-precision screen: screen_matvec on bf16 X, the float32 re-test
+# ---------------------------------------------------------------------------
+
+def _unaligned_bf16(X):
+    """A contiguous bf16 copy of X whose base pointer is 2 bytes past a
+    16-byte boundary."""
+    buf = torch.empty(X.numel() + 1, dtype=torch.bfloat16, device=X.device)
+    view = buf[1:].view(X.shape)
+    view.copy_(X)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 2
+    return view
+
+
+# 16-byte loads and wide tiles (784 x 50 000), ragged p (scalar loads),
+# p < 32, a cluster of 4 at 32 columns, the solver's buckets, a centre
+# staged in pieces of 64 rows (20 000 rows)
+BF16_SHAPES = [(784, 50000), (777, 1001), (100, 20), (784, 32), (784, 512),
+               (20000, 256), (3072, 4096)]
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8, 9])
+@pytest.mark.parametrize("shape", BF16_SHAPES)
+def test_bf16_matvec_matches_plain_version(cuda, shape, batch):
+    """``screen_matvec`` on bf16 X against its plain version (float32 sums
+    over ``X.float()``; 2e-5 of scale, the sums run in another order);
+    scalar loads on an unaligned copy give the same bits; a zero column
+    gives exactly 0; each launch counts as ``screen_matvec_bf16``."""
+    n, p = shape
+    g = torch.Generator(device=cuda).manual_seed(n + p + batch)
+    X = torch.randn(n, p, generator=g, device=cuda).to(torch.bfloat16)
+    X[:, p // 2] = 0.0
+    lead = () if batch == 1 else (batch,)
+    c = torch.randn(*lead, n, generator=g, device=cuda)
+    ops.reset_counts()
+    got = edpp_screen.screen_matvec(X, c)
+    launches = -(-batch // edpp_screen.MAX_B)
+    assert ops.launch_counts()["screen_matvec_bf16"] == launches
+    assert ops.launch_counts()["screen_matvec"] == 0
+    assert got.dtype == torch.float32
+    _close((got,), (ref.screen_matvec_ref(X, c),))
+    assert not got[..., p // 2].any()
+    pl = edpp_screen.plan_for(X, min(batch, 8))
+    assert pl.vec == (8 if p % 8 == 0 else 1)
+    Xu = _unaligned_bf16(X)
+    assert edpp_screen.plan_for(Xu, min(batch, 8)).vec == 1
+    assert torch.equal(edpp_screen.screen_matvec(Xu, c), got)
+    del X, Xu
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("shape", [(784, 50000), (777, 1001), (784, 512)])
+def test_bf16_matvec_bits_do_not_depend_on_the_batch_or_the_run(cuda, shape):
+    """A query's bf16 dots are the same bits alone and inside a batch of
+    8, and in two runs."""
+    n, p = shape
+    X = _det((n, p), 11).to(cuda).to(torch.bfloat16)
+    C = _det((8, n), 12).to(cuda)
+    got = edpp_screen.screen_matvec(X, C)
+    assert torch.equal(edpp_screen.screen_matvec(X, C), got)
+    for b in range(8):
+        assert torch.equal(edpp_screen.screen_matvec(X, C[b].clone()),
+                           got[b]), b
+
+
+@pytest.mark.parametrize("rows", [1, 8, 16])
+@pytest.mark.parametrize("k", [8, 24, 48])
+@pytest.mark.parametrize("shape", [(784, 50000), (784, 4096), (777, 1001),
+                                   (20000, 256)])
+def test_retest_gathers_give_the_wide_float32_bits(cuda, shape, k, rows):
+    """The float32 re-test: an (n, k) gather of X's columns, zero-padded to
+    its bucket, launched with ``wide_p=p`` (the wide pass's tile and
+    cluster) gives the wide pass's dots at the gathered columns bit for
+    bit, for one centre, 8 rows and 16 (two launches)."""
+    from repro_torch.core.engine import _narrow_bucket
+    n, p = shape
+    X = _det((n, p), 13).to(cuda)
+    lead = () if rows == 1 else (rows,)
+    C = _det(lead + (n,), 14).to(cuda)
+    full = edpp_screen.screen_matvec(X, C)
+    cols = torch.from_numpy(np.sort(np.random.default_rng(k + rows)
+                                    .choice(p, k, replace=False))).to(cuda)
+    bucket = _narrow_bucket(k + 1, p)
+    Xn = torch.zeros((n, bucket), device=cuda)
+    Xn[:, :k] = X[:, cols]
+    got = edpp_screen.screen_matvec(Xn, C, wide_p=p)
+    assert torch.equal(got[..., :k], full[..., cols])
+    assert not got[..., k:].any()
+    wide = edpp_screen.plan_for(X, min(rows, 8))
+    pl = edpp_screen.plan_for(Xn, min(rows, 8), wide_p=p)
+    assert (pl.tile, pl.split) == (wide.tile, wide.split)
+    del X, Xn
+    torch.cuda.empty_cache()
+
+
+def test_bf16_matvec_refuses_what_it_does_not_take(cuda):
+    X = torch.randn(64, 128, device=cuda).to(torch.bfloat16)
+    c = torch.randn(64, device=cuda)
+    with pytest.raises(ValueError, match="wide_p"):
+        edpp_screen.screen_matvec(X, c, wide_p=256)
+    pl = edpp_screen.plan_for(X, 1)
+    assert pl.vec == 8
+    with pytest.raises(RuntimeError, match="cudaError_t"):   # float4 width
+        edpp_screen.screen_matvec(X, c, plan=pl._replace(vec=4))
+    with pytest.raises(RuntimeError, match="cudaError_t"):   # p % 8 != 0
+        edpp_screen.screen_matvec(X[:, :124].contiguous(), c, plan=pl)
+    with pytest.raises(TypeError, match="float32"):
+        edpp_screen.edpp_screen_scores(X, c, 0.5)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("rule", ["edpp", "gap", "gap_cut", "dome", "strong",
+                                  "safe"])
+def test_bf16_paths_on_the_card_are_the_float32_paths(cuda, rule):
+    """A bf16 session path on the card, one query and a batch of 8: masks
+    and β the float32 path's bit for bit, every screened step in bf16 on
+    ``screen_matvec_bf16``, no plain version called."""
+    X, Y, _ = _batch_problem(batch=8, n=100, p=2000)
+    sess = LassoSession.fit(X)
+    for Yq in (Y[0], Y):
+        out = {}
+        for dtype in ("float32", "bfloat16"):
+            cfg = PathConfig(screen=ScreenSpec(
+                rule=rule, sequential=rule not in ("dome", "safe"),
+                screen_dtype=dtype), solve=SolveSpec(tol=1e-6))
+            sess.reset_solver_cache()
+            ops.reset_counts()
+            out[dtype] = sess.path(Yq, num_lambdas=20, config=cfg)
+            counts = ops.launch_counts()
+            assert not any(ops.plain_counts().values())
+        assert counts.get("screen_matvec_bf16", 0) > 0
+        np.testing.assert_array_equal(out["bfloat16"].masks,
+                                      out["float32"].masks)
+        np.testing.assert_array_equal(out["bfloat16"].betas,
+                                      out["float32"].betas)
+        live = [s for s in out["bfloat16"].stats if s.screen_backend]
+        assert all(s.screen_dtype_effective == "bfloat16" for s in live)

@@ -143,10 +143,26 @@ def test_no_card_raises_without_falling_back(driver, monkeypatch):
         driver.main(["--n", "10", "--p", "20"])
 
 
-@pytest.mark.parametrize("flag", ["--screen-dtype", "--solve-dtype"])
+@pytest.mark.parametrize("flag", ["--solve-dtype"])
 def test_bf16_flags_raise_naming_their_item(flag):
     with pytest.raises(NotImplementedError, match="item 9"):
         solve.main(SOLVE + ["--no-x64", flag, "bfloat16"])
+
+
+@pytest.mark.parametrize("rule", ["edpp", "gap_cut"])
+def test_solve_screen_dtype_bf16_gives_the_float32_masks(rule):
+    """``solve --screen-dtype bfloat16``: the masks and β of the float32
+    run, every screened step in bf16, fewer screen bytes."""
+    flags = SOLVE + ["--no-x64", "--rule", rule]
+    f32 = solve.main(flags)
+    bf16 = solve.main(flags + ["--screen-dtype", "bfloat16"])
+    np.testing.assert_array_equal(bf16.masks, f32.masks)
+    np.testing.assert_array_equal(bf16.betas, f32.betas)
+    live = [s for s in bf16.stats if s.screen_backend]
+    assert live and all(s.screen_dtype_effective == "bfloat16"
+                        for s in live)
+    assert sum(s.screen_bytes for s in bf16.stats) \
+        < sum(s.screen_bytes for s in f32.stats)
 
 
 def test_mesh_1x1_over_gloo_gives_the_unsharded_output(capsys):

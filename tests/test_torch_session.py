@@ -243,13 +243,14 @@ def test_fit_runs_on_the_card_unless_asked_otherwise():
 @pytest.mark.parametrize("what, call, item", [
     ("group_mesh", lambda s, y: LassoSession.fit(
         s.X, groups=2, mesh=object(), device="cpu"), 13),
-    ("gap_bf16", lambda s, y: ScreenSpec(rule="gap",
-                                         screen_dtype="bfloat16"), 9),
-    ("cut_bf16", lambda s, y: ScreenSpec(rule="edpp_cut",
-                                         screen_dtype="bfloat16"), 9),
+    ("solve_bf16_fista", lambda s, y: SolveSpec(solve_dtype="bfloat16"), 9),
+    ("solve_bf16_cd", lambda s, y: SolveSpec(strategy="cd",
+                                             solve_dtype="bfloat16"), 9),
     ("update_add", lambda s, y: s.update(add=s.X[:, :2]), 10),
     ("update", lambda s, y: s.update(drop=[0]), 10),
-    ("bf16", lambda s, y: ScreenSpec(screen_dtype="bfloat16"), 9),
+    ("mesh_bf16", lambda s, y: LassoSession.fit(
+        s.X, mesh=object(), device="cpu", config=PathConfig(
+            screen=ScreenSpec(screen_dtype="bfloat16"))), 9),
 ])
 def test_later_slices_raise_naming_their_roadmap_item(what, call, item):
     X, y, _ = lasso_problem(10, 20, nnz=2, seed=3, dtype=np.float32)
