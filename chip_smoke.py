@@ -16,7 +16,10 @@ Phases, each printing its own lines and seconds:
    two launches, timed as the pair the path pays) and on the bf16 screen
    copy X̂ (1, 8 and 16 rows and the SVHN width, beside
    ``torch.matmul(c.bfloat16(), X̂)``), narrow solver buckets and a
-   ragged shape; the Gram CD sweep at buckets of 32, 256 and 1024
+   ragged shape; ``fista_step`` also on a bf16 solve bucket (784 × 32,
+   784 × 128 at B = 8 with a ready (3, B) block, each row the bits of its
+   query's single launch, 784 × 512 on a cluster, 777 × 1 001 on scalar
+   loads), beside ``torch.matmul(r.bfloat16(), X̂)``; the Gram CD sweep at buckets of 32, 256 and 1024
    columns for 1 and 8 queries (and 8 with a ``valid`` mask), each beside
    its chain bound (sweeps·p × the latency of one dependent step, timed
    on a one-warp kernel of ``csrc/cd_gram.cu`` that runs the step's
@@ -145,6 +148,20 @@ Phases, each printing its own lines and seconds:
    its float32 arm (phase 13's where it ran one); phase 10's B = 8 batch
    with ``edpp``, ``gap`` and ``edpp_cut`` against its float32 batch;
    ``solve --screen-dtype bfloat16`` (20 λ) against phase 12's solve;
+16. bf16 solve (``solve_dtype="bfloat16"``, run after phase 14) at
+   784 × 50 000, every arm counted after ``reset_solver_cache()``: (a)
+   the 100-λ EDPP path at tol 1e-6 against its float32 arm, (b) with
+   ``screen_dtype`` bf16 too, (c) ``strategy="cd"`` in bf16 against the
+   float32 CD arm (``cd_gram_sweep`` launched, no ``fista_step_bf16``;
+   CD_REL_TOL), (d) phase 10's B = 8 batch in bf16 against its float32
+   batch, (e) ``solve --solve-dtype bfloat16`` (20 λ) against phase 12's
+   solve; masks equal outside the ±1e-4 band of every EDPP threshold
+   either path tested, or on a column the two paths' own states put on
+   opposite sides (flips counted), β within beta_err_tol, every live
+   step on the bf16 stream with bf16-phase iterations (a cd bucket past
+   the Gram crossover: float32), ``fista_step_bf16`` launched in (a),
+   (b), (d) and (e); per tenth of the grid the bf16-phase and total
+   iterations, the solve bytes and seconds of each arm;
 15. summary: one JSON line of per-kernel numbers (with, for
    ``screen_matvec``, ``fista_step`` and ``cd_gram_sweep``, the batched
    path's launches and its B = 8 row at its own shapes, for
@@ -153,7 +170,9 @@ Phases, each printing its own lines and seconds:
    the bf16 instantiation's launches on phase 14's bf16 EDPP path and
    its times at 784 × 50 000 for 1, 8 and 16 rows and at 3072 × 99 288,
    beside its byte bound at 2 bytes an element of X and
-   ``torch.matmul(c.bfloat16(), X̂)``), then, last,
+   ``torch.matmul(c.bfloat16(), X̂)``; and a ``fista_step_bf16`` row: its
+   launches on phase 16's bf16-solve EDPP path and its phase-3 rows),
+   then, last,
    ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --kernels [--tree DIR]`` runs phases 1 to 3 only
@@ -1030,10 +1049,11 @@ def check_kernel(torch, kernels, ref, op: str, n: int, p: int, B: int,
     plan and, for fista_step, the launch floor beside it. ``block``:
     fista_step takes its step | λ | mom as a ready (3, B) device block
     (``params=``), as the batched solver passes them, instead of a (B,)
-    λ the wrapper stacks into one per call. ``bf16``: screen_matvec on
-    the bf16 screen copy X̂ (its launches counted as
-    ``screen_matvec_bf16``; the yardstick ``torch.matmul(c.bfloat16(),
-    X̂)``)."""
+    λ the wrapper stacks into one per call. ``bf16``: screen_matvec or
+    fista_step on a bf16 copy X̂ (their launches counted as
+    ``screen_matvec_bf16`` / ``fista_step_bf16``; the yardstick
+    ``torch.matmul(c.bfloat16(), X̂)``); for fista_step with B > 1 each
+    row must also be the bits of its query launched alone."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rand(*shape):
@@ -1063,7 +1083,7 @@ def check_kernel(torch, kernels, ref, op: str, n: int, p: int, B: int,
     else:
         args = (X, c)
         kern, plain = kernels.screen_matvec, ref.screen_matvec_ref
-    key = "screen_matvec_bf16" if bf16 else op
+    key = f"{op}_bf16" if bf16 else op
     before = kernels.ops.launch_counts().get(key, 0)
     out_k = kern(*args)
     launches = kernels.ops.launch_counts().get(key, 0) - before
@@ -1077,6 +1097,13 @@ def check_kernel(torch, kernels, ref, op: str, n: int, p: int, B: int,
         assert bool(torch.isfinite(a).all()), f"{op}: non-finite output"
         err = max(err, float((a - b).abs().max()))
         tol = max(tol, 2e-5 * max(1.0, float(b.abs().max())))
+    rows_bitwise = None
+    if bf16 and op == "fista_step" and B > 1:
+        lam_q = lam.tolist()
+        rows_bitwise = all(
+            all(torch.equal(a, o[q]) for a, o in zip(kernels.fista_step(
+                X, c[q].clone(), z[q].clone(), bo[q].clone(), step,
+                lam_q[q], 0.6), out_k)) for q in range(B))
     ms = event_ms(torch, lambda: kern(*args))
     plain_ms = event_ms(torch, lambda: plain(*args))
     c_lib = c.to(X.dtype)
@@ -1092,6 +1119,9 @@ def check_kernel(torch, kernels, ref, op: str, n: int, p: int, B: int,
            "floor_ms": floor_ms, "plan": plan}
     floor = (f"; launch floor {floor_ms:.4f} ms ({ms / floor_ms:.2f}x)"
              if op == "fista_step" else "")
+    if rows_bitwise is not None:
+        row["rows_bitwise"] = rows_bitwise
+        floor += f"; each row the bits of its single launch {rows_bitwise}"
     calls = f" ({launches} launches a call)" if launches > 1 else ""
     print(f"  {key:<19} {n}x{p} B={B}{' params=(3, B)' if block else ''}"
           f"{calls}: "
@@ -1103,6 +1133,9 @@ def check_kernel(torch, kernels, ref, op: str, n: int, p: int, B: int,
     if not err <= tol:
         raise AssertionError(f"{op} {n}x{p} B={B}: kernel disagrees with its "
                              f"plain version: {err} > {tol}")
+    if rows_bitwise is False:
+        raise AssertionError(f"{key} {n}x{p} B={B}: a row differs from its "
+                             f"query's single launch")
     del X, c, args, out_k, out_p
     torch.cuda.empty_cache()
     return row
@@ -2047,6 +2080,227 @@ def bf16_phase(torch, X, y, rules: dict, solved: dict) -> dict:
     return {"main": main["bfloat16"], "total": dict(total)}
 
 
+# phase 3's bf16 fista_step cases (n, p, B, params block): the solver's
+# narrowest bucket on a cluster of 4, the batched path's median bucket
+# with a ready (3, B) block, a bucket whose rows split over a cluster, and
+# a ragged p on scalar loads
+BF16_FISTA_CASES = ((784, 32, 1, False), (784, 128, BATCH, True),
+                    (784, 512, 1, False), (777, 1001, 3, False))
+
+
+def solve_flips(torch, X64, y, res_a, res_b) -> tuple[int, int, int]:
+    """(flips, of them within the ±BAND band of an EDPP threshold that
+    either path tested from its own previous solution, and the rest, each
+    a column the two paths' own states put on opposite sides of the
+    threshold) of two single-query paths on one grid, in the squeezed
+    layout; raises on a flip that is neither. A bf16 solve's certified
+    stop lands on another β than the float32 stop, so the two paths'
+    states differ by a solve's tolerance."""
+    from repro_torch.core import screening as scr
+    lam = res_a.lambdas
+    pa = rule_margins(torch, scr, X64, y, lam, res_a.betas, "edpp", False)
+    pb = rule_margins(torch, scr, X64, y, lam, res_b.betas, "edpp", False)
+    flips = band = across = 0
+    for k, (a, b) in enumerate(zip(pa, pb)):
+        diff = res_a.masks[k] != res_b.masks[k]
+        if a is None:
+            assert not diff.any(), k
+            continue
+        in_band = near(a) | near(b)
+        cross = straddle(a, b) & ~in_band
+        assert not (diff & ~in_band & ~cross).any(), \
+            f"step {k}: a flip outside the band that no state explains"
+        flips += int(diff.sum())
+        band += int((diff & in_band).sum())
+        across += int((diff & cross).sum())
+    return flips, band, across
+
+
+def solve_deciles(arms: dict) -> str:
+    """Per tenth of a path, for each arm: bf16-phase / total solver
+    iterations, solve MB (the reference's byte model) and the solves'
+    host-clock seconds, summed over the tenth's steps."""
+    lines = []
+    for name, res in arms.items():
+        st = res.stats
+        parts = []
+        step = max(1, len(st) // 10)
+        for k in range(0, len(st), step):
+            d = st[k:k + step]
+            parts.append(f"{sum(s.solver_lo_iters for s in d)}/"
+                         f"{sum(s.solver_iters for s in d)}/"
+                         f"{sum(s.solve_bytes for s in d) / 1e6:.0f}/"
+                         f"{sum(s.solve_time_s for s in d):.3f}")
+        lines.append(f"    {name:<9} " + " ".join(parts))
+    return "\n".join(lines)
+
+
+def bf16_live(res, name: str, gram_max: int | None = None) -> list:
+    """The live steps of a bf16-solve path, checked: each on the bf16
+    stream (a cd bucket past ``gram_max`` columns: matvec CD, float32),
+    and each step that iterated with iterations in its bf16 phase."""
+    live = [s for s in res.stats if s.screen_backend]
+    assert live, name
+    for s in live:
+        lo_side = gram_max is None or s.bucket <= gram_max
+        want = "bfloat16" if lo_side else "float32"
+        assert s.solve_dtype_effective == want, (name, s)
+        if lo_side and s.solver_iters > 0:
+            assert s.solver_lo_iters > 0, (name, s)
+        if not lo_side:
+            assert s.solver_lo_iters == 0, (name, s)
+    return live
+
+
+def bf16_solve_phase(torch, X, y, solved: dict) -> dict:
+    """The mixed-precision solve at 784 × 50 000 (see the module doc):
+    (a) the 100-λ EDPP path with ``solve_dtype="bfloat16"`` against its
+    float32 arm, (b) with the bf16 screen too, (c) ``strategy="cd"`` in
+    bf16 against its float32 arm, (d) phase 10's batch in bf16 against its
+    float32 batch, (e) ``solve --solve-dtype bfloat16`` against phase 12's
+    solve. Each arm counted after ``reset_solver_cache()``. Returns the
+    launches of (a)'s bf16 arm and of every arm."""
+    import collections
+
+    from repro_torch import LassoSession, PathConfig, ScreenSpec, SolveSpec
+    from repro_torch.data import QueryStream, lasso_problem
+    from repro_torch.kernels import ops
+    from repro_torch.launch import solve as solve_cli
+    n, p = X.shape
+    total = collections.Counter()
+    X64 = torch.as_tensor(X, dtype=torch.float64, device=DEVICE)
+
+    def cfg(solve_dtype, screen_dtype="float32", strategy=None):
+        return PathConfig(
+            screen=ScreenSpec(screen_dtype=screen_dtype),
+            solve=SolveSpec(strategy=strategy, tol=1e-6,
+                            solve_dtype=solve_dtype))
+
+    need = {"f32": ("screen_matvec", "fista_step"),
+            "bf16": ("screen_matvec", "fista_step_bf16"),
+            "both": ("screen_matvec_bf16", "fista_step_bf16"),
+            "cd": ("screen_matvec", "cd_gram_sweep")}
+    sess = LassoSession.fit(X, device=DEVICE)
+    arms, walls, got = {}, {}, {}
+    for name, c, needed in (("float32", cfg("float32"), need["f32"]),
+                            ("bf16", cfg("bfloat16"), need["bf16"]),
+                            ("bf16+scr", cfg("bfloat16", "bfloat16"),
+                             need["both"]),
+                            ("cd f32", cfg("float32", strategy="cd"),
+                             need["cd"]),
+                            ("cd bf16", cfg("bfloat16", strategy="cd"),
+                             need["cd"])):
+        arms[name], walls[name], got[name] = rule_arm(
+            torch, ops, sess, y, c, needed, total, num_lambdas=100)
+    assert got["cd bf16"].get("fista_step_bf16", 0) == 0
+    assert got["cd bf16"].get("fista_step", 0) == 0
+    tol = beta_err_tol(y, 1e-6)
+    print("(a, b) the 100-λ EDPP path, tol 1e-6, bf16 solve against "
+          "float32:")
+    for name in ("bf16", "bf16+scr"):
+        res = arms[name]
+        live = bf16_live(res, name)
+        err = float(np.abs(res.betas - arms["float32"].betas).max())
+        flips, band, across = solve_flips(
+            torch, X64, y, arms["float32"].squeeze(), res.squeeze())
+        print(f"  {name:<9} max|dbeta| {err:.3g} (tol {tol:.3g}); mask "
+              f"flips {flips} ({band} in the band, {across} across the "
+              f"two states); bf16-phase iterations "
+              f"{sum(s.solver_lo_iters for s in live)} of "
+              f"{sum(s.solver_iters for s in live)} (float32 arm "
+              f"{sum(s.solver_iters for s in arms['float32'].stats)}); "
+              f"fista_step_bf16 {got[name].get('fista_step_bf16', 0)}, "
+              f"fista_step {got[name].get('fista_step', 0)}; wall "
+              f"{walls[name]:.2f} s against {walls['float32']:.2f} s "
+              f"(solves {split(res, 'solve'):.3f} s against "
+              f"{split(arms['float32'], 'solve'):.3f} s)")
+        assert err <= tol, (name, err, tol)
+    print("  per tenth of the grid: bf16-phase / total iterations / solve "
+          "MB / solve s")
+    print(solve_deciles({k: arms[k] for k in ("float32", "bf16",
+                                              "bf16+scr")}))
+    res = arms["cd bf16"]
+    live = bf16_live(res, "cd bf16", gram_max=min(n, ops.GRAM_BUCKET_MAX))
+    max_epochs = SolveSpec().max_iter // 10 + 1
+    r = cd_readings(res, arms["cd f32"], max_epochs)
+    fails = cd_failures(r, y)
+    flips, band, across = solve_flips(torch, X64, y,
+                                      arms["cd f32"].squeeze(),
+                                      res.squeeze())
+    print(f"(c) cd, 100 λ, tol 1e-6: max|beta_cd_bf16 - beta_cd_f32| = "
+          f"{r['err']:.3g} (limits {tol:.3g} and {CD_REL_TOL:g}·max|beta| "
+          f"= {CD_REL_TOL * r['scale']:.3g}); failures {fails}; mask flips "
+          f"{flips} ({band} in the band, {across} across); "
+          f"{sum(s.solve_dtype_effective == 'bfloat16' for s in live)} of "
+          f"{len(live)} live steps in bf16; bf16-phase sweeps "
+          f"{sum(s.solver_lo_iters for s in live)} of "
+          f"{sum(s.solver_iters for s in live)}; cd_gram_sweep "
+          f"{got['cd bf16']['cd_gram_sweep']} (float32 arm "
+          f"{got['cd f32']['cd_gram_sweep']}); walls {walls['cd bf16']:.2f} "
+          f"s against {walls['cd f32']:.2f} s")
+    assert not fails, fails
+    main = got["bf16"]
+    del sess, arms
+
+    # (d) phase 10's batch
+    stream = QueryStream(n=n, p=p, batch=BATCH, nnz=16, sigma=0.05, seed=0)
+    Xb = stream.dictionary(np.float32)
+    Y = stream.host_batch(0)["y"].astype(np.float32)
+    sess = LassoSession.fit(Xb, device=DEVICE)
+    out, w = {}, {}
+    for dtype, needed in (("float32", need["f32"]), ("bfloat16",
+                                                     need["bf16"])):
+        out[dtype], w[dtype], got[dtype] = rule_arm(
+            torch, ops, sess, Y, cfg(dtype), needed, total, num_lambdas=100,
+            hi_frac=0.95)
+    live = bf16_live(out["bfloat16"], "batch")
+    Xb64 = torch.as_tensor(Xb, dtype=torch.float64, device=DEVICE)
+    flips = band = across = 0
+    for b in range(BATCH):
+        err = float(np.abs(out["bfloat16"].betas[b]
+                           - out["float32"].betas[b]).max())
+        assert err <= beta_err_tol(Y[b], 1e-6), (b, err)
+        f, n_band, n_across = solve_flips(
+            torch, Xb64, Y[b], out["float32"].query(b),
+            out["bfloat16"].query(b))
+        flips, band, across = flips + f, band + n_band, across + n_across
+    print(f"(d) phase 10's batch (B={BATCH}, 100 λ, hi_frac 0.95, tol "
+          f"1e-6): β within beta_err_tol per query; mask flips {flips} "
+          f"({band} in the band, {across} across); bf16-phase iterations "
+          f"{sum(s.solver_lo_iters for s in live)} of "
+          f"{sum(s.solver_iters for s in live)}; fista_step_bf16 "
+          f"{got['bfloat16'].get('fista_step_bf16', 0)}; walls "
+          f"{w['bfloat16']:.2f} s against {w['float32']:.2f} s")
+    del sess, Xb64, out
+
+    # (e) solve --solve-dtype bfloat16 against phase 12's solve
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    res = solve_cli.main(["--n", str(n), "--p", str(p), "--nnz", "16",
+                          "--no-x64", "--num-lambdas", "20",
+                          "--solve-dtype", "bfloat16"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counted(ops, need["bf16"])
+    total.update(launches)
+    live = bf16_live(res, "solve")
+    f32 = solved["result"]
+    Xs, ys, _ = lasso_problem(n, p, nnz=16, dtype=np.float32)
+    Xs64 = torch.as_tensor(Xs, dtype=torch.float64, device=DEVICE)
+    flips, band, across = solve_flips(torch, Xs64, ys, f32, res)
+    err = float(np.abs(res.betas - f32.betas).max())
+    print(f"(e) solve --solve-dtype bfloat16 (20 λ, tol 1e-8): wall "
+          f"{wall:.2f} s; mask flips against phase 12's float32 solve "
+          f"{flips} ({band} in the band, {across} across); max|dbeta| "
+          f"{err:.3g} (beta_err_tol at 1e-8 {beta_err_tol(ys, 1e-8):.3g}); "
+          f"bf16-phase iterations {sum(s.solver_lo_iters for s in live)} "
+          f"of {sum(s.solver_iters for s in live)}; launches "
+          f"fista_step_bf16 {launches.get('fista_step_bf16', 0)}, "
+          f"fista_step {launches['fista_step']}")
+    assert err <= beta_err_tol(ys, 1e-8), err
+    return {"main": main, "total": dict(total)}
+
+
 SERVE_QUERIES = 44      # five fill batches of 8, then a 4-query tail
 SERVE_ARGV = ["--n", str(MNIST[0]), "--p", str(MNIST[1]), "--nnz", "16",
               "--seed", "0", "--b-max", str(BATCH), "--deadline-ms", "20",
@@ -2259,6 +2513,9 @@ def main(argv: list[str]) -> int:
             spill = sum(v[1] + v[2] for v in t.values())
             print(f"  {name}: {len(t)} kernels, registers {regs}, spill "
                   f"bytes {spill}")
+            for k, (r, st, ld) in sorted(t.items()):
+                if st or ld:
+                    print(f"    spills {st}/{ld} bytes, {r} registers: {k}")
 
     if argv == ["--faults"]:
         with phase("fault check of the CD, group and dist_fista checks"):
@@ -2293,6 +2550,15 @@ def main(argv: list[str]) -> int:
                 rows[("screen_matvec_bf16", nn, pp, B)] = check_kernel(
                     torch, kernels, ref, "screen_matvec", nn, pp, B,
                     seed=160 + i, floor_ms=floor_ms, ptxas=ptxas, bf16=True)
+        if "fista_step_bf16" in kernels.edpp_screen._SIGNATURES:
+            # fista_step on a bf16 solve bucket: 784 × 32 alone, the
+            # batched path's bucket with a (3, B) block (each row the bits
+            # of its single launch), a cluster's row split, scalar loads
+            for i, (nn, pp, B, blk) in enumerate(BF16_FISTA_CASES):
+                rows[("fista_step_bf16", nn, pp, B)] = check_kernel(
+                    torch, kernels, ref, "fista_step", nn, pp, B,
+                    seed=170 + i, floor_ms=floor_ms, ptxas=ptxas, block=blk,
+                    bf16=True)
         choices = [cluster_choice(torch, kernels, ref, 784, pp, B,
                                   seed=90 + B) for pp in (32, 512)
                    for B in (1, 8)]
@@ -2556,6 +2822,8 @@ def main(argv: list[str]) -> int:
         rules_launches[op] += k
     with phase(f"bf16 screen: screen_dtype='bfloat16', {n} × {p}"):
         bf16 = bf16_phase(torch, X, y, rules, solved)
+    with phase(f"bf16 solve: solve_dtype='bfloat16', {n} × {p}"):
+        bf16_solve = bf16_solve_phase(torch, X, y, solved)
     del X, y, none_arm, rules
 
     with phase(f"kernels at the paths' shapes (fista bucket {main_bucket}, "
@@ -2631,6 +2899,28 @@ def main(argv: list[str]) -> int:
         "rows": [stacked_entry(rows[("screen_matvec_bf16", *case)])
                  | {"shape": list(case[:2])} for case in BF16_CASES],
         "phase_launches": bf16["total"].get("screen_matvec_bf16", 0)})
+    # fista_step on the bf16 solve bucket (the same source, its bf16
+    # instantiation): its launches on phase 16's 100-λ bf16-solve EDPP
+    # path, its row at 784 × 32 with one query, and the other phase-3 rows
+    r = rows[("fista_step_bf16", 784, 32, 1)]
+    summary.append({
+        "name": "fista_step_bf16", "route": "cuda",
+        "source": SOURCES["fista_step"], "replaces": REPLACES["fista_step"],
+        "launches": bf16_solve["main"].get("fista_step_bf16", 0),
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "floor_ms": r["floor_ms"],
+        # no single call computes the fused step; torch.matmul(
+        # r.bfloat16(), X̂) is the gradient's product alone
+        "library_ms": None, "matmul_ms": r["matmul_ms"],
+        "rows": [{k: r[k] for k in (
+            "B", "params_block", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "matmul_ms", "floor_ms")}
+            | {"shape": [r["n"], r["p"]],
+               "rows_bitwise": r.get("rows_bitwise")}
+            for r in (rows[("fista_step_bf16", *case[:3])]
+                      for case in BF16_FISTA_CASES)],
+        "phase_launches": bf16_solve["total"].get("fista_step_bf16", 0)})
     print(json.dumps({"kernels": summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -38,6 +38,13 @@ Hybrid safe+strong (``ScreenSpec(strong=True)``, Zeng et al. 2017): each
 step ORs the strong rule's discards into the safe rule's, with the KKT
 loop as the backstop; the step's ``x_passes`` and ``screen_bytes`` add
 the strong screen's to the safe rule's.
+
+``lo_gather(idx, valid, width)`` (the session's, for
+``solve_dtype="bfloat16"``) reduces the session's bf16 copy of X onto
+each bucket, with the same device indices and validity as the float32
+gather, and returns the ``(X̃, col_err, col_norms)`` triple the solver's
+bf16 phase reads. A step's ``solve_dtype_effective`` and
+``solver_lo_iters`` are the solver engine's.
 """
 
 from __future__ import annotations
@@ -184,8 +191,8 @@ def _screen(screen_engine, lam, state, cfg):
 
 def _path_driver(X: torch.Tensor, y: torch.Tensor, lambdas, cfg, *,
                  m: int = 1, screen_engine, solver_engine, need_kkt: bool,
-                 kkt_fn, columns=None, batch: int | None = None
-                 ) -> PathResult:
+                 kkt_fn, columns=None, batch: int | None = None,
+                 lo_gather=None) -> PathResult:
     """The screen → reduce → solve → KKT loop over a decreasing grid, for
     one query (``batch=None``) or a batch of B (y (B, n), lambdas (B, K);
     :func:`_batched_driver`), over units of ``m`` columns.
@@ -209,7 +216,7 @@ def _path_driver(X: torch.Tensor, y: torch.Tensor, lambdas, cfg, *,
                                screen_engine=screen_engine,
                                solver_engine=solver_engine,
                                need_kkt=need_kkt, kkt_fn=kkt_fn,
-                               columns=columns)
+                               columns=columns, lo_gather=lo_gather)
     lambdas = np.asarray(lambdas, dtype=np.float64)
     # written so that a NaN grid (a NaN query's λ_max) fails, as the
     # reference's assertion does
@@ -244,8 +251,9 @@ def _path_driver(X: torch.Tensor, y: torch.Tensor, lambdas, cfg, *,
 
         # ---- reduced solve (+ KKT rounds) -----------------------------
         t0 = time.perf_counter()
-        kkt_rounds = gap_checks = solves = gram_solves = 0
+        kkt_rounds = gap_checks = solves = gram_solves = lo_iters = 0
         solver_x_passes = solve_bytes = 0.0
+        solve_dtype = "float32"
         while True:
             kept = np.flatnonzero(~discard_np)
             bucket = min(next_pow2(max(kept.size, bucket_min)), units)
@@ -258,8 +266,10 @@ def _path_driver(X: torch.Tensor, y: torch.Tensor, lambdas, cfg, *,
                 idx, valid = _pad_indices(col_idx, bucket * m, X.device,
                                           X.dtype)
                 Xr = columns(col_idx, bucket * m)
+                lo = (None if lo_gather is None
+                      else lo_gather(idx, valid, bucket * m))
                 beta0 = beta_prev.index_select(0, idx) * valid
-                res = solver_engine.solve(Xr, lam, beta0, m=m)
+                res = solver_engine.solve(Xr, lam, beta0, m=m, lo=lo)
                 beta_full = torch.zeros((p,), dtype=X.dtype, device=X.device)
                 beta_full[idx[:col_idx.size]] = res.beta[:col_idx.size]
                 iters, gap, conv = res.iters, res.gap, res.converged
@@ -271,6 +281,8 @@ def _path_driver(X: torch.Tensor, y: torch.Tensor, lambdas, cfg, *,
                 solver_x_passes += (solver_engine.last_x_passes
                                     * bucket * m / p)
                 solve_bytes += solver_engine.last_solve_bytes
+                lo_iters += solver_engine.last_lo_iters
+                solve_dtype = solver_engine.last_effective_dtype
             if not need_kkt:
                 break
             viol = kkt_fn(beta_full, lam, torch.from_numpy(discard_np)
@@ -297,8 +309,8 @@ def _path_driver(X: torch.Tensor, y: torch.Tensor, lambdas, cfg, *,
             x_passes_per_query=float(screen_passes),
             screen_bytes=screen_bytes,
             screen_dtype_effective=screen_dtype,
-            solve_dtype_effective="float32", solve_bytes=solve_bytes,
-            fallback_cols=fallback_cols))
+            solve_dtype_effective=solve_dtype, solver_lo_iters=lo_iters,
+            solve_bytes=solve_bytes, fallback_cols=fallback_cols))
         if cfg.checkpoint_fn:
             cfg.checkpoint_fn(k, lam, betas[0, k])
 
@@ -313,7 +325,7 @@ def _path_driver(X: torch.Tensor, y: torch.Tensor, lambdas, cfg, *,
 def _batched_driver(X: torch.Tensor, Y: torch.Tensor, lambdas, cfg, *,
                     m: int, units: int, bucket_min: int, screen_engine,
                     solver_engine, need_kkt: bool, kkt_fn,
-                    columns) -> PathResult:
+                    columns, lo_gather=None) -> PathResult:
     """:func:`_path_driver` for B queries (the reference's ``batch=B``
     branch, ``src/repro/core/path.py``): one screen a step for the batch,
     the union bucket with per-query validity, one batched solve, per-query
@@ -357,8 +369,9 @@ def _batched_driver(X: torch.Tensor, Y: torch.Tensor, lambdas, cfg, *,
 
         # ---- one batched solve on the union bucket (+ KKT rounds) ------
         t0 = time.perf_counter()
-        kkt_rounds = gap_checks = solves = gram_solves = 0
+        kkt_rounds = gap_checks = solves = gram_solves = lo_iters = 0
         solver_x_passes = solve_bytes = 0.0
+        solve_dtype = "float32"
         while True:
             kept = np.flatnonzero((~discard_np).any(axis=0))
             bucket = min(next_pow2(max(kept.size, bucket_min)), units)
@@ -369,15 +382,18 @@ def _batched_driver(X: torch.Tensor, Y: torch.Tensor, lambdas, cfg, *,
                 conv_vec = np.ones((B,), dtype=bool)
             else:
                 col_idx = (kept[:, None] * m + arange_m).reshape(-1)
-                idx, _ = _pad_indices(col_idx, bucket * m, dev, X.dtype)
+                idx, valid = _pad_indices(col_idx, bucket * m, dev,
+                                          X.dtype)
                 vq_np = np.zeros((B, bucket * m), dtype=np.float32)
                 vq_np[:, :col_idx.size] = np.repeat(~discard_np[:, kept], m,
                                                     axis=1)
                 vq = torch.from_numpy(vq_np).to(device=dev, dtype=X.dtype)
                 Xr = columns(col_idx, bucket * m)
+                lo = (None if lo_gather is None
+                      else lo_gather(idx, valid, bucket * m))
                 beta0 = beta_prev.index_select(1, idx) * vq
                 res = solver_engine.solve_batched(Xr, lam_vec, beta0,
-                                                  valid=vq, m=m)
+                                                  valid=vq, m=m, lo=lo)
                 beta_full = torch.zeros((B, p), dtype=X.dtype, device=dev)
                 beta_full[:, idx[:col_idx.size]] = res.beta[:, :col_idx.size]
                 iters, gap = int(np.max(res.iters)), float(np.max(res.gap))
@@ -391,6 +407,8 @@ def _batched_driver(X: torch.Tensor, Y: torch.Tensor, lambdas, cfg, *,
                 solver_x_passes += (solver_engine.last_x_passes
                                     * bucket * m / p)
                 solve_bytes += solver_engine.last_solve_bytes
+                lo_iters += solver_engine.last_lo_iters
+                solve_dtype = solver_engine.last_effective_dtype
             if not need_kkt:
                 break
             viol = kkt_fn(beta_full, lam_vec,
@@ -421,8 +439,8 @@ def _batched_driver(X: torch.Tensor, Y: torch.Tensor, lambdas, cfg, *,
             x_passes_per_query=screen_passes / B,
             screen_bytes=screen_bytes,
             screen_dtype_effective=screen_dtype,
-            solve_dtype_effective="float32", solve_bytes=solve_bytes,
-            fallback_cols=fallback_cols))
+            solve_dtype_effective=solve_dtype, solver_lo_iters=lo_iters,
+            solve_bytes=solve_bytes, fallback_cols=fallback_cols))
         if cfg.checkpoint_fn:
             cfg.checkpoint_fn(k, lam_vec, betas[:, k])
 

@@ -21,7 +21,11 @@ of the reference (the sequential spheres, GAP, the ``*_cut`` composites,
 basic SAFE, DOME, the strong rule with its KKT loop, ``none``, and
 hybrid safe+strong, ``ScreenSpec(strong=True)``), float32 screens or
 bf16 ones (``ScreenSpec(screen_dtype="bfloat16")``: masks bit for bit
-the float32 ones; plain sessions off a mesh) and the ``fista`` and
+the float32 ones; plain sessions off a mesh), float32 solves or
+mixed-precision ones (``SolveSpec(solve_dtype="bfloat16")``: a certified
+bf16 phase on each bucket's gather of the same bf16 copy, then a
+float32 polish; plain sessions off a mesh, while a group session solves
+in float32 with a warning) and the ``fista`` and
 ``cd`` strategies (a batch runs the batched driver:
 one screen and one solve a step for all B queries, their kernels
 launched once for the batch); on a session fitted with ``groups=m``,
@@ -96,9 +100,14 @@ def _check_session_kind(cfg: "PathConfig", m: int) -> None:
 
 
 def _check_mesh_dtype(cfg: "PathConfig", mesh) -> None:
-    """A mesh session screens in float32 only, for now."""
-    if mesh is not None and cfg.screen.screen_dtype != "float32":
+    """A mesh session screens and solves in float32 only, for now."""
+    if mesh is None:
+        return
+    if cfg.screen.screen_dtype != "float32":
         raise _not_yet("screen_dtype='bfloat16' on a mesh session", 9,
+                       "mixed precision")
+    if cfg.solve.solve_dtype != "float32":
+        raise _not_yet("solve_dtype='bfloat16' on a mesh session", 9,
                        "mixed precision")
 
 
@@ -170,8 +179,6 @@ class SolveSpec:
         if self.solve_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"solve_dtype must be 'float32' or 'bfloat16', "
                              f"got {self.solve_dtype!r}")
-        if self.solve_dtype != "float32":
-            raise _not_yet("solve_dtype='bfloat16'", 9, "mixed precision")
 
     def resolved_strategy(self, m: int = 1) -> str:
         return self.strategy or ("group_fista" if m > 1 else "fista")
@@ -437,7 +444,29 @@ class LassoSession:
             backend=cfg.solve.backend, tol=cfg.solve.tol,
             max_iter=cfg.solve.max_iter,
             gap_check_cadence=cfg.solve.gap_check_cadence,
+            solve_dtype=cfg.solve.solve_dtype,
             eig_cache=self._eig_cache, eig_stats=self._eig_stats)
+
+    def _lo_gather(self, cfg: PathConfig, geom):
+        """The driver's ``lo_gather`` for ``solve_dtype="bfloat16"`` on a
+        plain session (None otherwise): the bucket's columns of the
+        geometry's bf16 copy (the one the bf16 screens read, made once),
+        the bucket's largest column error and column norm; padding
+        columns are zero in all three."""
+        if cfg.solve.solve_dtype != "bfloat16" or self.groups > 1:
+            return None
+        X_lo = geom.screen_copy(torch.bfloat16)
+        col_err = geom.screen_err(torch.bfloat16)
+        col_norms = geom.col_norms
+
+        def lo_gather(idx, valid, width):
+            # valid is {0, 1}, so the bf16 product is exact
+            Xr_lo = X_lo.index_select(1, idx) * valid.to(X_lo.dtype)
+            err = torch.amax(col_err.index_select(0, idx) * valid)
+            cn = torch.amax(col_norms.index_select(0, idx) * valid)
+            return Xr_lo, err, cn
+
+        return lo_gather
 
     def _need_kkt(self, cfg: PathConfig) -> bool:
         """The KKT loop backs the heuristic strong rule (the Lasso's or the
@@ -464,7 +493,8 @@ class LassoSession:
         return _path_driver(self.X, y, lambdas, cfg, screen_engine=eng,
                             solver_engine=self._solver_engine(y, cfg),
                             need_kkt=self._need_kkt(cfg), kkt_fn=kkt_fn,
-                            columns=geom.columns)
+                            columns=geom.columns,
+                            lo_gather=self._lo_gather(cfg, geom))
 
     def _lasso_path_batched(self, Y, lambdas, cfg, grid_kw) -> PathResult:
         """B queries through the batched driver; a (1, n) batch takes the
@@ -489,7 +519,8 @@ class LassoSession:
         return _path_driver(self.X, Y, lambdas, cfg, screen_engine=eng,
                             solver_engine=self._solver_engine(Y, cfg),
                             need_kkt=self._need_kkt(cfg), kkt_fn=kkt_fn,
-                            columns=geom.columns, batch=B)
+                            columns=geom.columns, batch=B,
+                            lo_gather=self._lo_gather(cfg, geom))
 
     def _group_path_batched(self, Y, lambdas, cfg, grid_kw) -> PathResult:
         """B group paths: the single-query group driver once per query

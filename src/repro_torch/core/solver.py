@@ -48,11 +48,32 @@ iteration count stops. The gap is checked for the whole batch at once,
 one host sync per check. A strategy registered without a batched twin
 runs once per query on the bucket with that query's columns zeroed
 (the reference's fallback).
+
+**Mixed-precision solves** (``SolverEngine(..., solve_dtype="bfloat16")``,
+the reference's two-phase strategies): ``fista`` and Gram ``cd`` first
+run a bf16 phase on the bucket's bf16 copy X̃ (``lo``: the triple
+``(X̃, col_err, col_norms)`` the path gathers from the session's bf16
+copy, else made from Xr), then polish in float32 from its β, unless the
+bf16 phase already converged. In the bf16 phase FISTA's ``fista_step``
+reads X̃ (launched as ``fista_step_bf16``) and the forward fit reads X̃
+widened to float32 once per solve (``torch.matmul`` takes one dtype, and
+rounding z to bf16 would change the reference's values, XLA's bf16 X̃
+times float32 z); Gram CD builds G̃ = X̃ᵀX̃ and c̃ = X̃ᵀy in float32 from
+that widened copy and sweeps them with the float32 ``cd_gram_sweep``.
+Every gap certificate reads the float32 Xr, so a stop at the tolerance
+is true convergence; the phase also hands over when the gap has stalled
+under ``ops.BF16_SOLVE_SLACK`` × its certified budget
+(``ops.bf16_certified_stop``, evaluated in float32 on the host: the gap
+and the budget come back in one sync per check). ``group_fista`` has no
+bf16 phase: it warns once and solves in float32; matvec CD past the Gram
+crossover solves in float32 and only records it
+(``last_effective_dtype``).
 """
 
 from __future__ import annotations
 
 import functools
+import warnings
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -306,20 +327,30 @@ def _fista_solve_batched(step_op: Callable, X, Y, lam, beta0, valid,
     beta, z, k = beta0, beta0, 0
     bt.check(beta)
     while k < max_iter and not bt.conv.all():
-        frozen = bt.frozen()
-        for i in range(k, k + cadence):
-            beta_new, z_new = step_op(X, z @ X.T - Y, z, beta,
-                                      params=table[i])
-            if valid is not None:
-                beta_new, z_new = beta_new * valid, z_new * valid
-            if frozen is not None:
-                beta_new = torch.where(frozen, beta, beta_new)
-                z_new = torch.where(frozen, z, z_new)
-            beta, z = beta_new, z_new
+        beta, z = _fista_block(step_op, X, X, Y, beta, z, valid,
+                               bt.frozen(), table[k:k + cadence])
         bt.advance(cadence)
         k += cadence
         bt.check(beta)
     return bt.result(beta)
+
+
+def _fista_block(step_op: Callable, X_step, X_fit, Y, beta, z, valid,
+                 frozen, rows):
+    """One block of batched FISTA iterations, one per row of step | λ |
+    mom: the fit ``z·X_fitᵀ − Y``, ``fista_step`` on ``X_step``, then
+    β, z ·= valid and the ``frozen`` rows (a (B, 1) mask, or None) kept
+    as they were."""
+    for row in rows:
+        beta_new, z_new = step_op(X_step, z @ X_fit.T - Y, z, beta,
+                                  params=row)
+        if valid is not None:
+            beta_new, z_new = beta_new * valid, z_new * valid
+        if frozen is not None:
+            beta_new = torch.where(frozen, beta, beta_new)
+            z_new = torch.where(frozen, z, z_new)
+        beta, z = beta_new, z_new
+    return beta, z
 
 
 def _cd_gram_solve_batched(sweep_op: Callable, X, Y, lam, beta0, valid,
@@ -381,24 +412,264 @@ def _cd_solve_batched(X, Y, lam, beta0, valid, tol: float, max_epochs: int,
     return bt.result(beta)
 
 
+# ---------------------------------------------------------------------------
+# The bf16 phases of the mixed-precision solve: iterations (FISTA) or the
+# Gram build (CD) on the bucket's bf16 copy X̃, β and every sum in float32,
+# each gap certificate from the float32 bucket X.
+# ---------------------------------------------------------------------------
+
+class _LoCheck:
+    """The certificate of a bf16 phase, one query (y (n,), λ a host
+    number) or a batch (y (B, n), λ a (B,) device tensor): the exact gap
+    from the float32 bucket X, the budget of :func:`ops.bf16_gap_budget`,
+    the threshold tol·(½‖y‖² + 1e-30) in float32 (as the reference's
+    ``tol * scale``), fetched together in one host sync per check, and
+    :func:`ops.bf16_certified_stop` on them in float32."""
+
+    def __init__(self, X, y, lam, tol: float, err_max, cn_max):
+        self.X, self.y, self.lam = X, y, lam
+        self.err_max, self.cn_max = err_max, cn_max
+        yf = y.to(torch.float32)
+        self._thresh_dev = tol * (0.5 * torch.sum(yf * yf, dim=-1) + 1e-30)
+        self.thresh = None
+        self.prev = None
+
+    def __call__(self, beta):
+        """(gap, stop) of β, float32 CPU tensors shaped like λ."""
+        X, y = self.X, self.y
+        bx = beta.to(X.dtype)
+        if y.dim() == 2:
+            r = y - bx @ X.T
+            gap = _gap_from_residual_batched(r, r @ X, bx, self.lam, y)
+        else:
+            r = y - X @ bx
+            gap = gap_from_residual(r, X.T @ r, bx, self.lam, y)
+        budget = ops.bf16_gap_budget(
+            torch.linalg.vector_norm(r, dim=-1).to(torch.float32),
+            torch.sum(torch.abs(bx), dim=-1).to(torch.float32),
+            self.err_max, self.cn_max)
+        parts = [gap.to(torch.float32), budget.to(torch.float32)]
+        if self.thresh is None:
+            parts.append(self._thresh_dev)
+        host = torch.stack(parts).cpu()
+        gap, budget = host[0], host[1]
+        if self.thresh is None:
+            self.thresh = host[2]
+            self.prev = torch.full_like(gap, float("inf"))
+        stop = ops.bf16_certified_stop(gap, budget, self.prev, self.thresh)
+        self.prev = gap
+        return gap, stop
+
+
+def _fista_solve_lo(step_op: Callable, X, X_lo, y, lam: float, beta0,
+                    lipschitz: float, tol: float, max_iter: int,
+                    cadence: int, err_max, cn_max) -> SolveResult:
+    """The bf16 phase of FISTA: :func:`_fista_solve`'s iteration with
+    ``fista_step`` on the bf16 bucket ``X_lo`` and the forward fit on its
+    float32 widening, β and z float32; stops when
+    :func:`ops.bf16_certified_stop` says so (checked before the first
+    block, with prev_gap = inf, and after every block)."""
+    Xw = X_lo.to(torch.float32)        # the forward fit's operand, once
+    yf = y.to(torch.float32)
+    step = fista_step_size(lipschitz, _F32)
+    cert = _LoCheck(X, y, lam, tol, err_max, cn_max)
+    beta = z = beta0.to(torch.float32)
+    t = _F32(1.0)
+    gap, done = cert(beta)
+    k, checks = 0, 1
+    while k < max_iter and not bool(done):
+        for _ in range(cadence):
+            rz = Xw @ z - yf
+            t, mom = fista_momentum(t, _F32)
+            beta, z = step_op(X_lo, rz, z, beta, step, lam, mom)
+        k += cadence
+        gap, done = cert(beta)
+        checks += 1
+    return SolveResult(beta, float(gap), k, bool(gap <= cert.thresh),
+                       checks)
+
+
+def _fista_solve_lo_batched(step_op: Callable, X, X_lo, Y, lam, beta0,
+                            valid, lipschitz: float, tol: float,
+                            max_iter: int, cadence: int, err_max,
+                            cn_max) -> SolveResult:
+    """The batched twin of :func:`_fista_solve_lo`: step | λ | mom from a
+    :func:`~.graphs.param_table`, β, z ·= valid, and a query freezes once
+    its own certified stop holds (converged, or stalled under its own
+    budget)."""
+    from .graphs import param_table
+    Xw = X_lo.to(torch.float32)
+    Yf = Y.to(torch.float32)
+    step = fista_step_size(lipschitz, _F32)
+    bt = _Batch(X, Y, lam, tol)
+    cert = _LoCheck(X, Y, bt.lam, tol, err_max, cn_max)
+    table = param_table(-(-max_iter // cadence) * cadence, step,
+                        bt.lam_host, Y.shape[0], Xw)
+    beta = z = beta0.to(torch.float32)
+    gap, stop = cert(beta)
+    bt.conv |= stop.numpy()
+    k, checks = 0, 1
+    while k < max_iter and not bt.conv.all():
+        beta, z = _fista_block(step_op, X_lo, Xw, Yf, beta, z, valid,
+                               bt.frozen(), table[k:k + cadence])
+        bt.advance(cadence)
+        k += cadence
+        gap, stop = cert(beta)
+        bt.conv |= stop.numpy()
+        checks += 1
+    return SolveResult(beta, gap.numpy().astype(np.float64), bt.iters.copy(),
+                       (gap <= cert.thresh).numpy(), checks)
+
+
+def _cd_gram_solve_lo(sweep_op: Callable, X, X_lo, y, lam: float, beta0,
+                      tol: float, max_epochs: int, cadence: int, err_max,
+                      cn_max) -> SolveResult:
+    """The bf16 phase of Gram CD: G̃ = X̃ᵀX̃ and c̃ = X̃ᵀy built in
+    float32 from the widened bf16 bucket, swept by ``cd_gram_sweep`` as in
+    :func:`_cd_gram_solve`, under :func:`ops.bf16_certified_stop` (the
+    sweep's gradient G̃β − c̃ = X̃ᵀ(X̃β − y) is what the budget bounds)."""
+    Xl = X_lo.to(X.dtype)
+    G = Xl.T @ Xl
+    c = Xl.T @ y
+    cert = _LoCheck(X, y, lam, tol, err_max, cn_max)
+    beta = beta0
+    gap, done = cert(beta)
+    k, checks = 0, 1
+    while k < max_epochs and not bool(done):
+        beta = sweep_op(G, c, beta, lam, sweeps=cadence)
+        k += cadence
+        gap, done = cert(beta)
+        checks += 1
+    return SolveResult(beta, float(gap), k, bool(gap <= cert.thresh),
+                       checks)
+
+
+def _cd_gram_solve_lo_batched(sweep_op: Callable, X, X_lo, Y, lam, beta0,
+                              valid, tol: float, max_epochs: int,
+                              cadence: int, err_max, cn_max) -> SolveResult:
+    """The batched twin of :func:`_cd_gram_solve_lo`: one G̃ of the bf16
+    bucket for all B queries, C̃ = Y·X̃ (B, b), one ``cd_gram_sweep``
+    launch at B per check, each query frozen once its own certified stop
+    holds."""
+    Xl = X_lo.to(X.dtype)
+    G = Xl.T @ Xl
+    C = Y @ Xl
+    bt = _Batch(X, Y, lam, tol)
+    cert = _LoCheck(X, Y, bt.lam, tol, err_max, cn_max)
+    beta = beta0
+    gap, stop = cert(beta)
+    bt.conv |= stop.numpy()
+    k, checks = 0, 1
+    while k < max_epochs and not bt.conv.all():
+        frozen = bt.frozen()
+        beta_new = sweep_op(G, C, beta, bt.lam, sweeps=cadence, valid=valid)
+        beta = beta_new if frozen is None else torch.where(frozen, beta,
+                                                           beta_new)
+        bt.advance(cadence)
+        k += cadence
+        gap, stop = cert(beta)
+        bt.conv |= stop.numpy()
+        checks += 1
+    return SolveResult(beta, gap.numpy().astype(np.float64), bt.iters.copy(),
+                       (gap <= cert.thresh).numpy(), checks)
+
+
 # A strategy is ``(engine, Xr, lam, beta0, m) -> (SolveResult, info)``
-# with info = {"gram": bool}: whether the solve ran on the Gram system.
+# with info = {"gram": bool}: whether the solve ran on the Gram system;
+# the two-phase strategies add "lo_iters" and "lo_checks" (the bf16
+# phase's), batched FISTA "hi_iters" (the polish's), and Gram CD
+# "lo_passes" and "x_passes" (its own pass count: two G builds on a
+# handover). The reference's accounting (``src/repro/core/solver.py``).
+
+_BF16_SOLVE_WARNED: set[str] = set()
+
+
+def _note_solve_f32_fallback(strategy: str) -> None:
+    """One warning per strategy and process: ``solve_dtype="bfloat16"``
+    was asked of a strategy with no certified bf16 phase, which solves
+    in float32."""
+    if strategy in _BF16_SOLVE_WARNED:
+        return
+    _BF16_SOLVE_WARNED.add(strategy)
+    warnings.warn(
+        f"solve_dtype='bfloat16' has no certified low-precision phase for "
+        f"solver strategy {strategy!r}; solving in float32 instead "
+        f"(results unchanged, no byte saving)", RuntimeWarning,
+        stacklevel=4)
+
+
+def _lo_result(res: SolveResult, Xr) -> SolveResult:
+    """A bf16 phase's result with β in the bucket's dtype."""
+    return res._replace(beta=res.beta.to(Xr.dtype))
+
 
 def _fista_strategy(eng: "SolverEngine", Xr, lam, beta0, m: int):
-    return _fista_solve(eng.backend.fista_step, Xr, eng.y, lam, beta0,
-                        eng.lipschitz(Xr), eng.tol, eng.max_iter,
-                        eng.gap_check_cadence), {"gram": False}
+    """FISTA; on a bf16 engine the bf16 phase first, then the float32
+    polish from its β unless it converged (one step 1/L for both)."""
+    L = eng.lipschitz(Xr)
+    lo = eng._take_lo()
+    lo_it = lo_ck = 0
+    if lo is not None:
+        res_lo = _lo_result(_fista_solve_lo(
+            eng.backend.fista_step, Xr, lo[0], eng.y, lam, beta0, L,
+            eng.tol, eng.max_iter, eng.gap_check_cadence, *lo[1:]), Xr)
+        lo_it, lo_ck = res_lo.iters, res_lo.gap_checks
+        info = {"gram": False, "lo_iters": lo_it, "lo_checks": lo_ck}
+        if res_lo.converged:
+            return res_lo, info
+        beta0 = res_lo.beta
+    res = _fista_solve(eng.backend.fista_step, Xr, eng.y, lam, beta0, L,
+                       eng.tol, eng.max_iter, eng.gap_check_cadence)
+    return (res._replace(iters=res.iters + lo_it,
+                         gap_checks=res.gap_checks + lo_ck),
+            {"gram": False, "lo_iters": lo_it, "lo_checks": lo_ck})
+
+
+def _gram_lo_info(lo_it: int, lo_ck: int, hi: tuple[int, int] | None,
+                  n: int, b: int) -> dict:
+    """Gram CD's two-phase telemetry: one bf16 G̃ build (``lo_passes``),
+    the sweeps at b/n of a pass, 2 passes per check, and on a handover
+    (``hi`` = the polish's sweeps and checks) a second, float32 build."""
+    if hi is None:
+        passes = 1.0 + lo_it * (b / max(n, 1)) + 2.0 * lo_ck
+    else:
+        passes = (2.0 + (lo_it + hi[0]) * (b / max(n, 1))
+                  + 2.0 * (lo_ck + hi[1]))
+    return {"gram": True, "lo_iters": lo_it, "lo_checks": lo_ck,
+            "lo_passes": 1.0, "x_passes": passes}
 
 
 def _cd_strategy(eng: "SolverEngine", Xr, lam, beta0, m: int):
     """Gram CD up to the crossover b ≤ min(n, GRAM_BUCKET_MAX), where a
-    sweep costs O(b²) against matvec CD's O(n·b); matvec CD above it."""
+    sweep costs O(b²) against matvec CD's O(n·b); matvec CD above it. On
+    a bf16 engine Gram CD runs its bf16 phase first (G̃ from the bf16
+    bucket), then rebuilds G in float32 and polishes unless it converged;
+    matvec CD has no bf16 phase and records float32."""
     n, b = Xr.shape
     max_epochs = eng.max_iter // 10 + 1
+    lo = eng._take_lo()
+    sweep = eng.backend.cd_gram_sweep
     if b <= min(n, ops.GRAM_BUCKET_MAX):
-        return _cd_gram_solve(eng.backend.cd_gram_sweep, Xr, eng.y, lam,
-                              beta0, eng.tol, max_epochs,
-                              eng.gap_check_cadence), {"gram": True}
+        if lo is None:
+            return _cd_gram_solve(sweep, Xr, eng.y, lam, beta0, eng.tol,
+                                  max_epochs, eng.gap_check_cadence), \
+                {"gram": True}
+        res_lo = _cd_gram_solve_lo(sweep, Xr, lo[0], eng.y, lam, beta0,
+                                   eng.tol, max_epochs,
+                                   eng.gap_check_cadence, *lo[1:])
+        lo_it, lo_ck = res_lo.iters, res_lo.gap_checks
+        if res_lo.converged:
+            return res_lo, _gram_lo_info(lo_it, lo_ck, None, n, b)
+        res = _cd_gram_solve(sweep, Xr, eng.y, lam, res_lo.beta, eng.tol,
+                             max_epochs, eng.gap_check_cadence)
+        info = _gram_lo_info(lo_it, lo_ck, (res.iters, res.gap_checks), n,
+                             b)
+        return res._replace(iters=res.iters + lo_it,
+                            gap_checks=res.gap_checks + lo_ck), info
+    if lo is not None:
+        # past the crossover matvec CD has no certified bf16 stream; a
+        # bucket's size is data, not configuration, so no warning
+        eng.last_effective_dtype = "float32"
     return _cd_solve(Xr, eng.y, lam, beta0, eng.tol, max_epochs,
                      eng.gap_check_cadence), {"gram": False}
 
@@ -411,21 +682,62 @@ def _group_fista_strategy(eng: "SolverEngine", Xr, lam, beta0, m: int):
 
 def _fista_strategy_batched(eng: "SolverEngine", Xr, lam, beta0, valid,
                             m: int):
-    return _fista_solve_batched(eng.backend.fista_step, Xr, eng.y, lam,
-                                beta0, valid, eng.lipschitz(Xr), eng.tol,
-                                eng.max_iter, eng.gap_check_cadence), \
-        {"gram": False}
+    """The batched twin of :func:`_fista_strategy`: the polish runs only
+    if some query has not converged in the bf16 phase, and starts from
+    every query's bf16 β (a converged query freezes at once)."""
+    L = eng.lipschitz(Xr)
+    lo = eng._take_lo()
+    res_lo = None
+    lo_it = lo_ck = 0
+    if lo is not None:
+        res_lo = _lo_result(_fista_solve_lo_batched(
+            eng.backend.fista_step, Xr, lo[0], eng.y, lam, beta0, valid, L,
+            eng.tol, eng.max_iter, eng.gap_check_cadence, *lo[1:]), Xr)
+        lo_it, lo_ck = int(np.max(res_lo.iters)), res_lo.gap_checks
+        if res_lo.converged.all():
+            return res_lo, {"gram": False, "lo_iters": lo_it,
+                            "lo_checks": lo_ck, "hi_iters": 0}
+        beta0 = res_lo.beta
+    res = _fista_solve_batched(eng.backend.fista_step, Xr, eng.y, lam,
+                               beta0, valid, L, eng.tol, eng.max_iter,
+                               eng.gap_check_cadence)
+    hi_it = int(np.max(res.iters))
+    if res_lo is not None:
+        res = res._replace(iters=res.iters + res_lo.iters,
+                           gap_checks=res.gap_checks + lo_ck)
+    return res, {"gram": False, "lo_iters": lo_it, "lo_checks": lo_ck,
+                 "hi_iters": hi_it}
 
 
 def _cd_strategy_batched(eng: "SolverEngine", Xr, lam, beta0, valid,
                          m: int):
-    """The batched twin of :func:`_cd_strategy`, with the same crossover."""
+    """The batched twin of :func:`_cd_strategy`, with the same crossover
+    and bf16 phase."""
     n, b = Xr.shape
     max_epochs = eng.max_iter // 10 + 1
+    lo = eng._take_lo()
+    sweep = eng.backend.cd_gram_sweep
     if b <= min(n, ops.GRAM_BUCKET_MAX):
-        return _cd_gram_solve_batched(eng.backend.cd_gram_sweep, Xr, eng.y,
-                                      lam, beta0, valid, eng.tol, max_epochs,
-                                      eng.gap_check_cadence), {"gram": True}
+        if lo is None:
+            return _cd_gram_solve_batched(sweep, Xr, eng.y, lam, beta0,
+                                          valid, eng.tol, max_epochs,
+                                          eng.gap_check_cadence), \
+                {"gram": True}
+        res_lo = _cd_gram_solve_lo_batched(
+            sweep, Xr, lo[0], eng.y, lam, beta0, valid, eng.tol, max_epochs,
+            eng.gap_check_cadence, *lo[1:])
+        lo_it, lo_ck = int(np.max(res_lo.iters)), res_lo.gap_checks
+        if res_lo.converged.all():
+            return res_lo, _gram_lo_info(lo_it, lo_ck, None, n, b)
+        res = _cd_gram_solve_batched(sweep, Xr, eng.y, lam, res_lo.beta,
+                                     valid, eng.tol, max_epochs,
+                                     eng.gap_check_cadence)
+        info = _gram_lo_info(lo_it, lo_ck,
+                             (int(np.max(res.iters)), res.gap_checks), n, b)
+        return res._replace(iters=res.iters + res_lo.iters,
+                            gap_checks=res.gap_checks + lo_ck), info
+    if lo is not None:
+        eng.last_effective_dtype = "float32"
     return _cd_solve_batched(Xr, eng.y, lam, beta0, valid, eng.tol,
                              max_epochs, eng.gap_check_cadence), \
         {"gram": False}
@@ -478,19 +790,29 @@ class SolverEngine:
     ``last_x_passes`` (passes over the reduced buffer, as the reference
     counts them: FISTA 2 per iteration — forward fit and gradient — CD
     one per epoch, Gram CD one to build G plus b/n per sweep, and 2 per gap
-    check) and ``last_solve_bytes``.
+    check), ``last_solve_bytes`` (the bf16 phase's iteration passes — or
+    Gram CD's one G̃ build — at 2 bytes an element, every other pass at
+    Xr's element size; ``total_solve_bytes`` over the engine's solves),
+    ``last_lo_iters`` (the bf16 phase's iterations) and
+    ``last_effective_dtype`` (the stream the solve read: "bfloat16" where
+    a bf16 phase ran). These are the reference's pass and byte models;
+    what the port moves in a bf16 FISTA iteration differs (PERF.md §2).
     """
 
     def __init__(self, y: torch.Tensor, *, solver: str = "fista",
                  backend=None, tol: float = 1e-8, max_iter: int = 5000,
-                 gap_check_cadence: int = 10, power_iters: int = 50,
-                 warm_power_iters: int = 16, seed: int = 0,
-                 eig_cache: dict | None = None,
+                 gap_check_cadence: int = 10, solve_dtype: str = "float32",
+                 power_iters: int = 50, warm_power_iters: int = 16,
+                 seed: int = 0, eig_cache: dict | None = None,
                  eig_stats: dict | None = None):
         if solver not in SOLVERS:
             raise ValueError(f"unknown solver {solver!r}; "
                              f"available: {available_solvers()}")
+        if solve_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown solve_dtype {solve_dtype!r}; "
+                             "expected 'float32' or 'bfloat16'")
         self.y = y
+        self.solve_dtype = solve_dtype
         self.solver = solver
         self.backend = ops.resolve_backend(backend, y.device)
         self.tol = tol
@@ -507,6 +829,10 @@ class SolverEngine:
         self.last_used_gram = False
         self.last_x_passes = 0.0
         self.last_solve_bytes = 0.0
+        self.total_solve_bytes = 0.0
+        self.last_lo_iters = 0
+        self.last_effective_dtype = "float32"
+        self._lo = None       # the staged (X̃, err_max, cn_max)
 
     @property
     def backend_name(self) -> str:
@@ -530,6 +856,40 @@ class SolverEngine:
             return float(_F32(1.05) * _F32(float(eig)))
         return 1.05 * float(eig)
 
+    def _stage_lo(self, Xr: torch.Tensor, lo) -> None:
+        """Arm the bf16 phase of the next strategy call (the strategies'
+        signature is fixed, so the triple waits on the engine until
+        :meth:`_take_lo`). ``lo`` is ``(X̃, col_err, col_norms)``, the
+        path's gather from the session's bf16 copy, else made from Xr;
+        the phase takes their maxima over the bucket (padding columns are
+        zero in both). Only ``fista`` and ``cd`` have a bf16 phase; any
+        other strategy warns once and solves in float32."""
+        self._lo = None
+        self.last_effective_dtype = "float32"
+        if self.solve_dtype != "bfloat16":
+            return
+        if self.solver not in ("fista", "cd"):
+            _note_solve_f32_fallback(self.solver)
+            return
+        if lo is None:
+            X_lo = Xr.to(torch.bfloat16)
+            lo = (X_lo, ops.bf16_column_err(Xr, X_lo),
+                  torch.linalg.vector_norm(Xr.to(torch.float32), dim=0))
+        X_lo, col_err, col_norms = lo
+        self._lo = (X_lo, torch.amax(col_err), torch.amax(col_norms))
+        self.last_effective_dtype = "bfloat16"
+
+    def _take_lo(self):
+        lo, self._lo = self._lo, None
+        return lo
+
+    def _account(self, n: int, b: int, elem: int, lo_passes: float) -> None:
+        """``last_solve_bytes`` from ``last_x_passes``: ``lo_passes`` of
+        them at 2 bytes an element, the rest at ``elem``."""
+        self.last_solve_bytes = ((self.last_x_passes - lo_passes) * n * b
+                                 * elem + lo_passes * n * b * 2.0)
+        self.total_solve_bytes += self.last_solve_bytes
+
     def _passes(self, it: int, ck: int, gram: bool, n: int,
                 b: int) -> float:
         if gram:
@@ -539,13 +899,15 @@ class SolverEngine:
         return 2.0 * it + 2.0 * ck
 
     def solve_batched(self, Xr: torch.Tensor, lam, beta0=None, valid=None,
-                      m: int = 1) -> SolveResult:
+                      m: int = 1, lo=None) -> SolveResult:
         """Solve B reduced problems that share the bucket Xr; the engine
         was built with y (B, n). ``lam`` is the per-query λ (B,) (host
-        values), ``valid`` (B, b) ∈ {0, 1} the columns each query kept.
-        Telemetry counts passes over the bucket per *batch* (one pass
-        serves every query; a loop runs until its last query converges);
-        the per-query fallback sums its queries' passes."""
+        values), ``valid`` (B, b) ∈ {0, 1} the columns each query kept,
+        ``lo`` as in :meth:`solve`. Telemetry counts passes over the
+        bucket per *batch* (one pass serves every query; each phase's loop
+        runs until its last query converges: the bf16 phase's
+        2·max(lo iterations) passes at 2 bytes and 2 per check, the
+        polish's); the per-query fallback sums its queries' passes."""
         if self.y.dim() != 2:
             raise ValueError("solve_batched needs a batched engine "
                              "(construct SolverEngine with y of shape (B, n))")
@@ -556,19 +918,28 @@ class SolverEngine:
             raise ValueError(f"lam must be ({B},), got {lam.shape}")
         if beta0 is None:
             beta0 = torch.zeros((B, b), dtype=Xr.dtype, device=Xr.device)
+        self._stage_lo(Xr, lo)
         strategy = BATCHED_SOLVERS.get(self.solver)
+        lo_it, lo_passes = 0, 0.0
         if strategy is not None:
             res, info = strategy(self, Xr, lam, beta0, valid, m)
             gram = bool(info.get("gram", False))
             self.last_gap_checks = int(res.gap_checks)
-            self.last_x_passes = self._passes(int(np.max(res.iters)),
-                                              self.last_gap_checks, gram,
-                                              n, b)
+            lo_it = int(info.get("lo_iters", 0))
+            lo_passes = float(info.get("lo_passes", 2.0 * lo_it))
+            if "x_passes" in info:
+                self.last_x_passes = float(info["x_passes"])
+            else:
+                lo_ck = int(info.get("lo_checks", 0))
+                hi_it = int(info.get("hi_iters", np.max(res.iters)))
+                self.last_x_passes = (
+                    self._passes(hi_it, self.last_gap_checks - lo_ck, gram,
+                                 n, b) + lo_passes + 2.0 * lo_ck)
         else:
             res, gram = self._solve_each(Xr, lam, beta0, valid, m)
         self.last_used_gram = gram
-        self.last_solve_bytes = self.last_x_passes * n * b \
-            * Xr.element_size()
+        self.last_lo_iters = lo_it
+        self._account(n, b, Xr.element_size(), lo_passes)
         return res
 
     def _solve_each(self, Xr, lam, beta0, valid, m: int):
@@ -606,19 +977,28 @@ class SolverEngine:
             np.array([bool(r.converged) for r in parts]), checks)
         return res, gram
 
-    def solve(self, Xr: torch.Tensor, lam: float, beta0=None,
-              m: int = 1) -> SolveResult:
+    def solve(self, Xr: torch.Tensor, lam: float, beta0=None, m: int = 1,
+              lo=None) -> SolveResult:
         """Solve the reduced problem on the bucket Xr (zero-padded columns
-        are fixed points); ``m`` is the group size of a group solve."""
+        are fixed points); ``m`` is the group size of a group solve.
+        ``lo``: the bucket's ``(X̃, col_err, col_norms)`` bf16 triple for
+        a bf16 engine (ignored by a float32 one; made from Xr when
+        None)."""
         if beta0 is None:
             beta0 = torch.zeros((Xr.shape[1],), dtype=Xr.dtype,
                                 device=Xr.device)
+        self._stage_lo(Xr, lo)
         res, info = SOLVERS[self.solver](self, Xr, lam, beta0, m)
         n, b = Xr.shape
         it, ck = res.iters, res.gap_checks
         self.last_gap_checks = ck
         self.last_used_gram = bool(info.get("gram", False))
-        self.last_x_passes = self._passes(it, ck, self.last_used_gram, n, b)
-        self.last_solve_bytes = self.last_x_passes * n * b \
-            * Xr.element_size()
+        if "x_passes" in info:
+            self.last_x_passes = float(info["x_passes"])
+        else:
+            self.last_x_passes = self._passes(it, ck, self.last_used_gram,
+                                              n, b)
+        self.last_lo_iters = int(info.get("lo_iters", 0))
+        self._account(n, b, Xr.element_size(),
+                      float(info.get("lo_passes", 2.0 * self.last_lo_iters)))
         return res

@@ -1,5 +1,5 @@
-// One streaming pass over the columns of a row-major float32 (MATVEC: or
-// bf16) X (n, p):
+// One streaming pass over the columns of a row-major float32 (MATVEC and
+// FISTA: or bf16) X (n, p):
 //
 //     dot[b, j] = sum_i C[b, i] * X[i, j]          for b < NB queries
 //
@@ -32,8 +32,10 @@
 // aligned), streamed past L1; vec = 1 loads them as 4 scalars. Both sum in
 // the same order, so the choice never changes a bit of the result.
 //
-// bf16 X (MATVEC only; the mixed-precision screen's wide pass, which
-// replaces the bf16 input of the Pallas screen_matvec): a lane owns 8
+// bf16 X (MATVEC: the mixed-precision screen's wide pass, which replaces
+// the bf16 input of the Pallas screen_matvec; FISTA: the mixed-precision
+// solve's iterations on the bf16 bucket, which replace the Pallas
+// fista_step on bf16 X with float r, z and beta_old): a lane owns 8
 // adjacent columns, one 16-byte load of a row (vec = 8; else 8 scalar
 // loads of the same columns), so tile 128 puts 16 lanes on a row and 2 rows
 // in a warp step, tile 32 4 lanes and 8 rows; each value is widened with
@@ -41,7 +43,10 @@
 // runs in float, in the order below. The pass reads half the bytes of the
 // float pass and is bound by them. Its bits differ from the float pass's
 // (the mixed-precision margins cover that) but not with B, alignment or
-// the run.
+// the run. FISTA's epilogue does not depend on the element type: z,
+// beta_old, beta' and z' stay float, and the rows a CTA of a cluster takes
+// (n / split, e.g. 196 at 784 rows and 4 ranks) need not be a multiple of
+// the 8 rows of a warp step, since each row load is masked.
 //
 // Rows: within a CTA, warp w and row group g take rows w*R + g, + 8R, ...
 // (R rows per warp step). A thread issues U row loads (8 for B <= 4, else
@@ -109,8 +114,8 @@ struct Plan {
   int stage_rows;  // centre rows staged in shared memory at a time
 };
 
-// X's element type: float, or bf16 for MATVEC (the mixed-precision screen
-// pass). A lane owns COLS adjacent columns, one 16-byte load of a row;
+// X's element type: float, or bf16 for MATVEC and FISTA (the
+// mixed-precision screen pass and solve iterations). A lane owns COLS adjacent columns, one 16-byte load of a row;
 // `Raw` holds them as loaded, converted to float (exactly: every bf16 is a
 // float) only where they meet the centre, and every sum runs in float.
 template <typename T>
@@ -359,14 +364,15 @@ __device__ __forceinline__ void group_squares(const float* dots, int m,
 // float4 pass, the wide screens' case, at most 80 (three CTAs an SM, so
 // that 391 tiles of 784 x 50 000 run in one wave on 132 SMs). GROUP keeps
 // 128 (two CTAs an SM): at 80 its float4 pass spills. T is bf16 for
-// MATVEC only.
+// MATVEC and FISTA only.
 template <int MODE, int NB, bool VEC, typename T>
 __global__ void __launch_bounds__(THREADS,
                                   VEC && NB == 1 && MODE != GROUP ? 3 : 2)
 colpass_kernel(const T* __restrict__ X, const float* __restrict__ C,
                int n, int p, Plan pl, Epilogue ep) {
   constexpr int COLS = Elem<T>::COLS;  // columns per lane: 4, bf16 8
-  static_assert(MODE == MATVEC || COLS == 4, "bf16 X: MATVEC only");
+  static_assert(MODE == MATVEC || MODE == FISTA || COLS == 4,
+                "bf16 X: MATVEC and FISTA only");
   constexpr int U = NB <= 4 ? 8 : 4;  // row loads in flight per thread
   constexpr int NS = MODE == SCORES ? NB + 1 : NB;  // sums per column
   extern __shared__ float4 smem4[];
@@ -616,7 +622,7 @@ int run_b(const T* X, const float* C, int n, int p, int B,
 // Refuses a plan it cannot run (cudaErrorInvalidValue) and the 16-byte
 // path on a p, an X or a GROUP tile that is not 16-byte aligned
 // (cudaErrorMisalignedAddress); it never changes the plan it was given.
-// T is float, or bf16 for MATVEC.
+// T is float, or bf16 for MATVEC and FISTA.
 template <int MODE, typename T>
 int launch(const T* X, const float* C, int n, int p, int B,
            const Plan& pl, const Epilogue& ep, cudaStream_t stream) {
@@ -628,8 +634,8 @@ int launch(const T* X, const float* C, int n, int p, int B,
   if (pl.vec == COLS &&
       (p % COLS != 0 || !aligned16(X) || pl.tile % COLS != 0))
     return (int)cudaErrorMisalignedAddress;
-  if constexpr (MODE != MATVEC && COLS != 4) {
-    return (int)cudaErrorInvalidValue;  // bf16 X: MATVEC only
+  if constexpr (MODE != MATVEC && MODE != FISTA && COLS != 4) {
+    return (int)cudaErrorInvalidValue;  // bf16 X: MATVEC and FISTA only
   } else {
     return pl.vec == COLS
                ? run_b<MODE, true>(X, C, n, p, B, pl, ep, stream)

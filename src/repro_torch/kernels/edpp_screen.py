@@ -202,6 +202,8 @@ _SIGNATURES = {
     "screen_matvec_bf16": [_VP, _VP, _INT, _INT, _INT, *_PLAN, _VP, _VP],
     "fista_step_f32": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, *_PLAN, _VP,
                        _F32, _F32, _F32, _VP, _VP, _VP],
+    "fista_step_bf16": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, *_PLAN, _VP,
+                        _F32, _F32, _F32, _VP, _VP, _VP],
     "cd_gram_sweep_f32": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP, _F32,
                           _VP, _VP],
     "cd_chain_f32": [_INT, _INT, _F32, _F32, _VP, _VP],

@@ -15,7 +15,10 @@ step | λ | mom in place of the three (a row of a solver's parameter
 table), and ``prox_step`` a (k, …) stack of the gradient's parts as g.
 
 The mixed-precision screen's margins, :func:`bf16_column_err` and
-:func:`bf16_score_margin`, are the reference's (``repro.kernels.ops``).
+:func:`bf16_score_margin`, and the mixed-precision solve's handover,
+:func:`bf16_gap_budget` and :func:`bf16_certified_stop`, are the
+reference's (``repro.kernels.ops``). ``fista_step`` takes the bf16 copy
+of a solve bucket as X (its launches counted as ``fista_step_bf16``).
 
 Backends: ``cuda`` (the hand-written kernels of :mod:`.edpp_screen`,
 :mod:`.solver_step` and :mod:`.group_screen`; their wrappers take the
@@ -114,18 +117,62 @@ def bf16_score_margin(col_err: torch.Tensor, centre_norm) -> torch.Tensor:
     return BF16_MARGIN_SAFETY * cn * col_err
 
 
+# The mixed-precision solve (``solve_dtype="bfloat16"``). The FISTA
+# iterations (the forward fit and the fused gradient step) and the Gram-CD
+# build G̃ = X̃ᵀX̃, c̃ = X̃ᵀy may read the bf16 copy X̃ of the solve bucket;
+# every duality-gap certificate reads float32 X, so a stop at the
+# tolerance is true convergence. :func:`bf16_gap_budget` bounds the gap
+# below which a bf16 gradient cannot certifiably make progress; the bf16
+# phase hands over to the float32 polish once the exact gap both sits
+# under BF16_SOLVE_SLACK × that budget and has stopped falling by
+# BF16_SOLVE_PROGRESS a check.
+
+BF16_SOLVE_SLACK = 2.0
+BF16_SOLVE_PROGRESS = 0.7      # a check that does not cut the gap by 30 %
+#                                inside the certified band hands over
+
+
+def bf16_gap_budget(resid_norm, beta_l1, err_max, col_norm_max):
+    """The gap a bf16 gradient stream can leave uncorrected at the
+    current iterate, with err_j ≤ ``err_max`` (:func:`bf16_column_err`)
+    and ‖x_j‖ ≤ ``col_norm_max``: the residual error
+    e_r = err_max·‖β‖₁, the gradient error e_d = err_max·‖r‖ +
+    col_norm_max·e_r, and ``budget = e_d·‖β‖₁ + e_r·‖r‖``. Scalars or
+    (B,) tensors throughout."""
+    e_r = err_max * beta_l1
+    e_d = err_max * resid_norm + col_norm_max * e_r
+    return e_d * beta_l1 + e_r * resid_norm
+
+
+def bf16_certified_stop(gap, budget, prev_gap, tol_scale):
+    """The handover rule of every bf16 solve phase: stop when the exact
+    gap is under ``tol_scale`` (converged), or when it has both stalled
+    (gap > BF16_SOLVE_PROGRESS·prev_gap) and sits under BF16_SOLVE_SLACK ×
+    ``budget``. Scalar or (B,) float32 tensors; the first check passes
+    ``prev_gap = inf``. Evaluated in float32, as the reference evaluates
+    it on the device, so the same gap and budget give the same
+    decision."""
+    stalled = gap > BF16_SOLVE_PROGRESS * prev_gap
+    floored = gap <= BF16_SOLVE_SLACK * budget
+    return (gap <= tol_scale) | (stalled & floored)
+
+
 _LAUNCH_COUNTERS = (edpp_screen.LAUNCHES, solver_step.LAUNCHES,
                     group_screen.LAUNCHES)
 _COUNTER_OF = {"edpp_screen_scores": edpp_screen.LAUNCHES,
                "screen_matvec": edpp_screen.LAUNCHES,
+               "screen_matvec_bf16": edpp_screen.LAUNCHES,
                "group_screen_scores": group_screen.LAUNCHES,
                "fista_step": solver_step.LAUNCHES,
+               "fista_step_bf16": solver_step.LAUNCHES,
                "cd_gram_sweep": solver_step.LAUNCHES,
                "prox_step": solver_step.LAUNCHES}
 
 
 def launch_counts() -> dict[str, int]:
-    """Kernel launches per op since the last :func:`reset_counts`."""
+    """Kernel launches per op since the last :func:`reset_counts`; the
+    bf16 instantiations (``screen_matvec_bf16``, ``fista_step_bf16``)
+    are listed once launched."""
     counts = dict.fromkeys(OPS, 0)
     for c in _LAUNCH_COUNTERS:
         counts.update(c)

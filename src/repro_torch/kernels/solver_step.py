@@ -13,8 +13,10 @@ Replaces ``fista_step`` of ``src/repro/kernels/solver_step.py`` (its
 ``beta_old`` (p,) or (B, p); ``step``/``lam``/``mom`` are host numbers
 (passed by value), device scalars or (B,) tensors, so the solver's loop
 needs no host sync per iteration. A CPU X takes the plain version of
-:mod:`.ref`; a CUDA X launches ``csrc/solver_step.cu`` (float32,
-contiguous) or raises.
+:mod:`.ref`; a CUDA X launches ``csrc/solver_step.cu`` (contiguous
+float32 X, or the bf16 copy of a solve bucket with float32 r, z and
+β_old: the mixed-precision solve's iterations, counted as
+``fista_step_bf16``) or raises ``TypeError`` on any other dtype.
 
 Bound on an H100: one read of the reduced bucket X (n·b·4 bytes) plus
 4·B·b·4 bytes of vectors, 2·B flops per element of X. At the unscreened
@@ -35,7 +37,10 @@ Measured on an NVIDIA H100 80GB HBM3 at 700 W (``chip_smoke.py``,
 ``PERF.md`` §6): 0.0078 ms at 784 × 32, B = 1, against 0.0130 for the
 earlier one-block design; the same launch on zero rows takes 0.0070 ms
 and a 1-element ``zero_()`` 0.0050, so the launch and the cluster's
-barriers set the time, not the rows.
+barriers set the time, not the rows. On bf16 X a lane owns 8 columns
+(one 16-byte load; 4 lanes and 8 rows a warp step at tile 32), each
+value widened exactly where it meets r, the sums, z, β_old, β' and z'
+float32: the bucket's bytes halve (n·b·2), the launch does not change.
 
 ``cd_gram_sweep(G, c, beta, lam, sweeps, valid)`` runs ``sweeps`` cyclic
 coordinate-descent sweeps over the Gram system G = XᵀX, c = Xᵀy
@@ -116,7 +121,8 @@ def fista_step(X: torch.Tensor, r: torch.Tensor, z: torch.Tensor,
         return ref.fista_step_ref(X, r, z, beta_old, step, lam, mom,
                                   params=params)
     op = "fista_step"
-    check_x(X, op)
+    check_x(X, op, dtypes=(torch.float32, torch.bfloat16))
+    bf16 = X.dtype == torch.bfloat16
     n, p = X.shape
     R, squeeze = check_rows(X, r, n, "r", op)
     Z, _ = check_rows(X, z, p, "z", op)
@@ -126,7 +132,9 @@ def fista_step(X: torch.Tensor, r: torch.Tensor, z: torch.Tensor,
         raise ValueError(f"{op}: r {tuple(r.shape)}, z {tuple(z.shape)} and "
                          f"beta_old {tuple(beta_old.shape)} disagree on B")
     par, scal = _param_block(params, B, X.device, op, step, lam, mom)
-    fn = kernel_fn("solver_step", "fista_step_f32")
+    fn = kernel_fn("solver_step", "fista_step_bf16" if bf16
+                   else "fista_step_f32")
+    key = "fista_step_bf16" if bf16 else op
     beta_new = torch.empty((B, p), dtype=torch.float32, device=X.device)
     z_new = torch.empty((B, p), dtype=torch.float32, device=X.device)
     if p:
@@ -141,7 +149,7 @@ def fista_step(X: torch.Tensor, r: torch.Tensor, z: torch.Tensor,
                                nb, *pl.c_args, ptr, *scal,
                                beta_new[b0].data_ptr(), z_new[b0].data_ptr(),
                                stream), op)
-                LAUNCHES[op] += 1
+                LAUNCHES[key] += 1
     if squeeze:
         return beta_new[0], z_new[0]
     return beta_new, z_new

@@ -74,8 +74,10 @@ def add_engine_args(ap: argparse.ArgumentParser, *, rule: str = "edpp",
                          "bit the float32 ones; plain sessions off a mesh)")
     ap.add_argument("--solve-dtype", choices=("float32", "bfloat16"),
                     default="float32",
-                    help="dtype of the FISTA iteration matvec stream "
-                         "(bfloat16: ROADMAP.md queue 1 item 9, not ported)")
+                    help="dtype of the solver's iteration stream "
+                         "(bfloat16: a certified bf16 phase on each bucket, "
+                         "FISTA or Gram CD, then a float32 polish; plain "
+                         "sessions off a mesh)")
 
 
 def add_serve_args(ap: argparse.ArgumentParser, *, b_max: int = 8,

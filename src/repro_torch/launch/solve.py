@@ -97,6 +97,13 @@ def _print_summary(args, cfg, sess, res, dt: float) -> None:
           f"grid={args.num_lambdas} λmax={lmax:.3f}")
     print(f"path time {dt:.2f}s (screen {res.total_screen_time:.3f}s); "
           f"dictionary fitted once (fused passes: {sess.fit_passes})")
+    if cfg.solve.solve_dtype != "float32":
+        lo = sum(s.solver_lo_iters for s in res.stats)
+        it = sum(s.solver_iters for s in res.stats)
+        eff = next((s.solve_dtype_effective for s in res.stats
+                    if s.solver_iters > 0), "float32")
+        print(f"solve dtype {cfg.solve.solve_dtype} (effective {eff}): "
+              f"{lo}/{it} iterations on the low-precision stream")
     K = len(res.lambdas)
     for k in range(0, K, max(K // 10, 1)):
         s = res.stats[k]

@@ -27,7 +27,13 @@ X against its plain version over 16-byte and scalar loads, clusters and
 a staged centre (a zero column exactly 0; the same bits alone and in a
 batch, and in two runs), the float32 re-test's gathers (``wide_p``) bit
 for bit the wide pass at the gathered columns, and bf16 session paths
-bit for bit the float32 paths.
+bit for bit the float32 paths; and the bf16 solve: ``fista_step`` on
+bf16 X against its plain version over tiles of 32 and 128, clusters of
+1 to 8, 16-byte and scalar loads and B = 1 to 9 (a zero column exactly
+0, two launches and an unaligned copy the same bits, each row of a
+batch the bits of its single launch), its refusals, and
+``solve_dtype="bfloat16"`` sessions (fista and cd, one query and B = 8)
+launching their kernels, against the float32 path and the CPU.
 
 Marked ``gpu``: without a CUDA device every test skips. On a machine with
 one card: ``python -m pytest -q -m gpu tests/test_torch_cuda.py``.
@@ -1026,3 +1032,153 @@ def test_bf16_paths_on_the_card_are_the_float32_paths(cuda, rule):
                                       out["float32"].betas)
         live = [s for s in out["bfloat16"].stats if s.screen_backend]
         assert all(s.screen_dtype_effective == "bfloat16" for s in live)
+
+
+# ---------------------------------------------------------------------------
+# the mixed-precision solve: fista_step on bf16 X, bf16 session solves
+# ---------------------------------------------------------------------------
+
+# the solver's buckets (784 x 32 on a cluster of 4: 196 rows a rank; 512;
+# 4096), ragged p (scalar loads), p < 32, the unscreened width (tiles of
+# 128, one CTA a tile) and a centre staged in pieces (20 000 rows)
+BF16_FISTA_SHAPES = [(784, 32), (784, 128), (784, 512), (784, 4096),
+                     (777, 1001), (100, 20), (784, 50000), (20000, 256)]
+
+
+def _bf16_fista_inputs(cuda, n, p, batch, seed):
+    X, c, z, b, per_q = _column_pass_inputs(cuda, n, p, batch, seed)
+    X = X.to(torch.bfloat16)
+    X[:, p // 2] = 0.0
+    z[..., p // 2] = 0.0
+    b[..., p // 2] = 0.0
+    return X, c, z, b, per_q
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8, 9])
+@pytest.mark.parametrize("shape", BF16_FISTA_SHAPES)
+def test_bf16_fista_step_matches_plain_version(cuda, shape, batch):
+    """``fista_step`` on bf16 X (r, z, β_old float32) against its plain
+    version (float32 sums over ``X.float()``; 2e-5 of scale): each launch
+    counted as ``fista_step_bf16``, a zero column exactly 0, and the
+    scalar loads of an unaligned copy and a second launch the same
+    bits."""
+    n, p = shape
+    X, c, z, b, per_q = _bf16_fista_inputs(cuda, n, p, batch, n + 3 * p)
+    step = 1.0 / (n + p)
+    ops.reset_counts()
+    out = solver_step.fista_step(X, c, z, b, step, per_q, 0.6)
+    launches = -(-batch // edpp_screen.MAX_B)
+    assert ops.launch_counts()["fista_step_bf16"] == launches
+    assert ops.launch_counts()["fista_step"] == 0
+    assert all(o.dtype == torch.float32 for o in out)
+    _close(out, ref.fista_step_ref(X, c, z, b, step, per_q, 0.6))
+    assert not any(o[..., p // 2].any() for o in out)
+    pl = edpp_screen.plan_for(X, min(batch, 8))
+    assert pl.vec == (8 if p % 8 == 0 else 1)
+    again = solver_step.fista_step(X, c, z, b, step, per_q, 0.6)
+    assert all(torch.equal(a, o) for a, o in zip(again, out))
+    Xu = _unaligned_bf16(X)
+    assert edpp_screen.plan_for(Xu, min(batch, 8)).vec == 1
+    assert all(torch.equal(a, o) for a, o in zip(
+        solver_step.fista_step(Xu, c, z, b, step, per_q, 0.6), out))
+    del X, Xu
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("tile", [32, 128])
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+@pytest.mark.parametrize("shape", [(784, 32), (784, 512), (777, 1001)])
+def test_bf16_fista_step_over_tiles_and_clusters(cuda, shape, split, tile):
+    """Every tile and cluster the plan can take, forced through ``plan=``
+    (rows split over 1 to 8 CTAs, 98 a rank at 784 rows and 8), with 16-byte
+    or scalar loads and B = 1 and 8, against the plain version."""
+    n, p = shape
+    for batch in (1, 8):
+        X, c, z, b, per_q = _bf16_fista_inputs(cuda, n, p, batch, split)
+        vec = 8 if p % 8 == 0 else 1
+        pl = edpp_screen.finish_plan(n, p, batch, vec, tile, split, tile,
+                                     quantum=64)
+        out = solver_step.fista_step(X, c, z, b, 0.01, per_q, 0.6, plan=pl)
+        _close(out, ref.fista_step_ref(X, c, z, b, 0.01, per_q, 0.6))
+
+
+@pytest.mark.parametrize("shape", [(784, 32), (784, 128), (784, 512),
+                                   (777, 1001), (784, 50000)])
+def test_bf16_fista_step_bits_do_not_depend_on_the_batch(cuda, shape):
+    """A query's β' and z' on bf16 X are the same bits alone and as a row
+    of a batch of 8 (its step | λ | mom from a (3, B) block or by value),
+    and in two runs."""
+    n, p = shape
+    X = _det((n, p), 21).to(cuda).to(torch.bfloat16)
+    R, Z, Bo = (_det((8, k), s).to(cuda) for k, s in ((n, 22), (p, 23),
+                                                      (p, 24)))
+    lam = torch.linspace(0.2, 0.9, 8, device=cuda)
+    par = torch.stack([torch.full((8,), 1e-3, device=cuda), lam,
+                       torch.full((8,), 0.6, device=cuda)])
+    got = solver_step.fista_step(X, R, Z, Bo, params=par)
+    again = solver_step.fista_step(X, R, Z, Bo, params=par)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+    for q in range(8):
+        one = solver_step.fista_step(X, R[q].clone(), Z[q].clone(),
+                                     Bo[q].clone(), 1e-3, float(lam[q]), 0.6)
+        assert torch.equal(one[0], got[0][q]) and torch.equal(one[1],
+                                                              got[1][q]), q
+
+
+def test_bf16_fista_step_refuses_what_it_does_not_take(cuda):
+    X = torch.randn(64, 128, device=cuda).to(torch.bfloat16)
+    r, z = torch.randn(64, device=cuda), torch.randn(128, device=cuda)
+    pl = edpp_screen.plan_for(X, 1)
+    assert pl.vec == 8
+    with pytest.raises(RuntimeError, match="cudaError_t"):   # float4 width
+        solver_step.fista_step(X, r, z, z, 0.1, 0.1, 0.1,
+                               plan=pl._replace(vec=4))
+    with pytest.raises(RuntimeError, match="cudaError_t"):   # p % 8 != 0
+        solver_step.fista_step(X[:, :124].contiguous(), r, z[:124],
+                               z[:124], 0.1, 0.1, 0.1, plan=pl)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        solver_step.fista_step(X.to(torch.float16), r, z, z, 0.1, 0.1, 0.1)
+    with pytest.raises(TypeError, match="r must be float32"):
+        solver_step.fista_step(X, r.to(torch.bfloat16), z, z, 0.1, 0.1, 0.1)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("strategy", ["fista", "cd"])
+def test_bf16_solve_session_on_the_card_runs_its_kernels(cuda, strategy):
+    """``solve_dtype="bfloat16"`` on the card, one query and a batch of 8:
+    FISTA launches ``fista_step_bf16`` (and the float32 ``fista_step`` for
+    its polish), Gram CD ``cd_gram_sweep``, no plain version is called;
+    the live steps report bf16 with bf16-phase iterations; β within
+    beta_err_tol of the float32 path's and of the CPU bf16 path's, masks
+    nearly equal."""
+    X, Y, _ = _batch_problem(batch=8, n=100, p=2000)
+    sess = LassoSession.fit(X)
+    cpu = LassoSession.fit(X, device="cpu")
+    for Yq in (Y[0], Y):
+        out = {}
+        for dtype in ("float32", "bfloat16"):
+            cfg = PathConfig(solve=SolveSpec(strategy=strategy, tol=1e-6,
+                                             solve_dtype=dtype))
+            sess.reset_solver_cache()
+            ops.reset_counts()
+            out[dtype] = sess.path(Yq, num_lambdas=20, config=cfg)
+            counts = ops.launch_counts()
+            assert not any(ops.plain_counts().values())
+        if strategy == "fista":
+            assert counts.get("fista_step_bf16", 0) > 0
+        else:
+            assert counts["cd_gram_sweep"] > 0
+            assert counts.get("fista_step_bf16", 0) == 0
+        res_c = cpu.path(Yq, num_lambdas=20, config=cfg)
+        r16, r32 = out["bfloat16"], out["float32"]
+        live = [s for s in r16.stats if s.screen_backend]
+        bf = [s for s in live if strategy == "fista" or s.bucket <= 100]
+        assert bf and all(s.solve_dtype_effective == "bfloat16"
+                          and s.solver_lo_iters > 0 for s in bf)
+        Ys = Yq.reshape(-1, Yq.shape[-1])
+        for q in range(Ys.shape[0]):
+            tol = 25.0 * float(np.sqrt(1e-6 * 0.5 * float(Ys[q] @ Ys[q])))
+            assert np.abs(r16.betas[q] - r32.betas[q]).max() <= tol
+            assert np.abs(r16.betas[q] - res_c.betas[q]).max() <= tol
+        assert (r16.masks != r32.masks).sum() <= 2 * Ys.shape[0]
+        assert (r16.masks != res_c.masks).sum() <= 2 * Ys.shape[0]

@@ -4,8 +4,9 @@ small sizes (their report lines, the pow-2 batch shapes of a 104-query
 continuous run, a bench JSON written only where ``--bench-json`` says),
 solve's printed λ_max and discard counts against the reference's ``solve
 --no-x64`` (run in a subprocess, so no JAX setting changes here), the
-refusals (``--x64`` on the card, the bf16 flags, no card, a mesh wider
-than the process group), ``--mesh 1x1`` over gloo against the unsharded
+refusals (``--x64`` on the card, the bf16 flags on a mesh, no card, a
+mesh wider than the process group), ``solve --solve-dtype bfloat16``
+against the float32 run, ``--mesh 1x1`` over gloo against the unsharded
 run, ``solve --rule gap_cut`` and ``serve --rule strong`` against the
 reference, and ``repro_torch.checkpoint`` against ``repro.checkpoint`` in both
 directions.
@@ -143,10 +144,66 @@ def test_no_card_raises_without_falling_back(driver, monkeypatch):
         driver.main(["--n", "10", "--p", "20"])
 
 
+def _edpp_margins(X, y, lambdas, betas):
+    """Per step of a path, |x_jᵀc| + ρ‖x_j‖ − (1 − 1e-6) of the EDPP
+    sphere the step tested, in float64 through the port's functions, from
+    the path's own previous solution (None at λ ≥ λ_max)."""
+    from repro_torch.core import screening as scr
+    X = torch.as_tensor(X, dtype=torch.float64)
+    y = torch.as_tensor(y, dtype=torch.float64)
+    norms = scr.col_norms(X)
+    corr = X.T @ y
+    i = int(torch.argmax(corr.abs()))
+    lmax = float(corr[i].abs())
+    v1 = torch.sign(corr[i]) * X[:, i]
+    state = scr.DualState(theta=y / lmax, lam=lmax, v1=v1, at_lmax=True,
+                          beta_l1=torch.zeros((), dtype=torch.float64))
+    out = []
+    for lam, beta in zip(lambdas, betas):
+        if lam >= lmax:
+            out.append(None)
+            continue
+        sp = scr.make_sphere("edpp", y, lam, state)
+        out.append(((X.T @ sp.centre).abs() + sp.rho * norms
+                    - (1.0 - 1e-6)).numpy())
+        b = torch.as_tensor(beta, dtype=torch.float64)
+        theta = (y - X @ b) / lam
+        state = scr.DualState(theta=theta, lam=lam, v1=y / lam - theta,
+                              at_lmax=False, beta_l1=b.abs().sum())
+    return out
+
+
 @pytest.mark.parametrize("flag", ["--solve-dtype"])
-def test_bf16_flags_raise_naming_their_item(flag):
+def test_bf16_flags_raise_naming_their_item(flag, capsys):
+    """``solve --solve-dtype bfloat16`` runs on a plain session: its masks
+    equal the float32 run's outside the ±1e-4 band of the EDPP threshold
+    (a certified stop lands on another β), every live step solved with a
+    bf16 phase and the reference's line printed; on a mesh it raises
+    naming item 9."""
+    from repro_torch.data import lasso_problem
+    flags = SOLVE + ["--no-x64"]
+    f32 = solve.main(flags)
+    capsys.readouterr()
+    bf16 = solve.main(flags + [flag, "bfloat16"])
+    text = capsys.readouterr().out
+    live = [s for s in bf16.stats if s.screen_backend]
+    lo = sum(s.solver_lo_iters for s in bf16.stats)
+    it = sum(s.solver_iters for s in bf16.stats)
+    assert (f"solve dtype bfloat16 (effective bfloat16): {lo}/{it} "
+            f"iterations on the low-precision stream") in text
+    assert live and all(s.solve_dtype_effective == "bfloat16" for s in live)
+    assert lo > 0
+    X, y, _ = lasso_problem(50, 400, nnz=10, dtype=np.float32)
+    diff = bf16.masks != f32.masks
+    for k, d in enumerate(_edpp_margins(X, y, f32.lambdas, f32.betas)):
+        if d is None:
+            assert not diff[k].any(), k
+        else:
+            assert not (diff[k] & (np.abs(d) > 1e-4)).any(), k
+    print(f"solve --solve-dtype bfloat16: {int(diff.sum())} mask flips")
     with pytest.raises(NotImplementedError, match="item 9"):
-        solve.main(SOLVE + ["--no-x64", flag, "bfloat16"])
+        solve.main(flags + ["--mesh", "1x1", flag, "bfloat16"])
+    assert not torch.distributed.is_initialized()
 
 
 @pytest.mark.parametrize("rule", ["edpp", "gap_cut"])

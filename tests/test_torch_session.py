@@ -243,9 +243,14 @@ def test_fit_runs_on_the_card_unless_asked_otherwise():
 @pytest.mark.parametrize("what, call, item", [
     ("group_mesh", lambda s, y: LassoSession.fit(
         s.X, groups=2, mesh=object(), device="cpu"), 13),
-    ("solve_bf16_fista", lambda s, y: SolveSpec(solve_dtype="bfloat16"), 9),
-    ("solve_bf16_cd", lambda s, y: SolveSpec(strategy="cd",
-                                             solve_dtype="bfloat16"), 9),
+    # the bf16 solve runs on plain sessions (tests/test_torch_bf16_solve.py)
+    # and is refused on a mesh, for either strategy
+    ("solve_bf16_fista", lambda s, y: LassoSession.fit(
+        s.X, mesh=object(), device="cpu", config=PathConfig(
+            solve=SolveSpec(solve_dtype="bfloat16"))), 9),
+    ("solve_bf16_cd", lambda s, y: LassoSession.fit(
+        s.X, mesh=object(), device="cpu", config=PathConfig(
+            solve=SolveSpec(strategy="cd", solve_dtype="bfloat16"))), 9),
     ("update_add", lambda s, y: s.update(add=s.X[:, :2]), 10),
     ("update", lambda s, y: s.update(drop=[0]), 10),
     ("mesh_bf16", lambda s, y: LassoSession.fit(
