@@ -76,8 +76,9 @@ Phases, each printing its own lines and seconds:
    B = 8 against 8 single-query runs; the (8, n) batch of those queries
    through the mesh session against the unsharded session (masks,
    n_discarded, x_passes equal, max|Δβ| ≤ 1e-6·max|β|); then ``gap_cut``
-   and ``dome`` paths (100 λ) on the mesh session against the unsharded
-   one (the same checks, and the ``screen_matvec`` launches per screen);
+   (100 λ) and ``dome`` (25 λ) paths on the mesh session against the
+   unsharded one (the same checks, and the ``screen_matvec`` launches per
+   screen);
    the group is torn down after;
 10. batched path: ``QueryStream(n=784, p=50 000, batch=8, nnz=16,
    sigma=0.05, seed=0)``, ``LassoSession.fit(X)`` then ``path(Y)`` with
@@ -107,7 +108,9 @@ Phases, each printing its own lines and seconds:
    8/8) then (deadline or drain, 4/4) (``tail_reason``: the deadline is
    checked first); queries/sec, p50 and p99 of both arms and each
    kernel's launches are printed as readings. Then ``--solver cd --mode
-   continuous`` on the same data: 0 errors, every live step whose union
+   continuous`` on the same data with 12 queries (one fill batch and a
+   tail; cut from 44 to keep the smoke's time when phases 17 and 18
+   came): 0 errors, every live step whose union
    bucket has at most min(n, ``GRAM_BUCKET_MAX``) columns on
    ``cd_gram_sweep`` and every wider one on matvec CD (the Gram
    crossover), no ``fista_step``;
@@ -162,6 +165,36 @@ Phases, each printing its own lines and seconds:
    the Gram crossover: float32), ``fista_step_bf16`` launched in (a),
    (b), (d) and (e); per tenth of the grid the bf16-phase and total
    iterations, the solve bytes and seconds of each arm;
+17. mesh bf16 (run after 16): a process group of one rank over NCCL and
+   a (1, 1) mesh at 784 × 50 000, 100 λ (``hi_frac`` 0.95, tol 1e-6),
+   every arm counted after ``reset_solver_cache()``: (a) the mesh
+   session's bf16 screen against its float32 arm (masks bit for bit at
+   every step, ``screen_matvec_bf16`` launched), (b) bf16 ``fista``, (c)
+   bf16 ``cd`` and (d) a B = 8 batch (y and 7 more queries of
+   make_dataset's recipe) on the mesh, each against the unsharded
+   bf16-solve arm (masks outside the ±1e-4 band or across the two
+   states, flips counted; β within beta_err_tol; bf16-phase iterations;
+   ``fista_step_bf16`` launched in (b) and (d)); (e) ``solve --mesh 1x1
+   --screen-dtype bfloat16 --solve-dtype bfloat16`` (20 λ) on its own
+   one-rank NCCL group against phase 12's solve;
+18. updates: ``LassoSession.fit(X)`` with its bf16 copy and bound made
+   and a live B = 8 ``PathWorkspace``, then three balanced rounds at
+   ``benchmarks/bench_update.py``'s 5 % churn (2 500 columns dropped,
+   2 500 added), an append of 64 columns and a compacting drop of 64,
+   each through ``session.update(..., workspaces=[ws])`` timed to a
+   device sync and counted (``edpp_screen_scores`` and ``screen_matvec``
+   launched, no plain version); after each, the oracle-refit contract
+   against a cold ``fit`` of the edited X (timed the same way, with its
+   bf16 copy, bound and workspace attach): X, ‖x_j‖², ‖x_j‖, the bf16
+   copy, its bound, the workspace's |Xᵀy|, argmax and λ_max bit for bit,
+   then a 100-λ EDPP path of each after ``reset_solver_cache()``: masks
+   bit for bit, β within beta_err_tol; then on a (1, 1) NCCL mesh a
+   balanced edit and a mixed one (64 dropped, 128 added) against the
+   unsharded session's same update (arrays and 100-λ masks bit for bit),
+   with the bytes the relayout received. Phase 3 adds the fused pass on
+   2 500 columns launched with ``wide_p=50 000``: ‖x_j‖² and scores bit
+   for bit the full pass's at those columns, and its row against the
+   plain version;
 15. summary: one JSON line of per-kernel numbers (with, for
    ``screen_matvec``, ``fista_step`` and ``cd_gram_sweep``, the batched
    path's launches and its B = 8 row at its own shapes, for
@@ -171,8 +204,10 @@ Phases, each printing its own lines and seconds:
    its times at 784 × 50 000 for 1, 8 and 16 rows and at 3072 × 99 288,
    beside its byte bound at 2 bytes an element of X and
    ``torch.matmul(c.bfloat16(), X̂)``; and a ``fista_step_bf16`` row: its
-   launches on phase 16's bf16-solve EDPP path and its phase-3 rows),
-   then, last,
+   launches on phase 16's bf16-solve EDPP path and its phase-3 rows;
+   every row with phase 17's mesh launches and phase 18's update
+   launches, and ``edpp_screen_scores`` with its wide-plan row), then
+   the card's name and power limit, then, last,
    ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --kernels [--tree DIR]`` runs phases 1 to 3 only
@@ -201,6 +236,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import inspect
 import json
 import os
 import re
@@ -419,14 +455,16 @@ def colpass_ptxas(table: dict, op: str, nb: int, vec: int,
                                f"ELb{int(vec > 1)}E{elem}E")
 
 
-def plan_line(kernels, X, B: int, op: str, ptxas: dict) -> str:
-    """The launch plan of a column-pass kernel on X for B queries, with the
+def plan_line(kernels, X, B: int, op: str, ptxas: dict,
+              wide_p: int | None = None) -> str:
+    """The launch plan of a column-pass kernel on X for B queries (with
+    ``wide_p``: the plan of a block of a ``wide_p``-column pass), with the
     registers and spills of the kernel it runs; 'n/a' for a tree whose
     wrappers choose no plan."""
     plan_for = getattr(kernels.edpp_screen, "plan_for", None)
     if plan_for is None:
         return "plan n/a"
-    pl = plan_for(X, min(B, kernels.edpp_screen.MAX_B))
+    pl = plan_for(X, min(B, kernels.edpp_screen.MAX_B), wide_p)
     ptx = colpass_ptxas(ptxas, op, min(B, 8), pl.vec, X.element_size() == 2)
     return (f"plan grid={pl.grid} block={pl.block} cluster={pl.split} "
             f"vec={pl.vec} tile={pl.tile} stage_rows={pl.stage_rows} "
@@ -1043,7 +1081,8 @@ def fault_check(torch) -> list[dict]:
 
 def check_kernel(torch, kernels, ref, op: str, n: int, p: int, B: int,
                  seed: int, floor_ms: float, ptxas: dict,
-                 block: bool = False, bf16: bool = False) -> dict:
+                 block: bool = False, bf16: bool = False,
+                 wide_p: int | None = None) -> dict:
     """One case: the kernel against its plain version on the same inputs,
     then their times, the bound and the c @ X yardstick, with the launch
     plan and, for fista_step, the launch floor beside it. ``block``:
@@ -1053,7 +1092,9 @@ def check_kernel(torch, kernels, ref, op: str, n: int, p: int, B: int,
     fista_step on a bf16 copy X̂ (their launches counted as
     ``screen_matvec_bf16`` / ``fista_step_bf16``; the yardstick
     ``torch.matmul(c.bfloat16(), X̂)``); for fista_step with B > 1 each
-    row must also be the bits of its query launched alone."""
+    row must also be the bits of its query launched alone. ``wide_p``:
+    edpp_screen_scores launched with the plan of a pass over ``wide_p``
+    columns (an update's added block)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rand(*shape):
@@ -1080,6 +1121,8 @@ def check_kernel(torch, kernels, ref, op: str, n: int, p: int, B: int,
         rho = torch.rand(B, generator=g, device="cuda") if B > 1 else 0.37
         args = (X, c, rho)
         kern, plain = kernels.edpp_screen_scores, ref.edpp_screen_ref
+        if wide_p is not None:
+            kern = functools.partial(kern, wide_p=wide_p)
     else:
         args = (X, c)
         kern, plain = kernels.screen_matvec, ref.screen_matvec_ref
@@ -1109,8 +1152,9 @@ def check_kernel(torch, kernels, ref, op: str, n: int, p: int, B: int,
     c_lib = c.to(X.dtype)
     matmul_ms = event_ms(torch, lambda: torch.matmul(c_lib, X))
     bound_ms, bound_by = bound(op, n, p, B, X.element_size())
-    plan = plan_line(kernels, X, B, op, ptxas)
+    plan = plan_line(kernels, X, B, op, ptxas, wide_p)
     row = {"op": key, "n": n, "p": p, "B": B, "launches_per_call": launches,
+           "wide_p": wide_p,
            "params_block": block,
            "max_abs_err": err, "tol": tol,
            "ms": ms, "plain_ms": plain_ms, "matmul_ms": matmul_ms,
@@ -1124,6 +1168,7 @@ def check_kernel(torch, kernels, ref, op: str, n: int, p: int, B: int,
         floor += f"; each row the bits of its single launch {rows_bitwise}"
     calls = f" ({launches} launches a call)" if launches > 1 else ""
     print(f"  {key:<19} {n}x{p} B={B}{' params=(3, B)' if block else ''}"
+          f"{f' wide_p={wide_p}' if wide_p else ''}"
           f"{calls}: "
           f"max_abs_err={err:.3g} (tol {tol:.3g}) "
           f"ms={ms:.4f} plain_ms={plain_ms:.4f} matmul_ms={matmul_ms:.4f} "
@@ -1198,6 +1243,11 @@ def cluster_choice(torch, kernels, ref, n: int, p: int, B: int,
 
 
 MESH_RULES = ("gap_cut", "dome")   # the rules phase's mesh arms
+# their grids' depth: DOME discards little on the lower half of a 100-λ
+# grid, where its wide buckets take over half a minute an arm, so its
+# arms run 25 λ over the same range (cut from 100 to keep the smoke's
+# time when phases 17 and 18 came)
+MESH_RULE_LAMBDAS = {"gap_cut": 100, "dome": 25}
 
 
 def distributed_phase(torch, X, y) -> dict:
@@ -1390,7 +1440,9 @@ def distributed_phase(torch, X, y) -> dict:
                 s_.reset_solver_cache()
                 ops.reset_counts()
                 t0 = time.perf_counter()
-                res_r[arm] = s_.path(y, **grid, config=rcfg)
+                res_r[arm] = s_.path(y, **{
+                    **grid, "num_lambdas": MESH_RULE_LAMBDAS[rule]},
+                    config=rcfg)
                 torch.cuda.synchronize()
                 walls_r[arm] = time.perf_counter() - t0
                 got = counted(ops, ("screen_matvec", "fista_step"))
@@ -1405,7 +1457,8 @@ def distributed_phase(torch, X, y) -> dict:
             same = [(a.x_passes, a.n_discarded) == (b.x_passes, b.n_discarded)
                     for a, b in zip(r_m.stats, r_u.stats)]
             passes = sorted({s.x_passes for s in r_m.stats if s.screen_backend})
-            print(f"mesh session, rule {rule}, 100 λ, tol 1e-6: walls "
+            print(f"mesh session, rule {rule}, {MESH_RULE_LAMBDAS[rule]} λ, "
+                  f"tol 1e-6: walls "
                   + ", ".join(f"{k} {v:.2f} s" for k, v in walls_r.items())
                   + f"; masks equal {np.array_equal(r_m.masks, r_u.masks)}; "
                   f"max|dbeta| {d_beta:.3g} (limit {1e-6 * scale:.3g}); "
@@ -1743,7 +1796,8 @@ def rule_arm(torch, ops, sess, Y, cfg, needed, total, **grid):
     launches = counted(ops, needed)
     for k, v in launches.items():
         total[k] += v
-    assert sess.backend_name == "cuda" and np.isfinite(res.betas).all()
+    assert sess.backend_name in ("cuda", "shard:cuda")
+    assert np.isfinite(res.betas).all()
     return res, wall, launches
 
 
@@ -2301,7 +2355,381 @@ def bf16_solve_phase(torch, X, y, solved: dict) -> dict:
     return {"main": main, "total": dict(total)}
 
 
+def batch_from(X, y, batch: int, seed: int) -> np.ndarray:
+    """(batch, n) queries against X: y, then 16-sparse Gaussian truths with
+    noise 0.05 (make_dataset's recipe), from ``seed``."""
+    rng = np.random.default_rng(seed)
+    n, p = X.shape
+    rows = [y]
+    for _ in range(batch - 1):
+        w = np.zeros(p)
+        idx = rng.choice(p, 16, replace=False)
+        w[idx] = rng.standard_normal(idx.size)
+        rows.append(X @ w + 0.05 * rng.standard_normal(n))
+    return np.stack(rows).astype(np.float32)
+
+
+def mesh_bf16_phase(torch, X, y, solved: dict) -> dict:
+    """Phase 17, mixed precision on a (1, 1) NCCL mesh at 784 × 50 000
+    (see the module doc): (a) the bf16 screen against the mesh's float32
+    arm, bit for bit; (b) bf16 ``fista``, (c) bf16 ``cd`` and (d) a
+    B = 8 batch in bf16, each against the unsharded bf16-solve arm; (e)
+    ``solve --mesh 1x1 --screen-dtype bfloat16 --solve-dtype bfloat16``
+    against phase 12's solve. Every arm counted after
+    ``reset_solver_cache()``. Returns the launches of the mesh arms and of
+    (e)."""
+    import collections
+
+    from repro_torch import LassoSession, PathConfig, ScreenSpec, SolveSpec
+    from repro_torch.data import lasso_problem
+    from repro_torch.kernels import ops
+    from repro_torch.launch import solve as solve_cli
+    n, p = X.shape
+    mesh_total, total = collections.Counter(), collections.Counter()
+    X64 = torch.as_tensor(X, dtype=torch.float64, device=DEVICE)
+    grid = dict(num_lambdas=100, hi_frac=0.95)
+    Y = batch_from(X, y, BATCH, seed=17)
+
+    def cfg(screen="float32", solve="float32", strategy=None):
+        return PathConfig(
+            screen=ScreenSpec(screen_dtype=screen),
+            solve=SolveSpec(strategy=strategy, tol=1e-6, solve_dtype=solve))
+
+    fista = ("screen_matvec", "fista_step_bf16")
+    cd = ("screen_matvec", "cd_gram_sweep")
+    arms, walls, got = {}, {}, {}
+    with nccl_world(torch) as mesh:
+        msess = LassoSession.fit(X, mesh=mesh, device=DEVICE)
+        plain = LassoSession.fit(X, device=DEVICE)
+        assert msess.backend_name == "shard:cuda"
+        for name, sess, Yq, c, needed in (
+                ("mesh f32", msess, y, cfg(), ("screen_matvec",
+                                                "fista_step")),
+                ("mesh bf16 screen", msess, y, cfg(screen="bfloat16"),
+                 ("screen_matvec_bf16", "screen_matvec", "fista_step")),
+                ("mesh fista", msess, y, cfg(solve="bfloat16"), fista),
+                ("fista", plain, y, cfg(solve="bfloat16"), fista),
+                ("mesh cd", msess, y, cfg(solve="bfloat16", strategy="cd"),
+                 cd),
+                ("cd", plain, y, cfg(solve="bfloat16", strategy="cd"), cd),
+                ("mesh batch", msess, Y, cfg(solve="bfloat16"), fista),
+                ("batch", plain, Y, cfg(solve="bfloat16"), fista)):
+            arms[name], walls[name], got[name] = rule_arm(
+                torch, ops, sess, Yq, c, needed,
+                mesh_total if name.startswith("mesh") else total, **grid)
+        for name in ("mesh bf16 screen", "mesh fista", "mesh batch"):
+            assert got[name].get("fista_step_bf16" if "screen" not in name
+                                 else "screen_matvec_bf16", 0) > 0, name
+        assert got["mesh cd"].get("fista_step_bf16", 0) == 0
+    r32, r16 = arms["mesh f32"], arms["mesh bf16 screen"]
+    live = [s for s in r16.stats if s.screen_backend]
+    same = np.array_equal(r16.masks, r32.masks)
+    print(f"(a) mesh bf16 screen, 100-λ EDPP, tol 1e-6: masks equal to the "
+          f"mesh's float32 masks at every step {same}; β equal "
+          f"{np.array_equal(r16.betas, r32.betas)}; every screened step "
+          f"bf16 {all(s.screen_dtype_effective == 'bfloat16' for s in live)}"
+          f"; columns re-tested in float32 "
+          f"{sum(s.fallback_cols for s in live)}; screen MB "
+          f"{sum(s.screen_bytes for s in r16.stats) / 1e6:.1f} against "
+          f"{sum(s.screen_bytes for s in r32.stats) / 1e6:.1f}; "
+          f"screen_matvec_bf16 {got['mesh bf16 screen']['screen_matvec_bf16']}"
+          f"; walls {walls['mesh bf16 screen']:.2f} s against "
+          f"{walls['mesh f32']:.2f} s")
+    assert same and all(s.screen_dtype_effective == "bfloat16" for s in live)
+    tol = beta_err_tol(y, 1e-6)
+    for name, gram in (("fista", None), ("cd", min(n, ops.GRAM_BUCKET_MAX))):
+        mres, res = arms[f"mesh {name}"], arms[name]
+        mlive = bf16_live(mres, f"mesh {name}", gram_max=gram)
+        err = float(np.abs(mres.betas - res.betas).max())
+        flips, band, across = solve_flips(torch, X64, y, res.squeeze(),
+                                          mres.squeeze())
+        print(f"({'b' if name == 'fista' else 'c'}) mesh bf16 {name} "
+              f"against the unsharded bf16 {name}: mask flips {flips} "
+              f"({band} in the band, {across} across the two states); "
+              f"max|dbeta| {err:.3g} (tol {tol:.3g}); bf16-phase "
+              f"iterations {sum(s.solver_lo_iters for s in mlive)} of "
+              f"{sum(s.solver_iters for s in mlive)} (unsharded "
+              f"{sum(s.solver_lo_iters for s in res.stats)} of "
+              f"{sum(s.solver_iters for s in res.stats)}); walls "
+              f"{walls[f'mesh {name}']:.2f} s against {walls[name]:.2f} s")
+        assert err <= tol, (name, err, tol)
+        assert sum(s.solver_lo_iters for s in mlive) > 0
+    mres, res = arms["mesh batch"], arms["batch"]
+    bf16_live(mres, "mesh batch")
+    flips = band = across = 0
+    for b in range(BATCH):
+        err = float(np.abs(mres.betas[b] - res.betas[b]).max())
+        assert err <= beta_err_tol(Y[b], 1e-6), (b, err)
+        f, nb, na = solve_flips(torch, X64, Y[b], res.query(b),
+                                mres.query(b))
+        flips, band, across = flips + f, band + nb, across + na
+    print(f"(d) mesh bf16 batch (B={BATCH}) against the unsharded bf16 "
+          f"batch: β within beta_err_tol per query; mask flips {flips} "
+          f"({band} in the band, {across} across); bf16-phase iterations "
+          f"{sum(s.solver_lo_iters for s in mres.stats)} of "
+          f"{sum(s.solver_iters for s in mres.stats)}; fista_step_bf16 "
+          f"{got['mesh batch']['fista_step_bf16']}; walls "
+          f"{walls['mesh batch']:.2f} s against {walls['batch']:.2f} s")
+    main = dict(got["mesh bf16 screen"])
+    main_solve = dict(got["mesh fista"])
+    del msess, plain, arms
+
+    # (e) the CLI on its own one-rank NCCL group
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    res = solve_cli.main(["--n", str(n), "--p", str(p), "--nnz", "16",
+                          "--no-x64", "--num-lambdas", "20", "--mesh", "1x1",
+                          "--screen-dtype", "bfloat16",
+                          "--solve-dtype", "bfloat16"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counted(ops, ("screen_matvec_bf16", "fista_step_bf16"))
+    mesh_total.update(launches)
+    live = bf16_live(res, "solve --mesh 1x1")
+    f32 = solved["result"]
+    Xs, ys, _ = lasso_problem(n, p, nnz=16, dtype=np.float32)
+    Xs64 = torch.as_tensor(Xs, dtype=torch.float64, device=DEVICE)
+    flips, band, across = solve_flips(torch, Xs64, ys, f32, res)
+    err = float(np.abs(res.betas - f32.betas).max())
+    print(f"(e) solve --mesh 1x1 --screen-dtype bfloat16 --solve-dtype "
+          f"bfloat16 (20 λ, tol 1e-8): wall {wall:.2f} s; mask flips "
+          f"against phase 12's float32 solve {flips} ({band} in the band, "
+          f"{across} across); max|dbeta| {err:.3g} (beta_err_tol at 1e-8 "
+          f"{beta_err_tol(ys, 1e-8):.3g}); every screened step bf16 "
+          f"{all(s.screen_dtype_effective == 'bfloat16' for s in live)}; "
+          f"bf16-phase iterations {sum(s.solver_lo_iters for s in live)} "
+          f"of {sum(s.solver_iters for s in live)}; launches "
+          f"screen_matvec_bf16 {launches['screen_matvec_bf16']}, "
+          f"fista_step_bf16 {launches['fista_step_bf16']}")
+    assert err <= beta_err_tol(ys, 1e-8), err
+    assert all(s.screen_dtype_effective == "bfloat16" for s in live)
+    return {"screen": main, "solve": main_solve, "total": dict(mesh_total),
+            "cli": dict(launches)}
+
+
+CHURN = 0.05        # benchmarks/bench_update.py's CHURN_FRAC
+APPEND = 64         # the append round's columns
+
+
+def edited(Xh: np.ndarray, drop, add) -> np.ndarray:
+    """The update layout rule on the host (``repro_torch.core.update``):
+    adds overwrite the first dropped slots, residual drops compact,
+    residual adds append."""
+    d = (np.unique(np.asarray(drop, dtype=np.int64)) if drop is not None
+         else np.zeros(0, np.int64))
+    a = (add if add is not None
+         else np.zeros((Xh.shape[0], 0), np.float32))
+    k = min(a.shape[1], d.size)
+    Xp = Xh.copy()
+    if k:
+        Xp[:, d[:k]] = a[:, :k]
+    keep = np.setdiff1d(np.arange(Xh.shape[1]), d[k:])
+    return np.concatenate([Xp[:, keep], a[:, k:]], axis=1)
+
+
+def refit_contract(torch, sess, ws, X_ed, Y, y, cold_state=None) -> dict:
+    """The oracle-refit contract of one update at full width: the
+    session's geometry and live workspace against a cold fit of X_ed
+    (timed: fit, bf16 copy, its bound and the workspace attach, ended in
+    a sync), bit for bit, then a 100-λ EDPP path of each after
+    ``reset_solver_cache()``: masks bit for bit, β within beta_err_tol.
+    Returns the readings."""
+    from repro_torch import LassoSession, PathConfig, SolveSpec
+    from repro_torch.core import PathWorkspace
+    cfg = PathConfig(solve=SolveSpec(tol=1e-6))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cold = LassoSession.fit(X_ed, config=cfg, device=DEVICE)
+    cg = cold.geometry
+    cg.screen_copy(torch.bfloat16)
+    cg.screen_err(torch.bfloat16)
+    cws = PathWorkspace(None, torch.as_tensor(Y, device=DEVICE), geometry=cg)
+    torch.cuda.synchronize()
+    refit_s = time.perf_counter() - t0
+    g = sess.geometry
+    arrays = {
+        "X": torch.equal(g.X, cg.X), "sumsq": torch.equal(g.sumsq, cg.sumsq),
+        "col_norms": torch.equal(g.col_norms, cg.col_norms),
+        "bf16": torch.equal(g.screen_copy(torch.bfloat16),
+                            cg.screen_copy(torch.bfloat16)),
+        "err": torch.equal(g.screen_err(torch.bfloat16),
+                           cg.screen_err(torch.bfloat16)),
+        "abs_xty": torch.equal(ws.abs_xty, cws.abs_xty),
+        "argmax": np.array_equal(ws.istar, cws.istar),
+        "lam_max": np.array_equal(ws.lam_max, cws.lam_max),
+        "X_host": np.array_equal(g.X.cpu().numpy(), X_ed)}
+    sess.reset_solver_cache()
+    t0 = time.perf_counter()
+    ru = sess.path(y, num_lambdas=100, config=cfg)
+    rc = cold.path(y, num_lambdas=100, config=cfg)
+    torch.cuda.synchronize()
+    err = float(np.abs(ru.betas - rc.betas).max())
+    out = {"arrays": arrays, "masks": np.array_equal(ru.masks, rc.masks),
+           "dbeta": err, "refit_s": refit_s,
+           "paths_s": time.perf_counter() - t0,
+           "versions": sorted({s.geometry_version for s in ru.stats})}
+    assert all(arrays.values()), arrays
+    assert out["masks"] and err <= beta_err_tol(y, 1e-6), (out, err)
+    return out
+
+
+def update_phase(torch, X, y) -> dict:
+    """Phase 18, dictionary updates at 784 × 50 000 (see the module doc).
+    Returns the launches of the update calls and the readings."""
+    import collections
+
+    from repro_torch import LassoSession, PathConfig, SolveSpec
+    from repro_torch.core import PathWorkspace
+    from repro_torch.kernels import ops
+    n, p = X.shape
+    rng = np.random.default_rng(18)
+    Y = batch_from(X, y, BATCH, seed=18)
+    c = int(CHURN * p)
+    cfg = PathConfig(solve=SolveSpec(tol=1e-6))
+    sess = LassoSession.fit(X, config=cfg, device=DEVICE)
+    sess.geometry.screen_copy(torch.bfloat16)
+    sess.geometry.screen_err(torch.bfloat16)
+    ws = PathWorkspace(None, torch.as_tensor(Y, device=DEVICE),
+                       geometry=sess.geometry)
+    sess.path(y, num_lambdas=20, config=cfg)        # warm eigenvectors
+    X_ed = X
+    launches = collections.Counter()
+    rounds = []
+    for name in ("balanced 1", "balanced 2", "balanced 3", "append",
+                 "drop"):
+        t_round = time.perf_counter()
+        p_now = X_ed.shape[1]
+        if name.startswith("balanced"):
+            drop = np.sort(rng.choice(p_now, c, replace=False))
+            add = rng.standard_normal((n, c)).astype(np.float32)
+        elif name == "append":
+            drop, add = None, rng.standard_normal((n, APPEND)).astype(
+                np.float32)
+        else:
+            drop, add = np.sort(rng.choice(p_now, APPEND,
+                                           replace=False)), None
+        ops.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = sess.update(add=add, drop=drop, workspaces=[ws])
+        torch.cuda.synchronize()
+        update_s = time.perf_counter() - t0
+        got = counted(ops, ("edpp_screen_scores", "screen_matvec"))
+        launches.update(got)
+        X_ed = edited(X_ed, drop, add)
+        r = refit_contract(torch, sess, ws, X_ed, Y, y)
+        r.update(name=name, update_s=update_s, p=rep.p,
+                 rescans=rep.argmax_rescans, launches=dict(
+                     (k, v) for k, v in got.items() if v))
+        rounds.append(r)
+        print(f"  {name:<10} p {rep.p}: update {update_s * 1e3:.2f} ms, "
+              f"cold refit {r['refit_s'] * 1e3:.2f} ms (ratio "
+              f"{update_s / r['refit_s']:.3f}); arrays bit for bit "
+              f"{all(r['arrays'].values())}; 100-λ masks bit for bit "
+              f"{r['masks']}, max|dbeta| {r['dbeta']:.3g}; argmax rescans "
+              f"{rep.argmax_rescans}; geometry_version {r['versions']}; "
+              f"launches {r['launches']}; the two paths {r['paths_s']:.2f} "
+              f"s, the round {time.perf_counter() - t_round:.2f} s",
+              flush=True)
+        assert r["versions"] == [rep.version]
+    eig = sess.eig_cache_stats
+    print(f"  eig_cache_stats {eig}")
+    del sess, ws
+
+    # the (1, 1) mesh: a balanced and a shape-changing edit against the
+    # unsharded update
+    mesh_rounds = []
+    with nccl_world(torch) as mesh:
+        msess = LassoSession.fit(X, mesh=mesh, config=cfg, device=DEVICE)
+        usess = LassoSession.fit(X, config=cfg, device=DEVICE)
+        for s in (msess, usess):
+            s.geometry.screen_err(torch.bfloat16)
+        for name, drop, add in (
+                ("balanced", np.sort(rng.choice(p, c, replace=False)),
+                 rng.standard_normal((n, c)).astype(np.float32)),
+                ("mixed", np.sort(rng.choice(p, APPEND, replace=False)),
+                 rng.standard_normal((n, 2 * APPEND)).astype(np.float32))):
+            ops.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            msess.update(add=add, drop=drop)
+            torch.cuda.synchronize()
+            mesh_s = time.perf_counter() - t0
+            got = counted(ops, ("edpp_screen_scores",))
+            launches.update(got)
+            usess.update(add=add, drop=drop)
+            gm, gu = msess.geometry, usess.geometry
+            same = all(torch.equal(a, b) for a, b in (
+                (gm.X, gu.X), (gm.sumsq, gu.sumsq),
+                (gm.col_norms, gu.col_norms),
+                (gm.screen_copy(torch.bfloat16),
+                 gu.screen_copy(torch.bfloat16)),
+                (gm.screen_err(torch.bfloat16),
+                 gu.screen_err(torch.bfloat16))))
+            for s in (msess, usess):
+                s.reset_solver_cache()
+            rm = msess.path(y, num_lambdas=100, config=cfg)
+            ru = usess.path(y, num_lambdas=100, config=cfg)
+            masks = np.array_equal(rm.masks, ru.masks)
+            dbeta = float(np.abs(rm.betas - ru.betas).max())
+            moved = gm.last_update_bytes
+            mesh_rounds.append({"name": name, "update_s": mesh_s,
+                                "bytes_moved": moved, "arrays": same,
+                                "masks": masks, "dbeta": dbeta})
+            print(f"  mesh {name:<8} p {msess.shape[1]}: update "
+                  f"{mesh_s * 1e3:.2f} ms, {moved / 1e6:.1f} MB received "
+                  f"in the relayout's all-gathers; arrays bit for bit the "
+                  f"unsharded "
+                  f"update's {same}; 100-λ masks bit for bit {masks}, "
+                  f"max|dbeta| {dbeta:.3g}", flush=True)
+            assert same and masks and dbeta <= beta_err_tol(y, 1e-6)
+        del msess, usess
+    return {"launches": dict(launches), "rounds": rounds,
+            "mesh": mesh_rounds, "eig": eig}
+
+
+def check_wide_fused(torch, kernels, ref, n: int, p: int, c: int, seed: int,
+                     floor_ms: float, ptxas: dict) -> dict:
+    """The fused pass over an update's added block (n, c) launched with
+    ``wide_p=p``: its ‖x_j‖² (the fit's zero centre) and scores (a random
+    centre, ρ = 0.37) bit for bit those of the pass over the whole (n, p)
+    X at the block's columns, then the row of :func:`check_kernel` for
+    the block against its plain version."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    X = torch.randn(n, p, generator=g, device="cuda")
+    cols = torch.randperm(p, generator=g, device="cuda")[:c].sort().values
+    blk = X[:, cols].contiguous()
+    zero = torch.zeros(n, device="cuda")
+    cen = torch.randn(n, generator=g, device="cuda")
+    same = []
+    for centre in (zero, cen):
+        sc_full, ss_full = kernels.edpp_screen_scores(X, centre, 0.37)
+        sc_blk, ss_blk = kernels.edpp_screen_scores(blk, centre, 0.37,
+                                                    wide_p=p)
+        same.append(torch.equal(ss_blk, ss_full[cols])
+                    and torch.equal(sc_blk, sc_full[cols]))
+    dots = torch.equal(kernels.screen_matvec(blk, cen, wide_p=p),
+                       kernels.screen_matvec(X, cen)[cols])
+    own = kernels.edpp_screen_scores(blk, zero, 0.0)[1]
+    print(f"  wide plan: edpp_screen_scores on {n}x{c} columns of "
+          f"{n}x{p} with wide_p={p}: sumsq and scores bit for bit the full "
+          f"pass's {same}; screen_matvec dots {dots}; the block's own plan "
+          f"gives the same sumsq {torch.equal(own, ss_full[cols])}",
+          flush=True)
+    assert all(same) and dots
+    del X, blk
+    row = check_kernel(torch, kernels, ref, "edpp_screen_scores", n, c, 1,
+                       seed=seed + 1, floor_ms=floor_ms, ptxas=ptxas,
+                       wide_p=p)
+    row.update(bitwise=all(same) and dots)
+    return row
+
+
 SERVE_QUERIES = 44      # five fill batches of 8, then a 4-query tail
+# the --solver cd run's queries: one fill batch and a 4-query tail (cut
+# from 44 when phases 17 and 18 came: its wide buckets run matvec CD, the
+# slowest arm of the smoke)
+SERVE_CD_QUERIES = 12
 SERVE_ARGV = ["--n", str(MNIST[0]), "--p", str(MNIST[1]), "--nnz", "16",
               "--seed", "0", "--b-max", str(BATCH), "--deadline-ms", "20",
               "--queue-cap", "64", "--max-in-flight", "2", "--num-queries",
@@ -2388,7 +2816,8 @@ def serve_phase(torch, tmp: str) -> dict:
     ops.reset_counts()
     t0 = time.perf_counter()
     cd = serve.main([*SERVE_ARGV, "--solver", "cd", "--mode",
-                     "continuous"])["reports"]["continuous"]
+                     "continuous", "--num-queries", str(SERVE_CD_QUERIES)]
+                    )["reports"]["continuous"]
     torch.cuda.synchronize()
     cd_wall = time.perf_counter() - t0
     cd_launches = counted(ops, ("edpp_screen_scores", "screen_matvec",
@@ -2409,7 +2838,7 @@ def serve_phase(torch, tmp: str) -> dict:
           f"cd_gram_sweep {cd_launches['cd_gram_sweep']}, fista_step "
           f"{cd_launches['fista_step']}")
     assert cd.summary()["n_errors"] == 0 and all(t.ok for t in cd.tickets)
-    assert cd.summary()["n_ok"] == SERVE_QUERIES
+    assert cd.summary()["n_ok"] == SERVE_CD_QUERIES
     assert gram and all(st.gram_step_frac == 1.0 for st in gram)
     assert all(st.gram_step_frac == 0.0 for st in steps
                if st.bucket > limit)
@@ -2559,6 +2988,13 @@ def main(argv: list[str]) -> int:
                     torch, kernels, ref, "fista_step", nn, pp, B,
                     seed=170 + i, floor_ms=floor_ms, ptxas=ptxas, block=blk,
                     bf16=True)
+        if "wide_p" in inspect.signature(
+                kernels.edpp_screen_scores).parameters:
+            # an update's added block: bench_update's 5 % of 50 000
+            rows["wide_fused"] = check_wide_fused(
+                torch, kernels, ref, MNIST[0], MNIST[1],
+                int(CHURN * MNIST[1]), seed=180, floor_ms=floor_ms,
+                ptxas=ptxas)
         choices = [cluster_choice(torch, kernels, ref, 784, pp, B,
                                   seed=90 + B) for pp in (32, 512)
                    for B in (1, 8)]
@@ -2824,6 +3260,10 @@ def main(argv: list[str]) -> int:
         bf16 = bf16_phase(torch, X, y, rules, solved)
     with phase(f"bf16 solve: solve_dtype='bfloat16', {n} × {p}"):
         bf16_solve = bf16_solve_phase(torch, X, y, solved)
+    with phase(f"mesh bf16: NCCL world of 1, (1, 1) mesh, {n} × {p}"):
+        mesh_bf16 = mesh_bf16_phase(torch, X, y, solved)
+    with phase(f"updates: session.update at {n} × {p}, {CHURN:.0%} churn"):
+        updates = update_phase(torch, X, y)
     del X, y, none_arm, rules
 
     with phase(f"kernels at the paths' shapes (fista bucket {main_bucket}, "
@@ -2881,7 +3321,17 @@ def main(argv: list[str]) -> int:
                if op == "cd_gram_sweep" else {}),
             "solve_launches": (solved["group_launches"] if op ==
                                "group_screen_scores" else
-                               solved["launches"])[op]})
+                               solved["launches"])[op],
+            # phase 17's mesh arms (bf16 screen and solve, single, cd and
+            # the batch, and its solve --mesh 1x1) and phase 18's updates
+            "mesh_bf16_launches": mesh_bf16["total"].get(op, 0),
+            "update_launches": updates["launches"].get(op, 0),
+            # the fused pass over an update's added block, wide_p = p
+            **({"wide_plan": {k: rows["wide_fused"][k] for k in (
+                "n", "p", "wide_p", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "bitwise")}}
+               if op == "edpp_screen_scores" and "wide_fused" in rows
+               else {})})
     # the bf16 screen copy's wide pass (the same kernel source, its bf16
     # instantiation): its launches on the 100-λ bf16 EDPP path, its row at
     # 784 × 50 000 with one query, and the batch, stacked and SVHN rows
@@ -2898,7 +3348,11 @@ def main(argv: list[str]) -> int:
         "library_ms": r["matmul_ms"],
         "rows": [stacked_entry(rows[("screen_matvec_bf16", *case)])
                  | {"shape": list(case[:2])} for case in BF16_CASES],
-        "phase_launches": bf16["total"].get("screen_matvec_bf16", 0)})
+        "phase_launches": bf16["total"].get("screen_matvec_bf16", 0),
+        # phase 17: the mesh's bf16 EDPP path, and every mesh arm
+        "mesh_launches": mesh_bf16["screen"].get("screen_matvec_bf16", 0),
+        "mesh_bf16_launches": mesh_bf16["total"].get("screen_matvec_bf16",
+                                                     0)})
     # fista_step on the bf16 solve bucket (the same source, its bf16
     # instantiation): its launches on phase 16's 100-λ bf16-solve EDPP
     # path, its row at 784 × 32 with one query, and the other phase-3 rows
@@ -2920,7 +3374,10 @@ def main(argv: list[str]) -> int:
                "rows_bitwise": r.get("rows_bitwise")}
             for r in (rows[("fista_step_bf16", *case[:3])]
                       for case in BF16_FISTA_CASES)],
-        "phase_launches": bf16_solve["total"].get("fista_step_bf16", 0)})
+        "phase_launches": bf16_solve["total"].get("fista_step_bf16", 0),
+        # phase 17: the mesh's bf16-solve EDPP path, and every mesh arm
+        "mesh_launches": mesh_bf16["solve"].get("fista_step_bf16", 0),
+        "mesh_bf16_launches": mesh_bf16["total"].get("fista_step_bf16", 0)})
     print(json.dumps({"kernels": summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -172,13 +172,20 @@ def _pmax(mesh, x: torch.Tensor) -> torch.Tensor:
 
 
 def _gather(local: torch.Tensor, axis, dim: int) -> torch.Tensor:
+    """All-gather ``local`` over ``axis`` and concatenate the parts in axis
+    order along ``dim``. bfloat16 travels as its bytes (a uint8 view of
+    the last axis: exact; gloo gathers neither bfloat16 nor int16)."""
     group, size, _, order = axis
     if group is None:
         return local
+    bf16 = local.dtype == torch.bfloat16
     local = local.contiguous()
+    if bf16:
+        local = local.view(torch.uint8)
     parts = [torch.empty_like(local) for _ in range(size)]
     dist.all_gather(parts, local, group=group)
-    return torch.cat([parts[r] for r in order], dim=dim)
+    whole = torch.cat([parts[r] for r in order], dim=dim)
+    return whole.view(torch.bfloat16) if bf16 else whole
 
 
 def gather_features(mesh, local: torch.Tensor) -> torch.Tensor:
@@ -227,6 +234,35 @@ def gather_columns(mesh, X: torch.Tensor, cols, width: int | None = None
     pick = torch.from_numpy(owner * common + slot).to(X.device)
     out[:, :cols.size] = whole.index_select(1, pick)
     return out
+
+
+def relayout_columns(mesh, X: torch.Tensor, cols, p_new: int):
+    """This rank's block of a new global layout of width ``p_new`` whose
+    first ``len(cols)`` columns are the global columns ``cols`` of the
+    old X (each rank's block X (n, p/F)); the block's columns past them
+    are zero, for the caller to fill (a dictionary update's appended
+    columns). One :func:`gather_columns` a destination rank whose new
+    range takes old columns, each the same call on every rank, so a rank
+    holds its old block, one destination block and its own new block,
+    never the whole X. Returns (the block, the bytes this rank received
+    in the gathers)."""
+    cols = np.asarray(cols, dtype=np.int64)
+    n, p_local = X.shape
+    _, size, index, _ = _feature(mesh)
+    lo, hi = feature_range(mesh, p_new)
+    width = hi - lo
+    mine = torch.zeros((n, width), dtype=X.dtype, device=X.device)
+    received = 0.0
+    for d in range(size):
+        part = cols[d * width:min((d + 1) * width, cols.size)]
+        if part.size == 0:
+            continue
+        common = int(np.bincount(part // p_local, minlength=size).max())
+        received += float(size * n * common * X.element_size())
+        block = gather_columns(mesh, X, part)
+        if d == index:
+            mine[:, :part.size] = block
+    return mine, received
 
 
 def fitted_values(mesh, X: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
@@ -292,7 +328,11 @@ def sharded_backend(mesh, tile=None) -> ops.ScreenBackend:
 
     * ``matvec(X_b, centre)``: the block's dots, one all-gather;
     * ``fused_scores(X_b, centre, ρ)``: scores and ‖x_j‖² of the block,
-      one all-gather for both.
+      one all-gather for both;
+    * with ``wide_p`` (the rank's block width p/F), X is a replicated
+      block of global columns (a float32 re-test's gather, a dictionary
+      update's added block): the tile's pass alone, each column summed
+      as the rank's pass over its p/F columns sums it, no gather.
 
     The solver ops pass through to the tile unchanged: the path's reduced
     buckets come replicated (``DictionaryGeometry.columns``), so they run
@@ -302,10 +342,14 @@ def sharded_backend(mesh, tile=None) -> ops.ScreenBackend:
     a ScreenBackend, or None (follow the mesh's device)."""
     tile = _tile(mesh, tile)
 
-    def matvec(X, centre):
+    def matvec(X, centre, wide_p=None):
+        if wide_p is not None:
+            return tile.matvec(X, centre, wide_p=wide_p)
         return gather_features(mesh, tile.matvec(X, centre))
 
-    def fused_scores(X, centre, rho):
+    def fused_scores(X, centre, rho, wide_p=None):
+        if wide_p is not None:
+            return tile.fused_scores(X, centre, rho, wide_p=wide_p)
         scores, sumsq = tile.fused_scores(X, centre, rho)
         p_local = sumsq.shape[0]
         both = gather_features(mesh, torch.cat(

@@ -40,10 +40,12 @@ SAFE, the strong rule, DOME (two passes: the centre's and ĝ's dots),
 every ``<base>_cut`` (the centre and the cached cut normal ĝ stacked
 into one matvec: one pass), and ``none``; group EDPP, group strong and
 ``none`` (rank-1 queries; a group batch loops them, as the reference
-does). Dictionary updates (ROADMAP.md queue 1 item 10) come later.
+does). A dictionary edit patches the geometry in place
+(:meth:`DictionaryGeometry.apply_update`, driven by ``session.update``;
+see :mod:`.update`).
 
 Mixed precision (``screen_dtype="bfloat16"``, every rule but ``none``:
-:data:`BF16_FAST_RULES`, one query or a batch, off a mesh). The wide
+:data:`BF16_FAST_RULES`, one query or a batch, on a mesh too). The wide
 pass streams the geometry's bf16 copy of X (half the bytes; DOME's two
 directions stacked into one pass), and each score gets a certified band
 from the measured per-column error (``kernels.ops.bf16_score_margin``):
@@ -52,8 +54,11 @@ intervals through :func:`~.screening.dome_score_bounds` for DOME and the
 cuts. Outside the band the bf16 decision is provably the float32 one;
 the band's columns are gathered into a bucket of
 :func:`_narrow_bucket` width and re-tested in float32 with the dots the
-wide float32 pass gives at those columns (``matvec(..., wide_p=p)``),
-so the mask is the float32 engine's bit for bit. GAP first recovers its
+wide float32 pass gives at those columns (``matvec(..., wide_p=...)``,
+the width that pass streams: p, or the rank's p/F on a mesh, where the
+bf16 pass reads the rank's block of the copy, the error bound is
+gathered to all p columns and the band's gather is replicated), so the
+mask is the float32 engine's bit for bit. GAP first recovers its
 rescale ‖Xᵀθ₀‖∞ exactly from a narrow float32 gather of the argmax
 candidates (:func:`_gap_cand`). Passes and bytes are counted as the
 reference counts them: the wide pass at 2 bytes an element, plus one
@@ -161,7 +166,10 @@ class DictionaryGeometry:
     """The query-independent geometry of a fitted dictionary X: X on its
     device, ‖x_j‖² and ‖x_j‖ (global, p of them). ``_sumsq`` adopts a fit
     made elsewhere (``fit_passes`` then stays 0). With ``mesh``, X is the
-    rank's column block of a global X with ``p`` columns."""
+    rank's column block of a global X with ``p`` columns.
+
+    ``version`` counts the edits :meth:`apply_update` made (0 at fit);
+    ``update_passes`` the passes over added blocks they ran."""
 
     def __init__(self, X: torch.Tensor, backend=None, *, _sumsq=None,
                  mesh=None):
@@ -171,6 +179,13 @@ class DictionaryGeometry:
         self.backend = ops.resolve_backend(backend, X.device)
         self.fit_passes = 0       # fused workspace passes over X
         self.query_passes = 0     # per-query |Xᵀy| attach passes
+        self.update_passes = 0    # passes over an update's added block
+        self.version = 0
+        self.last_update_bytes = 0.0   # collective bytes of the last edit
+        # False until an update has replaced every buffer: X may alias a
+        # caller's array (a float32 numpy X on the CPU), so the first
+        # update copies before it patches in place
+        self._owns_buffers = False
         if _sumsq is None:
             zero = torch.zeros((X.shape[0],), dtype=X.dtype, device=X.device)
             _, _sumsq = self.backend.fused_scores(X, zero, 0.0)
@@ -182,8 +197,9 @@ class DictionaryGeometry:
     def screen_copy(self, dtype: torch.dtype) -> torch.Tensor:
         """A reduced-precision copy of X for the screens' wide pass, made
         on first use (``X.to(dtype)``: round to nearest even) and kept for
-        the geometry's lifetime. ``sumsq``, the column norms and every
-        query's |Xᵀy| stay the full-precision fit's."""
+        the geometry's lifetime (on a mesh: of the rank's block).
+        ``sumsq``, the column norms and every query's |Xᵀy| stay the
+        full-precision fit's."""
         if dtype == self.X.dtype:
             return self.X
         key = str(dtype)
@@ -195,28 +211,34 @@ class DictionaryGeometry:
     def screen_err(self, dtype: torch.dtype) -> torch.Tensor:
         """The per-column dot-error bound (p,) of ``screen_copy(dtype)``
         (``kernels.ops.bf16_column_err``), kept like the copy; zero when
-        the copy is X itself."""
+        the copy is X itself. Global on a mesh: each rank bounds its own
+        columns and one all-gather puts the p bounds on every rank."""
         if dtype == self.X.dtype:
             return torch.zeros_like(self.col_norms)
         key = f"{dtype}:err"
         cached = self._screen_copies.get(key)
         if cached is None:
-            cached = self._screen_copies[key] = ops.bf16_column_err(
-                self.X, self.screen_copy(dtype))
+            cached = self._screen_copies[key] = self._err(
+                self.X, self.screen_copy(dtype), gather=True)
         return cached
+
+    def _err(self, X, X_lo, gather: bool) -> torch.Tensor:
+        err = ops.bf16_column_err(X, X_lo)
+        if gather and self.mesh is not None:
+            err = dist.gather_features(self.mesh, err)
+        return err
 
     def columns(self, cols, width: int | None = None) -> torch.Tensor:
         """Global columns ``cols`` (host indices) of X as an (n, width)
         block zero-padded past ``len(cols)`` (``width`` defaults to it),
         the same on every rank: the path's reduced buckets."""
-        if self.mesh is not None:
-            return dist.gather_columns(self.mesh, self.X, cols, width)
-        cols = np.asarray(cols, dtype=np.int64)
-        out = torch.zeros((self.X.shape[0], cols.size if width is None
-                           else width), dtype=self.X.dtype,
-                          device=self.X.device)
-        out[:, :cols.size] = self.X[:, cols]
-        return out
+        return _take_columns(self.X, cols, width, self.mesh)
+
+    def copy_columns(self, dtype: torch.dtype, cols,
+                     width: int | None = None) -> torch.Tensor:
+        """:meth:`columns` of ``screen_copy(dtype)``: the bf16 solve's
+        bucket, the same bits as the float32 bucket rounded."""
+        return _take_columns(self.screen_copy(dtype), cols, width, self.mesh)
 
     def correlations(self, r: torch.Tensor) -> torch.Tensor:
         """Xᵀr (p,) for r (n,), or rX (B, p) for r (B, n), in global column
@@ -233,6 +255,143 @@ class DictionaryGeometry:
             return beta @ self.X.T if beta.dim() == 2 else self.X @ beta
         return dist.fitted_values(self.mesh, self.X, beta)
 
+    # ---------------------------------------------------------- updates
+    def apply_update(self, plan, X_add: torch.Tensor | None = None) -> int:
+        """Apply a column edit (:class:`~.update.UpdatePlan`) in place and
+        return the new ``version``. ``X_add`` (n, n_add) is on X's device
+        (replicated on a mesh).
+
+        A balanced edit (``plan.pure_recycle``) writes the added columns
+        into the recycled slots of X (on a mesh: the slots in the rank's
+        block) and of every screen copy (the cast of the added block:
+        elementwise, so the cold cast's bits), and patches ‖x_j‖², ‖x_j‖
+        and every ``:err`` bound at those slots from one pass over the
+        added block. That pass is launched with the width of the pass
+        that owns the columns (``wide_p``: p off a mesh, the rank's p/F
+        on one), so its sums are a cold fit's bits; the error bound sums
+        by a fixed tree on any device (``kernels.ref.sum_rows``). Every
+        survivor's state is untouched. The first update copies every
+        buffer before it writes (X may alias a caller's array); later
+        ones patch in place.
+
+        A shape-changing edit builds the edited X, [X[:, keep], X_add's
+        tail] with the recycled slots patched (on a mesh each rank's new
+        block from its owners, one ``gather_columns`` a destination rank;
+        no rank holds the whole X), and refits ‖x_j‖², the screen copies
+        and their bounds at the new width, as a cold fit does."""
+        n = self.X.shape[0]
+        if X_add is not None and (X_add.dim() != 2 or X_add.shape[0] != n):
+            raise ValueError(f"X_add must be (n, p_add) with n={n}, got "
+                             f"{tuple(X_add.shape)}")
+        self.last_update_bytes = 0.0
+        if X_add is not None:
+            self.update_passes += 1
+        if plan.pure_recycle:
+            if plan.n_recycle:
+                self._patch(plan.recycle_idx, X_add)
+        else:
+            self._rebuild(plan, X_add)
+        self.version += 1
+        return self.version
+
+    def _local(self, cols: np.ndarray, p: int):
+        """(the rank's positions, the positions in ``cols``) of the global
+        columns ``cols`` of a width-p layout that fall in the rank's block
+        (all of them off a mesh)."""
+        cols = np.asarray(cols, dtype=np.int64)
+        if self.mesh is None:
+            return cols, np.arange(cols.size)
+        lo, hi = dist.feature_range(self.mesh, p)
+        sel = np.flatnonzero((cols >= lo) & (cols < hi))
+        return cols[sel] - lo, sel
+
+    def _own(self) -> None:
+        """Copy every buffer once, so patches never write a caller's X."""
+        if self._owns_buffers:
+            return
+        self.X = self.X.clone()
+        self.sumsq = self.sumsq.clone()
+        self.col_norms = self.col_norms.clone()
+        self._screen_copies = {k: v.clone()
+                               for k, v in self._screen_copies.items()}
+        self._owns_buffers = True
+
+    def _patch(self, slots: np.ndarray, X_add: torch.Tensor) -> None:
+        """The balanced edit: X_add's columns into ``slots`` (ascending)."""
+        self._own()
+        dev = self.X.device
+        blk = X_add.to(self.X.dtype).contiguous()
+        zero = torch.zeros((blk.shape[0],), dtype=blk.dtype, device=dev)
+        _, ss = self.backend.fused_scores(blk, zero, 0.0,
+                                          wide_p=self.X.shape[1])
+        idx = torch.from_numpy(np.asarray(slots, dtype=np.int64)).to(dev)
+        self.sumsq.index_copy_(0, idx, ss)
+        self.col_norms.index_copy_(0, idx, torch.sqrt(ss))
+        local, sel = self._local(slots, self.p)
+        lidx = torch.from_numpy(local).to(dev)
+        mine = blk.index_select(1, torch.from_numpy(sel).to(dev))
+        self.X.index_copy_(1, lidx, mine)
+        for key, val in self._screen_copies.items():
+            if key.endswith(":err"):
+                dt = _dtype_of(key[:-4])
+                val.index_copy_(0, idx, self._err(blk, blk.to(dt),
+                                                  gather=False))
+            else:
+                val.index_copy_(1, lidx, mine.to(val.dtype))
+
+    def _rebuild(self, plan, X_add: torch.Tensor | None) -> None:
+        """The shape-changing edit: the edited X at its new width, then
+        the per-column state refitted there."""
+        dev = self.X.device
+        p_new = plan.p_new
+        if self.mesh is None:
+            X_new = torch.empty((self.X.shape[0], p_new), dtype=self.X.dtype,
+                                device=dev)
+            X_new[:, :plan.keep_idx.size] = self.X.index_select(
+                1, torch.from_numpy(plan.keep_idx).to(dev))
+        else:
+            X_new, self.last_update_bytes = dist.relayout_columns(
+                self.mesh, self.X, plan.keep_idx, p_new)
+        if X_add is not None:
+            blk = X_add.to(self.X.dtype)
+            # the recycled slots' new positions and the appended tail
+            touched = plan.touched_new_idx
+            local, sel = self._local(touched, p_new)
+            X_new[:, torch.from_numpy(local).to(dev)] = blk[
+                :, torch.from_numpy(sel).to(dev)]
+        self.X = X_new.contiguous()
+        self.p = p_new
+        zero = torch.zeros((self.X.shape[0],), dtype=self.X.dtype, device=dev)
+        _, ss = self.backend.fused_scores(self.X, zero, 0.0)
+        self.sumsq, self.col_norms = ss, torch.sqrt(ss)
+        copies: dict[str, torch.Tensor] = {}
+        for key in self._screen_copies:
+            if not key.endswith(":err"):
+                copies[key] = self.X.to(_dtype_of(key))
+        for key in self._screen_copies:
+            if key.endswith(":err"):
+                copies[key] = self._err(self.X, copies[key[:-4]], gather=True)
+        self._screen_copies = copies
+        self._owns_buffers = True
+
+
+def _dtype_of(key: str) -> torch.dtype:
+    """The torch dtype of a screen copy's key (``str(dtype)``)."""
+    return getattr(torch, key.split(".")[-1])
+
+
+def _take_columns(X: torch.Tensor, cols, width, mesh) -> torch.Tensor:
+    """Global columns ``cols`` of X (the rank's block on a mesh) as an
+    (n, width) block zero-padded past ``len(cols)``, the same on every
+    rank."""
+    if mesh is not None:
+        return dist.gather_columns(mesh, X, cols, width)
+    cols = np.asarray(cols, dtype=np.int64)
+    out = torch.zeros((X.shape[0], cols.size if width is None else width),
+                      dtype=X.dtype, device=X.device)
+    out[:, :cols.size] = X[:, cols]
+    return out
+
 
 class PathWorkspace:
     """A :class:`DictionaryGeometry` plus the query fit: |Xᵀy|, λ_max, the
@@ -241,41 +400,66 @@ class PathWorkspace:
     normal ĝ = v₁/‖v₁‖). Without ``geometry`` one fused pass fits X and
     the query together. ``y`` (B, n) fits a batch in the same one pass:
     ``lam_max`` (float64) and ``istar`` are then (B,) host arrays and v₁
-    is (B, n)."""
+    is (B, n). A workspace kept across ``session.update`` is refreshed by
+    :func:`~.update.update_workspace`."""
 
     def __init__(self, X, y: torch.Tensor, backend=None, *,
                  geometry: DictionaryGeometry | None = None):
         if y.dim() not in (1, 2):
             raise ValueError(f"queries must be (n,) or (B, n), got shape "
                              f"{tuple(y.shape)}")
+        self.y = y
+        self.batch = None if y.dim() == 1 else y.shape[0]
         if geometry is None:
             backend_r = ops.resolve_backend(backend, X.device)
             scores, sumsq = backend_r.fused_scores(X, y, 0.0)
             geometry = DictionaryGeometry(X, backend_r, _sumsq=sumsq)
             geometry.fit_passes = 1
+            geometry.query_passes += 1
+            self.geometry = geometry
+            self._set_scores(scores)
         else:
-            scores = torch.abs(geometry.backend.matvec(geometry.X, y))
-        geometry.query_passes += 1
-        self.geometry = geometry
-        self.backend = geometry.backend
-        self.y = y
-        self.batch = None if y.dim() == 1 else y.shape[0]
+            self.geometry = geometry
+            self.attach()
+
+    @property
+    def backend(self) -> ops.ScreenBackend:
+        return self.geometry.backend
+
+    def attach(self) -> None:
+        """Fit the query to the geometry: |Xᵀy| from one ``screen_matvec``
+        pass over X, then λ_max, its feature, v₁ and the cut."""
+        geom = self.geometry
+        scores = torch.abs(geom.backend.matvec(geom.X, self.y))
+        geom.query_passes += 1
+        self._set_scores(scores)
+
+    def _set_scores(self, scores: torch.Tensor) -> None:
         self.abs_xty = scores
-        self._state_max = None
         # torch.argmax returns the first maximal index, like jnp.argmax
         if self.batch is None:
-            self.istar = int(torch.argmax(scores))
-            self.lam_max = float(scores[self.istar])
+            self.set_argmax(int(torch.argmax(scores)))
+        else:
+            self.set_argmax(torch.argmax(scores, dim=-1).cpu().numpy())
+
+    def set_argmax(self, istar) -> None:
+        """λ_max = |Xᵀy| at ``istar`` (an index, or (B,) indices), and v₁
+        and the λ_max cut from that column of X."""
+        self._state_max = None
+        geom, y = self.geometry, self.y
+        if self.batch is None:
+            self.istar = int(istar)
+            self.lam_max = float(self.abs_xty[self.istar])
             self.v1_at_lmax, cut = _stream_fit_single(
-                geometry.columns([self.istar])[:, 0], y)
+                geom.columns([self.istar])[:, 0], y)
             self.cuts = [cut]
         else:
-            istar = torch.argmax(scores, dim=-1)
-            self.istar = istar.cpu().numpy()
-            self.lam_max = scores.gather(1, istar[:, None])[:, 0].cpu() \
+            self.istar = np.asarray(istar, dtype=np.int64)
+            idx = torch.from_numpy(self.istar).to(self.abs_xty.device)
+            self.lam_max = self.abs_xty.gather(1, idx[:, None])[:, 0].cpu() \
                 .numpy().astype(np.float64)
             self.v1_at_lmax, self.cuts = _stream_fit_batched(
-                geometry.columns(self.istar).T, y)
+                geom.columns(self.istar).T, y)
 
     @property
     def X(self) -> torch.Tensor:
@@ -340,11 +524,6 @@ class ScreeningEngine:
         self._x_fast = self._x_fast_err = None
         if screen_dtype == "bfloat16":
             geom = self.ws.geometry
-            if geom.mesh is not None:
-                raise NotImplementedError(
-                    "screen_dtype='bfloat16' on a mesh session is not "
-                    "ported yet: ROADMAP.md queue 1 item 9 (mixed "
-                    "precision)")
             self._x_fast = geom.screen_copy(torch.bfloat16)
             self._x_fast_err = geom.screen_err(torch.bfloat16)
         self.total_x_passes = 0
@@ -641,13 +820,15 @@ class ScreeningEngine:
     def _gather_dots(self, cols: np.ndarray, rows: torch.Tensor):
         """The float32 dots of ``rows`` with the columns ``cols`` (host
         indices), gathered into a zero-padded bucket of
-        :func:`_narrow_bucket` width and summed as the wide float32 pass
-        sums them (``wide_p``). Returns (dots (R, bucket), the gather's
-        bytes)."""
+        :func:`_narrow_bucket` width (replicated on a mesh) and summed as
+        the wide float32 pass sums them: ``wide_p`` is the width that pass
+        streams, p off a mesh and the rank's p/F on one (the sharded
+        backend then runs the tile's pass alone). Returns (dots (R,
+        bucket), the gather's bytes)."""
         ws = self.ws
         bucket = _narrow_bucket(int(cols.size), self.p)
         Xn = ws.geometry.columns(cols, bucket)
-        dn = ws.backend.matvec(Xn, rows, wide_p=self.p)
+        dn = ws.backend.matvec(Xn, rows, wide_p=ws.X.shape[1])
         return dn, float(ws.X.shape[0]) * bucket * ws.X.element_size()
 
     def _retest(self, dec: torch.Tensor, band: torch.Tensor,

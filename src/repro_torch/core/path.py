@@ -39,12 +39,18 @@ step ORs the strong rule's discards into the safe rule's, with the KKT
 loop as the backstop; the step's ``x_passes`` and ``screen_bytes`` add
 the strong screen's to the safe rule's.
 
-``lo_gather(idx, valid, width)`` (the session's, for
+``lo_gather(cols, idx, valid, width)`` (the session's, for
 ``solve_dtype="bfloat16"``) reduces the session's bf16 copy of X onto
-each bucket, with the same device indices and validity as the float32
-gather, and returns the ``(X̃, col_err, col_norms)`` triple the solver's
-bf16 phase reads. A step's ``solve_dtype_effective`` and
-``solver_lo_iters`` are the solver engine's.
+each bucket, with the same columns (host ``cols``, padded device
+``idx``) and validity as the float32 gather, and returns the ``(X̃,
+col_err, col_norms)`` triple the solver's bf16 phase reads. A step's
+``solve_dtype_effective`` and ``solver_lo_iters`` are the solver
+engine's.
+
+Every step records ``geometry_version``, the version of the dictionary
+the screen engine's geometry was at (0 at fit, +1 per
+``session.update``), so results can be attributed to the dictionary
+they were computed against.
 """
 
 from __future__ import annotations
@@ -164,6 +170,13 @@ def _pad_indices(kept: np.ndarray, bucket: int, device, dtype):
             torch.from_numpy(valid).to(device=device, dtype=dtype))
 
 
+def _geometry_version(screen_engine) -> int:
+    """The version of the dictionary the screen engine's geometry holds
+    (0 for an engine without one)."""
+    return int(getattr(getattr(screen_engine, "geometry", None), "version",
+                       0))
+
+
 def lambda_grid(lam_max: float, num: int = 100, lo_frac: float = 0.05,
                 hi_frac: float = 1.0) -> np.ndarray:
     """The paper's grid: ``num`` values equally spaced in λ/λ_max."""
@@ -225,6 +238,7 @@ def _path_driver(X: torch.Tensor, y: torch.Tensor, lambdas, cfg, *,
     K = lambdas.shape[0]
     lmax = float(screen_engine.lam_max)
     state = screen_engine.state_at_lambda_max()
+    version = _geometry_version(screen_engine)
 
     arange_m = np.arange(m)[None, :]
     betas = np.zeros((1, K, p), dtype=np.float64)
@@ -237,7 +251,8 @@ def _path_driver(X: torch.Tensor, y: torch.Tensor, lambdas, cfg, *,
         lam = float(lambdas[k])
         if not lam < lmax:            # β* = 0 in the trivial region (eq. 8)
             stats.append(PathStepStats(lam, units, 0, 0, 0.0, 0, 0.0, 0.0,
-                                       queries_converged=1))
+                                       queries_converged=1,
+                                       geometry_version=version))
             if cfg.checkpoint_fn:
                 cfg.checkpoint_fn(k, lam, np.zeros((p,)))
             continue
@@ -267,7 +282,7 @@ def _path_driver(X: torch.Tensor, y: torch.Tensor, lambdas, cfg, *,
                                           X.dtype)
                 Xr = columns(col_idx, bucket * m)
                 lo = (None if lo_gather is None
-                      else lo_gather(idx, valid, bucket * m))
+                      else lo_gather(col_idx, idx, valid, bucket * m))
                 beta0 = beta_prev.index_select(0, idx) * valid
                 res = solver_engine.solve(Xr, lam, beta0, m=m, lo=lo)
                 beta_full = torch.zeros((p,), dtype=X.dtype, device=X.device)
@@ -310,7 +325,8 @@ def _path_driver(X: torch.Tensor, y: torch.Tensor, lambdas, cfg, *,
             screen_bytes=screen_bytes,
             screen_dtype_effective=screen_dtype,
             solve_dtype_effective=solve_dtype, solver_lo_iters=lo_iters,
-            solve_bytes=solve_bytes, fallback_cols=fallback_cols))
+            solve_bytes=solve_bytes, fallback_cols=fallback_cols,
+            geometry_version=version))
         if cfg.checkpoint_fn:
             cfg.checkpoint_fn(k, lam, betas[0, k])
 
@@ -340,6 +356,7 @@ def _batched_driver(X: torch.Tensor, Y: torch.Tensor, lambdas, cfg, *,
     K = lambdas.shape[1]
     lmax = np.asarray(screen_engine.lam_max, dtype=np.float64)
     state = screen_engine.state_at_lambda_max()
+    version = _geometry_version(screen_engine)
 
     arange_m = np.arange(m)[None, :]
     betas = np.zeros((B, K, p), dtype=np.float64)
@@ -354,7 +371,8 @@ def _batched_driver(X: torch.Tensor, Y: torch.Tensor, lambdas, cfg, *,
         if not live.any():             # β* = 0 for the whole batch
             stats.append(PathStepStats(float(lam_vec.max()), units, 0, 0,
                                        0.0, 0, 0.0, 0.0, batch_size=B,
-                                       queries_converged=B))
+                                       queries_converged=B,
+                                       geometry_version=version))
             if cfg.checkpoint_fn:
                 cfg.checkpoint_fn(k, lam_vec, np.zeros((B, p)))
             continue
@@ -390,7 +408,7 @@ def _batched_driver(X: torch.Tensor, Y: torch.Tensor, lambdas, cfg, *,
                 vq = torch.from_numpy(vq_np).to(device=dev, dtype=X.dtype)
                 Xr = columns(col_idx, bucket * m)
                 lo = (None if lo_gather is None
-                      else lo_gather(idx, valid, bucket * m))
+                      else lo_gather(col_idx, idx, valid, bucket * m))
                 beta0 = beta_prev.index_select(1, idx) * vq
                 res = solver_engine.solve_batched(Xr, lam_vec, beta0,
                                                   valid=vq, m=m, lo=lo)
@@ -440,7 +458,8 @@ def _batched_driver(X: torch.Tensor, Y: torch.Tensor, lambdas, cfg, *,
             screen_bytes=screen_bytes,
             screen_dtype_effective=screen_dtype,
             solve_dtype_effective=solve_dtype, solver_lo_iters=lo_iters,
-            solve_bytes=solve_bytes, fallback_cols=fallback_cols))
+            solve_bytes=solve_bytes, fallback_cols=fallback_cols,
+            geometry_version=version))
         if cfg.checkpoint_fn:
             cfg.checkpoint_fn(k, lam_vec, betas[:, k])
 

@@ -21,11 +21,10 @@ of the reference (the sequential spheres, GAP, the ``*_cut`` composites,
 basic SAFE, DOME, the strong rule with its KKT loop, ``none``, and
 hybrid safe+strong, ``ScreenSpec(strong=True)``), float32 screens or
 bf16 ones (``ScreenSpec(screen_dtype="bfloat16")``: masks bit for bit
-the float32 ones; plain sessions off a mesh), float32 solves or
-mixed-precision ones (``SolveSpec(solve_dtype="bfloat16")``: a certified
-bf16 phase on each bucket's gather of the same bf16 copy, then a
-float32 polish; plain sessions off a mesh, while a group session solves
-in float32 with a warning) and the ``fista`` and
+the float32 ones), float32 solves or mixed-precision ones
+(``SolveSpec(solve_dtype="bfloat16")``: a certified bf16 phase on each
+bucket's gather of the same bf16 copy, then a float32 polish; a group
+session solves in float32 with a warning) and the ``fista`` and
 ``cd`` strategies (a batch runs the batched driver:
 one screen and one solve a step for all B queries, their kernels
 launched once for the batch); on a session fitted with ``groups=m``,
@@ -38,7 +37,9 @@ on X split by columns over the mesh's feature axis: each rank keeps its
 column block, the screens run per block and gather
 (``backend_name == "shard:<tile>"``), and each reduced bucket is
 gathered replicated and solved alike on every rank (a batch stays whole
-on every rank). Everything else raises ``NotImplementedError`` naming
+on every rank), bf16 screens and solves included. ``session.update(add=,
+drop=)`` edits a plain session's dictionary in place, on and off a mesh
+(:mod:`.update`). Everything else raises ``NotImplementedError`` naming
 the ROADMAP.md item (queue 1) that brings it.
 
 Entry points run on the card unless the caller asks for the CPU:
@@ -97,18 +98,6 @@ def _check_session_kind(cfg: "PathConfig", m: int) -> None:
     elif strategy in GROUP_SOLVERS:
         raise ValueError(f"strategy {strategy!r} solves the group Lasso: fit "
                          f"the session with groups=m")
-
-
-def _check_mesh_dtype(cfg: "PathConfig", mesh) -> None:
-    """A mesh session screens and solves in float32 only, for now."""
-    if mesh is None:
-        return
-    if cfg.screen.screen_dtype != "float32":
-        raise _not_yet("screen_dtype='bfloat16' on a mesh session", 9,
-                       "mixed precision")
-    if cfg.solve.solve_dtype != "float32":
-        raise _not_yet("solve_dtype='bfloat16' on a mesh session", 9,
-                       "mixed precision")
 
 
 def _check_backend(name, what: str) -> None:
@@ -266,6 +255,7 @@ class LassoSession:
         self._shard_backends: dict[str, ops.ScreenBackend] = {}
         self._eig_cache: dict[int, torch.Tensor] = {}
         self._eig_stats = {"warm": 0, "cold": 0}
+        self._version = 0
         self._default_backend = self._resolve_for_session(
             cfg.screen.backend).name
         return self
@@ -306,9 +296,9 @@ class LassoSession:
             self = cls._new(geometry.X, cfg)
             self._geometries[geometry.backend.name] = geometry
             self._default_backend = geometry.backend.name
+            self._version = getattr(geometry, "version", 0)
             return self
         dev = resolve_device(device)
-        _check_mesh_dtype(cfg, mesh)
         if mesh is None:
             Xt = as_tensor(X, dev)
         else:
@@ -365,6 +355,9 @@ class LassoSession:
             geom = (GroupDictionaryGeometry(self.X, self.groups, inst)
                     if self.groups > 1
                     else DictionaryGeometry(self.X, inst, mesh=self.mesh))
+            # a backend fitted after an update joins at the current
+            # version (self.X is already the edited X)
+            geom.version = self._version
             self._geometries[inst.name] = geom
         return geom
 
@@ -392,20 +385,87 @@ class LassoSession:
         """Per-query attach passes, |Xᵀy| or ‖X_gᵀy‖ (one per ``path``)."""
         return sum(g.query_passes for g in self._geometries.values())
 
+    @property
+    def version(self) -> int:
+        """The dictionary version: 0 at ``fit``, +1 per ``update``
+        (recorded per step in ``PathStepStats.geometry_version``)."""
+        return self._version
+
+    @property
+    def eig_cache_stats(self) -> dict:
+        """Warm and cold Lipschitz power-iteration starts of this
+        session's solves, ``{"warm": int, "cold": int}``: warm starts keep
+        hitting across ``update`` (the cached eigenvectors survive an
+        edit), and ``reset_solver_cache`` makes the next solves cold."""
+        return dict(self._eig_stats)
+
     def reset_solver_cache(self) -> None:
         """Drop the warm-started per-bucket Lipschitz eigenvectors, so the
         next solves start cold from the seed (bitwise replay)."""
         self._eig_cache.clear()
 
     def update(self, add=None, drop=None, *, workspaces=()):
-        """Edit the fitted dictionary in place (reference
-        ``session.update``)."""
+        """Edit the fitted dictionary in place: drop columns, add new ones,
+        keep every cache that stays valid (the reference's
+        ``session.update``).
+
+        Layout (:mod:`.update`): added columns first recycle the dropped
+        slots in ascending drop order, leftover adds append at the end,
+        leftover drops compact the survivors left (``drop`` indices refer
+        to the current version's columns). A balanced edit
+        (``len(drop) == add.shape[1]``) moves no column: every geometry
+        patches the edited slots only and pays one pass over the added
+        block (:meth:`~.engine.DictionaryGeometry.apply_update`). The
+        per-bucket Lipschitz eigenvectors stay as warm starts; each live
+        :class:`~.engine.PathWorkspace` in ``workspaces`` is refreshed
+        (:func:`~.update.update_workspace`).
+
+        Exactness: after ``update`` and ``reset_solver_cache()``, ``path``
+        gives the masks of a cold ``fit`` on the edited X bit for bit and
+        β within ``beta_err_tol``.
+
+        On a mesh session the edited p must stay divisible by the mesh's
+        feature size (pad ``add`` with zero columns: they are inert); a
+        balanced edit patches each rank's own slots, a shape-changing one
+        moves columns between ranks. Every rank calls with the same
+        arguments. The first update copies the fitted arrays before it
+        writes (a float32 numpy X fitted on the CPU is shared with the
+        caller); re-read ``session.X`` and the geometry's arrays after an
+        update. Group sessions refuse. Returns an
+        :class:`~.update.UpdateReport`."""
+        from .update import UpdateReport, make_plan, update_workspace
         if self.groups > 1:
             raise NotImplementedError(
                 "session.update is plain-Lasso only: group geometries "
                 "cache per-group spectral norms that a column edit "
                 "invalidates wholesale — refit instead")
-        raise _not_yet("session.update", 10, "incremental dictionaries")
+        n, p = self.shape
+        plan, X_add = make_plan(p, add, drop)
+        if X_add is not None and X_add.shape[0] != n:
+            raise ValueError(f"add must have n={n} rows, got "
+                             f"{X_add.shape[0]}")
+        if self.mesh is not None:
+            fsize = dist.feature_size(self.mesh)
+            if plan.p_new % fsize:
+                raise ValueError(
+                    f"edited p={plan.p_new} is not divisible by the mesh's "
+                    f"feature size {fsize}; pad add= with zero columns to a "
+                    f"multiple of {fsize}")
+        if X_add is not None:
+            # one host-to-device copy, shared by every geometry and
+            # workspace
+            X_add = as_tensor(X_add, self.device, self.X.dtype)
+        for geom in self._geometries.values():
+            geom.apply_update(plan, X_add)
+        self._version += 1
+        self.X = self.geometry.X
+        ws_list = list(workspaces)
+        rescans = sum(update_workspace(ws, plan, X_add) for ws in ws_list)
+        return UpdateReport(
+            version=self._version, p=plan.p_new, n_add=plan.n_add,
+            n_drop=plan.n_drop, geometries_updated=len(self._geometries),
+            eig_buckets_carried=len(self._eig_cache),
+            workspaces_updated=len(ws_list), argmax_rescans=rescans)
 
     def path(self, Y, lambdas=None, *, num_lambdas: int = 100,
              lo_frac: float = 0.05, hi_frac: float = 1.0,
@@ -421,7 +481,6 @@ class LassoSession:
             raise TypeError(f"config must be a PathConfig, got "
                             f"{type(cfg).__name__}")
         _check_session_kind(cfg, self.groups)   # per-call overrides too
-        _check_mesh_dtype(cfg, self.mesh)
         y = as_tensor(Y, self.device, self.X.dtype)
         if y.dim() not in (1, 2):
             raise ValueError(f"queries must be (n,) or (B, n), got shape "
@@ -450,18 +509,17 @@ class LassoSession:
     def _lo_gather(self, cfg: PathConfig, geom):
         """The driver's ``lo_gather`` for ``solve_dtype="bfloat16"`` on a
         plain session (None otherwise): the bucket's columns of the
-        geometry's bf16 copy (the one the bf16 screens read, made once),
-        the bucket's largest column error and column norm; padding
-        columns are zero in all three."""
+        geometry's bf16 copy (the one the bf16 screens read, made once;
+        on a mesh gathered from the ranks' blocks like the float32
+        bucket), the bucket's largest column error and column norm (both
+        global); padding columns are zero in all three."""
         if cfg.solve.solve_dtype != "bfloat16" or self.groups > 1:
             return None
-        X_lo = geom.screen_copy(torch.bfloat16)
         col_err = geom.screen_err(torch.bfloat16)
         col_norms = geom.col_norms
 
-        def lo_gather(idx, valid, width):
-            # valid is {0, 1}, so the bf16 product is exact
-            Xr_lo = X_lo.index_select(1, idx) * valid.to(X_lo.dtype)
+        def lo_gather(cols, idx, valid, width):
+            Xr_lo = geom.copy_columns(torch.bfloat16, cols, width)
             err = torch.amax(col_err.index_select(0, idx) * valid)
             cn = torch.amax(col_norms.index_select(0, idx) * valid)
             return Xr_lo, err, cn

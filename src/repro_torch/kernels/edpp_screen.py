@@ -22,7 +22,11 @@ The mixed-precision screen re-tests a narrow band of columns in float32
 on an (n, k) gather of X, and its dots must be the wide float32 pass's
 bits at those columns: ``screen_matvec(Xn, c, wide_p=p)`` launches the
 gather with the tile and cluster of the pass over all p columns
-(:func:`retest_plan`), so each column is summed in the same order.
+(:func:`retest_plan`), so each column is summed in the same order. A
+dictionary update's added block takes the same plan for its ‖x_j‖² and
+|x_jᵀy| (``edpp_screen_scores(X_add, 0, 0, wide_p=p)``,
+``screen_matvec(X_add, y, wide_p=p)``), so they are the bits a cold fit
+of the edited X gives at those columns.
 
 Bound on an H100: the pass reads X once (n·p·4 bytes) and does 2·B
 flops per element, so for B ≤ 8 it is bound by the bytes of X at
@@ -288,12 +292,16 @@ def check_error(err: int, op: str) -> None:
 
 
 def edpp_screen_scores(X: torch.Tensor, centre: torch.Tensor, rho, *,
-                       plan: LaunchPlan | None = None):
+                       plan: LaunchPlan | None = None,
+                       wide_p: int | None = None):
     """Fused ``(scores, sumsq)``; see the module doc. ``rho`` is a host
-    number, a device scalar or a (B,) tensor. ``plan`` replaces
-    :func:`launch_plan`'s choice on a CUDA X (for measurements)."""
+    number, a device scalar or a (B,) tensor. ``wide_p``: X is a block of
+    the columns of an X with ``wide_p`` columns (a dictionary update's
+    added block), and each column is summed as that X's pass sums it
+    (:func:`retest_plan`). ``plan`` replaces either choice on a CUDA X
+    (for measurements)."""
     if X.device.type == "cpu":
-        return ref.edpp_screen_ref(X, centre, rho)
+        return ref.edpp_screen_ref(X, centre, rho, wide_p=wide_p)
     op = "edpp_screen_scores"
     check_x(X, op)
     n, p = X.shape
@@ -309,7 +317,7 @@ def edpp_screen_scores(X: torch.Tensor, centre: torch.Tensor, rho, *,
             for b0 in range(0, B, MAX_B):
                 nb = min(MAX_B, B - b0)
                 _keep, ptr = chunk_ptr(par, b0, nb)
-                pl = plan or plan_for(X, nb)
+                pl = plan or plan_for(X, nb, wide_p)
                 check_error(fn(X.data_ptr(), C[b0].data_ptr(), n, p, nb,
                                *pl.c_args, ptr, rho_s,
                                scores[b0].data_ptr(), sumsq.data_ptr(),

@@ -4,7 +4,7 @@ A :class:`ScreenBackend` bundles the six ops of the ported paths:
 
     matvec(X, centre, wide_p=None)             -> dot = centre·X (X f32
                                                   or its bf16 copy)
-    fused_scores(X, centre, rho)               -> (|dot| + ρ‖x_j‖, ‖x_j‖²)
+    fused_scores(X, centre, rho, wide_p=None)  -> (|dot| + ρ‖x_j‖, ‖x_j‖²)
     fista_step(X, r, z, beta_old, step, lam, mom) -> (β', z')
     group_scores(X, centre, m)                 -> ‖X_gᵀ·centre‖ per group
     cd_gram_sweep(G, c, beta, lam, sweeps, valid) -> β after the sweeps
@@ -13,6 +13,9 @@ A :class:`ScreenBackend` bundles the six ops of the ported paths:
 ``fista_step`` and ``prox_step`` also take ``params=``, a (3, B) block of
 step | λ | mom in place of the three (a row of a solver's parameter
 table), and ``prox_step`` a (k, …) stack of the gradient's parts as g.
+``wide_p`` says that X is a block of the columns of a wider X with
+``wide_p`` columns, and sums each column as that X's pass sums it (a
+float32 re-test's gather, a dictionary update's added block).
 
 The mixed-precision screen's margins, :func:`bf16_column_err` and
 :func:`bf16_score_margin`, and the mixed-precision solve's handover,
@@ -98,10 +101,14 @@ def bf16_column_err(X: torch.Tensor, X_lo: torch.Tensor) -> torch.Tensor:
     """Per-column dot-error bound for screening through the low-precision
     copy ``X_lo``: ``err[j] = ‖x_j − x̂_j‖ + 2·n·u_f32·‖x_j‖`` (the
     measured quantisation residual and the accumulation noise of the wide
-    and the narrow pass), float32 (p,)."""
+    and the narrow pass), float32 (p,). Both norms sum their squares by
+    the fixed tree of :func:`.ref.sum_rows` (elementwise additions, on
+    any device), so a block of columns gets the whole width's bits: a
+    dictionary update bounds only its added block, a mesh rank its own
+    columns."""
     Xf = X.to(torch.float32)
-    quant = torch.linalg.vector_norm(Xf - X_lo.to(torch.float32), dim=0)
-    col_norms = torch.linalg.vector_norm(Xf, dim=0)
+    quant = torch.sqrt(ref.column_sumsq(Xf - X_lo.to(torch.float32)))
+    col_norms = torch.sqrt(ref.column_sumsq(Xf))
     n = Xf.shape[0]
     return quant + 2.0 * n * F32_ACC_ROUND * col_norms
 

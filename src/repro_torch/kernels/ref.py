@@ -41,23 +41,37 @@ def _per_query(s, batch: int, dtype, device) -> torch.Tensor:
         (batch,))
 
 
-def column_dots(X: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``dot[j] = x_jᵀc`` for X (n, p) and c (n,) in X's dtype: the n
-    products of each column, rounded once each, summed by a fixed tree
-    of elementwise additions (each step adds the lower half of the rows
-    to the upper half; an odd row carries to the next step). Every
-    column's sum is the same sequence of roundings whatever the other
-    columns, so the dots of an (n, k) gather of X are bit for bit those
-    of the whole X at the gathered columns (a BLAS matrix-vector product
-    blocks by p and does not keep that)."""
-    P = X * c[:, None]
+def sum_rows(P: torch.Tensor) -> torch.Tensor:
+    """``P.sum(0)`` for P (n, p) by a fixed tree of elementwise additions
+    (each step adds the lower half of the rows to the upper half; an odd
+    row carries to the next step). Every column's sum is the same
+    sequence of roundings whatever the other columns, on any device, so
+    the sums of an (n, k) gather of columns are bit for bit those of the
+    whole width at the gathered columns (a library reduction picks its
+    order by the shape and does not keep that)."""
     if P.shape[0] == 0:
-        return P.new_zeros((X.shape[1],))
+        return P.new_zeros((P.shape[1],))
     while P.shape[0] > 1:
         h = P.shape[0] // 2
         top = P[:h] + P[h:2 * h]
         P = torch.cat([top, P[2 * h:]]) if P.shape[0] % 2 else top
     return P[0]
+
+
+def column_dots(X: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``dot[j] = x_jᵀc`` for X (n, p) and c (n,) in X's dtype: the n
+    products of each column, rounded once each, summed by
+    :func:`sum_rows`, so the dots of an (n, k) gather of X are bit for
+    bit those of the whole X at the gathered columns (a BLAS
+    matrix-vector product blocks by p and does not keep that)."""
+    return sum_rows(X * c[:, None])
+
+
+def column_sumsq(X: torch.Tensor) -> torch.Tensor:
+    """``‖x_j‖²`` for X (n, p): each square rounded once, summed by
+    :func:`sum_rows`, so a block of columns gets the whole width's bits
+    (a dictionary update's added block, the rank's block of a mesh)."""
+    return sum_rows(X * X)
 
 
 def _rowwise_dots(X: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
@@ -68,15 +82,18 @@ def _rowwise_dots(X: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
         C.new_zeros((0, X.shape[1]))
 
 
-def edpp_screen_ref(X: torch.Tensor, centre: torch.Tensor, rho):
+def edpp_screen_ref(X: torch.Tensor, centre: torch.Tensor, rho, *,
+                    wide_p: int | None = None):
     """Fused screening pass: ``scores[j] = |x_jᵀc| + ρ‖x_j‖``,
     ``sumsq[j] = ‖x_j‖²``. Batched centre (B, n) gives scores (B, p);
-    sumsq stays (p,)."""
+    sumsq stays (p,). ``wide_p`` (the kernel's order of a wider pass)
+    changes nothing here: these sums do not depend on the width
+    (:func:`column_dots`, :func:`column_sumsq`)."""
     PLAIN_CALLS["edpp_screen_scores"] += 1
     acc = _acc_dtype(X)
     Xa = X.to(acc)
     ca = centre.to(acc)
-    sumsq = torch.sum(Xa * Xa, dim=0)
+    sumsq = column_sumsq(Xa)
     if ca.ndim == 2:
         dot = _rowwise_dots(Xa, ca)
         rho_b = _per_query(rho, ca.shape[0], acc, X.device)

@@ -71,13 +71,14 @@ def add_engine_args(ap: argparse.ArgumentParser, *, rule: str = "edpp",
                     default="float32",
                     help="dtype of the X copy the screens' wide pass "
                          "streams (bfloat16: half the bytes, masks bit for "
-                         "bit the float32 ones; plain sessions off a mesh)")
+                         "bit the float32 ones; plain sessions, on a mesh "
+                         "too)")
     ap.add_argument("--solve-dtype", choices=("float32", "bfloat16"),
                     default="float32",
                     help="dtype of the solver's iteration stream "
                          "(bfloat16: a certified bf16 phase on each bucket, "
                          "FISTA or Gram CD, then a float32 polish; plain "
-                         "sessions off a mesh)")
+                         "sessions, on a mesh too)")
 
 
 def add_serve_args(ap: argparse.ArgumentParser, *, b_max: int = 8,

@@ -1182,3 +1182,139 @@ def test_bf16_solve_session_on_the_card_runs_its_kernels(cuda, strategy):
             assert np.abs(r16.betas[q] - res_c.betas[q]).max() <= tol
         assert (r16.masks != r32.masks).sum() <= 2 * Ys.shape[0]
         assert (r16.masks != res_c.masks).sum() <= 2 * Ys.shape[0]
+
+
+@pytest.mark.parametrize("c", [8, 37, 2500])
+@pytest.mark.parametrize("shape", [(784, 50000), (777, 1001), (20000, 256)])
+def test_update_block_passes_give_the_wide_bits(cuda, shape, c):
+    """A dictionary update's added block: the fused pass (‖x_j‖² with the
+    fit's zero centre, and scores) and ``screen_matvec`` launched with
+    ``wide_p=p``, and the bf16 error bound, give the whole width's bits at
+    the block's columns."""
+    n, p = shape
+    c = min(c, p // 2)
+    X = _det((n, p), 21).to(cuda)
+    cen = _det((n,), 22).to(cuda)
+    cols = torch.from_numpy(np.sort(np.random.default_rng(c).choice(
+        p, c, replace=False))).to(cuda)
+    blk = X[:, cols].contiguous()
+    for centre in (torch.zeros(n, device=cuda), cen):
+        sc, ss = edpp_screen.edpp_screen_scores(X, centre, 0.37)
+        sc_b, ss_b = edpp_screen.edpp_screen_scores(blk, centre, 0.37,
+                                                    wide_p=p)
+        assert torch.equal(ss_b, ss[cols]) and torch.equal(sc_b, sc[cols])
+    assert torch.equal(edpp_screen.screen_matvec(blk, cen, wide_p=p),
+                       edpp_screen.screen_matvec(X, cen)[cols])
+    Xb = X.to(torch.bfloat16)
+    assert torch.equal(ops.bf16_column_err(blk, blk.to(torch.bfloat16)),
+                       ops.bf16_column_err(X, Xb)[cols])
+    del X, Xb, blk
+    torch.cuda.empty_cache()
+
+
+def test_session_update_on_the_card_is_a_cold_fit(cuda):
+    """``session.update`` on the card (a balanced edit, then a mixed one)
+    with a bf16 copy and a live batch workspace: the cold fit's arrays
+    bit for bit, then its masks and β bit for bit after
+    ``reset_solver_cache()``; the update launches the kernels and no
+    plain version."""
+    from repro_torch.core import PathWorkspace
+    X, Y, _ = _batch_problem(batch=8, n=100, p=2000)
+    rng = np.random.default_rng(3)
+    cfg = PathConfig(solve=SolveSpec(tol=1e-6))
+    sess = LassoSession.fit(X, config=cfg)
+    sess.geometry.screen_err(torch.bfloat16)
+    ws = PathWorkspace(None, torch.as_tensor(Y, device=cuda),
+                       geometry=sess.geometry)
+    X_ed = X
+    for drop, k in ((np.sort(rng.choice(2000, 100, replace=False)), 100),
+                    (np.sort(rng.choice(2000, 16, replace=False)), 40)):
+        add = rng.standard_normal((100, k)).astype(np.float32)
+        ops.reset_counts()
+        sess.update(add=add, drop=drop, workspaces=[ws])
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["edpp_screen_scores"] == 1
+        assert ops.launch_counts()["screen_matvec"] == 1
+        assert not any(ops.plain_counts().values())
+        r = min(k, drop.size)          # the layout rule: recycle, append
+        Xp = X_ed.copy()
+        Xp[:, drop[:r]] = add[:, :r]
+        keep = np.setdiff1d(np.arange(X_ed.shape[1]), drop[r:])
+        X_ed = np.concatenate([Xp[:, keep], add[:, r:]], axis=1)
+        cold = LassoSession.fit(X_ed, config=cfg)
+        g, cg = sess.geometry, cold.geometry
+        for a, b in ((g.X, cg.X), (g.sumsq, cg.sumsq),
+                     (g.col_norms, cg.col_norms),
+                     (g.screen_copy(torch.bfloat16),
+                      cg.screen_copy(torch.bfloat16)),
+                     (g.screen_err(torch.bfloat16),
+                      cg.screen_err(torch.bfloat16))):
+            assert torch.equal(a, b)
+        cws = PathWorkspace(None, torch.as_tensor(Y, device=cuda),
+                            geometry=cg)
+        assert torch.equal(ws.abs_xty, cws.abs_xty)
+        assert np.array_equal(ws.istar, cws.istar)
+        sess.reset_solver_cache()
+        ru = sess.path(Y, num_lambdas=20)
+        rc = cold.path(Y, num_lambdas=20)
+        np.testing.assert_array_equal(ru.masks, rc.masks)
+        np.testing.assert_array_equal(ru.betas, rc.betas)
+
+
+def test_mesh_bf16_and_update_over_nccl(cuda, tmp_path):
+    """World size 1 over NCCL: the mesh session's bf16 screen gives its
+    float32 masks bit for bit (``screen_matvec_bf16`` launched), its bf16
+    solve the unsharded bf16 solve's masks (``fista_step_bf16``
+    launched), and its update the unsharded update's arrays and masks bit
+    for bit."""
+    X, y, _ = lasso_problem(100, 1000, nnz=10, seed=0, dtype=np.float32)
+    rng = np.random.default_rng(4)
+
+    def cfg(screen="float32", solve="float32"):
+        return PathConfig(screen=ScreenSpec(screen_dtype=screen),
+                          solve=SolveSpec(tol=1e-6, solve_dtype=solve))
+
+    plain = LassoSession.fit(X)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp_path, "store"), 1), rank=0, world_size=1,
+        device_id=torch.device("cuda", 0))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("query", "feature"))
+        sess = LassoSession.fit(X, mesh=mesh)
+        out = {}
+        for name, s, c in (("f32", sess, cfg()),
+                           ("screen", sess, cfg(screen="bfloat16")),
+                           ("solve", sess, cfg(solve="bfloat16")),
+                           ("plain solve", plain, cfg(solve="bfloat16"))):
+            s.reset_solver_cache()
+            ops.reset_counts()
+            out[name] = s.path(y, num_lambdas=20, hi_frac=0.95, config=c)
+            torch.cuda.synchronize()
+            key = {"screen": "screen_matvec_bf16"}.get(
+                name, "fista_step_bf16" if "solve" in name else "fista_step")
+            assert ops.launch_counts().get(key, 0) > 0, name
+            assert not any(ops.plain_counts().values())
+        np.testing.assert_array_equal(out["screen"].masks, out["f32"].masks)
+        np.testing.assert_array_equal(out["solve"].masks,
+                                      out["plain solve"].masks)
+        drop = np.sort(rng.choice(1000, 50, replace=False))
+        add = rng.standard_normal((100, 66)).astype(np.float32)
+        for s in (sess, plain):
+            s.geometry.screen_err(torch.bfloat16)
+            s.update(add=add[:, :50], drop=drop)
+            s.update(add=add[:, 50:], drop=drop[:8])
+        gm, gu = sess.geometry, plain.geometry
+        for a, b in ((gm.X, gu.X), (gm.sumsq, gu.sumsq),
+                     (gm.screen_copy(torch.bfloat16),
+                      gu.screen_copy(torch.bfloat16)),
+                     (gm.screen_err(torch.bfloat16),
+                      gu.screen_err(torch.bfloat16))):
+            assert torch.equal(a, b)
+        for s in (sess, plain):
+            s.reset_solver_cache()
+        np.testing.assert_array_equal(
+            sess.path(y, num_lambdas=20, config=cfg()).masks,
+            plain.path(y, num_lambdas=20, config=cfg()).masks)
+    finally:
+        dist.destroy_process_group()

@@ -474,9 +474,14 @@ def test_mesh_sessions_refuse_what_this_slice_does_not_serve(problem):
         assert res.betas.shape == (2, worker.GRID["num_lambdas"], 400)
         np.testing.assert_array_equal(res.masks, plain.masks)
         np.testing.assert_array_equal(res.betas, plain.betas)
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1 item 10 "):
-            sess.update(drop=[0])
+        # updates and bf16 run on a mesh session now
+        # (tests/test_torch_bf16_mesh.py); an edit without columns or
+        # with the wrong rows is still refused, and changes nothing
+        with pytest.raises(ValueError, match="add= and/or drop="):
+            sess.update()
+        with pytest.raises(ValueError, match=f"n={X.shape[0]} rows"):
+            sess.update(add=np.zeros((X.shape[0] + 1, 2), np.float32))
+        assert sess.version == 0 and sess.shape == X.shape
     assert not dist.is_initialized()
 
 

@@ -175,11 +175,12 @@ def _edpp_margins(X, y, lambdas, betas):
 
 @pytest.mark.parametrize("flag", ["--solve-dtype"])
 def test_bf16_flags_raise_naming_their_item(flag, capsys):
-    """``solve --solve-dtype bfloat16`` runs on a plain session: its masks
-    equal the float32 run's outside the ±1e-4 band of the EDPP threshold
-    (a certified stop lands on another β), every live step solved with a
-    bf16 phase and the reference's line printed; on a mesh it raises
-    naming item 9."""
+    """``solve --solve-dtype bfloat16`` runs on a plain session and, with
+    ``--mesh 1x1``, on a mesh session: the masks of both equal the
+    float32 run's outside the ±1e-4 band of the EDPP threshold (a
+    certified stop lands on another β), every live step solved with a
+    bf16 phase and the reference's line printed; the mesh run's masks
+    and β are the plain bf16 run's."""
     from repro_torch.data import lasso_problem
     flags = SOLVE + ["--no-x64"]
     f32 = solve.main(flags)
@@ -201,8 +202,12 @@ def test_bf16_flags_raise_naming_their_item(flag, capsys):
         else:
             assert not (diff[k] & (np.abs(d) > 1e-4)).any(), k
     print(f"solve --solve-dtype bfloat16: {int(diff.sum())} mask flips")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        solve.main(flags + ["--mesh", "1x1", flag, "bfloat16"])
+    meshed = solve.main(flags + ["--mesh", "1x1", flag, "bfloat16"])
+    assert "effective bfloat16" in capsys.readouterr().out
+    np.testing.assert_array_equal(meshed.masks, bf16.masks)
+    np.testing.assert_array_equal(meshed.betas, bf16.betas)
+    assert [s.solver_lo_iters for s in meshed.stats] \
+        == [s.solver_lo_iters for s in bf16.stats]
     assert not torch.distributed.is_initialized()
 
 

@@ -7,10 +7,14 @@ each of which joins a gloo process group through a FileStore under
 ``workdir/inputs.npz`` and, on rank 0, writes the global results to
 ``workdir/out_<world>.npz``. The processes are joined with a timeout, so
 a rendezvous that hangs fails its test instead of stalling the suite.
+``spawn_world(..., job="mixed")`` runs :func:`compute_mixed` instead
+(tests/test_torch_bf16_mesh.py): bf16 screens and solves and dictionary
+updates on a mesh session.
 
 :func:`compute` is also what the tests run in-process at world size 1,
-inside :func:`one_rank`. It imports no JAX: the reference runs in the
-test process only.
+inside :func:`one_rank`, and :func:`compute_mixed` also runs there and
+with no mesh at all (the unsharded arms). Neither imports JAX: the
+reference runs in the test process only.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from torch.distributed.device_mesh import init_device_mesh
 
 from repro_torch import LassoSession, PathConfig, ScreenSpec, SolveSpec
 from repro_torch.core import distributed as D
+from repro_torch.core.engine import BF16_FAST_RULES, PathWorkspace
 from repro_torch.kernels import ops
 
 JOIN_TIMEOUT_S = 120
@@ -148,6 +153,105 @@ def compute(mesh, inp) -> dict[str, np.ndarray]:
             for k, v in out.items()}
 
 
+MIXED_GRID = dict(num_lambdas=3, hi_frac=0.95, lo_frac=0.3)
+SOLVE_ARMS = (("fista", "one"), ("cd", "one"), ("fista", "batch"))
+
+
+def mixed_config(rule: str = "edpp", screen: str = "float32",
+                 solve: str = "float32", strategy: str = "fista"
+                 ) -> PathConfig:
+    """The config of one arm of :func:`compute_mixed`."""
+    return PathConfig(screen=ScreenSpec(rule=rule, screen_dtype=screen),
+                      solve=SolveSpec(strategy=strategy, tol=PATH_TOL,
+                                      solve_dtype=solve))
+
+
+def edits(inp) -> list[tuple]:
+    """The dictionary edits of :func:`compute_mixed`, in order: balanced
+    (4 dropped, 4 added, the first of them the argmax of query 0), a
+    compacting drop of 4, an append of 4, and a mixed edit that drops 4
+    and adds 8. Each keeps p divisible by 4."""
+    add = inp["add"]
+    return [(inp["drop_bal"], add[:, :4]), (inp["drop_only"], None),
+            (None, add[:, 4:8]), (inp["drop_mixed"], add[:, 8:16])]
+
+
+def compute_mixed(mesh, inp, screens: bool = True
+                  ) -> dict[str, np.ndarray]:
+    """A session on the path problem (``Xs``, ``ys``, ``Ys``), on
+    ``mesh`` or, with ``mesh=None``, unsharded: (1) unless ``screens`` is
+    False, every rule of BF16_FAST_RULES screened in float32 and in bf16,
+    one query and the (B, n) batch; (2) the bf16 solve, ``fista`` and ``cd`` on one query
+    and ``fista`` on the batch; (3) the :func:`edits` in turn on a session
+    with a fitted bf16 copy and a live batch workspace, each followed by
+    the geometry's arrays (gathered), the workspace's fit and a path after
+    ``reset_solver_cache()``; (4) the mesh's refusal of an edit to a
+    width it cannot split. Every grid is ``MIXED_GRID``."""
+    Xs, ys, Ys = inp["Xs"], inp["ys"], inp["Ys"]
+    kw = {"device": "cpu"} if mesh is None else {"device": "cpu",
+                                                 "mesh": mesh}
+    out = {}
+
+    def whole(a):
+        return a if mesh is None else D.gather_features(mesh, a)
+
+    sess = LassoSession.fit(Xs, **kw)
+    for rule in BF16_FAST_RULES if screens else ():
+        for tag, Y in (("one", ys), ("batch", Ys)):
+            for dt in ("float32", "bfloat16"):
+                sess.reset_solver_cache()
+                res = sess.path(Y, **MIXED_GRID,
+                                config=mixed_config(rule, screen=dt))
+                out[f"screen_{rule}_{tag}_{dt}"] = res.masks
+            out[f"screen_{rule}_{tag}_stats"] = np.array(
+                [(s.screen_dtype_effective == "bfloat16", s.fallback_cols)
+                 for s in res.stats if s.screen_backend])
+    for strategy, tag in SOLVE_ARMS:
+        sess.reset_solver_cache()
+        res = sess.path(ys if tag == "one" else Ys, **MIXED_GRID,
+                        config=mixed_config(solve="bfloat16",
+                                            strategy=strategy))
+        key = f"solve_{strategy}_{tag}"
+        out.update({f"{key}_masks": res.masks, f"{key}_betas": res.betas,
+                    f"{key}_lambdas": res.lambdas,
+                    f"{key}_stats": np.array(
+                        [(s.solve_dtype_effective == "bfloat16",
+                          s.solver_lo_iters, s.bucket) for s in res.stats
+                         if s.screen_backend])})
+
+    sess = LassoSession.fit(Xs, **kw)
+    err = sess.geometry.screen_err(torch.bfloat16)
+    out["err"] = err
+    ws = PathWorkspace(None, torch.from_numpy(Ys), geometry=sess.geometry)
+    for i, (drop, add) in enumerate(edits(inp)):
+        rep = sess.update(add=add, drop=drop, workspaces=[ws])
+        geom = sess.geometry
+        out.update({
+            f"upd{i}_report": np.array([rep.version, rep.p,
+                                        rep.argmax_rescans]),
+            f"upd{i}_X": whole(geom.X),
+            f"upd{i}_bf16": whole(geom.screen_copy(torch.bfloat16)).float(),
+            f"upd{i}_sumsq": geom.sumsq, f"upd{i}_norms": geom.col_norms,
+            f"upd{i}_err": geom.screen_err(torch.bfloat16),
+            f"upd{i}_abs_xty": ws.abs_xty, f"upd{i}_istar": ws.istar,
+            f"upd{i}_lam_max": ws.lam_max})
+        sess.reset_solver_cache()
+        res = sess.path(ys, **MIXED_GRID, config=mixed_config())
+        out.update({f"upd{i}_masks": res.masks, f"upd{i}_betas": res.betas,
+                    f"upd{i}_version": np.array(
+                        [s.geometry_version for s in res.stats])})
+    try:                              # an edit to a width F cannot split
+        sess.update(drop=[0])
+        out["update_indivisible"] = np.array("")
+    except ValueError as e:
+        out["update_indivisible"] = np.array(str(e))
+    return {k: v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+            for k, v in out.items()}
+
+
+JOBS = {"compute": compute, "mixed": compute_mixed}
+
+
 @contextlib.contextmanager
 def one_rank():
     """A 1-rank gloo process group in this process and its (1, 1) CPU mesh
@@ -163,7 +267,8 @@ def one_rank():
             dist.destroy_process_group()
 
 
-def _run(rank: int, world: int, mesh_shape, workdir: str) -> None:
+def _run(rank: int, world: int, mesh_shape, workdir: str,
+         job: str = "compute") -> None:
     torch.set_num_threads(1)
     store = dist.FileStore(os.path.join(workdir, f"store_{world}"), world)
     dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
@@ -172,17 +277,33 @@ def _run(rank: int, world: int, mesh_shape, workdir: str) -> None:
                                 mesh_dim_names=("query", "feature"))
         with np.load(os.path.join(workdir, "inputs.npz")) as f:
             inp = dict(f)
-        out = compute(mesh, inp)
+        out = JOBS[job](mesh, inp)
         if rank == 0:
-            np.savez(os.path.join(workdir, f"out_{world}.npz"), **out)
+            np.savez(os.path.join(workdir, f"{job}_{world}.npz"), **out)
     finally:
         dist.destroy_process_group()
 
 
-def spawn_world(world: int, mesh_shape, workdir: str) -> dict:
-    """Run :func:`compute` in a spawned world; its global results."""
-    ctx = mp.start_processes(_run, args=(world, mesh_shape, workdir),
+def spawn_world(world: int, mesh_shape, workdir: str,
+                job: str = "compute") -> dict:
+    """Run ``JOBS[job]`` (:func:`compute` by default) in a spawned world;
+    its global results."""
+    return join_world(start_world(world, mesh_shape, workdir, job))
+
+
+def start_world(world: int, mesh_shape, workdir: str,
+                job: str = "compute"):
+    """Spawn the world of :func:`spawn_world` without waiting for it (to
+    run two worlds at once); :func:`join_world` collects it."""
+    ctx = mp.start_processes(_run, args=(world, mesh_shape, workdir, job),
                              nprocs=world, join=False, start_method="spawn")
+    return ctx, world, workdir, job
+
+
+def join_world(started) -> dict:
+    """Join a :func:`start_world` world (killing it after
+    ``JOIN_TIMEOUT_S``) and load its global results."""
+    ctx, world, workdir, job = started
     deadline = time.monotonic() + JOIN_TIMEOUT_S
     while not ctx.join(timeout=1):
         if time.monotonic() > deadline:
@@ -190,5 +311,5 @@ def spawn_world(world: int, mesh_shape, workdir: str) -> dict:
                 proc.kill()
             raise TimeoutError(f"world of {world} ranks did not finish in "
                                f"{JOIN_TIMEOUT_S} s")
-    with np.load(os.path.join(workdir, f"out_{world}.npz")) as f:
+    with np.load(os.path.join(workdir, f"{job}_{world}.npz")) as f:
         return dict(f)
