@@ -195,6 +195,26 @@ Phases, each printing its own lines and seconds:
    2 500 columns launched with ``wide_p=50 000``: ‖x_j‖² and scores bit
    for bit the full pass's at those columns, and its row against the
    plain version;
+19. group mesh and the core surface (run after 18), on a process group
+   of one rank over NCCL: (a) ``LassoSession.fit(X, groups=10,
+   mesh=mesh)`` on a (1, 1) mesh at phase 7's 250 × 200 000 design,
+   group EDPP at tol 1e-6 over 100 λ from a reset solver cache: masks,
+   n_discarded, x_passes, buckets, β and the spectral norms bit for bit
+   phase 7's (kept, not rerun), ``backend_name == "shard:cuda"``,
+   ``group_screen_scores`` launched and the plain counters 0; the
+   spectral norms of the design's two halves against the whole batch's,
+   bit for bit; (b) ``solve --group-size 10 --mesh 1x1`` (250 × 20 000,
+   20 λ) bit for bit phase 12's group solve; (c) a (1, 1, 1) ``("query",
+   "a", "b")`` mesh at 784 × 50 000, 20 λ, bit for bit the (1, 1) mesh;
+   (d) the one-shot ``fista`` (its ``fista_step`` launches counted) and
+   ``cd`` on the card at 784 × 1 024 of the main data, 0.3·λ_max, tol
+   1e-6, within ``beta_err_tol`` of each other, ``group_fista`` at
+   250 × 2 000 of the group design (m = 10), and ``lasso_path`` at 20 λ
+   bit for bit ``LassoSession.fit(X).path(y, grid)`` with its
+   ``DeprecationWarning``. Phase 3 adds the group pass on the contiguous
+   250 × 100 000 half of the group design with ``wide_p = 200 000``: its
+   scores bit for bit the full pass's at those groups, its time and
+   bound, beside the block's own plan and whether its bits differ;
 15. summary: one JSON line of per-kernel numbers (with, for
    ``screen_matvec``, ``fista_step`` and ``cd_gram_sweep``, the batched
    path's launches and its B = 8 row at its own shapes, for
@@ -206,7 +226,9 @@ Phases, each printing its own lines and seconds:
    ``torch.matmul(c.bfloat16(), X̂)``; and a ``fista_step_bf16`` row: its
    launches on phase 16's bf16-solve EDPP path and its phase-3 rows;
    every row with phase 17's mesh launches and phase 18's update
-   launches, and ``edpp_screen_scores`` with its wide-plan row), then
+   launches, ``edpp_screen_scores`` and ``group_screen_scores`` with
+   their wide-plan rows, and phase 19's group mesh and one-shot
+   launches), then
    the card's name and power limit, then, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -2725,6 +2747,252 @@ def check_wide_fused(torch, kernels, ref, n: int, p: int, c: int, seed: int,
     return row
 
 
+def check_wide_group(torch, kernels, ref, n: int, p: int, m: int,
+                     seed: int, ptxas: dict, parts: int = 2,
+                     must_differ: bool = False) -> dict:
+    """The group pass on a contiguous copy of the first of ``parts``
+    column blocks of an (n, p) X (a rank's block of a 1 × parts mesh)
+    launched with ``wide_p=p``: its scores bit for bit the full pass's at
+    those groups; beside it the block's own plan and whether that plan's
+    bits differ (with ``must_differ``, the own plan must split the rows
+    over another cluster and give other bits: else the row could not
+    tell a ``wide_p`` that was ignored); then the row of
+    :func:`check_group` for the block (time against its plain version,
+    bound, ``c @ X`` yardstick), timed with the wide plan."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    X = torch.randn(n, p, generator=g, device="cuda")
+    c = torch.randn(n, generator=g, device="cuda")
+    half = p // parts
+    blk = X[:, :half].contiguous()
+    full = kernels.group_screen_scores(X, c, m)[:half // m]
+    got = kernels.group_screen_scores(blk, c, m, wide_p=p)
+    own = kernels.group_screen_scores(blk, c, m)
+    bitwise = torch.equal(got, full)
+    own_same = torch.equal(own, full)
+    gs = kernels.group_screen
+    wide_pl = gs.group_plan_for(blk, m, p)
+    own_pl = gs.group_plan_for(blk, m)
+    out_p = ref.group_screen_ref(blk, c, m)
+    torch.cuda.synchronize()
+    err = float((got - out_p).abs().max())
+    tol = 2e-5 * max(1.0, float(out_p.abs().max()))
+    ms = event_ms(torch, lambda: kernels.group_screen_scores(
+        blk, c, m, wide_p=p))
+    plain_ms = event_ms(torch, lambda: ref.group_screen_ref(blk, c, m))
+    matmul_ms = event_ms(torch, lambda: torch.matmul(c, blk))
+    t_bytes = 4.0 * (n * half + n + half // m) / HBM_BYTES_PER_S * 1e3
+    t_ops = (2.0 * n * half + 2.0 * half) / F32_FLOPS_PER_S * 1e3
+    bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                          else (t_ops, "operations"))
+
+    def plan(pl):
+        return (f"grid={pl.grid} cluster={pl.split} vec={pl.vec} "
+                f"tile={pl.tile} stage_rows={pl.stage_rows}")
+
+    row = {"op": "group_screen_scores", "n": n, "p": half, "wide_p": p,
+           "m": m, "max_abs_err": err, "tol": tol, "ms": ms,
+           "plain_ms": plain_ms, "matmul_ms": matmul_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "bitwise": bitwise,
+           "own_plan_same_bits": own_same, "wide_plan": plan(wide_pl),
+           "own_plan": plan(own_pl)}
+    print(f"  wide plan: group_screen_scores on {n}x{half} (the first "
+          f"1/{parts} of {n}x{p}, m={m}) with wide_p={p}: scores bit for "
+          f"bit the full pass's {bitwise}; max_abs_err={err:.3g} (tol "
+          f"{tol:.3g}) "
+          f"ms={ms:.4f} plain_ms={plain_ms:.4f} matmul_ms={matmul_ms:.4f} "
+          f"bound_ms={bound_ms:.4f} ({bound_by}) {bound_ms / ms:.0%} of "
+          f"bound\n      wide plan {plan(wide_pl)}; the block's own plan "
+          f"{plan(own_pl)}, its bits the full pass's {own_same}; "
+          f"{colpass_ptxas(ptxas, 'group_screen_scores', 1, wide_pl.vec)}",
+          flush=True)
+    if not (bitwise and err <= tol):
+        raise AssertionError(f"wide group pass {n}x{half} of {p}: bits "
+                             f"{bitwise}, error {err} (tol {tol})")
+    if must_differ and (own_pl.split == wide_pl.split or own_same):
+        raise AssertionError(f"wide group pass {n}x{half} of {p}: the "
+                             f"block's own plan {plan(own_pl)} splits the "
+                             f"rows as the wide plan does or gave its "
+                             f"bits ({own_same}); the row tests nothing")
+    del X, blk
+    torch.cuda.empty_cache()
+    return row
+
+
+ONE_SHOT = (784, 1024)          # phase 19(d): a slice of the main data
+ONE_SHOT_GROUP = (250, 2000)    # and of the group design (m = 10)
+
+
+def group_mesh_phase(torch, group_full: dict, solved: dict, X, y) -> dict:
+    """Phase 19, group mesh sessions and the core surface (see the module
+    doc): (a) ``fit(X, groups=10, mesh=)`` on a (1, 1) NCCL mesh at the
+    full group design, 100 λ, against phase 7's result; (b) ``solve
+    --group-size 10 --mesh 1x1`` against phase 12's group solve; (c) a
+    (1, 1, 1) ("query", "a", "b") mesh against the (1, 1) mesh at
+    784 × 50 000, 20 λ; (d) the one-shot solvers and ``lasso_path``.
+    Returns the launches of (a) and (d)."""
+    import warnings
+
+    from repro_torch import LassoSession, PathConfig, SolveSpec
+    from repro_torch import core
+    from repro_torch.core.group_screening import group_spectral_norms
+    from repro_torch.kernels import ops
+    from repro_torch.launch import solve as solve_cli
+    from torch.distributed.device_mesh import init_device_mesh
+    out = {}
+    Xg, yg, res_g = group_full["X"], group_full["y"], group_full["res"]
+    m = GROUP_FULL[2]
+    cfg = PathConfig(solve=SolveSpec(tol=1e-6))
+    with nccl_world(torch) as mesh:
+        # (a) the group mesh session against phase 7's unsharded path
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        sess = LassoSession.fit(Xg, groups=m, mesh=mesh, config=cfg,
+                                device=DEVICE)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        sess.reset_solver_cache()
+        res = sess.path(yg, num_lambdas=100)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out["mesh"] = counted(ops, ("group_screen_scores",))
+        same = {
+            "masks": np.array_equal(res.masks, res_g.masks),
+            "n_discarded": [s.n_discarded for s in res.stats]
+            == [s.n_discarded for s in res_g.stats],
+            "x_passes": [s.x_passes for s in res.stats]
+            == [s.x_passes for s in res_g.stats],
+            "bucket": [s.bucket for s in res.stats]
+            == [s.bucket for s in res_g.stats],
+            "betas": np.array_equal(res.betas, res_g.betas),
+            "spec_norms": torch.equal(sess.geometry.spec_norms.cpu(),
+                                      group_full["spec"])}
+        print(f"(a) group mesh session, (1, 1) NCCL mesh, {Xg.shape[0]} × "
+              f"{Xg.shape[1]}, m={m}, 100 λ, tol 1e-6: backend "
+              f"{sess.backend_name}; wall {wall:.2f} s (fit {fit_s:.2f} s) "
+              f"against phase 7's {group_full['wall']:.2f} s (fit "
+              f"{group_full['fit_s']:.2f} s); bit for bit phase 7's: {same}")
+        assert sess.backend_name == "shard:cuda" and all(same.values())
+        del sess
+        # the spectral norms of two blocks against the whole batch's
+        Xt = torch.as_tensor(Xg, device=DEVICE)
+        half = Xg.shape[1] // 2
+        parts = [group_spectral_norms(Xt[:, :half].contiguous(), m),
+                 group_spectral_norms(Xt[:, half:].contiguous(), m)]
+        one = group_spectral_norms(Xt[:, :m].contiguous(), m)
+        full = group_full["spec"].to(DEVICE)
+        halves = int((torch.cat(parts) != full).sum())
+        print(f"    eigvalsh bits: two blocks of {half // m} groups against "
+              f"the whole batch of {Xg.shape[1] // m}: {halves} differ; a "
+              f"block of one group (a batch of 1): "
+              f"{'the same' if torch.equal(one, full[:1]) else 'other'} "
+              f"bits")
+        assert halves == 0 and torch.equal(one, full[:1])
+        del Xt, parts
+        torch.cuda.empty_cache()
+
+        # (c) two feature axes against one, at 784 × 50 000
+        axes = init_device_mesh(mesh.device_type, (1, 1, 1),
+                                mesh_dim_names=("query", "a", "b"))
+        runs = {}
+        for name, msh in (("(1, 1)", mesh), ("(1, 1, 1)", axes)):
+            ops.reset_counts()
+            t0 = time.perf_counter()
+            s = LassoSession.fit(X, mesh=msh, config=cfg, device=DEVICE)
+            runs[name] = s.path(y, num_lambdas=20, hi_frac=0.95)
+            torch.cuda.synchronize()
+            launches = counted(ops, ("edpp_screen_scores", "screen_matvec",
+                                     "fista_step"))
+            print(f"(c) {name} mesh, {X.shape[0]} × {X.shape[1]}, 20 λ: "
+                  f"backend "
+                  f"{s.backend_name}, {time.perf_counter() - t0:.2f} s; "
+                  f"launches screen_matvec {launches['screen_matvec']}, "
+                  f"fista_step {launches['fista_step']}")
+        a, b = runs.values()
+        same = (np.array_equal(a.masks, b.masks)
+                and np.array_equal(a.betas, b.betas)
+                and [(t.n_discarded, t.x_passes, t.bucket) for t in a.stats]
+                == [(t.n_discarded, t.x_passes, t.bucket) for t in b.stats])
+        print(f"    (1, 1, 1) bit for bit the (1, 1) mesh: {same}")
+        assert same
+
+    # (b) the CLI's group mesh run against phase 12's group solve
+    n_g, p_g, m_e = GROUP_EXACT
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    res_b = solve_cli.main(["--n", str(n_g), "--p", str(p_g),
+                            "--group-size", str(m_e), "--nnz", "200",
+                            "--no-x64", "--num-lambdas", "20", "--mesh",
+                            "1x1"])
+    torch.cuda.synchronize()
+    launches = counted(ops, ("group_screen_scores",))
+    want = solved["group_result"]
+    same = (np.array_equal(res_b.masks, want.masks)
+            and np.array_equal(res_b.betas, want.betas))
+    print(f"(b) solve --group-size {m_e} --mesh 1x1 ({n_g} × {p_g}, 20 λ): "
+          f"{time.perf_counter() - t0:.2f} s; group_screen_scores "
+          f"{launches['group_screen_scores']}; bit for bit phase 12's group "
+          f"solve {same}")
+    assert same
+
+    # (d) the one-shot solvers and the deprecated shim
+    n1, p1 = ONE_SHOT
+    Xc = torch.as_tensor(np.ascontiguousarray(X[:, :p1]), device=DEVICE)
+    lam = 0.3 * float(torch.max(torch.abs(Xc.T @ torch.as_tensor(
+        y, device=DEVICE))))
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    fi = core.fista(Xc, y, lam, tol=1e-6)
+    torch.cuda.synchronize()
+    fi_s = time.perf_counter() - t0
+    out["one_shot"] = counted(ops, ("fista_step",))
+    assert out["one_shot"]["fista_step"] == fi.iters
+    t0 = time.perf_counter()
+    cdr = core.cd(Xc, y, lam, tol=1e-6)
+    torch.cuda.synchronize()
+    cd_s = time.perf_counter() - t0
+    err = float((fi.beta - cdr.beta).abs().max())
+    tol = beta_err_tol(y, 1e-6)
+    ng, pg = ONE_SHOT_GROUP
+    Xgs = torch.as_tensor(np.ascontiguousarray(Xg[:ng, :pg]),
+                          device=DEVICE)
+    ygs = torch.as_tensor(yg[:ng], device=DEVICE)
+    glam = 0.3 * float(torch.max(torch.linalg.vector_norm(
+        (Xgs.T @ ygs).reshape(-1, m), dim=1)) / np.sqrt(m))
+    t0 = time.perf_counter()
+    gf = core.group_fista(Xgs, ygs, glam, m, tol=1e-6)
+    torch.cuda.synchronize()
+    gf_s = time.perf_counter() - t0
+    print(f"(d) one-shot at 0.3·λ_max, tol 1e-6: fista {n1} × {p1} "
+          f"{fi.iters} iterations ({out['one_shot']['fista_step']} "
+          f"fista_step launches) {fi_s:.2f} s, converged "
+          f"{bool(fi.converged)}; cd {cdr.iters} epochs {cd_s:.2f} s, "
+          f"converged {bool(cdr.converged)}; max|beta_fista - beta_cd| "
+          f"{err:.3g} (tol {tol:.3g}); group_fista {ng} × {pg} (m={m}) "
+          f"{gf.iters} iterations {gf_s:.2f} s, converged "
+          f"{bool(gf.converged)}")
+    assert fi.converged and cdr.converged and gf.converged and err <= tol
+    assert bool(torch.isfinite(gf.beta).all())
+    del Xc, Xgs
+    grid = np.linspace(0.95, 0.05, 20) * float(np.abs(X.T @ y).max())
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        shim = core.lasso_path(X, y, grid, cfg, device=DEVICE)
+    direct = LassoSession.fit(X, config=cfg, device=DEVICE).path(
+        y, grid).squeeze()
+    torch.cuda.synchronize()
+    warned = any(issubclass(w.category, DeprecationWarning)
+                 and "repro_torch.core.lasso_path" in str(w.message)
+                 for w in seen)
+    same = (np.array_equal(shim.masks, direct.masks)
+            and np.array_equal(shim.betas, direct.betas))
+    print(f"    lasso_path at 20 λ ({time.perf_counter() - t0:.2f} s, both "
+          f"calls): DeprecationWarning {warned}; bit for bit "
+          f"LassoSession.fit(X).path(y, grid) {same}")
+    assert warned and same
+    return out
+
+
 SERVE_QUERIES = 44      # five fill batches of 8, then a 4-query tail
 # the --solver cd run's queries: one fill batch and a 4-query tail (cut
 # from 44 when phases 17 and 18 came: its wide buckets run matvec CD, the
@@ -2893,7 +3161,7 @@ def solve_phase(torch, tmp: str) -> dict:
     assert res_g.masks.shape == (20, p_g // m)
     assert np.isfinite(res_g.betas).all()
     return {"launches": launches, "group_launches": g_launches,
-            "result": res}
+            "result": res, "group_result": res_g}
 
 
 def main(argv: list[str]) -> int:
@@ -3018,6 +3286,16 @@ def main(argv: list[str]) -> int:
         for i, (pp, m) in enumerate(((1000, 5), (1001, 7))):
             rows[("group", 777, pp, m)] = check_group(
                 torch, kernels, ref, 777, pp, m, seed=130 + i, ptxas=ptxas)
+        if "wide_p" in inspect.signature(
+                kernels.group_screen_scores).parameters:
+            # a mesh rank's block of whole groups: half of the group design
+            rows["wide_group"] = check_wide_group(
+                torch, kernels, ref, *GROUP_FULL, seed=135, ptxas=ptxas)
+            # a quarter of 250 × 16 800: here the block's own plan splits
+            # the rows over a cluster and the whole width's does not
+            rows["wide_group_quarter"] = check_wide_group(
+                torch, kernels, ref, GROUP_FULL[0], 16800, 10, seed=136,
+                ptxas=ptxas, parts=4, must_differ=True)
         floors = {"alone": floor_ms,
                   "run": run_ms(torch, lambda: one.zero_(), GRAPH_RUN),
                   "graph": graph_ms(torch, lambda: one.zero_(), GRAPH_RUN)}
@@ -3162,6 +3440,7 @@ def main(argv: list[str]) -> int:
         g_sess = LassoSession.fit(X, groups=m, config=g_cfg)
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
+        g_sess.reset_solver_cache()        # phase 19(a) starts alike
         res_g = g_sess.path(y, num_lambdas=100)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -3180,6 +3459,10 @@ def main(argv: list[str]) -> int:
         assert np.isfinite(res_g.betas).all()
         assert g_sess.fit_passes == 1 and g_sess.backend_name == "cuda"
         assert all(s.x_passes == 1 for s in live)
+    # phase 19(a) holds the group mesh session to this path
+    group_full = {"X": X, "y": y, "res": res_g, "wall": wall,
+                  "fit_s": fit_s,
+                  "spec": g_sess.geometry.spec_norms.cpu()}
     del g_sess, res_g
 
     n_e, p_e, m = GROUP_EXACT
@@ -3264,7 +3547,11 @@ def main(argv: list[str]) -> int:
         mesh_bf16 = mesh_bf16_phase(torch, X, y, solved)
     with phase(f"updates: session.update at {n} × {p}, {CHURN:.0%} churn"):
         updates = update_phase(torch, X, y)
-    del X, y, none_arm, rules
+    with phase(f"group mesh and the core surface: NCCL world of 1, "
+               f"{GROUP_FULL[0]} × {GROUP_FULL[1]} groups of "
+               f"{GROUP_FULL[2]} and {n} × {p}"):
+        group_mesh = group_mesh_phase(torch, group_full, solved, X, y)
+    del X, y, none_arm, rules, group_full
 
     with phase(f"kernels at the paths' shapes (fista bucket {main_bucket}, "
                f"cd bucket {cd_bucket}; batched B={BATCH}: fista bucket "
@@ -3326,12 +3613,26 @@ def main(argv: list[str]) -> int:
             # the batch, and its solve --mesh 1x1) and phase 18's updates
             "mesh_bf16_launches": mesh_bf16["total"].get(op, 0),
             "update_launches": updates["launches"].get(op, 0),
+            # phase 19: (a) the group mesh session's 100-λ path, (d) the
+            # one-shot fista
+            "group_mesh_launches": group_mesh["mesh"].get(op, 0),
+            "one_shot_launches": group_mesh["one_shot"].get(op, 0),
             # the fused pass over an update's added block, wide_p = p
             **({"wide_plan": {k: rows["wide_fused"][k] for k in (
                 "n", "p", "wide_p", "max_abs_err", "ms", "plain_ms",
                 "bound_ms", "bound_by", "bitwise")}}
                if op == "edpp_screen_scores" and "wide_fused" in rows
-               else {})})
+               else {}),
+            # the group pass on a mesh rank's block, wide_p = p (phase 3)
+            **({key: {k: rows[row][k] for k in (
+                "n", "p", "wide_p", "m", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "bitwise", "own_plan_same_bits",
+                "wide_plan", "own_plan")}
+                for key, row in (("wide_plan", "wide_group"),
+                                 ("wide_plan_quarter",
+                                  "wide_group_quarter"))
+                if row in rows}
+               if op == "group_screen_scores" else {})})
     # the bf16 screen copy's wide pass (the same kernel source, its bf16
     # instantiation): its launches on the 100-λ bf16 EDPP path, its row at
     # 784 × 50 000 with one query, and the batch, stacked and SVHN rows

@@ -49,12 +49,28 @@ screening dispatch as a backend (``"shard:<tile>"``) whose outputs come
 back gathered in global column order; ``LassoSession.fit(X, mesh=...)``
 drops it into the unsharded engines.
 
-This slice serves meshes with one feature axis (and an optional
-``query`` axis); the reference's GSPMD baseline ``pjit_screen`` has no
-counterpart here (ROADMAP.md queue 1 item 13).
+**Feature axes.** Every axis other than ``"query"`` is a feature axis,
+and together they form one logical feature axis, as in the reference:
+its ranks are those of the sub-mesh over the feature axes, row-major in
+the mesh's axis order (the column order of the reference's
+``P(feature_axes)``), and one process group made per mesh with
+``torch.distributed.new_group`` carries its collectives, so a
+``("query", "a", "b")`` mesh of shape (Q, A, B) is a (Q, A·B) mesh.
+
+**Group Lasso.** A group mesh session (``fit(X, groups=m, mesh=)``)
+needs blocks of whole groups (m divides p/F): the sharded backend's
+``group_scores`` runs the group pass on the block with the global width
+as ``wide_p`` and gathers the scores, and :func:`group_spectral_norms`
+gathers each block's ‖X_g‖₂.
+
+The reference's GSPMD baseline ``pjit_screen`` has no counterpart here:
+it leaves the layout to XLA's partitioner, which PyTorch has only in
+DTensor (ROADMAP.md queue 1 item 13).
 """
 
 from __future__ import annotations
+
+import weakref
 
 import numpy as np
 import torch
@@ -62,6 +78,7 @@ import torch.distributed as dist
 
 from ..kernels import ops
 from . import graphs
+from . import group_screening as gscr
 from . import screening as scr
 from .device import as_tensor
 from .screening import EPS_DEFAULT
@@ -104,15 +121,15 @@ def feature_size(mesh) -> int:
 
 
 def _axis(mesh, axes):
-    """(group, size, this rank's index, group ranks in axis order) of one
-    axis; (None, 1, 0, (0,)) when the mesh has no such axis. An axis of
-    size 1 keeps its group, so its collectives run (as exact copies)."""
+    """(group, size, this rank's index, group ranks in axis order) of the
+    logical axis made of ``axes``; (None, 1, 0, (0,)) when the mesh has
+    none of them. An axis of size 1 keeps its group, so its collectives
+    run (as exact copies). Several axes are flattened into one
+    (:func:`_flat_axis`)."""
     if not axes:
         return None, 1, 0, (0,)
     if len(axes) > 1:
-        raise NotImplementedError(
-            f"meshes with more than one feature axis {axes} are not ported "
-            f"yet: ROADMAP.md queue 1 item 13 (distributed)")
+        return _flat_axis(mesh, axes)
     name = axes[0]
     dim = _names(mesh).index(name)
     group = mesh.get_group(name)
@@ -121,6 +138,43 @@ def _axis(mesh, axes):
     ranks = mesh.mesh[tuple(where)].tolist()
     order = tuple(dist.get_group_rank(group, r) for r in ranks)
     return group, len(ranks), mesh.get_local_rank(name), order
+
+
+# The flattened axes' groups, per mesh: {id(mesh): (weakref to the mesh,
+# axes, the axis tuple)}. A mesh is keyed by identity, not equality: a
+# new mesh of the same shape under a new process group must not reuse a
+# destroyed group.
+_FLAT_AXES: dict[int, tuple] = {}
+
+
+def _flat_axis(mesh, axes):
+    """:func:`_axis` of several axes taken as one logical axis: the ranks
+    of the sub-mesh over ``axes`` (the other axes fixed at this rank's
+    coordinate), row-major in the mesh's axis order, which is the column
+    order of the reference's ``P(feature_axes)``. Its process group is
+    made once per mesh with ``torch.distributed.new_group``, one for
+    every sub-mesh, by every rank in the same order (``new_group`` is
+    collective over the whole world), and cached."""
+    key = id(mesh)
+    hit = _FLAT_AXES.get(key)
+    if hit is not None and hit[0]() is mesh and hit[1] == axes:
+        return hit[2]
+    names = _names(mesh)
+    dims = [names.index(a) for a in axes]
+    rest = [d for d in range(len(names)) if d not in dims]
+    size = _size(mesh, axes)
+    rows = mesh.mesh.permute(*rest, *dims).reshape(-1, size).tolist()
+    me = dist.get_rank()
+    axis = None
+    for ranks in rows:                    # every rank makes every group
+        group = dist.new_group(ranks=ranks)
+        if me in ranks:
+            order = tuple(dist.get_group_rank(group, r) for r in ranks)
+            axis = (group, size, ranks.index(me), order)
+    if axis is None:
+        raise ValueError(f"rank {me} is not in the mesh {mesh}")
+    _FLAT_AXES[key] = (weakref.ref(mesh), axes, axis)
+    return axis
 
 
 def _feature(mesh):
@@ -329,17 +383,21 @@ def sharded_backend(mesh, tile=None) -> ops.ScreenBackend:
     * ``matvec(X_b, centre)``: the block's dots, one all-gather;
     * ``fused_scores(X_b, centre, ρ)``: scores and ‖x_j‖² of the block,
       one all-gather for both;
-    * with ``wide_p`` (the rank's block width p/F), X is a replicated
-      block of global columns (a float32 re-test's gather, a dictionary
-      update's added block): the tile's pass alone, each column summed
-      as the rank's pass over its p/F columns sums it, no gather.
+    * with ``wide_p``, the tile's pass alone, each column summed as a
+      pass over ``wide_p`` columns sums it, no gather: the caller's X is
+      a replicated block of global columns (a float32 re-test's gather,
+      a dictionary update's added block, with ``wide_p`` = p/F) or the
+      rank's block read as the unsharded X (the KKT check's Xᵀr, with
+      ``wide_p`` = p, gathered by the geometry);
+    * ``group_scores(X_b, centre, m)``: the tile's group pass on the
+      block of whole groups, launched with ``wide_p`` = p (the global
+      width: each group is summed as the unsharded pass sums it), one
+      all-gather into global group order.
 
     The solver ops pass through to the tile unchanged: the path's reduced
     buckets come replicated (``DictionaryGeometry.columns``), so they run
-    on whole arrays.
-    So do the group scores, which would have to respect group boundaries
-    (group mesh sessions are not served yet). ``tile`` is a backend name,
-    a ScreenBackend, or None (follow the mesh's device)."""
+    on whole arrays. ``tile`` is a backend name, a ScreenBackend, or None
+    (follow the mesh's device)."""
     tile = _tile(mesh, tile)
 
     def matvec(X, centre, wide_p=None):
@@ -356,10 +414,37 @@ def sharded_backend(mesh, tile=None) -> ops.ScreenBackend:
             [scores.reshape(-1, p_local), sumsq[None]]))
         return both[:-1].reshape(*scores.shape[:-1], -1), both[-1]
 
+    def group_scores(X, centre, m):
+        p = X.shape[1] * feature_size(mesh)
+        return gather_features(mesh, tile.group_scores(X, centre, m,
+                                                       wide_p=p))
+
     return ops.ScreenBackend(
         name=f"shard:{tile.name}", matvec=matvec, fused_scores=fused_scores,
-        fista_step=tile.fista_step, group_scores=tile.group_scores,
+        fista_step=tile.fista_step, group_scores=group_scores,
         cd_gram_sweep=tile.cd_gram_sweep, prox_step=tile.prox_step)
+
+
+def group_spectral_norms(mesh, X: torch.Tensor, m: int) -> torch.Tensor:
+    """‖X_g‖₂ of every group (G,), the same on every rank: each rank
+    takes its block's groups (``group_screening.group_spectral_norms``:
+    one batched ``eigvalsh`` of the block's m × m Grams) and one
+    all-gather puts them in global group order. ``ValueError`` unless m
+    divides the block's width."""
+    check_groups(mesh, X.shape[1] * feature_size(mesh), m)
+    return gather_features(mesh, gscr.group_spectral_norms(X, m))
+
+
+def check_groups(mesh, p: int, m: int) -> None:
+    """``ValueError`` unless the rank's block of a width-p X holds whole
+    groups of m columns (m divides p/F, and F divides p)."""
+    fsize = feature_size(mesh)
+    if p % fsize or (p // fsize) % m:
+        raise ValueError(
+            f"groups of m={m} columns do not split over the mesh: p={p} "
+            f"over the feature size F={fsize} gives blocks of "
+            f"{p / fsize:g} columns, and m must divide p/F (pad X with "
+            f"zero groups to a multiple of F·m={fsize * m})")
 
 
 def make_dist_ops(mesh, backend=None):

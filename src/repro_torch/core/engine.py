@@ -102,9 +102,70 @@ BF16_FAST_RULES = ("dpp", "imp1", "imp2", "edpp", "seq_safe", "safe",
                    *(f"{b}_cut" for b in scr.SPHERE_RULES))
 
 
+#: HBM passes over X that one screen takes through the plain oracle mask
+#: of :mod:`.screening` (the reference's count): the cut rules pay
+#: Xᵀcentre, the column norms, Xᵀy for the cut and Xᵀĝ.
+ORACLE_X_PASSES = {"strong": 1, "dome": 4, "none": 0, "safe": 2,
+                   **{f"{b}_cut": 4 for b in scr.SPHERE_RULES}}
+
+
 def engine_x_passes(rule: str) -> int:
     """HBM passes over X per screen through the engine (1 for ball rules)."""
     return ENGINE_X_PASSES.get(rule, 1)
+
+
+def oracle_x_passes(rule: str) -> int:
+    """HBM passes over X per screen through the plain oracle mask (2 for
+    ball rules: the centre's dots and the column norms)."""
+    return ORACLE_X_PASSES.get(rule, 2)
+
+
+# ---------------------------------------------------------------------------
+# Backend registry: the reference's helpers over kernels.ops.BACKENDS
+# ---------------------------------------------------------------------------
+
+def available_backends() -> tuple[str, ...]:
+    return tuple(ops.BACKENDS)
+
+
+def register_backend(name: str, backend: ops.ScreenBackend) -> None:
+    """Add a :class:`~repro_torch.kernels.ops.ScreenBackend` under
+    ``name``; select it with ``ScreenSpec(backend=name)`` or
+    ``SolveSpec(backend=name)``. It runs only where it is named: the
+    built-in ``cuda`` and ``torch`` cannot be replaced, and the default
+    stays ``cuda`` on the card."""
+    if name in ("cuda", "torch"):
+        raise ValueError(f"backend {name!r} is built in and cannot be "
+                         f"replaced")
+    if not isinstance(backend, ops.ScreenBackend):
+        raise TypeError(f"register a ScreenBackend, got "
+                        f"{type(backend).__name__}")
+    ops.BACKENDS[name] = backend
+
+
+# The screening backend an engine takes when none is named (``cuda`` on
+# the card, the default device; ``torch`` on the CPU), and a name's
+# backend.
+default_backend = ops.default_backend_name
+resolve_backend = ops.resolve_backend
+
+
+def block_scores(Xb: torch.Tensor, centre: torch.Tensor, rho,
+                 col_norms: torch.Tensor | None = None) -> torch.Tensor:
+    """Sphere scores |x_jᵀc| + ρ‖x_j‖ of one column block (the
+    distributed layer's per-block step), through the backend of the
+    block's device. Without ``col_norms`` they
+    are the fused ``edpp_screen_scores`` pass's scores; with the norms
+    that pass gave (√sumsq) they take the engine's arithmetic
+    (``screen_matvec`` and the cached norms), which gives the same bits
+    on the CPU, so a sharded and an unsharded screen agree bit for bit
+    on the same block."""
+    be = ops.resolve_backend(None, Xb.device)
+    if col_norms is None:
+        return be.fused_scores(Xb, centre, rho)[0]
+    dot = be.matvec(Xb, centre)
+    rho_t = torch.as_tensor(rho, dtype=dot.dtype, device=dot.device)
+    return torch.abs(dot) + rho_t * col_norms
 
 
 def _narrow_bucket(k: int, p: int) -> int:
@@ -162,7 +223,47 @@ def _stream_fit_batched(xstar: torch.Tensor, Y: torch.Tensor):
     return v1, [scr.cut_from_ray(v.clone()) for v in v1]
 
 
-class DictionaryGeometry:
+class _ColumnGeometry:
+    """The reads of the global X that both geometries serve, from X (the
+    rank's block of whole columns on a mesh, ``p`` global columns): the
+    path's buckets, Xβ and the KKT check's Xᵀr."""
+
+    X: torch.Tensor
+    mesh: object
+    p: int
+    backend: ops.ScreenBackend
+
+    def columns(self, cols, width: int | None = None) -> torch.Tensor:
+        """Global columns ``cols`` (host indices) of X as an (n, width)
+        block zero-padded past ``len(cols)`` (``width`` defaults to it),
+        the same on every rank: the path's reduced buckets and the λ̄_max
+        group."""
+        return _take_columns(self.X, cols, width, self.mesh)
+
+    def fitted(self, beta: torch.Tensor) -> torch.Tensor:
+        """Xβ (n,) for a global β (p,), or βXᵀ (B, n) for β (B, p), the
+        same on every rank. On a mesh each rank's block product is summed
+        by one all-reduce, which orders the sum by rank: the path never
+        reads it (its states and KKT checks take X_r·β_r from the reduced
+        bucket), so it is not held to the unsharded bits."""
+        if self.mesh is None:
+            return beta @ self.X.T if beta.dim() == 2 else self.X @ beta
+        return dist.fitted_values(self.mesh, self.X, beta)
+
+    def correlations(self, r: torch.Tensor) -> torch.Tensor:
+        """Xᵀr (p,) for r (n,), or rX (B, p) for r (B, n), in global column
+        order, the same on every rank: the KKT check's dots, through the
+        backend's ``matvec`` (``screen_matvec``). On a mesh the rank's
+        block is launched with ``wide_p`` = p and gathered, so each dot
+        is summed as the unsharded pass sums it on any feature size (a
+        BLAS product blocks by width and would not keep that)."""
+        if self.mesh is None:
+            return self.backend.matvec(self.X, r)
+        return dist.gather_features(
+            self.mesh, self.backend.matvec(self.X, r, wide_p=self.p))
+
+
+class DictionaryGeometry(_ColumnGeometry):
     """The query-independent geometry of a fitted dictionary X: X on its
     device, ‖x_j‖² and ‖x_j‖ (global, p of them). ``_sumsq`` adopts a fit
     made elsewhere (``fit_passes`` then stays 0). With ``mesh``, X is the
@@ -228,32 +329,11 @@ class DictionaryGeometry:
             err = dist.gather_features(self.mesh, err)
         return err
 
-    def columns(self, cols, width: int | None = None) -> torch.Tensor:
-        """Global columns ``cols`` (host indices) of X as an (n, width)
-        block zero-padded past ``len(cols)`` (``width`` defaults to it),
-        the same on every rank: the path's reduced buckets."""
-        return _take_columns(self.X, cols, width, self.mesh)
-
     def copy_columns(self, dtype: torch.dtype, cols,
                      width: int | None = None) -> torch.Tensor:
         """:meth:`columns` of ``screen_copy(dtype)``: the bf16 solve's
         bucket, the same bits as the float32 bucket rounded."""
         return _take_columns(self.screen_copy(dtype), cols, width, self.mesh)
-
-    def correlations(self, r: torch.Tensor) -> torch.Tensor:
-        """Xᵀr (p,) for r (n,), or rX (B, p) for r (B, n), in global column
-        order, the same on every rank."""
-        local = r @ self.X if r.dim() == 2 else self.X.T @ r
-        if self.mesh is None:
-            return local
-        return dist.gather_features(self.mesh, local)
-
-    def fitted(self, beta: torch.Tensor) -> torch.Tensor:
-        """Xβ (n,) for a global β (p,), or βXᵀ (B, n) for β (B, p), the
-        same on every rank."""
-        if self.mesh is None:
-            return beta @ self.X.T if beta.dim() == 2 else self.X @ beta
-        return dist.fitted_values(self.mesh, self.X, beta)
 
     # ---------------------------------------------------------- updates
     def apply_update(self, plan, X_add: torch.Tensor | None = None) -> int:
@@ -872,22 +952,29 @@ def _host_rows(lam) -> np.ndarray:
     return np.asarray(lam, dtype=np.float64).reshape(-1)
 
 
-class GroupDictionaryGeometry:
+class GroupDictionaryGeometry(_ColumnGeometry):
     """The query-independent geometry of a fitted *group* dictionary: X,
     the group size m and the per-group spectral norms ‖X_g‖₂ (Theorem 20;
     an m × m eigendecomposition per group, the expensive y-independent
     part of group screening). ``_spec_norms`` adopts a fit made elsewhere
-    (``fit_passes`` then stays 0)."""
+    (``fit_passes`` then stays 0). With ``mesh``, X is the rank's column
+    block of whole groups of a global X with ``p`` columns: the spectral
+    norms are each rank's groups' gathered
+    (:func:`.distributed.group_spectral_norms`); the reads of X are
+    :class:`DictionaryGeometry`'s."""
 
     def __init__(self, X: torch.Tensor, m: int, backend=None, *,
-                 _spec_norms=None):
+                 _spec_norms=None, mesh=None):
         self.X = X
         self.m = m
+        self.mesh = mesh
+        self.p = X.shape[1] * (1 if mesh is None else dist.feature_size(mesh))
         self.backend = ops.resolve_backend(backend, X.device)
         self.fit_passes = 0
         self.query_passes = 0
         if _spec_norms is None:
-            _spec_norms = gscr.group_spectral_norms(X, m)
+            _spec_norms = (gscr.group_spectral_norms(X, m) if mesh is None
+                           else dist.group_spectral_norms(mesh, X, m))
             self.fit_passes = 1
         self.spec_norms = _spec_norms
 
@@ -897,7 +984,9 @@ class GroupScreeningEngine:
 
     Caches ‖X_g‖₂ (from the geometry), λ̄_max (one ``group_scores`` pass
     over y) and the λ̄_max ray v̄₁ = X*X*ᵀy once per query; each screen is
-    then one ``group_screen_scores`` pass over X."""
+    then one ``group_screen_scores`` pass over X. Every read of the
+    global X goes through the geometry (the λ̄_max group's columns, Xβ),
+    so on a mesh the engine runs on the rank's block."""
 
     def __init__(self, X, y, m: int, backend=None,
                  eps: float = gscr.EPS_DEFAULT, *,
@@ -912,7 +1001,8 @@ class GroupScreeningEngine:
         self.m = m
         self.eps = eps
         self._state_max = gscr.group_state_at_lambda_max(
-            self.X, y, m, scores=self.backend.group_scores)
+            self.X, y, m, scores=self.backend.group_scores,
+            columns=geometry.columns)
         self.lam_max = float(self._state_max.lam)
         self.spec_norms = geometry.spec_norms
         self.total_x_passes = 0
@@ -925,7 +1015,8 @@ class GroupScreeningEngine:
 
     @property
     def p(self) -> int:
-        return self.X.shape[1]
+        """Columns of the global X (on a mesh, X holds the rank's block)."""
+        return self.geometry.p
 
     def state_at_lambda_max(self) -> gscr.GroupDualState:
         return self._state_max
@@ -937,14 +1028,17 @@ class GroupScreeningEngine:
         bucket) skips the X·β pass."""
         if scr.at_lmax(lam, self.lam_max):
             return self._state_max
+        if fitted is None:
+            fitted = self.geometry.fitted(beta)
         return gscr.group_state_from_solution(self.X, self.y, beta, lam,
                                               fitted=fitted)
 
     def _count(self, passes: int) -> None:
-        n, p = self.X.shape
+        n = self.X.shape[0]
         self.last_x_passes = passes
         self.total_x_passes += passes
-        self.last_screen_bytes = float(passes) * n * p * self.X.element_size()
+        self.last_screen_bytes = (float(passes) * n * self.p
+                                  * self.X.element_size())
 
     def screen(self, lam_next: float, state: gscr.GroupDualState,
                rule: str = "edpp") -> torch.Tensor:
@@ -952,7 +1046,7 @@ class GroupScreeningEngine:
         ``rule="none"``)."""
         if rule == "none":
             self._count(0)
-            return torch.zeros((self.X.shape[1] // self.m,), dtype=torch.bool,
+            return torch.zeros((self.p // self.m,), dtype=torch.bool,
                                device=self.X.device)
         if rule == "strong":
             mask = gscr.group_strong_mask(

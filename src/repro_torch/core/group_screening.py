@@ -37,10 +37,23 @@ def _group_view(X: torch.Tensor, m: int) -> torch.Tensor:
 def group_spectral_norms(X: torch.Tensor, m: int) -> torch.Tensor:
     """Exact ‖X_g‖₂ per group: the top eigenvalue of each m × m Gram
     (``torch.linalg.eigvalsh``, batched). Theorem 20 needs the operator
-    norm; the Frobenius norm would be safe but looser."""
+    norm; the Frobenius norm would be safe but looser.
+
+    Each group's norm has the same bits whatever the other groups of the
+    batch (a mesh rank's block of them gives the whole X's): the batched
+    Gram product and eigensolver treat each group on its own, except
+    that a batch of one takes another eigensolver on the card (cuSOLVER's
+    ``syevd``, not the batched Jacobi: 16 of 40 norms differed in the last
+    bits on an H100), so a single group is solved beside a copy of
+    itself."""
     Xg = _group_view(X, m)                               # (G, N, m)
+    single = Xg.shape[0] == 1
+    if single:
+        Xg = torch.cat([Xg, Xg])
     grams = Xg.transpose(1, 2) @ Xg                      # (G, m, m)
     eig = torch.linalg.eigvalsh(grams)[..., -1]
+    if single:
+        eig = eig[:1]
     return torch.sqrt(torch.clamp(eig, min=0.0))
 
 
@@ -51,12 +64,18 @@ def _plain_scores(X: torch.Tensor, centre: torch.Tensor,
 
 
 def group_state_at_lambda_max(X: torch.Tensor, y: torch.Tensor, m: int,
-                              scores=_plain_scores) -> GroupDualState:
-    """β* = 0, θ* = y/λ̄_max (eq. 57); v̄₁ = X*X*ᵀy (eq. 59, Lemma 18)."""
+                              scores=_plain_scores,
+                              columns=None) -> GroupDualState:
+    """β* = 0, θ* = y/λ̄_max (eq. 57); v̄₁ = X*X*ᵀy (eq. 59, Lemma 18).
+    ``columns(cols)`` returns the global columns ``cols`` of X (a mesh
+    geometry's gather; by default sliced from X)."""
     gnorms = scores(X, y, m) / math.sqrt(m)
     gstar = int(torch.argmax(gnorms))
     lmax = gnorms[gstar]
-    Xstar = X[:, gstar * m:(gstar + 1) * m]
+    if columns is None:
+        Xstar = X[:, gstar * m:(gstar + 1) * m]
+    else:
+        Xstar = columns(range(gstar * m, (gstar + 1) * m))
     return GroupDualState(theta=y / lmax, lam=lmax,
                           v1=Xstar @ (Xstar.T @ y))
 
@@ -67,6 +86,15 @@ def group_state_from_solution(X, y, beta, lam, fitted=None) -> GroupDualState:
     lam = torch.as_tensor(lam, dtype=X.dtype, device=X.device)
     theta = (y - (X @ beta if fitted is None else fitted)) / lam
     return GroupDualState(theta=theta, lam=lam, v1=y / lam - theta)
+
+
+def make_group_dual_state(X, y, beta, lam, lam_max_val,
+                          m: int) -> GroupDualState:
+    """The sequential state at λ: the λ̄_max state where λ ≥ λ̄_max (to
+    1e-12 relative), else the state from the solution β at λ."""
+    if float(lam) >= float(lam_max_val) * (1.0 - 1e-12):
+        return group_state_at_lambda_max(X, y, m)
+    return group_state_from_solution(X, y, beta, lam)
 
 
 def group_v2_perp(y, lam_next, state: GroupDualState) -> torch.Tensor:
@@ -103,11 +131,13 @@ def group_strong_mask(X, y, lam_next, state: GroupDualState, m: int,
 
 
 def group_kkt_violations(X, y, beta, lam, discarded_groups, m: int,
-                         tol: float = 1e-4, fitted=None):
+                         tol: float = 1e-4, fitted=None, correlations=None):
     """Discarded groups violating ‖X_gᵀr‖ ≤ λ√n_g (KKT eq. 53).
-    ``fitted`` (= Xβ) skips the X·β pass."""
+    ``fitted`` (= Xβ) skips the X·β pass; ``correlations(r)`` returns
+    Xᵀr (a geometry's, gathered on a mesh; by default ``X.T @ r``)."""
     r = y - (X @ beta if fitted is None else fitted)
-    scores = group_norms(X.T @ r, m)
+    dots = X.T @ r if correlations is None else correlations(r)
+    scores = group_norms(dots, m)
     return (scores > lam * math.sqrt(m) * (1.0 + tol)) & discarded_groups
 
 
@@ -115,3 +145,13 @@ GROUP_RULES = {
     "edpp": group_edpp_mask,
     "strong": group_strong_mask,
 }
+
+
+def group_screen(X, y, lam_next, state: GroupDualState, m: int,
+                 rule: str = "edpp", spec_norms=None,
+                 eps: float = EPS_DEFAULT):
+    """The discard mask bool[G] of a group rule: ``"edpp"``, else the
+    group strong rule (the reference's dispatch)."""
+    if rule == "edpp":
+        return group_edpp_mask(X, y, lam_next, state, m, spec_norms, eps)
+    return group_strong_mask(X, y, lam_next, state, m, eps)

@@ -57,6 +57,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -469,3 +470,52 @@ def _batched_driver(X: torch.Tensor, Y: torch.Tensor, lambdas, cfg, *,
                                              fitted=fitted)
     return PathResult(lambdas=lambdas, betas=betas, stats=stats,
                       masks=masks, query_converged=q_converged)
+
+
+# ---------------------------------------------------------------------------
+# Deprecated entry points: the reference's old functions, kept as shims
+# over LassoSession (a fresh session per call gives the session's result
+# bit for bit); fit-once, query-many callers hold a session instead
+# ---------------------------------------------------------------------------
+
+def _deprecated(old: str, new: str) -> None:
+    warnings.warn(f"repro_torch.core.{old} is deprecated; use {new}",
+                  DeprecationWarning, stacklevel=3)
+
+
+def lasso_path(X, y, lambdas, cfg=None, *, geometry=None,
+               device=None) -> PathResult:
+    """DEPRECATED: ``LassoSession.fit(X, config=cfg, geometry=geometry,
+    device=device).path(y, lambdas).squeeze()``, the Lasso along a
+    decreasing λ grid with screening; the squeezed layout (betas (K,
+    p))."""
+    from .session import LassoSession
+    _deprecated("lasso_path", "LassoSession.fit(X).path(y)")
+    sess = LassoSession.fit(X, config=cfg, geometry=geometry, device=device)
+    return sess.path(y, lambdas).squeeze()
+
+
+def lasso_path_batched(X, Y, lambdas=None, cfg=None, *,
+                       num_lambdas: int = 100, lo_frac: float = 0.05,
+                       geometry=None, device=None) -> PathResult:
+    """DEPRECATED: ``LassoSession.fit(X, ...).path(Y, lambdas,
+    num_lambdas=, lo_frac=)`` for Y (B, n): B paths against one fitted
+    dictionary, the batched layout."""
+    from .session import LassoSession
+    _deprecated("lasso_path_batched", "LassoSession.fit(X).path(Y)")
+    if np.ndim(Y) != 2:
+        raise ValueError(f"lasso_path_batched needs Y of shape (B, n), got "
+                         f"{np.shape(Y)}")
+    sess = LassoSession.fit(X, config=cfg, geometry=geometry, device=device)
+    return sess.path(Y, lambdas, num_lambdas=num_lambdas, lo_frac=lo_frac)
+
+
+def group_lasso_path(X, y, m: int, lambdas, cfg=None, *,
+                     device=None) -> PathResult:
+    """DEPRECATED: ``LassoSession.fit(X, groups=m, config=cfg,
+    device=device).path(y, lambdas).squeeze()``, the group Lasso with
+    group screening over contiguous groups of m columns."""
+    from .session import LassoSession
+    _deprecated("group_lasso_path", "LassoSession.fit(X, groups=m).path(y)")
+    sess = LassoSession.fit(X, groups=m, config=cfg, device=device)
+    return sess.path(y, lambdas).squeeze()

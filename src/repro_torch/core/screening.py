@@ -552,6 +552,9 @@ def _make_cut_rule(base: str):
 #: ``<base>_cut`` for every sequential sphere rule.
 CUT_RULES = {f"{base}_cut": _make_cut_rule(base) for base in SPHERE_RULES}
 
+gap_cut_mask = CUT_RULES["gap_cut"]
+edpp_cut_mask = CUT_RULES["edpp_cut"]
+
 
 def kkt_violations(X, y, beta, lam, discarded, tol: float = 1e-4,
                    fitted=None):

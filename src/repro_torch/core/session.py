@@ -32,15 +32,17 @@ group EDPP, group strong, ``none`` and hybrid group EDPP + group strong
 with the ``group_fista`` strategy (a batch loops the single-query group
 driver, as the reference does); and, with ``mesh=``
 (a :class:`~torch.distributed.device_mesh.DeviceMesh` under an
-initialised process group, one process per rank), the plain-Lasso path
-on X split by columns over the mesh's feature axis: each rank keeps its
-column block, the screens run per block and gather
-(``backend_name == "shard:<tile>"``), and each reduced bucket is
-gathered replicated and solved alike on every rank (a batch stays whole
-on every rank), bf16 screens and solves included. ``session.update(add=,
-drop=)`` edits a plain session's dictionary in place, on and off a mesh
-(:mod:`.update`). Everything else raises ``NotImplementedError`` naming
-the ROADMAP.md item (queue 1) that brings it.
+initialised process group, one process per rank), the same paths on X
+split by columns over the mesh's feature axes (every axis but
+``"query"``, flattened into one): each rank keeps its column block, the
+screens run per block and gather (``backend_name == "shard:<tile>"``),
+and each reduced bucket is gathered replicated and solved alike on every
+rank (a batch stays whole on every rank), bf16 screens and solves
+included; a group session's blocks hold whole groups (m divides p/F) and
+its group scores and spectral norms are gathered per block.
+``session.update(add=, drop=)`` edits a plain session's dictionary in
+place, on and off a mesh (:mod:`.update`); a group session refuses it,
+as the reference does.
 
 Entry points run on the card unless the caller asks for the CPU:
 ``device=None`` means ``cuda``, and raises when no card is present.
@@ -49,6 +51,7 @@ Entry points run on the card unless the caller asks for the CPU:
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Callable
 
 import numpy as np
@@ -68,12 +71,6 @@ from .solver import GROUP_SOLVERS, SOLVERS, SolverEngine
 # Every Lasso rule the reference knows (GROUP_ENGINE_RULES, the
 # reference's group subset, is what a group session takes).
 KNOWN_RULES = ENGINE_RULES
-
-
-def _not_yet(what: str, item: int, title: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md queue 1 item {item} "
-        f"({title})")
 
 
 def _check_session_kind(cfg: "PathConfig", m: int) -> None:
@@ -229,6 +226,19 @@ class PathConfig:
     bucket_min = property(lambda self: self.solve.bucket_min)
 
 
+def GroupPathConfig(**kw) -> PathConfig:
+    """DEPRECATED: a :class:`PathConfig` with the old group defaults
+    (``solver="group_fista"``, ``bucket_min=16`` groups). A plain
+    PathConfig passed to ``LassoSession.fit(X, groups=m)`` resolves the
+    group defaults by itself."""
+    warnings.warn("repro_torch.core.GroupPathConfig is deprecated; use "
+                  "PathConfig with LassoSession.fit(X, groups=m)",
+                  DeprecationWarning, stacklevel=2)
+    kw.setdefault("solver", "group_fista")
+    kw.setdefault("bucket_min", 16)
+    return PathConfig(**kw)
+
+
 class LassoSession:
     """A fitted dictionary + resolved engine choices; query it many times.
     Construct with :meth:`fit` (or :func:`repro_torch.convert.
@@ -270,12 +280,14 @@ class LassoSession:
         every later group path. ``device=None`` is the card; pass
         ``device="cpu"`` for the CPU.
 
-        ``mesh`` (a DeviceMesh of the initialised process group, with a
-        feature axis and optionally a ``"query"`` axis) keeps this rank's
+        ``mesh`` (a DeviceMesh of the initialised process group, with
+        feature axes and optionally a ``"query"`` axis) keeps this rank's
         column block of X — every rank calls with the same global X — and
         resolves the configured screen backend per block
         (:func:`.distributed.sharded_backend`; an explicit backend is
-        honoured). ``geometry`` adopts a prefitted
+        honoured); with ``groups=m`` each block must hold whole groups
+        (``ValueError`` naming p, m and F otherwise). ``geometry`` adopts
+        a prefitted
         :class:`DictionaryGeometry` instead of fitting."""
         cfg = config if config is not None else PathConfig()
         if not isinstance(cfg, PathConfig):
@@ -312,9 +324,8 @@ class LassoSession:
     @staticmethod
     def _place_on_mesh(X, mesh, m: int, dev: torch.device) -> torch.Tensor:
         """This rank's column block of X, after refusing what a mesh
-        session does not serve."""
-        if m > 1:
-            raise _not_yet("groups=m on a mesh session", 13, "distributed")
+        session does not serve: a group session's block must hold whole
+        groups (m divides p/F)."""
         if not torch.distributed.is_initialized():
             raise RuntimeError(
                 "mesh= needs an initialised process group, and none is up: "
@@ -327,6 +338,8 @@ class LassoSession:
             raise ValueError(f"X must be (n, p), got shape {np.shape(X)}")
         if dev.type == "cuda" and dev.index is None:
             dev = dist.mesh_device(mesh)
+        if m > 1:
+            dist.check_groups(mesh, np.shape(X)[1], m)
         return dist.place_dictionary(mesh, X, dev)
 
     def _resolve_for_session(self, backend) -> ops.ScreenBackend:
@@ -352,7 +365,8 @@ class LassoSession:
             backend if backend is not None else self._default_backend)
         geom = self._geometries.get(inst.name)
         if geom is None:
-            geom = (GroupDictionaryGeometry(self.X, self.groups, inst)
+            geom = (GroupDictionaryGeometry(self.X, self.groups, inst,
+                                            mesh=self.mesh)
                     if self.groups > 1
                     else DictionaryGeometry(self.X, inst, mesh=self.mesh))
             # a backend fitted after an update joins at the current
@@ -607,20 +621,29 @@ class LassoSession:
                                             for r in results]))
 
     def _group_path(self, y, lambdas, cfg, grid_kw) -> PathResult:
+        """One group path. Every read of the global X goes through the
+        geometry (on a mesh: the λ̄_max group, each reduced group bucket
+        gathered replicated, the KKT check's Xᵀr gathered), so
+        ``group_fista`` runs on whole arrays on every rank."""
         m = self.groups
+        geom = self._geometry(cfg.screen.backend)
         eng = GroupScreeningEngine(self.X, y, m, eps=cfg.screen.eps,
-                                   geometry=self._geometry(cfg.screen.backend))
+                                   geometry=geom)
         if lambdas is None:
             lambdas = lambda_grid(eng.lam_max, **grid_kw)
         X = self.X
 
         def kkt_fn(beta_full, lam, discard, fitted=None):
-            return gscr.group_kkt_violations(X, y, beta_full, lam, discard, m,
-                                             cfg.screen.kkt_tol, fitted)
+            if fitted is None:
+                fitted = geom.fitted(beta_full)
+            return gscr.group_kkt_violations(
+                X, y, beta_full, lam, discard, m, cfg.screen.kkt_tol, fitted,
+                correlations=geom.correlations)
 
         return _path_driver(X, y, lambdas, cfg, m=m, screen_engine=eng,
                             solver_engine=self._solver_engine(y, cfg),
-                            need_kkt=self._need_kkt(cfg), kkt_fn=kkt_fn)
+                            need_kkt=self._need_kkt(cfg), kkt_fn=kkt_fn,
+                            columns=geom.columns)
 
 
 def _squeeze_grid(lambdas):

@@ -80,6 +80,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from .device import as_tensor, resolve_device
 from .group_lasso import group_gap_from_residual, group_soft_threshold
 from .lasso import gap_from_residual, top_eigenpair
 
@@ -114,6 +115,19 @@ class SolveResult(NamedTuple):
     iters: int | np.ndarray
     converged: bool | np.ndarray
     gap_checks: int = 0
+
+
+# The reference's names for the result of its one-shot solvers.
+FistaResult = SolveResult
+GroupFistaResult = SolveResult
+
+
+# The solver backend a solve takes when none is named (``cuda`` on the
+# card, the default device; ``torch`` on the CPU), and a name's backend:
+# the screens' registry and policy (a registered backend runs only where
+# it is named).
+default_solver_backend = ops.default_backend_name
+resolve_solver_backend = ops.resolve_backend
 
 
 def momentum_sequence(iters: int, fl) -> np.ndarray:
@@ -1002,3 +1016,72 @@ class SolverEngine:
         self._account(n, b, Xr.element_size(),
                       float(info.get("lo_passes", 2.0 * self.last_lo_iters)))
         return res
+
+
+# ---------------------------------------------------------------------------
+# One-shot solvers (the reference's ``fista``, ``cd`` and ``group_fista``):
+# one problem, no path, the same signatures and defaults
+# ---------------------------------------------------------------------------
+
+def _one_shot(X, y, beta0, device):
+    """X, y and β0 (zeros by default) as tensors on one device: a tensor
+    X keeps its own device, host arrays go to ``device`` (None: the
+    card)."""
+    dev = X.device if isinstance(X, torch.Tensor) and device is None \
+        else resolve_device(device)
+    Xt = as_tensor(X, dev)
+    yt = as_tensor(y, dev, Xt.dtype)
+    b0 = (torch.zeros((Xt.shape[1],), dtype=Xt.dtype, device=dev)
+          if beta0 is None else as_tensor(beta0, dev, Xt.dtype))
+    return Xt, yt, b0
+
+
+def _default_lipschitz(X: torch.Tensor) -> float:
+    """1.05·‖X‖₂² from a cold power iteration (50 steps, seed 0), the
+    product rounded in float32 for float32 X, as the reference's."""
+    eig = float(top_eigenpair(X)[0])
+    if X.dtype == torch.float32:
+        return float(_F32(1.05) * _F32(eig))
+    return 1.05 * eig
+
+
+def fista(X, y, lam, beta0=None, *, max_iter: int = 2000, tol: float = 1e-8,
+          check_every: int = 10, lipschitz=None, backend=None,
+          device=None) -> SolveResult:
+    """FISTA for one Lasso problem with duality-gap stopping (relative
+    tol: gap ≤ tol·½‖y‖², checked every ``check_every`` iterations).
+    Each iteration is one forward fit and one ``fista_step`` launch of
+    the solver backend (``cuda`` on the card, the plain version on CPU
+    tensors; ``backend=`` names another). ``lipschitz`` defaults to
+    1.05·‖X‖₂² by power iteration. X as a tensor keeps its device; host
+    arrays go to ``device`` (None: the card)."""
+    X, y, b0 = _one_shot(X, y, beta0, device)
+    L = _default_lipschitz(X) if lipschitz is None else float(lipschitz)
+    step_op = ops.resolve_backend(backend, X.device).fista_step
+    return _fista_solve(step_op, X, y, float(lam), b0, L, tol, max_iter,
+                        max(1, int(check_every)))
+
+
+def cd(X, y, lam, beta0=None, *, max_epochs: int = 200, tol: float = 1e-10,
+       check_every: int = 1, device=None) -> SolveResult:
+    """Cyclic coordinate descent for one Lasso problem, on matvecs with
+    the residual carried (the reference's one-shot ``cd``; the Gram
+    route is the session's ``cd`` strategy): the gap is checked every
+    ``check_every`` epochs. Devices as :func:`fista`."""
+    X, y, b0 = _one_shot(X, y, beta0, device)
+    return _cd_solve(X, y, float(lam), b0, tol, max_epochs,
+                     max(1, int(check_every)))
+
+
+def group_fista(X, y, lam, m: int, beta0=None, *, max_iter: int = 2000,
+                tol: float = 1e-8, check_every: int = 10, lipschitz=None,
+                device=None) -> SolveResult:
+    """Block FISTA for one group-Lasso problem (contiguous groups of m
+    columns), as the ``group_fista`` strategy solves a bucket. Devices
+    and ``lipschitz`` as :func:`fista`."""
+    X, y, b0 = _one_shot(X, y, beta0, device)
+    if X.shape[1] % m:
+        raise ValueError(f"p={X.shape[1]} is not divisible by m={m}")
+    L = _default_lipschitz(X) if lipschitz is None else float(lipschitz)
+    return _group_fista_solve(X, y, float(lam), int(m), b0, L, tol,
+                              max_iter, max(1, int(check_every)))

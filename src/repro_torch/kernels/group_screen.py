@@ -2,7 +2,10 @@
 
 ``group_screen_scores(X, centre, m)`` takes X (n, p) with p % m == 0 and a
 rank-1 centre (n,), and returns the (p/m,) group scores (Corollary 21's
-left-hand side). Replaces ``group_screen_scores`` of
+left-hand side). With ``wide_p`` the block X of whole groups is summed
+as the pass over a wider X of ``wide_p`` columns sums it
+(:func:`group_wide_plan`): a mesh rank's block gives the whole width's
+bits. Replaces ``group_screen_scores`` of
 ``src/repro/kernels/group_screen.py`` (its ``pl.pallas_call`` at line
 68). A CPU X takes the plain version of :mod:`.ref`; a CUDA X launches
 ``csrc/group_screen.cu`` (float32, contiguous) or raises.
@@ -77,23 +80,51 @@ def group_plan(n: int, p: int, m: int, sms: int, aligned: bool,
     return finish_plan(n, p, 1, vec, tile, split, GROUP_SPAN)
 
 
-def group_plan_for(X: torch.Tensor, m: int) -> LaunchPlan:
-    """:func:`group_plan` for a CUDA X."""
+def group_wide_plan(n: int, p: int, wide_p: int, m: int, sms: int,
+                    aligned: bool) -> LaunchPlan:
+    """The plan of a group pass over an (n, p) block of whole groups of a
+    wider X with ``wide_p`` columns (a mesh rank's block) that sums each
+    group as the pass over all ``wide_p`` columns sums it: that pass's
+    tile and cluster (the row split, the fold of warps and ranks, the
+    epilogue's share; none depends on the loads), with the block's own
+    loads and grid. The tile depends on m alone, so only the cluster can
+    differ from the block's own plan: where p/tile tiles leave SMs idle
+    and wide_p/tile tiles do not, the block's own plan splits the rows
+    and sums them in another order."""
+    if wide_p < p or wide_p % m:
+        raise ValueError(f"group_wide_plan: wide_p={wide_p} must be a "
+                         f"multiple of m={m} and at least p={p}")
+    wide = group_plan(n, wide_p, m, sms, aligned)
+    own = group_plan(n, p, m, sms, aligned)
+    return finish_plan(n, p, 1, own.vec, wide.tile, wide.split, GROUP_SPAN)
+
+
+def group_plan_for(X: torch.Tensor, m: int,
+                   wide_p: int | None = None) -> LaunchPlan:
+    """:func:`group_plan` for a CUDA X; with ``wide_p``,
+    :func:`group_wide_plan` for a block of a wider X."""
     n, p = X.shape
-    return group_plan(n, p, m, sms_of(X), X.data_ptr() % 16 == 0)
+    aligned = X.data_ptr() % 16 == 0
+    if wide_p is not None:
+        return group_wide_plan(n, p, wide_p, m, sms_of(X), aligned)
+    return group_plan(n, p, m, sms_of(X), aligned)
 
 
 def group_screen_scores(X: torch.Tensor, centre: torch.Tensor, m: int, *,
-                        plan: LaunchPlan | None = None) -> torch.Tensor:
+                        plan: LaunchPlan | None = None,
+                        wide_p: int | None = None) -> torch.Tensor:
     """``‖X_gᵀ·centre‖₂`` for the p/m contiguous groups of m columns.
-    ``plan`` replaces :func:`group_plan`'s choice on a CUDA X."""
+    ``wide_p``: X is a block of whole groups of an X with ``wide_p``
+    columns, and each group is summed as that X's pass sums it
+    (:func:`group_wide_plan`). ``plan`` replaces either choice on a CUDA
+    X."""
     op = "group_screen_scores"
     m = int(m)
     p = X.shape[-1]
     if m < 1 or p % m:
         raise ValueError(f"{op}: the group size m={m} must divide p={p}")
     if X.device.type == "cpu":
-        return ref.group_screen_ref(X, centre, m)
+        return ref.group_screen_ref(X, centre, m, wide_p=wide_p)
     check_x(X, op)
     n = X.shape[0]
     if centre.dim() != 1:
@@ -105,7 +136,7 @@ def group_screen_scores(X: torch.Tensor, centre: torch.Tensor, m: int, *,
     if p:
         with torch.cuda.device(X.device):
             stream = torch.cuda.current_stream().cuda_stream
-            pl = plan or group_plan_for(X, m)
+            pl = plan or group_plan_for(X, m, wide_p)
             check_error(fn(X.data_ptr(), C.data_ptr(), n, p, m, *pl.c_args,
                            out.data_ptr(), stream), op)
             LAUNCHES[op] += 1

@@ -6,7 +6,7 @@ A :class:`ScreenBackend` bundles the six ops of the ported paths:
                                                   or its bf16 copy)
     fused_scores(X, centre, rho, wide_p=None)  -> (|dot| + ρ‖x_j‖, ‖x_j‖²)
     fista_step(X, r, z, beta_old, step, lam, mom) -> (β', z')
-    group_scores(X, centre, m)                 -> ‖X_gᵀ·centre‖ per group
+    group_scores(X, centre, m, wide_p=None)    -> ‖X_gᵀ·centre‖ per group
     cd_gram_sweep(G, c, beta, lam, sweeps, valid) -> β after the sweeps
     prox_step(z, g, beta_old, step, lam, mom)  -> (β', z')
 
@@ -14,8 +14,10 @@ A :class:`ScreenBackend` bundles the six ops of the ported paths:
 step | λ | mom in place of the three (a row of a solver's parameter
 table), and ``prox_step`` a (k, …) stack of the gradient's parts as g.
 ``wide_p`` says that X is a block of the columns of a wider X with
-``wide_p`` columns, and sums each column as that X's pass sums it (a
-float32 re-test's gather, a dictionary update's added block).
+``wide_p`` columns, and sums each column (each group, for
+``group_scores``) as that X's pass sums it (a float32 re-test's gather,
+a dictionary update's added block, a mesh rank's block of whole
+groups).
 
 The mixed-precision screen's margins, :func:`bf16_column_err` and
 :func:`bf16_score_margin`, and the mixed-precision solve's handover,
@@ -67,13 +69,15 @@ BACKENDS: dict[str, ScreenBackend] = {
 }
 
 
-def default_backend_name(device: torch.device | str) -> str:
-    """``cuda`` on a CUDA device, ``torch`` on the CPU."""
+def default_backend_name(device: torch.device | str = "cuda") -> str:
+    """``cuda`` on a CUDA device (the default: the card), ``torch`` on the
+    CPU. A backend added to ``BACKENDS`` runs only where it is named."""
     return "cuda" if torch.device(device).type == "cuda" else "torch"
 
 
-def resolve_backend(name: str | ScreenBackend | None,
-                    device: torch.device | str) -> ScreenBackend:
+def resolve_backend(name: str | ScreenBackend | None = None,
+                    device: torch.device | str = "cuda") -> ScreenBackend:
+    """The backend of a name (or itself), else the device's default."""
     if isinstance(name, ScreenBackend):
         return name
     name = name or default_backend_name(device)

@@ -193,14 +193,19 @@ def fista_step_ref(X: torch.Tensor, r: torch.Tensor, z: torch.Tensor,
     return _prox(za, g, ba, *_prox_params(za, step, lam, mom, params))
 
 
-def group_screen_ref(X: torch.Tensor, centre: torch.Tensor,
-                     m: int) -> torch.Tensor:
+def group_screen_ref(X: torch.Tensor, centre: torch.Tensor, m: int, *,
+                     wide_p: int | None = None) -> torch.Tensor:
     """Group scores (Corollary 21 LHS): ``gscores[g] = ‖X_gᵀc‖₂`` over
-    contiguous groups of m columns; rank-1 centre, (p/m,) out."""
+    contiguous groups of m columns; rank-1 centre, (p/m,) out. The dots
+    sum by :func:`column_dots` and each group's squares by
+    :func:`sum_rows` (the m squares of a group as rows), so a block of
+    whole groups gets the whole width's bits (a mesh rank's block).
+    ``wide_p`` (the kernel's order of a wider pass) changes nothing
+    here."""
     PLAIN_CALLS["group_screen_scores"] += 1
     acc = _acc_dtype(X)
-    dot = X.to(acc).T @ centre.to(acc)
-    return torch.linalg.vector_norm(dot.reshape(-1, m), dim=1)
+    dot = column_dots(X.to(acc), centre.to(acc))
+    return torch.sqrt(sum_rows((dot * dot).reshape(-1, m).T))
 
 
 def cd_gram_sweep_ref(G: torch.Tensor, c: torch.Tensor, beta: torch.Tensor,

@@ -1318,3 +1318,113 @@ def test_mesh_bf16_and_update_over_nccl(cuda, tmp_path):
             plain.path(y, num_lambdas=20, config=cfg()).masks)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("shape, m, parts", [
+    ((250, 16800), 10, 4), ((250, 200000), 10, 2), ((777, 1000), 5, 2),
+    ((64, 2400), 200, 3), ((100, 2376), 33, 2)])
+def test_group_pass_wide_p_gives_the_full_widths_bits(cuda, shape, m, parts):
+    """A mesh rank's block of whole groups: the group pass launched with
+    ``wide_p`` = the whole width gives the full pass's scores bit for bit
+    at the block's groups (and two launches the same bits). At
+    250 × 16 800 in quarters the block's own plan splits the rows over a
+    cluster where the whole width's does not."""
+    n, p = shape
+    X = _det((n, p), 31).to(cuda)
+    c = _det((n,), 32).to(cuda)
+    full = group_screen.group_screen_scores(X, c, m)
+    w = p // parts
+    for r in range(parts):
+        blk = X[:, r * w:(r + 1) * w].contiguous()
+        got = group_screen.group_screen_scores(blk, c, m, wide_p=p)
+        assert torch.equal(got, full[r * w // m:(r + 1) * w // m]), r
+        assert torch.equal(got, group_screen.group_screen_scores(
+            blk, c, m, wide_p=p))
+        _close([got], [ref.group_screen_ref(blk, c, m)])
+    del X
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("G, m, parts", [(2000, 10, 2), (2000, 10, 4),
+                                         (96, 5, 3), (40, 5, 40)])
+def test_group_spectral_norms_of_blocks_are_the_full_batchs(cuda, G, m,
+                                                            parts):
+    """‖X_g‖₂ of a block's groups (one batched ``eigvalsh`` of G/F Grams,
+    or of one) against the whole batch's at those groups, bit for bit: a
+    group mesh session gathers the blocks' norms."""
+    from repro_torch.core.group_screening import group_spectral_norms
+    X = _det((250, G * m), 33).to(cuda)
+    full = group_spectral_norms(X, m)
+    w = G * m // parts
+    got = torch.cat([group_spectral_norms(
+        X[:, r * w:(r + 1) * w].contiguous(), m) for r in range(parts)])
+    diff = int((got != full).sum())
+    print(f"G={G}, m={m}, {parts} blocks: {diff} of {G} norms differ, "
+          f"max |Δ| {float((got - full).abs().max()):.3g}")
+    assert diff == 0
+
+
+def test_one_shot_fista_launches_its_kernel_on_the_card(cuda):
+    """``repro_torch.core.fista`` on a CUDA X: one ``fista_step`` launch
+    per iteration, no plain version; β against the same call on the CPU
+    within beta_err_tol(y, 1e-6); host arrays go to the card."""
+    from repro_torch.core import cd, fista
+    X, y, _ = lasso_problem(100, 1024, nnz=10, seed=1, dtype=np.float32)
+    lam = 0.3 * float(np.abs(X.T @ y).max())
+    ops.reset_counts()
+    res = fista(torch.from_numpy(X).to(cuda), y, lam, tol=1e-6)
+    torch.cuda.synchronize()
+    assert res.beta.is_cuda and bool(res.converged)
+    assert ops.launch_counts()["fista_step"] == res.iters > 0
+    assert not any(ops.plain_counts().values())
+    assert fista(X, y, lam, tol=1e-6, max_iter=20).beta.is_cuda
+    cpu = cd(X, y, lam, tol=1e-6, device="cpu")
+    tol = 25.0 * float(np.sqrt(1e-6 * 0.5 * float(y @ y)))
+    assert float(np.abs(res.beta.cpu().numpy()
+                        - cpu.beta.numpy()).max()) <= tol
+
+
+def _nccl_one_rank(tmp_path):
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp_path, "store"), 1), rank=0, world_size=1,
+        device_id=torch.device("cuda", 0))
+
+
+def test_group_mesh_session_over_nccl_matches_the_unsharded_one(cuda,
+                                                                tmp_path):
+    """World size 1 over NCCL: ``fit(X, groups=10, mesh=)`` runs the group
+    pass on the card through ``shard:cuda`` (no plain version) and gives
+    the unsharded group session's masks, stats and β bit for bit; a
+    ("query", "a", "b") mesh of shape (1, 1, 1) gives the (1, 1) mesh's
+    plain and group paths bit for bit."""
+    X, y, _ = group_lasso_problem(100, 4000, 10, active_groups=8, seed=0,
+                                  dtype=np.float32)
+    cfg = PathConfig(solve=SolveSpec(tol=1e-6))
+    plain = LassoSession.fit(X, groups=10, config=cfg)
+    res_u = plain.path(y, num_lambdas=20, hi_frac=0.95)
+    _nccl_one_rank(tmp_path)
+    try:
+        runs = {}
+        for names in (("query", "feature"), ("query", "a", "b")):
+            mesh = init_device_mesh("cuda", (1,) * len(names),
+                                    mesh_dim_names=names)
+            ops.reset_counts()
+            sess = LassoSession.fit(X, groups=10, mesh=mesh, config=cfg)
+            res = sess.path(y, num_lambdas=20, hi_frac=0.95)
+            torch.cuda.synchronize()
+            assert sess.backend_name == "shard:cuda"
+            assert ops.launch_counts()["group_screen_scores"] > 0
+            assert not any(ops.plain_counts().values())
+            lasso = LassoSession.fit(X, mesh=mesh, config=cfg).path(
+                y, num_lambdas=20, hi_frac=0.95)
+            runs[len(names)] = (res, lasso)
+        for res, _ in runs.values():
+            np.testing.assert_array_equal(res.masks, res_u.masks)
+            np.testing.assert_array_equal(res.betas, res_u.betas)
+            assert [(s.n_discarded, s.x_passes, s.bucket)
+                    for s in res.stats] == [
+                (s.n_discarded, s.x_passes, s.bucket) for s in res_u.stats]
+        np.testing.assert_array_equal(runs[3][1].masks, runs[2][1].masks)
+        np.testing.assert_array_equal(runs[3][1].betas, runs[2][1].betas)
+    finally:
+        dist.destroy_process_group()

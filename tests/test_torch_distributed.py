@@ -459,9 +459,13 @@ def test_mesh_sessions_refuse_what_this_slice_does_not_serve(problem):
     with pytest.raises(RuntimeError, match="process group"):
         LassoSession.fit(X, mesh=object(), device="cpu")
     with worker.one_rank() as mesh:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1 item 13 "):
-            LassoSession.fit(X, groups=2, mesh=mesh, device="cpu")
+        # a group session runs on a mesh now (tests/test_torch_group_mesh.py):
+        # its fit gathers the unsharded spectral norms bit for bit
+        gs = LassoSession.fit(X, groups=2, mesh=mesh, device="cpu")
+        assert gs.backend_name == "shard:torch" and gs.shape == X.shape
+        np.testing.assert_array_equal(
+            gs.geometry.spec_norms,
+            LassoSession.fit(X, groups=2, device="cpu").geometry.spec_norms)
         geom = DictionaryGeometry(torch.from_numpy(X))
         with pytest.raises(ValueError, match="cannot be combined"):
             LassoSession.fit(X, mesh=mesh, geometry=geom, device="cpu")

@@ -240,33 +240,21 @@ def test_fit_runs_on_the_card_unless_asked_otherwise():
     assert LassoSession.fit(X, device="cpu").X.device.type == "cpu"
 
 
-# What a session still refuses. The bf16 screen and solve run on plain
-# and mesh sessions (tests/test_torch_bf16_solve.py,
-# tests/test_torch_bf16_mesh.py) and ``update`` on plain and mesh
-# sessions (tests/test_torch_update.py): a group mesh session still
-# raises item 13 before any dtype is looked at, for either strategy and
-# either bf16 option, and a group session refuses ``update`` as the
+# What a session still refuses: a group session refuses ``update`` as the
 # reference does (no ROADMAP item brings it: ``item`` is then the
-# message).
+# message). The bf16 screen and solve run on plain and mesh sessions
+# (tests/test_torch_bf16_solve.py, tests/test_torch_bf16_mesh.py),
+# ``update`` on plain and mesh sessions (tests/test_torch_update.py) and
+# group sessions on a mesh (tests/test_torch_group_mesh.py, and the cases
+# of test_group_mesh_sessions_take_what_group_sessions_take below).
 _GROUP_UPDATE = "plain-Lasso only"
 
 
 @pytest.mark.parametrize("what, call, item", [
-    ("group_mesh", lambda s, y: LassoSession.fit(
-        s.X, groups=2, mesh=object(), device="cpu"), 13),
-    ("solve_bf16_fista", lambda s, y: LassoSession.fit(
-        s.X, groups=2, mesh=object(), device="cpu", config=PathConfig(
-            solve=SolveSpec(solve_dtype="bfloat16"))), 13),
-    ("solve_bf16_cd", lambda s, y: LassoSession.fit(
-        s.X, groups=2, mesh=object(), device="cpu", config=PathConfig(
-            solve=SolveSpec(strategy="cd", solve_dtype="bfloat16"))), 13),
     ("update_add", lambda s, y: LassoSession.fit(
         s.X, groups=2, device="cpu").update(add=s.X[:, :2]), _GROUP_UPDATE),
     ("update", lambda s, y: LassoSession.fit(
         s.X, groups=2, device="cpu").update(drop=[0]), _GROUP_UPDATE),
-    ("mesh_bf16", lambda s, y: LassoSession.fit(
-        s.X, groups=2, mesh=object(), device="cpu", config=PathConfig(
-            screen=ScreenSpec(screen_dtype="bfloat16"))), 13),
 ])
 def test_later_slices_raise_naming_their_roadmap_item(what, call, item):
     X, y, _ = lasso_problem(10, 20, nnz=2, seed=3, dtype=np.float32)
@@ -275,6 +263,63 @@ def test_later_slices_raise_naming_their_roadmap_item(what, call, item):
              else f"ROADMAP.md queue 1 item {item} ")
     with pytest.raises(NotImplementedError, match=match):
         call(sess, y)
+
+
+# The cases a group mesh session refused (ROADMAP.md item 13) until group
+# sessions ran on a mesh: each now does what an unsharded group session
+# does with the same config, on a one-rank gloo mesh.
+_GROUP_MESH_CASES = {
+    "group_mesh": PathConfig(solve=SolveSpec(tol=TOL)),
+    "solve_bf16_fista": PathConfig(solve=SolveSpec(
+        tol=TOL, solve_dtype="bfloat16")),
+    "solve_bf16_cd": PathConfig(solve=SolveSpec(
+        strategy="cd", tol=TOL, solve_dtype="bfloat16")),
+    "mesh_bf16": PathConfig(screen=ScreenSpec(screen_dtype="bfloat16"),
+                            solve=SolveSpec(tol=TOL)),
+}
+
+
+@pytest.mark.parametrize("what", list(_GROUP_MESH_CASES))
+def test_group_mesh_sessions_take_what_group_sessions_take(what, monkeypatch):
+    """``group_mesh``: the path of ``fit(X, groups=2, mesh=)`` is the
+    unsharded group session's bit for bit (``backend_name``
+    ``"shard:torch"``); ``solve_bf16_fista``: it warns that group_fista
+    has no bf16 phase and solves in float32, bit for bit the float32
+    mesh path; ``solve_bf16_cd`` (a Lasso strategy) and ``mesh_bf16`` (a
+    bf16 group screen): refused with the unsharded group session's
+    ``ValueError``."""
+    import torch_dist_worker as worker
+    from repro_torch.core import solver
+    X, y, _ = group_lasso_problem(20, 40, 2, active_groups=3, seed=3,
+                                  dtype=np.float32)
+    cfg = _GROUP_MESH_CASES[what]
+    f32 = _GROUP_MESH_CASES["group_mesh"]
+    monkeypatch.setattr(solver, "_BF16_SOLVE_WARNED", set())
+    with worker.one_rank() as mesh:
+        if what in ("solve_bf16_cd", "mesh_bf16"):
+            for kw in ({}, {"mesh": mesh}):
+                with pytest.raises(ValueError, match="group sessions"):
+                    LassoSession.fit(X, groups=2, device="cpu", config=cfg,
+                                     **kw)
+            return
+        sess = LassoSession.fit(X, groups=2, mesh=mesh, device="cpu",
+                                config=f32)
+        assert sess.backend_name == "shard:torch" and sess.fit_passes == 1
+        res = sess.path(y, **GRID)
+        if what == "group_mesh":
+            want = LassoSession.fit(X, groups=2, device="cpu",
+                                    config=f32).path(y, **GRID)
+        else:
+            sess.reset_solver_cache()
+            want = res
+            with pytest.warns(RuntimeWarning, match="group_fista"):
+                res = sess.path(y, **GRID, config=cfg)
+            live = [s for s in res.stats if s.screen_backend]
+            assert live and all(s.solve_dtype_effective == "float32"
+                                and s.solver_lo_iters == 0 for s in live)
+    np.testing.assert_array_equal(res.masks, want.masks)
+    np.testing.assert_array_equal(res.betas, want.betas)
+    assert [s.bucket for s in res.stats] == [s.bucket for s in want.stats]
 
 
 def test_config_validation_matches_reference():

@@ -9,7 +9,9 @@ each of which joins a gloo process group through a FileStore under
 a rendezvous that hangs fails its test instead of stalling the suite.
 ``spawn_world(..., job="mixed")`` runs :func:`compute_mixed` instead
 (tests/test_torch_bf16_mesh.py): bf16 screens and solves and dictionary
-updates on a mesh session.
+updates on a mesh session; ``job="group"`` runs :func:`compute_group`
+(tests/test_torch_group_mesh.py): group sessions on a mesh and, in a
+world of 4, a mesh with two feature axes against one with one.
 
 :func:`compute` is also what the tests run in-process at world size 1,
 inside :func:`one_rank`, and :func:`compute_mixed` also runs there and
@@ -249,7 +251,99 @@ def compute_mixed(mesh, inp, screens: bool = True
             for k, v in out.items()}
 
 
-JOBS = {"compute": compute, "mixed": compute_mixed}
+GROUP_M = 5
+GROUP_ARMS = (("edpp", False), ("strong", False), ("edpp", True))
+REFUSED_M = 32        # divides the group problem's p = 480, not p/2 or p/4
+
+
+def group_config(rule: str = "edpp", hybrid: bool = False) -> PathConfig:
+    """A group session's config: ``rule`` (with the group strong rule
+    ORed in when ``hybrid``) at PATH_TOL."""
+    return PathConfig(screen=ScreenSpec(rule=rule, strong=hybrid),
+                      solve=SolveSpec(tol=PATH_TOL))
+
+
+def _path_out(res, key: str) -> dict:
+    return {f"{key}_lambdas": res.lambdas, f"{key}_betas": res.betas,
+            f"{key}_masks": res.masks, f"{key}_stats": np.array(
+                [(s.n_discarded, s.x_passes, s.bucket, s.kkt_rounds)
+                 for s in res.stats])}
+
+
+def group_paths(mesh, inp) -> dict[str, np.ndarray]:
+    """Group sessions (``groups=GROUP_M``) on the group problem (``Xg``,
+    ``yg``, ``Yg``), on ``mesh`` or, with ``mesh=None``, unsharded: each
+    of GROUP_ARMS from a cold solver cache, the (2, n) batch, the fit's
+    spectral norms and the session's backend, passes and shape; on a
+    mesh also the refusal of groups the blocks cannot hold whole."""
+    kw = {"device": "cpu"} if mesh is None else {"device": "cpu",
+                                                 "mesh": mesh}
+    Xg, yg = inp["Xg"], inp["yg"]
+    sess = LassoSession.fit(Xg, groups=GROUP_M, **kw)
+    out = {"spec_norms": sess.geometry.spec_norms,
+           "backend": np.array(sess.backend_name),
+           "fit_passes": np.array(sess.fit_passes),
+           "shape": np.array(sess.shape)}
+    for rule, hybrid in GROUP_ARMS:
+        sess.reset_solver_cache()
+        res = sess.path(yg, **GRID, config=group_config(rule, hybrid))
+        out.update(_path_out(res, f"g_{rule}{'_hybrid' if hybrid else ''}"))
+    sess.reset_solver_cache()
+    out.update(_path_out(sess.path(inp["Yg"], **GRID,
+                                   config=group_config()), "g_batch"))
+    out["query_passes"] = np.array(sess.query_passes)
+    if mesh is not None:
+        try:
+            LassoSession.fit(Xg, groups=REFUSED_M, **kw)
+            out["refused"] = np.array("")
+        except ValueError as e:
+            out["refused"] = np.array(str(e))
+    return out
+
+
+def axes_arms(mesh, inp) -> dict[str, np.ndarray]:
+    """What a mesh's feature axes carry, for one mesh against another: a
+    plain session's path for one query (``Xs``, ``ys``) and the (4, n)
+    batch (``Ys``), and ``dist_fista`` ``"none"`` and ``"chunked"`` on
+    ``X``, ``y`` (gathered to global arrays)."""
+    out = {}
+    sess = LassoSession.fit(inp["Xs"], mesh=mesh, device="cpu",
+                            config=PathConfig(solve=SolveSpec(tol=PATH_TOL)))
+    out.update(_path_out(sess.path(inp["ys"], **GRID), "one"))
+    sess.reset_solver_cache()
+    out.update(_path_out(sess.path(inp["Ys"], **GRID), "batch"))
+    out["plain_backend"] = np.array(sess.backend_name)
+    out["plain_shape"] = np.array(sess.shape)
+    Xl, yt = D.place_dictionary(mesh, inp["X"]), D.place_queries(mesh,
+                                                                 inp["y"])
+    zero = D.place_features(mesh, np.zeros(inp["X"].shape[1], np.float32))
+    lam = 0.3 * float(inp["lam_max"])
+    for mode in ("none", "chunked"):
+        out[f"fista_{mode}"] = D.gather_features(mesh, D.dist_fista(
+            mesh, Xl, yt, lam, zero, float(inp["lipschitz"]),
+            iters=FISTA_ITERS, overlap=mode))
+    return out
+
+
+def compute_group(mesh, inp) -> dict[str, np.ndarray]:
+    """:func:`group_paths` on ``mesh``; in a world of 4 also
+    :func:`axes_arms` on ``mesh`` (``"flat_"``) and, on a ``("query",
+    "a", "b")`` mesh of shape (1, 2, 2) over the same ranks, both
+    functions again (``"axes_"``)."""
+    out = group_paths(mesh, inp)
+    if dist.get_world_size() == 4:
+        two = init_device_mesh("cpu", (1, 2, 2),
+                               mesh_dim_names=("query", "a", "b"))
+        for tag, m in (("flat", mesh), ("axes", two)):
+            out.update({f"{tag}_{k}": v
+                        for k, v in axes_arms(m, inp).items()})
+        out.update({f"axes_{k}": v
+                    for k, v in group_paths(two, inp).items()})
+    return {k: v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+            for k, v in out.items()}
+
+
+JOBS = {"compute": compute, "mixed": compute_mixed, "group": compute_group}
 
 
 @contextlib.contextmanager
