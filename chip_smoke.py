@@ -215,6 +215,29 @@ Phases, each printing its own lines and seconds:
    250 × 100 000 half of the group design with ``wide_p = 200 000``: its
    scores bit for bit the full pass's at those groups, its time and
    bound, beside the block's own plan and whether its bits differ;
+20. LM stack (run after 19): yi-9b at its published width (d_model 4096,
+   32 heads, kv 4, d_head 128, d_ff 11 008, vocab 64 000, SwiGLU, θ 5e6)
+   with its depth cut to ``LM_DEPTH`` layers: (a) ``LM_STEPS`` train
+   steps of ``repro_torch.train.steps.make_train_step`` (bf16 compute,
+   f32 masters, AdamW) on one fixed ``SyntheticLM`` batch at train_4k's
+   sequence 4096 and ``LM_BATCH`` sequences: the loss finite and falling
+   every step; the parameter count, losses, tokens/s after the first
+   step, ``torch.cuda.max_memory_allocated`` and L printed; (b) the state
+   saved before the last step (the reference's layout,
+   ``train_state_to_reference``), restored leaf for leaf equal, and the
+   resumed step's loss against the uninterrupted one's; (c) prefill of
+   ``LM_PREFILL`` tokens then ``LM_DECODE`` decode steps (the serving
+   steps), in f32 and bf16, against the full forward's logits
+   (``LM_DECODE_TOL``); (d) ``python -m repro_torch.launch.train --arch
+   yi-9b --tiny --steps 10`` on the card; (e) the FFN-pruning bridge
+   (``examples/prune_ffn_torch.py``) on (a)'s model: layer 0's FFN
+   activations on a ``LM_PROBE``-token probe, H (2048 × 11 008), group
+   EDPP over neurons (m = 1) against ``rule="none"``, 20 λ down to
+   0.02·λ_max at tol 1e-6: ``group_screen_scores`` launched once per
+   screen and once for λ̄_max, the plain counters 0, no discarded neuron
+   non-zero in the unscreened solution, β within GROUP_REL_TOL·max|β_none|
+   and beta_err_tol, and the kept-neurons/R² table printed. Phase 3 adds
+   the group pass at m = 1 on 2048 × 11 008 against its plain version;
 15. summary: one JSON line of per-kernel numbers (with, for
    ``screen_matvec``, ``fista_step`` and ``cd_gram_sweep``, the batched
    path's launches and its B = 8 row at its own shapes, for
@@ -228,7 +251,8 @@ Phases, each printing its own lines and seconds:
    every row with phase 17's mesh launches and phase 18's update
    launches, ``edpp_screen_scores`` and ``group_screen_scores`` with
    their wide-plan rows, and phase 19's group mesh and one-shot
-   launches), then
+   launches; ``group_screen_scores`` also with phase 20's bridge
+   launches and its m = 1 row), then
    the card's name and power limit, then, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -244,6 +268,11 @@ mutation check of phases 6, 8 and 9's ``dist_fista`` check: the sound arm
 and arms whose kernel output is faulted on purpose (``FAULTS``), with
 each check's readings and verdict; every faulted arm whose β the fault
 moves must fail.
+
+``python3 chip_smoke.py --lm-lr`` runs phase 1 and then phase 20(a)'s
+train steps alone at each of ``LM_LR_SWEEP``'s rates, twice the phase's
+steps on its fixed batch each, and prints each rate's losses and whether
+they fell at every step: the reading ``LM_LR`` was chosen from.
 
 Each path phase sets every launch counter to 0 just before it and reads
 them just after: each kernel the path runs must have launched, and no
@@ -2993,6 +3022,320 @@ def group_mesh_phase(torch, group_full: dict, solved: dict, X, y) -> dict:
     return out
 
 
+# Phase 20, the LM stack: yi-9b at its published width (d_model 4096, 32
+# heads, kv 4, d_head 128, d_ff 11 008, vocab 64 000, SwiGLU, θ 5e6), its
+# depth cut from 48 layers (the f32 masters and two moments of all 48,
+# 8.6e9 × 12 B ≈ 103 GB, pass one card's 80 GB)
+LM_ARCH = "yi-9b"
+# the widths phase 20 holds the config to: d_model, heads, kv heads,
+# d_head, d_ff, vocab
+LM_WIDTH = (4096, 32, 4, 128, 11008, 64000)
+# layers kept of the segment's 48 (4 took the phase 105.5 s on the card,
+# 53 s of it the 11.4 GB checkpoint's npz round trip: cut to 3, 9.4 GB)
+LM_DEPTH = 3
+LM_SEQ = 4096           # train_4k's sequence
+LM_BATCH = 4            # train_4k's global batch 256, cut to the phase's time
+LM_STEPS = 4            # steps on one fixed batch; (b) resumes the last
+# full lr from step 1 (warmup 1): on one fixed batch the loss falls at
+# every step for twice the phase's steps at 1e-4; 1e-3 and 5e-4 rose
+# again at step 3 (every parameter moves by ±lr on Adam's first steps;
+# ``--lm-lr`` reads each of LM_LR_SWEEP's rates)
+LM_LR = 1e-4
+LM_LR_SWEEP = (1e-3, 5e-4, 2e-4, 1e-4)
+LM_PREFILL = 1016       # (c): prefill this many tokens, then decode
+LM_DECODE = 8
+# (c)'s limits on max|logits_decode − logits_forward| relative to
+# max|logits_forward|: in f32 the two differ by the order of f32 sums;
+# in bf16 every product's output is rounded to bf16 (8 bits) by other
+# kernels for one token than for a sequence, through every layer
+LM_DECODE_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
+LM_PROBE = 2048         # (e): the probe batch's tokens (one sequence)
+BRIDGE_LAMBDAS = 20
+BRIDGE_LO_FRAC = 0.02
+# examples/prune_ffn.py solves at 1e-10, below what an f32 duality gap
+# certifies (its rounding noise is ~1e-7 of ½‖y‖²): the bridge solves both
+# arms at the exactness phases' 1e-6
+BRIDGE_TOL = 1e-6
+
+
+def lm_example():
+    """``examples/prune_ffn_torch.py`` as a module: the bridge's H and y,
+    its path and its table."""
+    import importlib.util
+    path = os.path.join(HERE, "examples", "prune_ffn_torch.py")
+    spec = importlib.util.spec_from_file_location("prune_ffn_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def same_tree(a, b) -> bool:
+    """Whether two trees (dicts, lists, NamedTuples; numpy or tensor
+    leaves, None) hold equal arrays under the same keys."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and sorted(a) == sorted(b)
+                and all(same_tree(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_tree(x, y)
+                                        for x, y in zip(a, b))
+    if a is None or b is None:
+        return a is None and b is None
+    as_np = lambda x: x.numpy() if hasattr(x, "numpy") else np.asarray(x)
+    x, y = as_np(a), as_np(b)
+    return x.dtype == y.dtype and np.array_equal(x, y)
+
+
+def lm_config():
+    """Phase 20's config: ``LM_ARCH`` at full width, its segment cut to
+    ``LM_DEPTH`` layers; and the uncut segment."""
+    import dataclasses
+
+    from repro_torch import configs
+    full = configs.get_config(LM_ARCH)
+    seg = full.segments[0]
+    return dataclasses.replace(full, segments=(
+        dataclasses.replace(seg, repeat=LM_DEPTH),)), seg
+
+
+def lm_lr_sweep(torch) -> dict:
+    """``--lm-lr``: phase 20(a)'s steps on its fixed batch, from the same
+    initial state, at each rate of ``LM_LR_SWEEP`` (warmup 1), for twice
+    ``LM_STEPS`` steps each. Returns {rate: losses}."""
+    from repro_torch.data import SyntheticLM, to_device
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as ST
+
+    cfg, _ = lm_config()
+    dev = torch.device(DEVICE)
+    batch = to_device(SyntheticLM(vocab=cfg.vocab, seq=LM_SEQ,
+                                  global_batch=LM_BATCH).host_batch(0), dev)
+    out = {}
+    for lr in LM_LR_SWEEP:
+        tc = ST.TrainConfig(opt=adamw.OptConfig(lr=lr, warmup_steps=1,
+                                                total_steps=100))
+        state, _ = ST.init_state(0, cfg, tc, device=dev)
+        step = ST.make_train_step(cfg, tc)
+        losses = []
+        for _ in range(2 * LM_STEPS):
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+        falls = all(b < a for a, b in zip(losses, losses[1:]))
+        print(f"  lr {lr:g}: losses {losses}; falls at every step: "
+              f"{falls}", flush=True)
+        assert np.isfinite(losses).all(), (lr, losses)
+        out[lr] = losses
+        del state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_phase(torch, tmp: str) -> dict:
+    """Phase 20, the LM stack at yi-9b's width (see the module doc): (a)
+    train steps on a fixed batch, (b) a checkpoint round trip and the
+    resumed step, (c) prefill + decode against the full forward, (d)
+    ``python -m repro_torch.launch.train`` on the card, (e) the FFN-
+    pruning bridge on (a)'s model. Returns (e)'s launches and the
+    readings."""
+    import warnings
+
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.convert import (train_state_from_reference,
+                                     train_state_to_reference)
+    from repro_torch.data import SyntheticLM, to_device
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M, pad_caches
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as ST
+
+    cfg, seg = lm_config()
+    a, f = seg.blocks[0].attn, seg.blocks[0].ffn
+    print(f"(a) {LM_ARCH} at full width: d_model {cfg.d_model}, heads "
+          f"{a.n_heads}, kv {a.n_kv_heads}, d_head {a.d_head}, d_ff {f.d_ff} "
+          f"({f.kind}), vocab {cfg.vocab}, θ {a.rope_theta:g}; depth L = "
+          f"{LM_DEPTH} of {seg.repeat}; seq {LM_SEQ}, batch {LM_BATCH} (of "
+          f"train_4k's 256); bf16 compute, AdamW lr {LM_LR:g}", flush=True)
+    assert (cfg.d_model, a.n_heads, a.n_kv_heads, a.d_head, f.d_ff,
+            cfg.vocab) == LM_WIDTH
+    tc = ST.TrainConfig(opt=adamw.OptConfig(lr=LM_LR, warmup_steps=1,
+                                            total_steps=100))
+    dev = torch.device(DEVICE)
+    readings = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, _ = ST.init_state(0, cfg, tc, device=dev)
+    torch.cuda.synchronize()
+    n_params = state.params.n_params()
+    print(f"  {n_params:,} parameters; init {time.perf_counter() - t0:.2f} "
+          f"s", flush=True)
+    src = SyntheticLM(vocab=cfg.vocab, seq=LM_SEQ, global_batch=LM_BATCH)
+    batch = to_device(src.host_batch(0), dev)
+    step = ST.make_train_step(cfg, tc)
+    losses, walls = [], []
+
+    def take_step(state):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))          # syncs
+        walls.append(time.perf_counter() - t0)
+        print(f"  step {len(losses) - 1}: loss {losses[-1]:.6f} grad_norm "
+              f"{float(metrics['grad_norm']):.4f} lr "
+              f"{float(metrics['lr']):.2e} wall {walls[-1]:.3f} s",
+              flush=True)
+        return state
+
+    for _ in range(LM_STEPS - 1):
+        state = take_step(state)
+    # (b) save before the last step, take it, restore, take it again
+    t0 = time.perf_counter()
+    saved = train_state_to_reference(state)
+    ckpt = os.path.join(tmp, "lm_ckpt")
+    save(ckpt, LM_STEPS - 1, saved)
+    save_s = time.perf_counter() - t0
+    state = take_step(state)
+    tokens = LM_BATCH * LM_SEQ
+    tok_s = tokens * (LM_STEPS - 1) / sum(walls[1:])
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  losses {losses}; {tok_s:,.0f} tokens/s over steps 1.."
+          f"{LM_STEPS - 1} ({tokens} tokens a step); max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB; L = {LM_DEPTH}", flush=True)
+    assert np.isfinite(losses).all(), losses
+    assert all(b < a_ for a_, b in zip(losses, losses[1:])), losses
+    readings.update(params=n_params, losses=list(losses), step_s=list(walls),
+                    tokens_per_s=tok_s, peak_gib=peak / 2**30,
+                    depth=LM_DEPTH, batch=LM_BATCH, seq=LM_SEQ)
+    del state
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tree, _ = restore(ckpt, LM_STEPS - 1, saved, device="cpu")
+    equal = same_tree(saved, tree)
+    state = train_state_from_reference(tree, cfg, device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del saved, tree
+    uninterrupted = losses[-1]
+    state = take_step(state)
+    resumed = losses.pop()
+    walls.pop()
+    print(f"(b) checkpoint of the {n_params:,}-parameter state (params, "
+          f"both moments, steps): save {save_s:.2f} s, restore "
+          f"{restore_s:.2f} s, restored leaves equal the saved ones "
+          f"{equal}; the resumed step's loss {resumed:.6f} against the "
+          f"uninterrupted {uninterrupted:.6f} (bit for bit "
+          f"{resumed == uninterrupted})", flush=True)
+    assert equal and int(state.step) == LM_STEPS
+    assert abs(resumed - uninterrupted) <= 1e-6 * abs(uninterrupted)
+    readings.update(save_s=save_s, restore_s=restore_s,
+                    resumed_bitwise=resumed == uninterrupted)
+
+    # (c) prefill, then decode, against the full forward on the same tokens
+    model = state.params
+    toks = torch.from_numpy(np.random.default_rng(20).integers(
+        0, cfg.vocab, (1, LM_PREFILL + LM_DECODE), dtype=np.int32)).to(dev)
+    for name, cdt in (("float32", torch.float32),
+                      ("bfloat16", torch.bfloat16)):
+        tcd = ST.TrainConfig(compute_dtype=name)
+        prefill = ST.make_prefill_step(cfg, tcd)
+        decode = ST.make_decode_step(cfg, tcd)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            tree = model.tree(cast=cdt)
+            x, pos, _ = M._embed_inputs(tree, cfg, {"tokens": toks}, cdt)
+            h, _ = M.backbone(tree, cfg, x, pos)
+            want = M.logits_for(tree, cfg, h[:, LM_PREFILL - 1:])
+            del tree, x, h
+        last, caches = prefill(model, {"tokens": toks[:, :LM_PREFILL]})
+        caches = pad_caches(caches, LM_PREFILL + LM_DECODE)
+        outs = [last[:, 0]]
+        for t in range(LM_PREFILL, LM_PREFILL + LM_DECODE):
+            lg, caches = decode(model, toks[:, t:t + 1], caches, t)
+            outs.append(lg[:, 0])
+        got = torch.stack(outs, 1)
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        torch.cuda.synchronize()
+        print(f"(c) {name}: prefill {LM_PREFILL} tokens then decode "
+              f"{LM_DECODE}: max|Δlogits| {err:.4g} of max|logits| "
+              f"{scale:.4g} ({err / scale:.3g}; limit "
+              f"{LM_DECODE_TOL[name]:g}); top-1 agree "
+              f"{int((got.argmax(-1) == want.argmax(-1)).sum())}/"
+              f"{LM_DECODE + 1}; {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        assert bool(torch.isfinite(got).all())
+        assert err <= LM_DECODE_TOL[name] * scale, (name, err, scale)
+        readings[f"decode_rel_err_{name}"] = err / scale
+        del caches, got, want
+    torch.cuda.empty_cache()
+
+    # (d) the entry point, as a user runs it, on the card
+    argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            LM_ARCH, "--tiny", "--steps", "10"]
+    if DEVICE != "cuda":
+        argv += ["--device", DEVICE]
+    t0 = time.perf_counter()
+    out = subprocess.run(argv, capture_output=True, text=True, timeout=600,
+                         cwd=tmp, env=dict(os.environ, PYTHONPATH=os.path.join(
+                             HERE, "src")))
+    print(f"(d) {' '.join(argv[1:])}: exit {out.returncode}, "
+          f"{time.perf_counter() - t0:.2f} s")
+    for line in out.stdout.splitlines():
+        print(f"    {line}")
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "10 steps in" in out.stdout
+
+    # (e) the FFN-pruning bridge on (a)'s model at full width
+    ex = lm_example()
+    probe = SyntheticLM(vocab=cfg.vocab, seq=LM_PROBE,
+                        global_batch=1).host_batch(99)
+    H, y = ex.ffn_regression(model, to_device(probe, dev)["tokens"])
+    del model, state
+    torch.cuda.empty_cache()
+    arms = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        for rule in ("edpp", "none"):
+            ops.reset_counts()
+            t0 = time.perf_counter()
+            grid, lmax, res = ex.prune_path(
+                H, y, num=BRIDGE_LAMBDAS, lo_frac=BRIDGE_LO_FRAC, rule=rule,
+                solver_tol=BRIDGE_TOL, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = counted(ops, ("group_screen_scores",)
+                               if rule == "edpp" else ())
+            st = res.stats
+            print(f"(e) {rule}: {wall:.2f} s; solver iterations "
+                  f"{sum(s.solver_iters for s in st)}, steps at max_iter "
+                  f"{sum(s.solver_iters >= 5000 for s in st)}; discards "
+                  f"{[s.n_discarded for s in st]}", flush=True)
+            arms[rule] = (res, launches, wall)
+    res, launches, wall = arms["edpp"]
+    res_none = arms["none"][0]
+    screens = sum(1 for s in res.stats if s.screen_backend)
+    b_n = res_none.betas
+    scale = float(np.abs(b_n).max())
+    unsafe = int((res.masks & (np.abs(b_n) > 1e-6 * scale)).sum())
+    err = float(np.abs(res.betas - b_n).max())
+    yn = y.cpu().numpy()
+    print(f"  H {tuple(H.shape)} (probe tokens × neurons), m = 1, "
+          f"{BRIDGE_LAMBDAS} λ from λ_max {lmax:.6g} to {BRIDGE_LO_FRAC:g}"
+          f"·λ_max, tol {BRIDGE_TOL:g} (the example's 1e-10 is below f32 "
+          f"noise); group_screen_scores launches "
+          f"{launches['group_screen_scores']} for {screens} screens and the "
+          f"λ̄_max pass; unsafe discards {unsafe}; max|β_edpp − β_none| "
+          f"{err:.3g} (limits {GROUP_REL_TOL:g}·max|β_none| = "
+          f"{GROUP_REL_TOL * scale:.3g} and beta_err_tol "
+          f"{beta_err_tol(yn, BRIDGE_TOL):.3g})")
+    print("\n".join(ex.table(H, y, grid, lmax, res)), flush=True)
+    assert launches["group_screen_scores"] == screens + 1
+    assert unsafe == 0 and err <= GROUP_REL_TOL * scale
+    assert err <= beta_err_tol(yn, BRIDGE_TOL)
+    readings.update(bridge_s={r: arms[r][2] for r in arms},
+                    bridge_err=err, bridge_screens=screens)
+    del H, y
+    torch.cuda.empty_cache()
+    return {"bridge": launches, "readings": readings}
+
+
 SERVE_QUERIES = 44      # five fill batches of 8, then a 4-query tail
 # the --solver cd run's queries: one fill batch and a 4-query tail (cut
 # from 44 when phases 17 and 18 came: its wide buckets run matvec CD, the
@@ -3169,9 +3512,9 @@ def main(argv: list[str]) -> int:
     if len(argv) == 3 and argv[:2] == ["--kernels", "--tree"]:
         tree, argv = os.path.abspath(argv[2]), ["--kernels"]
         sys.path.insert(0, os.path.join(tree, "src"))
-    if argv not in ([], ["--faults"], ["--kernels"]):
-        print("usage: python3 chip_smoke.py [--faults | --kernels "
-              "[--tree DIR]]", file=sys.stderr)
+    if argv not in ([], ["--faults"], ["--kernels"], ["--lm-lr"]):
+        print("usage: python3 chip_smoke.py [--faults | --lm-lr | "
+              "--kernels [--tree DIR]]", file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -3197,6 +3540,12 @@ def main(argv: list[str]) -> int:
               f"package {repro_torch.__file__}")
         assert not torch.backends.cuda.matmul.allow_tf32
         assert not torch.backends.cudnn.allow_tf32
+
+    if argv == ["--lm-lr"]:
+        with phase(f"LM learning rates on phase 20's fixed batch "
+                   f"({LM_ARCH}, L = {LM_DEPTH})"):
+            lm_lr_sweep(torch)
+        return 0
 
     with phase("build"):
         t0 = time.perf_counter()
@@ -3296,6 +3645,9 @@ def main(argv: list[str]) -> int:
             rows["wide_group_quarter"] = check_wide_group(
                 torch, kernels, ref, GROUP_FULL[0], 16800, 10, seed=136,
                 ptxas=ptxas, parts=4, must_differ=True)
+        # phase 20's bridge: groups of one neuron over yi-9b's d_ff
+        rows["group_m1"] = check_group(torch, kernels, ref, LM_PROBE,
+                                       LM_WIDTH[4], 1, seed=137, ptxas=ptxas)
         floors = {"alone": floor_ms,
                   "run": run_ms(torch, lambda: one.zero_(), GRAPH_RUN),
                   "graph": graph_ms(torch, lambda: one.zero_(), GRAPH_RUN)}
@@ -3552,6 +3904,11 @@ def main(argv: list[str]) -> int:
                f"{GROUP_FULL[2]} and {n} × {p}"):
         group_mesh = group_mesh_phase(torch, group_full, solved, X, y)
     del X, y, none_arm, rules, group_full
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        with phase(f"LM stack: {LM_ARCH} at full width, L = {LM_DEPTH}, "
+                   f"seq {LM_SEQ}, batch {LM_BATCH}; the FFN bridge"):
+            lm = lm_phase(torch, tmp)
 
     with phase(f"kernels at the paths' shapes (fista bucket {main_bucket}, "
                f"cd bucket {cd_bucket}; batched B={BATCH}: fista bucket "
@@ -3617,6 +3974,8 @@ def main(argv: list[str]) -> int:
             # one-shot fista
             "group_mesh_launches": group_mesh["mesh"].get(op, 0),
             "one_shot_launches": group_mesh["one_shot"].get(op, 0),
+            # phase 20(e): the FFN bridge's group-EDPP path (m = 1)
+            "lm_bridge_launches": lm["bridge"].get(op, 0),
             # the fused pass over an update's added block, wide_p = p
             **({"wide_plan": {k: rows["wide_fused"][k] for k in (
                 "n", "p", "wide_p", "max_abs_err", "ms", "plain_ms",
@@ -3632,6 +3991,11 @@ def main(argv: list[str]) -> int:
                                  ("wide_plan_quarter",
                                   "wide_group_quarter"))
                 if row in rows}
+               if op == "group_screen_scores" else {}),
+            # the group pass at m = 1 on the bridge's shape (phase 3)
+            **({"m1_row": {k: rows["group_m1"][k] for k in (
+                "n", "p", "m", "max_abs_err", "ms", "plain_ms", "matmul_ms",
+                "bound_ms", "bound_by", "plan")}}
                if op == "group_screen_scores" else {})})
     # the bf16 screen copy's wide pass (the same kernel source, its bf16
     # instantiation): its launches on the 100-λ bf16 EDPP path, its row at

@@ -19,6 +19,10 @@ import torch
 # X @ z or the gap's X.T @ r, so TF32 stays off for cuBLAS and cuDNN.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+# bf16 products accumulate in f32 without reduced-precision reductions,
+# as the reference's preferred_element_type=float32 products do (the LM
+# stack's matmuls, ``models/layers.dot``)
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 from .core import (  # noqa: E402,F401
     LassoSession,

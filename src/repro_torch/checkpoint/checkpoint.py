@@ -9,7 +9,7 @@
 A step is written under ``step_XXXXXXXX.tmp`` and made visible by one
 ``os.replace``; the newest ``keep`` committed steps are kept. Leaves are
 numbered as the reference's ``jax.tree.flatten`` numbers them (dict keys
-in sorted order, ``None`` holds no leaf), so a checkpoint written by
+in sorted order, NamedTuple fields in order, ``None`` holds no leaf), so a checkpoint written by
 either package restores in the other with the same leaves. The manifest's
 ``treedef`` is informational: :func:`restore` takes the structure from
 ``like_tree``.
@@ -30,11 +30,15 @@ from ..core.device import resolve_device
 
 def _canonical(tree):
     """``tree`` with every plain dict's keys in sorted order, the order in
-    which ``jax.tree.flatten`` visits them."""
+    which ``jax.tree.flatten`` visits them, inside lists, tuples and
+    NamedTuples too (a train state's params and moments are dicts under
+    NamedTuples, whose fields keep their order)."""
     if type(tree) is dict:
         return {k: _canonical(tree[k]) for k in sorted(tree)}
     if type(tree) in (list, tuple):
         return type(tree)(_canonical(x) for x in tree)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_canonical(x) for x in tree))
     return tree
 
 

@@ -514,7 +514,9 @@ def group_lasso_path(X, y, m: int, lambdas, cfg=None, *,
                      device=None) -> PathResult:
     """DEPRECATED: ``LassoSession.fit(X, groups=m, config=cfg,
     device=device).path(y, lambdas).squeeze()``, the group Lasso with
-    group screening over contiguous groups of m columns."""
+    group screening over contiguous groups of m columns. At m = 1 a
+    ``GroupPathConfig`` fits a group session of one-column groups and a
+    plain config the plain Lasso (see ``LassoSession.fit``)."""
     from .session import LassoSession
     _deprecated("group_lasso_path", "LassoSession.fit(X, groups=m).path(y)")
     sess = LassoSession.fit(X, groups=m, config=cfg, device=device)

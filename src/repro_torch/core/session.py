@@ -73,13 +73,22 @@ from .solver import GROUP_SOLVERS, SOLVERS, SolverEngine
 KNOWN_RULES = ENGINE_RULES
 
 
-def _check_session_kind(cfg: "PathConfig", m: int) -> None:
-    """A group session (m > 1) serves only GROUP_ENGINE_RULES and solves
-    with a group strategy; a plain-Lasso session takes no group strategy.
+def _group_session(cfg: "PathConfig", groups: int | None) -> bool:
+    """The kind of a session, decided once at fit: ``groups=m > 1`` is the
+    group Lasso, and so is ``groups=1`` with a group strategy named in the
+    config (``GroupPathConfig`` at m = 1, as the ``group_lasso_path`` shim
+    passes it: groups of one column); anything else is the plain Lasso."""
+    return groups is not None and (int(groups) > 1 or
+                                   cfg.solve.strategy in GROUP_SOLVERS)
+
+
+def _check_session_kind(cfg: "PathConfig", m: int, grouped: bool) -> None:
+    """A group session serves only GROUP_ENGINE_RULES and solves with a
+    group strategy; a plain-Lasso session takes no group strategy.
     Anything else would run one problem's rule or solver on the other's
     buckets and return a wrong β under the right name."""
     strategy = cfg.solve.resolved_strategy(m)
-    if m > 1:
+    if grouped:
         if cfg.screen.rule not in GROUP_ENGINE_RULES:
             raise ValueError(f"group sessions support rules "
                              f"{GROUP_ENGINE_RULES}, got {cfg.screen.rule!r}")
@@ -249,15 +258,18 @@ class LassoSession:
                         "LassoSession.fit(X, ...)")
 
     @classmethod
-    def _new(cls, X: torch.Tensor, cfg: PathConfig, m: int = 1,
-             mesh=None) -> "LassoSession":
+    def _new(cls, X: torch.Tensor, cfg: PathConfig,
+             groups: int | None = None, mesh=None) -> "LassoSession":
+        m = 1 if groups is None else int(groups)
         if X.shape[1] % m:
             raise ValueError(f"p={X.shape[1]} is not divisible by "
                              f"groups={m}")
-        _check_session_kind(cfg, m)
+        grouped = _group_session(cfg, groups)
+        _check_session_kind(cfg, m, grouped)
         self = object.__new__(cls)
         self.config = cfg
         self.groups = m
+        self.grouped = grouped
         self.X = X
         self.mesh = mesh
         self.device = X.device
@@ -288,7 +300,13 @@ class LassoSession:
         honoured); with ``groups=m`` each block must hold whole groups
         (``ValueError`` naming p, m and F otherwise). ``geometry`` adopts
         a prefitted
-        :class:`DictionaryGeometry` instead of fitting."""
+        :class:`DictionaryGeometry` instead of fitting.
+
+        ``groups=1`` with a group strategy in the config
+        (``GroupPathConfig``) fits a group session of one-column groups:
+        the group screen ``group_screen_scores`` and ``group_fista``; the
+        reference runs the plain drivers there. Otherwise ``groups=1`` is
+        the plain Lasso."""
         cfg = config if config is not None else PathConfig()
         if not isinstance(cfg, PathConfig):
             raise TypeError(f"config must be a PathConfig, got "
@@ -317,7 +335,7 @@ class LassoSession:
             Xt = cls._place_on_mesh(X, mesh, m, dev)
         if Xt.dim() != 2:
             raise ValueError(f"X must be (n, p), got shape {tuple(Xt.shape)}")
-        self = cls._new(Xt, cfg, m, mesh)
+        self = cls._new(Xt, cfg, groups, mesh)
         self._geometry(self._default_backend)     # the one fit
         return self
 
@@ -367,7 +385,7 @@ class LassoSession:
         if geom is None:
             geom = (GroupDictionaryGeometry(self.X, self.groups, inst,
                                             mesh=self.mesh)
-                    if self.groups > 1
+                    if self.grouped
                     else DictionaryGeometry(self.X, inst, mesh=self.mesh))
             # a backend fitted after an update joins at the current
             # version (self.X is already the edited X)
@@ -448,7 +466,7 @@ class LassoSession:
         update. Group sessions refuse. Returns an
         :class:`~.update.UpdateReport`."""
         from .update import UpdateReport, make_plan, update_workspace
-        if self.groups > 1:
+        if self.grouped:
             raise NotImplementedError(
                 "session.update is plain-Lasso only: group geometries "
                 "cache per-group spectral norms that a column edit "
@@ -494,7 +512,8 @@ class LassoSession:
         if not isinstance(cfg, PathConfig):
             raise TypeError(f"config must be a PathConfig, got "
                             f"{type(cfg).__name__}")
-        _check_session_kind(cfg, self.groups)   # per-call overrides too
+        _check_session_kind(cfg, self.groups,     # per-call overrides too
+                            self.grouped)
         y = as_tensor(Y, self.device, self.X.dtype)
         if y.dim() not in (1, 2):
             raise ValueError(f"queries must be (n,) or (B, n), got shape "
@@ -503,7 +522,7 @@ class LassoSession:
             raise ValueError(f"query length {y.shape[-1]} != dictionary rows "
                              f"{self.X.shape[0]}")
         grid_kw = dict(num=num_lambdas, lo_frac=lo_frac, hi_frac=hi_frac)
-        if self.groups > 1:
+        if self.grouped:
             if y.dim() == 1:
                 return self._group_path(y, lambdas, cfg, grid_kw)
             return self._group_path_batched(y, lambdas, cfg, grid_kw)
@@ -527,7 +546,7 @@ class LassoSession:
         on a mesh gathered from the ranks' blocks like the float32
         bucket), the bucket's largest column error and column norm (both
         global); padding columns are zero in all three."""
-        if cfg.solve.solve_dtype != "bfloat16" or self.groups > 1:
+        if cfg.solve.solve_dtype != "bfloat16" or self.grouped:
             return None
         col_err = geom.screen_err(torch.bfloat16)
         col_norms = geom.col_norms
@@ -545,7 +564,7 @@ class LassoSession:
         group one) and hybrid safe+strong, and runs when ``paranoid`` asks
         for it."""
         rule = cfg.screen.rule
-        heuristic = (rule in scr.HEURISTIC_RULES if self.groups == 1
+        heuristic = (rule in scr.HEURISTIC_RULES if not self.grouped
                      else rule == "strong")
         hybrid = cfg.screen.strong and rule not in ("strong", "none")
         return heuristic or hybrid or cfg.screen.paranoid

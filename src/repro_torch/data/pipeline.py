@@ -1,11 +1,13 @@
 """The paper's synthetic problems, numpy only: the §4.1.2 Lasso problems
-(eq. 74), the §4.2 group-Lasso problems, and :class:`QueryStream`, a
-deterministic stream of Lasso queries against one fixed dictionary.
+(eq. 74), the §4.2 group-Lasso problems, :class:`QueryStream`, a
+deterministic stream of Lasso queries against one fixed dictionary, and
+:class:`SyntheticLM`, the LM stack's deterministic token stream.
 
-A copy of ``design_matrix``, ``lasso_problem``, ``_cached_design``,
-``QueryStream`` and ``group_lasso_problem`` from the reference's
-``data/pipeline.py``: the same seed gives the same arrays, so both
-packages can be fed identical problems.
+A copy of ``SyntheticLM``, ``design_matrix``, ``lasso_problem``,
+``_cached_design``, ``QueryStream`` and ``group_lasso_problem`` from the
+reference's ``data/pipeline.py``: the same seed gives the same arrays, so
+both packages can be fed identical problems and batches.
+:func:`to_device` takes the place of the reference's ``device_batch``.
 """
 
 from __future__ import annotations
@@ -14,6 +16,58 @@ import dataclasses
 import functools
 
 import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class SyntheticLM:
+    """A deterministic LM batch stream: batch content is a pure function
+    of (seed, step, host shard), so a replacement worker regenerates the
+    lost worker's shard exactly."""
+
+    vocab: int
+    seq: int
+    global_batch: int
+    seed: int = 0
+    frontend: str = "tokens"
+    d_frame: int = 512
+    d_patch: int = 1024
+    n_img_tokens: int = 256
+
+    def host_batch(self, step: int, shard: int = 0, n_shards: int = 1):
+        """Numpy batch for (step, host shard): tokens/labels (int32), or
+        frames, or tokens with image embeddings, by frontend."""
+        b = self.global_batch // n_shards
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, step, shard]))
+        if self.frontend == "tokens":
+            toks = rng.integers(0, self.vocab, (b, self.seq + 1),
+                                dtype=np.int32)
+            return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if self.frontend == "frames":
+            return {
+                "frames": rng.standard_normal(
+                    (b, self.seq, self.d_frame)).astype(np.float32),
+                "labels": rng.integers(0, self.vocab, (b, self.seq),
+                                       dtype=np.int32),
+            }
+        if self.frontend == "vlm":
+            st = self.seq - self.n_img_tokens
+            toks = rng.integers(0, self.vocab, (b, st + 1), dtype=np.int32)
+            return {
+                "tokens": toks[:, :-1],
+                "image_embeds": rng.standard_normal(
+                    (b, self.n_img_tokens, self.d_patch)).astype(np.float32),
+                "labels": toks[:, 1:],
+            }
+        raise ValueError(self.frontend)
+
+
+def to_device(host_batch: dict, device) -> dict:
+    """A host batch as tensors on ``device`` (the reference's
+    ``device_batch`` on one device)."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in host_batch.items()}
 
 
 def design_matrix(n: int, p: int, *, corr: float = 0.0, rng=None,

@@ -1,0 +1,106 @@
+"""LM training entry point, the reference's ``src/repro/launch/train.py``
+on the port's train step.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b --tiny \\
+        --steps 20 --seq 64 --batch 4 [--ckpt-dir DIR] [--device cpu]
+
+Any registered architecture is selectable with ``--arch``; ``--tiny``
+takes its reduced config. The dense architectures build; the others
+raise ``NotImplementedError`` naming their ROADMAP item. It runs on the
+card unless ``--device cpu``. ``--mesh`` takes ``1x1`` only (multi-card
+training is ROADMAP item 14d).
+
+Checkpoints are written in the reference's layout (stacked segments,
+:func:`repro_torch.convert.train_state_to_reference`), so a run resumes
+from a checkpoint of either package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from .. import configs
+from ..checkpoint import latest_step, restore, save
+from ..convert import train_state_from_reference, train_state_to_reference
+from ..core.device import resolve_device
+from ..data import SyntheticLM, to_device
+from ..optim import adamw
+from ..train import steps as ST
+from . import cli
+
+
+def _parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True, choices=list(configs.ARCHS))
+    ap.add_argument("--tiny", action="store_true")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--mesh", default="1x1")
+    ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    cli.add_device_arg(ap)
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    """Train, print the reference's lines, and return ``(state,
+    losses)``: the final :class:`~repro_torch.train.TrainState` and
+    ``{step: loss}`` of the steps this run took."""
+    args = _parse_args(argv)
+    device = resolve_device(args.device)
+    shape = tuple(int(x) for x in args.mesh.split("x"))
+    ST.check_mesh(shape)
+
+    cfg = configs.get_tiny(args.arch) if args.tiny \
+        else configs.get_config(args.arch)
+    tc = ST.TrainConfig(accum_steps=args.accum, opt=adamw.OptConfig(
+        lr=args.lr, warmup_steps=max(args.steps // 10, 2),
+        total_steps=max(args.steps, 100)))
+
+    state, _ = ST.init_state(0, cfg, tc, device=device)
+    n = state.params.n_params()
+    print(f"{cfg.name}: {n/1e6:.1f}M params on mesh {shape}")
+
+    src = SyntheticLM(vocab=cfg.vocab, seq=args.seq,
+                      global_batch=args.batch, frontend=cfg.frontend,
+                      d_frame=cfg.d_frame, d_patch=cfg.d_patch,
+                      n_img_tokens=cfg.n_img_tokens)
+    step_fn = ST.make_train_step(cfg, tc)
+
+    start = 0
+    if args.ckpt_dir:
+        last = latest_step(args.ckpt_dir)
+        if last is not None:
+            tree, _ = restore(args.ckpt_dir, last,
+                              train_state_to_reference(state), device="cpu")
+            state = train_state_from_reference(tree, cfg, device=device)
+            start = last
+            print(f"resumed from step {last}")
+
+    losses = {}
+    t0 = time.perf_counter()
+    for i in range(start, args.steps):
+        state, metrics = step_fn(state, to_device(src.host_batch(i), device))
+        losses[i] = float(metrics["loss"])
+        if i % 5 == 0 or i == args.steps - 1:
+            print(f"step {i:4d} loss {losses[i]:7.4f} "
+                  f"lr {float(metrics['lr']):.2e}")
+        if args.ckpt_dir and ((i + 1) % args.ckpt_every == 0
+                              or i == args.steps - 1):
+            save(args.ckpt_dir, i + 1, train_state_to_reference(state))
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    print(f"{args.steps - start} steps in {dt:.1f}s "
+          f"({(args.steps - start) * args.batch * args.seq / dt:,.0f} tok/s)")
+    return state, losses
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,16 @@
+"""The dense LM stack's models (attention blocks with dense FFNs); see
+:class:`model.ArchConfig` and :class:`model.LM`."""
+from .model import (  # noqa: F401
+    LM,
+    ArchConfig,
+    Block,
+    Segment,
+    backbone,
+    cache_init,
+    chunked_xent,
+    decode_step,
+    forward_loss,
+    logits_for,
+    pad_caches,
+    prefill,
+)

@@ -1,0 +1,416 @@
+"""The dense LM: block programs → per-layer modules, the reference's
+``src/repro/models/model.py`` in PyTorch.
+
+An architecture is an :class:`ArchConfig` holding a *block program*: a
+tuple of :class:`Segment`\\ s, each ``(repeat, blocks)``. The reference
+stacks a segment's parameters on a leading ``repeat`` axis and scans them;
+the port keeps one ``nn.ModuleList`` of layers per segment and loops over
+it, each layer checkpointed (``torch.utils.checkpoint``, non-reentrant)
+where ``cfg.remat``. :func:`repro_torch.convert.lm_params_from_reference`
+and ``lm_params_to_reference`` map between the two layouts.
+
+Three input frontends (tokens, audio frames, VLM patch embeddings), tied
+or untied LM heads, chunked attention, and a **chunked cross-entropy**
+(:func:`chunked_xent`): sequence chunks of ``loss_chunk``, each
+checkpointed, so the (B, S, vocab) logits never exist.
+
+The functions take a parameter tree (:func:`repro_torch.models.layers.
+param_tree` of an :class:`LM`, or that tree cast to the compute dtype by
+the train step), as the reference's take ``params``. :class:`LM` owns
+the parameters and wraps the functions.
+
+Only ``attn`` blocks with a dense FFN are built here: MoE and MLA blocks
+raise ``NotImplementedError`` naming ROADMAP item 14b; Mamba2, mLSTM,
+sLSTM and the shared block, item 14c.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from ..core.device import resolve_device
+from . import layers as L
+from . import mla as M
+from . import ssm as S
+
+F32 = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# Config dataclasses
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Block:
+    kind: str                          # attn | mla | mamba2 | mlstm | slstm
+    attn: L.AttnSpec | None = None
+    mla: M.MlaSpec | None = None
+    ffn: L.FfnSpec | None = None       # dense FFN (attn/mla blocks)
+    moe: L.MoeSpec | None = None       # MoE in place of dense FFN
+    mamba: S.Mamba2Spec | None = None
+    mlstm: S.MlstmSpec | None = None
+    slstm: S.SlstmSpec | None = None
+    shared: bool = False               # zamba2: params from the shared group
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    repeat: int
+    blocks: tuple[Block, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                        # dense | moe | vlm | hybrid | audio | ssm
+    vocab: int
+    d_model: int
+    segments: tuple[Segment, ...]
+    frontend: str = "tokens"           # tokens | frames | vlm
+    encoder_only: bool = False
+    tie_embeddings: bool = True
+    d_frame: int = 512                 # audio stub frame-embedding dim
+    d_patch: int = 1024                # vlm stub patch-embedding dim
+    n_img_tokens: int = 256
+    shared_block: Block | None = None
+    q_chunk: int = 512
+    k_chunk: int = 1024
+    loss_chunk: int = 512
+    remat: bool = True
+    sub_quadratic: bool = False        # eligible for long_500k
+
+    @property
+    def n_layers(self) -> int:
+        return sum(seg.repeat * len(seg.blocks) for seg in self.segments)
+
+
+# What each unported block kind waits for (ROADMAP.md queue 1)
+LATER = {"mla": "14b", "moe": "14b", "mamba2": "14c", "mlstm": "14c",
+         "slstm": "14c", "shared": "14c"}
+
+
+def _later(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} blocks are not ported yet (ROADMAP.md item {LATER[what]}); "
+        f"the port builds dense attention blocks only")
+
+
+def check_buildable(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP item of the first
+    block the port cannot build."""
+    if cfg.shared_block is not None:
+        raise _later("shared")
+    for seg in cfg.segments:
+        for blk in seg.blocks:
+            if blk.shared:
+                raise _later("shared")
+            if blk.kind in LATER:
+                raise _later(blk.kind)
+            if blk.kind != "attn":
+                raise ValueError(blk.kind)
+            if blk.moe is not None:
+                raise _later("moe")
+
+
+# ---------------------------------------------------------------------------
+# Parameters: one module per block
+# ---------------------------------------------------------------------------
+
+class AttnBlock(nn.Module):
+    """One ``attn`` block's parameters: norm1, mixer, and (with a dense
+    FFN) norm2 and ffn, under the reference's names."""
+
+    def __init__(self, blk: Block, cfg: ArchConfig, gen: torch.Generator,
+                 dtype=F32):
+        super().__init__()
+        d, dev = cfg.d_model, gen.device
+        self.norm1 = L.RMSNorm(d, device=dev, dtype=dtype)
+        self.mixer = L.Attention(blk.attn, gen, dtype)
+        if blk.ffn is not None:
+            self.norm2 = L.RMSNorm(d, device=dev, dtype=dtype)
+            self.ffn = L.Ffn(blk.ffn, gen, dtype)
+
+
+class LM(nn.Module):
+    """A dense LM built from ``cfg``, its weights drawn from ``generator``
+    (or a fresh one seeded with ``seed``) on ``device`` (None: the card).
+
+    Parameters (f32 masters by default), under the reference's names:
+    ``embed`` (vocab, d), ``lm_head`` (d, vocab) when untied,
+    ``frame_proj``/``patch_proj`` for the frames/vlm frontends,
+    ``final_norm.scale``, and ``segments[si][layer]["b{bi}"]`` blocks."""
+
+    def __init__(self, cfg: ArchConfig, *, seed: int = 0,
+                 generator: torch.Generator | None = None, device=None,
+                 dtype=F32):
+        super().__init__()
+        check_buildable(cfg)
+        self.cfg = cfg
+        if generator is None:
+            generator = torch.Generator(device=resolve_device(device))
+            generator.manual_seed(seed)
+        gen = generator
+        dev = gen.device
+        d = cfg.d_model
+        self.embed = nn.Parameter(L.normal(gen, (cfg.vocab, d), 0.02, dtype))
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Parameter(L.normal(
+                gen, (d, cfg.vocab), 1.0 / math.sqrt(d), dtype))
+        if cfg.frontend == "frames":
+            self.frame_proj = nn.Parameter(L.normal(
+                gen, (cfg.d_frame, d), 1.0 / math.sqrt(cfg.d_frame), dtype))
+        if cfg.frontend == "vlm":
+            self.patch_proj = nn.Parameter(L.normal(
+                gen, (cfg.d_patch, d), 1.0 / math.sqrt(cfg.d_patch), dtype))
+        self.final_norm = L.RMSNorm(d, device=dev, dtype=dtype)
+        self.segments = nn.ModuleList(
+            nn.ModuleList(
+                nn.ModuleDict({f"b{bi}": AttnBlock(blk, cfg, gen, dtype)
+                               for bi, blk in enumerate(seg.blocks)})
+                for _ in range(seg.repeat))
+            for seg in cfg.segments)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def tree(self, cast=None):
+        """The parameter tree the functions take; ``cast``: the train
+        step's compute-dtype cast (:func:`layers.param_tree`)."""
+        return L.param_tree(self, cast)
+
+    def n_params(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
+    def forward_loss(self, batch: dict, compute_dtype=torch.bfloat16,
+                     params=None):
+        return forward_loss(self.tree() if params is None else params,
+                            self.cfg, batch, compute_dtype)
+
+    forward = forward_loss
+
+    def prefill(self, batch: dict, compute_dtype=torch.bfloat16,
+                params=None):
+        return prefill(self.tree() if params is None else params, self.cfg,
+                       batch, compute_dtype)
+
+    def decode_step(self, token, caches, cache_len,
+                    compute_dtype=torch.bfloat16, params=None):
+        return decode_step(self.tree() if params is None else params,
+                           self.cfg, token, caches, cache_len, compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Per-block forward / decode
+# ---------------------------------------------------------------------------
+
+def _block_forward(p, blk: Block, cfg: ArchConfig, x, positions,
+                   want_cache: bool):
+    """Full-sequence block application → (x, cache or None)."""
+    h = L.rmsnorm(p["norm1"], x)
+    cache = None
+    if want_cache:
+        q, k, v = L.attn_qkv(p["mixer"], blk.attn, h, positions)
+        o = L.chunked_attention(q, k, v, causal=blk.attn.causal,
+                                window=blk.attn.window, q_offset=0,
+                                q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk)
+        mix = L.attn_out(p["mixer"], o, x.dtype)
+        cache = {"k": k, "v": v}
+    else:
+        mix = L.attn_forward(p["mixer"], blk.attn, h, positions,
+                             q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk)
+    x = x + mix
+    if "ffn" in p:
+        x = x + L.ffn_forward(p["ffn"], blk.ffn, L.rmsnorm(p["norm2"], x))
+    return x, cache
+
+
+def _block_decode(p, blk: Block, cfg: ArchConfig, x, cache, cache_len):
+    """Single-token decode → (x, cache)."""
+    h = L.rmsnorm(p["norm1"], x)
+    mix, ck, cv = L.attn_decode(p["mixer"], blk.attn, h, cache["k"],
+                                cache["v"], cache_len)
+    x = x + mix
+    if "ffn" in p:
+        x = x + L.ffn_forward(p["ffn"], blk.ffn, L.rmsnorm(p["norm2"], x))
+    return x, {"k": ck, "v": cv}
+
+
+def cache_init(cfg: ArchConfig, batch: int, smax: int, dtype=torch.bfloat16,
+               device=None):
+    """Zero KV caches for decode: ``caches[si][layer]["b{bi}"]`` =
+    ``{"k", "v"}`` of shape (batch, Hk, smax, Dh)."""
+    check_buildable(cfg)
+    dev = resolve_device(device)
+
+    def one(blk):
+        a = blk.attn
+        shape = (batch, a.n_kv_heads, smax, a.d_head)
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+    return [[{f"b{bi}": one(blk) for bi, blk in enumerate(seg.blocks)}
+             for _ in range(seg.repeat)] for seg in cfg.segments]
+
+
+def pad_caches(caches, smax: int):
+    """Prefill's caches (sequence S) zero-padded to ``smax`` positions, the
+    layout :func:`decode_step` continues from at ``cache_len = S``."""
+    return [[{b: {n: F.pad(t, (0, 0, 0, smax - t.shape[2]))
+                  for n, t in c.items()} for b, c in layer.items()}
+             for layer in seg] for seg in caches]
+
+
+# ---------------------------------------------------------------------------
+# Forward passes
+# ---------------------------------------------------------------------------
+
+def _positions(b: int, s_len: int, device):
+    return torch.arange(s_len, device=device).expand(b, s_len)
+
+
+def _embed_inputs(params, cfg: ArchConfig, batch: dict, dtype):
+    """Frontends → (x (B,S,d), positions (B,S), label mask)."""
+    if cfg.frontend == "tokens":
+        tokens = batch["tokens"]
+        x = params["embed"][tokens.long()].to(dtype)
+        b, s_len = tokens.shape
+        mask = torch.ones((b, s_len), dtype=torch.bool, device=x.device)
+    elif cfg.frontend == "frames":
+        frames = batch["frames"].to(dtype)
+        x = L.dot("bsf,fd->bsd", frames, params["frame_proj"], dtype)
+        b, s_len = frames.shape[:2]
+        mask = torch.ones((b, s_len), dtype=torch.bool, device=x.device)
+    elif cfg.frontend == "vlm":
+        tokens = batch["tokens"]
+        img = batch["image_embeds"].to(dtype)
+        ximg = L.dot("bsf,fd->bsd", img, params["patch_proj"], dtype)
+        xtok = params["embed"][tokens.long()].to(dtype)
+        x = torch.cat([ximg, xtok], dim=1)
+        b, s_len = tokens.shape[0], x.shape[1]
+        mask = torch.cat([
+            torch.zeros((b, img.shape[1]), dtype=torch.bool, device=x.device),
+            torch.ones(tokens.shape, dtype=torch.bool, device=x.device)],
+            dim=1)
+    else:
+        raise ValueError(cfg.frontend)
+    return x, _positions(b, s_len, x.device), mask
+
+
+def backbone(params, cfg: ArchConfig, x, positions, want_cache: bool = False):
+    """Run the block program over a full sequence → (x, caches or None)."""
+    all_caches = []
+    remat = cfg.remat and torch.is_grad_enabled()
+    for si, seg in enumerate(cfg.segments):
+        seg_caches = []
+        for layer_params in params["segments"][si]:
+            def layer(x, layer_params=layer_params, seg=seg):
+                caches = {}
+                for bi, blk in enumerate(seg.blocks):
+                    x, c = _block_forward(layer_params[f"b{bi}"], blk, cfg, x,
+                                          positions, want_cache)
+                    caches[f"b{bi}"] = c
+                return x, caches
+
+            if remat:
+                x, caches = checkpoint(layer, x, use_reentrant=False)
+            else:
+                x, caches = layer(x)
+            seg_caches.append(caches)
+        all_caches.append(seg_caches)
+    x = L.rmsnorm(params["final_norm"], x)
+    return x, (all_caches if want_cache else None)
+
+
+def _head(params, cfg: ArchConfig):
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def logits_for(params, cfg: ArchConfig, x):
+    """f32 logits (B, S, vocab) of x (B, S, d)."""
+    return L.dot("bsd,dv->bsv", x, _head(params, cfg).to(x.dtype), F32)
+
+
+def _xent_chunk(xc, lc, mc, head):
+    logits = L.dot("bsd,dv->bsv", xc, head, F32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+    nll = (logz - gold) * mc
+    return torch.sum(nll), torch.sum(mc)
+
+
+def chunked_xent(params, cfg: ArchConfig, x, labels, mask):
+    """Mean cross-entropy without materialising (B, S, vocab): chunks of
+    ``loss_chunk`` positions, each reduced to (loss sum, count) in order
+    and dropped, each checkpointed where ``cfg.remat``."""
+    b, s_len, d = x.shape
+    c = min(cfg.loss_chunk, s_len)
+    nchunks = -(-s_len // c)
+    pad = nchunks * c - s_len
+    xp = F.pad(x, (0, 0, 0, pad))
+    lp = F.pad(labels, (0, pad))
+    mp = F.pad(mask.to(F32), (0, pad))
+    head = _head(params, cfg).to(x.dtype)
+    remat = cfg.remat and torch.is_grad_enabled()
+    loss_sum = torch.zeros((), dtype=F32, device=x.device)
+    count = torch.zeros((), dtype=F32, device=x.device)
+    for i in range(nchunks):
+        sl = slice(i * c, (i + 1) * c)
+        args = (xp[:, sl], lp[:, sl], mp[:, sl], head)
+        if remat:
+            ls, n = checkpoint(_xent_chunk, *args, use_reentrant=False)
+        else:
+            ls, n = _xent_chunk(*args)
+        loss_sum = loss_sum + ls
+        count = count + n
+    return loss_sum / torch.clamp(count, min=1.0)
+
+
+def forward_loss(params, cfg: ArchConfig, batch: dict,
+                 compute_dtype=torch.bfloat16):
+    """Training forward → scalar mean cross-entropy."""
+    x, positions, mask = _embed_inputs(params, cfg, batch, compute_dtype)
+    x, _ = backbone(params, cfg, x, positions)
+    labels = batch["labels"]
+    if cfg.frontend == "vlm":   # image positions carry no labels
+        pad = torch.zeros((labels.shape[0], cfg.n_img_tokens),
+                          dtype=labels.dtype, device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    mask = mask & (labels >= 0)
+    return chunked_xent(params, cfg, x, torch.clamp(labels, min=0), mask)
+
+
+def prefill(params, cfg: ArchConfig, batch: dict,
+            compute_dtype=torch.bfloat16):
+    """Prefill forward → (last-token logits (B, 1, V), caches)."""
+    x, positions, _ = _embed_inputs(params, cfg, batch, compute_dtype)
+    x, caches = backbone(params, cfg, x, positions, want_cache=True)
+    return logits_for(params, cfg, x[:, -1:]), caches
+
+
+def decode_step(params, cfg: ArchConfig, token, caches, cache_len,
+                compute_dtype=torch.bfloat16):
+    """One decode step. token: (B, 1) ints; caches as from
+    :func:`cache_init` (written in place). Returns (logits (B,1,V),
+    caches)."""
+    x = params["embed"][token.long()].to(compute_dtype)
+    new_caches = []
+    for si, seg in enumerate(cfg.segments):
+        seg_new = []
+        for layer_params, layer_cache in zip(params["segments"][si],
+                                             caches[si]):
+            nc = {}
+            for bi, blk in enumerate(seg.blocks):
+                x, nc[f"b{bi}"] = _block_decode(
+                    layer_params[f"b{bi}"], blk, cfg, x,
+                    layer_cache[f"b{bi}"], cache_len)
+            seg_new.append(nc)
+        new_caches.append(seg_new)
+    x = L.rmsnorm(params["final_norm"], x)
+    return logits_for(params, cfg, x), new_caches

@@ -348,17 +348,21 @@ def test_package_imports_neither_jax_nor_the_reference():
         "for name in ('kernels.group_screen', 'core.group_lasso', "
         "'core.group_screening', 'core.distributed', 'launch.serve_loop', "
         "'launch.serve', 'launch.solve', 'launch.cli', "
-        "'checkpoint.checkpoint'):\n"
+        "'checkpoint.checkpoint', 'models.model', 'models.layers', "
+        "'optim.adamw', 'train.steps', 'configs', 'runtime.elastic', "
+        "'launch.train'):\n"
         "    assert 'repro_torch.' + name in sys.modules, name\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"
+        "assert not torch.backends.cuda.matmul."
+        "allow_bf16_reduced_precision_reduction\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert int(out.stdout) >= 18
+    assert int(out.stdout) >= 55
     assert repro_torch.LassoSession is LassoSession
 
 
