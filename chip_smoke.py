@@ -238,6 +238,24 @@ Phases, each printing its own lines and seconds:
    non-zero in the unscreened solution, β within GROUP_REL_TOL·max|β_none|
    and beta_err_tol, and the kept-neurons/R² table printed. Phase 3 adds
    the group pass at m = 1 on 2048 × 11 008 against its plain version;
+21. MoE and MLA (run after 20): deepseek-v2-lite-16b at its published
+   width (d_model 2048, 16 heads; MLA r 512, d_nope 128, d_rope 64, d_v
+   128; 64 routed experts of 1 408, top-6, 2 shared; the dense layer 0
+   with d_ff 10 944; vocab 102 400; capacity 1.25 in groups of 128) with
+   its 26 MoE layers cut to ``MOE_DEPTH``: (a) ``LM_STEPS`` train steps
+   on one fixed batch (phase 20's sequence, batch, rate and bf16
+   compute): the loss finite and falling every step; the parameter
+   count, losses, tokens/s after step 0, ``max_memory_allocated`` and,
+   for each MoE layer, the share of (token, choice) pairs over capacity
+   on step 0's forward (the layer's own ``moe_route`` call, recorded);
+   (b) prefill of ``LM_PREFILL`` tokens then ``LM_DECODE`` decode steps
+   against the full forward at the dropless ``MOE_DROPLESS`` capacity, in
+   f32 and bf16 (``LM_DECODE_TOL``; the decoded positions whose expert
+   set differs from the forward's counted, and printed in bf16 or on a
+   miss); (c) ``python -m repro_torch.launch.train --arch
+   moonshot-v1-16b-a3b --tiny --steps 10`` on the card, its losses
+   finite. No kernel of the six runs in it: ``ops.launch_counts()`` is
+   the same before and after;
 15. summary: one JSON line of per-kernel numbers (with, for
    ``screen_matvec``, ``fista_step`` and ``cd_gram_sweep``, the batched
    path's launches and its B = 8 row at its own shapes, for
@@ -273,6 +291,8 @@ moves must fail.
 train steps alone at each of ``LM_LR_SWEEP``'s rates, twice the phase's
 steps on its fixed batch each, and prints each rate's losses and whether
 they fell at every step: the reading ``LM_LR`` was chosen from.
+
+``python3 chip_smoke.py --moe`` runs phase 1 and then phase 21 alone.
 
 Each path phase sets every launch counter to 0 just before it and reads
 them just after: each kernel the path runs must have launched, and no
@@ -3336,6 +3356,224 @@ def lm_phase(torch, tmp: str) -> dict:
     return {"bridge": launches, "readings": readings}
 
 
+# Phase 21, MoE and MLA: deepseek-v2-lite-16b at its published width
+# (d_model 2048, 16 heads, MLA r 512, d_nope 128, d_rope 64, d_v 128;
+# 64 routed experts of 1 408, top-6, 2 shared; layer 0 dense, d_ff
+# 10 944; vocab 102 400; capacity 1.25 in groups of 128), its depth cut
+# from 27 layers to layer 0 and 2 MoE layers (1.46e9 parameters, 17.5 GB
+# of f32 masters and moments; uncut 15.5e9 and 186 GB pass one card)
+MOE_ARCH = "deepseek-v2-lite-16b"
+# d_model, heads, r, d_nope, d_rope, d_v, routed, d_expert, top_k,
+# shared, dense d_ff, vocab, capacity_factor, group_size
+MOE_WIDTH = (2048, 16, 512, 128, 64, 128, 64, 1408, 6, 2, 10944, 102400,
+             1.25, 128)
+MOE_DEPTH = 2           # MoE layers kept of 26, after the dense layer 0
+# (b)'s capacity: cap = int(128·6/64·16) = 192 ≥ g = 128 in a forward
+# group, and 1 slot for a decode group of one token, so nothing drops and
+# a token routes alike in both paths (n_routed/top_k would give 127)
+MOE_DROPLESS = 16.0
+MOE_CLI_ARCH = "moonshot-v1-16b-a3b"
+MOE_PHASE = (f"MoE and MLA: {MOE_ARCH} at full width, 1 dense + {MOE_DEPTH} "
+             f"MoE layers, seq {LM_SEQ}, batch {LM_BATCH}; {MOE_CLI_ARCH} "
+             f"--tiny through launch.train")
+
+
+def moe_config(capacity: float | None = None):
+    """Phase 21's config: ``MOE_ARCH`` at full width, its MoE segment cut
+    to ``MOE_DEPTH`` layers (and every MoE block's ``capacity_factor`` set
+    to ``capacity``); and the uncut MoE segment."""
+    import dataclasses
+
+    from repro_torch import configs
+    full = configs.get_config(MOE_ARCH)
+    dense, moe = full.segments
+    seg = dataclasses.replace(moe, repeat=MOE_DEPTH)
+    if capacity is not None:
+        blk = moe.blocks[0]
+        seg = dataclasses.replace(seg, blocks=(dataclasses.replace(
+            blk, moe=dataclasses.replace(blk.moe,
+                                         capacity_factor=capacity)),))
+    return dataclasses.replace(full, segments=(dense, seg)), moe
+
+
+@contextlib.contextmanager
+def moe_routes():
+    """Record every ``layers.moe_route`` result while the block runs (the
+    MoE FFN's own routing call, on the layer's input)."""
+    from repro_torch.models import layers as L
+    out, orig = [], L.moe_route
+
+    def wrapped(params, spec, x):
+        r = orig(params, spec, x)
+        out.append(r)
+        return r
+
+    L.moe_route = wrapped
+    try:
+        yield out
+    finally:
+        L.moe_route = orig
+
+
+def moe_phase(torch, tmp: str) -> None:
+    """Phase 21, MoE and MLA at deepseek-v2-lite's width (see the module
+    doc): (a) train steps on a fixed batch with each MoE layer's drop
+    share at step 0, (b) prefill + decode against the full forward at the
+    dropless capacity, (c) ``python -m repro_torch.launch.train --arch
+    moonshot-v1-16b-a3b --tiny`` on the card. Launches no kernel of the
+    six."""
+    from repro_torch.data import SyntheticLM, to_device
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M, pad_caches
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as ST
+
+    before = dict(ops.launch_counts())
+    cfg, uncut = moe_config()
+    dense, seg = cfg.segments
+    m, e, f = seg.blocks[0].mla, seg.blocks[0].moe, dense.blocks[0].ffn
+    width = (cfg.d_model, m.n_heads, m.kv_lora_rank, m.d_nope, m.d_rope,
+             m.d_v, e.n_routed, e.d_expert, e.top_k, e.n_shared, f.d_ff,
+             cfg.vocab, e.capacity_factor, e.group_size)
+    print(f"(a) {MOE_ARCH} at full width: d_model {cfg.d_model}, heads "
+          f"{m.n_heads}, MLA r {m.kv_lora_rank} d_nope {m.d_nope} d_rope "
+          f"{m.d_rope} d_v {m.d_v}; {e.n_routed} routed experts of "
+          f"{e.d_expert}, top-{e.top_k}, {e.n_shared} shared; dense layer 0 "
+          f"d_ff {f.d_ff}; vocab {cfg.vocab}; capacity {e.capacity_factor} "
+          f"in groups of {e.group_size}; depth {dense.repeat} dense + "
+          f"{MOE_DEPTH} MoE of {uncut.repeat}; seq {LM_SEQ}, batch "
+          f"{LM_BATCH}; bf16 compute, AdamW lr {LM_LR:g}", flush=True)
+    assert width == MOE_WIDTH, width
+    tc = ST.TrainConfig(opt=adamw.OptConfig(lr=LM_LR, warmup_steps=1,
+                                            total_steps=100))
+    dev = torch.device(DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, _ = ST.init_state(0, cfg, tc, device=dev)
+    torch.cuda.synchronize()
+    print(f"  {state.params.n_params():,} parameters; init "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    batch = to_device(SyntheticLM(vocab=cfg.vocab, seq=LM_SEQ,
+                                  global_batch=LM_BATCH).host_batch(0), dev)
+    # step 0's routing: the forward the step takes (its cast tree, its
+    # batch) without gradients, each MoE layer's own routing call
+    with torch.no_grad(), moe_routes() as routes:
+        M.forward_loss(state.params.tree(cast=torch.bfloat16), cfg, batch)
+    drops = []
+    for r in routes:
+        kept = r.keep.reshape(-1, e.top_k)[:r.tokens]
+        drops.append(1.0 - float(kept.float().mean()))
+    print(f"  step 0: share of (token, choice) pairs over capacity per MoE "
+          f"layer {[round(x, 6) for x in drops]} (cap {routes[0].cap} slots "
+          f"an expert in {tuple(routes[0].topi.shape[:2])} groups × tokens)",
+          flush=True)
+    assert len(drops) == MOE_DEPTH
+    del routes
+    step = ST.make_train_step(cfg, tc)
+    losses, walls = [], []
+    for _ in range(LM_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))          # syncs
+        walls.append(time.perf_counter() - t0)
+        print(f"  step {len(losses) - 1}: loss {losses[-1]:.6f} grad_norm "
+              f"{float(metrics['grad_norm']):.4f} wall {walls[-1]:.3f} s",
+              flush=True)
+    tokens = LM_BATCH * LM_SEQ
+    tok_s = tokens * (LM_STEPS - 1) / sum(walls[1:])
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  losses {losses}; {tok_s:,.0f} tokens/s over steps 1.."
+          f"{LM_STEPS - 1} ({tokens} tokens a step); max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    assert np.isfinite(losses).all(), losses
+    assert all(b < a for a, b in zip(losses, losses[1:])), losses
+    del batch, metrics
+
+    # (b) prefill, then decode, against the full forward at the dropless
+    # capacity, on (a)'s trained model
+    model = state.params
+    cfg_d, _ = moe_config(MOE_DROPLESS)
+    toks = torch.from_numpy(np.random.default_rng(21).integers(
+        0, cfg.vocab, (1, LM_PREFILL + LM_DECODE), dtype=np.int32)).to(dev)
+    for name, cdt in (("float32", torch.float32),
+                      ("bfloat16", torch.bfloat16)):
+        tcd = ST.TrainConfig(compute_dtype=name)
+        prefill = ST.make_prefill_step(cfg_d, tcd)
+        decode = ST.make_decode_step(cfg_d, tcd)
+        t0 = time.perf_counter()
+        with torch.no_grad(), moe_routes() as fwd_routes:
+            tree = model.tree(cast=cdt)
+            x, pos, _ = M._embed_inputs(tree, cfg_d, {"tokens": toks}, cdt)
+            h, _ = M.backbone(tree, cfg_d, x, pos)
+            want = M.logits_for(tree, cfg_d, h[:, LM_PREFILL - 1:])
+            del tree, x, h
+        last, caches = prefill(model, {"tokens": toks[:, :LM_PREFILL]})
+        caches = pad_caches(caches, LM_PREFILL + LM_DECODE)
+        outs, dec_routes = [last[:, 0]], []
+        for t in range(LM_PREFILL, LM_PREFILL + LM_DECODE):
+            with moe_routes() as rs:
+                lg, caches = decode(model, toks[:, t:t + 1], caches, t)
+            dec_routes.append(rs)
+            outs.append(lg[:, 0])
+        got = torch.stack(outs, 1)
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        torch.cuda.synchronize()
+        # decoded positions whose expert set differs from the forward's
+        differ = []
+        for i, rs in enumerate(dec_routes):
+            t = LM_PREFILL + i
+            for layer, (fr, dr) in enumerate(zip(fwd_routes, rs)):
+                a = sorted(fr.topi.reshape(-1, e.top_k)[t].tolist())
+                b = sorted(dr.topi.reshape(-1, e.top_k)[0].tolist())
+                if a != b:
+                    differ.append((t, layer, a, b))
+        dropped = sum(int((~r.keep).reshape(-1, e.top_k)[:r.tokens].sum())
+                      for r in fwd_routes + sum(dec_routes, []))
+        ok = err <= LM_DECODE_TOL[name] * scale
+        print(f"(b) {name}: prefill {LM_PREFILL} tokens then decode "
+              f"{LM_DECODE} at capacity {MOE_DROPLESS:g}: max|Δlogits| "
+              f"{err:.4g} of max|logits| {scale:.4g} ({err / scale:.3g}; "
+              f"limit {LM_DECODE_TOL[name]:g}); top-1 agree "
+              f"{int((got.argmax(-1) == want.argmax(-1)).sum())}/"
+              f"{LM_DECODE + 1}; pairs dropped {dropped}; decoded "
+              f"(position, MoE layer) pairs with another expert set than the "
+              f"forward's: {len(differ)} of {LM_DECODE * MOE_DEPTH}; "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        if not ok or name == "bfloat16":
+            for t, layer, a, b in differ:
+                print(f"    position {t}, MoE layer {layer}: forward {a}, "
+                      f"decode {b}")
+        assert bool(torch.isfinite(got).all()) and dropped == 0
+        assert ok, (name, err, scale)
+        del caches, got, want, fwd_routes, dec_routes
+    del model, state
+    torch.cuda.empty_cache()
+
+    # (c) the entry point, as a user runs it, on the card
+    argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            MOE_CLI_ARCH, "--tiny", "--steps", "10"]
+    if DEVICE != "cuda":
+        argv += ["--device", DEVICE]
+    t0 = time.perf_counter()
+    out = subprocess.run(argv, capture_output=True, text=True, timeout=600,
+                         cwd=tmp, env=dict(os.environ, PYTHONPATH=os.path.join(
+                             HERE, "src")))
+    print(f"(c) {' '.join(argv[1:])}: exit {out.returncode}, "
+          f"{time.perf_counter() - t0:.2f} s")
+    for line in out.stdout.splitlines():
+        print(f"    {line}")
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "10 steps in" in out.stdout
+    cli_losses = [float(x) for x in re.findall(r"loss\s+(\S+)", out.stdout)]
+    assert cli_losses and np.isfinite(cli_losses).all(), cli_losses
+
+    after = dict(ops.launch_counts())
+    print(f"  kernel launches before the phase {before}, after {after}: "
+          f"equal {after == before}")
+    assert after == before
+
+
 SERVE_QUERIES = 44      # five fill batches of 8, then a 4-query tail
 # the --solver cd run's queries: one fill batch and a 4-query tail (cut
 # from 44 when phases 17 and 18 came: its wide buckets run matvec CD, the
@@ -3512,8 +3750,9 @@ def main(argv: list[str]) -> int:
     if len(argv) == 3 and argv[:2] == ["--kernels", "--tree"]:
         tree, argv = os.path.abspath(argv[2]), ["--kernels"]
         sys.path.insert(0, os.path.join(tree, "src"))
-    if argv not in ([], ["--faults"], ["--kernels"], ["--lm-lr"]):
-        print("usage: python3 chip_smoke.py [--faults | --lm-lr | "
+    if argv not in ([], ["--faults"], ["--kernels"], ["--lm-lr"],
+                    ["--moe"]):
+        print("usage: python3 chip_smoke.py [--faults | --lm-lr | --moe | "
               "--kernels [--tree DIR]]", file=sys.stderr)
         return 2
     import torch
@@ -3545,6 +3784,10 @@ def main(argv: list[str]) -> int:
         with phase(f"LM learning rates on phase 20's fixed batch "
                    f"({LM_ARCH}, L = {LM_DEPTH})"):
             lm_lr_sweep(torch)
+        return 0
+    if argv == ["--moe"]:
+        with tempfile.TemporaryDirectory() as tmp, phase(MOE_PHASE):
+            moe_phase(torch, tmp)
         return 0
 
     with phase("build"):
@@ -3909,6 +4152,8 @@ def main(argv: list[str]) -> int:
         with phase(f"LM stack: {LM_ARCH} at full width, L = {LM_DEPTH}, "
                    f"seq {LM_SEQ}, batch {LM_BATCH}; the FFN bridge"):
             lm = lm_phase(torch, tmp)
+        with phase(MOE_PHASE):
+            moe_phase(torch, tmp)
 
     with phase(f"kernels at the paths' shapes (fista bucket {main_bucket}, "
                f"cd bucket {cd_bucket}; batched B={BATCH}: fista bucket "

@@ -5,8 +5,8 @@ on the port's train step.
         --steps 20 --seq 64 --batch 4 [--ckpt-dir DIR] [--device cpu]
 
 Any registered architecture is selectable with ``--arch``; ``--tiny``
-takes its reduced config. The dense architectures build; the others
-raise ``NotImplementedError`` naming their ROADMAP item. It runs on the
+takes its reduced config. The dense and MoE/MLA architectures build;
+zamba2 and xlstm raise ``NotImplementedError`` naming ROADMAP item 14c. It runs on the
 card unless ``--device cpu``. ``--mesh`` takes ``1x1`` only (multi-card
 training is ROADMAP item 14d).
 

@@ -1,5 +1,5 @@
-"""The dense LM stack's models (attention blocks with dense FFNs); see
-:class:`model.ArchConfig` and :class:`model.LM`."""
+"""The LM stack's models (attention or MLA blocks with dense or MoE
+FFNs); see :class:`model.ArchConfig` and :class:`model.LM`."""
 from .model import (  # noqa: F401
     LM,
     ArchConfig,

@@ -23,14 +23,16 @@ Conventions, as the reference's:
 * No sharding constraint: on one card the reference's ``constrain`` is the
   identity (multi-card training is ROADMAP item 14d).
 
-MoE (``MoeSpec``) is the dataclass only here: building a MoE block raises
-``NotImplementedError`` naming ROADMAP item 14b.
+MoE (:func:`moe_forward`) is the reference's grouped top-k dispatch with
+capacity, its one-hot dispatch and combine products included (see
+:func:`moe_route`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -52,8 +54,17 @@ def dot(eq: str, a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:
     return torch.einsum(eq, a.to(dt), b.to(dt)).to(out_dtype)
 
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` on the "meta" device, which has
+    none: a model built with it has its parameters' shapes and dtypes and
+    no values (a full config's shapes without its memory)."""
+    device = torch.device("meta")
+
+
 def normal(gen: torch.Generator, shape, scale: float, dtype=F32):
     """N(0, 1)·scale drawn in f32 on ``gen``'s device, then cast."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=gen.device)
     t = torch.randn(shape, generator=gen, device=gen.device, dtype=F32)
     return (t * scale).to(dtype)
 
@@ -368,8 +379,10 @@ def ffn_forward(params, spec: FfnSpec, x):
     return dot("bsf,fd->bsd", h, params["w_out"], x.dtype)
 
 
+
+
 # ---------------------------------------------------------------------------
-# MoE: the spec only (ROADMAP item 14b)
+# MoE (shared + routed experts, grouped GShard dispatch)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -382,3 +395,121 @@ class MoeSpec:
     capacity_factor: float = 1.25
     group_size: int = 128          # dispatch group (bounds T×E×C cost)
     ffn_kind: str = "swiglu"
+
+    def shared_spec(self) -> FfnSpec:
+        """The shared experts as one dense FFN of ``n_shared`` widths."""
+        return FfnSpec(self.d_model, self.d_expert * self.n_shared,
+                       self.ffn_kind)
+
+
+class Moe(nn.Module):
+    """The parameters of one MoE FFN (the reference's ``moe_init``):
+    ``router`` (d, e), kept in f32 whatever ``dtype`` is; ``w_in`` and
+    ``w_gate`` (e, d, f); ``w_out`` (e, f, d); and, with shared experts,
+    ``shared``, a dense FFN of width f·n_shared."""
+
+    def __init__(self, spec: MoeSpec, gen: torch.Generator, dtype=F32):
+        super().__init__()
+        d, f, e = spec.d_model, spec.d_expert, spec.n_routed
+        sc_in, sc_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+        self.router = nn.Parameter(normal(gen, (d, e), sc_in, F32))
+        self.w_in = nn.Parameter(normal(gen, (e, d, f), sc_in, dtype))
+        self.w_gate = nn.Parameter(normal(gen, (e, d, f), sc_in, dtype))
+        self.w_out = nn.Parameter(normal(gen, (e, f, d), sc_out, dtype))
+        if spec.n_shared:
+            self.shared = Ffn(spec.shared_spec(), gen, dtype)
+
+
+class MoeRoute(NamedTuple):
+    """Where :func:`moe_route` sends each (token, choice) pair. The T
+    tokens are padded to ``ng`` groups of ``g``; ``[..., j]`` is a
+    token's j-th choice, in ``top_k``'s descending order."""
+    topv: torch.Tensor     # (ng, g, k) f32 weights, renormalised
+    topi: torch.Tensor     # (ng, g, k) the chosen experts
+    pos: torch.Tensor      # (ng, g, k) the pair's slot in its expert's buffer
+    keep: torch.Tensor     # (ng, g, k) 0 ≤ pos < cap
+    cap: int               # slots per expert and group
+    tokens: int            # T, the real tokens (the rest is padding)
+
+
+def _groups(spec: MoeSpec, x):
+    """x (..., d) → (tokens padded to (ng, g, d), T)."""
+    d = x.shape[-1]
+    tokens = x.reshape(-1, d)
+    t = tokens.shape[0]
+    g = min(spec.group_size, t)
+    ng = -(-t // g)
+    return F.pad(tokens, (0, 0, 0, ng * g - t)).reshape(ng, g, d), t
+
+
+def moe_route(params, spec: MoeSpec, x) -> MoeRoute:
+    """The reference's routing (``layers.py:384-405``) of x (..., d).
+
+    Top-k over the router's softmax probabilities (f32; a router cast to
+    bf16 by the train step is upcast, its values the rounded ones, as jnp
+    promotes it), renormalised as ``topv / (Σ topv + 1e-9)``. A pair's
+    slot is the count of earlier pairs on its expert in the group, taken
+    over the flattened (g, k) axis token-major (an exact integer cumsum);
+    it is kept when the slot is below ``cap = max(1, int(g·k/e·
+    capacity_factor))``.
+
+    The padded (zero) tokens are routed too. Their probabilities tie
+    exactly, and ``torch.topk`` may order ties otherwise than
+    ``lax.top_k``; but they come after every real token of the last group
+    in the cumsum, so they take no real token's slot, and their rows are
+    sliced off: a real token's output does not depend on their choices.
+    Only ``topv`` carries a gradient (into the router), as in the
+    reference.
+    """
+    e, k = spec.n_routed, spec.top_k
+    tokens, t = _groups(spec, x)
+    ng, g, _ = tokens.shape
+    cap = max(1, int(g * k / e * spec.capacity_factor))
+    logits = dot("ngd,de->nge", tokens.to(F32), params["router"], F32)
+    probs = torch.softmax(logits, dim=-1)
+    topv, topi = torch.topk(probs, k, dim=-1)            # descending
+    topv = topv / (torch.sum(topv, dim=-1, keepdim=True) + 1e-9)
+    onehot = F.one_hot(topi, e)                           # (ng, g, k, e)
+    seen = torch.cumsum(onehot.reshape(ng, g * k, e), dim=1).reshape(
+        ng, g, k, e)
+    pos = torch.sum(seen * onehot, dim=-1) - 1
+    return MoeRoute(topv, topi, pos, pos < cap, cap, t)
+
+
+def moe_forward(params, spec: MoeSpec, x):
+    """Grouped top-k routing with capacity, the reference's
+    ``moe_forward`` (``layers.py:375-444``): x (B, S, d) → (B, S, d).
+    Dropped pairs (over capacity) add nothing: their tokens keep the
+    residual path.
+
+    Dispatch and combine are the reference's one-hot (ng, g, e, cap)
+    products, not an index scatter and gather: each slot holds at most
+    one token, so dispatch is exact, and combine sums a token's at most k
+    weighted expert outputs in f32 and rounds once, its weights rounded
+    to ``x.dtype`` first as the reference's ``combine``; the products are
+    deterministic (no atomics), so a checkpointed layer's recompute
+    gives the same bits, and at deepseek-v2-lite's width each one-hot is
+    (128, 128, 64, 15), 31 MB in bf16.
+    """
+    r = moe_route(params, spec, x)
+    tokens, _ = _groups(spec, x)
+    dt = x.dtype
+    sel = F.one_hot(r.topi, spec.n_routed).to(dt)         # (ng, g, k, e)
+    # a dropped pair's slot row is zero (the extra class is cut off), as
+    # the reference's one_hot(-1, cap)
+    slot = F.one_hot(torch.where(r.keep, r.pos, r.cap),
+                     r.cap + 1)[..., :r.cap].to(dt)      # (ng, g, k, cap)
+    dispatch = torch.einsum("ngke,ngkc->ngec", sel, slot)
+    combine = torch.einsum("ngke,ngkc->ngec",
+                           sel * r.topv.to(dt)[..., None], slot)
+    xe = dot("ngd,ngec->encd", tokens, dispatch, dt)     # expert buffers
+    h = dot("encd,edf->encf", xe, params["w_in"], dt)
+    gp = dot("encd,edf->encf", xe, params["w_gate"], dt)
+    act = F.silu(gp) if spec.ffn_kind == "swiglu" else F.gelu(
+        gp, approximate="tanh")
+    ye = dot("encf,efd->encd", act * h, params["w_out"], dt)
+    y = dot("encd,ngec->ngd", ye, combine, dt)
+    y = y.reshape(-1, x.shape[-1])[:r.tokens].reshape(x.shape)
+    if spec.n_shared:
+        y = y + ffn_forward(params["shared"], spec.shared_spec(), x)
+    return y

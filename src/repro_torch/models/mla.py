@@ -1,13 +1,25 @@
-"""Multi-head Latent Attention (DeepSeek-V2): the spec only.
+"""Multi-head Latent Attention (MLA, DeepSeek-V2 [arXiv:2405.04434]), the
+reference's ``src/repro/models/mla.py`` in PyTorch.
 
-``MlaSpec`` is the reference's dataclass (``src/repro/models/mla.py``), so
-the MLA configs construct; building an ``mla`` block raises
-``NotImplementedError`` naming ROADMAP item 14b.
+KV is compressed into a per-token latent c_kv ∈ R^r (r = kv_lora_rank)
+plus a rotary key k_pe ∈ R^{d_rope} shared by the heads; the heads' keys
+and values are up-projected from the latent. Training and prefill use the
+expanded form (:func:`mla_forward`, the port's chunked attention with
+q/k width d_nope + d_rope and value width d_v); decode uses the *absorbed*
+form (:func:`mla_decode`): q_nope goes through W_uk into latent space
+once, and the scores are taken against the cached latents, so the cache
+is (B, S, r) and (B, S, d_rope).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+
+import torch
+from torch import nn
+
+from .layers import F32, NEG_INF, chunked_attention, dot, normal, rope
 
 
 @dataclasses.dataclass(frozen=True)
@@ -19,3 +31,96 @@ class MlaSpec:
     d_rope: int = 64             # shared rotary dim
     d_v: int = 128               # per-head value dim
     rope_theta: float = 10000.0
+
+
+class Mla(nn.Module):
+    """The parameters of one MLA mixer (the reference's ``mla_init``):
+    wq (d, H, d_nope + d_rope), w_dkv (d, r + d_rope), kv_norm (r,),
+    w_uk (r, H, d_nope), w_uv (r, H, d_v), wo (H, d_v, d)."""
+
+    def __init__(self, spec: MlaSpec, gen: torch.Generator, dtype=F32):
+        super().__init__()
+        d, h, r = spec.d_model, spec.n_heads, spec.kv_lora_rank
+        sd, sr = 1 / math.sqrt(d), 1 / math.sqrt(r)
+        self.wq = nn.Parameter(normal(gen, (d, h, spec.d_nope + spec.d_rope),
+                                      sd, dtype))
+        self.w_dkv = nn.Parameter(normal(gen, (d, r + spec.d_rope), sd,
+                                         dtype))
+        self.kv_norm = nn.Parameter(torch.ones((r,), dtype=dtype,
+                                               device=gen.device))
+        self.w_uk = nn.Parameter(normal(gen, (r, h, spec.d_nope), sr, dtype))
+        self.w_uv = nn.Parameter(normal(gen, (r, h, spec.d_v), sr, dtype))
+        self.wo = nn.Parameter(normal(gen, (h, spec.d_v, d),
+                                      1 / math.sqrt(h * spec.d_v), dtype))
+
+
+def _latents(params, spec: MlaSpec, x, positions):
+    """x → (c_kv RMS-normalised in f32 (eps 1e-6) times ``kv_norm``,
+    k_pe rotated): (B, S, r) and (B, S, d_rope) in x.dtype."""
+    ckv = dot("bsd,dr->bsr", x, params["w_dkv"], x.dtype)
+    c, kpe = ckv[..., :spec.kv_lora_rank], ckv[..., spec.kv_lora_rank:]
+    cf = c.to(F32)
+    cf = cf * torch.rsqrt(torch.mean(cf * cf, dim=-1, keepdim=True) + 1e-6)
+    c = (cf * params["kv_norm"].to(F32)).to(x.dtype)
+    kpe = rope(kpe[:, :, None, :], positions, spec.rope_theta)[:, :, 0]
+    return c, kpe
+
+
+def _queries(params, spec: MlaSpec, x, positions):
+    """x → (q_nope, rotated q_pe): (B, H, S, d_nope), (B, H, S, d_rope)."""
+    q = dot("bsd,dhk->bhsk", x, params["wq"], x.dtype)
+    q_nope, q_pe = q[..., :spec.d_nope], q[..., spec.d_nope:]
+    # rope takes (..., S, H, D): rotate in (B, S, H, D) and back
+    q_pe = rope(q_pe.transpose(1, 2), positions,
+                spec.rope_theta).transpose(1, 2)
+    return q_nope, q_pe
+
+
+def mla_forward(params, spec: MlaSpec, x, positions, *, q_chunk=1024,
+                k_chunk=1024):
+    """Training / prefill form: expand the heads' k, v from the latent and
+    run chunked causal attention (scale 1/sqrt(d_nope + d_rope), q's
+    width). Returns (out (B, S, d), (c_kv, k_pe)), the latter prefill's
+    cache."""
+    c, kpe = _latents(params, spec, x, positions)
+    q_nope, q_pe = _queries(params, spec, x, positions)
+    k_nope = dot("bsr,rhk->bhsk", c, params["w_uk"], x.dtype)
+    v = dot("bsr,rhk->bhsk", c, params["w_uv"], x.dtype)
+    # the rotary part onto both q and k (k_pe shared by the heads)
+    kpe_h = kpe[:, None].expand(-1, spec.n_heads, -1, -1)
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    k = torch.cat([k_nope, kpe_h], dim=-1)
+    o = chunked_attention(q, k, v, causal=True, window=None, q_offset=0,
+                          q_chunk=q_chunk, k_chunk=k_chunk)
+    out = dot("bhsk,hkd->bsd", o, params["wo"], x.dtype)
+    return out, (c, kpe)
+
+
+def mla_decode(params, spec: MlaSpec, x, cache_c, cache_kpe, cache_len):
+    """Absorbed-form decode. x (B, 1, d); cache_c (B, Smax, r) and
+    cache_kpe (B, Smax, d_rope), written in place at ``cache_len``. The
+    scores are taken in latent space (q_nope absorbed through W_uk), the
+    softmax over the whole cache with the finite ``NEG_INF`` past
+    ``cache_len``; q_lat and o_lat are rounded to x.dtype before their
+    next product, as in the reference. Returns (out, cache_c, cache_kpe)."""
+    b = x.shape[0]
+    t = int(cache_len)
+    pos = torch.full((b, 1), t, dtype=torch.int32, device=x.device)
+    c_new, kpe_new = _latents(params, spec, x, pos)
+    cache_c[:, t:t + 1] = c_new.to(cache_c.dtype)
+    cache_kpe[:, t:t + 1] = kpe_new.to(cache_kpe.dtype)
+
+    q_nope, q_pe = _queries(params, spec, x, pos)
+    q_lat = dot("bhsk,rhk->bhsr", q_nope, params["w_uk"], x.dtype)
+    scale = 1.0 / math.sqrt(spec.d_nope + spec.d_rope)
+    cc = cache_c.to(F32)
+    s = (torch.einsum("bhsr,btr->bhst", q_lat.to(F32), cc)
+         + torch.einsum("bhsk,btk->bhst", q_pe.to(F32),
+                        cache_kpe.to(F32))) * scale
+    valid = torch.arange(cache_c.shape[1], device=x.device) <= t
+    s = torch.where(valid[None, None, None], s, NEG_INF)
+    pattn = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhst,btr->bhsr", pattn, cc).to(x.dtype)
+    o = dot("bhsr,rhk->bhsk", o_lat, params["w_uv"], x.dtype)
+    out = dot("bhsk,hkd->bsd", o, params["wo"], x.dtype)
+    return out, cache_c, cache_kpe

@@ -1,4 +1,4 @@
-"""The dense LM: block programs → per-layer modules, the reference's
+"""The LM: block programs → per-layer modules, the reference's
 ``src/repro/models/model.py`` in PyTorch.
 
 An architecture is an :class:`ArchConfig` holding a *block program*: a
@@ -19,9 +19,9 @@ param_tree` of an :class:`LM`, or that tree cast to the compute dtype by
 the train step), as the reference's take ``params``. :class:`LM` owns
 the parameters and wraps the functions.
 
-Only ``attn`` blocks with a dense FFN are built here: MoE and MLA blocks
-raise ``NotImplementedError`` naming ROADMAP item 14b; Mamba2, mLSTM,
-sLSTM and the shared block, item 14c.
+A block's mixer is ``attn`` (GQA) or ``mla`` (:mod:`.mla`), its FFN
+dense or a MoE (:func:`layers.moe_forward`). Mamba2, mLSTM, sLSTM and
+the shared block raise ``NotImplementedError`` naming ROADMAP item 14c.
 """
 
 from __future__ import annotations
@@ -91,14 +91,13 @@ class ArchConfig:
 
 
 # What each unported block kind waits for (ROADMAP.md queue 1)
-LATER = {"mla": "14b", "moe": "14b", "mamba2": "14c", "mlstm": "14c",
-         "slstm": "14c", "shared": "14c"}
+LATER = {"mamba2": "14c", "mlstm": "14c", "slstm": "14c", "shared": "14c"}
 
 
 def _later(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} blocks are not ported yet (ROADMAP.md item {LATER[what]}); "
-        f"the port builds dense attention blocks only")
+        f"the port builds attn and mla blocks, with dense or MoE FFNs")
 
 
 def check_buildable(cfg: ArchConfig) -> None:
@@ -112,34 +111,35 @@ def check_buildable(cfg: ArchConfig) -> None:
                 raise _later("shared")
             if blk.kind in LATER:
                 raise _later(blk.kind)
-            if blk.kind != "attn":
+            if blk.kind not in ("attn", "mla"):
                 raise ValueError(blk.kind)
-            if blk.moe is not None:
-                raise _later("moe")
 
 
 # ---------------------------------------------------------------------------
 # Parameters: one module per block
 # ---------------------------------------------------------------------------
 
-class AttnBlock(nn.Module):
-    """One ``attn`` block's parameters: norm1, mixer, and (with a dense
-    FFN) norm2 and ffn, under the reference's names."""
+class BlockParams(nn.Module):
+    """One ``attn`` or ``mla`` block's parameters: norm1, mixer, and (with
+    a dense FFN or a MoE) norm2 and ffn, under the reference's names."""
 
     def __init__(self, blk: Block, cfg: ArchConfig, gen: torch.Generator,
                  dtype=F32):
         super().__init__()
         d, dev = cfg.d_model, gen.device
         self.norm1 = L.RMSNorm(d, device=dev, dtype=dtype)
-        self.mixer = L.Attention(blk.attn, gen, dtype)
-        if blk.ffn is not None:
+        self.mixer = (L.Attention(blk.attn, gen, dtype) if blk.kind == "attn"
+                      else M.Mla(blk.mla, gen, dtype))
+        if blk.ffn is not None or blk.moe is not None:
             self.norm2 = L.RMSNorm(d, device=dev, dtype=dtype)
-            self.ffn = L.Ffn(blk.ffn, gen, dtype)
+            self.ffn = (L.Moe(blk.moe, gen, dtype) if blk.moe is not None
+                        else L.Ffn(blk.ffn, gen, dtype))
 
 
 class LM(nn.Module):
-    """A dense LM built from ``cfg``, its weights drawn from ``generator``
-    (or a fresh one seeded with ``seed``) on ``device`` (None: the card).
+    """An LM built from ``cfg``, its weights drawn from ``generator`` (or a
+    fresh one seeded with ``seed``) on ``device`` (None: the card;
+    ``"meta"``: the parameters' shapes only, no memory).
 
     Parameters (f32 masters by default), under the reference's names:
     ``embed`` (vocab, d), ``lm_head`` (d, vocab) when untied,
@@ -153,8 +153,12 @@ class LM(nn.Module):
         check_buildable(cfg)
         self.cfg = cfg
         if generator is None:
-            generator = torch.Generator(device=resolve_device(device))
-            generator.manual_seed(seed)
+            dev = resolve_device(device)
+            if dev.type == "meta":
+                generator = L.MetaGenerator()
+            else:
+                generator = torch.Generator(device=dev)
+                generator.manual_seed(seed)
         gen = generator
         dev = gen.device
         d = cfg.d_model
@@ -171,7 +175,7 @@ class LM(nn.Module):
         self.final_norm = L.RMSNorm(d, device=dev, dtype=dtype)
         self.segments = nn.ModuleList(
             nn.ModuleList(
-                nn.ModuleDict({f"b{bi}": AttnBlock(blk, cfg, gen, dtype)
+                nn.ModuleDict({f"b{bi}": BlockParams(blk, cfg, gen, dtype)
                                for bi, blk in enumerate(seg.blocks)})
                 for _ in range(seg.repeat))
             for seg in cfg.segments)
@@ -210,12 +214,28 @@ class LM(nn.Module):
 # Per-block forward / decode
 # ---------------------------------------------------------------------------
 
+def _ffn(p, blk: Block, x):
+    """The block's FFN half: x + FFN(norm2(x)), dense or MoE."""
+    if "ffn" not in p:
+        return x
+    h = L.rmsnorm(p["norm2"], x)
+    if blk.moe is not None:
+        return x + L.moe_forward(p["ffn"], blk.moe, h)
+    return x + L.ffn_forward(p["ffn"], blk.ffn, h)
+
+
 def _block_forward(p, blk: Block, cfg: ArchConfig, x, positions,
                    want_cache: bool):
     """Full-sequence block application → (x, cache or None)."""
     h = L.rmsnorm(p["norm1"], x)
     cache = None
-    if want_cache:
+    if blk.kind == "mla":
+        mix, (c, kpe) = M.mla_forward(p["mixer"], blk.mla, h, positions,
+                                      q_chunk=cfg.q_chunk,
+                                      k_chunk=cfg.k_chunk)
+        if want_cache:
+            cache = {"c": c, "kpe": kpe}
+    elif want_cache:
         q, k, v = L.attn_qkv(p["mixer"], blk.attn, h, positions)
         o = L.chunked_attention(q, k, v, causal=blk.attn.causal,
                                 window=blk.attn.window, q_offset=0,
@@ -225,35 +245,43 @@ def _block_forward(p, blk: Block, cfg: ArchConfig, x, positions,
     else:
         mix = L.attn_forward(p["mixer"], blk.attn, h, positions,
                              q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk)
-    x = x + mix
-    if "ffn" in p:
-        x = x + L.ffn_forward(p["ffn"], blk.ffn, L.rmsnorm(p["norm2"], x))
-    return x, cache
+    return _ffn(p, blk, x + mix), cache
 
 
 def _block_decode(p, blk: Block, cfg: ArchConfig, x, cache, cache_len):
     """Single-token decode → (x, cache)."""
     h = L.rmsnorm(p["norm1"], x)
-    mix, ck, cv = L.attn_decode(p["mixer"], blk.attn, h, cache["k"],
-                                cache["v"], cache_len)
-    x = x + mix
-    if "ffn" in p:
-        x = x + L.ffn_forward(p["ffn"], blk.ffn, L.rmsnorm(p["norm2"], x))
-    return x, {"k": ck, "v": cv}
+    if blk.kind == "mla":
+        mix, cc, ckpe = M.mla_decode(p["mixer"], blk.mla, h, cache["c"],
+                                     cache["kpe"], cache_len)
+        cache = {"c": cc, "kpe": ckpe}
+    else:
+        mix, ck, cv = L.attn_decode(p["mixer"], blk.attn, h, cache["k"],
+                                    cache["v"], cache_len)
+        cache = {"k": ck, "v": cv}
+    return _ffn(p, blk, x + mix), cache
 
 
 def cache_init(cfg: ArchConfig, batch: int, smax: int, dtype=torch.bfloat16,
                device=None):
-    """Zero KV caches for decode: ``caches[si][layer]["b{bi}"]`` =
-    ``{"k", "v"}`` of shape (batch, Hk, smax, Dh)."""
+    """Zero caches for decode: ``caches[si][layer]["b{bi}"]`` = ``{"k",
+    "v"}`` of shape (batch, Hk, smax, Dh) for an ``attn`` block, ``{"c",
+    "kpe"}`` of shapes (batch, smax, r) and (batch, smax, d_rope) for an
+    ``mla`` block."""
     check_buildable(cfg)
     dev = resolve_device(device)
 
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
     def one(blk):
+        if blk.kind == "mla":
+            m = blk.mla
+            return {"c": zeros(batch, smax, m.kv_lora_rank),
+                    "kpe": zeros(batch, smax, m.d_rope)}
         a = blk.attn
-        shape = (batch, a.n_kv_heads, smax, a.d_head)
-        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        return {"k": zeros(batch, a.n_kv_heads, smax, a.d_head),
+                "v": zeros(batch, a.n_kv_heads, smax, a.d_head)}
 
     return [[{f"b{bi}": one(blk) for bi, blk in enumerate(seg.blocks)}
              for _ in range(seg.repeat)] for seg in cfg.segments]
@@ -261,8 +289,9 @@ def cache_init(cfg: ArchConfig, batch: int, smax: int, dtype=torch.bfloat16,
 
 def pad_caches(caches, smax: int):
     """Prefill's caches (sequence S) zero-padded to ``smax`` positions, the
-    layout :func:`decode_step` continues from at ``cache_len = S``."""
-    return [[{b: {n: F.pad(t, (0, 0, 0, smax - t.shape[2]))
+    layout :func:`decode_step` continues from at ``cache_len = S``. The
+    sequence is axis −2 of both kinds: (B, Hk, S, Dh) and (B, S, r)."""
+    return [[{b: {n: F.pad(t, (0, 0, 0, smax - t.shape[-2]))
                   for n, t in c.items()} for b, c in layer.items()}
              for layer in seg] for seg in caches]
 
