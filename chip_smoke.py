@@ -256,6 +256,32 @@ Phases, each printing its own lines and seconds:
    moonshot-v1-16b-a3b --tiny --steps 10`` on the card, its losses
    finite. No kernel of the six runs in it: ``ops.launch_counts()`` is
    the same before and after;
+22. the recurrent architectures (run after 21), each at its published
+   width and full depth (``SSM_WIDTH``; no cut): (a) zamba2-1.2b (38
+   Mamba2 blocks and 6 applications of the one shared attention + FFN
+   block) and (b) xlstm-350m (21 mLSTM and 3 sLSTM blocks, bf16 AdamW
+   moments), each ``SSM_STEPS`` train steps on one fixed batch (phase
+   20's sequence, batch, rate and bf16 compute): the loss finite, and
+   for zamba2 falling every step (xlstm's gradient norm passes the clip
+   by 12 orders: ``SSM_STEPS``), the parameter count the reference's
+   (``SSM_PARAMS``), the gradient norms, tokens/s after step 0 and
+   ``max_memory_allocated``; step 1 bracketed by CUDA events
+   (``step_spans``): each block kind's forward and backward milliseconds
+   and share of the step, and each mLSTM block's normaliser |n|; for
+   xlstm, an mLSTM and an sLSTM block's gradients on the card in f32
+   and bf16 against the CPU's (``block_grads``); decode against the
+   full forward in f32 and bf16, the whole model (``ssm_decode``: held at
+   ``LM_DECODE_TOL`` for ``SSM_DECODE_HELD``, a reading elsewhere) and
+   every block on the forward's own input, its caches and outputs held
+   at ``LM_DECODE_TOL`` (``block_decode``): zamba2 after a prefill of
+   ``LM_PREFILL`` tokens (``pad_caches`` pads its attention caches and
+   passes its Mamba2 states through), xlstm token by token from an empty
+   cache over ``LM_DECODE`` positions (the mLSTM stabiliser scales a
+   prefill's state, in the reference too); (c) (b)'s state saved and
+   restored leaf for leaf equal, its bf16 moments bf16 again; (d)
+   ``python -m repro_torch.launch.train --arch A --tiny --steps 10`` for
+   both, at once, finite losses; (e) the launch and plain-version
+   counters the same before and after;
 15. summary: one JSON line of per-kernel numbers (with, for
    ``screen_matvec``, ``fista_step`` and ``cd_gram_sweep``, the batched
    path's launches and its B = 8 row at its own shapes, for
@@ -292,7 +318,8 @@ train steps alone at each of ``LM_LR_SWEEP``'s rates, twice the phase's
 steps on its fixed batch each, and prints each rate's losses and whether
 they fell at every step: the reading ``LM_LR`` was chosen from.
 
-``python3 chip_smoke.py --moe`` runs phase 1 and then phase 21 alone.
+``python3 chip_smoke.py --moe`` runs phase 1 and then phase 21 alone;
+``--ssm`` phase 1 and then phase 22 alone.
 
 Each path phase sets every launch counter to 0 just before it and reads
 them just after: each kernel the path runs must have launched, and no
@@ -3100,9 +3127,18 @@ def same_tree(a, b) -> bool:
                                         for x, y in zip(a, b))
     if a is None or b is None:
         return a is None and b is None
-    as_np = lambda x: x.numpy() if hasattr(x, "numpy") else np.asarray(x)
+    def as_np(x):
+        if not hasattr(x, "numpy"):
+            return np.asarray(x)
+        x = x.detach().cpu()
+        if str(x.dtype) == "torch.bfloat16":     # numpy has no bfloat16
+            import torch
+            return x.view(torch.int16).numpy().view("V2")
+        return x.numpy()
+
     x, y = as_np(a), as_np(b)
-    return x.dtype == y.dtype and np.array_equal(x, y)
+    bits = lambda v: v.view(np.int16) if v.dtype.kind == "V" else v
+    return x.dtype == y.dtype and np.array_equal(bits(x), bits(y))
 
 
 def lm_config():
@@ -3574,6 +3610,595 @@ def moe_phase(torch, tmp: str) -> None:
     assert after == before
 
 
+# Phase 22, the recurrent architectures at their published widths and
+# full depths: zamba2-1.2b (38 Mamba2 blocks, d_model 2048, d_inner 4096,
+# 64 heads of 64, state 64, conv 4, chunk 128; one shared attention + FFN
+# block, 32 heads of 64, d_ff 8 192, applied after every 6th Mamba2 block;
+# vocab 32 000) and xlstm-350m (21 mLSTM and 3 sLSTM blocks, d_model
+# 1 024, 4 heads; vocab 50 304): 1.10e9 and 3.89e8 parameters, 13.3 and
+# 4.7 GB of f32 masters and moments, so no depth cut
+SSM_ARCHS = ("zamba2-1.2b", "xlstm-350m")
+# the widths and depths phase 22 holds each config to
+SSM_WIDTH = {
+    # d_model, Mamba2 blocks, d_state, head_dim, heads, shared-block
+    # applications, its heads, d_head and d_ff, vocab
+    "zamba2-1.2b": (2048, 38, 64, 64, 64, 6, 32, 64, 8192, 32000),
+    # d_model, mLSTM blocks, sLSTM blocks, heads, vocab
+    "xlstm-350m": (1024, 21, 3, 4, 50304),
+}
+SSM_PARAMS = {"zamba2-1.2b": 1_104_777_344, "xlstm-350m": 388_529_236}
+# train steps on the fixed batch. An xlstm step takes 27–35 s on an H100
+# 80GB HBM3 at 700 W (the sLSTM loops' host time), so 2, cut from
+# LM_STEPS to keep the smoke in its limit. Its loss need not fall: at
+# full width its gradient norm is 2e12–3e12 (the mLSTM normaliser
+# max(|n|, 1e-6) meets a near-zero n: ``step_spans`` prints where), and
+# the clip to 1.0 scales the gradient by ~4e-13, below AdamW's eps for
+# all but the few entries that carry the spike; ``block_grads`` holds the
+# card's xlstm gradients instead
+SSM_STEPS = {"zamba2-1.2b": LM_STEPS, "xlstm-350m": 2}
+# the whole model's decode is held at LM_DECODE_TOL where, as in phases
+# 20–21, the model is f32 and no mixer divides by a sum that can cancel
+# (zamba2: Mamba2 and attention); zamba2 in bf16 (44 layers against the
+# 3 the limit was set on) and xlstm (its mLSTM divides by the normaliser
+# n) print their distance against it as a reading. ``block_decode``
+# holds every block's decode in all four
+SSM_DECODE_HELD = {("zamba2-1.2b", "float32")}
+GRAD_SEQ = 512          # block_grads' sequence: two mLSTM chunks of 256
+GRAD_F32_TOL = 1e-4     # a leaf's relative distance, card f32 to CPU f32
+GRAD_BF16_RATIO = 2.0   # card bf16 against the CPU's own bf16 distance,
+                        # the factor the CPU train tests allow
+SSM_PHASE = (f"recurrent archs: {' and '.join(SSM_ARCHS)} at full width and "
+             f"depth, seq {LM_SEQ}, batch {LM_BATCH}")
+
+
+def ssm_width(cfg) -> tuple:
+    """The widths and depths of a phase-22 config, as ``SSM_WIDTH``."""
+    blocks = [b for seg in cfg.segments for _ in range(seg.repeat)
+              for b in seg.blocks]
+    kinds = [b.kind for b in blocks]
+    if cfg.shared_block is not None:                  # zamba2
+        mb, sh = blocks[0].mamba, cfg.shared_block
+        return (cfg.d_model, kinds.count("mamba2"), mb.d_state, mb.head_dim,
+                mb.n_heads, sum(b.shared for b in blocks), sh.attn.n_heads,
+                sh.attn.d_head, sh.ffn.d_ff, cfg.vocab)
+    return (cfg.d_model, kinds.count("mlstm"), kinds.count("slstm"),
+            blocks[0].mlstm.n_heads, cfg.vocab)
+
+
+@contextlib.contextmanager
+def spy(mod, name: str, sink: list, pick):
+    """``mod.name`` wrapped so that each call appends ``pick(args,
+    result)`` to ``sink``."""
+    real = getattr(mod, name)
+
+    def wrapped(*args):
+        res = real(*args)
+        sink.append(pick(args, res))
+        return res
+
+    setattr(mod, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(mod, name, real)
+
+
+@contextlib.contextmanager
+def step_spans(torch, out: dict):
+    """Inside, a train step's blocks are bracketed by CUDA events on the
+    card's timeline: each block's forward as the step first runs it, and
+    its backward (the recompute of its checkpointed forward, then its
+    gradients) from the hook on its output's gradient to the hook on its
+    input's, so the spans are disjoint parts of the step. Each mLSTM
+    block's normaliser |n| (the last channel of its SSD read, (B, S, H))
+    is reduced on the card as the forward runs. On exit ``out`` holds
+    ``spans`` ({kind: [forward ms, backward ms, blocks]}) and ``norms``
+    (per mLSTM block in program order: min |n|, median |n|, entries below
+    1e-6 (the clamp), entries below 1e-4 of the median, and the (b, s, h)
+    of the min)."""
+    from repro_torch.models import model as M, ssm as S
+
+    real_block, real_out = M._block_forward, S._mlstm_out
+    spans, norms, flag = [], [], {"backward": False}
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def block(p, blk, cfg, x, positions, want_cache):
+        if flag["backward"]:                  # a checkpoint's recompute
+            return real_block(p, blk, cfg, x, positions, want_cache)
+        ev = {"f0": event()}
+        y, cache = real_block(p, blk, cfg, x, positions, want_cache)
+        ev["f1"] = event()
+
+        def opened(_):
+            flag["backward"] = True
+            ev["b0"] = event()
+
+        def closed(_):
+            ev["b1"] = event()
+
+        if y.requires_grad and x.requires_grad:
+            y.register_hook(opened)
+            x.register_hook(closed)
+        spans.append((blk.kind + " (shared)" * blk.shared, ev))
+        return y, cache
+
+    def read(params, spec, x, y, z):
+        if not flag["backward"]:
+            with torch.no_grad():
+                n = y[..., spec.d_v].to(torch.float32).abs()    # (B, S, H)
+                med = n.median()
+                norms.append((n.shape, torch.stack([
+                    n.min().double(), med.double(), (n < 1e-6).sum().double(),
+                    (n < 1e-4 * med).sum().double(), n.argmin().double()])))
+        return real_out(params, spec, x, y, z)
+
+    M._block_forward, S._mlstm_out = block, read
+    try:
+        yield
+    finally:
+        M._block_forward, S._mlstm_out = real_block, real_out
+    torch.cuda.synchronize()
+    by_kind = {}
+    for kind, ev in spans:
+        row = by_kind.setdefault(kind, [0.0, 0.0, 0])
+        row[0] += ev["f0"].elapsed_time(ev["f1"])
+        row[1] += ev["b0"].elapsed_time(ev["b1"])
+        row[2] += 1
+    out["spans"] = by_kind
+    out["norms"] = []
+    for shape, t in norms:
+        lo, med, clamped, below, at = t.tolist()
+        out["norms"].append((lo, med, int(clamped), int(below),
+                             tuple(int(i) for i in np.unravel_index(
+                                 int(at), tuple(shape)))))
+
+
+def ssm_train(torch, arch: str, cfg, batch, tc, steps: int) -> tuple:
+    """``steps`` train steps of a fresh state (seed 0) on one fixed batch,
+    step 1 inside :func:`step_spans`. Returns (state, readings): the
+    losses and gradient norms (before the clip), the walls, tokens/s after
+    step 0, the peak memory, and step 1's milliseconds on the card's
+    timeline, its blocks' spans by kind and the mLSTM normalisers."""
+    from repro_torch.train import steps as ST
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, _ = ST.init_state(0, cfg, tc, device=torch.device(DEVICE))
+    torch.cuda.synchronize()
+    print(f"  {state.params.n_params():,} parameters; init "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    step = ST.make_train_step(cfg, tc)
+    losses, norms, walls, traced = [], [], [], {}
+    for i in range(steps):
+        t0 = time.perf_counter()
+        with (step_spans(torch, traced) if i == 1
+              else contextlib.nullcontext()):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            state, metrics = step(state, batch)
+            e1.record()
+            losses.append(float(metrics["loss"]))      # syncs
+        walls.append(time.perf_counter() - t0)
+        norms.append(float(metrics["grad_norm"]))
+        if i == 1:
+            traced["step_ms"] = e0.elapsed_time(e1)
+        print(f"  step {i}: loss {losses[-1]:.6f} grad_norm "
+              f"{norms[-1]:.6g} wall {walls[-1]:.3f} s", flush=True)
+    tokens = LM_BATCH * LM_SEQ
+    tok_s = tokens * (len(walls) - 1) / sum(walls[1:])
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {arch}: losses {losses}; {tok_s:,.0f} tokens/s over steps "
+          f"1..{len(walls) - 1} ({tokens} tokens a step); "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
+    step_ms = traced["step_ms"]
+    rest = step_ms - sum(f + b for f, b, _ in traced["spans"].values())
+    print(f"  step 1 on the card's timeline (CUDA events) {step_ms:.1f} ms: "
+          + "; ".join(f"{n} × {kind}: forward {f:.1f} ms, backward (with "
+                      f"the recompute) {b:.1f} ms, {(f + b) / step_ms:.1%}"
+                      for kind, (f, b, n) in traced["spans"].items())
+          + f"; the rest (embedding, loss, optimizer) {rest:.1f} ms, "
+            f"{rest / step_ms:.1%}", flush=True)
+    if traced["norms"]:
+        print(f"  step 1's mLSTM normaliser |n| over (batch, position, head)"
+              f" per block in program order: min / median, entries below "
+              f"1e-6 (the clamp) and below 1e-4 of the median, (b, s, h) of "
+              f"the min:", flush=True)
+        for i, (lo, med, clamped, below, at) in enumerate(traced["norms"]):
+            print(f"    mLSTM {i:2d}: {lo:.3g} / {med:.3g}, {clamped}, "
+                  f"{below}, {at}", flush=True)
+    assert np.isfinite(losses).all(), losses
+    return state, {"losses": losses, "grad_norms": norms, "step_s": walls,
+                   "tokens_per_s": tok_s, "peak_gib": peak / 2**30,
+                   "step1_ms": step_ms, "spans": traced["spans"],
+                   "mlstm_norms": traced["norms"]}
+
+
+def ssm_decode(torch, model, cfg, name: str, toks, prefill: int,
+               held: bool, fails: list) -> dict:
+    """The whole model's decode of ``toks`` (1, S) against its full
+    forward's logits in the compute dtype ``name``: a prefill of
+    ``prefill`` tokens, its caches padded (``pad_caches``: attention
+    caches to S positions, recurrent states untouched), then decode steps
+    to the end; ``prefill=0`` decodes token by token from an empty cache.
+    Compared over the decoded positions (and the prefill's last), relative
+    to max|logits|, against ``LM_DECODE_TOL[name]``: held where ``held``
+    (``SSM_DECODE_HELD``), a reading elsewhere. Returns the readings."""
+    from repro_torch.models import model as M, pad_caches
+    from repro_torch.train import steps as ST
+
+    s = toks.shape[1]
+    first = max(prefill - 1, 0)
+    cdt = torch.float32 if name == "float32" else torch.bfloat16
+    tcd = ST.TrainConfig(compute_dtype=name)
+    decode = ST.make_decode_step(cfg, tcd)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        tree = model.tree(cast=cdt)
+        x, pos, _ = M._embed_inputs(tree, cfg, {"tokens": toks}, cdt)
+        h, _ = M.backbone(tree, cfg, x, pos)
+        want = M.logits_for(tree, cfg, h[:, first:])
+        del tree, x, h
+    outs = []
+    if prefill:
+        last, caches = ST.make_prefill_step(cfg, tcd)(
+            model, {"tokens": toks[:, :prefill]})
+        padded = pad_caches(caches, s)
+        for c, pc in zip(sum(caches, []), sum(padded, [])):
+            for b in c:
+                for k in c[b]:
+                    seq = set(c[b]) in M._SEQ_CACHES
+                    assert (pc[b][k].shape[-2] == s if seq
+                            else pc[b][k] is c[b][k]), (b, k)
+        caches = padded
+        outs.append(last[:, 0])
+    else:
+        caches = M.cache_init(cfg, 1, s, dtype=cdt, device=toks.device)
+    for t in range(prefill, s):
+        lg, caches = decode(model, toks[:, t:t + 1], caches, t)
+        outs.append(lg[:, 0])
+    got = torch.stack(outs, 1)
+    del caches
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max()) / scale
+    within = err <= LM_DECODE_TOL[name]
+    torch.cuda.synchronize()
+    how = (f"prefill {prefill} tokens then decode {s - prefill}" if prefill
+           else f"token by token from an empty cache over {s} positions")
+    print(f"  {name}, the whole model: {how}: max|Δlogits| "
+          f"{err * scale:.4g} of max|logits| {scale:.4g} ({err:.3g}; within "
+          f"LM_DECODE_TOL {LM_DECODE_TOL[name]:g}: {within}, "
+          f"{'held' if held else 'a reading'}); top-1 agree "
+          f"{int((got.argmax(-1) == want.argmax(-1)).sum())}/{got.shape[1]}"
+          f"; {time.perf_counter() - t0:.2f} s", flush=True)
+    if not bool(torch.isfinite(got).all()):
+        fails.append(f"{cfg.name} {name} decode: logits not finite")
+    if held and not within:
+        fails.append(f"{cfg.name} {name} decode: {err:.3g} > "
+                     f"{LM_DECODE_TOL[name]:g}")
+    return {f"decode_rel_err_{name}": err,
+            f"decode_within_tol_{name}": within}
+
+
+def block_decode(torch, model, cfg, name: str, toks, prefill: int,
+                 fails: list) -> dict:
+    """Every block's decode against its own forward, in the compute dtype
+    ``name``, each block on the forward's input (the previous block's
+    forward output, so no block inherits another's rounding): its forward
+    over all S tokens of ``toks`` (1, S) with its caches, against its
+    decode from a prefill of ``prefill`` tokens (caches padded by
+    ``pad_caches``) or, ``prefill=0``, from ``cache_init``'s empty cache,
+    token by token to S. Held at ``LM_DECODE_TOL[name]``, each relative to
+    that block's forward max|.|: every final cache (attention k and v,
+    Mamba2 ssm and conv, mLSTM h, sLSTM h, c, n and m) and the outputs
+    from the prefill's last position on. An mLSTM block's forward scales
+    its state and its SSD read by exp(−m̂), m̂ the max over the sequence of
+    its log input gate (the reference's stabiliser), and decode does not,
+    so both are held times exp(m̂); its output divides that read by its
+    normaliser channel, which comes near zero, so it is a reading.
+    Returns the largest error by (kind, what)."""
+    from repro_torch.models import model as M, pad_caches, ssm as S
+
+    cdt = torch.float32 if name == "float32" else torch.bfloat16
+    s = toks.shape[1]
+    first = max(prefill - 1, 0)
+    errs, readings = {}, {}
+
+    def rel(got, want):
+        want = want.float()
+        top = float(want.abs().max())
+        return float((got.float() - want).abs().max()) / (top or 1.0)
+
+    def hold(kind, what, got, want, into=errs):
+        into[(kind, what)] = max(into.get((kind, what), 0.0),
+                                 rel(got, want))
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        tree = model.tree(cast=cdt)
+        x, pos, _ = M._embed_inputs(tree, cfg, {"tokens": toks}, cdt)
+        empty = M.cache_init(cfg, 1, s, dtype=cdt, device=toks.device)
+        for si, seg in enumerate(cfg.segments):
+            for li, lp in enumerate(tree["segments"][si]):
+                for bi, blk in enumerate(seg.blocks):
+                    bp = tree["shared"] if blk.shared else lp[f"b{bi}"]
+                    kind = blk.kind + " (shared)" * blk.shared
+                    gates, reads = [], []
+                    assert not (prefill and blk.kind == "mlstm")
+                    with spy(S, "_mlstm_gates", gates, lambda a, r: r[0]), \
+                            spy(S, "_mlstm_out", reads, lambda a, r: a[3]):
+                        want, wc = M._block_forward(bp, blk, cfg, x, pos,
+                                                    True)
+                        outs = []
+                        if prefill:
+                            y, c = M._block_forward(
+                                bp, blk, cfg, x[:, :prefill],
+                                pos[:, :prefill], True)
+                            c = pad_caches([[{"b": c}]], s)[0][0]["b"]
+                            outs.append(y[:, -1:])
+                        else:
+                            c = empty[si][li][f"b{bi}"]
+                        for t in range(prefill, s):
+                            y, c = M._block_decode(bp, blk, cfg,
+                                                   x[:, t:t + 1], c, t)
+                            outs.append(y)
+                    got = torch.cat(outs, 1)
+                    if blk.kind == "mlstm":
+                        up = torch.exp(torch.amax(gates[0], dim=1))  # (B,H)
+                        hold(kind, "read", torch.cat(reads[1:], 1),
+                             reads[0].float() * up[:, None, :, None])
+                        hold(kind, "h", c["h"], wc["h"] * up[..., None, None])
+                        hold(kind, "out", got, want[:, first:], readings)
+                    else:
+                        hold(kind, "out", got, want[:, first:])
+                        for k in wc:
+                            hold(kind, k, c[k], wc[k])
+                    x = want
+        del tree, x, empty
+    torch.cuda.synchronize()
+    tol = LM_DECODE_TOL[name]
+    bad = {k: e for k, e in errs.items() if not e <= tol}
+    print(f"  {name}, block by block on the forward's inputs (held at "
+          f"{tol:g}): " + ", ".join(f"{k} {w} {e:.3g}"
+                                    for (k, w), e in errs.items())
+          + "".join(f"; {k} {w} {e:.3g} (a reading)"
+                    for (k, w), e in readings.items())
+          + f"; {time.perf_counter() - t0:.2f} s", flush=True)
+    if bad:
+        fails.append(f"{cfg.name} {name} block decode over {tol:g}: {bad}")
+    return {f"block_decode_{name}": {f"{k} {w}": e
+                                     for (k, w), e in errs.items()}}
+
+
+def block_grads(torch, model, cfg, fails: list) -> dict:
+    """The train step's gradients on the card, held block by block: layer
+    0's first mLSTM and first sLSTM block of the trained xlstm, on a
+    seeded (1, ``GRAD_SEQ``, d) input and cotangent, the gradients into
+    its input and its f32 parameters (through the train step's cast in
+    bf16), on the card in f32 and bf16 and on the CPU in f32 and bf16.
+    Each leaf's distance is ‖g − g_ref‖ / ‖g_ref‖, g_ref the CPU's f32:
+    the card's f32 at most ``GRAD_F32_TOL``; the card's bf16 at most
+    ``GRAD_BF16_RATIO`` times the CPU's own bf16 distance. Printed beside
+    them as readings: the f32 max-entry error against the leaf's largest
+    entry and the bf16 cosine, which few entries rule (a (position, head)
+    with |n| near zero; f_bias has 4). Returns the worst of each by block
+    kind."""
+    import copy
+
+    from repro_torch.models import layers as L, model as M
+
+    rng = np.random.default_rng(26)
+    shape = (1, GRAD_SEQ, cfg.d_model)
+    x_np = rng.standard_normal(shape).astype(np.float32)
+    w_np = rng.standard_normal(shape).astype(np.float32)
+    blocks = cfg.segments[0].blocks
+    kinds = [b.kind for b in blocks]
+
+    def grads(mod, blk, dev, cdt):
+        m = copy.deepcopy(mod).to(dev)
+        x = torch.from_numpy(x_np).to(dev).requires_grad_(True)
+        p = L.param_tree(m, cast=None if cdt == torch.float32 else cdt)
+        y, _ = M._block_forward(p, blk, cfg, x.to(cdt), None, False)
+        loss = (y.float() * torch.from_numpy(w_np).to(dev)).sum()
+        names = ["input"] + [n for n, _ in m.named_parameters()]
+        gs = torch.autograd.grad(loss, [x] + list(m.parameters()))
+        return {n: g.detach().double().cpu() for n, g in zip(names, gs)}
+
+    def dist(a, b):
+        return {n: float((a[n] - r).norm() / (r.norm() or 1.0))
+                for n, r in b.items()}
+
+    out = {}
+    for kind in ("mlstm", "slstm"):
+        bi = kinds.index(kind)
+        t0 = time.perf_counter()
+        mod = model.segments[0][0][f"b{bi}"]
+        ref = grads(mod, blocks[bi], "cpu", torch.float32)
+        ref16 = grads(mod, blocks[bi], "cpu", torch.bfloat16)
+        g32 = grads(mod, blocks[bi], DEVICE, torch.float32)
+        g16 = grads(mod, blocks[bi], DEVICE, torch.bfloat16)
+        d32, d16, d16_cpu = dist(g32, ref), dist(g16, ref), dist(ref16, ref)
+        ratio = {n: d16[n] / d16_cpu[n] if d16_cpu[n] else
+                 (0.0 if d16[n] == 0 else float("inf")) for n in ref}
+        top = {n: float((g32[n] - r).abs().max() / (r.abs().max() or 1.0))
+               for n, r in ref.items()}
+        cos = {n: float(torch.nn.functional.cosine_similarity(
+            g16[n].flatten(), r.flatten(), dim=0)) for n, r in ref.items()}
+        w32, w16 = max(d32, key=d32.get), max(ratio, key=ratio.get)
+        wt, wc = max(top, key=top.get), min(cos, key=cos.get)
+        print(f"  {kind} block b{bi} of layer 0, gradients at seq {GRAD_SEQ} "
+              f"against the CPU's f32 ({len(ref)} leaves with the input): "
+              f"card f32 worst {w32} {d32[w32]:.3g} (limit "
+              f"{GRAD_F32_TOL:g}); card bf16 worst {w16} {d16[w16]:.3g}, "
+              f"{ratio[w16]:.3g}× the CPU's bf16 {d16_cpu[w16]:.3g} (limit "
+              f"{GRAD_BF16_RATIO:g}×); readings: f32 max entry {wt} "
+              f"{top[wt]:.3g} of its largest, bf16 least cosine {wc} "
+              f"{cos[wc]:.6f}; {time.perf_counter() - t0:.2f} s", flush=True)
+        if not d32[w32] <= GRAD_F32_TOL:
+            fails.append(f"{kind} f32 gradient {w32}: {d32[w32]:.3g}")
+        if not ratio[w16] <= GRAD_BF16_RATIO:
+            fails.append(f"{kind} bf16 gradient {w16}: {ratio[w16]:.3g}× "
+                         f"the CPU's bf16 distance")
+        out[kind] = {"f32_dist": d32[w32], "bf16_ratio": ratio[w16],
+                     "f32_max_entry": top[wt], "bf16_least_cos": cos[wc]}
+    return out
+
+
+def ssm_checkpoint(torch, cfg, state, tmp: str) -> dict:
+    """(c): the trained xlstm state (bf16 moments) saved in the
+    reference's layout and restored on the CPU: every leaf equal, the
+    moments bf16 again. Returns the readings."""
+    import torch.utils._pytree as pytree
+
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.convert import (train_state_from_reference,
+                                     train_state_to_reference)
+
+    step = int(state.step)
+    t0 = time.perf_counter()
+    saved = train_state_to_reference(state)
+    ckpt = os.path.join(tmp, "ssm_ckpt")
+    save(ckpt, step, saved)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tree, _ = restore(ckpt, step, saved, device="cpu")
+    restore_s = time.perf_counter() - t0
+    equal = same_tree(saved, tree)
+    back = train_state_from_reference(tree, cfg, device="cpu")
+    m_dtypes = {str(t.dtype) for t in back.opt.m.values()}
+    n_bf16 = sum(t is not None and t.dtype == torch.bfloat16
+                 for t in pytree.tree_leaves(tree))
+    print(f"(c) {cfg.name} state after {step} steps: save {save_s:.2f} s, "
+          f"restore {restore_s:.2f} s; {n_bf16} bf16 leaves of "
+          f"{len(pytree.tree_leaves(tree))}; restored leaves equal the saved "
+          f"ones {equal}; the restored moments' dtypes {sorted(m_dtypes)}",
+          flush=True)
+    assert equal and n_bf16 > 0 and m_dtypes == {"torch.bfloat16"}
+    assert int(back.step) == step
+    return {"ckpt_save_s": save_s, "ckpt_restore_s": restore_s,
+            "ckpt_bf16_leaves": n_bf16}
+
+
+def start_clis(tmp: str) -> tuple:
+    """Phase 22(d): ``python -m repro_torch.launch.train --arch A --tiny
+    --steps 10`` for both recurrent archs, started at once. Returns what
+    :func:`join_clis` takes."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    runs = {}
+    for arch in SSM_ARCHS:
+        argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                arch, "--tiny", "--steps", "10"]
+        if DEVICE != "cuda":
+            argv += ["--device", DEVICE]
+        runs[arch] = (argv, subprocess.Popen(
+            argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=tmp, env=env))
+    return runs, time.perf_counter()
+
+
+def join_clis(runs: dict, t0: float) -> None:
+    """Wait for :func:`start_clis`'s runs: each exits 0 with finite
+    losses."""
+    for arch, (argv, proc) in runs.items():
+        out, err = proc.communicate(timeout=600)
+        print(f"(d) {' '.join(argv[1:])}: exit {proc.returncode}, "
+              f"{time.perf_counter() - t0:.2f} s after the start of both")
+        for line in out.splitlines():
+            print(f"    {line}")
+        assert proc.returncode == 0, err[-3000:]
+        assert "10 steps in" in out
+        cli = [float(x) for x in re.findall(r"loss\s+(\S+)", out)]
+        assert cli and np.isfinite(cli).all(), cli
+
+
+def ssm_phase(torch, tmp: str) -> dict:
+    """Phase 22, the recurrent architectures at full width and depth (see
+    the module doc): (a) zamba2-1.2b trained, then prefill + decode
+    against the forward, the whole model and block by block; (b)
+    xlstm-350m trained, its mLSTM and sLSTM gradients held against the
+    CPU's, decode token by token against the forward, the whole model and
+    block by block; (c) a checkpoint round trip of an xlstm state with
+    bf16 moments; (d) both ``--tiny`` CLI runs; (e) no kernel of the six
+    and no plain version runs. Every check's failure is gathered and
+    raised at the end. Returns the readings."""
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLM, to_device
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as ST
+
+    before = (dict(ops.launch_counts()), dict(ops.plain_counts()))
+    dev = torch.device(DEVICE)
+    readings, fails = {}, []
+    for arch in SSM_ARCHS:
+        cfg = configs.get_config(arch)
+        width = ssm_width(cfg)
+        xl = arch == "xlstm-350m"
+        mdt = "bfloat16" if xl else "float32"
+        print(f"({'ab'[SSM_ARCHS.index(arch)]}) {arch} at full width and "
+              f"depth {width} ({cfg.n_layers} layers); seq {LM_SEQ}, batch "
+              f"{LM_BATCH}; bf16 compute, AdamW lr {LM_LR:g}, {mdt} "
+              f"moments; {SSM_STEPS[arch]} steps", flush=True)
+        assert width == SSM_WIDTH[arch], width
+        batch = to_device(SyntheticLM(vocab=cfg.vocab, seq=LM_SEQ,
+                                      global_batch=LM_BATCH).host_batch(0),
+                          dev)
+        tc = ST.TrainConfig(opt=adamw.OptConfig(
+            lr=LM_LR, warmup_steps=1, total_steps=100, moment_dtype=mdt))
+        state, r = ssm_train(torch, arch, cfg, batch, tc, SSM_STEPS[arch])
+        del batch
+        r["params"] = state.params.n_params()
+        assert r["params"] == SSM_PARAMS[arch], r["params"]
+        losses = r["losses"]
+        r["falls"] = all(b < a for a, b in zip(losses, losses[1:]))
+        model = state.params
+        if xl:
+            # see SSM_STEPS: the clip scales the gradient below AdamW's
+            # eps, so the gradients are held block by block instead
+            print(f"  loss falls at every step: {r['falls']}; gradient norms "
+                  f"{r['grad_norms']} against the clip "
+                  f"{tc.opt.grad_clip:g}", flush=True)
+            r["block_grads"] = block_grads(torch, model, cfg, fails)
+        elif not r["falls"]:
+            fails.append(f"{arch} losses do not fall: {losses}")
+        toks = torch.from_numpy(np.random.default_rng(22).integers(
+            0, cfg.vocab, (1, LM_PREFILL + LM_DECODE), dtype=np.int32)).to(dev)
+        # decode against the forward: zamba2 after a prefill (its
+        # attention caches padded, its Mamba2 states untouched); xlstm
+        # token by token (the mLSTM stabiliser scales a prefill's state)
+        if xl:
+            toks, prefill = toks[:, :LM_DECODE], 0
+        else:
+            prefill = LM_PREFILL
+        for name in ("float32", "bfloat16"):
+            r.update(ssm_decode(torch, model, cfg, name, toks, prefill,
+                                (arch, name) in SSM_DECODE_HELD, fails))
+            r.update(block_decode(torch, model, cfg, name, toks, prefill,
+                                  fails))
+        del model
+        torch.cuda.empty_cache()
+        readings[arch] = r
+        if xl:
+            # (d) starts here, beside (c): both entry points, as a user
+            # runs them, on the card, at once
+            clis = start_clis(tmp)
+            readings.update(ssm_checkpoint(torch, cfg, state, tmp))
+        del state
+        torch.cuda.empty_cache()
+    join_clis(*clis)
+
+    after = (dict(ops.launch_counts()), dict(ops.plain_counts()))
+    print(f"(e) kernel launches and plain-version calls before the phase "
+          f"{before}, after {after}: equal {after == before}")
+    assert after == before
+    assert not fails, fails
+    return readings
+
+
 SERVE_QUERIES = 44      # five fill batches of 8, then a 4-query tail
 # the --solver cd run's queries: one fill batch and a 4-query tail (cut
 # from 44 when phases 17 and 18 came: its wide buckets run matvec CD, the
@@ -3751,9 +4376,9 @@ def main(argv: list[str]) -> int:
         tree, argv = os.path.abspath(argv[2]), ["--kernels"]
         sys.path.insert(0, os.path.join(tree, "src"))
     if argv not in ([], ["--faults"], ["--kernels"], ["--lm-lr"],
-                    ["--moe"]):
+                    ["--moe"], ["--ssm"]):
         print("usage: python3 chip_smoke.py [--faults | --lm-lr | --moe | "
-              "--kernels [--tree DIR]]", file=sys.stderr)
+              "--ssm | --kernels [--tree DIR]]", file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -3788,6 +4413,10 @@ def main(argv: list[str]) -> int:
     if argv == ["--moe"]:
         with tempfile.TemporaryDirectory() as tmp, phase(MOE_PHASE):
             moe_phase(torch, tmp)
+        return 0
+    if argv == ["--ssm"]:
+        with tempfile.TemporaryDirectory() as tmp, phase(SSM_PHASE):
+            ssm_phase(torch, tmp)
         return 0
 
     with phase("build"):
@@ -4154,6 +4783,8 @@ def main(argv: list[str]) -> int:
             lm = lm_phase(torch, tmp)
         with phase(MOE_PHASE):
             moe_phase(torch, tmp)
+        with phase(SSM_PHASE):
+            ssm_phase(torch, tmp)
 
     with phase(f"kernels at the paths' shapes (fista bucket {main_bucket}, "
                f"cd bucket {cd_bucket}; batched B={BATCH}: fista bucket "

@@ -13,6 +13,13 @@ in sorted order, NamedTuple fields in order, ``None`` holds no leaf), so a check
 either package restores in the other with the same leaves. The manifest's
 ``treedef`` is informational: :func:`restore` takes the structure from
 ``like_tree``.
+
+A bfloat16 leaf is written as the reference writes one: numpy has no
+bfloat16 without ``ml_dtypes`` (which the port does not use), so the
+leaf's 16-bit patterns go in as a 2-byte void array (``|V2``, what
+``np.savez`` makes of a jax bfloat16 array) and the manifest's ``dtypes``
+entry reads ``"bfloat16"``; :func:`restore` turns such a leaf back into a
+``torch.bfloat16`` tensor with the same bits.
 """
 
 from __future__ import annotations
@@ -48,10 +55,24 @@ def _flatten(tree):
     return [x for x in slots if x is not None], slots, spec
 
 
-def _host(x) -> np.ndarray:
+def _host(x) -> tuple[np.ndarray, str]:
+    """A leaf as the host array :func:`save` writes, and its manifest
+    dtype."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy().view("V2"), "bfloat16"
+        x = x.numpy()
+    x = np.asarray(x)
+    return x, str(x.dtype)
+
+
+def _tensor(a: np.ndarray, dtype: str) -> torch.Tensor:
+    """A saved leaf as a CPU tensor: a ``V2`` leaf recorded as bfloat16
+    holds bfloat16 bits."""
+    if dtype == "bfloat16" and a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
 
 
 def save(ckpt_dir: str, step: int, tree, extra: dict | None = None,
@@ -65,14 +86,14 @@ def save(ckpt_dir: str, step: int, tree, extra: dict | None = None,
     os.makedirs(tmp, exist_ok=True)
 
     leaves, _, spec = _flatten(tree)
-    host_leaves = [_host(x) for x in leaves]
+    host_leaves, dtypes = zip(*map(_host, leaves)) if leaves else ((), ())
     np.savez(os.path.join(tmp, "arrays.npz"),
              **{f"leaf_{i}": v for i, v in enumerate(host_leaves)})
     manifest = {
         "step": step,
         "treedef": str(spec),
         "n_leaves": len(leaves),
-        "dtypes": [str(v.dtype) for v in host_leaves],
+        "dtypes": list(dtypes),
         "shapes": [list(v.shape) for v in host_leaves],
         "extra": extra or {},
         "format": 1,
@@ -119,7 +140,8 @@ def restore(ckpt_dir: str, step: int, like_tree, *, device=None):
     if len(leaves) != len(saved):
         raise ValueError(f"like_tree has {len(leaves)} leaves, the "
                          f"checkpoint {len(saved)}")
-    it = iter(torch.from_numpy(np.array(a)).to(dev) for a in saved)
+    it = iter(_tensor(a, dt).to(dev)
+              for a, dt in zip(saved, manifest["dtypes"]))
     tree = pytree.tree_unflatten(
         [None if x is None else next(it) for x in slots], spec)
     return tree, manifest["extra"]

@@ -4,9 +4,7 @@ Every assigned architecture file exposes ``config()`` (exact published dims)
 and ``tiny_config()`` (same family/topology, reduced dims — used by the CPU
 smoke tests; the full configs are only ever lowered abstractly by the
 dry-run). Both go through the same builder, so the smoke test exercises the
-identical code path as the production config. The port builds the
-attention and MLA blocks, dense or MoE; the SSM families construct as
-configs and raise on build (``models.model.check_buildable``).
+identical code path as the production config.
 """
 
 from __future__ import annotations

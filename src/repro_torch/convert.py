@@ -70,11 +70,15 @@ def session_from_arrays(arrays, *, config: PathConfig | None = None,
 # ``lm_head``, ``frame_proj``, ``patch_proj``, ``final_norm.scale``,
 # ``shared.{...}``) maps name to path one to one.
 
-def _np(x) -> np.ndarray:
+def _np(x):
     """A host copy: a CPU tensor's ``numpy()`` would share its memory,
-    which the train step updates in place."""
+    which the train step updates in place. numpy has no bfloat16, so a
+    bf16 tensor's host copy stays a CPU tensor (``checkpoint.save``
+    writes it as the reference writes a bfloat16 leaf)."""
     if isinstance(x, torch.Tensor):
         x = x.detach()
+        if x.dtype == torch.bfloat16:
+            return x.to("cpu", copy=True)
         return x.numpy().copy() if x.device.type == "cpu" else \
             x.cpu().numpy()
     return np.asarray(x)
@@ -107,7 +111,10 @@ def _to_ref_tree(named: dict) -> dict:
             node = segs[si]
             for p in path[:-1]:
                 node = node.setdefault(p, {})
-            node[path[-1]] = np.stack([layers[i] for i in range(len(layers))])
+            leaves = [layers[i] for i in range(len(layers))]
+            node[path[-1]] = (torch.stack(leaves)
+                              if isinstance(leaves[0], torch.Tensor)
+                              else np.stack(leaves))
         tree["segments"] = segs
     return tree
 
@@ -140,8 +147,6 @@ def lm_params_from_reference(params, cfg, *, device=None) -> dict:
     ``TrainState``'s ``params``, as numpy arrays, jax arrays or tensors)
     as a state dict for :class:`repro_torch.models.LM` built from
     ``cfg``, on ``device`` (None: the card)."""
-    from .models.model import check_buildable
-    check_buildable(cfg)
     return _from_ref_tree(params, resolve_device(device))
 
 

@@ -77,16 +77,27 @@ def _group_session(cfg: "PathConfig", groups: int | None) -> bool:
     """The kind of a session, decided once at fit: ``groups=m > 1`` is the
     group Lasso, and so is ``groups=1`` with a group strategy named in the
     config (``GroupPathConfig`` at m = 1, as the ``group_lasso_path`` shim
-    passes it: groups of one column); anything else is the plain Lasso."""
-    return groups is not None and (int(groups) > 1 or
-                                   cfg.solve.strategy in GROUP_SOLVERS)
+    passes it: groups of one column) when the group screen serves the
+    config (a rule of GROUP_ENGINE_RULES, a float32 screen); anything else
+    is the plain Lasso, as the reference's every session at m = 1."""
+    if groups is None:
+        return False
+    if int(groups) > 1:
+        return True
+    return (cfg.solve.strategy in GROUP_SOLVERS
+            and cfg.screen.rule in GROUP_ENGINE_RULES
+            and cfg.screen.screen_dtype == "float32")
 
 
-def _check_session_kind(cfg: "PathConfig", m: int, grouped: bool) -> None:
+def _check_session_kind(cfg: "PathConfig", m: int, grouped: bool,
+                        one_column: bool = False) -> None:
     """A group session serves only GROUP_ENGINE_RULES and solves with a
-    group strategy; a plain-Lasso session takes no group strategy.
-    Anything else would run one problem's rule or solver on the other's
-    buckets and return a wrong β under the right name."""
+    group strategy; a plain-Lasso session takes no group strategy, unless
+    it was fitted with ``groups=1`` (``one_column``): groups of one column
+    are the Lasso, and a group strategy solves it there, as the
+    reference's shim does at m = 1. Anything else would run one problem's
+    rule or solver on the other's buckets and return a wrong β under the
+    right name."""
     strategy = cfg.solve.resolved_strategy(m)
     if grouped:
         if cfg.screen.rule not in GROUP_ENGINE_RULES:
@@ -101,7 +112,7 @@ def _check_session_kind(cfg: "PathConfig", m: int, grouped: bool) -> None:
         if strategy not in GROUP_SOLVERS:
             raise ValueError(f"group sessions solve with {GROUP_SOLVERS}, "
                              f"got strategy {strategy!r}")
-    elif strategy in GROUP_SOLVERS:
+    elif strategy in GROUP_SOLVERS and not one_column:
         raise ValueError(f"strategy {strategy!r} solves the group Lasso: fit "
                          f"the session with groups=m")
 
@@ -265,11 +276,13 @@ class LassoSession:
             raise ValueError(f"p={X.shape[1]} is not divisible by "
                              f"groups={m}")
         grouped = _group_session(cfg, groups)
-        _check_session_kind(cfg, m, grouped)
+        one_column = groups is not None and not grouped
+        _check_session_kind(cfg, m, grouped, one_column)
         self = object.__new__(cls)
         self.config = cfg
         self.groups = m
         self.grouped = grouped
+        self._one_column = one_column
         self.X = X
         self.mesh = mesh
         self.device = X.device
@@ -303,10 +316,12 @@ class LassoSession:
         :class:`DictionaryGeometry` instead of fitting.
 
         ``groups=1`` with a group strategy in the config
-        (``GroupPathConfig``) fits a group session of one-column groups:
-        the group screen ``group_screen_scores`` and ``group_fista``; the
-        reference runs the plain drivers there. Otherwise ``groups=1`` is
-        the plain Lasso."""
+        (``GroupPathConfig``) and a rule the group screen serves (EDPP,
+        strong or none, float32) fits a group session of one-column
+        groups: the group screen ``group_screen_scores`` and
+        ``group_fista``; the reference runs the plain drivers there.
+        Otherwise ``groups=1`` is the plain Lasso, solved by the config's
+        strategy (``group_fista`` included, as in the reference)."""
         cfg = config if config is not None else PathConfig()
         if not isinstance(cfg, PathConfig):
             raise TypeError(f"config must be a PathConfig, got "
@@ -513,7 +528,7 @@ class LassoSession:
             raise TypeError(f"config must be a PathConfig, got "
                             f"{type(cfg).__name__}")
         _check_session_kind(cfg, self.groups,     # per-call overrides too
-                            self.grouped)
+                            self.grouped, self._one_column)
         y = as_tensor(Y, self.device, self.X.dtype)
         if y.dim() not in (1, 2):
             raise ValueError(f"queries must be (n,) or (B, n), got shape "

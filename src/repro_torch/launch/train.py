@@ -5,9 +5,9 @@ on the port's train step.
         --steps 20 --seq 64 --batch 4 [--ckpt-dir DIR] [--device cpu]
 
 Any registered architecture is selectable with ``--arch``; ``--tiny``
-takes its reduced config. The dense and MoE/MLA architectures build;
-zamba2 and xlstm raise ``NotImplementedError`` naming ROADMAP item 14c. It runs on the
-card unless ``--device cpu``. ``--mesh`` takes ``1x1`` only (multi-card
+takes its reduced config. All ten build: the dense, MoE/MLA, hybrid
+Mamba2 (zamba2) and xLSTM architectures. It runs on the card unless
+``--device cpu``. ``--mesh`` takes ``1x1`` only (multi-card
 training is ROADMAP item 14d).
 
 Checkpoints are written in the reference's layout (stacked segments,

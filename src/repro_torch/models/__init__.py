@@ -1,5 +1,6 @@
 """The LM stack's models (attention or MLA blocks with dense or MoE
-FFNs); see :class:`model.ArchConfig` and :class:`model.LM`."""
+FFNs, Mamba2, mLSTM and sLSTM blocks, a shared block); see
+:class:`model.ArchConfig` and :class:`model.LM`."""
 from .model import (  # noqa: F401
     LM,
     ArchConfig,

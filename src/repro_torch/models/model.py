@@ -5,7 +5,7 @@ An architecture is an :class:`ArchConfig` holding a *block program*: a
 tuple of :class:`Segment`\\ s, each ``(repeat, blocks)``. The reference
 stacks a segment's parameters on a leading ``repeat`` axis and scans them;
 the port keeps one ``nn.ModuleList`` of layers per segment and loops over
-it, each layer checkpointed (``torch.utils.checkpoint``, non-reentrant)
+it, each block checkpointed (``torch.utils.checkpoint``, non-reentrant)
 where ``cfg.remat``. :func:`repro_torch.convert.lm_params_from_reference`
 and ``lm_params_to_reference`` map between the two layouts.
 
@@ -19,9 +19,13 @@ param_tree` of an :class:`LM`, or that tree cast to the compute dtype by
 the train step), as the reference's take ``params``. :class:`LM` owns
 the parameters and wraps the functions.
 
-A block's mixer is ``attn`` (GQA) or ``mla`` (:mod:`.mla`), its FFN
-dense or a MoE (:func:`layers.moe_forward`). Mamba2, mLSTM, sLSTM and
-the shared block raise ``NotImplementedError`` naming ROADMAP item 14c.
+A block's mixer is ``attn`` (GQA), ``mla`` (:mod:`.mla`), ``mamba2``,
+``mlstm`` or ``slstm`` (:mod:`.ssm`); an attention or MLA block's FFN is
+dense or a MoE (:func:`layers.moe_forward`). A ``shared`` block (zamba2)
+owns no parameters in its layer: every application reads the one block
+``LM.shared`` built from ``cfg.shared_block`` (``params["shared"]``), so
+its gradients from every application add into one leaf; decode keeps one
+cache per application.
 """
 
 from __future__ import annotations
@@ -90,46 +94,31 @@ class ArchConfig:
         return sum(seg.repeat * len(seg.blocks) for seg in self.segments)
 
 
-# What each unported block kind waits for (ROADMAP.md queue 1)
-LATER = {"mamba2": "14c", "mlstm": "14c", "slstm": "14c", "shared": "14c"}
-
-
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} blocks are not ported yet (ROADMAP.md item {LATER[what]}); "
-        f"the port builds attn and mla blocks, with dense or MoE FFNs")
-
-
-def check_buildable(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item of the first
-    block the port cannot build."""
-    if cfg.shared_block is not None:
-        raise _later("shared")
-    for seg in cfg.segments:
-        for blk in seg.blocks:
-            if blk.shared:
-                raise _later("shared")
-            if blk.kind in LATER:
-                raise _later(blk.kind)
-            if blk.kind not in ("attn", "mla"):
-                raise ValueError(blk.kind)
-
-
 # ---------------------------------------------------------------------------
 # Parameters: one module per block
 # ---------------------------------------------------------------------------
 
 class BlockParams(nn.Module):
-    """One ``attn`` or ``mla`` block's parameters: norm1, mixer, and (with
-    a dense FFN or a MoE) norm2 and ffn, under the reference's names."""
+    """One block's parameters: norm1, mixer, and (with a dense FFN or a
+    MoE) norm2 and ffn, under the reference's names."""
 
     def __init__(self, blk: Block, cfg: ArchConfig, gen: torch.Generator,
                  dtype=F32):
         super().__init__()
         d, dev = cfg.d_model, gen.device
         self.norm1 = L.RMSNorm(d, device=dev, dtype=dtype)
-        self.mixer = (L.Attention(blk.attn, gen, dtype) if blk.kind == "attn"
-                      else M.Mla(blk.mla, gen, dtype))
+        if blk.kind == "attn":
+            self.mixer = L.Attention(blk.attn, gen, dtype)
+        elif blk.kind == "mla":
+            self.mixer = M.Mla(blk.mla, gen, dtype)
+        elif blk.kind == "mamba2":
+            self.mixer = S.Mamba2(blk.mamba, gen, dtype)
+        elif blk.kind == "mlstm":
+            self.mixer = S.Mlstm(blk.mlstm, gen, dtype)
+        elif blk.kind == "slstm":
+            self.mixer = S.Slstm(blk.slstm, gen, dtype)
+        else:
+            raise ValueError(blk.kind)
         if blk.ffn is not None or blk.moe is not None:
             self.norm2 = L.RMSNorm(d, device=dev, dtype=dtype)
             self.ffn = (L.Moe(blk.moe, gen, dtype) if blk.moe is not None
@@ -144,13 +133,13 @@ class LM(nn.Module):
     Parameters (f32 masters by default), under the reference's names:
     ``embed`` (vocab, d), ``lm_head`` (d, vocab) when untied,
     ``frame_proj``/``patch_proj`` for the frames/vlm frontends,
-    ``final_norm.scale``, and ``segments[si][layer]["b{bi}"]`` blocks."""
+    ``final_norm.scale``, ``segments[si][layer]["b{bi}"]`` blocks (none
+    for a shared block) and, with ``cfg.shared_block``, ``shared``."""
 
     def __init__(self, cfg: ArchConfig, *, seed: int = 0,
                  generator: torch.Generator | None = None, device=None,
                  dtype=F32):
         super().__init__()
-        check_buildable(cfg)
         self.cfg = cfg
         if generator is None:
             dev = resolve_device(device)
@@ -176,9 +165,12 @@ class LM(nn.Module):
         self.segments = nn.ModuleList(
             nn.ModuleList(
                 nn.ModuleDict({f"b{bi}": BlockParams(blk, cfg, gen, dtype)
-                               for bi, blk in enumerate(seg.blocks)})
+                               for bi, blk in enumerate(seg.blocks)
+                               if not blk.shared})
                 for _ in range(seg.repeat))
             for seg in cfg.segments)
+        if cfg.shared_block is not None:
+            self.shared = BlockParams(cfg.shared_block, cfg, gen, dtype)
 
     @property
     def device(self) -> torch.device:
@@ -224,6 +216,10 @@ def _ffn(p, blk: Block, x):
     return x + L.ffn_forward(p["ffn"], blk.ffn, h)
 
 
+# the sLSTM cache's keys, in the order of the cell's state tuple
+SLSTM_STATE = ("h", "c", "n", "m")
+
+
 def _block_forward(p, blk: Block, cfg: ArchConfig, x, positions,
                    want_cache: bool):
     """Full-sequence block application → (x, cache or None)."""
@@ -233,8 +229,16 @@ def _block_forward(p, blk: Block, cfg: ArchConfig, x, positions,
         mix, (c, kpe) = M.mla_forward(p["mixer"], blk.mla, h, positions,
                                       q_chunk=cfg.q_chunk,
                                       k_chunk=cfg.k_chunk)
-        if want_cache:
-            cache = {"c": c, "kpe": kpe}
+        cache = {"c": c, "kpe": kpe}
+    elif blk.kind == "mamba2":
+        mix, (hf, conv) = S.mamba2_forward(p["mixer"], blk.mamba, h)
+        cache = {"ssm": hf, "conv": conv}
+    elif blk.kind == "mlstm":
+        mix, hf = S.mlstm_forward(p["mixer"], blk.mlstm, h)
+        cache = {"h": hf}
+    elif blk.kind == "slstm":
+        mix, st = S.slstm_forward(p["mixer"], blk.slstm, h)
+        cache = dict(zip(SLSTM_STATE, st))
     elif want_cache:
         q, k, v = L.attn_qkv(p["mixer"], blk.attn, h, positions)
         o = L.chunked_attention(q, k, v, causal=blk.attn.causal,
@@ -245,16 +249,28 @@ def _block_forward(p, blk: Block, cfg: ArchConfig, x, positions,
     else:
         mix = L.attn_forward(p["mixer"], blk.attn, h, positions,
                              q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk)
-    return _ffn(p, blk, x + mix), cache
+    return _ffn(p, blk, x + mix), (cache if want_cache else None)
 
 
 def _block_decode(p, blk: Block, cfg: ArchConfig, x, cache, cache_len):
-    """Single-token decode → (x, cache)."""
+    """Single-token decode → (x, cache). Attention caches are written in
+    place; a recurrent block returns its new state."""
     h = L.rmsnorm(p["norm1"], x)
     if blk.kind == "mla":
         mix, cc, ckpe = M.mla_decode(p["mixer"], blk.mla, h, cache["c"],
                                      cache["kpe"], cache_len)
         cache = {"c": cc, "kpe": ckpe}
+    elif blk.kind == "mamba2":
+        mix, (hf, conv) = S.mamba2_decode(p["mixer"], blk.mamba, h,
+                                          (cache["ssm"], cache["conv"]))
+        cache = {"ssm": hf, "conv": conv}
+    elif blk.kind == "mlstm":
+        mix, hf = S.mlstm_decode(p["mixer"], blk.mlstm, h, cache["h"])
+        cache = {"h": hf}
+    elif blk.kind == "slstm":
+        mix, st = S.slstm_decode(p["mixer"], blk.slstm, h,
+                                 tuple(cache[k] for k in SLSTM_STATE))
+        cache = dict(zip(SLSTM_STATE, st))
     else:
         mix, ck, cv = L.attn_decode(p["mixer"], blk.attn, h, cache["k"],
                                     cache["v"], cache_len)
@@ -264,36 +280,64 @@ def _block_decode(p, blk: Block, cfg: ArchConfig, x, cache, cache_len):
 
 def cache_init(cfg: ArchConfig, batch: int, smax: int, dtype=torch.bfloat16,
                device=None):
-    """Zero caches for decode: ``caches[si][layer]["b{bi}"]`` = ``{"k",
-    "v"}`` of shape (batch, Hk, smax, Dh) for an ``attn`` block, ``{"c",
-    "kpe"}`` of shapes (batch, smax, r) and (batch, smax, d_rope) for an
-    ``mla`` block."""
-    check_buildable(cfg)
+    """Zero caches for decode: ``caches[si][layer]["b{bi}"]`` (a shared
+    block's too: one cache per application). ``attn``: ``{"k", "v"}``
+    (batch, Hk, smax, Dh); ``mla``: ``{"c", "kpe"}`` (batch, smax, r) and
+    (batch, smax, d_rope); ``mamba2``: ``{"ssm"}`` (batch, H, N, P) in f32
+    and ``{"conv"}`` (batch, K−1, d_inner + 2·g·N) in ``dtype``;
+    ``mlstm``: ``{"h"}`` (batch, H, d_qk, d_v + 1) in f32; ``slstm``:
+    ``{"h", "c", "n", "m"}`` (batch, d) in f32."""
     dev = resolve_device(device)
 
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=dtype, device=dev)
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
 
     def one(blk):
+        if blk.kind == "attn":
+            a = blk.attn
+            return {"k": zeros(batch, a.n_kv_heads, smax, a.d_head),
+                    "v": zeros(batch, a.n_kv_heads, smax, a.d_head)}
         if blk.kind == "mla":
             m = blk.mla
             return {"c": zeros(batch, smax, m.kv_lora_rank),
                     "kpe": zeros(batch, smax, m.d_rope)}
-        a = blk.attn
-        return {"k": zeros(batch, a.n_kv_heads, smax, a.d_head),
-                "v": zeros(batch, a.n_kv_heads, smax, a.d_head)}
+        if blk.kind == "mamba2":
+            mb = blk.mamba
+            return {"ssm": zeros(batch, mb.n_heads, mb.d_state, mb.head_dim,
+                                 dt=F32),
+                    "conv": zeros(batch, mb.conv_k - 1, mb.d_inner
+                                  + 2 * mb.n_groups * mb.d_state)}
+        if blk.kind == "mlstm":
+            ml = blk.mlstm
+            return {"h": zeros(batch, ml.n_heads, ml.d_qk, ml.d_v + 1,
+                               dt=F32)}
+        if blk.kind == "slstm":
+            return {k: zeros(batch, cfg.d_model, dt=F32)
+                    for k in SLSTM_STATE}
+        raise ValueError(blk.kind)
 
     return [[{f"b{bi}": one(blk) for bi, blk in enumerate(seg.blocks)}
              for _ in range(seg.repeat)] for seg in cfg.segments]
 
 
+# the caches with a sequence axis (axis −2): attention's (B, Hk, S, Dh)
+# and MLA's (B, S, r), (B, S, d_rope); a recurrent state has none
+_SEQ_CACHES = ({"k", "v"}, {"c", "kpe"})
+
+
 def pad_caches(caches, smax: int):
     """Prefill's caches (sequence S) zero-padded to ``smax`` positions, the
-    layout :func:`decode_step` continues from at ``cache_len = S``. The
-    sequence is axis −2 of both kinds: (B, Hk, S, Dh) and (B, S, r)."""
-    return [[{b: {n: F.pad(t, (0, 0, 0, smax - t.shape[-2]))
-                  for n, t in c.items()} for b, c in layer.items()}
-             for layer in seg] for seg in caches]
+    layout :func:`decode_step` continues from at ``cache_len = S``. Only
+    attention and MLA caches have a sequence (axis −2); Mamba2, mLSTM and
+    sLSTM states pass through as they are."""
+    def pad(c):
+        if set(c) not in _SEQ_CACHES:
+            return c
+        return {n: F.pad(t, (0, 0, 0, smax - t.shape[-2]))
+                for n, t in c.items()}
+
+    return [[{b: pad(c) for b, c in layer.items()} for layer in seg]
+            for seg in caches]
 
 
 # ---------------------------------------------------------------------------
@@ -333,24 +377,30 @@ def _embed_inputs(params, cfg: ArchConfig, batch: dict, dtype):
 
 
 def backbone(params, cfg: ArchConfig, x, positions, want_cache: bool = False):
-    """Run the block program over a full sequence → (x, caches or None)."""
+    """Run the block program over a full sequence → (x, caches or None).
+
+    Where ``cfg.remat`` (and gradients are on) each block is checkpointed:
+    backward recomputes one block at a time. The reference checkpoints a
+    whole layer of its segment (``jax.checkpoint`` of the scan body),
+    whose XLA schedule frees as it goes; a torch checkpoint of a layer
+    keeps every block of it alive during its recompute (zamba2's layer is
+    six Mamba2 blocks and the shared block). The numbers are the same
+    either way: each block runs once forward and once recomputed."""
     all_caches = []
     remat = cfg.remat and torch.is_grad_enabled()
     for si, seg in enumerate(cfg.segments):
         seg_caches = []
         for layer_params in params["segments"][si]:
-            def layer(x, layer_params=layer_params, seg=seg):
-                caches = {}
-                for bi, blk in enumerate(seg.blocks):
-                    x, c = _block_forward(layer_params[f"b{bi}"], blk, cfg, x,
-                                          positions, want_cache)
-                    caches[f"b{bi}"] = c
-                return x, caches
-
-            if remat:
-                x, caches = checkpoint(layer, x, use_reentrant=False)
-            else:
-                x, caches = layer(x)
+            caches = {}
+            for bi, blk in enumerate(seg.blocks):
+                bp = (params["shared"] if blk.shared
+                      else layer_params[f"b{bi}"])
+                args = (bp, blk, cfg, x, positions, want_cache)
+                if remat:
+                    x, caches[f"b{bi}"] = checkpoint(_block_forward, *args,
+                                                     use_reentrant=False)
+                else:
+                    x, caches[f"b{bi}"] = _block_forward(*args)
             seg_caches.append(caches)
         all_caches.append(seg_caches)
     x = L.rmsnorm(params["final_norm"], x)
@@ -426,8 +476,8 @@ def prefill(params, cfg: ArchConfig, batch: dict,
 def decode_step(params, cfg: ArchConfig, token, caches, cache_len,
                 compute_dtype=torch.bfloat16):
     """One decode step. token: (B, 1) ints; caches as from
-    :func:`cache_init` (written in place). Returns (logits (B,1,V),
-    caches)."""
+    :func:`cache_init` (attention caches written in place). Returns
+    (logits (B,1,V), caches)."""
     x = params["embed"][token.long()].to(compute_dtype)
     new_caches = []
     for si, seg in enumerate(cfg.segments):
@@ -436,9 +486,10 @@ def decode_step(params, cfg: ArchConfig, token, caches, cache_len,
                                              caches[si]):
             nc = {}
             for bi, blk in enumerate(seg.blocks):
+                bp = (params["shared"] if blk.shared
+                      else layer_params[f"b{bi}"])
                 x, nc[f"b{bi}"] = _block_decode(
-                    layer_params[f"b{bi}"], blk, cfg, x,
-                    layer_cache[f"b{bi}"], cache_len)
+                    bp, blk, cfg, x, layer_cache[f"b{bi}"], cache_len)
             seg_new.append(nc)
         new_caches.append(seg_new)
     x = L.rmsnorm(params["final_norm"], x)

@@ -134,9 +134,10 @@ def test_bridge_matches_reference_group_lasso_path(bridge):
 
 def test_group_config_at_m1_fits_a_group_session_plain_config_does_not():
     """At ``groups=1`` the session's kind comes from the config: a group
-    strategy (``GroupPathConfig``, as the bridge passes it) fits a group
-    session of one-column groups; a plain config, or no ``groups=``, the
-    plain Lasso, as in the reference."""
+    strategy (``GroupPathConfig``, as the bridge passes it) with a rule
+    the group screen serves fits a group session of one-column groups; a
+    plain config, a rule outside the group rules or a bf16 screen, or no
+    ``groups=``, the plain Lasso, as in the reference."""
     from repro_torch import LassoSession
     from repro_torch.core import GroupPathConfig
     rng = np.random.default_rng(0)
@@ -151,9 +152,11 @@ def test_group_config_at_m1_fits_a_group_session_plain_config_does_not():
                              config=GroupPathConfig(rule="edpp"))
         assert g.grouped and type(g.geometry).__name__ == \
             "GroupDictionaryGeometry"
-        with pytest.raises(ValueError, match="group sessions support rules"):
-            LassoSession.fit(X, groups=1, device="cpu",
-                             config=GroupPathConfig(rule="gap"))
+        for kw in (dict(rule="gap"), dict(screen_dtype="bfloat16")):
+            p = LassoSession.fit(X, groups=1, device="cpu",
+                                 config=GroupPathConfig(**kw))
+            assert not p.grouped and type(p.geometry).__name__ == \
+                "DictionaryGeometry"
         with pytest.raises(ValueError, match="solves the group"):
             LassoSession.fit(X, device="cpu",
                              config=GroupPathConfig(rule="edpp"))
@@ -201,3 +204,72 @@ def test_group_lasso_path_m1_with_a_plain_config_is_the_plain_lasso(
           f"{[int(k.sum()) for k in res_j.masks]}; max|Δβ| {err:.3g}")
     assert flips <= 0.01 * res_t.masks.size
     assert err <= beta_err_tol(y, TOL)
+
+
+# GroupPathConfig at m = 1 outside the group screen's reach: the port
+# raised here until it fitted the plain Lasso, as the reference does
+M1_CASES = {"dome": dict(rule="dome"), "gap": dict(rule="gap"),
+            "bf16_screen": dict(screen_dtype="bfloat16")}
+
+
+@pytest.mark.parametrize("case", list(M1_CASES))
+def test_group_lasso_path_m1_with_a_group_config_outside_the_group_rules(
+        case):
+    """``group_lasso_path(X, y, 1, grid, GroupPathConfig(...))`` with DOME,
+    GAP or a bf16 screen runs the plain Lasso solved by ``group_fista``
+    (the reference's shim at m = 1), no group pass: against the
+    reference's shim the λ grid is equal, the masks equal outside the
+    ±1e-4 band of the rule's thresholds from the reference's own previous
+    solutions (counted), and β within ``beta_err_tol``."""
+    from repro.data.pipeline import lasso_problem
+    from repro_torch.core import GroupPathConfig, group_lasso_path
+    from test_torch_rules import path_bands
+    kw = M1_CASES[case]
+    X, y, _ = lasso_problem(40, 120, nnz=5, seed=1, dtype=np.float32)
+    lmax = float(np.abs(X.T.astype(np.float64) @ y).max())
+    grid = np.linspace(1.0, 0.3, 5) * lmax
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        res_j = j_group_lasso_path(X, y, 1, grid, JGroupPathConfig(
+            solver_tol=TOL, **kw))
+        ops.reset_counts()
+        res_t = group_lasso_path(X, y, 1, grid, GroupPathConfig(
+            solver_tol=TOL, **kw), device="cpu")
+    assert ops.plain_counts()["group_screen_scores"] == 0
+    np.testing.assert_allclose(res_t.lambdas, res_j.lambdas, rtol=2 ** -22,
+                               atol=0)
+    assert res_t.masks.shape == res_j.masks.shape == (5, 120)
+    bands = path_bands(X, y, res_j.lambdas, res_j.betas,
+                       kw.get("rule", "edpp"))
+    in_band = flips = 0
+    for k, band in enumerate(bands):
+        diff = res_t.masks[k] != res_j.masks[k]
+        flips += int(diff.sum())
+        if band is None:
+            assert not diff.any(), k
+        else:
+            in_band += int(band.sum())
+            assert not (diff & ~band).any(), (k, "outside the band")
+    err = float(np.abs(res_t.betas - res_j.betas).max())
+    print(f"{case}: discards {[int(m.sum()) for m in res_t.masks]} vs "
+          f"{[int(m.sum()) for m in res_j.masks]}; {flips} mask flips, "
+          f"{in_band} step-columns in the band; max|Δβ| {err:.3g}")
+    assert err <= beta_err_tol(y, TOL)
+
+
+def test_group_lasso_path_m1_default_group_config_runs_the_group_pass():
+    """The bridge's route is unchanged: ``GroupPathConfig()`` (EDPP, f32)
+    at m = 1 is a group session, ``group_screen_scores`` once a screen
+    and once for λ̄_max."""
+    from repro.data.pipeline import lasso_problem
+    from repro_torch.core import GroupPathConfig, group_lasso_path
+    X, y, _ = lasso_problem(40, 120, nnz=5, seed=1, dtype=np.float32)
+    grid = np.linspace(1.0, 0.3, 5) * float(np.abs(X.T @ y).max())
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        ops.reset_counts()
+        res = group_lasso_path(X, y, 1, grid, GroupPathConfig(
+            solver_tol=TOL), device="cpu")
+    screens = sum(1 for s in res.stats if s.screen_backend)
+    assert screens > 0
+    assert ops.plain_counts()["group_screen_scores"] == screens + 1

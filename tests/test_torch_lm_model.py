@@ -3,8 +3,8 @@
 reference's parameters carried over (``repro_torch.convert``):
 
 * the ten configs equal field for field; the dense archs' parameter
-  shapes equal ``init_params``'; the four non-dense archs raise, naming
-  their ROADMAP item;
+  shapes equal ``init_params``'; every arch builds (none waits for a
+  ROADMAP item), the recurrent ones with the reference's decode caches;
 * ``forward_loss`` of the six dense tiny configs in f32 (rtol 1e-5) and
   in bf16 on the train step's cast tree (rtol 2e-3: the loss is a mean
   over bf16 hidden states);
@@ -30,8 +30,8 @@ from repro_torch.convert import (lm_params_from_reference,
                                  lm_params_to_reference)
 from repro_torch.models import LM, cache_init, pad_caches
 from repro_torch.models import model as TM
-from torch_lm_util import (DENSE, NON_DENSE, carried, cast_tree, host_batch,
-                           jax_batch, torch_batch)
+from torch_lm_util import (DENSE, MOE, NON_DENSE, RECURRENT, carried,
+                           cast_tree, host_batch, jax_batch, torch_batch)
 
 
 def _as_dict(obj):
@@ -74,14 +74,32 @@ def test_param_shapes_equal_reference(arch):
     assert model.n_params() == sum(a.size for a in jax.tree.leaves(params))
 
 
-@pytest.mark.parametrize("arch", list(NON_DENSE))
-def test_non_dense_archs_raise_naming_their_item(arch):
-    item = NON_DENSE[arch]
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_archs_build_with_the_reference_caches(arch):
+    """zamba2 and xlstm build (tiny on the CPU, full on "meta"), and their
+    decode caches have the reference's keys, shapes and dtypes: the
+    recurrent states f32 whatever the cache dtype, Mamba2's conv state in
+    it, one attention cache per application of zamba2's shared block."""
+    assert not NON_DENSE and sorted(DENSE + MOE + RECURRENT) == sorted(
+        JC.ARCHS)
     for cfg in (TC.get_tiny(arch), TC.get_config(arch)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            LM(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            cache_init(cfg, 1, 8, device="cpu")
+        model = LM(cfg, device="cpu" if "tiny" in cfg.name else "meta")
+        assert model.n_params() > 0
+    jc, tc = JC.get_tiny(arch), TC.get_tiny(arch)
+    jcaches, _ = JM.cache_init(jc, 2, 16, dtype=jnp.bfloat16)
+    tcaches = cache_init(tc, 2, 16, dtype=torch.bfloat16, device="cpu")
+    assert len(tcaches) == len(jcaches)
+    for si, seg in enumerate(tcaches):
+        assert len(seg) == tc.segments[si].repeat
+        for layer in seg:
+            assert sorted(layer) == sorted(jcaches[si])
+            for b, c in layer.items():
+                assert sorted(c) == sorted(jcaches[si][b])
+                for n, t in c.items():
+                    want = jcaches[si][b][n]
+                    assert tuple(t.shape) == want.shape[1:]
+                    assert str(t.dtype).split(".")[1] == str(want.dtype)
+                    assert not t.any()
 
 
 def test_converter_round_trip_is_exact():

@@ -19,8 +19,11 @@ DENSE = ["yi-9b", "codeqwen1.5-7b", "gemma3-4b", "nemotron-4-340b",
          "hubert-xlarge", "phi-3-vision-4.2b"]
 # MoE FFNs; deepseek's mixer is MLA, moonshot's GQA attention
 MOE = ["deepseek-v2-lite-16b", "moonshot-v1-16b-a3b"]
+# recurrent mixers: zamba2's Mamba2 blocks and its shared attention
+# block, xlstm's mLSTM and sLSTM blocks
+RECURRENT = ["zamba2-1.2b", "xlstm-350m"]
 # what the port does not build yet, and the ROADMAP item each waits for
-NON_DENSE = {"zamba2-1.2b": "14c", "xlstm-350m": "14c"}
+NON_DENSE: dict[str, str] = {}
 
 
 def host_batch(cfg, b: int, s: int, seed: int) -> dict:
