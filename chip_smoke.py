@@ -282,6 +282,26 @@ Phases, each printing its own lines and seconds:
    ``python -m repro_torch.launch.train --arch A --tiny --steps 10`` for
    both, at once, finite losses; (e) the launch and plain-version
    counters the same before and after;
+23. the sharded LM step (run after 22, ROADMAP item 14d): a process group
+   of one rank over NCCL and a (1, 1) ("data", "model") mesh
+   (``nccl_world``); (a) phase 20's config (yi-9b at full width, L = 3,
+   seq 4096, batch 4, bf16, lr 1e-4), ``SHARD_STEPS`` steps of
+   ``make_train_step(..., mesh)`` from the sharded ``init_state``
+   against the unsharded step from the same seed on the same batch:
+   losses, gradient norms and every parameter and moment bit for bit,
+   each sharded step's collectives by kind, count and bytes (issued at
+   world size 1, not skipped), walls and ``max_memory_allocated`` of
+   both arms; (b) ``torchrun --standalone --nproc-per-node 1 -m
+   repro_torch.launch.train --arch deepseek-v2-lite-16b --tiny --mesh
+   1x1`` to step 2, started first and run beside the rest of the phase,
+   and ``launch.train.main`` here to step 4 (a one-rank NCCL group of
+   its own); after (a) ``main`` here resumes torchrun's checkpoint to
+   step 4: its leaves equal the uninterrupted run's; (c) the per-rank
+   bytes of f32 masters
+   and moments of full-depth yi-9b, deepseek-v2-lite-16b and
+   nemotron-4-340b on (1, 1), (16, 16) and (2, 16, 16) from
+   ``pshard.resolve_tree`` on meta-device shapes; the launch and
+   plain-version counters the same before and after;
 15. summary: one JSON line of per-kernel numbers (with, for
    ``screen_matvec``, ``fista_step`` and ``cd_gram_sweep``, the batched
    path's launches and its B = 8 row at its own shapes, for
@@ -319,7 +339,8 @@ steps on its fixed batch each, and prints each rate's losses and whether
 they fell at every step: the reading ``LM_LR`` was chosen from.
 
 ``python3 chip_smoke.py --moe`` runs phase 1 and then phase 21 alone;
-``--ssm`` phase 1 and then phase 22 alone.
+``--ssm`` phase 1 and then phase 22 alone; ``--shard`` phase 1 and then
+phase 23 alone.
 
 Each path phase sets every launch counter to 0 just before it and reads
 them just after: each kernel the path runs must have launched, and no
@@ -766,17 +787,18 @@ def check_prox(torch, prox_step, ref, p: int, B: int, per_query: bool,
 
 
 @contextlib.contextmanager
-def nccl_world(torch):
+def nccl_world(torch, names: tuple[str, ...] = ("query", "feature")):
     """A process group of one rank over NCCL on card 0 (a HashStore: no
-    address, no port) and its (1, 1) ("query", "feature") mesh; the group
-    is torn down on exit. An NCCL failure fails the phase."""
+    address, no port) and its mesh of ones with axes ``names`` (the
+    sessions' ("query", "feature") by default); the group is torn down on
+    exit. An NCCL failure fails the phase."""
     import torch.distributed as tdist
     from torch.distributed.device_mesh import init_device_mesh
     tdist.init_process_group("nccl", store=tdist.HashStore(), rank=0,
                              world_size=1, device_id=torch.device("cuda", 0))
     try:
-        yield init_device_mesh("cuda", (1, 1),
-                               mesh_dim_names=("query", "feature"))
+        yield init_device_mesh("cuda", (1,) * len(names),
+                               mesh_dim_names=names)
     finally:
         tdist.destroy_process_group()
 
@@ -4199,6 +4221,228 @@ def ssm_phase(torch, tmp: str) -> dict:
     return readings
 
 
+# Phase 23, the sharded LM step (ROADMAP item 14d) on phase 20's config
+SHARD_STEPS = 2         # (a): steps of each arm on phase 20's fixed batch
+SHARD_CLI_ARCH = "deepseek-v2-lite-16b"
+# (b): torchrun's run, then the resumed run's end (6 and 9 in three
+# processes took the phase 88.45 s on the card; 2 and 4 with two runs in
+# this process, 101.64 s: torchrun's process start, 57.68 s, now runs
+# beside (a))
+SHARD_CLI_STEPS = (2, 4)
+SHARD_BYTES_ARCHS = ("yi-9b", "deepseek-v2-lite-16b", "nemotron-4-340b")
+SHARD_BYTES_MESHES = ((1, 1), (16, 16), (2, 16, 16))
+SHARD_PHASE = (f"sharded LM step: NCCL world of 1, (1, 1) (\"data\", "
+               f"\"model\") mesh; {LM_ARCH} at full width, L = {LM_DEPTH}; "
+               f"{SHARD_CLI_ARCH} --tiny under torchrun")
+
+
+def shard_arm(torch, cfg, tc, batch, mesh=None, host: bool = False) -> dict:
+    """``SHARD_STEPS`` train steps of phase 20's config from seed 0, on one
+    device or (``mesh``) sharded: losses, gradient norms, walls, peak
+    memory, the collectives of each step, and the final state's leaves
+    (params, m, v), moved to the host with ``host``."""
+    from repro_torch import pshard
+    from repro_torch.data import device_batch
+    from repro_torch.train import steps as ST
+    dev = torch.device(DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    if mesh is None:
+        state, sh = ST.init_state(0, cfg, tc, device=dev)
+        step = ST.make_train_step(cfg, tc)
+        rows = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                for k, v in batch.items()}
+    else:
+        state, sh = ST.init_state(0, cfg, tc, mesh)
+        step = ST.make_train_step(cfg, tc, mesh, sh, ST.batch_shardings(
+            mesh, cfg, "train", batch))
+        rows = device_batch(mesh, batch)
+    out = {"losses": [], "grad_norms": [], "walls": [], "collectives": []}
+    for _ in range(SHARD_STEPS):
+        pshard.reset_collectives()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, rows)
+        out["losses"].append(float(metrics["loss"]))
+        out["grad_norms"].append(float(metrics["grad_norm"]))
+        torch.cuda.synchronize()
+        out["walls"].append(time.perf_counter() - t0)
+        out["collectives"].append(pshard.collective_counts())
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    move = (lambda t: t.detach().cpu()) if host else (lambda t: t.detach())
+    out["state"] = {
+        "params": {k: move(p) for k, p in state.params.named_parameters()},
+        "m": {k: move(t) for k, t in state.opt.m.items()},
+        "v": {k: move(t) for k, t in state.opt.v.items()}}
+    del state, step, rows
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_bytes() -> list[str]:
+    """(c): per-rank bytes of the f32 masters and AdamW's two f32 moments
+    of full-depth models on the production meshes, from ``resolve_tree``
+    on meta-device shapes (no allocation)."""
+    import math
+
+    from repro_torch import configs, pshard
+    from repro_torch.launch.mesh import mesh_axes
+    from repro_torch.models import model as M
+    lines = []
+    for arch in SHARD_BYTES_ARCHS:
+        model = M.LM(configs.get_config(arch), device="meta")
+        shapes = dict(model.named_parameters())
+        total = sum(p.numel() for p in shapes.values())
+        cells = []
+        for dims in SHARD_BYTES_MESHES:
+            mesh = pshard.MeshShape(mesh_axes(dims), dims)
+            lays = pshard.resolve_tree(mesh, model.specs(), shapes)
+            local = sum(math.prod(lay.local_shape) for lay in lays.values())
+            cells.append(f"{dims}: {local * 12 / 2**30:.2f} GiB "
+                         f"({local / total:.4f} of the whole)")
+        lines.append(f"  {arch}: {total:,} parameters, masters + m + v "
+                     f"{total * 12 / 2**30:.2f} GiB; per rank " +
+                     "; ".join(cells))
+    return lines
+
+
+def shard_cli_start(tmp: str) -> dict:
+    """(b), started first: ``torchrun --nproc-per-node 1 -m
+    repro_torch.launch.train --mesh 1x1`` (an NCCL world of 1 by
+    torchrun's rendezvous) to step ``SHARD_CLI_STEPS[0]`` in the
+    background (its process start dominates: it runs beside the rest of
+    the phase), then an uninterrupted run of ``launch.train.main`` in
+    this process (a one-rank NCCL group of its own) to
+    ``SHARD_CLI_STEPS[1]``."""
+    from repro_torch.launch import train as launch_train
+    first, last = SHARD_CLI_STEPS
+    base = ["--arch", SHARD_CLI_ARCH, "--tiny", "--mesh", "1x1",
+            "--ckpt-every", str(first)]
+    if DEVICE != "cuda":
+        base += ["--device", DEVICE]
+    dirs = {k: os.path.join(tmp, f"shard_{k}") for k in ("run", "whole")}
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", "1", "-m", "repro_torch.launch.train", *base,
+            "--steps", str(first), "--ckpt-dir", dirs["run"]]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=tmp,
+                            env=dict(os.environ, PYTHONPATH=os.path.join(
+                                HERE, "src")))
+    whole = base + ["--steps", str(last), "--ckpt-dir", dirs["whole"]]
+    print(f"(b) torchrun started: {' '.join(argv[1:])}")
+    print(f"(b) launch.train.main({' '.join(whole)}) in this process:")
+    launch_train.main(whole)
+    return {"proc": proc, "argv": argv, "base": base, "dirs": dirs,
+            "t0": t0, "walls": {"whole": time.perf_counter() - t0}}
+
+
+def shard_cli_finish(cli: dict) -> dict:
+    """(b), after (a): join torchrun, resume its checkpoint to
+    ``SHARD_CLI_STEPS[1]`` in this process, and return the walls and both
+    final checkpoints' leaves."""
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.launch import train as launch_train
+    first, last = SHARD_CLI_STEPS
+    out, err = cli["proc"].communicate(timeout=600)
+    walls = cli["walls"]
+    walls["torchrun"] = time.perf_counter() - cli["t0"]
+    print(f"(b) {' '.join(cli['argv'][1:])}: exit {cli['proc'].returncode}, "
+          f"{walls['torchrun']:.2f} s from its start (beside (a))")
+    for line in out.splitlines():
+        print(f"    {line}")
+    assert cli["proc"].returncode == 0, err[-3000:]
+    assert latest_step(cli["dirs"]["run"]) == first
+    resume = cli["base"] + ["--steps", str(last), "--ckpt-dir",
+                            cli["dirs"]["run"]]
+    print(f"(b) launch.train.main({' '.join(resume)}) in this process:")
+    t0 = time.perf_counter()
+    _, losses = launch_train.main(resume)
+    walls["resume"] = time.perf_counter() - t0
+    assert list(losses) == list(range(first, last)), losses   # resumed
+
+    def leaves(d):
+        path = os.path.join(d, f"step_{last:08d}", "arrays.npz")
+        with np.load(path) as f:
+            return {k: f[k] for k in f.files}
+    return {"walls": walls, "resumed": leaves(cli["dirs"]["run"]),
+            "whole": leaves(cli["dirs"]["whole"])}
+
+
+def shard_phase(torch, tmp: str) -> dict:
+    """Phase 23, the sharded LM step on an NCCL world of 1 (see the module
+    doc): (a) phase 20's train steps through ``make_train_step(...,
+    mesh)`` against the unsharded step, bit for bit, with the
+    collectives of each step; (b) ``launch.train`` under ``torchrun`` and
+    a one-process resume of its checkpoint against an uninterrupted run;
+    (c) the per-rank bytes of full-depth states on the production
+    meshes. Returns the readings."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as ST
+
+    cfg, _ = lm_config()
+    tc = ST.TrainConfig(opt=adamw.OptConfig(lr=LM_LR, warmup_steps=1,
+                                            total_steps=100))
+    batch = SyntheticLM(vocab=cfg.vocab, seq=LM_SEQ,
+                        global_batch=LM_BATCH).host_batch(0)
+    before = (ops.launch_counts(), ops.plain_counts())
+    started = shard_cli_start(tmp)
+    one = shard_arm(torch, cfg, tc, batch, host=True)
+    with nccl_world(torch, ("data", "model")) as mesh:
+        sharded = shard_arm(torch, cfg, tc, batch, mesh)
+    differ = []
+    for part in ("params", "m", "v"):
+        for k, t in one["state"][part].items():
+            got = sharded["state"][part][k]
+            if not (t.dtype == got.dtype
+                    and torch.equal(t.to(got.device), got)):
+                differ.append(f"{part}.{k}")
+    n_leaves = sum(len(one["state"][p]) for p in ("params", "m", "v"))
+    for name, arm in (("unsharded", one), ("sharded", sharded)):
+        print(f"(a) {name}: losses {arm['losses']}, grad norms "
+              f"{arm['grad_norms']}, walls "
+              f"{[round(w, 4) for w in arm['walls']]} s, "
+              f"max_memory_allocated {arm['peak_gib']:.2f} GiB", flush=True)
+    for i, c in enumerate(sharded["collectives"]):
+        print(f"    sharded step {i} collectives: " + ", ".join(
+            f"{kind} ×{n} ({b / 2**20:.1f} MiB)" for kind, (n, b)
+            in c.items()))
+    print(f"    leaves (params, m, v) equal bit for bit: "
+          f"{n_leaves - len(differ)} of {n_leaves}; losses and gradient "
+          f"norms equal {sharded['losses'] == one['losses']} and "
+          f"{sharded['grad_norms'] == one['grad_norms']}", flush=True)
+    assert np.isfinite(one["losses"]).all()
+    assert sharded["losses"] == one["losses"]
+    assert sharded["grad_norms"] == one["grad_norms"]
+    assert not differ, differ[:10]
+    for c in sharded["collectives"]:         # issued at world size 1 too
+        assert c.get("all_gather", (0, 0))[0] > 0
+        assert c.get("all_reduce", (0, 0))[0] > 0
+    del one["state"], sharded["state"]
+    torch.cuda.empty_cache()
+    cli = shard_cli_finish(started)
+    equal = (sorted(cli["resumed"]) == sorted(cli["whole"]) and all(
+        np.array_equal(cli["resumed"][k], cli["whole"][k])
+        for k in cli["whole"]))
+    print(f"(b) the resumed run's {len(cli['resumed'])} leaves at step "
+          f"{SHARD_CLI_STEPS[1]} equal the uninterrupted run's leaf for "
+          f"leaf: {equal}", flush=True)
+    assert equal
+    print("(c) per-rank bytes of f32 masters, m and v (resolve_tree on "
+          "meta-device shapes):")
+    lines = shard_bytes()
+    print("\n".join(lines), flush=True)
+    after = (ops.launch_counts(), ops.plain_counts())
+    assert after == before, (before, after)
+    return {"unsharded": {k: one[k] for k in ("losses", "grad_norms",
+                                              "walls", "peak_gib")},
+            "sharded": {k: sharded[k] for k in (
+                "losses", "grad_norms", "walls", "peak_gib",
+                "collectives")},
+            "cli_walls": cli["walls"], "bytes": lines}
+
+
 SERVE_QUERIES = 44      # five fill batches of 8, then a 4-query tail
 # the --solver cd run's queries: one fill batch and a 4-query tail (cut
 # from 44 when phases 17 and 18 came: its wide buckets run matvec CD, the
@@ -4376,9 +4620,9 @@ def main(argv: list[str]) -> int:
         tree, argv = os.path.abspath(argv[2]), ["--kernels"]
         sys.path.insert(0, os.path.join(tree, "src"))
     if argv not in ([], ["--faults"], ["--kernels"], ["--lm-lr"],
-                    ["--moe"], ["--ssm"]):
+                    ["--moe"], ["--ssm"], ["--shard"]):
         print("usage: python3 chip_smoke.py [--faults | --lm-lr | --moe | "
-              "--ssm | --kernels [--tree DIR]]", file=sys.stderr)
+              "--ssm | --shard | --kernels [--tree DIR]]", file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -4417,6 +4661,10 @@ def main(argv: list[str]) -> int:
     if argv == ["--ssm"]:
         with tempfile.TemporaryDirectory() as tmp, phase(SSM_PHASE):
             ssm_phase(torch, tmp)
+        return 0
+    if argv == ["--shard"]:
+        with tempfile.TemporaryDirectory() as tmp, phase(SHARD_PHASE):
+            shard_phase(torch, tmp)
         return 0
 
     with phase("build"):
@@ -4785,6 +5033,8 @@ def main(argv: list[str]) -> int:
             moe_phase(torch, tmp)
         with phase(SSM_PHASE):
             ssm_phase(torch, tmp)
+        with phase(SHARD_PHASE):
+            shard_phase(torch, tmp)
 
     with phase(f"kernels at the paths' shapes (fista bucket {main_bucket}, "
                f"cd bucket {cd_bucket}; batched B={BATCH}: fista bucket "

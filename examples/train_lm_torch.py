@@ -6,9 +6,13 @@ resume.
     PYTHONPATH=src python examples/train_lm_torch.py --steps 30
     PYTHONPATH=src python examples/train_lm_torch.py --tiny --device cpu
 
-It runs on the card unless ``--device cpu``. ``--mesh`` takes ``1x1``
-only (multi-card training is ROADMAP item 14d). Checkpoints are in the
-reference's layout, so a run resumes from either package's.
+It runs on the card unless ``--device cpu``. This example is one
+process on one device, so ``--mesh`` takes a shape of ones; a wider mesh
+raises, naming ``torchrun``. A sharded run is the entry point under
+``torchrun``, one process per rank:
+``torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch yi-9b
+--tiny --mesh 2x2 [--device cpu]``. Checkpoints are in the reference's
+layout, so a run resumes from either package's, and from any mesh's.
 """
 
 import argparse

@@ -20,6 +20,14 @@ leaf's 16-bit patterns go in as a 2-byte void array (``|V2``, what
 ``np.savez`` makes of a jax bfloat16 array) and the manifest's ``dtypes``
 entry reads ``"bfloat16"``; :func:`restore` turns such a leaf back into a
 ``torch.bfloat16`` tensor with the same bits.
+
+**Sharded states** (one process per rank, :mod:`repro_torch.pshard`):
+``save(..., shardings=)`` gathers every leaf from the ranks holding it,
+writes the whole tree once, on rank 0 of the mesh, and waits for the
+mesh's ranks; ``restore(..., shardings=)`` keeps each leaf's block of
+this rank, as the reference's ``restore`` places the whole array under
+its ``NamedSharding``. A checkpoint is the whole state whatever mesh
+wrote it, so it restores on any mesh, and on one device.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
+from .. import pshard
 from ..core.device import resolve_device
 
 
@@ -75,17 +84,57 @@ def _tensor(a: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
+def _layouts(shardings, n: int) -> list:
+    """The :class:`~repro_torch.pshard.Layout` of each of ``n`` leaves."""
+    lays = [x for x in pytree.tree_flatten(_canonical(shardings))[0]
+            if x is not None]
+    if len(lays) != n:
+        raise ValueError(f"shardings has {len(lays)} leaves, the tree {n}")
+    return lays
+
+
+def _gathered(leaves: list, layouts: list) -> list:
+    """Every rank's blocks → the whole leaves (collective: every rank of
+    the mesh calls it)."""
+    from ..core.distributed import mesh_device
+    out = []
+    for x, lay in zip(leaves, layouts):
+        if lay.axes:
+            t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+                np.ascontiguousarray(x))
+            x = pshard.gather(t.to(mesh_device(lay.mesh)), lay).cpu()
+        out.append(x)
+    return out
+
+
 def save(ckpt_dir: str, step: int, tree, extra: dict | None = None,
-         keep: int = 3) -> str:
+         keep: int = 3, *, shardings=None) -> str:
     """Atomically save a tree of tensors and arrays. Returns the step
-    directory."""
+    directory. ``shardings``: a tree of :class:`~repro_torch.pshard.
+    Layout` matching ``tree``, whose leaves are then this rank's blocks:
+    every rank of the mesh calls, the whole leaves are written by rank 0
+    of the mesh alone, and every rank returns once they are."""
     step_dir = os.path.join(ckpt_dir, f"step_{step:08d}")
+    leaves, _, spec = _flatten(tree)
+    if shardings is not None:
+        layouts = _layouts(shardings, len(leaves))
+        leaves = _gathered(leaves, layouts)
+        mesh = layouts[0].mesh
+        try:
+            if not any(pshard.coordinate(mesh).values()):     # rank 0
+                _write(ckpt_dir, step_dir, step, leaves, spec, extra, keep)
+        finally:
+            pshard.barrier(mesh)
+        return step_dir
+    return _write(ckpt_dir, step_dir, step, leaves, spec, extra, keep)
+
+
+def _write(ckpt_dir: str, step_dir: str, step: int, leaves: list, spec,
+           extra: dict | None, keep: int) -> str:
     tmp = step_dir + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
-
-    leaves, _, spec = _flatten(tree)
     host_leaves, dtypes = zip(*map(_host, leaves)) if leaves else ((), ())
     np.savez(os.path.join(tmp, "arrays.npz"),
              **{f"leaf_{i}": v for i, v in enumerate(host_leaves)})
@@ -124,10 +173,13 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: int, like_tree, *, device=None):
+def restore(ckpt_dir: str, step: int, like_tree, *, device=None,
+            shardings=None):
     """Restore into the structure of ``like_tree``, every leaf a tensor
     (of its saved dtype) on ``device`` (None: the card). Returns
-    ``(tree, extra)``."""
+    ``(tree, extra)``. ``shardings``: a tree of :class:`~repro_torch.
+    pshard.Layout` matching ``like_tree``; each leaf is then this rank's
+    block of the saved leaf."""
     dev = resolve_device(device)
     step_dir = os.path.join(ckpt_dir, f"step_{step:08d}")
     if not os.path.exists(os.path.join(step_dir, "_DONE")):
@@ -140,8 +192,11 @@ def restore(ckpt_dir: str, step: int, like_tree, *, device=None):
     if len(leaves) != len(saved):
         raise ValueError(f"like_tree has {len(leaves)} leaves, the "
                          f"checkpoint {len(saved)}")
-    it = iter(_tensor(a, dt).to(dev)
-              for a, dt in zip(saved, manifest["dtypes"]))
+    held = [_tensor(a, dt) for a, dt in zip(saved, manifest["dtypes"])]
+    if shardings is not None:
+        held = [pshard.cut(t, lay) for t, lay in
+                zip(held, _layouts(shardings, len(held)))]
+    it = iter(t.to(dev) for t in held)
     tree = pytree.tree_unflatten(
         [None if x is None else next(it) for x in slots], spec)
     return tree, manifest["extra"]

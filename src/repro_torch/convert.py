@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import pshard
 from .core.engine import DictionaryGeometry, GroupDictionaryGeometry
 from .core.device import as_tensor, resolve_device
 from .core.session import LassoSession, PathConfig
@@ -85,36 +86,43 @@ def _np(x):
 
 
 def _tensor(x, device) -> torch.Tensor:
+    """A fresh tensor on ``device`` (never the caller's own storage: the
+    train step updates a model's parameters in place)."""
     if isinstance(x, torch.Tensor):
-        return x.to(device)
+        return x.to(device, copy=True)
     return torch.from_numpy(np.array(x)).to(device)
 
 
-def _to_ref_tree(named: dict) -> dict:
-    """Port names → the reference's nested tree of host arrays, each
-    segment's layers stacked on axis 0."""
+def _stack(leaves: list):
+    if isinstance(leaves[0], torch.Tensor):
+        return torch.stack(leaves)
+    if isinstance(leaves[0], pshard.Layout):
+        return leaves[0].stacked(len(leaves))
+    return np.stack(leaves)
+
+
+def _to_ref_tree(named: dict, leaf=_np) -> dict:
+    """Port names → the reference's nested tree of host arrays (``leaf``
+    of each value), each segment's layers stacked on axis 0."""
     tree: dict = {}
     stacks: dict = {}
     for name, t in named.items():
         parts = name.split(".")
         if parts[0] == "segments":
             si, li = int(parts[1]), int(parts[2])
-            stacks.setdefault((si, tuple(parts[3:])), {})[li] = _np(t)
+            stacks.setdefault((si, tuple(parts[3:])), {})[li] = leaf(t)
             continue
         node = tree
         for p in parts[:-1]:
             node = node.setdefault(p, {})
-        node[parts[-1]] = _np(t)
+        node[parts[-1]] = leaf(t)
     if stacks:
         segs = [{} for _ in range(1 + max(si for si, _ in stacks))]
         for (si, path), layers in stacks.items():
             node = segs[si]
             for p in path[:-1]:
                 node = node.setdefault(p, {})
-            leaves = [layers[i] for i in range(len(layers))]
-            node[path[-1]] = (torch.stack(leaves)
-                              if isinstance(leaves[0], torch.Tensor)
-                              else np.stack(leaves))
+            node[path[-1]] = _stack([layers[i] for i in range(len(layers))])
         tree["segments"] = segs
     return tree
 
@@ -152,18 +160,38 @@ def lm_params_from_reference(params, cfg, *, device=None) -> dict:
 
 def lm_from_reference(params, cfg, *, device=None):
     """An :class:`repro_torch.models.LM` holding the reference's
-    parameters (:func:`lm_params_from_reference`)."""
-    from .models.model import LM
-    dev = resolve_device(device)
-    model = LM(cfg, device=dev)
-    model.load_state_dict(lm_params_from_reference(params, cfg, device=dev))
-    return model
+    parameters (:func:`lm_params_from_reference`) as f32 masters; leaves
+    of any shape (a rank's shards, as ``checkpoint.restore(...,
+    shardings=)`` keeps them) give a model holding those."""
+    from .models.model import holding
+    named = lm_params_from_reference(params, cfg, device=device)
+    return holding(cfg, {k: t.float() for k, t in named.items()})
 
 
 def lm_params_to_reference(model) -> dict:
     """An :class:`repro_torch.models.LM`'s parameters as the reference's
     tree of host arrays (segments stacked)."""
     return _to_ref_tree(dict(model.named_parameters()))
+
+
+def shardings_to_reference(shardings):
+    """A train state's shardings (``init_state``'s tree of
+    :class:`~repro_torch.pshard.Layout`) in the reference's layout: the
+    tree :func:`train_state_to_reference` gives, each stacked segment
+    leaf's layout with its uncut stacking axis (what ``checkpoint.save``
+    and ``restore`` take as ``shardings=``)."""
+    from .optim.adamw import AdamState
+    from .train.steps import TrainState
+    opt = shardings.opt
+
+    def tree(named):
+        return _to_ref_tree(named, leaf=lambda x: x)
+
+    return TrainState(
+        params=tree(shardings.params),
+        opt=AdamState(step=opt.step, m=tree(opt.m), v=tree(opt.v),
+                      err=None if opt.err is None else tree(opt.err)),
+        step=shardings.step)
 
 
 def train_state_to_reference(state):
@@ -186,7 +214,8 @@ def train_state_to_reference(state):
 def train_state_from_reference(tree, cfg, *, device=None):
     """A port :class:`repro_torch.train.TrainState` from a state in the
     reference's layout (the reference's own ``TrainState`` or
-    :func:`train_state_to_reference`'s, arrays or tensors)."""
+    :func:`train_state_to_reference`'s, arrays or tensors); from a rank's
+    shards (``restore(..., shardings=)``), the rank's sharded state."""
     from .optim.adamw import AdamState
     from .train.steps import TrainState
     dev = resolve_device(device)

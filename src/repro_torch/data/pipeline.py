@@ -70,6 +70,30 @@ def to_device(host_batch: dict, device) -> dict:
             for k, v in host_batch.items()}
 
 
+def device_batch(mesh, host_batch: dict, accum_steps: int = 1) -> dict:
+    """The rank's rows of a global host batch, on the mesh's device: the
+    reference's ``device_batch`` (``pipeline.py:190-198``) for one process
+    per rank. Every rank passes the same global batch (``SyntheticLM.
+    host_batch(step)``: its ``shard`` argument draws other rows, not a
+    slice of the global batch) and keeps the rows its coordinate on the
+    batch axes selects (:func:`repro_torch.pshard.batch_spec`, degraded
+    for the rows' count). With ``accum_steps`` > 1 each microbatch (a
+    block of consecutive global rows, as the reference's step splits
+    them) is cut alike and the rank's parts are stacked in order, the
+    layout :func:`repro_torch.train.steps.make_train_step` reads."""
+    from ..core.distributed import mesh_device
+    from ..pshard import Layout, batch_spec
+    dev = mesh_device(mesh)
+    out = {}
+    for k, v in host_batch.items():
+        micros = np.asarray(v).reshape(accum_steps, -1, *np.shape(v)[1:])
+        lay = Layout(batch_spec(mesh, micros.ndim - 1, micros.shape[1]),
+                     micros.shape[1:], mesh)
+        rows = np.concatenate([m[lay.index()] for m in micros])
+        out[k] = torch.from_numpy(np.ascontiguousarray(rows)).to(dev)
+    return out
+
+
 def design_matrix(n: int, p: int, *, corr: float = 0.0, rng=None,
                   seed: int = 0) -> np.ndarray:
     """I.i.d. standard Gaussian columns, optionally AR(1)-correlated

@@ -12,7 +12,7 @@ the reference's ``src/repro/launch/cli.py`` on the port's sessions:
                               ``--x64`` on the card
   * :func:`mesh_world`        the ``("query", "feature")`` mesh of
                               ``--mesh``, with a one-rank process group
-                              where none is up
+                              where none is up (:func:`process_world`)
   * :func:`path_config`       a :class:`repro_torch.PathConfig` from the
                               flags
 
@@ -161,31 +161,25 @@ def _parse_mesh(spec: str) -> tuple[int, int]:
 
 
 @contextlib.contextmanager
-def mesh_world(args, device):
-    """The :class:`~torch.distributed.device_mesh.DeviceMesh` of ``--mesh``
-    (None without the flag). Q·F must equal the world size: that of the
+def process_world(size: int, spec: str, device):
+    """A process group of ``size`` ranks for ``--mesh spec``, yielding
+    this rank's device. ``size`` must equal the world size: that of the
     process group already up, else of ``torchrun`` (its ``WORLD_SIZE``),
     else 1. Where no group is up this starts one (gloo on the CPU, NCCL on
     the card; ``torchrun``'s rendezvous, or a one-rank group in memory)
     and destroys it on exit."""
-    spec = getattr(args, "mesh", None)
-    if spec is None:
-        yield None
-        return
-    q, f = _parse_mesh(spec)
     own = not dist.is_initialized()
     world = (int(os.environ.get("WORLD_SIZE", "1")) if own
              else dist.get_world_size())
-    if q * f != world:
+    if size != world:
         raise SystemExit(
-            f"--mesh {spec} needs {q * f} processes, one per rank, and this "
-            f"run has {world}: launch with torchrun --nproc-per-node={q * f}")
+            f"--mesh {spec} needs {size} processes, one per rank, and this "
+            f"run has {world}: launch with torchrun --nproc-per-node={size}")
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
     if own:
         kw = {}
         if device.type == "cuda":
-            if device.index is None:
-                device = torch.device(
-                    "cuda", int(os.environ.get("LOCAL_RANK", "0")))
             torch.cuda.set_device(device)
             kw["device_id"] = device
         backend = "nccl" if device.type == "cuda" else "gloo"
@@ -195,11 +189,24 @@ def mesh_world(args, device):
             dist.init_process_group(backend, store=dist.HashStore(), rank=0,
                                     world_size=1, **kw)
     try:
-        yield init_device_mesh(device.type, (q, f),
-                               mesh_dim_names=("query", "feature"))
+        yield device
     finally:
         if own:
             dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def mesh_world(args, device):
+    """The :class:`~torch.distributed.device_mesh.DeviceMesh` of ``--mesh``
+    (None without the flag), over a :func:`process_world` of Q·F ranks."""
+    spec = getattr(args, "mesh", None)
+    if spec is None:
+        yield None
+        return
+    q, f = _parse_mesh(spec)
+    with process_world(q * f, spec, device) as device:
+        yield init_device_mesh(device.type, (q, f),
+                               mesh_dim_names=("query", "feature"))
 
 
 def is_main_process() -> bool:

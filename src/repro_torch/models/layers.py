@@ -20,8 +20,10 @@ Conventions, as the reference's:
 * Attention is **chunked** (flash-style online softmax over kv tiles) in
   plain torch, each kv step checkpointed when gradients are taken, so the
   (S, S) scores never exist and backward recomputes each tile.
-* No sharding constraint: on one card the reference's ``constrain`` is the
-  identity (multi-card training is ROADMAP item 14d).
+* No sharding constraint: a rank computes on its own rows with every
+  parameter whole (:mod:`repro_torch.pshard`), so the reference's
+  ``constrain`` is the identity. MoE routing alone reads the rank's place
+  in the batch: its groups are the whole batch's (:func:`moe_route`).
 
 MoE (:func:`moe_forward`) is the reference's grouped top-k dispatch with
 capacity, its one-hot dispatch and combine products included (see
@@ -38,6 +40,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from .. import pshard
+from ..pshard import P
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -85,6 +90,27 @@ def param_tree(module: nn.Module, cast=None):
     return out
 
 
+def tree_from_named(named: dict):
+    """{``named_parameters`` name: tensor} → the tree :func:`param_tree`
+    gives for the module they came from (a numeric name is a list
+    index)."""
+    out: dict = {}
+    for name, t in named.items():
+        node, parts = out, name.split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = t
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(out)
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
@@ -97,6 +123,8 @@ def rmsnorm(params, x, eps: float = 1e-6, offset: float = 0.0):
 
 
 class RMSNorm(nn.Module):
+    SPECS = {"scale": P(None)}
+
     def __init__(self, d: int, *, device=None, dtype=F32):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(d, device=device, dtype=dtype))
@@ -249,6 +277,11 @@ class Attention(nn.Module):
     ``attn_init``): wq (d, H, Dh), wk/wv (d, Hk, Dh), wo (H, Dh, d),
     optional bq/bk/bv and qnorm/knorm."""
 
+    SPECS = {"wq": P("embed", "heads", None), "wk": P("embed", "kv", None),
+             "wv": P("embed", "kv", None), "wo": P("heads", None, "embed"),
+             "bq": P("heads", None), "bk": P("kv", None),
+             "bv": P("kv", None), "qnorm": P(None), "knorm": P(None)}
+
     def __init__(self, spec: AttnSpec, gen: torch.Generator, dtype=F32):
         super().__init__()
         d, h, hk, dh = spec.d_model, spec.n_heads, spec.n_kv_heads, spec.d_head
@@ -351,6 +384,9 @@ class Ffn(nn.Module):
     """The parameters of one dense FFN (the reference's ``ffn_init``):
     w_in (d, f), w_out (f, d) and, gated, w_gate (d, f)."""
 
+    SPECS = {"w_in": P("embed", "ffn"), "w_out": P("ffn", "embed"),
+             "w_gate": P("embed", "ffn")}
+
     def __init__(self, spec: FfnSpec, gen: torch.Generator, dtype=F32):
         super().__init__()
         d, f = spec.d_model, spec.d_ff
@@ -408,6 +444,10 @@ class Moe(nn.Module):
     ``w_gate`` (e, d, f); ``w_out`` (e, f, d); and, with shared experts,
     ``shared``, a dense FFN of width f·n_shared."""
 
+    SPECS = {"router": P("embed", None), "w_in": P("experts", "embed", None),
+             "w_gate": P("experts", "embed", None),
+             "w_out": P("experts", None, "embed")}
+
     def __init__(self, spec: MoeSpec, gen: torch.Generator, dtype=F32):
         super().__init__()
         d, f, e = spec.d_model, spec.d_expert, spec.n_routed
@@ -421,25 +461,45 @@ class Moe(nn.Module):
 
 
 class MoeRoute(NamedTuple):
-    """Where :func:`moe_route` sends each (token, choice) pair. The T
-    tokens are padded to ``ng`` groups of ``g``; ``[..., j]`` is a
-    token's j-th choice, in ``top_k``'s descending order."""
+    """Where :func:`moe_route` sends each (token, choice) pair. The routed
+    tokens are ``ng`` groups of ``g`` (the last one padded); ``[..., j]``
+    is a token's j-th choice, in ``top_k``'s descending order. The
+    caller's T tokens are rows [lo, lo + T) of the flattened groups,
+    whose row 0 is token ``first`` of the whole batch (both 0 unless a
+    data-parallel rank routes groups that other ranks' tokens share)."""
     topv: torch.Tensor     # (ng, g, k) f32 weights, renormalised
     topi: torch.Tensor     # (ng, g, k) the chosen experts
     pos: torch.Tensor      # (ng, g, k) the pair's slot in its expert's buffer
-    keep: torch.Tensor     # (ng, g, k) 0 ≤ pos < cap
+    keep: torch.Tensor     # (ng, g, k) 0 ≤ pos < cap, and the caller's token
     cap: int               # slots per expert and group
-    tokens: int            # T, the real tokens (the rest is padding)
+    tokens: int            # T, the caller's tokens
+    lo: int = 0            # the caller's first row in the groups
+    first: int = 0         # the batch's index of the groups' row 0
 
 
-def _groups(spec: MoeSpec, x):
-    """x (..., d) → (tokens padded to (ng, g, d), T)."""
+def _window(spec: MoeSpec, x):
+    """x (..., d) → (the groups' tokens (ng, g, d), T, lo, first, the
+    batch shard or None): the groups the reference forms over the whole
+    batch's flattened tokens that hold this caller's T tokens, with the
+    other tokens (another rank's, or the last group's padding) zero."""
     d = x.shape[-1]
     tokens = x.reshape(-1, d)
     t = tokens.shape[0]
-    g = min(spec.group_size, t)
-    ng = -(-t // g)
-    return F.pad(tokens, (0, 0, 0, ng * g - t)).reshape(ng, g, d), t
+    sh = pshard.batch_shard()
+    if sh is not None and sh.count == 1:
+        sh = None
+    whole = t if sh is None else t * sh.count
+    g = min(spec.group_size, whole)
+    if sh is None or t % g == 0:         # whole groups of the caller's own
+        ng = -(-t // g)
+        return (F.pad(tokens, (0, 0, 0, ng * g - t)).reshape(ng, g, d), t,
+                0, 0 if sh is None else sh.index * t, None)
+    start = sh.index * t                 # the caller's first token
+    first = start // g * g
+    ng = -(-(start + t) // g) - first // g
+    lo = start - first
+    return (F.pad(tokens, (0, 0, lo, ng * g - lo - t)).reshape(ng, g, d), t,
+            lo, first, sh)
 
 
 def moe_route(params, spec: MoeSpec, x) -> MoeRoute:
@@ -460,20 +520,42 @@ def moe_route(params, spec: MoeSpec, x) -> MoeRoute:
     sliced off: a real token's output does not depend on their choices.
     Only ``topv`` carries a gradient (into the router), as in the
     reference.
+
+    **Over the whole batch.** On a data-parallel rank (inside
+    :func:`repro_torch.pshard.batch_context`) the groups are the
+    reference's over the whole batch: g = min(group_size, the batch's
+    tokens), so ``cap`` is the whole batch's. Where a group holds other
+    ranks' tokens (g does not divide the rank's T), every rank's top-k
+    choices are gathered along the batch axes (integers, no gradient:
+    one all-gather of (T, k)), so each of the caller's pairs takes the
+    slot the whole batch gives it; only the caller's pairs are kept.
+    Dispatch, experts and combine stay on the caller's tokens.
     """
     e, k = spec.n_routed, spec.top_k
-    tokens, t = _groups(spec, x)
+    tokens, t, lo, first, sh = _window(spec, x)
     ng, g, _ = tokens.shape
     cap = max(1, int(g * k / e * spec.capacity_factor))
     logits = dot("ngd,de->nge", tokens.to(F32), params["router"], F32)
     probs = torch.softmax(logits, dim=-1)
     topv, topi = torch.topk(probs, k, dim=-1)            # descending
     topv = topv / (torch.sum(topv, dim=-1, keepdim=True) + 1e-9)
+    mine = None
+    if sh is not None:
+        flat = topi.reshape(ng * g, k)
+        every = pshard.all_gather_rows(flat[lo:lo + t].contiguous(),
+                                       sh.mesh, sh.axes)
+        real = min(ng * g, every.shape[0] - first)       # then padding
+        topi = torch.cat([every[first:first + real], flat[real:]]).reshape(
+            ng, g, k)
+        mine = torch.zeros(ng * g, 1, dtype=torch.bool, device=x.device)
+        mine[lo:lo + t] = True
+        mine = mine.reshape(ng, g, 1)
     onehot = F.one_hot(topi, e)                           # (ng, g, k, e)
     seen = torch.cumsum(onehot.reshape(ng, g * k, e), dim=1).reshape(
         ng, g, k, e)
     pos = torch.sum(seen * onehot, dim=-1) - 1
-    return MoeRoute(topv, topi, pos, pos < cap, cap, t)
+    keep = pos < cap if mine is None else (pos < cap) & mine
+    return MoeRoute(topv, topi, pos, keep, cap, t, lo, first)
 
 
 def moe_forward(params, spec: MoeSpec, x):
@@ -492,7 +574,7 @@ def moe_forward(params, spec: MoeSpec, x):
     (128, 128, 64, 15), 31 MB in bf16.
     """
     r = moe_route(params, spec, x)
-    tokens, _ = _groups(spec, x)
+    tokens = _window(spec, x)[0]
     dt = x.dtype
     sel = F.one_hot(r.topi, spec.n_routed).to(dt)         # (ng, g, k, e)
     # a dropped pair's slot row is zero (the extra class is cut off), as
@@ -509,7 +591,7 @@ def moe_forward(params, spec: MoeSpec, x):
         gp, approximate="tanh")
     ye = dot("encf,efd->encd", act * h, params["w_out"], dt)
     y = dot("encd,ngec->ngd", ye, combine, dt)
-    y = y.reshape(-1, x.shape[-1])[:r.tokens].reshape(x.shape)
+    y = y.reshape(-1, x.shape[-1])[r.lo:r.lo + r.tokens].reshape(x.shape)
     if spec.n_shared:
         y = y + ffn_forward(params["shared"], spec.shared_spec(), x)
     return y

@@ -19,6 +19,7 @@ import math
 import torch
 from torch import nn
 
+from ..pshard import P
 from .layers import F32, NEG_INF, chunked_attention, dot, normal, rope
 
 
@@ -37,6 +38,10 @@ class Mla(nn.Module):
     """The parameters of one MLA mixer (the reference's ``mla_init``):
     wq (d, H, d_nope + d_rope), w_dkv (d, r + d_rope), kv_norm (r,),
     w_uk (r, H, d_nope), w_uv (r, H, d_v), wo (H, d_v, d)."""
+
+    SPECS = {"wq": P("embed", "heads", None), "w_dkv": P("embed", None),
+             "kv_norm": P(None), "w_uk": P("lora", "heads", None),
+             "w_uv": P("lora", "heads", None), "wo": P("heads", None, "embed")}
 
     def __init__(self, spec: MlaSpec, gen: torch.Generator, dtype=F32):
         super().__init__()

@@ -39,6 +39,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.device import resolve_device
+from ..pshard import P
 from . import layers as L
 from . import mla as M
 from . import ssm as S
@@ -134,7 +135,13 @@ class LM(nn.Module):
     ``embed`` (vocab, d), ``lm_head`` (d, vocab) when untied,
     ``frame_proj``/``patch_proj`` for the frames/vlm frontends,
     ``final_norm.scale``, ``segments[si][layer]["b{bi}"]`` blocks (none
-    for a shared block) and, with ``cfg.shared_block``, ``shared``."""
+    for a shared block) and, with ``cfg.shared_block``, ``shared``.
+
+    Each parameter's logical sharding spec is its module's ``SPECS``
+    entry (:func:`param_specs`)."""
+
+    SPECS = {"embed": P("vocab", "embed"), "lm_head": P("embed", "vocab"),
+             "frame_proj": P(None, "embed"), "patch_proj": P(None, "embed")}
 
     def __init__(self, cfg: ArchConfig, *, seed: int = 0,
                  generator: torch.Generator | None = None, device=None,
@@ -184,6 +191,12 @@ class LM(nn.Module):
     def n_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
+    def specs(self) -> dict:
+        """{parameter name: logical spec}, see :func:`param_specs`."""
+        return {f"{mn}.{pn}" if mn else pn: type(mod).SPECS[pn]
+                for mn, mod in self.named_modules()
+                for pn, _ in mod.named_parameters(recurse=False)}
+
     def forward_loss(self, batch: dict, compute_dtype=torch.bfloat16,
                      params=None):
         return forward_loss(self.tree() if params is None else params,
@@ -200,6 +213,30 @@ class LM(nn.Module):
                     compute_dtype=torch.bfloat16, params=None):
         return decode_step(self.tree() if params is None else params,
                            self.cfg, token, caches, cache_len, compute_dtype)
+
+
+def param_specs(cfg: ArchConfig) -> dict:
+    """Every parameter's logical spec, {port name: :class:`P`}: the
+    reference's ``init_params`` specs (``src/repro/models/model.py:
+    241-298``), a stacked segment leaf's without its leading ``None``
+    (the port keeps one module per layer). Built on the meta device."""
+    return LM(cfg, device="meta").specs()
+
+
+def holding(cfg: ArchConfig, params: dict) -> LM:
+    """An :class:`LM` of ``cfg`` whose parameters are the given tensors
+    ({port name: tensor}, every name of the model, any shapes: a rank's
+    shards too), each wrapped as an ``nn.Parameter`` sharing its
+    storage."""
+    model = LM(cfg, device="meta")
+    names = {n for n, _ in model.named_parameters()}
+    if names != set(params):
+        raise KeyError(f"{cfg.name}: missing {sorted(names - set(params))}, "
+                       f"unexpected {sorted(set(params) - names)}")
+    for name, t in params.items():
+        owner, _, leaf = name.rpartition(".")
+        setattr(model.get_submodule(owner), leaf, nn.Parameter(t))
+    return model
 
 
 # ---------------------------------------------------------------------------
@@ -325,6 +362,33 @@ def cache_init(cfg: ArchConfig, batch: int, smax: int, dtype=torch.bfloat16,
 _SEQ_CACHES = ({"k", "v"}, {"c", "kpe"})
 
 
+def cache_specs(cfg: ArchConfig) -> list:
+    """The logical specs of :func:`cache_init`'s caches, in its structure:
+    the reference's ``cache_init_specs`` (``model.py:335``) without the
+    stacking ``None``. An attention cache's heads shard when 16 divides
+    them, else its sequence, as in the reference."""
+    def one(blk):
+        if blk.kind == "attn":
+            sp = (P("batch", "tensor", None, None)
+                  if blk.attn.n_kv_heads % 16 == 0
+                  else P("batch", None, "tensor", None))
+            return {"k": sp, "v": sp}
+        if blk.kind == "mla":
+            return {"c": P("batch", "tensor", None),
+                    "kpe": P("batch", "tensor", None)}
+        if blk.kind == "mamba2":
+            return {"ssm": P("batch", "tensor", None, None),
+                    "conv": P("batch", None, "tensor")}
+        if blk.kind == "mlstm":
+            return {"h": P("batch", None, "tensor", None)}
+        if blk.kind == "slstm":
+            return {k: P("batch", "tensor") for k in SLSTM_STATE}
+        raise ValueError(blk.kind)
+
+    return [[{f"b{bi}": one(blk) for bi, blk in enumerate(seg.blocks)}
+             for _ in range(seg.repeat)] for seg in cfg.segments]
+
+
 def pad_caches(caches, smax: int):
     """Prefill's caches (sequence S) zero-padded to ``smax`` positions, the
     layout :func:`decode_step` continues from at ``cache_len = S``. Only
@@ -424,10 +488,12 @@ def _xent_chunk(xc, lc, mc, head):
     return torch.sum(nll), torch.sum(mc)
 
 
-def chunked_xent(params, cfg: ArchConfig, x, labels, mask):
+def chunked_xent(params, cfg: ArchConfig, x, labels, mask, count=None):
     """Mean cross-entropy without materialising (B, S, vocab): chunks of
     ``loss_chunk`` positions, each reduced to (loss sum, count) in order
-    and dropped, each checkpointed where ``cfg.remat``."""
+    and dropped, each checkpointed where ``cfg.remat``. ``count``: the
+    denominator in place of the mask's own count (a data-parallel rank
+    divides its sum by the whole batch's count)."""
     b, s_len, d = x.shape
     c = min(cfg.loss_chunk, s_len)
     nchunks = -(-s_len // c)
@@ -438,7 +504,7 @@ def chunked_xent(params, cfg: ArchConfig, x, labels, mask):
     head = _head(params, cfg).to(x.dtype)
     remat = cfg.remat and torch.is_grad_enabled()
     loss_sum = torch.zeros((), dtype=F32, device=x.device)
-    count = torch.zeros((), dtype=F32, device=x.device)
+    total = torch.zeros((), dtype=F32, device=x.device)
     for i in range(nchunks):
         sl = slice(i * c, (i + 1) * c)
         args = (xp[:, sl], lp[:, sl], mp[:, sl], head)
@@ -447,13 +513,20 @@ def chunked_xent(params, cfg: ArchConfig, x, labels, mask):
         else:
             ls, n = _xent_chunk(*args)
         loss_sum = loss_sum + ls
-        count = count + n
-    return loss_sum / torch.clamp(count, min=1.0)
+        total = total + n
+    return loss_sum / torch.clamp(total if count is None else count, min=1.0)
+
+
+def label_count(batch: dict) -> torch.Tensor:
+    """The positions :func:`forward_loss` averages over (labels ≥ 0; the
+    VLM frontend's image positions carry none), as an f32 scalar."""
+    return torch.sum(batch["labels"] >= 0).to(F32)
 
 
 def forward_loss(params, cfg: ArchConfig, batch: dict,
-                 compute_dtype=torch.bfloat16):
-    """Training forward → scalar mean cross-entropy."""
+                 compute_dtype=torch.bfloat16, count=None):
+    """Training forward → scalar mean cross-entropy (over ``count``
+    positions when given: :func:`chunked_xent`)."""
     x, positions, mask = _embed_inputs(params, cfg, batch, compute_dtype)
     x, _ = backbone(params, cfg, x, positions)
     labels = batch["labels"]
@@ -462,7 +535,8 @@ def forward_loss(params, cfg: ArchConfig, batch: dict,
                           dtype=labels.dtype, device=labels.device)
         labels = torch.cat([pad, labels], dim=1)
     mask = mask & (labels >= 0)
-    return chunked_xent(params, cfg, x, torch.clamp(labels, min=0), mask)
+    return chunked_xent(params, cfg, x, torch.clamp(labels, min=0), mask,
+                        count)
 
 
 def prefill(params, cfg: ArchConfig, batch: dict,

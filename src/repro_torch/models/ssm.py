@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..pshard import P
 from .layers import F32, dot, normal
 
 
@@ -167,6 +168,10 @@ class Mamba2(nn.Module):
     dt], conv_w (K, d_inner + 2·g·N), a_log, dt_bias and d_skip (H,) in
     f32 whatever ``dtype`` is, norm_scale (d_inner,), w_out (d_inner, d)."""
 
+    SPECS = {"w_in": P("embed", "heads"), "conv_w": P(None, "heads"),
+             "a_log": P(None), "dt_bias": P(None), "d_skip": P(None),
+             "norm_scale": P("heads"), "w_out": P("heads", "embed")}
+
     def __init__(self, spec: Mamba2Spec, gen: torch.Generator, dtype=F32):
         super().__init__()
         d, di, n, hh = spec.d_model, spec.d_inner, spec.d_state, spec.n_heads
@@ -264,6 +269,11 @@ class Mlstm(nn.Module):
     (d_inner, H, d_v), w_if (d_inner, 2H) and f_bias (H,) in f32 whatever
     ``dtype`` is, norm_scale (d_inner,), w_down (d_inner, d)."""
 
+    SPECS = {"w_up": P("embed", "heads"), "wq": P(None, "heads", None),
+             "wk": P(None, "heads", None), "wv": P(None, "heads", None),
+             "w_if": P(None, "heads"), "f_bias": P(None),
+             "norm_scale": P("heads"), "w_down": P("heads", "embed")}
+
     def __init__(self, spec: MlstmSpec, gen: torch.Generator, dtype=F32):
         super().__init__()
         d, di, h = spec.d_model, spec.d_inner, spec.n_heads
@@ -360,6 +370,10 @@ class Slstm(nn.Module):
     w_gates (d, 4d), r_gates (H, d_head, 4·d_head) block-diagonal
     recurrent weights, b_gates (4d,) in f32 whatever ``dtype`` is,
     norm_scale (d,), w_up (d, 2·d_up), w_down (d_up, d)."""
+
+    SPECS = {"w_gates": P("embed", "heads"), "r_gates": P("heads", None, None),
+             "b_gates": P(None), "norm_scale": P(None),
+             "w_up": P("embed", "ffn"), "w_down": P("ffn", "embed")}
 
     def __init__(self, spec: SlstmSpec, gen: torch.Generator, dtype=F32):
         super().__init__()

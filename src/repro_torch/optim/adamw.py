@@ -95,16 +95,31 @@ def topk_compress(cfg: OptConfig, grads: dict, err: dict):
     return gs, es
 
 
+def transform(cfg: OptConfig, grads: dict, err: dict | None):
+    """The gradient transforms of a step on whole leaves: the global-norm
+    clip, then top-k compression if on → (grads, err, the norm)."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    if cfg.topk_compress > 0:
+        grads, err = topk_compress(cfg, grads, err)
+    return grads, err, gnorm
+
+
 def update(cfg: OptConfig, state: AdamState, params: dict, grads: dict, *,
            inplace: bool = False):
     """One AdamW step → (new params, new state, metrics). ``inplace``
     writes the new values into ``params`` and the moments (under
     ``torch.no_grad``) and returns those dicts: the arithmetic is the
     same, one leaf at a time."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
-    err = state.err
-    if cfg.topk_compress > 0:
-        grads, err = topk_compress(cfg, grads, err)
+    grads, err, gnorm = transform(cfg, grads, state.err)
+    return apply(cfg, state, params, grads, err, gnorm, inplace=inplace)
+
+
+def apply(cfg: OptConfig, state: AdamState, params: dict, grads: dict,
+          err: dict | None, gnorm: torch.Tensor, *, inplace: bool = False):
+    """The moment and parameter update of :func:`update` on transformed
+    gradients. Elementwise, so a rank's shards of the parameters, the
+    moments and the (transformed, whole-leaf) gradients give the bits of
+    those entries of the whole update."""
     step = state.step + 1
     lr = schedule(cfg, step)
     b1, b2 = cfg.betas

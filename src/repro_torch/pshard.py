@@ -1,0 +1,434 @@
+"""Logical-axis → mesh-axis resolution (MaxText-style sharding rules), the
+reference's ``src/repro/pshard.py`` over a torch ``DeviceMesh``, and the
+collectives that move a sharded leaf between its ranks.
+
+Models annotate parameters and caches with *logical* specs (:class:`P`
+of "embed", "vocab", "heads", …). This module maps them onto the
+physical mesh, dropping any axis whose dimension is not divisible by the
+assigned mesh-axis product (kv = 4 heads cannot shard over 16 model
+ranks: that dim falls back to replication and the divisible dims still
+shard), as the reference does.
+
+A mesh here is a ``torch.distributed.device_mesh.DeviceMesh`` with named
+axes, or a :class:`MeshShape` (names and sizes, no process group) where
+only shapes are asked for (:mod:`repro_torch.launch.mesh`, the per-rank
+byte counts). The reference's ``NamedSharding`` of a leaf becomes a
+:class:`Layout`: the physical spec, the global shape and the mesh, from
+which the rank's local slice follows.
+
+**One process per rank.** The reference's GSPMD partitions one program;
+the port runs one process per rank with explicit collectives
+(:mod:`repro_torch.train.steps`). Activations are local to a rank: the
+rank computes on its rows of the batch with every parameter gathered, so
+:func:`constrain` (the reference's ``with_sharding_constraint``) is the
+identity. The one place where activations cross ranks is MoE routing
+over the whole batch (:func:`repro_torch.models.layers.moe_route`),
+which reads the rank's place in the batch from :func:`batch_shard`.
+
+Every collective goes through :func:`gather`, :func:`all_reduce` or
+:func:`all_gather_rows` and is counted by kind (:func:`collective_counts`).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+import weakref
+from collections.abc import Mapping
+
+import torch
+import torch.distributed as dist
+
+# default logical → physical rules; first applicable wins per logical name
+DEFAULT_RULES: dict[str, tuple[str, ...]] = {
+    "batch": ("pod", "data"),     # data parallel (across pods too)
+    "embed": ("data",),           # fsdp-style weight shard
+    "vocab": ("model",),
+    "heads": ("model",),
+    "kv": ("model",),
+    "ffn": ("model",),
+    "experts": ("model",),
+    "lora": (),                   # replicated (small MLA bottleneck)
+    "tensor": ("model",),
+    "seq": (),                    # sequence sharding off by default
+}
+
+
+class P(tuple):
+    """The reference's ``PartitionSpec``: a tuple of per-dim entries, each
+    ``None``, a name, or a tuple of names; it compares equal to a
+    ``PartitionSpec`` with the same entries."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """A mesh's axis names and sizes without devices or process groups:
+    the reference's ``Mesh`` as far as :func:`resolve_spec` reads it."""
+    axis_names: tuple[str, ...]
+    dims: tuple[int, ...]
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.dims))
+
+    def size(self) -> int:
+        return math.prod(self.dims)
+
+
+def axis_names(mesh) -> tuple[str, ...]:
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is None:
+        names = getattr(mesh, "axis_names", None)
+    if not names:
+        raise ValueError("the mesh needs named axes, e.g. init_device_mesh("
+                         "..., mesh_dim_names=('data', 'model'))")
+    return tuple(names)
+
+
+def axis_sizes(mesh) -> dict[str, int]:
+    """{axis: size} of a ``DeviceMesh``, a :class:`MeshShape` or the
+    reference's ``Mesh``."""
+    shape = mesh.shape
+    if isinstance(shape, Mapping):
+        return dict(shape)
+    return dict(zip(axis_names(mesh), tuple(shape)))
+
+
+def physical_axes(mesh, logical: str | None,
+                  rules: dict | None = None) -> tuple[str, ...]:
+    if logical is None:
+        return ()
+    rules = rules or DEFAULT_RULES
+    axes = rules.get(logical, ())
+    names = axis_names(mesh)
+    return tuple(a for a in axes if a in names)
+
+
+def resolve_spec(mesh, spec, shape: tuple[int, ...],
+                 rules: dict | None = None) -> P:
+    """Logical spec + concrete shape → physical spec (divisibility-checked)."""
+    sizes = axis_sizes(mesh)
+    out = []
+    for dim, logical in zip(shape, tuple(spec) + (None,) * (len(shape)
+                                                          - len(spec))):
+        axes = physical_axes(mesh, logical, rules)
+        size = math.prod(sizes[a] for a in axes)
+        if axes and dim % size == 0:
+            out.append(axes if len(axes) > 1 else axes[0])
+        else:
+            out.append(None)
+    return P(*out)
+
+
+def _dim_axes(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """Where a leaf lives on a mesh: its physical spec (per dim ``None``,
+    an axis or a tuple of axes, as :func:`resolve_spec` returns it) and
+    its global shape. Each rank holds one block: along a dim cut over
+    axes (a₁, a₂, …) the block's index is the rank's coordinates on them,
+    row-major in that order, as ``NamedSharding`` cuts it."""
+    spec: P
+    shape: tuple[int, ...]
+    mesh: object = dataclasses.field(compare=False, repr=False)
+
+    def dim_axes(self, dim: int) -> tuple[str, ...]:
+        return _dim_axes(self.spec[dim])
+
+    @property
+    def axes(self) -> tuple[str, ...]:
+        """The axes the leaf is cut over, in the mesh's order."""
+        used = {a for d in range(len(self.shape)) for a in self.dim_axes(d)}
+        return tuple(a for a in axis_names(self.mesh) if a in used)
+
+    def shards(self, dim: int) -> int:
+        sizes = axis_sizes(self.mesh)
+        return math.prod(sizes[a] for a in self.dim_axes(dim))
+
+    @property
+    def local_shape(self) -> tuple[int, ...]:
+        return tuple(n // self.shards(d) for d, n in enumerate(self.shape))
+
+    def index(self, coord: dict[str, int] | None = None) -> tuple[slice, ...]:
+        """The slice of the global leaf held at ``coord`` ({axis: index};
+        by default this rank's coordinate on a ``DeviceMesh``)."""
+        if coord is None:
+            coord = coordinate(self.mesh)
+        sizes = axis_sizes(self.mesh)
+        out = []
+        for d, n in enumerate(self.shape):
+            block = 0
+            for a in self.dim_axes(d):
+                block = block * sizes[a] + coord[a]
+            width = n // self.shards(d)
+            out.append(slice(block * width, (block + 1) * width))
+        return tuple(out)
+
+    def stacked(self, repeat: int) -> "Layout":
+        """The layout of ``repeat`` such leaves stacked on a new, uncut
+        axis 0 (the reference's stacked segment leaves)."""
+        return Layout(P(None, *self.spec), (repeat, *self.shape), self.mesh)
+
+
+def coordinate(mesh) -> dict[str, int]:
+    """This rank's {axis: index} on a ``DeviceMesh``."""
+    where = mesh.get_coordinate()
+    if where is None:
+        raise ValueError(f"rank {dist.get_rank()} is not in the mesh {mesh}")
+    return dict(zip(axis_names(mesh), where))
+
+
+def resolve_tree(mesh, spec_tree, shape_tree, rules=None):
+    """A tree of logical specs and a matching tree of shapes (tensors,
+    meta tensors, ``torch.Size`` or tuples) → the tree of
+    :class:`Layout`\\ s. Dicts and lists are walked; a :class:`P` (or any
+    tuple of names) in ``spec_tree`` is a leaf."""
+    if isinstance(spec_tree, Mapping):
+        return {k: resolve_tree(mesh, v, shape_tree[k], rules)
+                for k, v in spec_tree.items()}
+    if isinstance(spec_tree, list):
+        return [resolve_tree(mesh, v, s, rules)
+                for v, s in zip(spec_tree, shape_tree)]
+    shape = tuple(getattr(shape_tree, "shape", shape_tree))
+    return Layout(resolve_spec(mesh, spec_tree, shape, rules), shape, mesh)
+
+
+def batch_axes(mesh) -> tuple[str, ...]:
+    names = axis_names(mesh)
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+def batch_spec(mesh, ndim: int, dim0: int | None = None) -> P:
+    """Batch sharding over (pod, data); degrades to the largest prefix whose
+    size divides dim0 (long_500k has global_batch=1 — fully replicated)."""
+    sizes = axis_sizes(mesh)
+    axes = list(batch_axes(mesh))
+    if dim0 is not None:
+        while axes:
+            if dim0 % math.prod(sizes[a] for a in axes) == 0:
+                break
+            axes.pop(0)          # drop "pod" first, then "data"
+    if not axes:
+        return P(*(None,) * ndim)
+    return P(tuple(axes) if len(axes) > 1 else axes[0],
+             *(None,) * (ndim - 1))
+
+
+# ---------------------------------------------------------------------------
+# Activation sharding: identities here (activations are a rank's own)
+# ---------------------------------------------------------------------------
+
+def set_activation_mesh(mesh) -> None:
+    """The reference registers the mesh that :func:`constrain` resolves
+    against; here it does nothing: each rank computes on its own rows
+    with whole parameters, so there is no layout of activations to
+    constrain."""
+
+
+def constrain(x, logical: tuple):
+    """The reference's ``with_sharding_constraint`` by logical names: the
+    identity, since a rank's activations never span ranks (the reference
+    adds the constraints to steer GSPMD's partitioner, which the port does
+    not have)."""
+    return x
+
+
+# ---------------------------------------------------------------------------
+# The rank's place in the batch (MoE routing over the whole batch)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BatchShard:
+    """The batch's rows are cut over ``axes`` of ``mesh`` into ``count``
+    equal blocks, and this rank holds block ``index``."""
+    mesh: object
+    axes: tuple[str, ...]
+    count: int
+    index: int
+
+
+_BATCH: BatchShard | None = None
+
+
+def batch_shard() -> BatchShard | None:
+    """The batch shard of the step running on this rank, or None when the
+    batch is whole on every rank."""
+    return _BATCH
+
+
+@contextlib.contextmanager
+def batch_context(mesh, spec: P):
+    """Within the block, :func:`batch_shard` tells that the batch's rows
+    are cut as ``spec``'s dim 0 over ``mesh`` (a batch spec from
+    :func:`batch_spec`). A whole batch sets nothing."""
+    global _BATCH
+    axes = _dim_axes(spec[0]) if len(spec) else ()
+    prev = _BATCH
+    if axes:
+        sizes, coord = axis_sizes(mesh), coordinate(mesh)
+        index = 0
+        for a in axes:
+            index = index * sizes[a] + coord[a]
+        _BATCH = BatchShard(mesh, axes, math.prod(sizes[a] for a in axes),
+                            index)
+    else:
+        _BATCH = None
+    try:
+        yield _BATCH
+    finally:
+        _BATCH = prev
+
+
+# ---------------------------------------------------------------------------
+# Collectives over mesh axes, counted
+# ---------------------------------------------------------------------------
+
+_COUNTS: dict[str, list[int]] = {}
+
+
+def reset_collectives() -> None:
+    _COUNTS.clear()
+
+
+def collective_counts() -> dict[str, tuple[int, int]]:
+    """{kind: (calls, bytes)} since :func:`reset_collectives`: the bytes
+    are this rank's contribution (the block an all-gather sends, the
+    tensor an all-reduce reduces)."""
+    return {k: (v[0], v[1]) for k, v in sorted(_COUNTS.items())}
+
+
+def _count(kind: str, t: torch.Tensor) -> None:
+    c = _COUNTS.setdefault(kind, [0, 0])
+    c[0] += 1
+    c[1] += t.numel() * t.element_size()
+
+
+# (weakref to the mesh, {axes: (group, ranks in axis order)}), by id(mesh)
+_GROUPS: dict[int, tuple] = {}
+# {ranks: group} made by new_group under the default group in [0]
+_RANK_GROUPS: list = [None, {}]
+
+
+def _ranks_group(ranks: list[int]):
+    """One process group per rank set and default group: a group made with
+    ``use_local_synchronization`` is named after its ranks, so a second
+    one over the same ranks would share the first one's store keys."""
+    world = dist.group.WORLD
+    if _RANK_GROUPS[0] is not world:
+        _RANK_GROUPS[:] = [world, {}]
+    key = tuple(ranks)
+    if key not in _RANK_GROUPS[1]:
+        _RANK_GROUPS[1][key] = dist.new_group(
+            ranks=list(ranks), use_local_synchronization=True)
+    return _RANK_GROUPS[1][key]
+
+
+def _group(mesh, axes: tuple[str, ...]):
+    """(process group, its size, this rank's index, the group ranks of the
+    sub-mesh's members in row-major order over ``axes``) for the sub-mesh
+    over ``axes`` through this rank. A single axis is the mesh's own
+    group; several are made once per mesh and axes with ``new_group``
+    by the sub-mesh's members alone (``use_local_synchronization``: a
+    rank outside the mesh, as after an elastic restart on fewer ranks,
+    takes no part). An axis of size 1 keeps its group, so its
+    collectives run."""
+    hit = _GROUPS.get(id(mesh))
+    if hit is None or hit[0]() is not mesh:
+        hit = (weakref.ref(mesh), {})
+        _GROUPS[id(mesh)] = hit
+    cache = hit[1]
+    if axes not in cache:
+        names = axis_names(mesh)
+        dims = [names.index(a) for a in axes]
+        rest = [d for d in range(len(names)) if d not in dims]
+        size = math.prod(mesh.mesh.shape[d] for d in dims)
+        rows = mesh.mesh.permute(*rest, *dims).reshape(-1, size).tolist()
+        me = dist.get_rank()
+        mine = None
+        for ranks in rows:
+            if me not in ranks:
+                continue
+            group = (mesh.get_group(axes[0]) if len(axes) == 1
+                     else _ranks_group(ranks))
+            order = tuple(dist.get_group_rank(group, r) for r in ranks)
+            mine = (group, size, ranks.index(me), order)
+        if mine is None:
+            raise ValueError(f"rank {me} is not in the mesh {mesh}")
+        cache[axes] = mine
+    return cache[axes]
+
+
+def _all_gather(local: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """(size, *local.shape): every member's block, in row-major order over
+    ``axes``. bfloat16 travels as its bytes (gloo gathers no bfloat16)."""
+    group, size, _, order = _group(mesh, tuple(axes))
+    local = local.contiguous()
+    wire = local.view(torch.uint8) if local.dtype == torch.bfloat16 \
+        else local
+    _count("all_gather", wire)
+    parts = [torch.empty_like(wire) for _ in range(size)]
+    dist.all_gather(parts, wire, group=group)
+    out = torch.stack([parts[r] for r in order])
+    return out.view(local.dtype) if wire is not local else out
+
+
+def gather(local: torch.Tensor, layout: Layout) -> torch.Tensor:
+    """The global leaf from every rank's block: one all-gather over the
+    axes the leaf is cut over (none for a replicated leaf)."""
+    axes = layout.axes
+    if not axes:
+        return local
+    sizes = axis_sizes(layout.mesh)
+    parts = _all_gather(local, axes, layout.mesh)
+    # (s_a for a in axes, *local) → per dim: its axes in spec order, then
+    # its local extent
+    parts = parts.reshape(*(sizes[a] for a in axes), *local.shape)
+    perm = []
+    for d in range(local.dim()):
+        perm += [axes.index(a) for a in layout.dim_axes(d)]
+        perm.append(len(axes) + d)
+    return parts.permute(*perm).reshape(layout.shape)
+
+
+def cut(full: torch.Tensor, layout: Layout) -> torch.Tensor:
+    """This rank's block of a global leaf (a copy; no communication)."""
+    return full[layout.index()].clone()
+
+
+def all_reduce(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """SUM all-reduce of ``t`` in place over the sub-mesh of ``axes``
+    (none: the identity)."""
+    if not axes:
+        return t
+    _count("all_reduce", t)
+    dense = t.contiguous()               # the wire wants dense memory
+    dist.all_reduce(dense, op=dist.ReduceOp.SUM,
+                    group=_group(mesh, tuple(axes))[0])
+    return t if dense is t else t.copy_(dense)
+
+
+def barrier(mesh) -> None:
+    """Wait for every rank of the mesh (not of the world: ranks outside
+    it may have left)."""
+    dist.barrier(group=_group(mesh, axis_names(mesh))[0])
+
+
+def all_gather_rows(local: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Every member's ``local`` concatenated along dim 0 in row-major order
+    over ``axes`` (the batch's row order)."""
+    if not axes:
+        return local
+    parts = _all_gather(local, axes, mesh)
+    return parts.reshape(-1, *local.shape[1:])

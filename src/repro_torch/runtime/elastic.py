@@ -10,13 +10,18 @@ The failure model: a worker dies mid-run. Recovery contract:
      (:class:`repro_torch.data.SyntheticLM`), so a replacement worker
      regenerates its shard exactly;
   3. :func:`run_elastic` drives the loop: on failure it asks
-     ``make_mesh`` for the mesh of the next attempt (possibly smaller),
-     restores the latest checkpoint and resumes from the last committed
-     step.
+     ``make_mesh`` for the mesh of the next attempt (possibly smaller:
+     :func:`repro_torch.launch.mesh.make_mesh_for` of the survivors),
+     restores the latest checkpoint under the new mesh's shardings and
+     resumes from the last committed step.
 
-Here the failure signal is an injected :class:`SimulatedFailure`; a real
-multi-card run would raise it on a collective timeout. Restarts on a
-smaller mesh of cards are ROADMAP item 14d.
+On a mesh every process of the world runs the driver (one process per
+rank): a rank that the next attempt's mesh leaves out returns at once
+(``RunReport.left``), and a sharded state is checkpointed through
+``checkpoint.save(..., shardings=)`` (``shardings_fn``). Here the
+failure signal is an injected :class:`SimulatedFailure`, raised by every
+rank at the same step; a real multi-card run would raise it on a
+collective timeout.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ class RunReport:
     restarts: int
     wall_s: float
     mesh_history: list
+    left: bool = False          # this rank is outside the last mesh
 
 
 def run_elastic(
@@ -60,9 +66,11 @@ def run_elastic(
     step_fn: Callable,          # (mesh, state, step) -> state
     save_fn: Callable,          # (state, step) -> pytree to checkpoint
     total_steps: int,
+    shardings_fn: Callable | None = None,   # (mesh) -> save_fn's layouts
 ) -> RunReport:
     """Generic elastic driver. ``make_mesh(attempt)`` may return a smaller
-    mesh on later attempts (degraded capacity)."""
+    mesh on later attempts (degraded capacity); with ``shardings_fn`` the
+    checkpoints are saved from every rank's shards."""
     t0 = time.perf_counter()
     restarts = 0
     meshes = []
@@ -71,6 +79,10 @@ def run_elastic(
         mesh = make_mesh(restarts)
         meshes.append(getattr(mesh, "shape", None))
         last = ckpt.latest_step(cfg.ckpt_dir)
+        if hasattr(mesh, "get_coordinate") and mesh.get_coordinate() is None:
+            log.info("rank outside the mesh %s: leaving", meshes[-1])
+            return RunReport(last or 0, restarts, time.perf_counter() - t0,
+                             meshes, left=True)
         if last is None:
             state = init_fn(mesh)
             step = 0
@@ -84,7 +96,8 @@ def run_elastic(
                 step += 1
                 if step % cfg.ckpt_every == 0 or step == total_steps:
                     ckpt.save(cfg.ckpt_dir, step, save_fn(state, step),
-                              keep=cfg.keep)
+                              keep=cfg.keep, shardings=None if shardings_fn
+                              is None else shardings_fn(mesh))
             return RunReport(step, restarts, time.perf_counter() - t0, meshes)
         except SimulatedFailure as e:
             restarts += 1

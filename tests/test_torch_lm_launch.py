@@ -62,7 +62,9 @@ def test_train_cli_resume_equals_uninterrupted(tmp_path, capsys):
 
 
 def test_train_cli_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 14d"):
+    """``--mesh 2x1`` in a world of one process exits naming
+    ``torchrun``."""
+    with pytest.raises(SystemExit, match="torchrun --nproc-per-node=2"):
         launch_train.main(CLI + ["--steps", "1", "--mesh", "2x1"])
 
 

@@ -186,12 +186,17 @@ def test_train_loop_loss_decreases():
 
 
 def test_wider_mesh_raises_naming_its_item():
+    """A mesh whose size is not the world's (one process here) raises a
+    ``ValueError`` naming ``torchrun``; a (1, 1) mesh is one device."""
     cfg = TC.get_tiny("yi-9b")
-    with pytest.raises(NotImplementedError, match="item 14d"):
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node=2"):
         TST.make_train_step(cfg, TST.TrainConfig(), (2, 1))
-    with pytest.raises(NotImplementedError, match="item 14d"):
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node=4"):
         TST.init_state(0, cfg, TST.TrainConfig(), (1, 4), device="cpu")
     TST.make_train_step(cfg, TST.TrainConfig(), (1, 1))
+    state, shardings = TST.init_state(0, cfg, TST.TrainConfig(), (1, 1),
+                                      device="cpu")
+    assert shardings is None and int(state.step) == 0
 
 
 def test_prefill_and_decode_steps_cast_like_the_train_step():

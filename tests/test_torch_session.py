@@ -350,7 +350,7 @@ def test_package_imports_neither_jax_nor_the_reference():
         "'launch.serve', 'launch.solve', 'launch.cli', "
         "'checkpoint.checkpoint', 'models.model', 'models.layers', "
         "'optim.adamw', 'train.steps', 'configs', 'runtime.elastic', "
-        "'launch.train'):\n"
+        "'launch.train', 'pshard', 'train.sharding', 'launch.mesh'):\n"
         "    assert 'repro_torch.' + name in sys.modules, name\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
