@@ -96,21 +96,22 @@ Phases, each printing its own lines and seconds:
    against its two single runs;
 11. serve: ``repro_torch.launch.serve.main`` in-process, as a user runs
    ``python -m repro_torch.launch.serve``, at 784 × 50 000 (``--nnz 16
-   --seed 0``, the stream's own σ), 44 queries of 16 λ (``--hi-frac 0.95
+   --seed 0``, the stream's own σ), 20 queries of 16 λ (``--hi-frac 0.95
    --lo-frac 0.1 --solver-tol 1e-6``), ``--b-max 8 --deadline-ms 20
    --queue-cap 64 --max-in-flight 2``, ``--mode compare --repeats 1
    --check-masks 0`` with the bench JSON in a temporary directory: both
-   arms serve 44 of 44 with 0 errors, every served mask equals the direct
+   arms serve 20 of 20 with 0 errors, every served mask equals the direct
    ``session.path`` call on its grid outside the ±1e-4 band of the
    threshold (the queries not bit for bit and their flips counted and
    printed), the fixed arm's trace is
-   5 × (fill, 8/8) then (drain, 4/8) and the continuous arm's 5 × (fill,
+   2 × (fill, 8/8) then (drain, 4/8) and the continuous arm's 2 × (fill,
    8/8) then (deadline or drain, 4/4) (``tail_reason``: the deadline is
    checked first); queries/sec, p50 and p99 of both arms and each
    kernel's launches are printed as readings. Then ``--solver cd --mode
-   continuous`` on the same data with 12 queries (one fill batch and a
-   tail; cut from 44 to keep the smoke's time when phases 17 and 18
-   came): 0 errors, every live step whose union
+   continuous`` on the same data with 8 queries (one fill batch; cut
+   from 44 to 12 to keep the smoke's time when phases 17 and 18 came,
+   and to 8, with the compare run's 44 cut to 20, when phase 24 came):
+   0 errors, every live step whose union
    bucket has at most min(n, ``GRAM_BUCKET_MAX``) columns on
    ``cd_gram_sweep`` and every wider one on matvec CD (the Gram
    crossover), no ``fista_step``;
@@ -123,8 +124,9 @@ Phases, each printing its own lines and seconds:
    every arm a counted path ending in a device sync (the plain versions
    uncalled, ``backend_name == "cuda"``): (a) the paper's Fig. 2 basic
    rules ``safe``, ``dome``, ``strong``, ``edpp`` (``sequential=False``)
-   on unit-normalised columns and y, 50 λ (cut from 100 to keep the
-   smoke near its earlier time once phase 14 was added), tol 1e-6;
+   on unit-normalised columns and y, 20 λ (cut from 100 to keep the
+   smoke near its earlier time once phase 14 was added, then from 50
+   once phase 24 was), tol 1e-6;
    (b) ``gap``,
    ``strong``, ``edpp_cut``, ``gap_cut`` and hybrid ``edpp`` +
    ``strong`` on the default data, 100 λ — each printing its discard
@@ -133,9 +135,13 @@ Phases, each printing its own lines and seconds:
    (c) every new rule on phase 5's 20-λ grid against its unscreened β
    (max|Δβ| ≤ beta_err_tol(y, 1e-6), no discarded feature that the
    unscreened solution needs, after the KKT loop for the strong rule and
-   hybrid), and each ``*_cut`` screen ⊇ its base screen from the base
-   path's state at every step; (d) ``gap``, ``edpp_cut`` and ``strong``
-   on phase 10's batch against 8 single runs (masks outside the ±1e-4
+   hybrid), and each ``*_cut`` screen ⊇ its base screen at every step,
+   from the states of the base's path where (c) ran one (``gap``), else
+   of the cut's own path (any state will do: the two screens share its
+   sphere; the base paths of ``dpp``, ``imp1``, ``imp2``, ``edpp`` and
+   ``seq_safe`` were run for their states until phase 24 came); (d)
+   ``gap``, ``edpp_cut`` and ``strong`` on phase 10's batch against 8
+   single runs (masks outside the ±1e-4
    band of the thresholds the single run tested, flips counted; β within
    beta_err_tol; a GAP flip may also be explained by the two paths' own
    states, since its radius is the duality gap each solve stopped at,
@@ -148,7 +154,8 @@ Phases, each printing its own lines and seconds:
    version called): masks equal at every step, and per tenth of the grid
    the re-tested columns, passes, screen bytes and screen seconds of both
    arms; every rule of ``BF16_FAST_RULES`` on phase 5's 20-λ grid against
-   its float32 arm (phase 13's where it ran one); phase 10's B = 8 batch
+   its own float32 arm, both at ``BF16_RULE_MAX_ITER`` iterations a step
+   (cut from 5 000 when phase 24 came); phase 10's B = 8 batch
    with ``edpp``, ``gap`` and ``edpp_cut`` against its float32 batch;
    ``solve --screen-dtype bfloat16`` (20 λ) against phase 12's solve;
 16. bf16 solve (``solve_dtype="bfloat16"``, run after phase 14) at
@@ -187,10 +194,12 @@ Phases, each printing its own lines and seconds:
    against a cold ``fit`` of the edited X (timed the same way, with its
    bf16 copy, bound and workspace attach): X, ‖x_j‖², ‖x_j‖, the bf16
    copy, its bound, the workspace's |Xᵀy|, argmax and λ_max bit for bit,
-   then a 100-λ EDPP path of each after ``reset_solver_cache()``: masks
-   bit for bit, β within beta_err_tol; then on a (1, 1) NCCL mesh a
-   balanced edit and a mixed one (64 dropped, 128 added) against the
-   unsharded session's same update (arrays and 100-λ masks bit for bit),
+   then a 20-λ EDPP path of each at 500 iterations a step
+   (``UPDATE_LAMBDAS``, ``UPDATE_MAX_ITER``, cut from 100 and 5 000 when
+   phase 24 came) after ``reset_solver_cache()``: masks bit for bit, β
+   within beta_err_tol; then on a (1, 1) NCCL mesh a balanced edit and a
+   mixed one (64 dropped, 128 added) against the unsharded session's same
+   update (arrays and 20-λ masks bit for bit),
    with the bytes the relayout received. Phase 3 adds the fused pass on
    2 500 columns launched with ``wide_p=50 000``: ‖x_j‖² and scores bit
    for bit the full pass's at those columns, and its row against the
@@ -229,7 +238,8 @@ Phases, each printing its own lines and seconds:
    ``LM_PREFILL`` tokens then ``LM_DECODE`` decode steps (the serving
    steps), in f32 and bf16, against the full forward's logits
    (``LM_DECODE_TOL``); (d) ``python -m repro_torch.launch.train --arch
-   yi-9b --tiny --steps 10`` on the card; (e) the FFN-pruning bridge
+   yi-9b --tiny --steps 10`` on the card (started before the phase and
+   run beside (a)–(c)); (e) the FFN-pruning bridge
    (``examples/prune_ffn_torch.py``) on (a)'s model: layer 0's FFN
    activations on a ``LM_PROBE``-token probe, H (2048 × 11 008), group
    EDPP over neurons (m = 1) against ``rule="none"``, 20 λ down to
@@ -254,13 +264,16 @@ Phases, each printing its own lines and seconds:
    set differs from the forward's counted, and printed in bf16 or on a
    miss); (c) ``python -m repro_torch.launch.train --arch
    moonshot-v1-16b-a3b --tiny --steps 10`` on the card, its losses
-   finite. No kernel of the six runs in it: ``ops.launch_counts()`` is
+   finite (started, with 20(d)'s run, before phase 20, and run beside
+   it). No kernel of the six runs in it: ``ops.launch_counts()`` is
    the same before and after;
 22. the recurrent architectures (run after 21), each at its published
-   width and full depth (``SSM_WIDTH``; no cut): (a) zamba2-1.2b (38
-   Mamba2 blocks and 6 applications of the one shared attention + FFN
-   block) and (b) xlstm-350m (21 mLSTM and 3 sLSTM blocks, bf16 AdamW
-   moments), each ``SSM_STEPS`` train steps on one fixed batch (phase
+   width (``SSM_WIDTH``, held on the published config): (a) zamba2-1.2b
+   at full depth (38 Mamba2 blocks and 6 applications of the one shared
+   attention + FFN block) and (b) xlstm-350m at its first super-block
+   of 3 (7 mLSTM and 1 sLSTM blocks of 21 and 3, ``SSM_SUPER``: cut when
+   phase 24 came, for the smoke's time; bf16 AdamW moments), each
+   ``SSM_STEPS`` train steps on one fixed batch (phase
    20's sequence, batch, rate and bf16 compute): the loss finite, and
    for zamba2 falling every step (xlstm's gradient norm passes the clip
    by 12 orders: ``SSM_STEPS``), the parameter count the reference's
@@ -302,6 +315,21 @@ Phases, each printing its own lines and seconds:
    nemotron-4-340b on (1, 1), (16, 16) and (2, 16, 16) from
    ``pshard.resolve_tree`` on meta-device shapes; the launch and
    plain-version counters the same before and after;
+24. the dry run (run after 23, ROADMAP item 14e): (a) phase 20's config
+   and (b) phase 21's, each traced once by ``repro_torch.launch.dryrun.
+   trace_step`` on fake CUDA tensors (nothing allocated) and run once for
+   real under the same ``hlo_cost.CostMode``: the counted flops equal;
+   a plain step's ``max_memory_allocated`` within ``DRYRUN_PEAK_BAND``
+   of the tracked peak; its wall beside the dry run's ``bytes_fused``,
+   roofline ``t_compute`` and the step's share of the bf16 peak; (c)
+   ``dist_edpp_screen_cached`` and ``dist_fista`` (10 iterations,
+   ``"chunked"``, ``capture=False``) at 784 × 50 000 on an NCCL world of
+   1 against their dry run on a fake world of 1: each kernel's launches
+   equal its charged launches, a ``screen_matvec`` charge's bytes the
+   bound column's; (d) ``python -m repro_torch.launch.dryrun`` for
+   yi-9b decode_32k and lasso-screen-16m on (16, 16), started first and
+   run beside the rest: each record ``ok``, printed on one line. Every
+   failure of (a)–(d) is gathered and raised at the end;
 15. summary: one JSON line of per-kernel numbers (with, for
    ``screen_matvec``, ``fista_step`` and ``cd_gram_sweep``, the batched
    path's launches and its B = 8 row at its own shapes, for
@@ -340,7 +368,7 @@ they fell at every step: the reading ``LM_LR`` was chosen from.
 
 ``python3 chip_smoke.py --moe`` runs phase 1 and then phase 21 alone;
 ``--ssm`` phase 1 and then phase 22 alone; ``--shard`` phase 1 and then
-phase 23 alone.
+phase 23 alone; ``--dryrun`` phase 1 and then phase 24 alone.
 
 Each path phase sets every launch counter to 0 just before it and reads
 them just after: each kernel the path runs must have launched, and no
@@ -369,8 +397,10 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
-F32_FLOPS_PER_S = 67e12     # H100 SXM float32 rate outside the tensor cores
+# the kernels' cost rules and the H100 SXM rates they read
+# (src/repro_torch/kernels/cost.py): load_cost_rules() binds them here
+HBM_BYTES_PER_S = F32_FLOPS_PER_S = None
+bound = cd_bound = prox_bound = group_bound = None
 REPS = 20
 RUN = 4          # back-to-back launches timed together (cluster_choice)
 GRAPH_RUN = 25   # calls per timed run or graph (prox step, dist_fista pieces)
@@ -407,12 +437,23 @@ SOURCES = {
 }
 
 
+T_START = time.perf_counter()
+
+
 @contextlib.contextmanager
 def phase(name: str):
+    """A phase's header and seconds on stdout; the same two lines, with the
+    seconds since the script started, on stderr, whose tail then says which
+    phase a run that was stopped had reached."""
     t0 = time.perf_counter()
     print(f"== {name}", flush=True)
+    print(f"[{t0 - T_START:.1f} s] start: {name}", file=sys.stderr,
+          flush=True)
     yield
-    print(f"== {name}: {time.perf_counter() - t0:.2f} s", flush=True)
+    t1 = time.perf_counter()
+    print(f"== {name}: {t1 - t0:.2f} s", flush=True)
+    print(f"[{t1 - T_START:.1f} s] end: {name} ({t1 - t0:.2f} s)",
+          file=sys.stderr, flush=True)
 
 
 def make_dataset(n: int, p: int, seed: int = 0):
@@ -476,34 +517,24 @@ def graph_ms(torch, fn, k: int) -> float:
     return event_ms(torch, graph.replay) / k
 
 
-def bound(op: str, n: int, p: int, B: int,
-          x_bytes: int = 4) -> tuple[float, str]:
-    """Least time on an H100 SXM: each input read once, each output written
-    once, over 3.35 TB/s, against the flops over the float32 rate; X's
-    elements take ``x_bytes`` (2 for the bf16 screen copy), the rest 4."""
-    words = {"screen_matvec": B * n + B * p,
-             "edpp_screen_scores": B * n + B * p + p,
-             "fista_step": B * n + 4 * B * p}[op]
-    flops = {"screen_matvec": 2 * B * n * p,
-             "edpp_screen_scores": 2 * B * n * p + 2 * n * p + 3 * B * p,
-             "fista_step": 2 * B * n * p + 6 * B * p}[op]
-    t_bytes = (4.0 * words + x_bytes * n * p) / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def cd_bound(p: int, B: int, sweeps: int,
-             masked: bool) -> tuple[float, str]:
-    """The Gram sweep's byte/flop bound: G, the (B, p) c and β (and
-    ``valid`` when given) read once, β' written once, the B per-query λ
-    read when B > 1 (one λ is passed by value), against
-    2·B·(sweeps + 1)·p² flops (q₀ = βG and one rank-1 update of q per
-    coordinate). Its real limit is the chain of sweeps·p dependent
-    coordinate steps, printed beside it."""
-    vectors = (4 if masked else 3) * B * p + (B if B > 1 else 0)
-    t_bytes = 4.0 * (p * p + vectors) / HBM_BYTES_PER_S * 1e3
-    t_ops = 2.0 * B * (sweeps + 1) * p * p / F32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def load_cost_rules() -> None:
+    """Bind the kernels' cost rules (``bound``, ``cd_bound``,
+    ``prox_bound``, ``group_bound``) and the card's rates from this
+    checkout's ``src/repro_torch/kernels/cost.py``, loaded by its path:
+    ``--kernels --tree DIR`` times another tree's kernels against the
+    same bounds, and the dry run (phase 24) charges a fake launch by the
+    same rules."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_kernel_cost",
+        os.path.join(HERE, "src", "repro_torch", "kernels", "cost.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    g = globals()
+    g.update(HBM_BYTES_PER_S=mod.H100_HBM_BYTES_PER_S,
+             F32_FLOPS_PER_S=mod.H100_F32_FLOPS_PER_S, bound=mod.bound,
+             cd_bound=mod.cd_bound, prox_bound=mod.prox_bound,
+             group_bound=mod.group_bound)
 
 
 # The column pass's MODE template argument per op (csrc/colpass.cuh)
@@ -683,10 +714,7 @@ def check_group(torch, kernels, ref, n: int, p: int, m: int,
     ms = event_ms(torch, lambda: kernels.group_screen_scores(X, c, m))
     plain_ms = event_ms(torch, lambda: ref.group_screen_ref(X, c, m))
     matmul_ms = event_ms(torch, lambda: torch.matmul(c, X))
-    t_bytes = 4.0 * (n * p + n + p // m) / HBM_BYTES_PER_S * 1e3
-    t_ops = (2.0 * n * p + 2.0 * p) / F32_FLOPS_PER_S * 1e3
-    bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
-                          else (t_ops, "operations"))
+    bound_ms, bound_by = group_bound(n, p, m)
     plan = group_plan_line(kernels, X, m, ptxas or {})
     row = {"op": "group_screen_scores", "n": n, "p": p, "m": m,
            "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
@@ -704,15 +732,6 @@ def check_group(torch, kernels, ref, n: int, p: int, m: int,
     del X, c
     torch.cuda.empty_cache()
     return row
-
-
-def prox_bound(p: int, B: int, parts: int = 1) -> tuple[float, str]:
-    """The prox step's bound: z, β_old and the ``parts`` gradient parts
-    read, β' and z' written, (parts + 4)·B·p·4 bytes, against
-    (parts + 7)·B·p flops (the parts' sums, then 8 per element)."""
-    t_bytes = 4.0 * (parts + 4) * B * p / HBM_BYTES_PER_S * 1e3
-    t_ops = (parts + 7.0) * B * p / F32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def check_prox(torch, prox_step, ref, p: int, B: int, per_query: bool,
@@ -1790,7 +1809,8 @@ def batched_phase(torch) -> dict:
 
 
 BASIC_RULES = ("safe", "dome", "strong", "edpp")   # the paper's Fig. 2
-BASIC_LAMBDAS = 50   # phase 13(a)'s depth, cut from 100 when phase 14 came
+BASIC_LAMBDAS = 20   # phase 13(a)'s depth, cut from 100 when phase 14 came,
+                     # then from 50 when phase 24 came
 SEQ_RULES = (("gap", False), ("strong", False), ("edpp_cut", False),
              ("gap_cut", False), ("edpp", True))  # (rule, hybrid strong)
 EXACT_RULES = (("gap", False), ("strong", False), ("dome", False),
@@ -2005,19 +2025,17 @@ def rules_phase(torch, X, y, none_arm) -> dict:
               f"{res.masks[0].mean():.4f}; kkt rounds "
               f"{sum(s.kkt_rounds for s in res.stats)}; wall {wall:.2f} s")
         assert err <= tol and unsafe == 0, name
-    # cut ⊇ base: from the base path's own state at every step, the cut
-    # screen discards whatever the base screen does (the same state, so
-    # the same sphere); the two paths' masks are printed beside it
+    # cut ⊇ base: from one state at every step, the cut screen discards
+    # whatever the base screen does (the same state, so the same sphere):
+    # the base path's states where (c) ran it, else the cut path's own;
+    # the two paths' masks are printed beside it where both ran
     eng = ScreeningEngine(sess.X, torch.as_tensor(y, device=DEVICE),
                           geometry=sess.geometry)
     for base in ("dpp", "imp1", "imp2", "edpp", "seq_safe", "gap"):
-        ref_path = paths.get(base)
-        if ref_path is None:
-            ops.reset_counts()
-            ref_path = sess.path(y, grid, config=cfg(base))
-            torch.cuda.synchronize()
-            counted(ops, needed)
         cut_path = paths[base + "_cut"]
+        ref_path = paths.get(base)
+        states, src = ((ref_path, base) if ref_path is not None
+                       else (cut_path, base + "_cut"))
         state, missed, extra = eng.state_at_lambda_max(), 0, 0
         for k, lam in enumerate(grid):
             if lam >= eng.lam_max:
@@ -2026,13 +2044,14 @@ def rules_phase(torch, X, y, none_arm) -> dict:
             m_cut = eng.screen(float(lam), state, base + "_cut")
             missed += int((m_base & ~m_cut).sum())
             extra += int((m_cut & ~m_base).sum())
-            beta = torch.as_tensor(ref_path.betas[0, k], dtype=torch.float32,
+            beta = torch.as_tensor(states.betas[0, k], dtype=torch.float32,
                                    device=DEVICE)
             state = eng.make_state(beta, float(lam))
-        on_paths = int((ref_path.masks[0] & ~cut_path.masks[0]).sum())
-        print(f"  {base}_cut ⊇ {base}: from {base}'s states, columns the cut "
+        on_paths = ("" if ref_path is None else "; on the two paths "
+                    f"{int((ref_path.masks[0] & ~cut_path.masks[0]).sum())}")
+        print(f"  {base}_cut ⊇ {base}: from {src}'s states, columns the cut "
               f"keeps and {base} discards {missed} (cut discards {extra} "
-              f"more); on the two paths {on_paths}")
+              f"more){on_paths}")
         assert missed == 0, base
     del sess, eng
 
@@ -2087,11 +2106,17 @@ def rules_phase(torch, X, y, none_arm) -> dict:
               f"beta_err_tol per query; walls batched {wall:.2f} s, singles "
               f"{sum(walls):.2f} s")
     del sess, Xd64
-    return {"launches": total, "exact": paths, "grid": grid}
+    return {"launches": total, "grid": grid}
 
 
 BF16_CASES = ((*MNIST, 1), (*MNIST, 8), (*MNIST, 16), (*SVHN, 1))
 BF16_BATCH_RULES = ("edpp", "gap", "edpp_cut")
+# the solver's iterations a step (max_iter) on both arms of every bf16
+# rule's comparison on phase 5's grid: the two arms run the same solves
+# on the same masks, so the cap keeps the check whole (masks equal, β bit
+# for bit) and cuts the depth of each solve (from 5 000, with phase 13's
+# arms reused as the float32 ones, when phase 24 came)
+BF16_RULE_MAX_ITER = 500
 
 
 def bf16_deciles(arms: dict) -> str:
@@ -2115,8 +2140,9 @@ def bf16_deciles(arms: dict) -> str:
 def bf16_phase(torch, X, y, rules: dict, solved: dict) -> dict:
     """The mixed-precision screen at 784 × 50 000 (see the module doc):
     the 100-λ EDPP path in bf16 against float32, every bf16 rule on phase
-    5's 20-λ grid against its float32 arm (phase 13's where it ran one),
-    phase 10's batch in bf16 against float32, and ``solve --screen-dtype
+    5's 20-λ grid against its own float32 arm (both at
+    ``BF16_RULE_MAX_ITER`` iterations a step), phase 10's batch in bf16
+    against float32, and ``solve --screen-dtype
     bfloat16`` against phase 12's solve; the float32 re-test's dots against
     the wide pass's. Each bf16 mask must equal its float32 mask at every
     step. Returns the launches of the bf16 EDPP path and of every arm."""
@@ -2133,7 +2159,7 @@ def bf16_phase(torch, X, y, rules: dict, solved: dict) -> dict:
     needed = {"float32": ("screen_matvec", "fista_step"),
               "bfloat16": ("screen_matvec_bf16", "fista_step")}
 
-    def cfg(rule, dtype):
+    def cfg(rule, dtype, solve=solve):
         return PathConfig(screen=ScreenSpec(rule=rule, screen_dtype=dtype),
                           solve=solve)
 
@@ -2191,26 +2217,27 @@ def bf16_phase(torch, X, y, rules: dict, solved: dict) -> dict:
           "/ screen s")
     print(bf16_deciles(arms))
 
-    # 2. every bf16 rule on phase 5's 20-λ grid
+    # 2. every bf16 rule on phase 5's 20-λ grid, both arms capped at
+    # BF16_RULE_MAX_ITER iterations a step
     grid = rules["grid"]
-    print(f"every bf16 rule on phase 5's grid (20 λ, tol 1e-6), against "
-          f"its float32 arm:")
+    capped = SolveSpec(tol=1e-6, max_iter=BF16_RULE_MAX_ITER)
+    print(f"every bf16 rule on phase 5's grid (20 λ, tol 1e-6, max_iter "
+          f"{BF16_RULE_MAX_ITER}), against its float32 arm:")
     for rule in BF16_FAST_RULES:
-        f32 = rules["exact"].get(rule)
-        src = "phase 13's arm"
-        if f32 is None:
-            f32, _, _ = rule_arm(torch, ops, sess, y, cfg(rule, "float32"),
-                                 needed["float32"], total, lambdas=grid)
-            src = "its own arm"
-        res, wall, _ = rule_arm(torch, ops, sess, y, cfg(rule, "bfloat16"),
+        f32, wall32, _ = rule_arm(torch, ops, sess, y,
+                                  cfg(rule, "float32", capped),
+                                  needed["float32"], total, lambdas=grid)
+        res, wall, _ = rule_arm(torch, ops, sess, y,
+                                cfg(rule, "bfloat16", capped),
                                 needed["bfloat16"], total, lambdas=grid)
         beq, live = same(f32, res, rule)
         ratio = (sum(s.screen_bytes for s in res.stats)
                  / sum(s.screen_bytes for s in f32.stats))
-        print(f"  {rule:<13} masks equal ({src}), betas bit for bit {beq}; "
+        print(f"  {rule:<13} masks equal, betas bit for bit {beq}; "
               f"re-tested columns {sum(s.fallback_cols for s in live)}; "
               f"x_passes {sorted({s.x_passes for s in live})}; screen "
-              f"bytes {ratio:.3f} of float32; wall {wall:.2f} s")
+              f"bytes {ratio:.3f} of float32; walls {wall:.2f} s against "
+              f"{wall32:.2f} s")
     del sess
 
     # 3. phase 10's batch
@@ -2629,6 +2656,12 @@ def mesh_bf16_phase(torch, X, y, solved: dict) -> dict:
 
 CHURN = 0.05        # benchmarks/bench_update.py's CHURN_FRAC
 APPEND = 64         # the append round's columns
+# the λ of each EDPP path that holds an update to its cold refit (and of
+# the mesh rounds'), and the solver's iterations a step on both (the two
+# paths run the same solves on bit-identical arrays): cut from 100 and
+# 5 000 to keep the smoke within half its limit when phase 24 came
+UPDATE_LAMBDAS = 20
+UPDATE_MAX_ITER = 500
 
 
 def edited(Xh: np.ndarray, drop, add) -> np.ndarray:
@@ -2651,12 +2684,13 @@ def refit_contract(torch, sess, ws, X_ed, Y, y, cold_state=None) -> dict:
     """The oracle-refit contract of one update at full width: the
     session's geometry and live workspace against a cold fit of X_ed
     (timed: fit, bf16 copy, its bound and the workspace attach, ended in
-    a sync), bit for bit, then a 100-λ EDPP path of each after
+    a sync), bit for bit, then an ``UPDATE_LAMBDAS``-λ EDPP path of each
+    after
     ``reset_solver_cache()``: masks bit for bit, β within beta_err_tol.
     Returns the readings."""
     from repro_torch import LassoSession, PathConfig, SolveSpec
     from repro_torch.core import PathWorkspace
-    cfg = PathConfig(solve=SolveSpec(tol=1e-6))
+    cfg = PathConfig(solve=SolveSpec(tol=1e-6, max_iter=UPDATE_MAX_ITER))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     cold = LassoSession.fit(X_ed, config=cfg, device=DEVICE)
@@ -2680,8 +2714,8 @@ def refit_contract(torch, sess, ws, X_ed, Y, y, cold_state=None) -> dict:
         "X_host": np.array_equal(g.X.cpu().numpy(), X_ed)}
     sess.reset_solver_cache()
     t0 = time.perf_counter()
-    ru = sess.path(y, num_lambdas=100, config=cfg)
-    rc = cold.path(y, num_lambdas=100, config=cfg)
+    ru = sess.path(y, num_lambdas=UPDATE_LAMBDAS, config=cfg)
+    rc = cold.path(y, num_lambdas=UPDATE_LAMBDAS, config=cfg)
     torch.cuda.synchronize()
     err = float(np.abs(ru.betas - rc.betas).max())
     out = {"arrays": arrays, "masks": np.array_equal(ru.masks, rc.masks),
@@ -2705,7 +2739,7 @@ def update_phase(torch, X, y) -> dict:
     rng = np.random.default_rng(18)
     Y = batch_from(X, y, BATCH, seed=18)
     c = int(CHURN * p)
-    cfg = PathConfig(solve=SolveSpec(tol=1e-6))
+    cfg = PathConfig(solve=SolveSpec(tol=1e-6, max_iter=UPDATE_MAX_ITER))
     sess = LassoSession.fit(X, config=cfg, device=DEVICE)
     sess.geometry.screen_copy(torch.bfloat16)
     sess.geometry.screen_err(torch.bfloat16)
@@ -2745,8 +2779,9 @@ def update_phase(torch, X, y) -> dict:
         print(f"  {name:<10} p {rep.p}: update {update_s * 1e3:.2f} ms, "
               f"cold refit {r['refit_s'] * 1e3:.2f} ms (ratio "
               f"{update_s / r['refit_s']:.3f}); arrays bit for bit "
-              f"{all(r['arrays'].values())}; 100-λ masks bit for bit "
-              f"{r['masks']}, max|dbeta| {r['dbeta']:.3g}; argmax rescans "
+              f"{all(r['arrays'].values())}; {UPDATE_LAMBDAS}-λ masks bit "
+              f"for bit {r['masks']}, max|dbeta| {r['dbeta']:.3g}; argmax "
+              f"rescans "
               f"{rep.argmax_rescans}; geometry_version {r['versions']}; "
               f"launches {r['launches']}; the two paths {r['paths_s']:.2f} "
               f"s, the round {time.perf_counter() - t_round:.2f} s",
@@ -2788,8 +2823,8 @@ def update_phase(torch, X, y) -> dict:
                  gu.screen_err(torch.bfloat16))))
             for s in (msess, usess):
                 s.reset_solver_cache()
-            rm = msess.path(y, num_lambdas=100, config=cfg)
-            ru = usess.path(y, num_lambdas=100, config=cfg)
+            rm = msess.path(y, num_lambdas=UPDATE_LAMBDAS, config=cfg)
+            ru = usess.path(y, num_lambdas=UPDATE_LAMBDAS, config=cfg)
             masks = np.array_equal(rm.masks, ru.masks)
             dbeta = float(np.abs(rm.betas - ru.betas).max())
             moved = gm.last_update_bytes
@@ -2799,9 +2834,8 @@ def update_phase(torch, X, y) -> dict:
             print(f"  mesh {name:<8} p {msess.shape[1]}: update "
                   f"{mesh_s * 1e3:.2f} ms, {moved / 1e6:.1f} MB received "
                   f"in the relayout's all-gathers; arrays bit for bit the "
-                  f"unsharded "
-                  f"update's {same}; 100-λ masks bit for bit {masks}, "
-                  f"max|dbeta| {dbeta:.3g}", flush=True)
+                  f"unsharded update's {same}; {UPDATE_LAMBDAS}-λ masks bit "
+                  f"for bit {masks}, max|dbeta| {dbeta:.3g}", flush=True)
             assert same and masks and dbeta <= beta_err_tol(y, 1e-6)
         del msess, usess
     return {"launches": dict(launches), "rounds": rounds,
@@ -2878,10 +2912,7 @@ def check_wide_group(torch, kernels, ref, n: int, p: int, m: int,
         blk, c, m, wide_p=p))
     plain_ms = event_ms(torch, lambda: ref.group_screen_ref(blk, c, m))
     matmul_ms = event_ms(torch, lambda: torch.matmul(c, blk))
-    t_bytes = 4.0 * (n * half + n + half // m) / HBM_BYTES_PER_S * 1e3
-    t_ops = (2.0 * n * half + 2.0 * half) / F32_FLOPS_PER_S * 1e3
-    bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
-                          else (t_ops, "operations"))
+    bound_ms, bound_by = group_bound(n, half, m)
 
     def plan(pl):
         return (f"grid={pl.grid} cluster={pl.split} vec={pl.vec} "
@@ -3207,7 +3238,48 @@ def lm_lr_sweep(torch) -> dict:
     return out
 
 
-def lm_phase(torch, tmp: str) -> dict:
+def stop_all(procs) -> None:
+    """Kill and reap each of ``procs`` (``subprocess.Popen``) still
+    running."""
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def start_cli(arch: str, tmp: str) -> tuple:
+    """``python -m repro_torch.launch.train --arch <arch> --tiny --steps
+    10`` started on the card, as a user runs it. Returns what
+    :func:`finish_cli` takes."""
+    argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            arch, "--tiny", "--steps", "10"]
+    if DEVICE != "cuda":
+        argv += ["--device", DEVICE]
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=tmp,
+                            env=dict(os.environ, PYTHONPATH=os.path.join(
+                                HERE, "src")))
+    return argv, proc, time.perf_counter()
+
+
+def finish_cli(label: str, run: tuple) -> str:
+    """Wait for a :func:`start_cli` run: it exits 0 after its 10 steps.
+    Prints its output; returns its stdout."""
+    argv, proc, t0 = run
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        stop_all([proc])
+    print(f"({label}) {' '.join(argv[1:])}: exit {proc.returncode}, "
+          f"{time.perf_counter() - t0:.2f} s from its start")
+    for line in out.splitlines():
+        print(f"    {line}")
+    assert proc.returncode == 0, err[-3000:]
+    assert "10 steps in" in out
+    return out
+
+
+def lm_phase(torch, tmp: str, cli=None) -> dict:
     """Phase 20, the LM stack at yi-9b's width (see the module doc): (a)
     train steps on a fixed batch, (b) a checkpoint round trip and the
     resumed step, (c) prefill + decode against the full forward, (d)
@@ -3344,21 +3416,9 @@ def lm_phase(torch, tmp: str) -> dict:
         del caches, got, want
     torch.cuda.empty_cache()
 
-    # (d) the entry point, as a user runs it, on the card
-    argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-            LM_ARCH, "--tiny", "--steps", "10"]
-    if DEVICE != "cuda":
-        argv += ["--device", DEVICE]
-    t0 = time.perf_counter()
-    out = subprocess.run(argv, capture_output=True, text=True, timeout=600,
-                         cwd=tmp, env=dict(os.environ, PYTHONPATH=os.path.join(
-                             HERE, "src")))
-    print(f"(d) {' '.join(argv[1:])}: exit {out.returncode}, "
-          f"{time.perf_counter() - t0:.2f} s")
-    for line in out.stdout.splitlines():
-        print(f"    {line}")
-    assert out.returncode == 0, out.stderr[-3000:]
-    assert "10 steps in" in out.stdout
+    # (d) the entry point, as a user runs it, on the card (started with
+    # the phase, or by the caller before it)
+    finish_cli("d", cli or start_cli(LM_ARCH, tmp))
 
     # (e) the FFN-pruning bridge on (a)'s model at full width
     ex = lm_example()
@@ -3473,7 +3533,7 @@ def moe_routes():
         L.moe_route = orig
 
 
-def moe_phase(torch, tmp: str) -> None:
+def moe_phase(torch, tmp: str, cli=None) -> None:
     """Phase 21, MoE and MLA at deepseek-v2-lite's width (see the module
     doc): (a) train steps on a fixed batch with each MoE layer's drop
     share at step 0, (b) prefill + decode against the full forward at the
@@ -3608,22 +3668,10 @@ def moe_phase(torch, tmp: str) -> None:
     del model, state
     torch.cuda.empty_cache()
 
-    # (c) the entry point, as a user runs it, on the card
-    argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-            MOE_CLI_ARCH, "--tiny", "--steps", "10"]
-    if DEVICE != "cuda":
-        argv += ["--device", DEVICE]
-    t0 = time.perf_counter()
-    out = subprocess.run(argv, capture_output=True, text=True, timeout=600,
-                         cwd=tmp, env=dict(os.environ, PYTHONPATH=os.path.join(
-                             HERE, "src")))
-    print(f"(c) {' '.join(argv[1:])}: exit {out.returncode}, "
-          f"{time.perf_counter() - t0:.2f} s")
-    for line in out.stdout.splitlines():
-        print(f"    {line}")
-    assert out.returncode == 0, out.stderr[-3000:]
-    assert "10 steps in" in out.stdout
-    cli_losses = [float(x) for x in re.findall(r"loss\s+(\S+)", out.stdout)]
+    # (c) the entry point, as a user runs it, on the card (started with
+    # the phase, or by the caller before it)
+    out = finish_cli("c", cli or start_cli(MOE_CLI_ARCH, tmp))
+    cli_losses = [float(x) for x in re.findall(r"loss\s+(\S+)", out)]
     assert cli_losses and np.isfinite(cli_losses).all(), cli_losses
 
     after = dict(ops.launch_counts())
@@ -3638,9 +3686,14 @@ def moe_phase(torch, tmp: str) -> None:
 # block, 32 heads of 64, d_ff 8 192, applied after every 6th Mamba2 block;
 # vocab 32 000) and xlstm-350m (21 mLSTM and 3 sLSTM blocks, d_model
 # 1 024, 4 heads; vocab 50 304): 1.10e9 and 3.89e8 parameters, 13.3 and
-# 4.7 GB of f32 masters and moments, so no depth cut
+# 4.7 GB of f32 masters and moments. xlstm's depth is cut all the same,
+# to its first super-block of 7 mLSTM and 1 sLSTM blocks (``SSM_SUPER``;
+# cut when phase 24 came: its sLSTM loops' host time, 92 % of a step,
+# took 60–92 s of the smoke's limit at full depth)
 SSM_ARCHS = ("zamba2-1.2b", "xlstm-350m")
-# the widths and depths phase 22 holds each config to
+SSM_SUPER = {"xlstm-350m": 1}      # super-blocks kept, of 3
+# the widths and depths of the published configs, which phase 22 holds
+# before its cut
 SSM_WIDTH = {
     # d_model, Mamba2 blocks, d_state, head_dim, heads, shared-block
     # applications, its heads, d_head and d_ff, vocab
@@ -3648,7 +3701,9 @@ SSM_WIDTH = {
     # d_model, mLSTM blocks, sLSTM blocks, heads, vocab
     "xlstm-350m": (1024, 21, 3, 4, 50304),
 }
-SSM_PARAMS = {"zamba2-1.2b": 1_104_777_344, "xlstm-350m": 388_529_236}
+# the parameters trained: zamba2 whole, xlstm at its cut depth (its whole
+# 388 529 236)
+SSM_PARAMS = {"zamba2-1.2b": 1_104_777_344, "xlstm-350m": 163_851_292}
 # train steps on the fixed batch. An xlstm step takes 27–35 s on an H100
 # 80GB HBM3 at 700 W (the sLSTM loops' host time), so 2, cut from
 # LM_STEPS to keep the smoke in its limit. Its loss need not fall: at
@@ -3669,8 +3724,23 @@ GRAD_SEQ = 512          # block_grads' sequence: two mLSTM chunks of 256
 GRAD_F32_TOL = 1e-4     # a leaf's relative distance, card f32 to CPU f32
 GRAD_BF16_RATIO = 2.0   # card bf16 against the CPU's own bf16 distance,
                         # the factor the CPU train tests allow
-SSM_PHASE = (f"recurrent archs: {' and '.join(SSM_ARCHS)} at full width and "
-             f"depth, seq {LM_SEQ}, batch {LM_BATCH}")
+SSM_PHASE = (f"recurrent archs: {' and '.join(SSM_ARCHS)} at full width, "
+             f"zamba2 at full depth, xlstm at 1 of 3 super-blocks; seq "
+             f"{LM_SEQ}, batch {LM_BATCH}")
+
+
+def ssm_config(arch: str):
+    """Phase 22's config of ``arch``: the published one, xlstm's segment
+    cut to ``SSM_SUPER`` super-blocks; and the published one."""
+    import dataclasses
+
+    from repro_torch import configs
+    full = configs.get_config(arch)
+    if arch not in SSM_SUPER:
+        return full, full
+    seg = full.segments[0]
+    return dataclasses.replace(full, segments=(dataclasses.replace(
+        seg, repeat=SSM_SUPER[arch]),)), full
 
 
 def ssm_width(cfg) -> tuple:
@@ -4137,9 +4207,10 @@ def join_clis(runs: dict, t0: float) -> None:
         assert cli and np.isfinite(cli).all(), cli
 
 
-def ssm_phase(torch, tmp: str) -> dict:
-    """Phase 22, the recurrent architectures at full width and depth (see
-    the module doc): (a) zamba2-1.2b trained, then prefill + decode
+def ssm_phase(torch, tmp: str, clis: tuple) -> dict:
+    """Phase 22, the recurrent architectures at full width (see the module
+    doc; xlstm at ``SSM_SUPER`` super-blocks): (a) zamba2-1.2b trained,
+    then prefill + decode
     against the forward, the whole model and block by block; (b)
     xlstm-350m trained, its mLSTM and sLSTM gradients held against the
     CPU's, decode token by token against the forward, the whole model and
@@ -4147,24 +4218,26 @@ def ssm_phase(torch, tmp: str) -> dict:
     bf16 moments; (d) both ``--tiny`` CLI runs; (e) no kernel of the six
     and no plain version runs. Every check's failure is gathered and
     raised at the end. Returns the readings."""
-    from repro_torch import configs
     from repro_torch.data import SyntheticLM, to_device
     from repro_torch.kernels import ops
     from repro_torch.optim import adamw
     from repro_torch.train import steps as ST
 
     before = (dict(ops.launch_counts()), dict(ops.plain_counts()))
+    # (d) runs beside (a)–(c): both entry points, as a user runs them, on
+    # the card, at once (started by the caller before the phase)
     dev = torch.device(DEVICE)
     readings, fails = {}, []
     for arch in SSM_ARCHS:
-        cfg = configs.get_config(arch)
-        width = ssm_width(cfg)
+        cfg, full = ssm_config(arch)
+        width = ssm_width(full)
         xl = arch == "xlstm-350m"
         mdt = "bfloat16" if xl else "float32"
-        print(f"({'ab'[SSM_ARCHS.index(arch)]}) {arch} at full width and "
-              f"depth {width} ({cfg.n_layers} layers); seq {LM_SEQ}, batch "
-              f"{LM_BATCH}; bf16 compute, AdamW lr {LM_LR:g}, {mdt} "
-              f"moments; {SSM_STEPS[arch]} steps", flush=True)
+        print(f"({'ab'[SSM_ARCHS.index(arch)]}) {arch} at full width "
+              f"{width} (published depth {full.n_layers} layers; trained "
+              f"at {cfg.n_layers}); seq {LM_SEQ}, batch {LM_BATCH}; bf16 "
+              f"compute, AdamW lr {LM_LR:g}, {mdt} moments; "
+              f"{SSM_STEPS[arch]} steps", flush=True)
         assert width == SSM_WIDTH[arch], width
         batch = to_device(SyntheticLM(vocab=cfg.vocab, seq=LM_SEQ,
                                       global_batch=LM_BATCH).host_batch(0),
@@ -4205,9 +4278,6 @@ def ssm_phase(torch, tmp: str) -> dict:
         torch.cuda.empty_cache()
         readings[arch] = r
         if xl:
-            # (d) starts here, beside (c): both entry points, as a user
-            # runs them, on the card, at once
-            clis = start_clis(tmp)
             readings.update(ssm_checkpoint(torch, cfg, state, tmp))
         del state
         torch.cuda.empty_cache()
@@ -4305,35 +4375,50 @@ def shard_bytes() -> list[str]:
     return lines
 
 
-def shard_cli_start(tmp: str) -> dict:
-    """(b), started first: ``torchrun --nproc-per-node 1 -m
-    repro_torch.launch.train --mesh 1x1`` (an NCCL world of 1 by
-    torchrun's rendezvous) to step ``SHARD_CLI_STEPS[0]`` in the
-    background (its process start dominates: it runs beside the rest of
-    the phase), then an uninterrupted run of ``launch.train.main`` in
-    this process (a one-rank NCCL group of its own) to
-    ``SHARD_CLI_STEPS[1]``."""
-    from repro_torch.launch import train as launch_train
-    first, last = SHARD_CLI_STEPS
+def shard_cli_args(tmp: str) -> tuple:
+    """(b)'s ``launch.train`` arguments but ``--steps`` and ``--ckpt-dir``,
+    and its two checkpoint directories."""
     base = ["--arch", SHARD_CLI_ARCH, "--tiny", "--mesh", "1x1",
-            "--ckpt-every", str(first)]
+            "--ckpt-every", str(SHARD_CLI_STEPS[0])]
     if DEVICE != "cuda":
         base += ["--device", DEVICE]
-    dirs = {k: os.path.join(tmp, f"shard_{k}") for k in ("run", "whole")}
+    return base, {k: os.path.join(tmp, f"shard_{k}")
+                  for k in ("run", "whole")}
+
+
+def torchrun_start(tmp: str) -> tuple:
+    """(b)'s ``torchrun --nproc-per-node 1 -m repro_torch.launch.train
+    --mesh 1x1`` (an NCCL world of 1 by torchrun's rendezvous) to step
+    ``SHARD_CLI_STEPS[0]``, started in the background (its process start
+    dominates). Returns (argv, process, start time)."""
+    base, dirs = shard_cli_args(tmp)
     argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
             "--nproc-per-node", "1", "-m", "repro_torch.launch.train", *base,
-            "--steps", str(first), "--ckpt-dir", dirs["run"]]
+            "--steps", str(SHARD_CLI_STEPS[0]), "--ckpt-dir", dirs["run"]]
     t0 = time.perf_counter()
     proc = subprocess.Popen(argv, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True, cwd=tmp,
                             env=dict(os.environ, PYTHONPATH=os.path.join(
                                 HERE, "src")))
-    whole = base + ["--steps", str(last), "--ckpt-dir", dirs["whole"]]
+    return argv, proc, t0
+
+
+def shard_cli_start(tmp: str, run: tuple | None = None) -> dict:
+    """(b), first: :func:`torchrun_start`'s run (``run``, started by the
+    caller before the phase, else here) runs beside the rest of the phase
+    while an uninterrupted run of ``launch.train.main`` in this process (a
+    one-rank NCCL group of its own) goes to ``SHARD_CLI_STEPS[1]``."""
+    from repro_torch.launch import train as launch_train
+    argv, proc, t0 = run or torchrun_start(tmp)
+    base, dirs = shard_cli_args(tmp)
+    whole = base + ["--steps", str(SHARD_CLI_STEPS[1]), "--ckpt-dir",
+                    dirs["whole"]]
     print(f"(b) torchrun started: {' '.join(argv[1:])}")
     print(f"(b) launch.train.main({' '.join(whole)}) in this process:")
+    t_whole = time.perf_counter()
     launch_train.main(whole)
     return {"proc": proc, "argv": argv, "base": base, "dirs": dirs,
-            "t0": t0, "walls": {"whole": time.perf_counter() - t0}}
+            "t0": t0, "walls": {"whole": time.perf_counter() - t_whole}}
 
 
 def shard_cli_finish(cli: dict) -> dict:
@@ -4368,7 +4453,7 @@ def shard_cli_finish(cli: dict) -> dict:
             "whole": leaves(cli["dirs"]["whole"])}
 
 
-def shard_phase(torch, tmp: str) -> dict:
+def shard_phase(torch, tmp: str, run: tuple | None = None) -> dict:
     """Phase 23, the sharded LM step on an NCCL world of 1 (see the module
     doc): (a) phase 20's train steps through ``make_train_step(...,
     mesh)`` against the unsharded step, bit for bit, with the
@@ -4387,7 +4472,7 @@ def shard_phase(torch, tmp: str) -> dict:
     batch = SyntheticLM(vocab=cfg.vocab, seq=LM_SEQ,
                         global_batch=LM_BATCH).host_batch(0)
     before = (ops.launch_counts(), ops.plain_counts())
-    started = shard_cli_start(tmp)
+    started = shard_cli_start(tmp, run)
     one = shard_arm(torch, cfg, tc, batch, host=True)
     with nccl_world(torch, ("data", "model")) as mesh:
         sharded = shard_arm(torch, cfg, tc, batch, mesh)
@@ -4443,11 +4528,237 @@ def shard_phase(torch, tmp: str) -> dict:
             "cli_walls": cli["walls"], "bytes": lines}
 
 
-SERVE_QUERIES = 44      # five fill batches of 8, then a 4-query tail
-# the --solver cd run's queries: one fill batch and a 4-query tail (cut
-# from 44 when phases 17 and 18 came: its wide buckets run matvec CD, the
-# slowest arm of the smoke)
-SERVE_CD_QUERIES = 12
+DRYRUN_PEAK_BAND = (0.9, 1.15)   # max_memory_allocated / the tracked peak
+DRYRUN_CLI = (("--arch", "yi-9b", "--shape", "decode_32k", "--mesh",
+               "single"),
+              ("--arch", "lasso-screen-16m", "--mesh", "single"))
+DRYRUN_PHASE = (f"dry run: {LM_ARCH} and {MOE_ARCH} steps against their fake "
+                f"traces, the paper's pieces at {MNIST[0]} × {MNIST[1]}, the "
+                f"CLI on (16, 16)")
+
+
+def dryrun_cli_start(tmp: str) -> list:
+    """(d), started first: ``python -m repro_torch.launch.dryrun`` for each
+    of ``DRYRUN_CLI`` (fake worlds of 256 ranks, CPU work: they run beside
+    the rest of the phase)."""
+    procs = []
+    for i, args in enumerate(DRYRUN_CLI):
+        argv = [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+                "--out", os.path.join(tmp, f"dryrun_{i}"), "--device",
+                DEVICE]
+        procs.append((argv, subprocess.Popen(
+            argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=tmp, env=dict(os.environ, PYTHONPATH=os.path.join(
+                HERE, "src")))))
+    return procs
+
+
+def dryrun_cli_finish(procs, fails: list) -> list:
+    """(d): every CLI cell's one-line record, each ``ok``."""
+    records = []
+    for argv, proc in procs:
+        try:
+            out, err = proc.communicate(timeout=600)
+        finally:
+            stop_all([proc])
+        lines = [ln for ln in out.splitlines() if ln.startswith("[record] ")]
+        if proc.returncode != 0 or not lines:
+            fails.append(f"(d) {argv[3:]}: exit {proc.returncode}, "
+                         f"{out[-2000:]} {err[-2000:]}")
+        for ln in lines:
+            rec = json.loads(ln[len("[record] "):])
+            rl = rec["roofline"]
+            print(f"(d) {' '.join(argv[3:-4])}: status {rec['status']}, "
+                  f"trace_s {rec['trace_s']}, flops/rank {rl['flops']:.4g}, "
+                  f"bytes_fused {rl['hbm_bytes']:.4g}, collectives "
+                  f"{rec['collectives']['counts']}, kernels "
+                  f"{ {k: v['launches'] for k, v in rec['kernels'].items()} }"
+                  f", peak/rank {rec['memory']['peak_per_device_gb']:.3f} GB "
+                  f"(CPU trace)", flush=True)
+            print("[record] " + json.dumps(rec), flush=True)
+            if rec["status"] != "ok":
+                fails.append(f"(d) {argv[3:]}: {rec}")
+            records.append(rec)
+    return records
+
+
+def dryrun_arm(torch, smi: str, name: str, cfg, tc, batch,
+               fails: list) -> dict:
+    """(a)/(b): one real step of ``cfg`` under the cost model against the
+    dry run of the same step on fake CUDA tensors: the flops must be
+    equal, and a plain step's peak within ``DRYRUN_PEAK_BAND`` of the
+    tracked peak; its wall beside the dry run's roofline (a reading)."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.data import to_device
+    from repro_torch.launch import dryrun, hlo, hlo_cost
+    from repro_torch.train import steps as ST
+
+    shape = ShapeSpec(name, "train", LM_SEQ, LM_BATCH)
+    t0 = time.perf_counter()
+    dry = dryrun.trace_step(cfg, shape, None, tc, device=DEVICE)
+    trace_s = time.perf_counter() - t0
+    assert dry["device"] == DEVICE, dry["device"]
+    cost, predicted = dry["mode"].cost, dry["memory"]["peak_per_device_gb"]
+    dev = torch.device(DEVICE)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    state, _ = ST.init_state(0, cfg, tc, device=dev)
+    batch = to_device(batch, dev)
+    step = ST.make_train_step(cfg, tc)
+    with hlo_cost.CostMode() as real:
+        state, metrics = step(state, batch)
+        float(metrics["loss"])                           # syncs
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)
+    loss = float(metrics["loss"])
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    rl = hlo.roofline_from_cost(cost, 1)
+    share = cost.flops / (wall * hlo.H100_BF16_FLOPS_PER_S)
+    lo, hi = DRYRUN_PEAK_BAND
+    print(f"({name}) {cfg.name} L = {cfg.n_layers}, seq {LM_SEQ}, batch "
+          f"{LM_BATCH}, bf16 [{smi}]: dry run (fake CUDA tensors, traced "
+          f"in {trace_s:.2f} s CPU): flops {cost.flops:.6g} (products "
+          f"{dry['mode'].dot_flops:.6g}), bytes_fused {cost.bytes_fused:.6g}"
+          f", bytes {cost.bytes:.6g}; the real step under the same "
+          f"CostMode: flops {real.cost.flops:.6g} (products "
+          f"{real.dot_flops:.6g}): equal "
+          f"{real.cost.flops == cost.flops}", flush=True)
+    print(f"    tracked peak {predicted:.4f} GB against max_memory_allocated "
+          f"{peak:.4f} GB above the phase's base (ratio "
+          f"{peak / predicted:.4f}; band {lo}–{hi}: "
+          f"{'met' if lo <= peak / predicted <= hi else 'missed'}); "
+          f"roofline t_compute {rl.t_compute:.4f} s, t_memory "
+          f"{rl.t_memory:.4f} s against the step's wall {wall:.4f} s (loss "
+          f"{loss:.4f}); flops / (wall × 989e12) = {share:.4f}", flush=True)
+    if real.cost.flops != cost.flops:
+        fails.append(f"({name}) flops: real {real.cost.flops}, dry run "
+                     f"{cost.flops}")
+    if real.dot_flops != dry["mode"].dot_flops:
+        fails.append(f"({name}) products: real {real.dot_flops}, dry run "
+                     f"{dry['mode'].dot_flops}")
+    if not lo <= peak / predicted <= hi:
+        fails.append(f"({name}) peak {peak:.4f} GB against the tracked "
+                     f"{predicted:.4f}: ratio {peak / predicted:.4f} outside "
+                     f"{lo}–{hi}")
+    del state, batch, metrics
+    torch.cuda.empty_cache()
+    return {"flops": cost.flops, "dot_flops": dry["mode"].dot_flops,
+            "bytes_fused": cost.bytes_fused, "bytes": cost.bytes,
+            "predicted_peak_gb": predicted, "peak_gb": peak, "wall_s": wall,
+            "t_compute_s": rl.t_compute, "t_memory_s": rl.t_memory,
+            "bf16_share": share, "trace_s": trace_s}
+
+
+def dryrun_lasso(torch, fails: list) -> dict:
+    """(c): ``dist_edpp_screen_cached`` and ``dist_fista`` (10 iterations,
+    ``"chunked"``, ``capture=False``) at (1, 1) on the 784 × 50 000 data,
+    real on an NCCL world of 1 against the dry run on a fake world of 1:
+    each kernel's launches equal the charged launches, and a
+    ``screen_matvec`` charge's bytes are the bound column's bytes."""
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.pshard import MeshShape
+
+    n, p = MNIST
+    X, y = make_dataset(n, p)
+    real = {}
+    with nccl_world(torch) as mesh:
+        Xl = torch.from_numpy(X).to(DEVICE)
+        yt = torch.from_numpy(y).to(DEVICE)
+        beta0 = torch.zeros(p, device=DEVICE)
+        lam_max = float(torch.max(torch.abs(yt @ Xl)))
+        L = float(torch.linalg.eigvalsh(Xl @ Xl.T)[-1])     # ‖X‖₂²
+        v1 = yt / float(torch.linalg.vector_norm(yt))
+        norms = torch.linalg.vector_norm(Xl, dim=0)
+        for key, fn in (
+                ("screen", lambda: D.dist_edpp_screen_cached(
+                    mesh, Xl, yt, 0.8 * lam_max, 0.9 * lam_max, beta0,
+                    lam_max, v1, norms)),
+                ("fista", lambda: D.dist_fista(
+                    mesh, Xl, yt, 0.3 * lam_max, beta0, L, iters=10,
+                    overlap="chunked", capture=False))):
+            torch.cuda.synchronize()
+            ops.reset_counts()
+            out = fn()
+            torch.cuda.synchronize()
+            assert all(bool(torch.isfinite(t).all()) for t in
+                       (out if isinstance(out, tuple) else (out,)))
+            real[key] = {k: v for k, v in ops.launch_counts().items() if v}
+    with dryrun.fake_world(1):
+        mesh = make_mesh(MeshShape(("query", "feature"), (1, 1)), DEVICE)
+        dry = {key: dryrun.trace_lasso(arch, mesh, DEVICE, n=n, p=p, **kw)
+               for key, arch, kw in (
+                   ("screen", "lasso-screen-16m",
+                    {"variant": "cached_norms"}),
+                   ("fista", "lasso-fista-16m", {}))}
+    per_byte = bound("screen_matvec", n, p, 1)[0] / 1e3 * HBM_BYTES_PER_S
+    out = {}
+    for key in ("screen", "fista"):
+        charged = dry[key]["mode"].kernels
+        launches = {k: int(v["launches"]) for k, v in charged.items()}
+        print(f"(c) {key}: launches {real[key]} real, {launches} charged; "
+              + "; ".join(f"{k}: {v['flops']:.6g} flops, {v['bytes']:.6g} "
+                          f"bytes charged" for k, v in charged.items()),
+              flush=True)
+        if launches != real[key]:
+            fails.append(f"(c) {key}: launches {real[key]} real, {launches} "
+                         f"charged")
+        out[key] = {"launches": real[key], "charged": charged}
+    sm = dry["screen"]["mode"].kernels["screen_matvec"]
+    print(f"    screen_matvec charge {sm['bytes'] / sm['launches']:.6g} "
+          f"bytes a launch; the bound column's bytes {per_byte:.6g} "
+          f"(bound {bound('screen_matvec', n, p, 1)[0]:.4f} ms × "
+          f"{HBM_BYTES_PER_S:.4g} B/s)", flush=True)
+    if abs(sm["bytes"] / sm["launches"] - per_byte) > 1e-6 * per_byte:
+        fails.append(f"(c) screen_matvec charge {sm['bytes']} bytes in "
+                     f"{sm['launches']} launches against {per_byte:.6g}")
+    return out
+
+
+def dryrun_phase(torch, smi: str, tmp: str, procs=None) -> dict:
+    """Phase 24, the dry run against the card (see the module doc): (a)
+    phase 20's yi-9b step and (b) phase 21's deepseek step, each real
+    under the cost model against its fake trace; (c) the paper's pieces
+    at (1, 1); (d) the CLI on the production mesh, run beside them
+    (``procs``: :func:`dryrun_cli_start`'s runs, started by the caller
+    before the phase, else here). Every check's failure is gathered and
+    raised at the end."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as ST
+
+    procs = procs or dryrun_cli_start(tmp)
+    tc = ST.TrainConfig(opt=adamw.OptConfig(lr=LM_LR, warmup_steps=1,
+                                            total_steps=100))
+    out, fails = {}, []
+    try:
+        for name, cfg in (("a", lm_config()[0]), ("b", moe_config()[0])):
+            batch = SyntheticLM(vocab=cfg.vocab, seq=LM_SEQ,
+                                global_batch=LM_BATCH).host_batch(0)
+            out[name] = dryrun_arm(torch, smi, name, cfg, tc, batch, fails)
+        out["c"] = dryrun_lasso(torch, fails)
+    except BaseException:
+        stop_all(proc for _, proc in procs)
+        raise
+    out["d"] = dryrun_cli_finish(procs, fails)
+    assert not fails, fails
+    return out
+
+
+# two fill batches of 8, then a 4-query tail (cut from 44 when phase 24
+# came, to keep the smoke within half its limit)
+SERVE_QUERIES = 20
+# the --solver cd run's queries: one fill batch (cut from 44 to 12, a
+# fill batch and a 4-query tail, when phases 17 and 18 came, and to 8
+# when phase 24 came: its wide buckets run matvec CD, the slowest arm of
+# the smoke). A coarser grid is no cut: its sequential screens keep more
+# columns (8 λ of the same span: a timed run of 255 s against 16 λ's
+# 40 s, on another card's host)
+SERVE_CD_QUERIES = 8
 SERVE_ARGV = ["--n", str(MNIST[0]), "--p", str(MNIST[1]), "--nnz", "16",
               "--seed", "0", "--b-max", str(BATCH), "--deadline-ms", "20",
               "--queue-cap", "64", "--max-in-flight", "2", "--num-queries",
@@ -4620,14 +4931,16 @@ def main(argv: list[str]) -> int:
         tree, argv = os.path.abspath(argv[2]), ["--kernels"]
         sys.path.insert(0, os.path.join(tree, "src"))
     if argv not in ([], ["--faults"], ["--kernels"], ["--lm-lr"],
-                    ["--moe"], ["--ssm"], ["--shard"]):
+                    ["--moe"], ["--ssm"], ["--shard"], ["--dryrun"]):
         print("usage: python3 chip_smoke.py [--faults | --lm-lr | --moe | "
-              "--ssm | --shard | --kernels [--tree DIR]]", file=sys.stderr)
+              "--ssm | --shard | --dryrun | --kernels [--tree DIR]]",
+              file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 2
+    load_cost_rules()
     import repro_torch
     from repro_torch import LassoSession, PathConfig, ScreenSpec, SolveSpec
     from repro_torch import kernels
@@ -4660,11 +4973,19 @@ def main(argv: list[str]) -> int:
         return 0
     if argv == ["--ssm"]:
         with tempfile.TemporaryDirectory() as tmp, phase(SSM_PHASE):
-            ssm_phase(torch, tmp)
+            clis = start_clis(tmp)
+            try:
+                ssm_phase(torch, tmp, clis)
+            finally:
+                stop_all(proc for _, proc in clis[0].values())
         return 0
     if argv == ["--shard"]:
         with tempfile.TemporaryDirectory() as tmp, phase(SHARD_PHASE):
             shard_phase(torch, tmp)
+        return 0
+    if argv == ["--dryrun"]:
+        with tempfile.TemporaryDirectory() as tmp, phase(DRYRUN_PHASE):
+            dryrun_phase(torch, smi, tmp)
         return 0
 
     with phase("build"):
@@ -5026,15 +5347,32 @@ def main(argv: list[str]) -> int:
     del X, y, none_arm, rules, group_full
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        with phase(f"LM stack: {LM_ARCH} at full width, L = {LM_DEPTH}, "
-                   f"seq {LM_SEQ}, batch {LM_BATCH}; the FFN bridge"):
-            lm = lm_phase(torch, tmp)
-        with phase(MOE_PHASE):
-            moe_phase(torch, tmp)
-        with phase(SSM_PHASE):
-            ssm_phase(torch, tmp)
-        with phase(SHARD_PHASE):
-            shard_phase(torch, tmp)
+        # phases 20(d) and 21(c), the --tiny CLI runs, and phase 24(d),
+        # the dry run's CLI cells, start here and run beside phase 20's
+        # steps and checkpoint; phase 22(d)'s CLI runs and phase 23(b)'s
+        # torchrun start before phase 22 and run beside it
+        clis = {a: start_cli(a, tmp) for a in (LM_ARCH, MOE_CLI_ARCH)}
+        dry_procs = dryrun_cli_start(tmp)
+        later = []
+        try:
+            with phase(f"LM stack: {LM_ARCH} at full width, L = {LM_DEPTH}, "
+                       f"seq {LM_SEQ}, batch {LM_BATCH}; the FFN bridge"):
+                lm = lm_phase(torch, tmp, clis[LM_ARCH])
+            with phase(MOE_PHASE):
+                moe_phase(torch, tmp, clis[MOE_CLI_ARCH])
+            ssm_clis = start_clis(tmp)
+            later += [proc for _, proc in ssm_clis[0].values()]
+            run = torchrun_start(tmp)
+            later.append(run[1])
+            with phase(SSM_PHASE):
+                ssm_phase(torch, tmp, ssm_clis)
+            with phase(SHARD_PHASE):
+                shard_phase(torch, tmp, run)
+            with phase(DRYRUN_PHASE):
+                dryrun_phase(torch, smi, tmp, dry_procs)
+        finally:
+            stop_all([c[1] for c in clis.values()]
+                     + [d[1] for d in dry_procs] + later)
 
     with phase(f"kernels at the paths' shapes (fista bucket {main_bucket}, "
                f"cd bucket {cd_bucket}; batched B={BATCH}: fista bucket "

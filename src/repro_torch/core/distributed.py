@@ -76,6 +76,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import pshard
 from ..kernels import ops
 from . import graphs
 from . import group_screening as gscr
@@ -135,7 +136,7 @@ def _axis(mesh, axes):
     group = mesh.get_group(name)
     where = list(mesh.get_coordinate())
     where[dim] = slice(None)
-    ranks = mesh.mesh[tuple(where)].tolist()
+    ranks = pshard.rank_table(mesh)[tuple(where)].tolist()
     order = tuple(dist.get_group_rank(group, r) for r in ranks)
     return group, len(ranks), mesh.get_local_rank(name), order
 
@@ -163,7 +164,8 @@ def _flat_axis(mesh, axes):
     dims = [names.index(a) for a in axes]
     rest = [d for d in range(len(names)) if d not in dims]
     size = _size(mesh, axes)
-    rows = mesh.mesh.permute(*rest, *dims).reshape(-1, size).tolist()
+    rows = pshard.rank_table(mesh).transpose(*rest, *dims).reshape(
+        -1, size).tolist()
     me = dist.get_rank()
     axis = None
     for ranks in rows:                    # every rank makes every group

@@ -51,7 +51,9 @@ adjacent columns in one 16-byte load, the same tiles and row split.
 
 ``LAUNCHES`` counts kernel launches per op (one per launch of up to
 ``MAX_B`` queries; a larger batch is split into several launches); a
-launch on bf16 X counts as ``screen_matvec_bf16``.
+launch on bf16 X counts as ``screen_matvec_bf16``. A CUDA ``FakeTensor``
+X (a dry run) launches nothing: the wrappers return fake outputs and
+charge each launch's bytes and flops (:mod:`.cost`).
 """
 
 from __future__ import annotations
@@ -63,7 +65,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import build, ref
+from . import build, cost, ref
 
 MAX_B = 8          # queries per launch (colpass::MAX_B); larger B is split
 LAUNCHES: collections.Counter = collections.Counter()
@@ -308,10 +310,14 @@ def edpp_screen_scores(X: torch.Tensor, centre: torch.Tensor, rho, *,
     C, squeeze = check_rows(X, centre, n, "centre", op)
     B = C.shape[0]
     par, (rho_s,) = params(B, X.device, rho)
-    fn = kernel_fn("edpp_screen", "edpp_screen_scores_f32")
+    fn = (None if cost.is_fake(X)
+          else kernel_fn("edpp_screen", "edpp_screen_scores_f32"))
     scores = torch.empty((B, p), dtype=torch.float32, device=X.device)
     sumsq = torch.empty((p,), dtype=torch.float32, device=X.device)
-    if p:
+    if p and fn is None:
+        for b0 in range(0, B, MAX_B):
+            cost.charge(op, cost.column_pass(op, n, p, min(MAX_B, B - b0)))
+    elif p:
         with torch.cuda.device(X.device):
             stream = torch.cuda.current_stream().cuda_stream
             for b0 in range(0, B, MAX_B):
@@ -346,10 +352,14 @@ def screen_matvec(X: torch.Tensor, centre: torch.Tensor, *,
     C, squeeze = check_rows(X, centre, n, "centre", op)
     B = C.shape[0]
     symbol = "screen_matvec_bf16" if bf16 else "screen_matvec_f32"
-    fn = kernel_fn("edpp_screen", symbol)
+    fn = None if cost.is_fake(X) else kernel_fn("edpp_screen", symbol)
     key = "screen_matvec_bf16" if bf16 else op
     dot = torch.empty((B, p), dtype=torch.float32, device=X.device)
-    if p:
+    if p and fn is None:
+        for b0 in range(0, B, MAX_B):
+            cost.charge(key, cost.column_pass(op, n, p, min(MAX_B, B - b0),
+                                              X.element_size()))
+    elif p:
         with torch.cuda.device(X.device):
             stream = torch.cuda.current_stream().cuda_stream
             for b0 in range(0, B, MAX_B):

@@ -30,7 +30,7 @@ import math
 
 import torch
 
-from . import ref
+from . import cost, ref
 from .edpp_screen import (CLUSTER, MAX_SPLIT, LaunchPlan, _cdiv, check_error,
                           check_rows, check_x, cluster_split, finish_plan,
                           kernel_fn, sms_of)
@@ -131,9 +131,12 @@ def group_screen_scores(X: torch.Tensor, centre: torch.Tensor, m: int, *,
         raise ValueError(f"{op}: the centre must be rank 1 ({n},), got "
                          f"{tuple(centre.shape)}")
     C, _ = check_rows(X, centre, n, "centre", op)
-    fn = kernel_fn("group_screen", "group_screen_scores_f32")
+    fn = (None if cost.is_fake(X)
+          else kernel_fn("group_screen", "group_screen_scores_f32"))
     out = torch.empty((p // m,), dtype=torch.float32, device=X.device)
-    if p:
+    if p and fn is None:
+        cost.charge(op, cost.group_pass(n, p, m))
+    elif p:
         with torch.cuda.device(X.device):
             stream = torch.cuda.current_stream().cuda_stream
             pl = plan or group_plan_for(X, m, wide_p)

@@ -100,7 +100,7 @@ import collections
 
 import torch
 
-from . import ref
+from . import cost, ref
 from .edpp_screen import (MAX_B, LaunchPlan, check_error, check_rows, check_x,
                           chunk_ptr, kernel_fn, params, plan_for)
 
@@ -132,12 +132,16 @@ def fista_step(X: torch.Tensor, r: torch.Tensor, z: torch.Tensor,
         raise ValueError(f"{op}: r {tuple(r.shape)}, z {tuple(z.shape)} and "
                          f"beta_old {tuple(beta_old.shape)} disagree on B")
     par, scal = _param_block(params, B, X.device, op, step, lam, mom)
-    fn = kernel_fn("solver_step", "fista_step_bf16" if bf16
-                   else "fista_step_f32")
+    fn = None if cost.is_fake(X) else kernel_fn(
+        "solver_step", "fista_step_bf16" if bf16 else "fista_step_f32")
     key = "fista_step_bf16" if bf16 else op
     beta_new = torch.empty((B, p), dtype=torch.float32, device=X.device)
     z_new = torch.empty((B, p), dtype=torch.float32, device=X.device)
-    if p:
+    if p and fn is None:
+        for b0 in range(0, B, MAX_B):
+            cost.charge(key, cost.column_pass(op, n, p, min(MAX_B, B - b0),
+                                              X.element_size()))
+    elif p:
         with torch.cuda.device(X.device):
             stream = torch.cuda.current_stream().cuda_stream
             for b0 in range(0, B, MAX_B):
@@ -184,9 +188,14 @@ def cd_gram_sweep(G: torch.Tensor, c: torch.Tensor, beta: torch.Tensor, lam,
     if sweeps < 0:
         raise ValueError(f"{op}: sweeps must be ≥ 0, got {sweeps}")
     par, (lam_s,) = params(B, G.device, lam)
-    fn = kernel_fn("cd_gram", "cd_gram_sweep_f32")
+    fn = None if cost.is_fake(G) else kernel_fn("cd_gram",
+                                                "cd_gram_sweep_f32")
     out = torch.empty((B, p), dtype=torch.float32, device=G.device)
-    if p:
+    if p and fn is None:
+        for b0 in range(0, B, MAX_B):
+            cost.charge(op, cost.cd_sweep(p, min(MAX_B, B - b0), sweeps,
+                                          V is not None))
+    elif p:
         with torch.cuda.device(G.device):
             stream = torch.cuda.current_stream().cuda_stream
             for b0 in range(0, B, MAX_B):
@@ -258,10 +267,12 @@ def prox_step(z: torch.Tensor, g: torch.Tensor, beta_old: torch.Tensor,
         raise ValueError(f"{op}: g must be contiguous")
     B, p = (1, z.shape[0]) if z.dim() == 1 else tuple(z.shape)
     par, scal = _param_block(params, B, z.device, op, step, lam, mom)
-    fn = kernel_fn("prox_step", "prox_step_f32")
+    fn = None if cost.is_fake(z) else kernel_fn("prox_step", "prox_step_f32")
     beta_new = torch.empty_like(z)
     z_new = torch.empty_like(z)
-    if B and p:
+    if B and p and fn is None:
+        cost.charge(op, cost.prox(p, B, parts))
+    elif B and p:
         with torch.cuda.device(z.device):
             stream = torch.cuda.current_stream().cuda_stream
             check_error(fn(z.data_ptr(), g.data_ptr(), parts,

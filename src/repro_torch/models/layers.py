@@ -502,6 +502,15 @@ def _window(spec: MoeSpec, x):
             lo, first, sh)
 
 
+def one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` as a bool comparison with ``arange(n)``: the
+    same values, by the same aten ops on real and on fake tensors
+    (``F.one_hot`` checks its indices on the host for a CPU tensor and
+    decomposes otherwise under ``FakeTensorMode``, so a dry run would
+    count other ops than the step it stands for)."""
+    return idx.unsqueeze(-1) == torch.arange(n, device=idx.device)
+
+
 def moe_route(params, spec: MoeSpec, x) -> MoeRoute:
     """The reference's routing (``layers.py:384-405``) of x (..., d).
 
@@ -550,7 +559,7 @@ def moe_route(params, spec: MoeSpec, x) -> MoeRoute:
         mine = torch.zeros(ng * g, 1, dtype=torch.bool, device=x.device)
         mine[lo:lo + t] = True
         mine = mine.reshape(ng, g, 1)
-    onehot = F.one_hot(topi, e)                           # (ng, g, k, e)
+    onehot = one_hot(topi, e)                             # (ng, g, k, e)
     seen = torch.cumsum(onehot.reshape(ng, g * k, e), dim=1).reshape(
         ng, g, k, e)
     pos = torch.sum(seen * onehot, dim=-1) - 1
@@ -576,11 +585,11 @@ def moe_forward(params, spec: MoeSpec, x):
     r = moe_route(params, spec, x)
     tokens = _window(spec, x)[0]
     dt = x.dtype
-    sel = F.one_hot(r.topi, spec.n_routed).to(dt)         # (ng, g, k, e)
+    sel = one_hot(r.topi, spec.n_routed).to(dt)           # (ng, g, k, e)
     # a dropped pair's slot row is zero (the extra class is cut off), as
     # the reference's one_hot(-1, cap)
-    slot = F.one_hot(torch.where(r.keep, r.pos, r.cap),
-                     r.cap + 1)[..., :r.cap].to(dt)      # (ng, g, k, cap)
+    slot = one_hot(torch.where(r.keep, r.pos, r.cap),
+                   r.cap + 1)[..., :r.cap].to(dt)        # (ng, g, k, cap)
     dispatch = torch.einsum("ngke,ngkc->ngec", sel, slot)
     combine = torch.einsum("ngke,ngkc->ngec",
                            sel * r.topv.to(dt)[..., None], slot)

@@ -37,8 +37,10 @@ import math
 import weakref
 from collections.abc import Mapping
 
+import numpy as np
 import torch
 import torch.distributed as dist
+from torch._subclasses.fake_tensor import unset_fake_temporarily
 
 # default logical → physical rules; first applicable wins per logical name
 DEFAULT_RULES: dict[str, tuple[str, ...]] = {
@@ -180,6 +182,14 @@ class Layout:
         """The layout of ``repeat`` such leaves stacked on a new, uncut
         axis 0 (the reference's stacked segment leaves)."""
         return Layout(P(None, *self.spec), (repeat, *self.shape), self.mesh)
+
+
+def rank_table(mesh) -> np.ndarray:
+    """A ``DeviceMesh``'s ranks as plain integers, in its shape. Read
+    outside any fake mode: under a dry run's ``FakeTensorMode`` the
+    mesh's rank tensor would be made fake and could not be read."""
+    with unset_fake_temporarily():
+        return np.asarray(mesh.mesh.tolist(), dtype=np.int64)
 
 
 def coordinate(mesh) -> dict[str, int]:
@@ -353,8 +363,9 @@ def _group(mesh, axes: tuple[str, ...]):
         names = axis_names(mesh)
         dims = [names.index(a) for a in axes]
         rest = [d for d in range(len(names)) if d not in dims]
-        size = math.prod(mesh.mesh.shape[d] for d in dims)
-        rows = mesh.mesh.permute(*rest, *dims).reshape(-1, size).tolist()
+        table = rank_table(mesh)
+        size = math.prod(table.shape[d] for d in dims)
+        rows = table.transpose(*rest, *dims).reshape(-1, size).tolist()
         me = dist.get_rank()
         mine = None
         for ranks in rows:

@@ -374,7 +374,36 @@ def compute_ckpt(inp, world: int) -> dict:
     return out
 
 
-JOBS = {"train": compute_train, "ckpt": compute_ckpt}
+# ---------------------------------------------------------------------------
+# tests/test_torch_dryrun.py: the collectives of one real sharded step
+# ---------------------------------------------------------------------------
+
+COLLECTIVE_ARCHS = ("yi-9b", "deepseek-v2-lite-16b")
+
+
+def compute_collectives(inp, world: int) -> dict:
+    """One bf16 train step of each of ``COLLECTIVE_ARCHS`` on a (2, 2)
+    mesh: its collectives by kind, (calls, bytes this rank contributed)
+    as ``pshard.collective_counts`` counts them."""
+    out = {}
+    mesh = mesh_of((2, 2))
+    for arch in COLLECTIVE_ARCHS:
+        cfg = TC.get_tiny(arch)
+        tc = ST.TrainConfig()
+        state, sh = ST.init_state(0, cfg, tc, mesh)
+        src = SyntheticLM(vocab=cfg.vocab, seq=SEQ, global_batch=BATCH)
+        step = ST.make_train_step(cfg, tc, mesh, sh, ST.batch_shardings(
+            mesh, cfg, "train", src.host_batch(0)))
+        batch = device_batch(mesh, src.host_batch(0))
+        pshard.reset_collectives()
+        step(state, batch)
+        for kind, (calls, nbytes) in pshard.collective_counts().items():
+            out[f"{arch}|{kind}"] = np.array([calls, nbytes])
+    return out
+
+
+JOBS = {"train": compute_train, "ckpt": compute_ckpt,
+        "collectives": compute_collectives}
 
 
 def _run(rank: int, world: int, workdir: str, job: str) -> None:
