@@ -330,6 +330,20 @@ Phases, each printing its own lines and seconds:
    yi-9b decode_32k and lasso-screen-16m on (16, 16), started first and
    run beside the rest: each record ``ok``, printed on one line. Every
    failure of (a)–(d) is gathered and raised at the end;
+25. tensor parallelism over "model" (run after 24, ROADMAP item 14f):
+   (a) one real train step of yi-9b at full width and full depth (48
+   layers) on ``TP_ROWS`` × 4 096 tokens of train_4k, bf16, as rank 0
+   of a fake world of 256 ranks on (16, 16) (``dryrun.fake_world``: the
+   collectives move nothing, so the loss is not read), the rank's
+   shards drawn from a seeded generator on the card: its
+   ``max_memory_allocated`` under ``TP_LIMIT_GB`` and within
+   ``DRYRUN_PEAK_BAND`` of the dry run's tracked peak of the same cell
+   (``python -m repro_torch.launch.dryrun`` on (16, 16), started with
+   phase 24's CLI cells and run beside the LM phases), its wall, its
+   collectives by purpose (the region sums, the vocab-parallel MAX and
+   SUM, the gradients' reductions), and ``tp_hand_count``'s products
+   and peak parts beside the dry run's; (b) phase 23's NCCL world of 1
+   runs the same code, bit for bit the unsharded step (asserted there);
 15. summary: one JSON line of per-kernel numbers (with, for
    ``screen_matvec``, ``fista_step`` and ``cd_gram_sweep``, the batched
    path's launches and its B = 8 row at its own shapes, for
@@ -368,7 +382,8 @@ they fell at every step: the reading ``LM_LR`` was chosen from.
 
 ``python3 chip_smoke.py --moe`` runs phase 1 and then phase 21 alone;
 ``--ssm`` phase 1 and then phase 22 alone; ``--shard`` phase 1 and then
-phase 23 alone; ``--dryrun`` phase 1 and then phase 24 alone.
+phase 23 alone; ``--dryrun`` phase 1 and then phase 24 alone; ``--tp``
+phase 1 and then phase 25(a) alone.
 
 Each path phase sets every launch counter to 0 just before it and reads
 them just after: each kernel the path runs must have launched, and no
@@ -4749,6 +4764,193 @@ def dryrun_phase(torch, smi: str, tmp: str, procs=None) -> dict:
     return out
 
 
+TP_MESH = (16, 16)      # the production mesh, ("data", "model")
+TP_ROWS = 16            # train_4k's global batch of 256 over 16 data ranks
+TP_LIMIT_GB = 80.0      # the card's memory
+TP_CLI = ("--arch", LM_ARCH, "--shape", "train_4k", "--mesh", "single")
+TP_PHASE = (f"tensor parallel: rank 0 of a fake world of 256, {TP_MESH}; "
+            f"{LM_ARCH} at full width and depth, {TP_ROWS} × {LM_SEQ} of "
+            f"train_4k, bf16, real tensors")
+
+
+def tp_hand_count(cfg, rows: int = TP_ROWS, seq: int = LM_SEQ,
+                  dims: tuple = TP_MESH) -> dict:
+    """The hand count of one train step of a dense ``cfg`` (one block
+    kind, tied or untied head) on rank 0 of a ("data", "model") mesh of
+    ``dims``, ``rows`` sequences of ``seq``: its products (flops) by part
+    and its peak's parts (bytes). A dimension the model axis does not
+    divide stays whole, as the rules leave it; a rank projects the kv
+    heads its query heads read."""
+    import math
+    data, model = dims
+    blk = cfg.segments[0].blocks[0]
+    a, f = blk.attn, blk.ffn
+    n_layers, d, dh = cfg.n_layers, cfg.d_model, a.d_head
+    t = rows * seq
+
+    def part(n):
+        return n // model if n % model == 0 else n
+
+    hq, fl, vl = part(a.n_heads), part(f.d_ff), part(cfg.vocab)
+    g = a.n_heads // a.n_kv_heads
+    hk = (a.n_kv_heads // model if a.n_kv_heads % model == 0
+          else (hq - 1) // g + 1)
+    gates = 3 if f.kind in ("swiglu", "geglu") else 2
+    fwd = 2 * d * dh * (hq + 2 * hk) + 2 * hq * dh * d + gates * 2 * d * fl
+    # forward, backward (2×), the block's recompute less its last product
+    dense = n_layers * t * (4 * fwd - 2 * fl * d)
+    qc, kc = min(cfg.q_chunk, seq), min(cfg.k_chunk, seq)
+    tiles = sum(1 for qi in range(-(-seq // qc)) for ki in range(-(-seq // kc))
+                if ki * kc <= qi * qc + qc - 1)
+    attn = 10 * 2 * tiles * qc * kc * dh * hq * rows * n_layers
+    head = 4 * 2 * t * d * vl           # the chunked loss's four passes
+    heads = 1 if cfg.tie_embeddings else 2
+
+    def elements(width):        # the rank's leaves, their d dims at width
+        return (n_layers * ((2 * hq * dh + 2 * part(a.n_kv_heads) * dh
+                             + gates * fl) * width + 2 * d)
+                + vl * width * heads + d)
+
+    leaves = elements(d)                 # gathered over "data"
+    return {"products": dense + attn + head, "dense": dense,
+            "attention": attn, "head": head,
+            "saved_inputs_gb": n_layers * t * d * 2 / 1e9,
+            "leaves": leaves, "leaves_gb": leaves * 6 / 1e9,
+            "masters_moments_gb": elements(d // data) * 12 / 1e9}
+
+
+def tp_cli_start(tmp: str) -> tuple:
+    """(a)'s dry run of the same cell, ``python -m repro_torch.launch.
+    dryrun`` on the production mesh, started first (CPU work: it runs
+    beside the earlier LM phases). Returns (argv, process)."""
+    argv = [sys.executable, "-m", "repro_torch.launch.dryrun", *TP_CLI,
+            "--out", os.path.join(tmp, "dryrun_tp"), "--device", DEVICE]
+    return argv, subprocess.Popen(
+        argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=tmp, env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")))
+
+
+def tp_record(proc: tuple) -> dict:
+    """The dry-run CLI's record of the cell (``ok``)."""
+    argv, p = proc
+    try:
+        out, err = p.communicate(timeout=900)
+    finally:
+        stop_all([p])
+    lines = [ln for ln in out.splitlines() if ln.startswith("[record] ")]
+    assert p.returncode == 0 and lines, (argv, out[-2000:], err[-2000:])
+    rec = json.loads(lines[-1][len("[record] "):])
+    assert rec["status"] == "ok", rec
+    return rec
+
+
+def tp_step(torch, cfg, tc) -> dict:
+    """One real train step of ``cfg`` as rank 0 of a fake world of
+    ``TP_MESH`` ranks: the rank's shards of the masters drawn from a
+    seeded generator on the card (nothing whole is ever built), its
+    ``TP_ROWS`` rows of tokens, the step's wall and
+    ``max_memory_allocated`` above the memory before the state. The fake
+    group's collectives move nothing (its gathers and reductions leave
+    their outputs unwritten), so the loss is not read."""
+    from repro_torch import pshard
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh, mesh_axes
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as ST
+    dev = torch.device(DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    with dryrun.fake_world(TP_MESH[0] * TP_MESH[1]):
+        mesh = make_mesh(pshard.MeshShape(mesh_axes(TP_MESH), TP_MESH),
+                         DEVICE)
+        meta = M.LM(cfg, device="meta")
+        layouts = pshard.resolve_tree(mesh, meta.specs(),
+                                      dict(meta.named_parameters()))
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        shards = {k: torch.randn(lay.local_shape, generator=gen, device=dev)
+                  * 0.02 for k, lay in layouts.items()}
+        model = M.holding(cfg, shards)
+        state = ST.TrainState(model, adamw.init(tc.opt, shards),
+                              torch.zeros((), dtype=torch.int32, device=dev))
+        rep = pshard.Layout(pshard.P(), (), mesh)
+        sh = ST.TrainState(layouts, adamw.AdamState(rep, layouts, layouts,
+                                                    None), rep)
+        whole = {k: torch.empty((TP_ROWS * TP_MESH[0], LM_SEQ),
+                                device="meta") for k in ("tokens", "labels")}
+        step = ST.make_train_step(cfg, tc, mesh, sh, ST.batch_shardings(
+            mesh, cfg, "train", whole))
+        batch = {k: torch.randint(0, cfg.vocab, (TP_ROWS, LM_SEQ),
+                                  generator=gen, device=dev,
+                                  dtype=torch.int32)
+                 for k in ("tokens", "labels")}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pshard.reset_collectives()
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        tags = pshard.collective_tags()
+        del state, step, batch, shards, model
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "peak_gb": peak, "tags": tags}
+
+
+def tp_phase(torch, smi: str, proc: tuple, shard: dict | None) -> dict:
+    """Phase 25 (see the module doc): (a) the real rank-0 step of yi-9b
+    train_4k on (16, 16) against its dry run (``proc``: :func:`tp_cli_
+    start`'s run) and the hand count; (b) phase 23's NCCL world of 1 on
+    the same code, bit for bit the unsharded step (``shard``: its
+    readings, None when phase 23 did not run)."""
+    from repro_torch import configs
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as ST
+    cfg = configs.get_config(LM_ARCH)
+    tc = ST.TrainConfig(opt=adamw.OptConfig(lr=LM_LR, warmup_steps=1,
+                                            total_steps=100))
+    hand = tp_hand_count(cfg)
+    real = tp_step(torch, cfg, tc)
+    rec = tp_record(proc)
+    tracked = rec["memory"]["peak_per_device_gb"]
+    flops = rec["roofline"]["flops"]
+    dots = rec.get("dot_flops")
+    lo, hi = DRYRUN_PEAK_BAND
+    ratio = real["peak_gb"] / tracked
+    print(f"(a) {cfg.name} L = {cfg.n_layers}, {TP_ROWS} × {LM_SEQ} on rank "
+          f"0 of {TP_MESH}, bf16 [{smi}]: max_memory_allocated "
+          f"{real['peak_gb']:.4f} GB against the dry run's tracked peak "
+          f"{tracked:.4f} GB (ratio {ratio:.4f}, band {lo}–{hi}; limit "
+          f"{TP_LIMIT_GB} GB); wall {real['wall_s']:.4f} s", flush=True)
+    print(f"    dry run (CPU of this machine, {rec['trace_s']} s): flops "
+          f"{flops:.6g}, products {dots}, useful-flops ratio "
+          f"{rec.get('useful_flops_ratio')}; hand count: products "
+          f"{hand['products']:.6g} (dense {hand['dense']:.6g}, attention "
+          f"{hand['attention']:.6g}, head {hand['head']:.6g}), saved "
+          f"inputs {hand['saved_inputs_gb']:.4f} GB, compute leaves "
+          f"{hand['leaves']} ({hand['leaves_gb']:.4f} GB bf16 + f32), "
+          f"masters and moments {hand['masters_moments_gb']:.4f} GB",
+          flush=True)
+    print("    collectives by purpose (calls, bytes; the fake group moves "
+          "nothing): " + ", ".join(f"{k} {v[0]} ({v[1] / 2**20:.1f} MiB)"
+                                   for k, v in real["tags"].items()),
+          flush=True)
+    if shard is not None:
+        print(f"(b) phase 23's NCCL world of 1 on this code: losses "
+              f"{shard['sharded']['losses']} equal the unsharded step's "
+              f"{shard['unsharded']['losses']} bit for bit (asserted there)"
+              f" [{smi}]", flush=True)
+    assert real["peak_gb"] < TP_LIMIT_GB, real
+    assert lo <= ratio <= hi, (real["peak_gb"], tracked)
+    for tag in ("region", "vocab_max", "vocab_sum", "grad"):
+        assert real["tags"].get(tag, (0, 0))[0] > 0, (tag, real["tags"])
+    return {"real": real, "tracked_gb": tracked, "flops": flops,
+            "dot_flops": dots, "hand": hand}
+
+
 # two fill batches of 8, then a 4-query tail (cut from 44 when phase 24
 # came, to keep the smoke within half its limit)
 SERVE_QUERIES = 20
@@ -4931,9 +5133,10 @@ def main(argv: list[str]) -> int:
         tree, argv = os.path.abspath(argv[2]), ["--kernels"]
         sys.path.insert(0, os.path.join(tree, "src"))
     if argv not in ([], ["--faults"], ["--kernels"], ["--lm-lr"],
-                    ["--moe"], ["--ssm"], ["--shard"], ["--dryrun"]):
+                    ["--moe"], ["--ssm"], ["--shard"], ["--dryrun"],
+                    ["--tp"]):
         print("usage: python3 chip_smoke.py [--faults | --lm-lr | --moe | "
-              "--ssm | --shard | --dryrun | --kernels [--tree DIR]]",
+              "--ssm | --shard | --dryrun | --tp | --kernels [--tree DIR]]",
               file=sys.stderr)
         return 2
     import torch
@@ -4986,6 +5189,10 @@ def main(argv: list[str]) -> int:
     if argv == ["--dryrun"]:
         with tempfile.TemporaryDirectory() as tmp, phase(DRYRUN_PHASE):
             dryrun_phase(torch, smi, tmp)
+        return 0
+    if argv == ["--tp"]:
+        with tempfile.TemporaryDirectory() as tmp, phase(TP_PHASE):
+            tp_phase(torch, smi, tp_cli_start(tmp), None)
         return 0
 
     with phase("build"):
@@ -5353,7 +5560,8 @@ def main(argv: list[str]) -> int:
         # torchrun start before phase 22 and run beside it
         clis = {a: start_cli(a, tmp) for a in (LM_ARCH, MOE_CLI_ARCH)}
         dry_procs = dryrun_cli_start(tmp)
-        later = []
+        tp_proc = tp_cli_start(tmp)
+        later = [tp_proc[1]]
         try:
             with phase(f"LM stack: {LM_ARCH} at full width, L = {LM_DEPTH}, "
                        f"seq {LM_SEQ}, batch {LM_BATCH}; the FFN bridge"):
@@ -5367,9 +5575,11 @@ def main(argv: list[str]) -> int:
             with phase(SSM_PHASE):
                 ssm_phase(torch, tmp, ssm_clis)
             with phase(SHARD_PHASE):
-                shard_phase(torch, tmp, run)
+                shard = shard_phase(torch, tmp, run)
             with phase(DRYRUN_PHASE):
                 dryrun_phase(torch, smi, tmp, dry_procs)
+            with phase(TP_PHASE):
+                tp_phase(torch, smi, tp_proc, shard)
         finally:
             stop_all([c[1] for c in clis.values()]
                      + [d[1] for d in dry_procs] + later)

@@ -15,7 +15,8 @@ counts the aten ops the step dispatches on them (:mod:`.hlo_cost`).
 * the batch: the rank's rows, shaped by the ``Layout`` of
   :func:`repro_torch.pshard.batch_spec` (no global host batch);
 * decode caches: :func:`repro_torch.models.model.cache_init`'s, the
-  rank's rows (the port's caches are cut over the batch axes only).
+  rank's blocks (its rows; an attention cache's kv heads or positions
+  over "model", :func:`repro_torch.train.steps.cache_layouts`).
 
 Every function here creates fake tensors and must run inside a
 ``FakeTensorMode`` (:func:`.hlo_cost.fake_mode`). ``mesh=None`` is one
@@ -112,29 +113,26 @@ def params_struct(cfg: M.ArchConfig, mesh, device=None):
 
 def cache_struct(cfg: M.ArchConfig, batch: int, smax: int, mesh,
                  dtype=torch.bfloat16, device=None):
-    """The rank's decode caches (``cache_init``'s, its rows of the batch)
-    and their Layouts (None on one device)."""
+    """The rank's decode caches (``cache_init``'s, its blocks in
+    :func:`repro_torch.train.steps.cache_layouts`: its rows of the batch,
+    an attention cache's kv heads or positions over "model") and their
+    Layouts (None on one device)."""
     dev = _device(device)
-    local, lay = _rows(mesh, (batch,))
-    meta = M.cache_init(cfg, local[0], smax, dtype, device="meta")
+    meta = M.cache_init(cfg, batch, smax, dtype, device="meta")
+    lays = None if mesh is None else ST.cache_layouts(cfg, mesh, batch,
+                                                      smax, dtype)
 
-    def fake(tree):
+    def fake(tree, lay):
         if isinstance(tree, dict):
-            return {k: fake(v) for k, v in tree.items()}
+            return {k: fake(v, None if lay is None else lay[k])
+                    for k, v in tree.items()}
         if isinstance(tree, list):
-            return [fake(v) for v in tree]
-        return torch.zeros(tree.shape, dtype=tree.dtype, device=dev)
+            return [fake(v, None if lay is None else lay[i])
+                    for i, v in enumerate(tree)]
+        shape = tree.shape if lay is None else lay.local_shape
+        return torch.zeros(shape, dtype=tree.dtype, device=dev)
 
-    def layout(tree):
-        if isinstance(tree, dict):
-            return {k: layout(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [layout(v) for v in tree]
-        glob = (batch, *tree.shape[1:])
-        return pshard.Layout(pshard.P(*lay.spec, *(None,) * (len(glob) - 1)),
-                             glob, mesh)
-
-    return fake(meta), (None if mesh is None else layout(meta))
+    return fake(meta, lays), lays
 
 
 def input_specs(cfg: M.ArchConfig, shape: configs.ShapeSpec, mesh,

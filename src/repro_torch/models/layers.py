@@ -20,10 +20,16 @@ Conventions, as the reference's:
 * Attention is **chunked** (flash-style online softmax over kv tiles) in
   plain torch, each kv step checkpointed when gradients are taken, so the
   (S, S) scores never exist and backward recomputes each tile.
-* No sharding constraint: a rank computes on its own rows with every
-  parameter whole (:mod:`repro_torch.pshard`), so the reference's
-  ``constrain`` is the identity. MoE routing alone reads the rank's place
-  in the batch: its groups are the whole batch's (:func:`moe_route`).
+* The "model" axis splits compute where the rules split the leaves
+  (:mod:`repro_torch.pshard`): a layer reads its split from the shapes
+  of the leaves it is given (a rank's block of a leaf cut over "model")
+  and :func:`repro_torch.pshard.model_shard`. Attention then computes
+  the rank's query heads (and the kv heads they read) and the FFN the
+  rank's hidden columns, each inside a split region
+  (:func:`repro_torch.pshard.enter` … :func:`repro_torch.pshard.leave`:
+  the row-parallel product's f32 partials are summed over "model", then
+  rounded once). MoE routing reads the rank's place in the batch: its
+  groups are the whole batch's (:func:`moe_route`).
 
 MoE (:func:`moe_forward`) is the reference's grouped top-k dispatch with
 capacity, its one-hot dispatch and combine products included (see
@@ -312,22 +318,30 @@ def _headwise_rms(x, scale):
     return (y * scale.to(F32)).to(x.dtype)
 
 
-def attn_qkv(params, spec: AttnSpec, x, positions):
-    """Project to rotary q, k, v. x: (B, S, d) → q (B,H,S,Dh), k/v (B,Hk,S,Dh)."""
-    q = dot("bsd,dhk->bhsk", x, params["wq"], x.dtype)
-    k = dot("bsd,dhk->bhsk", x, params["wk"], x.dtype)
-    v = dot("bsd,dhk->bhsk", x, params["wv"], x.dtype)
+def _project(params, spec: AttnSpec, x, positions, w: str, b: str,
+             norm: str | None, heads: slice | None = None):
+    """One rotary (q or k) or plain (v) projection of x (B, S, d) onto the
+    heads of ``params[w]`` (``heads``: a slice of them) → (B, h, S, Dh),
+    with its bias and per-head norm."""
+    wt = params[w] if heads is None else params[w][:, heads]
+    y = dot("bsd,dhk->bhsk", x, wt, x.dtype)
     if spec.qkv_bias:
-        q = q + params["bq"][None, :, None, :].to(x.dtype)
-        k = k + params["bk"][None, :, None, :].to(x.dtype)
-        v = v + params["bv"][None, :, None, :].to(x.dtype)
-    if spec.qk_norm:
-        q = _headwise_rms(q, params["qnorm"])
-        k = _headwise_rms(k, params["knorm"])
-    # rope takes (..., S, H, D): rotate in (B, S, H, D) and back
-    q = rope(q.transpose(1, 2), positions, spec.rope_theta).transpose(1, 2)
-    k = rope(k.transpose(1, 2), positions, spec.rope_theta).transpose(1, 2)
-    return q, k, v
+        bias = params[b] if heads is None else params[b][heads]
+        y = y + bias[None, :, None, :].to(x.dtype)
+    if norm is not None and spec.qk_norm:
+        y = _headwise_rms(y, params[norm])
+    if norm is not None:        # rope takes (..., S, H, D)
+        y = rope(y.transpose(1, 2), positions, spec.rope_theta).transpose(
+            1, 2)
+    return y
+
+
+def attn_qkv(params, spec: AttnSpec, x, positions):
+    """Project to rotary q, k, v. x: (B, S, d) → q (B,H,S,Dh), k/v
+    (B,Hk,S,Dh), over the heads of the leaves given (a rank's block)."""
+    return (_project(params, spec, x, positions, "wq", "bq", "qnorm"),
+            _project(params, spec, x, positions, "wk", "bk", "knorm"),
+            _project(params, spec, x, positions, "wv", "bv", None))
 
 
 def attn_out(params, o, dtype):
@@ -335,38 +349,205 @@ def attn_out(params, o, dtype):
     return dot("bhsk,hkd->bsd", o, params["wo"], dtype)
 
 
+class HeadSplit(NamedTuple):
+    """How a rank's attention leaves cut the heads over "model": its
+    query heads [q0, q0 + hq) of ``n_heads``; ``kv_cut`` where the kv
+    leaves are cut too (the rank's kv heads are then those its query
+    heads read), else they hold every kv head."""
+    sh: "pshard.ModelShard"
+    q0: int
+    hq: int
+    kv_cut: bool
+
+    def kv_of_q(self, spec: AttnSpec) -> list[int]:
+        """The global kv head each of the rank's query heads reads."""
+        g = spec.n_heads // spec.n_kv_heads
+        return [(self.q0 + j) // g for j in range(self.hq)]
+
+
+def head_split(params, spec: AttnSpec) -> HeadSplit | None:
+    """The rank's :class:`HeadSplit`, or None where the query heads are
+    whole (the rules leave them replicated, or there is no model axis)."""
+    hq = params["wq"].shape[1]
+    if hq == spec.n_heads:
+        return None
+    sh = pshard.model_shard()
+    return HeadSplit(sh, sh.index * hq, hq,
+                     params["wk"].shape[1] < spec.n_kv_heads)
+
+
+def _kv_for_q(t, hs: HeadSplit, spec: AttnSpec, first: int):
+    """k or v (B, h, S, Dh) over kv heads [first, first + h) → one head per
+    query head of the rank, the one it reads."""
+    idx = [k - first for k in hs.kv_of_q(spec)]
+    if idx == list(range(t.shape[1])):
+        return t
+    return t[:, idx]
+
+
+def _kv_span(hs: HeadSplit, spec: AttnSpec) -> slice:
+    need = hs.kv_of_q(spec)
+    return slice(need[0], need[-1] + 1)
+
+
 def attn_forward(params, spec: AttnSpec, x, positions, *, q_chunk=1024,
                  k_chunk=1024):
     """Self-attention over a full sequence (train / prefill)."""
-    q, k, v = attn_qkv(params, spec, x, positions)
-    o = chunked_attention(q, k, v, causal=spec.causal, window=spec.window,
+    return attn_prefill(params, spec, x, positions, None, q_chunk=q_chunk,
+                        k_chunk=k_chunk)[0]
+
+
+def attn_prefill(params, spec: AttnSpec, x, positions, cache: str | None,
+                 *, q_chunk=1024, k_chunk=1024):
+    """Self-attention over a full sequence → (out (B, S, d), the rank's
+    (k, v) cache or None): ``cache`` None takes no cache; else the
+    cache's layout, as :func:`attn_cache_cut` names it (``"whole"``,
+    ``"heads"`` or ``"seq"``).
+
+    With the query heads cut over "model" (:func:`head_split`) the rank
+    computes its heads inside a split region. Its kv heads are its block
+    where the kv leaves are cut; where they are replicated, it projects
+    the kv heads its query heads read (all of them where a cache of every
+    kv head is asked for) and gives each query head its own."""
+    hs = head_split(params, spec)
+    if hs is None:
+        q, k, v = attn_qkv(params, spec, x, positions)
+        o = chunked_attention(q, k, v, causal=spec.causal,
+                              window=spec.window, q_offset=0,
+                              q_chunk=q_chunk, k_chunk=k_chunk)
+        out = attn_out(params, o, x.dtype)
+        return out, (None if cache is None else _cache_block(
+            k, v, cache, pshard.model_shard()))
+    x = pshard.enter(x, hs.sh)
+    q = _project(params, spec, x, positions, "wq", "bq", "qnorm")
+    every = cache is not None and cache != "heads"
+    span = None if hs.kv_cut or every else _kv_span(hs, spec)
+    k = _project(params, spec, x, positions, "wk", "bk", "knorm", span)
+    v = _project(params, spec, x, positions, "wv", "bv", None, span)
+    if hs.kv_cut:
+        ka, va = k, v
+    else:
+        first = 0 if span is None else span.start
+        ka, va = (_kv_for_q(k, hs, spec, first),
+                  _kv_for_q(v, hs, spec, first))
+    o = chunked_attention(q, ka, va, causal=spec.causal, window=spec.window,
                           q_offset=0, q_chunk=q_chunk, k_chunk=k_chunk)
-    return attn_out(params, o, x.dtype)
+    out = pshard.leave(attn_out(params, o, F32), hs.sh).to(x.dtype)
+    if cache is None:
+        return out, None
+    if every and hs.kv_cut:         # a cache of every kv head
+        k = pshard.all_gather_dim(k, hs.sh, 1, "cache")
+        v = pshard.all_gather_dim(v, hs.sh, 1, "cache")
+    return out, _cache_block(k, v, cache, hs.sh)
 
 
-def attn_decode(params, spec: AttnSpec, x, cache_k, cache_v, cache_len):
-    """Single-token decode: x (B, 1, d); cache (B, Hk, Smax, Dh), written
-    in place at ``cache_len``. Returns (out (B, 1, d), cache_k, cache_v)."""
+def _cache_block(k, v, cache: str, sh) -> tuple:
+    """The rank's block of the (k, v) cache in the layout ``cache``: its
+    kv heads as given (``"heads"``, ``"whole"``), or its positions
+    (``"seq"``)."""
+    if cache != "seq":
+        return k, v
+    first, n = sh.block(k.shape[2])
+    return k[:, :, first:first + n], v[:, :, first:first + n]
+
+
+def attn_cache_cut(spec: AttnSpec, seq: int) -> str:
+    """The layout of an attention cache of ``seq`` positions on this
+    rank's model axis: ``"heads"`` where its kv heads are cut over
+    "model", ``"seq"`` where its positions are, else ``"whole"``, as
+    :func:`repro_torch.pshard.resolve_spec` resolves the reference's
+    cache spec (kv heads over "model" when 16 divides them, else the
+    sequence)."""
+    sh = pshard.model_shard()
+    if sh is None:
+        return "whole"
+    if spec.n_kv_heads % 16 == 0:
+        return "heads" if spec.n_kv_heads % sh.count == 0 else "whole"
+    return "seq" if seq % sh.count == 0 else "whole"
+
+
+def attn_decode(params, spec: AttnSpec, x, cache_k, cache_v, cache_len,
+                cut: str = "whole"):
+    """Single-token decode: x (B, 1, d); the rank's cache (B, Hk, Smax,
+    Dh) in the layout ``cut`` (:func:`attn_cache_cut` of the whole
+    cache's Smax), written in place at ``cache_len``. Returns (out (B, 1,
+    d), cache_k, cache_v).
+
+    On a sequence-cut cache (``"seq"``) the rank attends every query head
+    over its positions: the one-token q is gathered over "model", each
+    rank's partial (max, sum, output) is combined with a MAX and a SUM
+    over "model", and the rank keeps its heads for ``wo``. Only the rank
+    that holds position ``cache_len`` writes the new k and v."""
     b = x.shape[0]
     t = int(cache_len)
     pos = torch.full((b, 1), t, dtype=torch.int32, device=x.device)
-    q, k, v = attn_qkv(params, spec, x, pos)
-    cache_k[:, :, t:t + 1] = k.to(cache_k.dtype)
-    cache_v[:, :, t:t + 1] = v.to(cache_v.dtype)
-    smax = cache_k.shape[2]
-    hq, hk = spec.n_heads, spec.n_kv_heads
-    kk = torch.repeat_interleave(cache_k, hq // hk, dim=1)
-    vv = torch.repeat_interleave(cache_v, hq // hk, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.to(F32),
-                     kk.to(F32)) / math.sqrt(spec.d_head)
-    kpos = torch.arange(smax, device=x.device)
+    hs = head_split(params, spec)
+    sh = pshard.model_shard()
+    if hs is not None:
+        x = pshard.enter(x, hs.sh)
+    q = _project(params, spec, x, pos, "wq", "bq", "qnorm")
+    k = _project(params, spec, x, pos, "wk", "bk", "knorm")
+    v = _project(params, spec, x, pos, "wv", "bv", None)
+    if cut != "heads" and hs is not None and hs.kv_cut:
+        k = pshard.all_gather_dim(k, sh, 1, "decode_kv")
+        v = pshard.all_gather_dim(v, sh, 1, "decode_kv")
+    first = 0
+    if cut == "seq":
+        first = sh.block(cache_k.shape[2] * sh.count)[0]
+    local = t - first
+    if 0 <= local < cache_k.shape[2]:
+        cache_k[:, :, local:local + 1] = k.to(cache_k.dtype)
+        cache_v[:, :, local:local + 1] = v.to(cache_v.dtype)
+    kpos = first + torch.arange(cache_k.shape[2], device=x.device)
     valid = kpos <= t
     if spec.window is not None:
         valid = valid & (kpos > t - spec.window)
+    if cut == "seq":
+        o = _decode_seq(q, cache_k, cache_v, valid, spec, hs, sh)
+    else:
+        if hs is None or cut == "heads":
+            kk = torch.repeat_interleave(cache_k, q.shape[1]
+                                         // cache_k.shape[1], dim=1)
+            vv = torch.repeat_interleave(cache_v, q.shape[1]
+                                         // cache_v.shape[1], dim=1)
+        else:
+            kk = _kv_for_q(cache_k, hs, spec, 0)
+            vv = _kv_for_q(cache_v, hs, spec, 0)
+        s = torch.einsum("bhqd,bhkd->bhqk", q.to(F32),
+                         kk.to(F32)) / math.sqrt(spec.d_head)
+        s = torch.where(valid[None, None, None], s, NEG_INF)
+        pattn = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhqk,bhkd->bhqd", pattn, vv.to(F32)).to(x.dtype)
+    if hs is None:
+        return attn_out(params, o, x.dtype), cache_k, cache_v
+    out = pshard.leave(attn_out(params, o, F32), hs.sh).to(x.dtype)
+    return out, cache_k, cache_v
+
+
+def _decode_seq(q, cache_k, cache_v, valid, spec: AttnSpec, hs, sh):
+    """Decode attention over a sequence-cut cache: every query head (q
+    gathered over "model" where the rank holds some) against the rank's
+    positions, the softmax's pieces combined over "model" → the rank's
+    heads' output (B, h, 1, Dh) in q's dtype."""
+    dt = q.dtype
+    if hs is not None:
+        q = pshard.all_gather_dim(q, sh, 1, "decode_q")
+    g = q.shape[1] // cache_k.shape[1]
+    kk = torch.repeat_interleave(cache_k, g, dim=1)
+    vv = torch.repeat_interleave(cache_v, g, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(F32),
+                     kk.to(F32)) / math.sqrt(spec.d_head)
     s = torch.where(valid[None, None, None], s, NEG_INF)
-    pattn = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhqk,bhkd->bhqd", pattn, vv.to(F32)).to(x.dtype)
-    return attn_out(params, o, x.dtype), cache_k, cache_v
+    m = torch.amax(s, dim=-1)                             # (B, H, 1)
+    top = pshard.model_max(m, sh, "decode_max")
+    p = torch.exp(s - top[..., None])
+    parts = torch.cat([torch.einsum("bhqk,bhkd->bhqd", p, vv.to(F32)),
+                       torch.sum(p, dim=-1)[..., None]], dim=-1)
+    parts = pshard.leave(parts, sh, "decode_sum")
+    o = (parts[..., :-1] / parts[..., -1:]).to(dt)
+    if hs is not None:
+        o = o[:, hs.q0:hs.q0 + hs.hq]
+    return o
 
 
 # ---------------------------------------------------------------------------
@@ -398,7 +579,8 @@ class Ffn(nn.Module):
 
 
 def ffn_hidden(params, spec: FfnSpec, x):
-    """The FFN's hidden activations (B, S, d_ff), before ``w_out``."""
+    """The FFN's hidden activations (B, S, f), before ``w_out``: the
+    rank's f columns where ``w_in`` is its block."""
     h = dot("bsd,df->bsf", x, params["w_in"], x.dtype)
     if spec.kind in ("swiglu", "geglu"):
         g = dot("bsd,df->bsf", x, params["w_gate"], x.dtype)
@@ -411,10 +593,16 @@ def ffn_hidden(params, spec: FfnSpec, x):
 
 
 def ffn_forward(params, spec: FfnSpec, x):
-    h = ffn_hidden(params, spec, x)
-    return dot("bsf,fd->bsd", h, params["w_out"], x.dtype)
-
-
+    """The FFN; with its hidden width cut over "model" (``w_in`` and
+    ``w_gate`` column-parallel, ``w_out`` row-parallel) the rank's part
+    inside a split region."""
+    if params["w_in"].shape[1] == spec.d_ff:
+        h = ffn_hidden(params, spec, x)
+        return dot("bsf,fd->bsd", h, params["w_out"], x.dtype)
+    sh = pshard.model_shard()
+    h = ffn_hidden(params, spec, pshard.enter(x, sh))
+    part = dot("bsf,fd->bsd", h, params["w_out"], F32)
+    return pshard.leave(part, sh).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -443,6 +631,10 @@ class Moe(nn.Module):
     ``router`` (d, e), kept in f32 whatever ``dtype`` is; ``w_in`` and
     ``w_gate`` (e, d, f); ``w_out`` (e, f, d); and, with shared experts,
     ``shared``, a dense FFN of width f·n_shared."""
+
+    # its compute stays whole on "model" (the sharded steps gather its
+    # leaves whole); a module without this attribute splits there
+    model_split = False
 
     SPECS = {"router": P("embed", None), "w_in": P("experts", "embed", None),
              "w_gate": P("experts", "embed", None),

@@ -39,6 +39,10 @@ class Mla(nn.Module):
     wq (d, H, d_nope + d_rope), w_dkv (d, r + d_rope), kv_norm (r,),
     w_uk (r, H, d_nope), w_uv (r, H, d_v), wo (H, d_v, d)."""
 
+    # its compute stays whole on "model" (the sharded steps gather its
+    # leaves whole); a module without this attribute splits there
+    model_split = False
+
     SPECS = {"wq": P("embed", "heads", None), "w_dkv": P("embed", None),
              "kv_norm": P(None), "w_uk": P("lora", "heads", None),
              "w_uv": P("lora", "heads", None), "wo": P("heads", None, "embed")}

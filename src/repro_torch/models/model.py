@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import pshard
 from ..core.device import resolve_device
 from ..pshard import P
 from . import layers as L
@@ -276,22 +277,22 @@ def _block_forward(p, blk: Block, cfg: ArchConfig, x, positions,
     elif blk.kind == "slstm":
         mix, st = S.slstm_forward(p["mixer"], blk.slstm, h)
         cache = dict(zip(SLSTM_STATE, st))
-    elif want_cache:
-        q, k, v = L.attn_qkv(p["mixer"], blk.attn, h, positions)
-        o = L.chunked_attention(q, k, v, causal=blk.attn.causal,
-                                window=blk.attn.window, q_offset=0,
-                                q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk)
-        mix = L.attn_out(p["mixer"], o, x.dtype)
-        cache = {"k": k, "v": v}
     else:
-        mix = L.attn_forward(p["mixer"], blk.attn, h, positions,
-                             q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk)
+        cut = (L.attn_cache_cut(blk.attn, x.shape[1]) if want_cache
+               else None)
+        mix, kv = L.attn_prefill(p["mixer"], blk.attn, h, positions, cut,
+                                 q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk)
+        if want_cache:
+            cache = {"k": kv[0], "v": kv[1]}
     return _ffn(p, blk, x + mix), (cache if want_cache else None)
 
 
-def _block_decode(p, blk: Block, cfg: ArchConfig, x, cache, cache_len):
+def _block_decode(p, blk: Block, cfg: ArchConfig, x, cache, cache_len,
+                  smax: int | None = None):
     """Single-token decode → (x, cache). Attention caches are written in
-    place; a recurrent block returns its new state."""
+    place (``smax``: the whole cache's positions, which name its layout
+    on the model axis; by default the given cache's own); a recurrent
+    block returns its new state."""
     h = L.rmsnorm(p["norm1"], x)
     if blk.kind == "mla":
         mix, cc, ckpe = M.mla_decode(p["mixer"], blk.mla, h, cache["c"],
@@ -309,8 +310,10 @@ def _block_decode(p, blk: Block, cfg: ArchConfig, x, cache, cache_len):
                                  tuple(cache[k] for k in SLSTM_STATE))
         cache = dict(zip(SLSTM_STATE, st))
     else:
+        cut = L.attn_cache_cut(blk.attn, cache["k"].shape[2]
+                               if smax is None else smax)
         mix, ck, cv = L.attn_decode(p["mixer"], blk.attn, h, cache["k"],
-                                    cache["v"], cache_len)
+                                    cache["v"], cache_len, cut)
         cache = {"k": ck, "v": cv}
     return _ffn(p, blk, x + mix), cache
 
@@ -389,6 +392,17 @@ def cache_specs(cfg: ArchConfig) -> list:
              for _ in range(seg.repeat)] for seg in cfg.segments]
 
 
+def cache_positions(caches) -> int:
+    """The positions of the first attention or MLA cache of a tree of
+    caches (or of their layouts; 0 where there is none)."""
+    for seg in caches:
+        for layer in seg:
+            for c in layer.values():
+                if set(c) in _SEQ_CACHES:
+                    return next(iter(c.values())).shape[-2]
+    return 0
+
+
 def pad_caches(caches, smax: int):
     """Prefill's caches (sequence S) zero-padded to ``smax`` positions, the
     layout :func:`decode_step` continues from at ``cache_len = S``. Only
@@ -412,11 +426,28 @@ def _positions(b: int, s_len: int, device):
     return torch.arange(s_len, device=device).expand(b, s_len)
 
 
+def embed_tokens(params, cfg: ArchConfig, tokens, dtype):
+    """The embedding rows of ``tokens`` in ``dtype``. With the vocabulary
+    cut over "model" the rank looks up its rows (a token outside them
+    gives zero) and the rows are summed over "model": one rank gives
+    each token's row, so the sum is exact."""
+    table = params["embed"]
+    if table.shape[0] == cfg.vocab:
+        return table[tokens.long()].to(dtype)
+    sh = pshard.model_shard()
+    first, n = sh.block(cfg.vocab)
+    local = tokens.long() - first
+    mine = (local >= 0) & (local < n)
+    rows = torch.where(mine[..., None], table[torch.where(mine, local, 0)],
+                       0.0)
+    return pshard.leave(rows, sh, "embed").to(dtype)
+
+
 def _embed_inputs(params, cfg: ArchConfig, batch: dict, dtype):
     """Frontends → (x (B,S,d), positions (B,S), label mask)."""
     if cfg.frontend == "tokens":
         tokens = batch["tokens"]
-        x = params["embed"][tokens.long()].to(dtype)
+        x = embed_tokens(params, cfg, tokens, dtype)
         b, s_len = tokens.shape
         mask = torch.ones((b, s_len), dtype=torch.bool, device=x.device)
     elif cfg.frontend == "frames":
@@ -428,7 +459,7 @@ def _embed_inputs(params, cfg: ArchConfig, batch: dict, dtype):
         tokens = batch["tokens"]
         img = batch["image_embeds"].to(dtype)
         ximg = L.dot("bsf,fd->bsd", img, params["patch_proj"], dtype)
-        xtok = params["embed"][tokens.long()].to(dtype)
+        xtok = embed_tokens(params, cfg, tokens, dtype)
         x = torch.cat([ximg, xtok], dim=1)
         b, s_len = tokens.shape[0], x.shape[1]
         mask = torch.cat([
@@ -475,9 +506,21 @@ def _head(params, cfg: ArchConfig):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
+def _vocab_split(head, cfg: ArchConfig):
+    """The model shard where the head holds the rank's vocabulary
+    columns, else None."""
+    return None if head.shape[-1] == cfg.vocab else pshard.model_shard()
+
+
 def logits_for(params, cfg: ArchConfig, x):
-    """f32 logits (B, S, vocab) of x (B, S, d)."""
-    return L.dot("bsd,dv->bsv", x, _head(params, cfg).to(x.dtype), F32)
+    """f32 logits (B, S, vocab) of x (B, S, d); with the vocabulary cut
+    over "model", the rank's columns gathered over it."""
+    head = _head(params, cfg).to(x.dtype)
+    sh = _vocab_split(head, cfg)
+    logits = L.dot("bsd,dv->bsv", x, head, F32)
+    if sh is None:
+        return logits
+    return pshard.all_gather_dim(logits, sh, -1, "logits")
 
 
 def _xent_chunk(xc, lc, mc, head):
@@ -488,30 +531,55 @@ def _xent_chunk(xc, lc, mc, head):
     return torch.sum(nll), torch.sum(mc)
 
 
+def _xent_chunk_split(xc, lc, mc, head, sh, first: int):
+    """:func:`_xent_chunk` on the rank's vocabulary columns [first, first
+    + V/M): the max from a MAX over "model", the sum of exponentials and
+    the gold logit (from its owner, zero elsewhere) from one SUM, in
+    f32."""
+    logits = L.dot("bsd,dv->bsv", xc, head, F32)
+    top = pshard.model_max(torch.amax(logits, dim=-1), sh, "vocab_max")
+    local = lc.long() - first
+    mine = (local >= 0) & (local < logits.shape[-1])
+    gold = torch.gather(logits, -1, torch.where(mine, local, 0)[..., None])
+    gold = torch.where(mine, gold[..., 0], 0.0)
+    expsum = torch.sum(torch.exp(logits - top[..., None]), dim=-1)
+    both = pshard.leave(torch.stack([expsum, gold]), sh, "vocab_sum")
+    logz = top + torch.log(both[0])
+    nll = (logz - both[1]) * mc
+    return torch.sum(nll), torch.sum(mc)
+
+
 def chunked_xent(params, cfg: ArchConfig, x, labels, mask, count=None):
     """Mean cross-entropy without materialising (B, S, vocab): chunks of
     ``loss_chunk`` positions, each reduced to (loss sum, count) in order
     and dropped, each checkpointed where ``cfg.remat``. ``count``: the
     denominator in place of the mask's own count (a data-parallel rank
-    divides its sum by the whole batch's count)."""
+    divides its sum by the whole batch's count). With the vocabulary cut
+    over "model" each chunk is vocab-parallel (:func:`_xent_chunk_split`)
+    inside a split region."""
     b, s_len, d = x.shape
     c = min(cfg.loss_chunk, s_len)
     nchunks = -(-s_len // c)
     pad = nchunks * c - s_len
+    head = _head(params, cfg).to(x.dtype)
+    sh = _vocab_split(head, cfg)
+    chunk, extra = _xent_chunk, ()
+    if sh is not None:
+        x = pshard.enter(x, sh)
+        chunk, extra = _xent_chunk_split, (sh, sh.block(cfg.vocab)[0])
     xp = F.pad(x, (0, 0, 0, pad))
     lp = F.pad(labels, (0, pad))
     mp = F.pad(mask.to(F32), (0, pad))
-    head = _head(params, cfg).to(x.dtype)
     remat = cfg.remat and torch.is_grad_enabled()
     loss_sum = torch.zeros((), dtype=F32, device=x.device)
     total = torch.zeros((), dtype=F32, device=x.device)
     for i in range(nchunks):
         sl = slice(i * c, (i + 1) * c)
-        args = (xp[:, sl], lp[:, sl], mp[:, sl], head)
+        args = (xp[:, sl], lp[:, sl], mp[:, sl], head, *extra)
         if remat:
-            ls, n = checkpoint(_xent_chunk, *args, use_reentrant=False)
+            ls, n = checkpoint(chunk, *args, use_reentrant=False)
         else:
-            ls, n = _xent_chunk(*args)
+            ls, n = chunk(*args)
         loss_sum = loss_sum + ls
         total = total + n
     return loss_sum / torch.clamp(total if count is None else count, min=1.0)
@@ -548,11 +616,15 @@ def prefill(params, cfg: ArchConfig, batch: dict,
 
 
 def decode_step(params, cfg: ArchConfig, token, caches, cache_len,
-                compute_dtype=torch.bfloat16):
+                compute_dtype=torch.bfloat16, smax: int | None = None):
     """One decode step. token: (B, 1) ints; caches as from
-    :func:`cache_init` (attention caches written in place). Returns
-    (logits (B,1,V), caches)."""
-    x = params["embed"][token.long()].to(compute_dtype)
+    :func:`cache_init` (attention caches written in place; on a model
+    axis, each in the layout :func:`layers.attn_cache_cut` gives for
+    ``smax``, the whole caches' positions: by default the given caches'
+    own). Returns (logits (B,1,V), caches)."""
+    if smax is None:
+        smax = cache_positions(caches)
+    x = embed_tokens(params, cfg, token, compute_dtype)
     new_caches = []
     for si, seg in enumerate(cfg.segments):
         seg_new = []
@@ -563,7 +635,7 @@ def decode_step(params, cfg: ArchConfig, token, caches, cache_len,
                 bp = (params["shared"] if blk.shared
                       else layer_params[f"b{bi}"])
                 x, nc[f"b{bi}"] = _block_decode(
-                    bp, blk, cfg, x, layer_cache[f"b{bi}"], cache_len)
+                    bp, blk, cfg, x, layer_cache[f"b{bi}"], cache_len, smax)
             seg_new.append(nc)
         new_caches.append(seg_new)
     x = L.rmsnorm(params["final_norm"], x)

@@ -168,6 +168,10 @@ class Mamba2(nn.Module):
     dt], conv_w (K, d_inner + 2·g·N), a_log, dt_bias and d_skip (H,) in
     f32 whatever ``dtype`` is, norm_scale (d_inner,), w_out (d_inner, d)."""
 
+    # its compute stays whole on "model" (the sharded steps gather its
+    # leaves whole); a module without this attribute splits there
+    model_split = False
+
     SPECS = {"w_in": P("embed", "heads"), "conv_w": P(None, "heads"),
              "a_log": P(None), "dt_bias": P(None), "d_skip": P(None),
              "norm_scale": P("heads"), "w_out": P("heads", "embed")}
@@ -268,6 +272,10 @@ class Mlstm(nn.Module):
     w_up (d, 2·d_inner) for [main, gate], wq/wk (d_inner, H, d_qk), wv
     (d_inner, H, d_v), w_if (d_inner, 2H) and f_bias (H,) in f32 whatever
     ``dtype`` is, norm_scale (d_inner,), w_down (d_inner, d)."""
+
+    # its compute stays whole on "model" (the sharded steps gather its
+    # leaves whole); a module without this attribute splits there
+    model_split = False
 
     SPECS = {"w_up": P("embed", "heads"), "wq": P(None, "heads", None),
              "wk": P(None, "heads", None), "wv": P(None, "heads", None),
@@ -370,6 +378,10 @@ class Slstm(nn.Module):
     w_gates (d, 4d), r_gates (H, d_head, 4·d_head) block-diagonal
     recurrent weights, b_gates (4d,) in f32 whatever ``dtype`` is,
     norm_scale (d,), w_up (d, 2·d_up), w_down (d_up, d)."""
+
+    # its compute stays whole on "model" (the sharded steps gather its
+    # leaves whole); a module without this attribute splits there
+    model_split = False
 
     SPECS = {"w_gates": P("embed", "heads"), "r_gates": P("heads", None, None),
              "b_gates": P(None), "norm_scale": P(None),

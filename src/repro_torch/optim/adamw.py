@@ -20,6 +20,8 @@ from typing import NamedTuple
 
 import torch
 
+from .. import pshard
+
 F32 = torch.float32
 
 
@@ -69,13 +71,21 @@ def init(cfg: OptConfig, params: dict) -> AdamState:
                      m=zeros(mdt), v=zeros(mdt), err=err)
 
 
-def global_norm(tree: dict) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(F32)))
-                          for x in tree.values()))
+def global_norm(tree: dict, layouts: dict | None = None) -> torch.Tensor:
+    """‖tree‖₂ in f32. With ``layouts`` ({name: :class:`~repro_torch.
+    pshard.Layout`}) the leaves are a rank's shards: each shard's sum of
+    squares is summed over the axes that cut its leaf
+    (:func:`repro_torch.pshard.sum_shards`), a replicated leaf counted
+    once, and the leaves are added in order, as on one device."""
+    sq = [torch.sum(torch.square(x.to(F32))) for x in tree.values()]
+    if layouts is not None:
+        sq = pshard.sum_shards(sq, [layouts[k] for k in tree])
+    return torch.sqrt(sum(sq))
 
 
-def clip_by_global_norm(grads: dict, max_norm: float):
-    norm = global_norm(grads)
+def clip_by_global_norm(grads: dict, max_norm: float,
+                        layouts: dict | None = None):
+    norm = global_norm(grads, layouts)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return {k: g.to(F32) * scale for k, g in grads.items()}, norm
 
@@ -95,12 +105,26 @@ def topk_compress(cfg: OptConfig, grads: dict, err: dict):
     return gs, es
 
 
-def transform(cfg: OptConfig, grads: dict, err: dict | None):
-    """The gradient transforms of a step on whole leaves: the global-norm
-    clip, then top-k compression if on → (grads, err, the norm)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+def transform(cfg: OptConfig, grads: dict, err: dict | None,
+              layouts: dict | None = None):
+    """The gradient transforms of a step: the global-norm clip, then top-k
+    compression if on → (grads, err, the norm). With ``layouts`` the
+    gradients and the err buffer are a rank's shards: the clip reads
+    shards (:func:`global_norm`), and top-k, which ranks a whole leaf's
+    entries, gathers the leaves and keeps the rank's blocks."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, layouts)
     if cfg.topk_compress > 0:
-        grads, err = topk_compress(cfg, grads, err)
+        if layouts is None:
+            grads, err = topk_compress(cfg, grads, err)
+        else:
+            whole = {k: pshard.gather(g, layouts[k], "grad")
+                     for k, g in grads.items()}
+            werr = {k: pshard.gather(e, layouts[k], "grad")
+                    for k, e in err.items()}
+            grads, err = topk_compress(cfg, whole, werr)
+            index = {k: lay.index() for k, lay in layouts.items()}
+            grads = {k: g[index[k]] for k, g in grads.items()}
+            err = {k: e[index[k]].contiguous() for k, e in err.items()}
     return grads, err, gnorm
 
 
@@ -118,8 +142,8 @@ def apply(cfg: OptConfig, state: AdamState, params: dict, grads: dict,
           err: dict | None, gnorm: torch.Tensor, *, inplace: bool = False):
     """The moment and parameter update of :func:`update` on transformed
     gradients. Elementwise, so a rank's shards of the parameters, the
-    moments and the (transformed, whole-leaf) gradients give the bits of
-    those entries of the whole update."""
+    moments and the transformed gradients update those entries of the
+    whole leaves."""
     step = state.step + 1
     lr = schedule(cfg, step)
     b1, b2 = cfg.betas

@@ -18,15 +18,32 @@ which the rank's local slice follows.
 
 **One process per rank.** The reference's GSPMD partitions one program;
 the port runs one process per rank with explicit collectives
-(:mod:`repro_torch.train.steps`). Activations are local to a rank: the
-rank computes on its rows of the batch with every parameter gathered, so
-:func:`constrain` (the reference's ``with_sharding_constraint``) is the
-identity. The one place where activations cross ranks is MoE routing
-over the whole batch (:func:`repro_torch.models.layers.moe_route`),
-which reads the rank's place in the batch from :func:`batch_shard`.
+(:mod:`repro_torch.train.steps`). A rank computes on its rows of the
+batch, and its activations span the model ranks of its data group as
+the reference's rules lay them out:
 
-Every collective goes through :func:`gather`, :func:`all_reduce` or
-:func:`all_gather_rows` and is counted by kind (:func:`collective_counts`).
+* within a **split region** (attention heads, the dense FFN's hidden
+  width, the vocabulary: a dimension :func:`resolve_spec` cuts over
+  "model"), each model rank computes its part from its block of the
+  leaves. :func:`enter` opens a region (the identity forward; the
+  gradient summed over "model" in backward) and :func:`leave` closes it
+  (a sum over "model" forward; the identity backward), the reference's
+  ``with_sharding_constraint`` pairs as GSPMD partitions them.
+  :func:`model_shard` tells a layer its index and the axis's size;
+* between regions activations are replicated over "model";
+* MoE routing runs over the whole batch
+  (:func:`repro_torch.models.layers.moe_route`), which reads the rank's
+  place in the batch from :func:`batch_shard`.
+
+:func:`constrain` stays the identity: the layers split where their
+leaves are split, which is where the reference's constraints put GSPMD's
+cuts.
+
+Every collective goes through :func:`gather`, :func:`all_reduce`,
+:func:`reduce_scatter`, :func:`all_gather_rows` or
+:func:`all_gather_dim` and is counted by kind
+(:func:`collective_counts`, the dry run's kinds) and by purpose
+(:func:`collective_tags`).
 """
 
 from __future__ import annotations
@@ -178,6 +195,32 @@ class Layout:
             out.append(slice(block * width, (block + 1) * width))
         return tuple(out)
 
+    def part(self, axes) -> "Layout":
+        """The layout of this rank's block as far as ``axes`` cut it: a
+        dim cut over axes among ``axes`` keeps its cut, every other dim
+        is this rank's width, uncut. :func:`gather` of a block with it
+        gathers over ``axes`` alone."""
+        spec, shape = [], []
+        for d, n in enumerate(self.shape):
+            on = self.dim_axes(d)
+            if on and all(a in axes for a in on):
+                spec.append(self.spec[d])
+                shape.append(n)
+            elif any(a in axes for a in on):
+                raise ValueError(f"dim {d} of {self} is cut over {on}, "
+                                 f"partly in {axes}")
+            else:
+                spec.append(None)
+                shape.append(n // self.shards(d))
+        return Layout(P(*spec), tuple(shape), self.mesh)
+
+    def only(self, axes) -> "Layout":
+        """The same leaf cut over ``axes`` alone (a dim cut over other
+        axes is whole)."""
+        return Layout(P(*(e if any(a in axes for a in _dim_axes(e))
+                          else None for e in self.spec)), self.shape,
+                      self.mesh)
+
     def stacked(self, repeat: int) -> "Layout":
         """The layout of ``repeat`` such leaves stacked on a new, uncut
         axis 0 (the reference's stacked segment leaves)."""
@@ -237,21 +280,20 @@ def batch_spec(mesh, ndim: int, dim0: int | None = None) -> P:
 
 
 # ---------------------------------------------------------------------------
-# Activation sharding: identities here (activations are a rank's own)
+# Activation sharding
 # ---------------------------------------------------------------------------
 
 def set_activation_mesh(mesh) -> None:
     """The reference registers the mesh that :func:`constrain` resolves
-    against; here it does nothing: each rank computes on its own rows
-    with whole parameters, so there is no layout of activations to
-    constrain."""
+    against; here it does nothing: the steps set the model axis's context
+    (:func:`model_context`) themselves."""
 
 
 def constrain(x, logical: tuple):
     """The reference's ``with_sharding_constraint`` by logical names: the
-    identity, since a rank's activations never span ranks (the reference
-    adds the constraints to steer GSPMD's partitioner, which the port does
-    not have)."""
+    identity. The reference adds the constraints to steer GSPMD's
+    partitioner; the port's layers split where their leaves are split
+    (:func:`enter`, :func:`leave`)."""
     return x
 
 
@@ -302,25 +344,157 @@ def batch_context(mesh, spec: P):
 
 
 # ---------------------------------------------------------------------------
+# The rank's place on the "model" axis (split regions)
+# ---------------------------------------------------------------------------
+
+MODEL_AXIS = "model"
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelShard:
+    """The mesh's "model" axis has ``count`` ranks and this rank is
+    ``index`` on it: a dimension cut over "model" holds block ``index``
+    of ``count`` here."""
+    mesh: object
+    count: int
+    index: int
+
+    def block(self, n: int) -> tuple[int, int]:
+        """(first, width) of this rank's block of a dimension of ``n``."""
+        return self.index * (n // self.count), n // self.count
+
+
+_MODEL: ModelShard | None = None
+
+
+def model_shard() -> ModelShard | None:
+    """The "model" axis of the step running on this rank, or None when
+    it has one rank (or there is none): every leaf is whole along it."""
+    return _MODEL
+
+
+@contextlib.contextmanager
+def model_context(mesh):
+    """Within the block, :func:`model_shard` gives this rank's place on
+    ``mesh``'s "model" axis (None where the axis is absent or of size
+    1)."""
+    global _MODEL
+    prev = _MODEL
+    sizes = axis_sizes(mesh)
+    if sizes.get(MODEL_AXIS, 1) > 1:
+        _MODEL = ModelShard(mesh, sizes[MODEL_AXIS],
+                            coordinate(mesh)[MODEL_AXIS])
+    else:
+        _MODEL = None
+    try:
+        yield _MODEL
+    finally:
+        _MODEL = prev
+
+
+def _summed(t: torch.Tensor, sh: ModelShard, tag: str,
+            own: bool) -> torch.Tensor:
+    """``t`` summed over "model" in f32, in ``t``'s dtype (the wire
+    carries f32: gloo reduces no bfloat16, and the reference's partial
+    products are f32). ``own``: ``t`` is the caller's to overwrite, and
+    a dense f32 ``t`` is reduced in place rather than copied."""
+    wire = t.to(torch.float32, copy=not own).contiguous()
+    all_reduce(wire, sh.mesh, (MODEL_AXIS,), tag=tag)
+    return wire.to(t.dtype)
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, sh, tag):
+        ctx.sh, ctx.tag = sh, tag
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        # autograd may hand the same incoming gradient to other uses
+        return _summed(g, ctx.sh, ctx.tag, own=False), None, None
+
+
+class _Leave(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, sh, tag):
+        # x is a fresh partial (a product's output), read by nothing else
+        out = _summed(x, sh, tag, own=True)
+        if out is x:                     # summed in place
+            ctx.mark_dirty(x)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def enter(x: torch.Tensor, sh: ModelShard,
+          tag: str = "region") -> torch.Tensor:
+    """Open a split region: ``x`` (replicated over "model") unchanged; in
+    backward its gradient, each rank's part, is summed over "model"."""
+    return _Enter.apply(x, sh, tag)
+
+
+def leave(x: torch.Tensor, sh: ModelShard,
+          tag: str = "region") -> torch.Tensor:
+    """Close a split region: each rank's partial ``x`` summed over
+    "model" (in f32, returned in ``x``'s dtype); in backward the
+    gradient passes unchanged."""
+    return _Leave.apply(x, sh, tag)
+
+
+def model_max(t: torch.Tensor, sh: ModelShard, tag: str) -> torch.Tensor:
+    """A new tensor: the elementwise MAX of ``t`` over "model" (no
+    gradient)."""
+    wire = t.detach().clone().contiguous()
+    all_reduce(wire, sh.mesh, (MODEL_AXIS,), op="max", tag=tag)
+    return wire
+
+
+# ---------------------------------------------------------------------------
 # Collectives over mesh axes, counted
 # ---------------------------------------------------------------------------
 
-_COUNTS: dict[str, list[int]] = {}
+# {(kind, purpose): [calls, bytes]}
+_COUNTS: dict[tuple[str, str], list[int]] = {}
 
 
 def reset_collectives() -> None:
     _COUNTS.clear()
 
 
+def _summed_by(pos: int) -> dict[str, tuple[int, int]]:
+    out: dict[str, list[int]] = {}
+    for key, (calls, nbytes) in _COUNTS.items():
+        c = out.setdefault(key[pos], [0, 0])
+        c[0] += calls
+        c[1] += nbytes
+    return {k: (v[0], v[1]) for k, v in sorted(out.items())}
+
+
 def collective_counts() -> dict[str, tuple[int, int]]:
     """{kind: (calls, bytes)} since :func:`reset_collectives`: the bytes
     are this rank's contribution (the block an all-gather sends, the
-    tensor an all-reduce reduces)."""
-    return {k: (v[0], v[1]) for k, v in sorted(_COUNTS.items())}
+    tensor an all-reduce or a reduce-scatter reduces). A MAX all-reduce
+    counts as an all-reduce, as the dry run counts its ``c10d`` op."""
+    return _summed_by(0)
 
 
-def _count(kind: str, t: torch.Tensor) -> None:
-    c = _COUNTS.setdefault(kind, [0, 0])
+def collective_tags() -> dict[str, tuple[int, int]]:
+    """:func:`collective_counts` by purpose: ``gather`` (the leaves'
+    gathers), ``grad`` (the gradients' reductions), ``norm`` (the clip's
+    sums of squares), ``region`` (the split regions' sums over "model",
+    forward and backward), ``embed`` (the vocab-parallel lookup),
+    ``vocab_max`` and ``vocab_sum`` (the vocab-parallel loss), ``logits`` (the last logits gathered over
+    "model"), ``decode_q``, ``decode_kv``, ``decode_max`` and
+    ``decode_sum`` (decode on a sequence-cut cache), ``cache`` (caches
+    moved between layouts), ``loss`` and ``route``."""
+    return _summed_by(1)
+
+
+def _count(kind: str, t: torch.Tensor, tag: str | None = None) -> None:
+    c = _COUNTS.setdefault((kind, tag or kind), [0, 0])
     c[0] += 1
     c[1] += t.numel() * t.element_size()
 
@@ -381,28 +555,31 @@ def _group(mesh, axes: tuple[str, ...]):
     return cache[axes]
 
 
-def _all_gather(local: torch.Tensor, axes, mesh) -> torch.Tensor:
+def _all_gather(local: torch.Tensor, axes, mesh,
+                tag: str | None = None) -> torch.Tensor:
     """(size, *local.shape): every member's block, in row-major order over
     ``axes``. bfloat16 travels as its bytes (gloo gathers no bfloat16)."""
     group, size, _, order = _group(mesh, tuple(axes))
     local = local.contiguous()
     wire = local.view(torch.uint8) if local.dtype == torch.bfloat16 \
         else local
-    _count("all_gather", wire)
+    _count("all_gather", wire, tag)
     parts = [torch.empty_like(wire) for _ in range(size)]
     dist.all_gather(parts, wire, group=group)
     out = torch.stack([parts[r] for r in order])
     return out.view(local.dtype) if wire is not local else out
 
 
-def gather(local: torch.Tensor, layout: Layout) -> torch.Tensor:
+def gather(local: torch.Tensor, layout: Layout,
+           tag: str | None = None) -> torch.Tensor:
     """The global leaf from every rank's block: one all-gather over the
-    axes the leaf is cut over (none for a replicated leaf)."""
+    axes the leaf is cut over (none for a replicated leaf). A
+    :meth:`Layout.part` gathers over some of them."""
     axes = layout.axes
     if not axes:
         return local
     sizes = axis_sizes(layout.mesh)
-    parts = _all_gather(local, axes, layout.mesh)
+    parts = _all_gather(local, axes, layout.mesh, tag)
     # (s_a for a in axes, *local) → per dim: its axes in spec order, then
     # its local extent
     parts = parts.reshape(*(sizes[a] for a in axes), *local.shape)
@@ -418,16 +595,42 @@ def cut(full: torch.Tensor, layout: Layout) -> torch.Tensor:
     return full[layout.index()].clone()
 
 
-def all_reduce(t: torch.Tensor, mesh, axes) -> torch.Tensor:
-    """SUM all-reduce of ``t`` in place over the sub-mesh of ``axes``
-    (none: the identity)."""
+_OPS = {"sum": "SUM", "max": "MAX"}
+
+
+def all_reduce(t: torch.Tensor, mesh, axes, op: str = "sum",
+               tag: str | None = None) -> torch.Tensor:
+    """SUM (or MAX) all-reduce of ``t`` in place over the sub-mesh of
+    ``axes`` (none: the identity)."""
     if not axes:
         return t
-    _count("all_reduce", t)
+    _count("all_reduce", t, tag)
     dense = t.contiguous()               # the wire wants dense memory
-    dist.all_reduce(dense, op=dist.ReduceOp.SUM,
+    dist.all_reduce(dense, op=getattr(dist.ReduceOp, _OPS[op]),
                     group=_group(mesh, tuple(axes))[0])
     return t if dense is t else t.copy_(dense)
+
+
+def reduce_scatter(t: torch.Tensor, mesh, axis: str, dim: int,
+                   tag: str | None = None) -> torch.Tensor:
+    """A new tensor: ``t`` summed over the members of ``axis``, each
+    member keeping its block along ``dim`` (block i at index i on the
+    axis, as :meth:`Layout.index` cuts it)."""
+    group, size, _, order = _group(mesh, (axis,))
+    x = t.movedim(dim, 0)
+    n = x.shape[0]
+    blocks = x.reshape(size, n // size, *x.shape[1:])
+    # the group's rank order[j] receives block j
+    by_rank = [0] * size
+    for j, q in enumerate(order):
+        by_rank[q] = j
+    wire = blocks[by_rank].reshape(x.shape).contiguous()
+    out = torch.empty((n // size, *x.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    _count("reduce_scatter", wire, tag)
+    dist.reduce_scatter_tensor(out, wire, op=dist.ReduceOp.SUM,
+                               group=group)
+    return out.movedim(0, dim).contiguous()
 
 
 def barrier(mesh) -> None:
@@ -436,10 +639,40 @@ def barrier(mesh) -> None:
     dist.barrier(group=_group(mesh, axis_names(mesh))[0])
 
 
-def all_gather_rows(local: torch.Tensor, mesh, axes) -> torch.Tensor:
+def all_gather_rows(local: torch.Tensor, mesh, axes,
+                    tag: str | None = None) -> torch.Tensor:
     """Every member's ``local`` concatenated along dim 0 in row-major order
     over ``axes`` (the batch's row order)."""
     if not axes:
         return local
-    parts = _all_gather(local, axes, mesh)
+    parts = _all_gather(local, axes, mesh, tag)
     return parts.reshape(-1, *local.shape[1:])
+
+
+def all_gather_dim(local: torch.Tensor, sh: ModelShard, dim: int,
+                   tag: str | None = None) -> torch.Tensor:
+    """Every model rank's ``local`` concatenated along ``dim`` in their
+    order on "model" (no gradient)."""
+    parts = _all_gather(local.detach(), (MODEL_AXIS,), sh.mesh, tag)
+    return torch.cat(parts.unbind(0), dim=dim)
+
+
+def sum_shards(values: list, layouts: list) -> list:
+    """Per leaf, a scalar of its shard (a sum of squares) summed over the
+    axes that cut the leaf, so that it is the whole leaf's: one
+    all-reduce of a vector per distinct set of axes. A leaf replicated
+    over an axis is counted once; on one rank the values are unchanged
+    (adding zeros), so a sum over them in leaf order is the one-device
+    sum's bits."""
+    vec = torch.stack(values)
+    groups: dict[tuple, list[int]] = {}
+    for i, lay in enumerate(layouts):
+        if lay.axes:
+            groups.setdefault(lay.axes, []).append(i)
+    for axes, idx in groups.items():
+        pick = torch.zeros_like(vec, dtype=torch.bool)
+        pick[idx] = True
+        part = torch.where(pick, vec, 0.0)
+        all_reduce(part, layouts[idx[0]].mesh, axes, tag="norm")
+        vec = torch.where(pick, part, vec)
+    return list(vec.unbind(0))

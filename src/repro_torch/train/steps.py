@@ -29,24 +29,39 @@ one process per rank, ``torchrun --nproc-per-node N``):
   :class:`~repro_torch.models.LM` holding the shards, and
   :func:`init_state` returns the :class:`~repro_torch.pshard.Layout`
   tree where the reference returns its ``NamedSharding`` tree;
-* the step **all-gathers** every leaf cast to the compute dtype (a cast
+* the step **all-gathers** each leaf cast to the compute dtype (a cast
   then a gather gives the bits of a gather then a cast, in half the
-  bytes) and runs forward and backward on the rank's rows of the global
-  batch (:func:`repro_torch.data.device_batch`), the loss divided by the
-  whole batch's label count;
-* it **all-reduces the f32 gradients** (SUM) over the batch axes, then
-  takes the bf16 round trip (or, with ``accum_steps > 1``, one reduction
-  per microbatch before its bf16 add): the order GSPMD gives the
-  reference, whose reduction happens inside ``value_and_grad``;
-* every rank then holds the same whole gradient, so the clip and the
-  top-k threshold are the one-device code (top-k gathers its err
-  buffer), and AdamW updates the rank's shards alone.
+  bytes) over the axes that cut it but "model": the reference's FSDP
+  gather over "data". A leaf cut over "model" stays the rank's block, and
+  the layers compute the rank's part of the heads, the FFN's hidden
+  width and the vocabulary (:mod:`repro_torch.pshard`'s split regions).
+  The leaves of the blocks whose compute is still whole on "model"
+  (MLA, MoE, Mamba2, mLSTM, sLSTM: each declares ``model_split =
+  False``) are gathered whole. Forward and backward run on the rank's rows of the global batch
+  (:func:`repro_torch.data.device_batch`), the loss divided by the whole
+  batch's label count;
+* it **reduces the f32 gradients** (SUM) over the batch axes, a leaf cut
+  over "data" by a reduce-scatter there, so each rank keeps its shard,
+  and a leaf replicated over "model" but read inside a split region (the
+  kv projections of replicated kv heads, ``qnorm``/``knorm``) also over
+  "model"; then it takes the bf16 round trip (or, with ``accum_steps >
+  1``, one reduction per microbatch before its bf16 add): the order
+  GSPMD gives the reference, whose reduction happens inside
+  ``value_and_grad``;
+* the clip's norm reads the shards (:func:`repro_torch.optim.adamw.
+  global_norm`), top-k gathers whole leaves and its err buffer, and
+  AdamW updates the rank's shards alone.
 
-The "model" axis shards storage only: no compute is split over it, so a
-mesh without a data axis of size > 1 gives the one-device step bit for
-bit. MoE routing runs over the whole batch
+A mesh whose "model" axis has one rank computes as one device: a mesh
+without a data or model axis of size > 1 gives the one-device step bit
+for bit. MoE routing runs over the whole batch
 (:func:`repro_torch.models.layers.moe_route`). Collectives are counted
-(:func:`repro_torch.pshard.collective_counts`).
+(:func:`repro_torch.pshard.collective_counts`, ``collective_tags``).
+
+Prefill and decode gather the leaves alike and compute on the same
+split. Attention caches take the reference's layouts on "model"
+(:func:`cache_layouts`): kv heads cut where 16 divides them, else the
+sequence; :func:`pad_caches` carries prefill's caches into decode's.
 """
 
 from __future__ import annotations
@@ -185,24 +200,82 @@ def _batch_spec(mesh, batch_shardings_, accum_steps: int = 1) -> pshard.P:
     return pshard.batch_spec(mesh, 1)
 
 
-def _gather_params(model: M.LM, layouts: dict, cdt, grad: bool):
-    """{name: the whole leaf in the compute dtype}: each shard cast as the
-    one-device step casts it (f32 with ndim > 1 to the compute dtype),
-    then all-gathered. With ``grad``, also {name: the autograd leaf}: a
-    cast leaf's is the gathered values in f32 (exact) and the tree holds
-    its cast, so the graph is the one-device step's (master → cast →
-    uses) and the gradients come out in its bits and memory layouts."""
+class LeafPlan(NamedTuple):
+    """How the sharded steps treat one leaf: the axes it is gathered over
+    (its compute leaf is the rank's block along the others), and whether
+    its gradient is each model rank's part (a leaf replicated over
+    "model" but read inside a split region), summed over "model"."""
+    gathered: tuple[str, ...]
+    partial: bool
+
+
+def leaf_plans(cfg: M.ArchConfig, layouts: dict) -> dict[str, LeafPlan]:
+    """{name: :class:`LeafPlan`} of ``cfg``'s leaves laid out as
+    ``layouts``."""
+    model = M.LM(cfg, device="meta")
+    split = pshard.axis_sizes(next(iter(layouts.values())).mesh).get(
+        pshard.MODEL_AXIS, 1) > 1
+    whole, heads = [], []
+    for name, mod in model.named_modules():
+        if not getattr(mod, "model_split", True):
+            whole.append(name + ".")
+        elif (split and isinstance(mod, L.Attention) and pshard.MODEL_AXIS
+              in layouts[f"{name}.wq"].dim_axes(1)):
+            heads.append(name + ".")
+    plans = {}
+    for k, lay in layouts.items():
+        if any(k.startswith(w) for w in whole):
+            plans[k] = LeafPlan(lay.axes, False)
+            continue
+        gathered = tuple(a for a in lay.axes if a != pshard.MODEL_AXIS)
+        partial = (any(k.startswith(h) for h in heads)
+                   and pshard.MODEL_AXIS not in lay.axes)
+        plans[k] = LeafPlan(gathered, partial)
+    return plans
+
+
+def _gather_params(model: M.LM, layouts: dict, plans: dict, cdt,
+                   grad: bool):
+    """{name: the compute leaf in the compute dtype}: each shard cast as
+    the one-device step casts it (f32 with ndim > 1 to the compute
+    dtype), then all-gathered over its plan's axes. With ``grad``, also
+    {name: the autograd leaf}: a cast leaf's is the gathered values in f32
+    (exact) and the tree holds its cast, so the graph is the one-device
+    step's (master → cast → uses) and the gradients come out in its bits
+    and memory layouts."""
     tree, leaves = {}, {}
     for k, p in model.named_parameters():
         cast = p.dtype == F32 and p.dim() > 1 and cdt != F32
         x = pshard.gather(p.detach().to(cdt) if cast else p.detach(),
-                          layouts[k])
+                          layouts[k].part(plans[k].gathered), "gather")
         if not grad:
             tree[k] = x
             continue
         leaves[k] = (x.to(F32) if cast else x).requires_grad_()
         tree[k] = leaves[k].to(cdt) if cast else leaves[k]
     return (tree, leaves) if grad else tree
+
+
+def _reduce_grad(g: torch.Tensor, lay: pshard.Layout, plan: LeafPlan,
+                 baxes: tuple[str, ...]) -> torch.Tensor:
+    """The rank's shard of a leaf's gradient, summed over the batch axes
+    (and "model" for a partial one), from the gradient of its compute
+    leaf: a dim cut over a batch axis by a reduce-scatter there, a dim
+    cut over another axis by this rank's block."""
+    mesh = lay.mesh
+    part = lay.part(plan.gathered)
+    own = tuple(a for a in part.axes if a not in baxes)
+    if own:
+        g = g[part.only(own).index()]
+    g = g.contiguous()
+    for d in range(g.dim()):
+        for a in part.dim_axes(d):
+            if a in baxes:
+                g = pshard.reduce_scatter(g, mesh, a, d, "grad")
+    summed = tuple(a for a in baxes if a not in plan.gathered)
+    if plan.partial:
+        summed += (pshard.MODEL_AXIS,)
+    return pshard.all_reduce(g, mesh, summed, tag="grad")
 
 
 def _value_and_grad(model: M.LM, cfg, cdt, micro: dict):
@@ -267,30 +340,35 @@ def _sharded_train_step(cfg, tc: TrainConfig, mesh, state_shardings,
     cdt = _cdtype(tc)
     gdt = F32 if tc.fp32_grads else torch.bfloat16
     layouts = state_shardings.params
+    plans = leaf_plans(cfg, layouts)
     bspec = _batch_spec(mesh, batch_shardings_, tc.accum_steps)
     baxes = pshard._dim_axes(bspec[0])
 
     def value_and_grad(model, micro):
-        """The whole micro-batch's loss and f32 gradients, reduced."""
-        tree, leaves = _gather_params(model, layouts, cdt, grad=True)
-        count = pshard.all_reduce(M.label_count(micro), mesh, baxes)
-        loss = M.forward_loss(L.tree_from_named(tree), cfg, micro,
-                              compute_dtype=cdt, count=count)
-        grads = torch.autograd.grad(loss, list(leaves.values()),
-                                    allow_unused=True)
+        """The whole micro-batch's loss and the rank's shards of the f32
+        gradients, reduced."""
+        tree, leaves = _gather_params(model, layouts, plans, cdt, grad=True)
+        count = pshard.all_reduce(M.label_count(micro), mesh, baxes,
+                                  tag="loss")
+        with pshard.model_context(mesh):
+            loss = M.forward_loss(L.tree_from_named(tree), cfg, micro,
+                                  compute_dtype=cdt, count=count)
+            grads = torch.autograd.grad(loss, list(leaves.values()),
+                                        allow_unused=True)
+        del tree
         out = {}
         for (k, x), g in zip(leaves.items(), grads):
             if g is None:
                 g = torch.zeros_like(x)
-            out[k] = pshard.all_reduce(g, mesh, baxes)
-        return pshard.all_reduce(loss.detach(), mesh, baxes), out
+            out[k] = _reduce_grad(g, layouts[k], plans[k], baxes)
+        return pshard.all_reduce(loss.detach(), mesh, baxes, tag="loss"), out
 
     def step(state: TrainState, batch: dict):
         model = state.params
         with pshard.batch_context(mesh, bspec):
             if tc.accum_steps > 1:
                 loss_sum = torch.zeros((), dtype=F32, device=model.device)
-                acc = {k: torch.zeros(lay.shape, dtype=gdt,
+                acc = {k: torch.zeros(lay.local_shape, dtype=gdt,
                                       device=model.device)
                        for k, lay in layouts.items()}
                 for i in range(tc.accum_steps):
@@ -309,14 +387,8 @@ def _sharded_train_step(cfg, tc: TrainConfig, mesh, state_shardings,
                 if not tc.fp32_grads:
                     grads = {k: g.to(torch.bfloat16).to(F32)
                              for k, g in grads.items()}
-        err = state.opt.err
-        if err is not None:                  # top-k reads whole leaves
-            err = {k: pshard.gather(e, layouts[k]) for k, e in err.items()}
-        grads, err, gnorm = adamw.transform(tc.opt, grads, err)
-        index = {k: lay.index() for k, lay in layouts.items()}
-        grads = {k: g[index[k]] for k, g in grads.items()}
-        if err is not None:
-            err = {k: e[index[k]].contiguous() for k, e in err.items()}
+        grads, err, gnorm = adamw.transform(tc.opt, grads, state.opt.err,
+                                            layouts)
         _, new_opt, om = adamw.apply(tc.opt, state.opt,
                                      dict(model.named_parameters()), grads,
                                      err, gnorm, inplace=True)
@@ -326,22 +398,88 @@ def _sharded_train_step(cfg, tc: TrainConfig, mesh, state_shardings,
     return step
 
 
+def cache_layouts(cfg: M.ArchConfig, mesh, batch: int, smax: int,
+                  dtype=torch.bfloat16):
+    """The :class:`~repro_torch.pshard.Layout` tree of
+    :func:`repro_torch.models.model.cache_init`'s caches for a global
+    batch of ``batch`` rows and ``smax`` positions on ``mesh``: rows over
+    the batch axes (degraded as :func:`~repro_torch.pshard.batch_spec`
+    degrades them); an attention cache's kv heads or positions over
+    "model" as :func:`~repro_torch.pshard.resolve_spec` resolves the
+    reference's ``cache_specs``. The other blocks' caches are cut over the
+    batch axes alone (their compute is whole on "model")."""
+    meta = M.cache_init(cfg, batch, smax, dtype, device="meta")
+    specs = M.cache_specs(cfg)
+    rows = pshard.batch_spec(mesh, 1, batch)[0]
+
+    def one(c, sp):
+        out = {}
+        for n, t in c.items():
+            shape = tuple(t.shape)
+            rest = (None,) * (len(shape) - 1)
+            if set(c) == {"k", "v"}:
+                rest = tuple(pshard.resolve_spec(mesh, sp[n], shape))[1:]
+            out[n] = pshard.Layout(pshard.P(rows, *rest), shape, mesh)
+        return out
+
+    return [[{b: one(c, sl[b]) for b, c in layer.items()}
+             for layer, sl in zip(seg, sseg)]
+            for seg, sseg in zip(meta, specs)]
+
+
+def pad_caches(cfg: M.ArchConfig, mesh, caches, batch: int, seq: int,
+               smax: int):
+    """Prefill's caches (``seq`` positions, laid out as
+    :func:`cache_layouts` lays them out for ``seq``) zero-padded to
+    ``smax`` positions and laid out for ``smax``: (caches, their
+    layouts), the caches and ``cache_shardings`` that
+    :func:`make_decode_step` continues from at ``cache_len = seq``. On one
+    device (``mesh`` None): :func:`repro_torch.models.model.pad_caches`
+    and None. A cache whose positions are cut over "model" is gathered
+    over it, padded and cut again."""
+    if not _sharded(mesh):
+        return M.pad_caches(caches, smax), None
+    old = cache_layouts(cfg, mesh, batch, seq)
+    new = cache_layouts(cfg, mesh, batch, smax)
+    model = (pshard.MODEL_AXIS,)
+
+    def seq_cut(lay) -> bool:
+        return len(lay.shape) == 4 and pshard.MODEL_AXIS in lay.dim_axes(2)
+
+    def each(tree, lays, fn):
+        if isinstance(tree, dict):
+            return {k: each(v, lays[k], fn) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [each(v, lo, fn) for v, lo in zip(tree, lays)]
+        return fn(tree, lays)
+
+    whole = each(caches, old, lambda t, lay: pshard.gather(
+        t, lay.part(model), "cache") if seq_cut(lay) else t)
+    padded = M.pad_caches(whole, smax)
+    return each(padded, new, lambda t, lay: t[lay.part(model).index()]
+                .contiguous() if seq_cut(lay) else t), new
+
+
 def make_prefill_step(cfg: M.ArchConfig, tc: TrainConfig, mesh=None,
                       param_shardings=None, batch_shardings_=None):
     """``step(model, batch) → (last-token logits, caches)`` on the tree
-    cast to the compute dtype. On a mesh the parameters are gathered
-    (``param_shardings``: :func:`init_state`'s ``.params``) and ``batch``
-    and the logits and caches are the rank's rows."""
+    cast to the compute dtype. On a mesh the parameters are gathered as
+    the train step gathers them (``param_shardings``: :func:`init_state`'s
+    ``.params``), ``batch`` and the logits are the rank's rows (the logits
+    over the whole vocabulary), and the caches are the rank's blocks in
+    :func:`cache_layouts` for the batch's positions."""
     check_mesh(mesh)
     cdt = _cdtype(tc)
     if _sharded(mesh):
         bspec = _batch_spec(mesh, batch_shardings_)
+        plans = leaf_plans(cfg, param_shardings)
 
         @torch.no_grad()
         def sharded(model: M.LM, batch: dict):
-            tree = L.tree_from_named(_gather_params(model, param_shardings,
-                                                    cdt, grad=False))
-            with pshard.batch_context(mesh, bspec):
+            tree = L.tree_from_named(_gather_params(
+                model, param_shardings, plans, cdt, grad=False))
+            with pshard.batch_context(mesh, bspec), \
+                    pshard.model_context(mesh):
                 return M.prefill(tree, cfg, batch, compute_dtype=cdt)
 
         return sharded
@@ -358,21 +496,32 @@ def make_decode_step(cfg: M.ArchConfig, tc: TrainConfig, mesh=None,
                      batch_sh=None):
     """``step(model, token, caches, cache_len) → (logits, caches)`` on the
     tree cast to the compute dtype (the caches are written in place). On
-    a mesh the parameters are gathered each step and the tokens, logits
-    and caches are the rank's rows (``batch_sh``: the token's shardings,
-    as :func:`batch_shardings` gives them)."""
+    a mesh the parameters are gathered each step, the tokens and logits
+    are the rank's rows (``batch_sh``: the token's shardings, as
+    :func:`batch_shardings` gives them), and the caches the rank's blocks
+    in ``cache_shardings`` (:func:`cache_layouts` or :func:`pad_caches`;
+    needed where the "model" axis has more than one rank)."""
     check_mesh(mesh)
     cdt = _cdtype(tc)
     if _sharded(mesh):
         bspec = _batch_spec(mesh, batch_sh)
+        plans = leaf_plans(cfg, param_shardings)
+        smax = (None if cache_shardings is None
+                else M.cache_positions(cache_shardings))
+        if smax is None and pshard.axis_sizes(mesh).get(
+                pshard.MODEL_AXIS, 1) > 1:
+            raise ValueError("decode on a model axis of more than one rank "
+                             "takes the caches' layouts: cache_shardings="
+                             "steps.cache_layouts(...) or pad_caches(...)'s")
 
         @torch.no_grad()
         def sharded(model: M.LM, token, caches, cache_len):
-            tree = L.tree_from_named(_gather_params(model, param_shardings,
-                                                    cdt, grad=False))
-            with pshard.batch_context(mesh, bspec):
+            tree = L.tree_from_named(_gather_params(
+                model, param_shardings, plans, cdt, grad=False))
+            with pshard.batch_context(mesh, bspec), \
+                    pshard.model_context(mesh):
                 return M.decode_step(tree, cfg, token, caches, cache_len,
-                                     compute_dtype=cdt)
+                                     compute_dtype=cdt, smax=smax)
 
         return sharded
 

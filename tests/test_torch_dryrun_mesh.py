@@ -99,8 +99,9 @@ def test_a_fake_world_issues_a_real_worlds_collectives(runs, arch):
     cost = traced["mode"].cost
     gathered = real["all_gather"][1]
     assert cost.coll_bytes_by_kind["all-reduce"] == 2 * real["all_reduce"][1]
-    assert cost.coll_counts == {"all-gather": real["all_gather"][0],
-                                "all-reduce": real["all_reduce"][0]}
+    assert cost.coll_counts == {dryrun.hlo.KINDS[k]: calls
+                                for k, (calls, _) in real.items()}
+    assert set(real) == {"all_gather", "all_reduce", "reduce_scatter"}
     assert 0 < cost.coll_bytes_by_kind["all-gather"] <= 3 * gathered
 
 

@@ -15,8 +15,10 @@ distance ‖p − p₁‖ / ‖p₁ − p₀‖ ≤ 1e-4):
   whole leaves, written once) and takes step 3; a (1, 2) mesh of ranks 0
   and 1 and one device each restore it (``restore(..., shardings=)``):
   both restore the (2, 2) run's step-2 parameters bit for bit, the (1, 2)
-  resume is the one-device resume bit for bit, and both end within the
-  limits of the uninterrupted (2, 2) run;
+  resume ends within the limits of the one-device resume (its "model"
+  axis splits the dense FFN and the vocabulary, so its sums run in
+  another order), and the one-device resume within the limits of the
+  uninterrupted (2, 2) run;
 * ``run_elastic`` over the world of 4, on ``make_mesh_for(4, 2)`` = (2, 2)
   until a ``SimulatedFailure`` at step 3, restarts on ``make_mesh_for(2,
   2)`` = (1, 2) from its step-2 checkpoint under the new shardings;
@@ -95,8 +97,11 @@ def test_checkpoint_of_a_sharded_run_resumes_on_other_meshes(runs):
         if k.startswith("resume12_")}
     np.testing.assert_array_equal(one["restored"], r0["full_saved"])
     np.testing.assert_array_equal(pair["restored"], r0["full_saved"])
-    assert str(pair["digest"]) == str(one["digest"])
-    np.testing.assert_array_equal(pair["losses"], one["losses"])
+    dp = _dist(pair["params"], one["params"], runs["p0"])
+    rp = np.abs(pair["losses"] / one["losses"] - 1).max()
+    print(f"(1, 2) resume against the one-device resume: update distance "
+          f"{dp:.3g}, losses {rp:.3g} relative")
+    assert dp <= 1e-4 and rp <= 1e-6
     d = _dist(one["params"], full, runs["p0"])
     rel = abs(one["losses"][-1] / r0["full_losses"][-1] - 1)
     print(f"resumed against the uninterrupted (2, 2) run: update "

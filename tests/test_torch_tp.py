@@ -1,0 +1,239 @@
+"""The "model" axis's split regions (``repro_torch.pshard.enter`` …
+``leave``) module by module, on the CPU over gloo: a world of 2 ((1, 2))
+and a world of 4 ((1, 4) and (2, 2)) spawned once for the module
+(tests/torch_lm_shard_worker.py, ``job="tp"``), each case held against
+the same function on one device in this process (one thread, as each
+rank). Inputs are seeded with numpy; parameters are the port's seeded
+tiny models.
+
+* attention, block 0 of tiny yi-9b (8 heads, 2 kv: kv cut on (1, 2),
+  replicated on (1, 4), where each rank's 2 query heads read one kv
+  head), tiny gemma3-4b (``qk_norm``, a window of 16) and tiny
+  codeqwen1.5-7b (``qkv_bias``), over 40 positions in tiles of 16;
+* the dense FFN of each kind (swiglu, geglu, relu2, gelu);
+* the vocab-parallel embedding lookup, chunked loss and last logits,
+  tied (yi-9b) and untied (nemotron-4-340b);
+* the gradients of leaves replicated over "model" but read inside a
+  region (the kv projections of replicated kv heads, ``qnorm``/
+  ``knorm``, kv biases): each rank's is a part, their sum the whole;
+* prefill and decode through the steps on both cache layouts: tiny
+  yi-9b's caches cut over the sequence, and a dense LM with 16 kv heads
+  (``kv16``) whose caches cut their heads; prefill of 24 positions (a
+  cut cache) and 27 (a whole one, re-cut by ``steps.pad_caches``);
+* error-feedback top-k, which ranks whole leaves, on shards;
+* the collectives of one split train step by kind and by purpose.
+
+Limits: f32 values and gradients within 1e-5 of the one-device
+function's largest magnitude (the split changes only the order of f32
+sums); decode within ``W.DECODE_TOL``, ``chip_smoke.LM_DECODE_TOL`` (1e-3 of
+max|logits| in f32, 5e-2 in bf16). tests/test_torch_lm_shard.py holds
+the same prefill and decode on (1, 4) against the reference's sharded
+steps.
+"""
+
+import os
+
+import numpy as np
+import pytest
+
+import torch_lm_shard_worker as W
+from repro_torch import pshard
+from repro_torch.launch.mesh import mesh_axes
+from repro_torch.models import model as M
+from repro_torch.train import steps as ST
+
+SHAPES = [(1, 2), (1, 4), (2, 2)]
+F32_TOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """{shape: rank 0's results, "ranks": {shape: every rank's}, "one":
+    the one-device cases}."""
+    workdir = str(tmp_path_factory.mktemp("tp"))
+    np.savez(os.path.join(workdir, "inputs.npz"))      # the job reads none
+    started = [W.start_world(w, workdir, "tp") for w in (2, 4)]
+    with W.one_thread():
+        one = W.tp_cases()
+    worlds = {w: W.join_world(s) for w, s in zip((2, 4), started)}
+    out = {"one": one, "ranks": {}}
+    for shape in SHAPES:
+        ranks = worlds[shape[0] * shape[1]]
+        out["ranks"][shape] = [{k[len(f"{shape}|"):]: v
+                                for k, v in r.items()
+                                if k.startswith(f"{shape}|")}
+                               for r in ranks]
+        out[shape] = out["ranks"][shape][0]
+    return out
+
+
+def _close(got, want, what: str) -> float:
+    scale = max(float(np.abs(want).max()), 1e-30)
+    err = float(np.abs(got - want).max()) / scale
+    assert err <= F32_TOL, (what, err)
+    return err
+
+
+def _case(runs, shape, prefix: str):
+    got = {k[len(prefix):]: v for k, v in runs[shape].items()
+           if k.startswith(prefix)}
+    want = {k[len(prefix):]: v for k, v in runs["one"].items()
+            if k.startswith(prefix)}
+    assert got and set(want) <= set(got)
+    return got, want
+
+
+def _held(got, want, what: str) -> None:
+    worst = max(_close(got[k], want[k], f"{what} {k}") for k in want
+                if not k.startswith("partial"))
+    print(f"{what}: {len(want)} fields, worst {worst:.3g} of the scale")
+
+
+@pytest.mark.parametrize("arch", W.TP_ATTN)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_attention_split_against_one_device(runs, shape, arch):
+    got, want = _case(runs, shape, f"attn|{arch}|")
+    _held(got, want, f"{arch} attention on {shape}")
+
+
+@pytest.mark.parametrize("kind", W.TP_FFN)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_ffn_split_against_one_device(runs, shape, kind):
+    got, want = _case(runs, shape, f"ffn|{kind}|")
+    assert {"g|w_in", "g|w_out"} <= set(want)
+    _held(got, want, f"{kind} FFN on {shape}")
+
+
+@pytest.mark.parametrize("arch", W.TP_VOCAB)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_vocab_parallel_embedding_head_and_loss(runs, shape, arch):
+    got, want = _case(runs, shape, f"vocab|{arch}|")
+    assert ("g|lm_head" in want) != W.tp_config(arch).tie_embeddings
+    _held(got, want, f"{arch} vocab on {shape}")
+
+
+# the partial leaves of each tiny attention on each mesh: yi-9b's kv
+# heads (2) are cut on (1, 2) and replicated on (1, 4)
+PARTIAL = {("yi-9b", 2): [], ("yi-9b", 4): ["wk", "wv"],
+           ("gemma3-4b", 2): ["knorm", "qnorm"],
+           ("gemma3-4b", 4): ["knorm", "qnorm", "wk", "wv"],
+           ("codeqwen1.5-7b", 2): [], ("codeqwen1.5-7b", 4): []}
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_replicated_leaves_read_inside_a_region_sum_their_parts(runs,
+                                                                 shape):
+    """The plan names the leaves whose gradient is a part on each rank;
+    no rank's part is the whole gradient, and the sum over "model" is
+    (held to the one-device gradient by the attention test)."""
+    for arch in W.TP_ATTN:
+        got = runs[shape][f"attn|{arch}|partial"].tolist()
+        assert got == PARTIAL[arch, shape[1]], (arch, shape, got)
+        for leaf in got:
+            whole = runs["one"][f"attn|{arch}|g|{leaf}"]
+            parts = [r[f"attn|{arch}|raw|{leaf}"]
+                     for r in runs["ranks"][shape]]
+            for part in parts:
+                assert np.abs(part - whole).max() > 1e-3 * np.abs(
+                    whole).max(), (arch, shape, leaf)
+            model = parts[:shape[1]]          # data row 0's model ranks
+            _close(np.sum(model, axis=0), whole, f"{arch} {leaf} sum")
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+@pytest.mark.parametrize("arch", W.TP_DECODE)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_decode_on_both_cache_layouts(runs, shape, arch, mode):
+    """Prefill and decode through the split steps against the one-device
+    steps: each rank's rows of the batch."""
+    for pre in W.TP_PREFILLS:
+        for r in runs["ranks"][shape]:
+            got = r[f"serve|{arch}|{mode}|{pre}"]
+            rows = got.shape[0]
+            lo = int(r["data_index"]) * rows
+            want = runs["one"][f"serve|{arch}|{mode}|{pre}"][lo:lo + rows]
+            err = float(np.abs(got - want).max() / np.abs(want).max())
+            print(f"{arch} {mode} {shape} prefill {pre}: {err:.3g} of "
+                  f"max|logits|")
+            assert err <= W.DECODE_TOL[mode], (arch, mode, shape, pre, err)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_topk_error_feedback_on_shards(runs, shape):
+    """Top-k ranks whole leaves (``adamw.transform`` gathers the clipped
+    shards and the err buffer, keeps the rank's blocks): 3 f32 steps of
+    tiny yi-9b at a keep-fraction of 0.3 against one device, by (b)'s
+    update distance, and the bf16 err buffer within one bf16 rounding
+    (2⁻⁸) of its norm."""
+    p0 = np.concatenate([p.detach().reshape(-1).numpy() for p in M.LM(
+        W.tp_config("yi-9b"), seed=0, device="cpu").parameters()])
+    got, want = runs[shape], runs["one"]
+    d = float(np.linalg.norm(got["topk|params"] - want["topk|params"])
+              / np.linalg.norm(want["topk|params"] - p0))
+    e = float(np.linalg.norm(got["topk|err"] - want["topk|err"])
+              / np.linalg.norm(want["topk|err"]))
+    print(f"top-k on {shape}: update distance {d:.3g}, err {e:.3g}")
+    assert d <= 1e-4 and e <= 2 ** -8
+
+
+def test_cache_layouts_cut_heads_or_sequence_as_the_reference():
+    """:func:`steps.cache_layouts` on (16, 16): yi-9b's 4 kv heads cut
+    the sequence over "model", 16 kv heads cut themselves; MLA caches
+    keep their rows' cut alone; a sequence 16 does not divide stays
+    whole."""
+    mesh = pshard.MeshShape(mesh_axes((16, 16)), (16, 16))
+    for arch, want in (("yi-9b", ("data", None, "model", None)),
+                       ("kv16", ("data", "model", None, None))):
+        lay = ST.cache_layouts(W.tp_config(arch), mesh, 256, 32768)
+        assert tuple(lay[0][0]["b0"]["k"].spec) == want, arch
+    odd = ST.cache_layouts(W.tp_config("yi-9b"), mesh, 256, 27)
+    assert tuple(odd[0][0]["b0"]["k"].spec) == ("data", None, None, None)
+    from repro_torch import configs as TC
+    mla = ST.cache_layouts(TC.get_tiny("deepseek-v2-lite-16b"), mesh, 256,
+                           64)
+    assert tuple(mla[0][0]["b0"]["c"].spec) == ("data", None, None)
+
+
+def test_leaf_plans_on_the_production_mesh():
+    """yi-9b on (16, 16): a leaf cut over "model" stays the rank's block
+    (gathered over "data" alone), the replicated kv projections are
+    partial; deepseek-v2-lite's MLA and MoE leaves are gathered whole."""
+    from repro_torch import configs as TC
+    mesh = pshard.MeshShape(mesh_axes((16, 16)), (16, 16))
+    for arch in ("yi-9b", "deepseek-v2-lite-16b"):
+        cfg = TC.get_config(arch)
+        model = M.LM(cfg, device="meta")
+        plans = ST.leaf_plans(cfg, pshard.resolve_tree(
+            mesh, model.specs(), dict(model.named_parameters())))
+        if arch == "yi-9b":
+            p = "segments.0.0.b0."
+            assert plans[p + "mixer.wq"] == ST.LeafPlan(("data",), False)
+            assert plans[p + "mixer.wk"] == ST.LeafPlan(("data",), True)
+            assert plans[p + "ffn.w_out"] == ST.LeafPlan(("data",), False)
+            assert plans["embed"] == ST.LeafPlan(("data",), False)
+            assert not plans[p + "norm1.scale"].partial
+        else:
+            moe = "segments.1.0.b0.ffn.w_in"
+            assert plans[moe] == ST.LeafPlan(("data", "model"), False)
+            assert plans["segments.0.0.b0.ffn.w_in"] == ST.LeafPlan(
+                ("data",), False)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_collectives_of_a_split_train_step(runs, shape):
+    """One bf16 train step of tiny yi-9b: the region sums (forward and
+    backward), the vocab-parallel lookup and loss (a MAX and a SUM a
+    chunk), the gradients' reductions (reduce-scatters where "data"
+    cuts a leaf and the batch) and the clip's sums, by purpose."""
+    r = runs[shape]
+    kinds = {k[len("kinds|"):]: tuple(v) for k, v in r.items()
+             if k.startswith("kinds|")}
+    tags = {k[len("tags|"):]: tuple(v) for k, v in r.items()
+            if k.startswith("tags|")}
+    print(f"{shape}: {kinds}; {tags}")
+    for tag in ("region", "embed", "vocab_max", "vocab_sum", "grad",
+                "norm", "gather", "loss"):
+        assert tags.get(tag, (0, 0))[0] > 0, (shape, tag)
+    assert kinds["reduce_scatter"][0] > 0       # a data axis of 1 too
+    assert sum(c for c, _ in kinds.values()) == sum(
+        c for c, _ in tags.values())

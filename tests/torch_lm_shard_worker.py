@@ -55,6 +55,8 @@ MODES = {"f32": dict(compute_dtype="float32", fp32_grads=True),
 # β₁ = 0 and no clip: AdamW's first moment after one step is the gradient
 FIRST_STEP = dict(betas=(0.0, 0.95), grad_clip=1e9)
 MODEL_MESHES = {2: ((1, 2),), 4: ((1, 4),)}
+# prefill and decode held to the reference's on this mesh
+REF_SERVE_MESH = (1, 4)
 DATA_MESHES = {2: ((2, 1),), 4: ((2, 2), (4, 1))}
 DECODE = 4           # (e): decode steps after a prefill of SEQ - DECODE
 CKPT_ARCH = "deepseek-v2-lite-16b"
@@ -77,9 +79,9 @@ def train_config(mode: str, **opt) -> ST.TrainConfig:
 
 def initial_state(inp, arch: str, tc: ST.TrainConfig) -> ST.TrainState:
     """The one-device state holding ``inputs.npz``'s parameters of
-    ``arch`` (fresh copies), zero moments, step 0."""
+    ``arch`` (:func:`tp_config`; fresh copies), zero moments, step 0."""
     pre = arch + "|"
-    model = M.holding(TC.get_tiny(arch), {
+    model = M.holding(tp_config(arch), {
         k[len(pre):]: torch.from_numpy(np.array(v))
         for k, v in inp.items() if k.startswith(pre)})
     return ST.TrainState(model, adamw.init(tc.opt, dict(
@@ -186,9 +188,11 @@ def routes(inp, mesh, shape) -> dict:
 
 def compute_train(inp, world: int) -> dict:
     """Every arm of tests/test_torch_lm_shard.py in a world of ``world``:
-    each arch in each mode on the model-only meshes, in f32 and bf16 and
-    the first-step β₁ = 0 run (bf16) on the data-split meshes, and the
-    MoE routes on the data-split meshes."""
+    each arch in each mode and the first-step β₁ = 0 run (bf16) on the
+    model-only meshes, with prefill and decode of ``TP_DECODE`` from
+    ``inp``'s parameters on ``REF_SERVE_MESH``; in f32 and bf16 and the
+    first-step run on the data-split meshes, and the MoE routes on the
+    data-split meshes."""
     out = {}
     for shape in MODEL_MESHES[world]:
         mesh = mesh_of(shape)
@@ -196,7 +200,15 @@ def compute_train(inp, world: int) -> dict:
             for mode in MODES:
                 r = train(inp, arch, mode, mesh)
                 out.update({f"{arch}|{shape}|{mode}|{k}": v
-                            for k, v in r.items() if k != "params"})
+                            for k, v in r.items()})
+            r = train(inp, arch, "bf16", mesh, steps=1, **FIRST_STEP)
+            out[f"{arch}|{shape}|first|m"] = r["m"]
+        if shape == REF_SERVE_MESH:
+            for arch in TP_DECODE:
+                for mode in ("f32", "bf16"):
+                    for pre in TP_PREFILLS:
+                        out[f"{arch}|{shape}|serve|{mode}|{pre}"] = \
+                            tp_serve(arch, mode, pre, mesh, inp)
     for shape in DATA_MESHES[world]:
         mesh = mesh_of(shape)
         for arch in ARCHS:
@@ -402,8 +414,273 @@ def compute_collectives(inp, world: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# tests/test_torch_tp.py: the "model" axis's split regions, module by module
+# ---------------------------------------------------------------------------
+
+TP_MESHES = {2: ((1, 2),), 4: ((1, 4), (2, 2))}
+TP_ATTN = ("yi-9b", "gemma3-4b", "codeqwen1.5-7b")
+TP_FFN = ("swiglu", "geglu", "relu2", "gelu")
+TP_VOCAB = ("yi-9b", "nemotron-4-340b")          # tied, untied head
+TP_DECODE = ("yi-9b", "kv16")
+TP_SEQ = 40
+TP_CHUNK = 16
+TP_PREFILLS = (24, 27)       # a cache cut over the sequence, and a whole one
+TP_SMAX = 32
+# decode's limits, chip_smoke.LM_DECODE_TOL: of max|logits|
+DECODE_TOL = {"f32": 1e-3, "bf16": 5e-2}
+MODEL = (pshard.MODEL_AXIS,)
+# ``dense_lm``'s arguments of "kv16" (either package's)
+KV16 = dict(n_layers=2, d_model=64, n_heads=16, n_kv_heads=16, d_head=4,
+            d_ff=128, vocab=256)
+
+
+def tp_config(arch: str) -> M.ArchConfig:
+    """A tiny config: ``TC.get_tiny(arch)``, or ``"kv16"``: a dense LM with
+    16 kv heads, whose attention caches cut their heads over "model"."""
+    if arch == "kv16":
+        from repro_torch.configs.common import dense_lm
+        return dense_lm("kv16-tiny", **KV16)
+    return TC.get_tiny(arch)
+
+
+def serve_tokens(vocab: int) -> np.ndarray:
+    """The (BATCH, TP_SMAX) tokens that prefill and decode read."""
+    return np.random.default_rng(7).integers(0, vocab, (BATCH, TP_SMAX),
+                                             dtype=np.int32)
+
+
+def _rng_tensor(seed: int, shape) -> torch.Tensor:
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        shape).astype(np.float32))
+
+
+def module_case(named: dict, specs: dict, fn, inputs: tuple, mesh=None,
+                partial=()) -> dict:
+    """``fn(params, *inputs)`` and the gradients of ``Σ out·w`` (w seeded)
+    with respect to ``inputs[0]`` and every leaf of ``named`` (whole f32
+    leaves): on one device, or (``mesh``) with each leaf the rank's block
+    along "model" (``specs`` resolved on the mesh) under the model
+    context, the ``partial`` leaves' gradients summed over "model" and
+    every gradient gathered whole. Returns {"out", "d_in", "g|<name>",
+    and on a mesh "raw|<name>": a partial leaf's gradient before its
+    sum}."""
+    x = inputs[0].clone().requires_grad_()
+    lays = None
+    if mesh is None:
+        params = {k: v.clone().requires_grad_() for k, v in named.items()}
+        ctx = contextlib.nullcontext()
+    else:
+        lays = {k: lay.only(MODEL) for k, lay in pshard.resolve_tree(
+            mesh, specs, named).items()}
+        params = {k: pshard.cut(v, lays[k]).requires_grad_()
+                  for k, v in named.items()}
+        ctx = pshard.model_context(mesh)
+    with ctx:
+        out = fn(L.tree_from_named(params), x, *inputs[1:])
+        w = _rng_tensor(99, tuple(out.shape))
+        torch.sum(out * w).backward()
+    res = {"out": out.detach().numpy(), "d_in": x.grad.numpy()}
+    for k, p in params.items():
+        g = torch.zeros_like(p) if p.grad is None else p.grad
+        if lays is not None:
+            if k in partial:
+                res[f"raw|{k}"] = g.numpy().copy()
+                pshard.all_reduce(g, mesh, (pshard.MODEL_AXIS,))
+            g = pshard.gather(g, lays[k])
+        res[f"g|{k}"] = g.numpy()
+    return res
+
+
+def _block_leaves(cfg: M.ArchConfig, prefix: str) -> tuple[dict, dict]:
+    """The seeded whole leaves and logical specs under ``prefix`` of
+    ``cfg``'s LM, keyed by their names below it."""
+    model = M.LM(cfg, seed=0, device="cpu")
+    specs = model.specs()
+    named = {k[len(prefix):]: p.detach().clone()
+             for k, p in model.named_parameters() if k.startswith(prefix)}
+    return named, {k[len(prefix):]: v for k, v in specs.items()
+                   if k.startswith(prefix)}
+
+
+def tp_attention(arch: str, mesh=None) -> dict:
+    """Block 0's attention of the tiny ``arch`` (and its partial leaves
+    by :func:`repro_torch.train.steps.leaf_plans` on ``mesh``)."""
+    cfg = tp_config(arch)
+    blk = cfg.segments[0].blocks[0]
+    prefix = "segments.0.0.b0.mixer."
+    named, specs = _block_leaves(cfg, prefix)
+    partial = ()
+    if mesh is not None:
+        model = M.LM(cfg, device="meta")
+        plans = ST.leaf_plans(cfg, pshard.resolve_tree(
+            mesh, model.specs(), dict(model.named_parameters())))
+        partial = tuple(k[len(prefix):] for k, pl in plans.items()
+                        if k.startswith(prefix) and pl.partial)
+    x = _rng_tensor(1, (2, TP_SEQ, cfg.d_model))
+    pos = torch.arange(TP_SEQ).expand(2, TP_SEQ)
+
+    def fn(params, x):
+        return L.attn_forward(params, blk.attn, x, pos, q_chunk=TP_CHUNK,
+                              k_chunk=TP_CHUNK)
+
+    out = module_case(named, specs, fn, (x,), mesh, partial)
+    out["partial"] = np.array(sorted(partial))
+    return out
+
+
+def tp_ffn(kind: str, mesh=None) -> dict:
+    spec = L.FfnSpec(d_model=64, d_ff=128, kind=kind)
+    gen = torch.Generator().manual_seed(3)
+    named = {k: p.detach().clone()
+             for k, p in L.Ffn(spec, gen).named_parameters()}
+    x = _rng_tensor(2, (2, TP_SEQ, 64))
+    return module_case(named, {k: L.Ffn.SPECS[k] for k in named},
+                       lambda p, x: L.ffn_forward(p, spec, x), (x,), mesh)
+
+
+def tp_vocab(arch: str, mesh=None) -> dict:
+    """The embedding lookup, the chunked loss (chunks of ``TP_CHUNK``) and
+    the last logits of the tiny ``arch``, whose embedding and head are
+    the case's leaves."""
+    import dataclasses
+    cfg = dataclasses.replace(tp_config(arch), loss_chunk=TP_CHUNK)
+    model = M.LM(cfg, seed=0, device="cpu")
+    keys = ("embed", "lm_head")
+    named = {k: p.detach().clone() for k, p in model.named_parameters()
+             if k in keys}
+    specs = {k: v for k, v in model.specs().items() if k in keys}
+    rng = np.random.default_rng(5)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, TP_SEQ)))
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab, (2, TP_SEQ)))
+    mask = torch.from_numpy(rng.random((2, TP_SEQ)) < 0.8)
+    x = _rng_tensor(4, (2, TP_SEQ, cfg.d_model))
+
+    def fn(params, x):
+        h = M.embed_tokens(params, cfg, tokens, torch.float32) + x
+        loss = M.chunked_xent(params, cfg, h, labels, mask)
+        return loss * 1e3 + 0 * torch.sum(h[:1, :1, :1])
+
+    out = module_case(named, specs, fn, (x,), mesh)
+    tree = L.tree_from_named(named if mesh is None else {
+        k: pshard.cut(v, lay.only(MODEL)) for (k, v), lay in zip(
+            named.items(), pshard.resolve_tree(mesh, specs,
+                                               named).values())})
+    with torch.no_grad(), (contextlib.nullcontext() if mesh is None
+                           else pshard.model_context(mesh)):
+        out["logits"] = M.logits_for(tree, cfg, x[:, -1:]).numpy()
+    return out
+
+
+def tp_serve(arch: str, mode: str, pre: int, mesh=None, inp=None) -> dict:
+    """Prefill of ``pre`` tokens then decode to ``TP_SMAX`` of ``tp_config
+    (arch)`` in ``mode`` (f32 or bf16) through the steps, a batch of
+    BATCH rows, from the seed-0 parameters (or ``inp``'s): the rank's
+    logits (rows, TP_SMAX − pre + 1, V)."""
+    cfg = tp_config(arch)
+    tc = (ST.TrainConfig(compute_dtype="float32") if mode == "f32"
+          else ST.TrainConfig())
+    toks = serve_tokens(cfg.vocab)
+    if mesh is None:
+        state, _ = ST.init_state(0, cfg, tc, device="cpu")
+        prefill, decode_of = ST.make_prefill_step(cfg, tc), (
+            lambda csh: ST.make_decode_step(cfg, tc))
+        rows = torch.from_numpy(toks)
+    else:
+        if inp is None:
+            state, sh = ST.init_state(0, cfg, tc, mesh)
+        else:
+            state, sh = ST.shard_state(initial_state(inp, arch, tc), mesh)
+        bsh = ST.batch_shardings(mesh, cfg, "serve", {"tokens": toks})
+        prefill = ST.make_prefill_step(cfg, tc, mesh, sh.params, bsh)
+        decode_of = (lambda csh: ST.make_decode_step(
+            cfg, tc, mesh, sh.params, csh, bsh))
+        rows = device_batch(mesh, {"tokens": toks})["tokens"]
+    last, caches = prefill(state.params, {"tokens": rows[:, :pre]})
+    caches, csh = ST.pad_caches(cfg, mesh, caches, BATCH, pre, TP_SMAX)
+    decode = decode_of(csh)
+    outs = [last[:, 0]]
+    for t in range(pre, TP_SMAX):
+        lg, caches = decode(state.params, rows[:, t:t + 1], caches, t)
+        outs.append(lg[:, 0])
+    return torch.stack(outs, 1).float().numpy()
+
+
+def tp_topk(mesh=None) -> dict:
+    """``STEPS`` f32 train steps of tiny yi-9b with error-feedback top-k
+    (a 0.3 keep-fraction), which ranks whole leaves: the parameters and
+    the err buffer after them, whole."""
+    cfg = TC.get_tiny("yi-9b")
+    tc = ST.TrainConfig(compute_dtype="float32", fp32_grads=True,
+                        opt=adamw.OptConfig(lr=LR, warmup_steps=2,
+                                            total_steps=60,
+                                            topk_compress=0.3))
+    state, sh = ST.init_state(0, cfg, tc, mesh, device="cpu")
+    src = SyntheticLM(vocab=cfg.vocab, seq=SEQ, global_batch=BATCH)
+    if mesh is None:
+        step = ST.make_train_step(cfg, tc)
+        batch = lambda i: to_device(src.host_batch(i), "cpu")  # noqa: E731
+    else:
+        step = ST.make_train_step(cfg, tc, mesh, sh, ST.batch_shardings(
+            mesh, cfg, "train", src.host_batch(0)))
+        batch = lambda i: device_batch(mesh, src.host_batch(i))  # noqa
+    for i in range(STEPS):
+        state, _ = step(state, batch(i))
+    lay = None if sh is None else sh.params
+    return {"params": flat(whole(dict(state.params.named_parameters()),
+                                 lay)),
+            "err": flat(whole(state.opt.err, lay))}
+
+
+def tp_cases(mesh=None) -> dict:
+    """Every case of tests/test_torch_tp.py on ``mesh`` (None: one
+    device), keyed ``<kind>|<case>|<field>``."""
+    out = {}
+    for a in TP_ATTN:
+        out.update({f"attn|{a}|{k}": v
+                    for k, v in tp_attention(a, mesh).items()})
+    for kind in TP_FFN:
+        out.update({f"ffn|{kind}|{k}": v
+                    for k, v in tp_ffn(kind, mesh).items()})
+    for a in TP_VOCAB:
+        out.update({f"vocab|{a}|{k}": v
+                    for k, v in tp_vocab(a, mesh).items()})
+    for a in TP_DECODE:
+        for mode in ("f32", "bf16"):
+            for pre in TP_PREFILLS:
+                out[f"serve|{a}|{mode}|{pre}"] = tp_serve(a, mode, pre, mesh)
+    out.update({f"topk|{k}": v for k, v in tp_topk(mesh).items()})
+    return out
+
+
+def compute_tp(inp, world: int) -> dict:
+    """tests/test_torch_tp.py's cases on each mesh of ``TP_MESHES[world]``
+    (``"<shape>|..."``), the rank's data index on it, and the collectives
+    of one bf16 train step of tiny yi-9b on each."""
+    out = {}
+    for shape in TP_MESHES[world]:
+        mesh = mesh_of(shape)
+        out.update({f"{shape}|{k}": v for k, v in tp_cases(mesh).items()})
+        out[f"{shape}|data_index"] = np.array(
+            pshard.coordinate(mesh)["data"])
+        cfg = TC.get_tiny("yi-9b")
+        tc = ST.TrainConfig()
+        state, sh = ST.init_state(0, cfg, tc, mesh)
+        src = SyntheticLM(vocab=cfg.vocab, seq=SEQ, global_batch=BATCH)
+        step = ST.make_train_step(cfg, tc, mesh, sh, ST.batch_shardings(
+            mesh, cfg, "train", src.host_batch(0)))
+        batch = device_batch(mesh, src.host_batch(0))
+        pshard.reset_collectives()
+        step(state, batch)
+        for table, got in (("kinds", pshard.collective_counts()),
+                           ("tags", pshard.collective_tags())):
+            for k, (calls, nbytes) in got.items():
+                out[f"{shape}|{table}|{k}"] = np.array([calls, nbytes])
+    return out
+
+
 JOBS = {"train": compute_train, "ckpt": compute_ckpt,
-        "collectives": compute_collectives}
+        "collectives": compute_collectives, "tp": compute_tp}
 
 
 def _run(rank: int, world: int, workdir: str, job: str) -> None:
