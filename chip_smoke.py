@@ -341,9 +341,24 @@ Phases, each printing its own lines and seconds:
    (``python -m repro_torch.launch.dryrun`` on (16, 16), started with
    phase 24's CLI cells and run beside the LM phases), its wall, its
    collectives by purpose (the region sums, the vocab-parallel MAX and
-   SUM, the gradients' reductions), and ``tp_hand_count``'s products
+   SUM, the gradients' reductions), and ``hand_count``'s products
    and peak parts beside the dry run's; (b) phase 23's NCCL world of 1
    runs the same code, bit for bit the unsharded step (asserted there);
+26. MLA heads and MoE experts over "model" (run after 25, ROADMAP item
+   14g): (a) one real train step of deepseek-v2-lite-16b at full width
+   and full depth (27 layers) on ``TP_ROWS`` × 4 096 tokens of
+   train_4k, bf16, as rank 0 of a fake world of 256 ranks on (16, 16),
+   as phase 25(a): its ``max_memory_allocated`` under ``TP_LIMIT_GB``
+   and within ``DRYRUN_PEAK_BAND`` of the dry run's tracked peak of the
+   same cell, its wall, its collectives by purpose (MLA's region sums,
+   the routed and shared experts' sums, the gradients' reductions) and
+   ``hand_count``'s products and peak parts; (b) one decode_32k step
+   of the same model as rank 0 of (16, 16) on the rank's rows of zero
+   caches, the MLA latent caches cut over positions, one token into the
+   last slot: ``max_memory_allocated`` within the band of that cell's
+   dry run, its collectives (q gathered, the softmax's MAX and SUM over
+   "model"). Both dry runs (``python -m repro_torch.launch.dryrun``)
+   start with phase 24's CLI cells and run beside the LM phases;
 15. summary: one JSON line of per-kernel numbers (with, for
    ``screen_matvec``, ``fista_step`` and ``cd_gram_sweep``, the batched
    path's launches and its B = 8 row at its own shapes, for
@@ -383,7 +398,8 @@ they fell at every step: the reading ``LM_LR`` was chosen from.
 ``python3 chip_smoke.py --moe`` runs phase 1 and then phase 21 alone;
 ``--ssm`` phase 1 and then phase 22 alone; ``--shard`` phase 1 and then
 phase 23 alone; ``--dryrun`` phase 1 and then phase 24 alone; ``--tp``
-phase 1 and then phase 25(a) alone.
+phase 1 and then phase 25(a) alone; ``--ep`` phase 1 and then phase 26
+alone.
 
 Each path phase sets every launch counter to 0 just before it and reads
 them just after: each kernel the path runs must have launched, and no
@@ -4773,63 +4789,6 @@ TP_PHASE = (f"tensor parallel: rank 0 of a fake world of 256, {TP_MESH}; "
             f"train_4k, bf16, real tensors")
 
 
-def tp_hand_count(cfg, rows: int = TP_ROWS, seq: int = LM_SEQ,
-                  dims: tuple = TP_MESH) -> dict:
-    """The hand count of one train step of a dense ``cfg`` (one block
-    kind, tied or untied head) on rank 0 of a ("data", "model") mesh of
-    ``dims``, ``rows`` sequences of ``seq``: its products (flops) by part
-    and its peak's parts (bytes). A dimension the model axis does not
-    divide stays whole, as the rules leave it; a rank projects the kv
-    heads its query heads read."""
-    import math
-    data, model = dims
-    blk = cfg.segments[0].blocks[0]
-    a, f = blk.attn, blk.ffn
-    n_layers, d, dh = cfg.n_layers, cfg.d_model, a.d_head
-    t = rows * seq
-
-    def part(n):
-        return n // model if n % model == 0 else n
-
-    hq, fl, vl = part(a.n_heads), part(f.d_ff), part(cfg.vocab)
-    g = a.n_heads // a.n_kv_heads
-    hk = (a.n_kv_heads // model if a.n_kv_heads % model == 0
-          else (hq - 1) // g + 1)
-    gates = 3 if f.kind in ("swiglu", "geglu") else 2
-    fwd = 2 * d * dh * (hq + 2 * hk) + 2 * hq * dh * d + gates * 2 * d * fl
-    # forward, backward (2×), the block's recompute less its last product
-    dense = n_layers * t * (4 * fwd - 2 * fl * d)
-    qc, kc = min(cfg.q_chunk, seq), min(cfg.k_chunk, seq)
-    tiles = sum(1 for qi in range(-(-seq // qc)) for ki in range(-(-seq // kc))
-                if ki * kc <= qi * qc + qc - 1)
-    attn = 10 * 2 * tiles * qc * kc * dh * hq * rows * n_layers
-    head = 4 * 2 * t * d * vl           # the chunked loss's four passes
-    heads = 1 if cfg.tie_embeddings else 2
-
-    def elements(width):        # the rank's leaves, their d dims at width
-        return (n_layers * ((2 * hq * dh + 2 * part(a.n_kv_heads) * dh
-                             + gates * fl) * width + 2 * d)
-                + vl * width * heads + d)
-
-    leaves = elements(d)                 # gathered over "data"
-    return {"products": dense + attn + head, "dense": dense,
-            "attention": attn, "head": head,
-            "saved_inputs_gb": n_layers * t * d * 2 / 1e9,
-            "leaves": leaves, "leaves_gb": leaves * 6 / 1e9,
-            "masters_moments_gb": elements(d // data) * 12 / 1e9}
-
-
-def tp_cli_start(tmp: str) -> tuple:
-    """(a)'s dry run of the same cell, ``python -m repro_torch.launch.
-    dryrun`` on the production mesh, started first (CPU work: it runs
-    beside the earlier LM phases). Returns (argv, process)."""
-    argv = [sys.executable, "-m", "repro_torch.launch.dryrun", *TP_CLI,
-            "--out", os.path.join(tmp, "dryrun_tp"), "--device", DEVICE]
-    return argv, subprocess.Popen(
-        argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        cwd=tmp, env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")))
-
-
 def tp_record(proc: tuple) -> dict:
     """The dry-run CLI's record of the cell (``ok``)."""
     argv, p = proc
@@ -4844,6 +4803,42 @@ def tp_record(proc: tuple) -> dict:
     return rec
 
 
+@contextlib.contextmanager
+def fake_rank(torch, cfg, seed: int):
+    """Rank 0 of a fake world of ``TP_MESH`` ranks, for phases 25 and 26:
+    yields a namespace of the mesh, the masters' ``layouts``, the rank's
+    f32 ``shards`` of them drawn from ``gen`` (seeded with ``seed``, on
+    the card; nothing whole is ever built), the ``model`` holding them,
+    ``gen`` and ``base``, the memory allocated before. Its fields are
+    dropped and the cache emptied on the way out."""
+    from types import SimpleNamespace
+    from repro_torch import pshard
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh, mesh_axes
+    from repro_torch.models import model as M
+    dev = torch.device(DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    r = SimpleNamespace(base=torch.cuda.memory_allocated())
+    try:
+        with dryrun.fake_world(TP_MESH[0] * TP_MESH[1]):
+            r.mesh = make_mesh(pshard.MeshShape(mesh_axes(TP_MESH), TP_MESH),
+                               DEVICE)
+            meta = M.LM(cfg, device="meta")
+            r.layouts = pshard.resolve_tree(r.mesh, meta.specs(),
+                                            dict(meta.named_parameters()))
+            r.gen = torch.Generator(device=dev)
+            r.gen.manual_seed(seed)
+            r.shards = {k: torch.randn(lay.local_shape, generator=r.gen,
+                                       device=dev) * 0.02
+                        for k, lay in r.layouts.items()}
+            r.model = M.holding(cfg, r.shards)
+            yield r
+    finally:
+        vars(r).clear()
+        torch.cuda.empty_cache()
+
+
 def tp_step(torch, cfg, tc) -> dict:
     """One real train step of ``cfg`` as rank 0 of a fake world of
     ``TP_MESH`` ranks: the rank's shards of the masters drawn from a
@@ -4853,27 +4848,12 @@ def tp_step(torch, cfg, tc) -> dict:
     group's collectives move nothing (its gathers and reductions leave
     their outputs unwritten), so the loss is not read."""
     from repro_torch import pshard
-    from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import make_mesh, mesh_axes
-    from repro_torch.models import model as M
     from repro_torch.optim import adamw
     from repro_torch.train import steps as ST
     dev = torch.device(DEVICE)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    base = torch.cuda.memory_allocated()
-    with dryrun.fake_world(TP_MESH[0] * TP_MESH[1]):
-        mesh = make_mesh(pshard.MeshShape(mesh_axes(TP_MESH), TP_MESH),
-                         DEVICE)
-        meta = M.LM(cfg, device="meta")
-        layouts = pshard.resolve_tree(mesh, meta.specs(),
-                                      dict(meta.named_parameters()))
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(0)
-        shards = {k: torch.randn(lay.local_shape, generator=gen, device=dev)
-                  * 0.02 for k, lay in layouts.items()}
-        model = M.holding(cfg, shards)
-        state = ST.TrainState(model, adamw.init(tc.opt, shards),
+    with fake_rank(torch, cfg, 0) as r:
+        mesh, layouts = r.mesh, r.layouts
+        state = ST.TrainState(r.model, adamw.init(tc.opt, r.shards),
                               torch.zeros((), dtype=torch.int32, device=dev))
         rep = pshard.Layout(pshard.P(), (), mesh)
         sh = ST.TrainState(layouts, adamw.AdamState(rep, layouts, layouts,
@@ -4883,7 +4863,7 @@ def tp_step(torch, cfg, tc) -> dict:
         step = ST.make_train_step(cfg, tc, mesh, sh, ST.batch_shardings(
             mesh, cfg, "train", whole))
         batch = {k: torch.randint(0, cfg.vocab, (TP_ROWS, LM_SEQ),
-                                  generator=gen, device=dev,
+                                  generator=r.gen, device=dev,
                                   dtype=torch.int32)
                  for k in ("tokens", "labels")}
         torch.cuda.synchronize()
@@ -4893,10 +4873,9 @@ def tp_step(torch, cfg, tc) -> dict:
         state, _ = step(state, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        peak = (torch.cuda.max_memory_allocated() - r.base) / 1e9
         tags = pshard.collective_tags()
-        del state, step, batch, shards, model
-    torch.cuda.empty_cache()
+        del state, step, batch, sh
     return {"wall_s": wall, "peak_gb": peak, "tags": tags}
 
 
@@ -4912,7 +4891,7 @@ def tp_phase(torch, smi: str, proc: tuple, shard: dict | None) -> dict:
     cfg = configs.get_config(LM_ARCH)
     tc = ST.TrainConfig(opt=adamw.OptConfig(lr=LM_LR, warmup_steps=1,
                                             total_steps=100))
-    hand = tp_hand_count(cfg)
+    hand = hand_count(cfg)
     real = tp_step(torch, cfg, tc)
     rec = tp_record(proc)
     tracked = rec["memory"]["peak_per_device_gb"]
@@ -4949,6 +4928,216 @@ def tp_phase(torch, smi: str, proc: tuple, shard: dict | None) -> dict:
         assert real["tags"].get(tag, (0, 0))[0] > 0, (tag, real["tags"])
     return {"real": real, "tracked_gb": tracked, "flops": flops,
             "dot_flops": dots, "hand": hand}
+
+
+EP_SHAPES = ("train_4k", "decode_32k")     # phase 26's cells, (a) and (b)
+EP_PHASE = (f"expert and MLA head parallel: rank 0 of a fake world of 256, "
+            f"{TP_MESH}; {MOE_ARCH} at full width and depth, {TP_ROWS} × "
+            f"{LM_SEQ} of train_4k and a decode_32k step, bf16, real "
+            f"tensors")
+
+
+def hand_count(cfg, rows: int = TP_ROWS, seq: int = LM_SEQ,
+               dims: tuple = TP_MESH) -> dict:
+    """The hand count of one train step of ``cfg`` (attention or MLA
+    blocks, each with a dense FFN or a MoE; tied or untied head) on
+    rank 0 of a ("data", "model") mesh of ``dims``, ``rows`` sequences
+    of ``seq``: its products (flops) by part and its peak's parts
+    (bytes). A dimension the model axis does not divide stays whole, as
+    the rules leave it; a rank projects the kv heads its query heads
+    read; every rank computes the MLA latents and the routing whole, and
+    fills its experts' ``cap`` slots in each routing group of the whole
+    batch."""
+    data, model = dims
+    t = rows * seq
+    d = cfg.d_model
+
+    def part(n):
+        return n // model if n % model == 0 else n
+
+    qc, kc = min(cfg.q_chunk, seq), min(cfg.k_chunk, seq)
+    area = sum(qc * kc for qi in range(-(-seq // qc))
+               for ki in range(-(-seq // kc)) if ki * kc <= qi * qc + qc - 1)
+    linear = attn = last = 0            # forward products; the step's tiles
+    whole = d                           # leaf elements replicated (norms),
+    cut = 0                             # and with a d dim cut over "data"
+    for seg in cfg.segments:
+        n = seg.repeat
+        for blk in seg.blocks:
+            whole += n * 2 * d
+            if blk.kind == "mla":
+                m = blk.mla
+                h, r, dq = part(m.n_heads), m.kv_lora_rank, m.d_nope + m.d_rope
+                linear += n * t * (2 * d * (r + m.d_rope) + 2 * d * h * dq
+                                   + 2 * r * h * (m.d_nope + m.d_v)
+                                   + 2 * h * m.d_v * d)
+                # 10 tile products: 5 at q·k's width, 5 at v's
+                attn += n * 2 * area * h * rows * 5 * (dq + m.d_v)
+                cut += n * d * (r + m.d_rope + h * dq + h * m.d_v)
+                whole += n * (r + r * h * (m.d_nope + m.d_v))
+            else:
+                a = blk.attn
+                hq, dh = part(a.n_heads), a.d_head
+                g = a.n_heads // a.n_kv_heads
+                hk = (a.n_kv_heads // model if a.n_kv_heads % model == 0
+                      else (hq - 1) // g + 1)
+                linear += n * t * (2 * d * dh * (hq + 2 * hk)
+                                   + 2 * hq * dh * d)
+                attn += n * 2 * area * hq * rows * 10 * dh
+                cut += n * (2 * hq * dh + 2 * part(a.n_kv_heads) * dh) * d
+            if blk.moe is not None:
+                e = blk.moe
+                el, f, fs = part(e.n_routed), e.d_expert, part(
+                    e.d_expert * e.n_shared)
+                g = min(e.group_size, t * data)
+                cap = max(1, int(g * e.top_k / e.n_routed * e.capacity_factor))
+                ng = -(-t // g)
+                linear += n * (ng * el * cap * 3 * 2 * d * f     # experts
+                               + t * 2 * d * e.n_routed           # router
+                               + 2 * 2 * ng * g * d * el * cap    # dispatch,
+                               + t * 3 * 2 * d * fs)              # combine,
+                last += n * t * 2 * fs * d                        # shared
+                cut += n * (3 * el * d * f + d * e.n_routed + 3 * d * fs)
+            else:
+                fl = part(blk.ffn.d_ff)
+                gates = 3 if blk.ffn.kind in ("swiglu", "geglu") else 2
+                linear += n * t * gates * 2 * d * fl
+                last += n * t * 2 * fl * d
+                cut += n * gates * d * fl
+    vl = part(cfg.vocab)
+    head = 4 * 2 * t * d * vl           # the chunked loss's four passes
+    cut += vl * d * (1 if cfg.tie_embeddings else 2)
+    # forward, backward (2×), the block's recompute less its last product
+    dense = 4 * linear - last
+    return {"products": dense + attn + head, "dense": dense,
+            "attention": attn, "head": head,
+            "saved_inputs_gb": cfg.n_layers * t * d * 2 / 1e9,
+            "leaves": whole + cut, "leaves_gb": (whole + cut) * 6 / 1e9,
+            "masters_moments_gb": (whole + cut // data) * 12 / 1e9}
+
+
+def dryrun_cell_start(tmp: str, args: tuple, name: str) -> tuple:
+    """``python -m repro_torch.launch.dryrun`` of one cell (``args``) on
+    the production mesh, started first (CPU work: it runs beside the
+    earlier LM phases). Returns (argv, process)."""
+    argv = [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+            "--out", os.path.join(tmp, name), "--device", DEVICE]
+    return argv, subprocess.Popen(
+        argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=tmp, env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")))
+
+
+def ep_cli_start(tmp: str) -> list:
+    """(a)'s and (b)'s dry runs, one process each."""
+    return [dryrun_cell_start(tmp, ("--arch", MOE_ARCH, "--shape", shape,
+                                    "--mesh", "single"), f"dryrun_ep_{shape}")
+            for shape in EP_SHAPES]
+
+
+def ep_decode(torch, cfg, tc) -> dict:
+    """(b): one decode_32k step of ``cfg`` as rank 0 of a fake world of
+    ``TP_MESH`` ranks (:func:`fake_rank`): the rank's f32 master shards,
+    its rows of the zero caches in :func:`steps.cache_layouts`' layouts
+    (the MLA latent caches cut over positions), one new token into the
+    last slot; the step's wall and ``max_memory_allocated`` above the
+    memory before the inputs (as the dry run's peak counts them)."""
+    from repro_torch import configs, pshard
+    from repro_torch.models import model as M
+    from repro_torch.train import steps as ST
+    shape = configs.SHAPES["decode_32k"]
+    dev = torch.device(DEVICE)
+    with fake_rank(torch, cfg, 1) as r:
+        mesh = r.mesh
+        clay = ST.cache_layouts(cfg, mesh, shape.batch, shape.seq)
+        whole = M.cache_init(cfg, shape.batch, shape.seq, device="meta")
+
+        def zeros(tree, lay):
+            if isinstance(tree, dict):
+                return {k: zeros(v, lay[k]) for k, v in tree.items()}
+            if isinstance(tree, list):
+                return [zeros(v, lo) for v, lo in zip(tree, lay)]
+            return torch.zeros(lay.local_shape, dtype=tree.dtype, device=dev)
+
+        caches = zeros(whole, clay)
+        c_lay = clay[0][0]["b0"]["c"]
+        tok_lay = pshard.Layout(pshard.batch_spec(mesh, 2, shape.batch),
+                                (shape.batch, 1), mesh)
+        tok = torch.randint(0, cfg.vocab, tok_lay.local_shape,
+                            generator=r.gen, device=dev, dtype=torch.int32)
+        step = ST.make_decode_step(cfg, tc, mesh, r.layouts, clay,
+                                   {"tokens": tok_lay})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pshard.reset_collectives()
+        t0 = time.perf_counter()
+        logits, caches = step(r.model, tok, caches, shape.seq - 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - r.base) / 1e9
+        tags = pshard.collective_tags()
+        out_shape = tuple(logits.shape)
+        del logits, caches, step, tok
+    return {"wall_s": wall, "peak_gb": peak, "tags": tags,
+            "cache_spec": tuple(c_lay.spec), "cache_local": c_lay.local_shape,
+            "logits": out_shape}
+
+
+def ep_phase(torch, smi: str, procs: list) -> dict:
+    """Phase 26 (see the module doc): (a) the real rank-0 step of
+    deepseek-v2-lite-16b train_4k on (16, 16) and (b) its decode_32k
+    step, each against its dry run (``procs``: :func:`ep_cli_start`'s
+    runs) and the hand count."""
+    from repro_torch import configs, pshard
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as ST
+    cfg = configs.get_config(MOE_ARCH)
+    tc = ST.TrainConfig(opt=adamw.OptConfig(lr=LM_LR, warmup_steps=1,
+                                            total_steps=100))
+    hand = hand_count(cfg)
+    real = {"train_4k": tp_step(torch, cfg, tc),
+            "decode_32k": ep_decode(torch, cfg, tc)}
+    recs = {shape: tp_record(p) for shape, p in zip(EP_SHAPES, procs)}
+    lo, hi = DRYRUN_PEAK_BAND
+    out = {"hand": hand}
+    for (name, shape) in zip("ab", EP_SHAPES):
+        r, rec = real[shape], recs[shape]
+        tracked = rec["memory"]["peak_per_device_gb"]
+        ratio = r["peak_gb"] / tracked
+        print(f"({name}) {cfg.name} L = {cfg.n_layers}, {shape} on rank 0 "
+              f"of {TP_MESH}, bf16 [{smi}]: max_memory_allocated "
+              f"{r['peak_gb']:.4f} GB against the dry run's tracked peak "
+              f"{tracked:.4f} GB (ratio {ratio:.4f}, band {lo}–{hi}; limit "
+              f"{TP_LIMIT_GB} GB); wall {r['wall_s']:.4f} s; dry run (CPU "
+              f"of this machine, {rec['trace_s']} s): flops "
+              f"{rec['roofline']['flops']:.6g}, products "
+              f"{rec.get('dot_flops')}, useful-flops ratio "
+              f"{rec.get('useful_flops_ratio')}", flush=True)
+        print("    collectives by purpose (calls, bytes; the fake group "
+              "moves nothing): " + ", ".join(
+                  f"{k} {v[0]} ({v[1] / 2**20:.1f} MiB)"
+                  for k, v in r["tags"].items()), flush=True)
+        assert r["peak_gb"] < TP_LIMIT_GB, (shape, r)
+        assert lo <= ratio <= hi, (shape, r["peak_gb"], tracked)
+        out[shape] = {"real": r, "tracked_gb": tracked,
+                      "flops": rec["roofline"]["flops"],
+                      "useful_flops_ratio": rec.get("useful_flops_ratio")}
+    print(f"    hand count of (a): products {hand['products']:.6g} (dense "
+          f"{hand['dense']:.6g}, attention {hand['attention']:.6g}, head "
+          f"{hand['head']:.6g}), saved inputs {hand['saved_inputs_gb']:.4f}"
+          f" GB, compute leaves {hand['leaves']} ({hand['leaves_gb']:.4f} "
+          f"GB bf16 + f32), masters and moments "
+          f"{hand['masters_moments_gb']:.4f} GB; (b)'s latent cache "
+          f"{real['decode_32k']['cache_spec']}, local "
+          f"{real['decode_32k']['cache_local']}, logits "
+          f"{real['decode_32k']['logits']}", flush=True)
+    tags = real["train_4k"]["tags"]
+    for tag in ("mla", "experts", "shared", "region", "grad"):
+        assert tags.get(tag, (0, 0))[0] > 0, (tag, tags)
+    dec = real["decode_32k"]
+    assert dec["cache_spec"][1] == pshard.MODEL_AXIS, dec
+    for tag in ("decode_q", "decode_max", "decode_sum", "mla", "experts"):
+        assert dec["tags"].get(tag, (0, 0))[0] > 0, (tag, dec["tags"])
+    return out
 
 
 # two fill batches of 8, then a 4-query tail (cut from 44 when phase 24
@@ -5134,10 +5323,10 @@ def main(argv: list[str]) -> int:
         sys.path.insert(0, os.path.join(tree, "src"))
     if argv not in ([], ["--faults"], ["--kernels"], ["--lm-lr"],
                     ["--moe"], ["--ssm"], ["--shard"], ["--dryrun"],
-                    ["--tp"]):
+                    ["--tp"], ["--ep"]):
         print("usage: python3 chip_smoke.py [--faults | --lm-lr | --moe | "
-              "--ssm | --shard | --dryrun | --tp | --kernels [--tree DIR]]",
-              file=sys.stderr)
+              "--ssm | --shard | --dryrun | --tp | --ep | --kernels "
+              "[--tree DIR]]", file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -5192,7 +5381,16 @@ def main(argv: list[str]) -> int:
         return 0
     if argv == ["--tp"]:
         with tempfile.TemporaryDirectory() as tmp, phase(TP_PHASE):
-            tp_phase(torch, smi, tp_cli_start(tmp), None)
+            tp_phase(torch, smi, dryrun_cell_start(tmp, TP_CLI, "dryrun_tp"),
+                     None)
+        return 0
+    if argv == ["--ep"]:
+        with tempfile.TemporaryDirectory() as tmp, phase(EP_PHASE):
+            procs = ep_cli_start(tmp)
+            try:
+                ep_phase(torch, smi, procs)
+            finally:
+                stop_all(proc for _, proc in procs)
         return 0
 
     with phase("build"):
@@ -5560,8 +5758,9 @@ def main(argv: list[str]) -> int:
         # torchrun start before phase 22 and run beside it
         clis = {a: start_cli(a, tmp) for a in (LM_ARCH, MOE_CLI_ARCH)}
         dry_procs = dryrun_cli_start(tmp)
-        tp_proc = tp_cli_start(tmp)
-        later = [tp_proc[1]]
+        tp_proc = dryrun_cell_start(tmp, TP_CLI, "dryrun_tp")
+        ep_procs = ep_cli_start(tmp)
+        later = [tp_proc[1]] + [proc for _, proc in ep_procs]
         try:
             with phase(f"LM stack: {LM_ARCH} at full width, L = {LM_DEPTH}, "
                        f"seq {LM_SEQ}, batch {LM_BATCH}; the FFN bridge"):
@@ -5580,6 +5779,8 @@ def main(argv: list[str]) -> int:
                 dryrun_phase(torch, smi, tmp, dry_procs)
             with phase(TP_PHASE):
                 tp_phase(torch, smi, tp_proc, shard)
+            with phase(EP_PHASE):
+                ep_phase(torch, smi, ep_procs)
         finally:
             stop_all([c[1] for c in clis.values()]
                      + [d[1] for d in dry_procs] + later)

@@ -24,12 +24,12 @@ Conventions, as the reference's:
   (:mod:`repro_torch.pshard`): a layer reads its split from the shapes
   of the leaves it is given (a rank's block of a leaf cut over "model")
   and :func:`repro_torch.pshard.model_shard`. Attention then computes
-  the rank's query heads (and the kv heads they read) and the FFN the
-  rank's hidden columns, each inside a split region
-  (:func:`repro_torch.pshard.enter` … :func:`repro_torch.pshard.leave`:
-  the row-parallel product's f32 partials are summed over "model", then
-  rounded once). MoE routing reads the rank's place in the batch: its
-  groups are the whole batch's (:func:`moe_route`).
+  the rank's query heads (and the kv heads they read), the FFN the
+  rank's hidden columns and MoE the rank's experts, each inside a split
+  region (:func:`repro_torch.pshard.enter` … :func:`repro_torch.pshard.
+  leave`: the row-parallel product's f32 partials are summed over
+  "model", then rounded once). MoE routing reads the rank's place in the
+  batch: its groups are the whole batch's (:func:`moe_route`).
 
 MoE (:func:`moe_forward`) is the reference's grouped top-k dispatch with
 capacity, its one-hot dispatch and combine products included (see
@@ -287,6 +287,10 @@ class Attention(nn.Module):
              "wv": P("embed", "kv", None), "wo": P("heads", None, "embed"),
              "bq": P("heads", None), "bk": P("kv", None),
              "bv": P("kv", None), "qnorm": P(None), "knorm": P(None)}
+    # the split region's mark (wq's heads cut over "model") and the
+    # leaves read inside it (None: all): those replicated over "model"
+    # have gradients that are each model rank's part
+    SPLIT = ("wq", 1, None)
 
     def __init__(self, spec: AttnSpec, gen: torch.Generator, dtype=F32):
         super().__init__()
@@ -538,16 +542,23 @@ def _decode_seq(q, cache_k, cache_v, valid, spec: AttnSpec, hs, sh):
     s = torch.einsum("bhqd,bhkd->bhqk", q.to(F32),
                      kk.to(F32)) / math.sqrt(spec.d_head)
     s = torch.where(valid[None, None, None], s, NEG_INF)
-    m = torch.amax(s, dim=-1)                             # (B, H, 1)
-    top = pshard.model_max(m, sh, "decode_max")
-    p = torch.exp(s - top[..., None])
-    parts = torch.cat([torch.einsum("bhqk,bhkd->bhqd", p, vv.to(F32)),
-                       torch.sum(p, dim=-1)[..., None]], dim=-1)
-    parts = pshard.leave(parts, sh, "decode_sum")
-    o = (parts[..., :-1] / parts[..., -1:]).to(dt)
+    o = combine_seq(s, "bhqk,bhkd->bhqd", vv.to(F32), sh, dt)
     if hs is not None:
         o = o[:, hs.q0:hs.q0 + hs.hq]
     return o
+
+
+def combine_seq(s, eq: str, values, sh, dt):
+    """The softmax-weighted sum over positions cut over "model": the f32
+    scores ``s`` (B, H, 1, T) against the rank's f32 ``values`` by the
+    einsum ``eq``, the rank's maxima combined by a MAX, the numerators
+    and the denominator by one f32 SUM → (B, H, 1, D) in ``dt``."""
+    top = pshard.model_max(torch.amax(s, dim=-1), sh, "decode_max")
+    p = torch.exp(s - top[..., None])
+    parts = torch.cat([torch.einsum(eq, p, values),
+                       torch.sum(p, dim=-1)[..., None]], dim=-1)
+    parts = pshard.leave(parts, sh, "decode_sum")
+    return (parts[..., :-1] / parts[..., -1:]).to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -592,17 +603,17 @@ def ffn_hidden(params, spec: FfnSpec, x):
     return F.gelu(h, approximate="tanh")
 
 
-def ffn_forward(params, spec: FfnSpec, x):
+def ffn_forward(params, spec: FfnSpec, x, tag: str = "region"):
     """The FFN; with its hidden width cut over "model" (``w_in`` and
     ``w_gate`` column-parallel, ``w_out`` row-parallel) the rank's part
-    inside a split region."""
+    inside a split region (its sums counted under ``tag``)."""
     if params["w_in"].shape[1] == spec.d_ff:
         h = ffn_hidden(params, spec, x)
         return dot("bsf,fd->bsd", h, params["w_out"], x.dtype)
     sh = pshard.model_shard()
-    h = ffn_hidden(params, spec, pshard.enter(x, sh))
+    h = ffn_hidden(params, spec, pshard.enter(x, sh, tag))
     part = dot("bsf,fd->bsd", h, params["w_out"], F32)
-    return pshard.leave(part, sh).to(x.dtype)
+    return pshard.leave(part, sh, tag).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -632,13 +643,12 @@ class Moe(nn.Module):
     ``w_gate`` (e, d, f); ``w_out`` (e, f, d); and, with shared experts,
     ``shared``, a dense FFN of width f·n_shared."""
 
-    # its compute stays whole on "model" (the sharded steps gather its
-    # leaves whole); a module without this attribute splits there
-    model_split = False
-
     SPECS = {"router": P("embed", None), "w_in": P("experts", "embed", None),
              "w_gate": P("experts", "embed", None),
              "w_out": P("experts", None, "embed")}
+    # as Attention.SPLIT: the experts cut over "model"; the router is
+    # read inside the region (the combine weights)
+    SPLIT = ("w_in", 0, ("router",))
 
     def __init__(self, spec: MoeSpec, gen: torch.Generator, dtype=F32):
         super().__init__()
@@ -744,7 +754,7 @@ def moe_route(params, spec: MoeSpec, x) -> MoeRoute:
     if sh is not None:
         flat = topi.reshape(ng * g, k)
         every = pshard.all_gather_rows(flat[lo:lo + t].contiguous(),
-                                       sh.mesh, sh.axes)
+                                       sh.mesh, sh.axes, "route")
         real = min(ng * g, every.shape[0] - first)       # then padding
         topi = torch.cat([every[first:first + real], flat[real:]]).reshape(
             ng, g, k)
@@ -757,6 +767,16 @@ def moe_route(params, spec: MoeSpec, x) -> MoeRoute:
     pos = torch.sum(seen * onehot, dim=-1) - 1
     keep = pos < cap if mine is None else (pos < cap) & mine
     return MoeRoute(topv, topi, pos, keep, cap, t, lo, first)
+
+
+def expert_split(params, spec: MoeSpec) -> "pshard.ModelShard | None":
+    """The "model" axis where the routed experts are cut over it (the
+    rank holds ``w_in.shape[0]`` of them, block ``index``), or None where
+    every rank holds them all (the rules leave them replicated when
+    their count does not divide the axis, or there is no model axis)."""
+    if params["w_in"].shape[0] == spec.n_routed:
+        return None
+    return pshard.model_shard()
 
 
 def moe_forward(params, spec: MoeSpec, x):
@@ -773,11 +793,29 @@ def moe_forward(params, spec: MoeSpec, x):
     deterministic (no atomics), so a checkpointed layer's recompute
     gives the same bits, and at deepseek-v2-lite's width each one-hot is
     (128, 128, 64, 15), 31 MB in bf16.
+
+    **Experts over "model"** (:func:`expert_split`). Every model rank
+    holds every token of its data row and routes them all, as the
+    reference's ``("batch", None, None)`` tokens; it builds dispatch and
+    combine for its own experts alone (its block of the one-hot's expert
+    axis), fills their buffers from its tokens (no all-to-all: the
+    reference's dispatch product is local), runs them, and takes the
+    combine over its experts as an f32 partial, summed over "model" and
+    rounded once. Routing sits inside the split region too: the combine
+    weights are read there, so the router's gradient is each rank's part
+    (its plan is ``partial``) and x's gradient is summed on the way out.
+    The shared experts are a dense FFN in a region of their own
+    (:func:`ffn_forward`), added after each output is rounded, as the
+    reference adds them.
     """
-    r = moe_route(params, spec, x)
-    tokens = _window(spec, x)[0]
+    sh = expert_split(params, spec)
+    xr = x if sh is None else pshard.enter(x, sh, "experts")
+    r = moe_route(params, spec, xr)
+    tokens = _window(spec, xr)[0]
     dt = x.dtype
-    sel = one_hot(r.topi, spec.n_routed).to(dt)           # (ng, g, k, e)
+    el = params["w_in"].shape[0]                          # the rank's experts
+    first = 0 if sh is None else sh.index * el
+    sel = one_hot(r.topi - first, el).to(dt)              # (ng, g, k, el)
     # a dropped pair's slot row is zero (the extra class is cut off), as
     # the reference's one_hot(-1, cap)
     slot = one_hot(torch.where(r.keep, r.pos, r.cap),
@@ -791,8 +829,13 @@ def moe_forward(params, spec: MoeSpec, x):
     act = F.silu(gp) if spec.ffn_kind == "swiglu" else F.gelu(
         gp, approximate="tanh")
     ye = dot("encf,efd->encd", act * h, params["w_out"], dt)
-    y = dot("encd,ngec->ngd", ye, combine, dt)
+    if sh is None:
+        y = dot("encd,ngec->ngd", ye, combine, dt)
+    else:
+        y = pshard.leave(dot("encd,ngec->ngd", ye, combine, F32), sh,
+                         "experts").to(dt)
     y = y.reshape(-1, x.shape[-1])[r.lo:r.lo + r.tokens].reshape(x.shape)
     if spec.n_shared:
-        y = y + ffn_forward(params["shared"], spec.shared_spec(), x)
+        y = y + ffn_forward(params["shared"], spec.shared_spec(), x,
+                            "shared")
     return y

@@ -264,9 +264,10 @@ def _block_forward(p, blk: Block, cfg: ArchConfig, x, positions,
     h = L.rmsnorm(p["norm1"], x)
     cache = None
     if blk.kind == "mla":
+        cut = M.mla_cache_cut(x.shape[1]) if want_cache else "whole"
         mix, (c, kpe) = M.mla_forward(p["mixer"], blk.mla, h, positions,
                                       q_chunk=cfg.q_chunk,
-                                      k_chunk=cfg.k_chunk)
+                                      k_chunk=cfg.k_chunk, cache=cut)
         cache = {"c": c, "kpe": kpe}
     elif blk.kind == "mamba2":
         mix, (hf, conv) = S.mamba2_forward(p["mixer"], blk.mamba, h)
@@ -289,14 +290,15 @@ def _block_forward(p, blk: Block, cfg: ArchConfig, x, positions,
 
 def _block_decode(p, blk: Block, cfg: ArchConfig, x, cache, cache_len,
                   smax: int | None = None):
-    """Single-token decode → (x, cache). Attention caches are written in
-    place (``smax``: the whole cache's positions, which name its layout
-    on the model axis; by default the given cache's own); a recurrent
-    block returns its new state."""
+    """Single-token decode → (x, cache). Attention and MLA caches are
+    written in place (``smax``: the whole cache's positions, which name
+    its layout on the model axis; by default the given cache's own); a
+    recurrent block returns its new state."""
     h = L.rmsnorm(p["norm1"], x)
     if blk.kind == "mla":
+        cut = M.mla_cache_cut(cache["c"].shape[1] if smax is None else smax)
         mix, cc, ckpe = M.mla_decode(p["mixer"], blk.mla, h, cache["c"],
-                                     cache["kpe"], cache_len)
+                                     cache["kpe"], cache_len, cut)
         cache = {"c": cc, "kpe": ckpe}
     elif blk.kind == "mamba2":
         mix, (hf, conv) = S.mamba2_decode(p["mixer"], blk.mamba, h,

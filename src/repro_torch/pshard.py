@@ -22,13 +22,14 @@ the port runs one process per rank with explicit collectives
 batch, and its activations span the model ranks of its data group as
 the reference's rules lay them out:
 
-* within a **split region** (attention heads, the dense FFN's hidden
-  width, the vocabulary: a dimension :func:`resolve_spec` cuts over
-  "model"), each model rank computes its part from its block of the
-  leaves. :func:`enter` opens a region (the identity forward; the
-  gradient summed over "model" in backward) and :func:`leave` closes it
-  (a sum over "model" forward; the identity backward), the reference's
-  ``with_sharding_constraint`` pairs as GSPMD partitions them.
+* within a **split region** (attention and MLA heads, the dense FFN's
+  hidden width, MoE experts, the vocabulary: a dimension
+  :func:`resolve_spec` cuts over "model"), each model rank computes its
+  part from its block of the leaves. :func:`enter` opens a region (the
+  identity forward; the gradient summed over "model" in backward) and
+  :func:`leave` closes it (a sum over "model" forward; the identity
+  backward), the reference's ``with_sharding_constraint`` pairs as GSPMD
+  partitions them.
   :func:`model_shard` tells a layer its index and the axis's size;
 * between regions activations are replicated over "model";
 * MoE routing runs over the whole batch
@@ -484,9 +485,12 @@ def collective_counts() -> dict[str, tuple[int, int]]:
 def collective_tags() -> dict[str, tuple[int, int]]:
     """:func:`collective_counts` by purpose: ``gather`` (the leaves'
     gathers), ``grad`` (the gradients' reductions), ``norm`` (the clip's
-    sums of squares), ``region`` (the split regions' sums over "model",
-    forward and backward), ``embed`` (the vocab-parallel lookup),
-    ``vocab_max`` and ``vocab_sum`` (the vocab-parallel loss), ``logits`` (the last logits gathered over
+    sums of squares), ``region`` (attention's and the dense FFN's split
+    regions' sums over "model", forward and backward), ``mla``,
+    ``experts`` and ``shared`` (the same sums of MLA's, the routed
+    experts' and a MoE's shared experts' regions), ``embed`` (the
+    vocab-parallel lookup), ``vocab_max`` and ``vocab_sum`` (the
+    vocab-parallel loss), ``logits`` (the last logits gathered over
     "model"), ``decode_q``, ``decode_kv``, ``decode_max`` and
     ``decode_sum`` (decode on a sequence-cut cache), ``cache`` (caches
     moved between layouts), ``loss`` and ``route``."""

@@ -33,19 +33,21 @@ one process per rank, ``torchrun --nproc-per-node N``):
   then a gather gives the bits of a gather then a cast, in half the
   bytes) over the axes that cut it but "model": the reference's FSDP
   gather over "data". A leaf cut over "model" stays the rank's block, and
-  the layers compute the rank's part of the heads, the FFN's hidden
-  width and the vocabulary (:mod:`repro_torch.pshard`'s split regions).
-  The leaves of the blocks whose compute is still whole on "model"
-  (MLA, MoE, Mamba2, mLSTM, sLSTM: each declares ``model_split =
-  False``) are gathered whole. Forward and backward run on the rank's rows of the global batch
+  the layers compute the rank's part of the attention and MLA heads, the
+  FFN's hidden width, the MoE experts and the vocabulary
+  (:mod:`repro_torch.pshard`'s split regions). The leaves of the blocks
+  whose compute is still whole on "model" (Mamba2, mLSTM, sLSTM: each
+  declares ``model_split = False``) are gathered whole. Forward and
+  backward run on the rank's rows of the global batch
   (:func:`repro_torch.data.device_batch`), the loss divided by the whole
   batch's label count;
 * it **reduces the f32 gradients** (SUM) over the batch axes, a leaf cut
   over "data" by a reduce-scatter there, so each rank keeps its shard,
   and a leaf replicated over "model" but read inside a split region (the
-  kv projections of replicated kv heads, ``qnorm``/``knorm``) also over
-  "model"; then it takes the bf16 round trip (or, with ``accum_steps >
-  1``, one reduction per microbatch before its bf16 add): the order
+  kv projections of replicated kv heads, ``qnorm``/``knorm``, MLA's
+  ``w_dkv`` and ``kv_norm``, MoE's router) also over "model"; then it
+  takes the bf16 round trip (or, with ``accum_steps > 1``, one
+  reduction per microbatch before its bf16 add): the order
   GSPMD gives the reference, whose reduction happens inside
   ``value_and_grad``;
 * the clip's norm reads the shards (:func:`repro_torch.optim.adamw.
@@ -59,9 +61,10 @@ for bit. MoE routing runs over the whole batch
 (:func:`repro_torch.pshard.collective_counts`, ``collective_tags``).
 
 Prefill and decode gather the leaves alike and compute on the same
-split. Attention caches take the reference's layouts on "model"
-(:func:`cache_layouts`): kv heads cut where 16 divides them, else the
-sequence; :func:`pad_caches` carries prefill's caches into decode's.
+split. Attention and MLA caches take the reference's layouts on
+"model" (:func:`cache_layouts`): an attention cache's kv heads cut where
+16 divides them, else its sequence; an MLA latent cache's sequence;
+:func:`pad_caches` carries prefill's caches into decode's.
 """
 
 from __future__ import annotations
@@ -209,28 +212,42 @@ class LeafPlan(NamedTuple):
     partial: bool
 
 
+def _split_partials(name: str, mod, layouts: dict) -> list[str]:
+    """The leaves of module ``name`` that are replicated over "model" but
+    read inside its split region (their gradients are each model rank's
+    part), as its ``SPLIT`` (mark leaf, its dim, the leaves read inside
+    or None: all) declares them, or [] where the mark is not cut over
+    "model" or the module declares no ``SPLIT``."""
+    if not hasattr(mod, "SPLIT"):
+        return []
+    cut, dim, leaves = mod.SPLIT
+    if pshard.MODEL_AXIS not in layouts[f"{name}.{cut}"].dim_axes(dim):
+        return []
+    if leaves is None:
+        leaves = [n for n, _ in mod.named_parameters()]
+    return [f"{name}.{n}" for n in leaves
+            if pshard.MODEL_AXIS not in layouts[f"{name}.{n}"].axes]
+
+
 def leaf_plans(cfg: M.ArchConfig, layouts: dict) -> dict[str, LeafPlan]:
     """{name: :class:`LeafPlan`} of ``cfg``'s leaves laid out as
     ``layouts``."""
     model = M.LM(cfg, device="meta")
     split = pshard.axis_sizes(next(iter(layouts.values())).mesh).get(
         pshard.MODEL_AXIS, 1) > 1
-    whole, heads = [], []
+    whole, partial = [], set()
     for name, mod in model.named_modules():
         if not getattr(mod, "model_split", True):
             whole.append(name + ".")
-        elif (split and isinstance(mod, L.Attention) and pshard.MODEL_AXIS
-              in layouts[f"{name}.wq"].dim_axes(1)):
-            heads.append(name + ".")
+        elif split:
+            partial.update(_split_partials(name, mod, layouts))
     plans = {}
     for k, lay in layouts.items():
         if any(k.startswith(w) for w in whole):
             plans[k] = LeafPlan(lay.axes, False)
             continue
         gathered = tuple(a for a in lay.axes if a != pshard.MODEL_AXIS)
-        partial = (any(k.startswith(h) for h in heads)
-                   and pshard.MODEL_AXIS not in lay.axes)
-        plans[k] = LeafPlan(gathered, partial)
+        plans[k] = LeafPlan(gathered, k in partial)
     return plans
 
 
@@ -404,10 +421,11 @@ def cache_layouts(cfg: M.ArchConfig, mesh, batch: int, smax: int,
     :func:`repro_torch.models.model.cache_init`'s caches for a global
     batch of ``batch`` rows and ``smax`` positions on ``mesh``: rows over
     the batch axes (degraded as :func:`~repro_torch.pshard.batch_spec`
-    degrades them); an attention cache's kv heads or positions over
-    "model" as :func:`~repro_torch.pshard.resolve_spec` resolves the
-    reference's ``cache_specs``. The other blocks' caches are cut over the
-    batch axes alone (their compute is whole on "model")."""
+    degrades them); an attention cache's kv heads or positions, and an
+    MLA cache's positions, over "model" as
+    :func:`~repro_torch.pshard.resolve_spec` resolves the reference's
+    ``cache_specs``. The recurrent blocks' caches are cut over the batch
+    axes alone (their compute is whole on "model")."""
     meta = M.cache_init(cfg, batch, smax, dtype, device="meta")
     specs = M.cache_specs(cfg)
     rows = pshard.batch_spec(mesh, 1, batch)[0]
@@ -417,7 +435,7 @@ def cache_layouts(cfg: M.ArchConfig, mesh, batch: int, smax: int,
         for n, t in c.items():
             shape = tuple(t.shape)
             rest = (None,) * (len(shape) - 1)
-            if set(c) == {"k", "v"}:
+            if set(c) in M._SEQ_CACHES:
                 rest = tuple(pshard.resolve_spec(mesh, sp[n], shape))[1:]
             out[n] = pshard.Layout(pshard.P(rows, *rest), shape, mesh)
         return out
@@ -443,8 +461,8 @@ def pad_caches(cfg: M.ArchConfig, mesh, caches, batch: int, seq: int,
     new = cache_layouts(cfg, mesh, batch, smax)
     model = (pshard.MODEL_AXIS,)
 
-    def seq_cut(lay) -> bool:
-        return len(lay.shape) == 4 and pshard.MODEL_AXIS in lay.dim_axes(2)
+    def seq_cut(lay) -> bool:         # positions (axis −2) over "model"
+        return pshard.MODEL_AXIS in lay.dim_axes(len(lay.shape) - 2)
 
     def each(tree, lays, fn):
         if isinstance(tree, dict):

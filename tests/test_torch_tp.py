@@ -178,9 +178,9 @@ def test_topk_error_feedback_on_shards(runs, shape):
 
 def test_cache_layouts_cut_heads_or_sequence_as_the_reference():
     """:func:`steps.cache_layouts` on (16, 16): yi-9b's 4 kv heads cut
-    the sequence over "model", 16 kv heads cut themselves; MLA caches
-    keep their rows' cut alone; a sequence 16 does not divide stays
-    whole."""
+    the sequence over "model", 16 kv heads cut themselves; MLA's latent
+    caches cut their sequence, the reference's ``P("batch", "tensor",
+    None)``; a sequence 16 does not divide stays whole."""
     mesh = pshard.MeshShape(mesh_axes((16, 16)), (16, 16))
     for arch, want in (("yi-9b", ("data", None, "model", None)),
                        ("kv16", ("data", "model", None, None))):
@@ -191,16 +191,23 @@ def test_cache_layouts_cut_heads_or_sequence_as_the_reference():
     from repro_torch import configs as TC
     mla = ST.cache_layouts(TC.get_tiny("deepseek-v2-lite-16b"), mesh, 256,
                            64)
-    assert tuple(mla[0][0]["b0"]["c"].spec) == ("data", None, None)
+    for n in ("c", "kpe"):
+        assert tuple(mla[0][0]["b0"][n].spec) == ("data", "model", None)
+    odd = ST.cache_layouts(TC.get_tiny("deepseek-v2-lite-16b"), mesh, 256,
+                           27)
+    assert tuple(odd[0][0]["b0"]["c"].spec) == ("data", None, None)
 
 
 def test_leaf_plans_on_the_production_mesh():
     """yi-9b on (16, 16): a leaf cut over "model" stays the rank's block
     (gathered over "data" alone), the replicated kv projections are
-    partial; deepseek-v2-lite's MLA and MoE leaves are gathered whole."""
+    partial; deepseek-v2-lite's MLA heads and MoE experts stay the rank's
+    blocks too (its ``w_dkv``, ``kv_norm`` and router partial), and no
+    leaf of deepseek-v2-lite or moonshot-v1-16b-a3b is gathered over
+    "model"."""
     from repro_torch import configs as TC
     mesh = pshard.MeshShape(mesh_axes((16, 16)), (16, 16))
-    for arch in ("yi-9b", "deepseek-v2-lite-16b"):
+    for arch in ("yi-9b", "deepseek-v2-lite-16b", "moonshot-v1-16b-a3b"):
         cfg = TC.get_config(arch)
         model = M.LM(cfg, device="meta")
         plans = ST.leaf_plans(cfg, pshard.resolve_tree(
@@ -213,8 +220,19 @@ def test_leaf_plans_on_the_production_mesh():
             assert plans["embed"] == ST.LeafPlan(("data",), False)
             assert not plans[p + "norm1.scale"].partial
         else:
-            moe = "segments.1.0.b0.ffn.w_in"
-            assert plans[moe] == ST.LeafPlan(("data", "model"), False)
+            assert not [k for k, pl in plans.items()
+                        if pshard.MODEL_AXIS in pl.gathered], arch
+        if arch == "deepseek-v2-lite-16b":
+            moe, mla = "segments.1.0.b0.ffn.", "segments.0.0.b0.mixer."
+            for leaf in ("w_in", "w_gate", "w_out", "shared.w_in"):
+                assert plans[moe + leaf] == ST.LeafPlan(("data",), False)
+            assert plans[moe + "router"] == ST.LeafPlan(("data",), True)
+            for leaf in ("wq", "wo"):
+                assert plans[mla + leaf] == ST.LeafPlan(("data",), False)
+            for leaf in ("w_uk", "w_uv"):        # "lora" is replicated
+                assert plans[mla + leaf] == ST.LeafPlan((), False)
+            assert plans[mla + "w_dkv"] == ST.LeafPlan(("data",), True)
+            assert plans[mla + "kv_norm"] == ST.LeafPlan((), True)
             assert plans["segments.0.0.b0.ffn.w_in"] == ST.LeafPlan(
                 ("data",), False)
 

@@ -14,17 +14,23 @@ models, (1, 1) in f32 for the recurrent one; each bf16 run also gives
 its first step's gradient (``"first|m"``, the port's β₁ = 0 first
 moment), its first moment unscaled by (1 − β₁) and the clip's factor.
 For tiny yi-9b (attention caches cut over
-the sequence) and ARCH ``"kv16"`` (``dense_lm`` with 16 kv heads, whose
-caches cut their heads; no train step), ``make_prefill_step`` of 24 and
-of 27 tokens, the caches padded to 32 positions and placed in
-``cache_init``'s layouts, then ``make_decode_step`` to 32, in f32 and
-bf16, on (1, 4). Each run compiles for 5–10 s, so the set is kept to
-what the test reads. It first writes INIT.npz, the initial parameters
-under the port's names (where every port arm of the test starts), then
-OUT.npz: per train run, the losses and the parameters after the run as
-one vector in the port's parameter order (``"<shape>|<mode>|losses"``,
-``"...|params"``; ``"<shape>|bf16|first|m"``), per serve run the logits
-(``"<shape>|serve|<mode>|<prefill>"``, (4, 32 − prefill + 1, vocab)).
+the sequence), ARCH ``"kv16"`` (``dense_lm`` with 16 kv heads, whose
+caches cut their heads; no train step) and tiny deepseek-v2-lite-16b
+(MLA latent caches cut over positions), each (prefill, smax) of
+``W.REF_DECODE``: ``make_prefill_step`` of 24 or 27 tokens, the caches
+padded to smax (32; deepseek also 24 to 33, a whole latent cache) and
+placed in ``cache_init``'s layouts, then ``make_decode_step`` to smax,
+in f32 and bf16, on (1, 4); for each of ``W.ROUTE_TIES`` the bf16 runs
+on (1, 1) too. Each of ``W.F32_ONLY`` (tiny moonshot-v1-16b-a3b)
+trains in f32 on its mesh alone. Each run compiles for 5–10 s, so the
+set is kept to what the test reads. It first writes INIT.npz, the
+initial parameters under the port's names (where every port arm of the
+test starts), then OUT.npz: per train run, the losses and the
+parameters after the run as one vector in the port's parameter order
+(``"<shape>|<mode>|losses"``, ``"...|params"``;
+``"<shape>|bf16|first|m"``), per serve run the logits
+(``"<shape>|serve|<mode>|<prefill>|<smax>"``, (4, smax − prefill + 1,
+vocab)).
 """
 
 import os
@@ -57,6 +63,7 @@ RUNS["yi-9b"] += (((4, 1), "f32"),)
 RUNS["deepseek-v2-lite-16b"] += (((4, 1), "f32"),)
 RUNS["zamba2-1.2b"] += (((1, 1), "f32"),)
 RUNS["kv16"] = ()
+RUNS.update({a: ((shape, "f32"),) for a, shape in W.F32_ONLY.items()})
 
 
 def ref_config(arch: str):
@@ -114,23 +121,22 @@ def run(arch: str, shape, mode: str) -> dict:
             "params": port_vector(state.params, arch), **out}
 
 
-def serve(arch: str, mode: str) -> dict:
-    """Prefill of each of ``W.TP_PREFILLS`` tokens, then decode to
-    ``W.TP_SMAX`` on ``W.REF_SERVE_MESH`` in ``mode``: {prefill: logits
-    (BATCH, TP_SMAX − prefill + 1, vocab)}."""
-    mesh = mesh_of(W.REF_SERVE_MESH)
+def serve(arch: str, mode: str, shape=W.REF_SERVE_MESH) -> dict:
+    """Each of ``W.REF_DECODE[arch]``'s runs on ``shape`` in ``mode``:
+    prefill of ``prefill`` tokens, then decode to ``smax``:
+    {(prefill, smax): logits (BATCH, smax − prefill + 1, vocab)}."""
+    mesh = mesh_of(shape)
     cfg = ref_config(arch)
     tc = JST.TrainConfig(**({"compute_dtype": "float32"} if mode == "f32"
                             else {}))
     state, sh = JST.init_state(jax.random.PRNGKey(0), cfg, tc, mesh)
     params = jax.device_put(state.params, sh.params)
-    toks = W.serve_tokens(cfg.vocab)
-    smax = W.TP_SMAX
-    specs = JM.cache_init_specs(cfg, W.BATCH, smax)
-    tsh = JST.batch_shardings(mesh, cfg, "serve",
-                              {"tokens": toks[:, :1]})["tokens"]
-    decode, out = None, {}
-    for pre in W.TP_PREFILLS:
+    decodes, out = {}, {}
+    for pre, smax in W.REF_DECODE[arch]:
+        toks = W.serve_tokens(cfg.vocab, smax)
+        specs = JM.cache_init_specs(cfg, W.BATCH, smax)
+        tsh = JST.batch_shardings(mesh, cfg, "serve",
+                                  {"tokens": toks[:, :1]})["tokens"]
         batch = {"tokens": toks[:, :pre]}
         prefill = JST.make_prefill_step(cfg, tc, mesh, sh.params,
                                         JST.batch_shardings(mesh, cfg,
@@ -142,16 +148,17 @@ def serve(arch: str, mode: str) -> dict:
                   for seg in caches]
         cshard = JSH.resolve_tree(mesh, specs, caches)
         caches = jax.device_put(caches, cshard)
-        if decode is None:
-            decode = JST.make_decode_step(cfg, tc, mesh, sh.params, cshard,
-                                          tsh)
+        if smax not in decodes:
+            decodes[smax] = JST.make_decode_step(cfg, tc, mesh, sh.params,
+                                                 cshard, tsh)
+        decode = decodes[smax]
         outs = [np.asarray(last[:, 0], np.float32)]
         for t in range(pre, smax):
             lg, caches = decode(params, jax.device_put(toks[:, t:t + 1],
                                                        tsh),
                                 caches, jnp.asarray(t, jnp.int32))
             outs.append(np.asarray(lg[:, 0], np.float32))
-        out[pre] = np.stack(outs, 1)
+        out[pre, smax] = np.stack(outs, 1)
     return out
 
 
@@ -164,10 +171,13 @@ def main(out: str, init: str, arch: str) -> None:
     for shape, mode in RUNS[arch]:
         res.update({f"{shape}|{mode}|{k}": v
                     for k, v in run(arch, shape, mode).items()})
-    if arch in W.TP_DECODE:
+    if arch in W.REF_DECODE:
         for mode in ("f32", "bf16"):
-            res.update({f"{W.REF_SERVE_MESH}|serve|{mode}|{pre}": v
-                        for pre, v in serve(arch, mode).items()})
+            res.update({f"{W.REF_SERVE_MESH}|serve|{mode}|{pre}|{smax}": v
+                        for (pre, smax), v in serve(arch, mode).items()})
+    if arch in W.ROUTE_TIES:
+        res.update({f"(1, 1)|serve|bf16|{pre}|{smax}": v for (pre, smax), v
+                    in serve(arch, "bf16", (1, 1)).items()})
     np.savez(out, **res)
 
 

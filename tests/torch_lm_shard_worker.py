@@ -37,6 +37,7 @@ from repro_torch.convert import (shardings_to_reference,
 from repro_torch.data import SyntheticLM, device_batch, to_device
 from repro_torch.launch.mesh import make_mesh, make_mesh_for, mesh_axes
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models import model as M
 from repro_torch.models import pad_caches
 from repro_torch.optim import adamw
@@ -58,6 +59,8 @@ MODEL_MESHES = {2: ((1, 2),), 4: ((1, 4),)}
 # prefill and decode held to the reference's on this mesh
 REF_SERVE_MESH = (1, 4)
 DATA_MESHES = {2: ((2, 1),), 4: ((2, 2), (4, 1))}
+# a second MoE model (GQA attention), trained in f32 on this mesh alone
+F32_ONLY = {"moonshot-v1-16b-a3b": (1, 4)}
 DECODE = 4           # (e): decode steps after a prefill of SEQ - DECODE
 CKPT_ARCH = "deepseek-v2-lite-16b"
 CKPT_STEP = 2        # (d): the (2, 2) run checkpoints here
@@ -189,11 +192,15 @@ def routes(inp, mesh, shape) -> dict:
 def compute_train(inp, world: int) -> dict:
     """Every arm of tests/test_torch_lm_shard.py in a world of ``world``:
     each arch in each mode and the first-step β₁ = 0 run (bf16) on the
-    model-only meshes, with prefill and decode of ``TP_DECODE`` from
+    model-only meshes, with the serve runs of ``REF_DECODE`` from
     ``inp``'s parameters on ``REF_SERVE_MESH``; in f32 and bf16 and the
-    first-step run on the data-split meshes, and the MoE routes on the
-    data-split meshes."""
+    first-step run on the data-split meshes, the MoE routes on the
+    data-split meshes, and each of ``F32_ONLY`` in f32 on its mesh."""
     out = {}
+    for arch, shape in F32_ONLY.items():
+        if shape[0] * shape[1] == world:
+            r = train(inp, arch, "f32", mesh_of(shape))
+            out.update({f"{arch}|{shape}|f32|{k}": v for k, v in r.items()})
     for shape in MODEL_MESHES[world]:
         mesh = mesh_of(shape)
         for arch in ARCHS:
@@ -204,11 +211,11 @@ def compute_train(inp, world: int) -> dict:
             r = train(inp, arch, "bf16", mesh, steps=1, **FIRST_STEP)
             out[f"{arch}|{shape}|first|m"] = r["m"]
         if shape == REF_SERVE_MESH:
-            for arch in TP_DECODE:
+            for arch, serves in REF_DECODE.items():
                 for mode in ("f32", "bf16"):
-                    for pre in TP_PREFILLS:
-                        out[f"{arch}|{shape}|serve|{mode}|{pre}"] = \
-                            tp_serve(arch, mode, pre, mesh, inp)
+                    for pre, smax in serves:
+                        out[f"{arch}|{shape}|serve|{mode}|{pre}|{smax}"] = \
+                            tp_serve(arch, mode, pre, mesh, inp, smax)
     for shape in DATA_MESHES[world]:
         mesh = mesh_of(shape)
         for arch in ARCHS:
@@ -427,6 +434,18 @@ TP_SEQ = 40
 TP_CHUNK = 16
 TP_PREFILLS = (24, 27)       # a cache cut over the sequence, and a whole one
 TP_SMAX = 32
+# the serve runs held to the reference's sharded steps on REF_SERVE_MESH,
+# {arch: ((prefill, smax), ...)}: tiny deepseek-v2-lite-16b's latent
+# caches are cut over positions where 4 divide smax, so its (24, 33)
+# decodes on a whole cache
+REF_DECODE = {a: tuple((p, TP_SMAX) for p in TP_PREFILLS)
+              for a in TP_DECODE + ("deepseek-v2-lite-16b",)}
+REF_DECODE["deepseek-v2-lite-16b"] += ((TP_PREFILLS[0], TP_SMAX + 1),)
+# the MoE model's bf16 top-k choices have near ties (tiny routers give
+# near-uniform probabilities) that the two packages' bf16 roundings
+# already resolve otherwise on one device; its bf16 serve runs also run
+# on one device in both, to tell such a choice from the split's error
+ROUTE_TIES = ("deepseek-v2-lite-16b",)
 # decode's limits, chip_smoke.LM_DECODE_TOL: of max|logits|
 DECODE_TOL = {"f32": 1e-3, "bf16": 5e-2}
 MODEL = (pshard.MODEL_AXIS,)
@@ -444,9 +463,9 @@ def tp_config(arch: str) -> M.ArchConfig:
     return TC.get_tiny(arch)
 
 
-def serve_tokens(vocab: int) -> np.ndarray:
-    """The (BATCH, TP_SMAX) tokens that prefill and decode read."""
-    return np.random.default_rng(7).integers(0, vocab, (BATCH, TP_SMAX),
+def serve_tokens(vocab: int, width: int = TP_SMAX) -> np.ndarray:
+    """The (BATCH, width) tokens that prefill and decode read."""
+    return np.random.default_rng(7).integers(0, vocab, (BATCH, width),
                                              dtype=np.int32)
 
 
@@ -456,16 +475,19 @@ def _rng_tensor(seed: int, shape) -> torch.Tensor:
 
 
 def module_case(named: dict, specs: dict, fn, inputs: tuple, mesh=None,
-                partial=()) -> dict:
+                partial=(), rows: bool = False) -> dict:
     """``fn(params, *inputs)`` and the gradients of ``Σ out·w`` (w seeded)
     with respect to ``inputs[0]`` and every leaf of ``named`` (whole f32
     leaves): on one device, or (``mesh``) with each leaf the rank's block
     along "model" (``specs`` resolved on the mesh) under the model
     context, the ``partial`` leaves' gradients summed over "model" and
-    every gradient gathered whole. Returns {"out", "d_in", "g|<name>",
-    and on a mesh "raw|<name>": a partial leaf's gradient before its
-    sum}."""
-    x = inputs[0].clone().requires_grad_()
+    every gradient gathered whole. With ``rows`` the rank takes its rows
+    of ``inputs[0]`` and of w (dim 0 cut over "data", under the batch
+    context) and the leaves' gradients are summed over "data"; "out" and
+    "d_in" are then the rank's rows. Returns {"out", "d_in", "g|<name>",
+    and on a mesh "raw|<name>": a partial leaf's gradient before its sum
+    over "model"}."""
+    x, w = inputs[0].clone(), None
     lays = None
     if mesh is None:
         params = {k: v.clone().requires_grad_() for k, v in named.items()}
@@ -476,14 +498,27 @@ def module_case(named: dict, specs: dict, fn, inputs: tuple, mesh=None,
         params = {k: pshard.cut(v, lays[k]).requires_grad_()
                   for k, v in named.items()}
         ctx = pshard.model_context(mesh)
+        if rows:                 # fn keeps x's shape: w is cut as x
+            w = _rng_tensor(99, tuple(x.shape))
+            n = x.shape[0] // pshard.axis_sizes(mesh)["data"]
+            at = slice(pshard.coordinate(mesh)["data"] * n, None)
+            x, w = x[at][:n], w[at][:n]
+            ctx = contextlib.ExitStack()
+            ctx.enter_context(pshard.model_context(mesh))
+            ctx.enter_context(pshard.batch_context(
+                mesh, pshard.batch_spec(mesh, 1)))
+    x.requires_grad_()
     with ctx:
         out = fn(L.tree_from_named(params), x, *inputs[1:])
-        w = _rng_tensor(99, tuple(out.shape))
+        if w is None:
+            w = _rng_tensor(99, tuple(out.shape))
         torch.sum(out * w).backward()
     res = {"out": out.detach().numpy(), "d_in": x.grad.numpy()}
     for k, p in params.items():
         g = torch.zeros_like(p) if p.grad is None else p.grad
         if lays is not None:
+            if rows:
+                pshard.all_reduce(g, mesh, ("data",))
             if k in partial:
                 res[f"raw|{k}"] = g.numpy().copy()
                 pshard.all_reduce(g, mesh, (pshard.MODEL_AXIS,))
@@ -572,17 +607,19 @@ def tp_vocab(arch: str, mesh=None) -> dict:
     return out
 
 
-def tp_serve(arch: str, mode: str, pre: int, mesh=None, inp=None) -> dict:
-    """Prefill of ``pre`` tokens then decode to ``TP_SMAX`` of ``tp_config
+def tp_serve(arch: str, mode: str, pre: int, mesh=None, inp=None,
+             smax: int = TP_SMAX) -> dict:
+    """Prefill of ``pre`` tokens then decode to ``smax`` of ``tp_config
     (arch)`` in ``mode`` (f32 or bf16) through the steps, a batch of
     BATCH rows, from the seed-0 parameters (or ``inp``'s): the rank's
-    logits (rows, TP_SMAX − pre + 1, V)."""
+    logits (rows, smax − pre + 1, V)."""
     cfg = tp_config(arch)
     tc = (ST.TrainConfig(compute_dtype="float32") if mode == "f32"
           else ST.TrainConfig())
-    toks = serve_tokens(cfg.vocab)
+    toks = serve_tokens(cfg.vocab, smax)
     if mesh is None:
-        state, _ = ST.init_state(0, cfg, tc, device="cpu")
+        state = (ST.init_state(0, cfg, tc, device="cpu")[0] if inp is None
+                 else initial_state(inp, arch, tc))
         prefill, decode_of = ST.make_prefill_step(cfg, tc), (
             lambda csh: ST.make_decode_step(cfg, tc))
         rows = torch.from_numpy(toks)
@@ -597,10 +634,10 @@ def tp_serve(arch: str, mode: str, pre: int, mesh=None, inp=None) -> dict:
             cfg, tc, mesh, sh.params, csh, bsh))
         rows = device_batch(mesh, {"tokens": toks})["tokens"]
     last, caches = prefill(state.params, {"tokens": rows[:, :pre]})
-    caches, csh = ST.pad_caches(cfg, mesh, caches, BATCH, pre, TP_SMAX)
+    caches, csh = ST.pad_caches(cfg, mesh, caches, BATCH, pre, smax)
     decode = decode_of(csh)
     outs = [last[:, 0]]
-    for t in range(pre, TP_SMAX):
+    for t in range(pre, smax):
         lg, caches = decode(state.params, rows[:, t:t + 1], caches, t)
         outs.append(lg[:, 0])
     return torch.stack(outs, 1).float().numpy()
@@ -679,8 +716,145 @@ def compute_tp(inp, world: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# tests/test_torch_ep.py: MLA heads and MoE experts over "model"
+# ---------------------------------------------------------------------------
+
+EP_ARCH = "deepseek-v2-lite-16b"
+# the MoE cases: routed experts (8 divide 2 and 4; 6 divide 2, not 4)
+# and shared experts
+EP_MOE = {"shared": dict(n_routed=8, n_shared=1),
+          "routed": dict(n_routed=8, n_shared=0),
+          "six": dict(n_routed=6, n_shared=1)}
+# routing groups of 32 tokens: a data rank of (2, 2) holds 40 tokens, so
+# a group straddles its two ranks
+EP_GROUP = 32
+EP_SEQ = 40
+EP_PREFILLS = (40, 27)          # a latent cache cut over positions, whole
+# (prefill, decode's positions): each cache layout in decode (32 cut, 33
+# whole), from a cut and from a whole prefill cache
+EP_SERVES = ((24, 32), (27, 32), (24, 33))
+
+
+def ep_config(kind: str) -> M.ArchConfig:
+    """A one-layer MoE LM of ``EP_MOE[kind]`` at the tiny widths (d 64,
+    4 heads, experts of 32, top-2), its routing groups of ``EP_GROUP``."""
+    import dataclasses
+    from repro_torch.configs.common import moe_lm
+    cfg = moe_lm(f"ep-{kind}", n_layers=1, d_model=64, n_heads=4,
+                 n_kv_heads=4, d_head=16, d_expert=32, top_k=2, vocab=256,
+                 **EP_MOE[kind])
+    seg = cfg.segments[0]
+    blk = dataclasses.replace(seg.blocks[0], moe=dataclasses.replace(
+        seg.blocks[0].moe, group_size=EP_GROUP))
+    return dataclasses.replace(cfg, segments=(dataclasses.replace(
+        seg, blocks=(blk,)),))
+
+
+def _partials(cfg, prefix: str, mesh) -> tuple:
+    """The leaves under ``prefix`` whose plan on ``mesh`` is partial."""
+    model = M.LM(cfg, device="meta")
+    plans = ST.leaf_plans(cfg, pshard.resolve_tree(
+        mesh, model.specs(), dict(model.named_parameters())))
+    return tuple(sorted(k[len(prefix):] for k, pl in plans.items()
+                        if k.startswith(prefix) and pl.partial))
+
+
+def ep_moe(kind: str, mesh=None) -> dict:
+    """The MoE FFN of ``ep_config(kind)`` on (2, 40, 64) inputs, every
+    rank its rows of them (routing over the whole batch), and its
+    collectives by purpose."""
+    cfg = ep_config(kind)
+    prefix = "segments.0.0.b0.ffn."
+    named, specs = _block_leaves(cfg, prefix)
+    spec = cfg.segments[0].blocks[0].moe
+    partial = () if mesh is None else _partials(cfg, prefix, mesh)
+    x = _rng_tensor(12, (2, EP_SEQ, cfg.d_model))
+    pshard.reset_collectives()
+    out = module_case(named, specs, lambda p, x: L.moe_forward(p, spec, x),
+                      (x,), mesh, partial, rows=True)
+    out["partial"] = np.array(partial)
+    out["tags"] = np.array(sorted(pshard.collective_tags()))
+    return out
+
+
+def ep_mla(mesh=None) -> dict:
+    """Block 0's MLA of tiny deepseek-v2-lite-16b over ``EP_SEQ`` positions
+    in tiles of 16 (forward and every gradient), and prefill's latent
+    cache of each of ``EP_PREFILLS`` positions (the rank's block and its
+    layout)."""
+    cfg = tp_config(EP_ARCH)
+    spec = cfg.segments[0].blocks[0].mla
+    prefix = "segments.0.0.b0.mixer."
+    named, specs = _block_leaves(cfg, prefix)
+    partial = () if mesh is None else _partials(cfg, prefix, mesh)
+    x = _rng_tensor(13, (2, EP_SEQ, cfg.d_model))
+    pos = torch.arange(EP_SEQ).expand(2, EP_SEQ)
+
+    def fn(params, x):
+        return MLA.mla_forward(params, spec, x, pos, q_chunk=TP_CHUNK,
+                               k_chunk=TP_CHUNK)[0]
+
+    out = module_case(named, specs, fn, (x,), mesh, partial)
+    out["partial"] = np.array(partial)
+    tree = L.tree_from_named(named if mesh is None else {
+        k: pshard.cut(v, lay.only(MODEL)) for (k, v), lay in zip(
+            named.items(), pshard.resolve_tree(mesh, specs, named).values())})
+    with torch.no_grad(), (contextlib.nullcontext() if mesh is None
+                           else pshard.model_context(mesh)):
+        for seq in EP_PREFILLS:
+            cut = MLA.mla_cache_cut(seq)
+            _, (c, kpe) = MLA.mla_forward(tree, spec, x[:, :seq],
+                                          pos[:, :seq], q_chunk=TP_CHUNK,
+                                          k_chunk=TP_CHUNK, cache=cut)
+            out[f"cache{seq}|c"], out[f"cache{seq}|kpe"] = c.numpy(), \
+                kpe.numpy()
+            out[f"cache{seq}|cut"] = np.array(cut)
+    return out
+
+
+def ep_cases(mesh=None) -> dict:
+    """Every case of tests/test_torch_ep.py on ``mesh`` (None: one
+    device), keyed ``<kind>|<case>|<field>``."""
+    out = {}
+    for kind in EP_MOE:
+        out.update({f"moe|{kind}|{k}": v
+                    for k, v in ep_moe(kind, mesh).items()})
+    out.update({f"mla|{k}": v for k, v in ep_mla(mesh).items()})
+    for mode in ("f32", "bf16"):
+        for pre, smax in EP_SERVES:
+            out[f"serve|{mode}|{pre}|{smax}"] = tp_serve(
+                EP_ARCH, mode, pre, mesh, smax=smax)
+    return out
+
+
+def compute_ep(inp, world: int) -> dict:
+    """tests/test_torch_ep.py's cases on each mesh of ``TP_MESHES[world]``
+    (``"<shape>|..."``), the rank's data index on it, and the collectives
+    of one bf16 train step of tiny deepseek-v2-lite-16b on each."""
+    out = {}
+    for shape in TP_MESHES[world]:
+        mesh = mesh_of(shape)
+        out.update({f"{shape}|{k}": v for k, v in ep_cases(mesh).items()})
+        out[f"{shape}|data_index"] = np.array(
+            pshard.coordinate(mesh)["data"])
+        cfg = TC.get_tiny(EP_ARCH)
+        tc = ST.TrainConfig()
+        state, sh = ST.init_state(0, cfg, tc, mesh)
+        src = SyntheticLM(vocab=cfg.vocab, seq=SEQ, global_batch=BATCH)
+        step = ST.make_train_step(cfg, tc, mesh, sh, ST.batch_shardings(
+            mesh, cfg, "train", src.host_batch(0)))
+        batch = device_batch(mesh, src.host_batch(0))
+        pshard.reset_collectives()
+        step(state, batch)
+        for k, (calls, nbytes) in pshard.collective_tags().items():
+            out[f"{shape}|tags|{k}"] = np.array([calls, nbytes])
+    return out
+
+
 JOBS = {"train": compute_train, "ckpt": compute_ckpt,
-        "collectives": compute_collectives, "tp": compute_tp}
+        "collectives": compute_collectives, "tp": compute_tp,
+        "ep": compute_ep}
 
 
 def _run(rank: int, world: int, workdir: str, job: str) -> None:
