@@ -359,6 +359,23 @@ Phases, each printing its own lines and seconds:
    dry run, its collectives (q gathered, the softmax's MAX and SUM over
    "model"). Both dry runs (``python -m repro_torch.launch.dryrun``)
    start with phase 24's CLI cells and run beside the LM phases;
+27. Mamba2 heads over "model" and the recurrent caches in the
+   reference's layouts (run after 26): (a) one real
+   train step of zamba2-1.2b at full width and full depth (38 Mamba2
+   blocks, 6 applications of the shared block) on ``TP_ROWS`` × 4 096
+   tokens of train_4k, bf16, as rank 0 of a fake world of 256 ranks on
+   (16, 16), as phase 25(a): its ``max_memory_allocated`` under
+   ``TP_LIMIT_GB`` and within ``DRYRUN_PEAK_BAND`` of the dry run's
+   tracked peak of the same cell, its wall, its collectives by purpose
+   (the Mamba2 region's sums, the gated norms' summed squares, the
+   shared block's region, the gradients' reductions) and
+   ``hand_count``'s products and peak parts; (b) one decode_32k step of
+   the same model on the rank's rows of zero caches, ``ssm`` cut over
+   heads and ``conv`` over channels (gathered and cut again around the
+   step: ``state``): ``max_memory_allocated`` within the band of that
+   cell's dry run. Both dry runs start with phase 24's CLI cells; the
+   phase prints its seconds beside those that phase 22's cut of zamba2's
+   steps (from ``LM_STEPS`` to ``LM_STEPS - 1``) saved;
 15. summary: one JSON line of per-kernel numbers (with, for
    ``screen_matvec``, ``fista_step`` and ``cd_gram_sweep``, the batched
    path's launches and its B = 8 row at its own shapes, for
@@ -399,7 +416,7 @@ they fell at every step: the reading ``LM_LR`` was chosen from.
 ``--ssm`` phase 1 and then phase 22 alone; ``--shard`` phase 1 and then
 phase 23 alone; ``--dryrun`` phase 1 and then phase 24 alone; ``--tp``
 phase 1 and then phase 25(a) alone; ``--ep`` phase 1 and then phase 26
-alone.
+alone; ``--ssm-tp`` phase 1 and then phase 27 alone.
 
 Each path phase sets every launch counter to 0 just before it and reads
 them just after: each kernel the path runs must have launched, and no
@@ -3743,7 +3760,11 @@ SSM_PARAMS = {"zamba2-1.2b": 1_104_777_344, "xlstm-350m": 163_851_292}
 # the clip to 1.0 scales the gradient by ~4e-13, below AdamW's eps for
 # all but the few entries that carry the spike; ``block_grads`` holds the
 # card's xlstm gradients instead
-SSM_STEPS = {"zamba2-1.2b": LM_STEPS, "xlstm-350m": 2}
+SSM_STEPS = {"zamba2-1.2b": LM_STEPS - 1, "xlstm-350m": 2}
+# zamba2's steps were LM_STEPS until phase 27 came (its losses still fall
+# at each of two steps); phase 27 prints the seconds the cut saved (the
+# steps not run, at the mean of steps 1..)
+SSM_TRIMMED = {"zamba2-1.2b": LM_STEPS}
 # the whole model's decode is held at LM_DECODE_TOL where, as in phases
 # 20–21, the model is f32 and no mixer divides by a sum that can cancel
 # (zamba2: Mamba2 and attention); zamba2 in bf16 (44 layers against the
@@ -3849,7 +3870,7 @@ def step_spans(torch, out: dict):
         spans.append((blk.kind + " (shared)" * blk.shared, ev))
         return y, cache
 
-    def read(params, spec, x, y, z):
+    def read(params, spec, x, y, z, sh=None):
         if not flag["backward"]:
             with torch.no_grad():
                 n = y[..., spec.d_v].to(torch.float32).abs()    # (B, S, H)
@@ -3857,7 +3878,7 @@ def step_spans(torch, out: dict):
                 norms.append((n.shape, torch.stack([
                     n.min().double(), med.double(), (n < 1e-6).sum().double(),
                     (n < 1e-4 * med).sum().double(), n.argmin().double()])))
-        return real_out(params, spec, x, y, z)
+        return real_out(params, spec, x, y, z, sh)
 
     M._block_forward, S._mlstm_out = block, read
     try:
@@ -4277,6 +4298,9 @@ def ssm_phase(torch, tmp: str, clis: tuple) -> dict:
             lr=LM_LR, warmup_steps=1, total_steps=100, moment_dtype=mdt))
         state, r = ssm_train(torch, arch, cfg, batch, tc, SSM_STEPS[arch])
         del batch
+        if arch in SSM_TRIMMED:
+            readings["trim_s"] = (SSM_TRIMMED[arch] - SSM_STEPS[arch]) * (
+                sum(r["step_s"][1:]) / len(r["step_s"][1:]))
         r["params"] = state.params.n_params()
         assert r["params"] == SSM_PARAMS[arch], r["params"]
         losses = r["losses"]
@@ -4940,14 +4964,17 @@ EP_PHASE = (f"expert and MLA head parallel: rank 0 of a fake world of 256, "
 def hand_count(cfg, rows: int = TP_ROWS, seq: int = LM_SEQ,
                dims: tuple = TP_MESH) -> dict:
     """The hand count of one train step of ``cfg`` (attention or MLA
-    blocks, each with a dense FFN or a MoE; tied or untied head) on
-    rank 0 of a ("data", "model") mesh of ``dims``, ``rows`` sequences
-    of ``seq``: its products (flops) by part and its peak's parts
-    (bytes). A dimension the model axis does not divide stays whole, as
-    the rules leave it; a rank projects the kv heads its query heads
-    read; every rank computes the MLA latents and the routing whole, and
-    fills its experts' ``cap`` slots in each routing group of the whole
-    batch."""
+    blocks, each with a dense FFN or a MoE, shared or not; Mamba2
+    blocks; tied or untied head) on rank 0 of a ("data", "model") mesh
+    of ``dims``, ``rows`` sequences of ``seq``: its products (flops) by
+    part and its peak's parts (bytes). A dimension the model axis does
+    not divide stays whole, as the rules leave it; a rank projects the
+    kv heads its query heads read; every rank computes the MLA latents
+    and the routing whole, and fills its experts' ``cap`` slots in each
+    routing group of the whole batch; a Mamba2 rank projects its z, x
+    and dt columns and every B and C column, and scans its heads in
+    chunks (four products a chunk). A shared block's leaves count once,
+    its products at every application."""
     data, model = dims
     t = rows * seq
     d = cfg.d_model
@@ -4961,49 +4988,64 @@ def hand_count(cfg, rows: int = TP_ROWS, seq: int = LM_SEQ,
     linear = attn = last = 0            # forward products; the step's tiles
     whole = d                           # leaf elements replicated (norms),
     cut = 0                             # and with a d dim cut over "data"
-    for seg in cfg.segments:
-        n = seg.repeat
-        for blk in seg.blocks:
-            whole += n * 2 * d
-            if blk.kind == "mla":
-                m = blk.mla
-                h, r, dq = part(m.n_heads), m.kv_lora_rank, m.d_nope + m.d_rope
-                linear += n * t * (2 * d * (r + m.d_rope) + 2 * d * h * dq
-                                   + 2 * r * h * (m.d_nope + m.d_v)
-                                   + 2 * h * m.d_v * d)
-                # 10 tile products: 5 at q·k's width, 5 at v's
-                attn += n * 2 * area * h * rows * 5 * (dq + m.d_v)
-                cut += n * d * (r + m.d_rope + h * dq + h * m.d_v)
-                whole += n * (r + r * h * (m.d_nope + m.d_v))
-            else:
-                a = blk.attn
-                hq, dh = part(a.n_heads), a.d_head
-                g = a.n_heads // a.n_kv_heads
-                hk = (a.n_kv_heads // model if a.n_kv_heads % model == 0
-                      else (hq - 1) // g + 1)
-                linear += n * t * (2 * d * dh * (hq + 2 * hk)
-                                   + 2 * hq * dh * d)
-                attn += n * 2 * area * hq * rows * 10 * dh
-                cut += n * (2 * hq * dh + 2 * part(a.n_kv_heads) * dh) * d
-            if blk.moe is not None:
-                e = blk.moe
-                el, f, fs = part(e.n_routed), e.d_expert, part(
-                    e.d_expert * e.n_shared)
-                g = min(e.group_size, t * data)
-                cap = max(1, int(g * e.top_k / e.n_routed * e.capacity_factor))
-                ng = -(-t // g)
-                linear += n * (ng * el * cap * 3 * 2 * d * f     # experts
-                               + t * 2 * d * e.n_routed           # router
-                               + 2 * 2 * ng * g * d * el * cap    # dispatch,
-                               + t * 3 * 2 * d * fs)              # combine,
-                last += n * t * 2 * fs * d                        # shared
-                cut += n * (3 * el * d * f + d * e.n_routed + 3 * d * fs)
-            else:
-                fl = part(blk.ffn.d_ff)
-                gates = 3 if blk.ffn.kind in ("swiglu", "geglu") else 2
-                linear += n * t * gates * 2 * d * fl
-                last += n * t * 2 * fl * d
-                cut += n * gates * d * fl
+    blocks = [(seg.repeat, blk) for seg in cfg.segments for blk in seg.blocks]
+    if cfg.shared_block is not None:    # its leaves, once
+        blocks.append((0, cfg.shared_block))
+    for n, blk in blocks:
+        # the leaves of a block applied n times: a shared one's count once
+        own = 1 if blk is cfg.shared_block else 0 if blk.shared else n
+        whole += own * (d if blk.kind == "mamba2" else 2 * d)
+        if blk.kind == "mamba2":
+            mb = blk.mamba
+            hl, gn = part(mb.n_heads), mb.n_groups * mb.d_state
+            dl = hl * mb.head_dim
+            w_in = 2 * dl + 2 * gn + hl
+            q = min(mb.chunk, seq)
+            linear += n * t * (2 * d * w_in + 2 * dl * d + 2 * hl * (
+                q * mb.d_state + q * mb.head_dim
+                + 2 * mb.d_state * mb.head_dim))
+            last += n * t * 2 * dl * d
+            cut += own * (d * w_in + dl * d)
+            whole += own * (mb.conv_k * (dl + 2 * gn) + dl + 3 * mb.n_heads)
+            continue
+        if blk.kind == "mla":
+            m = blk.mla
+            h, r, dq = part(m.n_heads), m.kv_lora_rank, m.d_nope + m.d_rope
+            linear += n * t * (2 * d * (r + m.d_rope) + 2 * d * h * dq
+                               + 2 * r * h * (m.d_nope + m.d_v)
+                               + 2 * h * m.d_v * d)
+            # 10 tile products: 5 at q·k's width, 5 at v's
+            attn += n * 2 * area * h * rows * 5 * (dq + m.d_v)
+            cut += own * d * (r + m.d_rope + h * dq + h * m.d_v)
+            whole += own * (r + r * h * (m.d_nope + m.d_v))
+        else:
+            a = blk.attn
+            hq, dh = part(a.n_heads), a.d_head
+            g = a.n_heads // a.n_kv_heads
+            hk = (a.n_kv_heads // model if a.n_kv_heads % model == 0
+                  else (hq - 1) // g + 1)
+            linear += n * t * (2 * d * dh * (hq + 2 * hk) + 2 * hq * dh * d)
+            attn += n * 2 * area * hq * rows * 10 * dh
+            cut += own * (2 * hq * dh + 2 * part(a.n_kv_heads) * dh) * d
+        if blk.moe is not None:
+            e = blk.moe
+            el, f, fs = part(e.n_routed), e.d_expert, part(
+                e.d_expert * e.n_shared)
+            g = min(e.group_size, t * data)
+            cap = max(1, int(g * e.top_k / e.n_routed * e.capacity_factor))
+            ng = -(-t // g)
+            linear += n * (ng * el * cap * 3 * 2 * d * f         # experts
+                           + t * 2 * d * e.n_routed               # router
+                           + 2 * 2 * ng * g * d * el * cap        # dispatch,
+                           + t * 3 * 2 * d * fs)                  # combine,
+            last += n * t * 2 * fs * d                            # shared
+            cut += own * (3 * el * d * f + d * e.n_routed + 3 * d * fs)
+        else:
+            fl = part(blk.ffn.d_ff)
+            gates = 3 if blk.ffn.kind in ("swiglu", "geglu") else 2
+            linear += n * t * gates * 2 * d * fl
+            last += n * t * 2 * fl * d
+            cut += own * gates * d * fl
     vl = part(cfg.vocab)
     head = 4 * 2 * t * d * vl           # the chunked loss's four passes
     cut += vl * d * (1 if cfg.tie_embeddings else 2)
@@ -5034,13 +5076,15 @@ def ep_cli_start(tmp: str) -> list:
             for shape in EP_SHAPES]
 
 
-def ep_decode(torch, cfg, tc) -> dict:
+def ep_decode(torch, cfg, tc, names: tuple = ("c",)) -> dict:
     """(b): one decode_32k step of ``cfg`` as rank 0 of a fake world of
     ``TP_MESH`` ranks (:func:`fake_rank`): the rank's f32 master shards,
     its rows of the zero caches in :func:`steps.cache_layouts`' layouts
-    (the MLA latent caches cut over positions), one new token into the
-    last slot; the step's wall and ``max_memory_allocated`` above the
-    memory before the inputs (as the dry run's peak counts them)."""
+    (the MLA latent caches cut over positions; the recurrent states over
+    heads, channels or widths), one new token into the last slot; the
+    step's wall and ``max_memory_allocated`` above the memory before the
+    inputs (as the dry run's peak counts them), and the specs and local
+    shapes of block 0's caches ``names``."""
     from repro_torch import configs, pshard
     from repro_torch.models import model as M
     from repro_torch.train import steps as ST
@@ -5059,7 +5103,7 @@ def ep_decode(torch, cfg, tc) -> dict:
             return torch.zeros(lay.local_shape, dtype=tree.dtype, device=dev)
 
         caches = zeros(whole, clay)
-        c_lay = clay[0][0]["b0"]["c"]
+        lays = {n: clay[0][0]["b0"][n] for n in names}
         tok_lay = pshard.Layout(pshard.batch_spec(mesh, 2, shape.batch),
                                 (shape.batch, 1), mesh)
         tok = torch.randint(0, cfg.vocab, tok_lay.local_shape,
@@ -5078,7 +5122,8 @@ def ep_decode(torch, cfg, tc) -> dict:
         out_shape = tuple(logits.shape)
         del logits, caches, step, tok
     return {"wall_s": wall, "peak_gb": peak, "tags": tags,
-            "cache_spec": tuple(c_lay.spec), "cache_local": c_lay.local_shape,
+            "cache_spec": {n: tuple(lay.spec) for n, lay in lays.items()},
+            "cache_local": {n: lay.local_shape for n, lay in lays.items()},
             "logits": out_shape}
 
 
@@ -5134,9 +5179,91 @@ def ep_phase(torch, smi: str, procs: list) -> dict:
     for tag in ("mla", "experts", "shared", "region", "grad"):
         assert tags.get(tag, (0, 0))[0] > 0, (tag, tags)
     dec = real["decode_32k"]
-    assert dec["cache_spec"][1] == pshard.MODEL_AXIS, dec
+    assert dec["cache_spec"]["c"][1] == pshard.MODEL_AXIS, dec
     for tag in ("decode_q", "decode_max", "decode_sum", "mla", "experts"):
         assert dec["tags"].get(tag, (0, 0))[0] > 0, (tag, dec["tags"])
+    return out
+
+
+SSM_TP_ARCH = "zamba2-1.2b"
+SSM_TP_PHASE = (f"Mamba2 head parallel: rank 0 of a fake world of 256, "
+                f"{TP_MESH}; {SSM_TP_ARCH} at full width and depth, "
+                f"{TP_ROWS} × {LM_SEQ} of train_4k and a decode_32k step, "
+                f"bf16, real tensors")
+
+
+def ssm_tp_cli_start(tmp: str) -> list:
+    """Phase 27's dry runs, (a) train_4k and (b) decode_32k of
+    ``SSM_TP_ARCH``, one process each."""
+    return [dryrun_cell_start(tmp, ("--arch", SSM_TP_ARCH, "--shape", shape,
+                                    "--mesh", "single"), f"dryrun_ssm_{shape}")
+            for shape in EP_SHAPES]
+
+
+def ssm_tp_phase(torch, smi: str, procs: list,
+                 trim_s: float | None = None) -> dict:
+    """Phase 27 (see the module doc): (a) the real rank-0 step of
+    zamba2-1.2b train_4k on (16, 16) and (b) its decode_32k step, each
+    against its dry run (``procs``: :func:`ssm_tp_cli_start`'s runs) and
+    the hand count. ``trim_s``: the seconds phase 22's cut saved, printed
+    beside the phase's own."""
+    from repro_torch import configs, pshard
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as ST
+    t0 = time.perf_counter()
+    cfg = configs.get_config(SSM_TP_ARCH)
+    tc = ST.TrainConfig(opt=adamw.OptConfig(lr=LM_LR, warmup_steps=1,
+                                            total_steps=100))
+    hand = hand_count(cfg)
+    real = {"train_4k": tp_step(torch, cfg, tc),
+            "decode_32k": ep_decode(torch, cfg, tc, ("ssm", "conv"))}
+    recs = {shape: tp_record(p) for shape, p in zip(EP_SHAPES, procs)}
+    lo, hi = DRYRUN_PEAK_BAND
+    out = {"hand": hand}
+    for (name, shape) in zip("ab", EP_SHAPES):
+        r, rec = real[shape], recs[shape]
+        tracked = rec["memory"]["peak_per_device_gb"]
+        ratio = r["peak_gb"] / tracked
+        print(f"({name}) {cfg.name} L = {cfg.n_layers}, {shape} on rank 0 "
+              f"of {TP_MESH}, bf16 [{smi}]: max_memory_allocated "
+              f"{r['peak_gb']:.4f} GB against the dry run's tracked peak "
+              f"{tracked:.4f} GB (ratio {ratio:.4f}, band {lo}–{hi}; limit "
+              f"{TP_LIMIT_GB} GB); wall {r['wall_s']:.4f} s; dry run (CPU "
+              f"of this machine, {rec['trace_s']} s): flops "
+              f"{rec['roofline']['flops']:.6g}, products "
+              f"{rec.get('dot_flops')}, useful-flops ratio "
+              f"{rec.get('useful_flops_ratio')}", flush=True)
+        print("    collectives by purpose (calls, bytes; the fake group "
+              "moves nothing): " + ", ".join(
+                  f"{k} {v[0]} ({v[1] / 2**20:.1f} MiB)"
+                  for k, v in r["tags"].items()), flush=True)
+        assert r["peak_gb"] < TP_LIMIT_GB, (shape, r)
+        assert lo <= ratio <= hi, (shape, r["peak_gb"], tracked)
+        out[shape] = {"real": r, "tracked_gb": tracked,
+                      "flops": rec["roofline"]["flops"],
+                      "dot_flops": rec.get("dot_flops"),
+                      "useful_flops_ratio": rec.get("useful_flops_ratio")}
+    dec = real["decode_32k"]
+    print(f"    hand count of (a): products {hand['products']:.6g} (dense "
+          f"{hand['dense']:.6g}, attention {hand['attention']:.6g}, head "
+          f"{hand['head']:.6g}), saved inputs {hand['saved_inputs_gb']:.4f}"
+          f" GB, compute leaves {hand['leaves']} ({hand['leaves_gb']:.4f} "
+          f"GB bf16 + f32), masters and moments "
+          f"{hand['masters_moments_gb']:.4f} GB; (b)'s Mamba2 caches "
+          f"{dec['cache_spec']}, local {dec['cache_local']}, logits "
+          f"{dec['logits']}", flush=True)
+    tags = real["train_4k"]["tags"]
+    for tag in ("mamba", "norm_ss", "region", "grad", "gather"):
+        assert tags.get(tag, (0, 0))[0] > 0, (tag, tags)
+    assert dec["cache_spec"]["ssm"][1] == pshard.MODEL_AXIS, dec
+    assert dec["cache_spec"]["conv"][2] == pshard.MODEL_AXIS, dec
+    for tag in ("mamba", "norm_ss", "state", "region"):
+        assert dec["tags"].get(tag, (0, 0))[0] > 0, (tag, dec["tags"])
+    out["seconds"] = time.perf_counter() - t0
+    print(f"    phase 27: {out['seconds']:.2f} s; phase 22's cut of "
+          f"zamba2's steps saved "
+          + ("(not run)" if trim_s is None else f"{trim_s:.2f} s"),
+          flush=True)
     return out
 
 
@@ -5323,10 +5450,10 @@ def main(argv: list[str]) -> int:
         sys.path.insert(0, os.path.join(tree, "src"))
     if argv not in ([], ["--faults"], ["--kernels"], ["--lm-lr"],
                     ["--moe"], ["--ssm"], ["--shard"], ["--dryrun"],
-                    ["--tp"], ["--ep"]):
+                    ["--tp"], ["--ep"], ["--ssm-tp"]):
         print("usage: python3 chip_smoke.py [--faults | --lm-lr | --moe | "
-              "--ssm | --shard | --dryrun | --tp | --ep | --kernels "
-              "[--tree DIR]]", file=sys.stderr)
+              "--ssm | --shard | --dryrun | --tp | --ep | --ssm-tp | "
+              "--kernels [--tree DIR]]", file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -5389,6 +5516,14 @@ def main(argv: list[str]) -> int:
             procs = ep_cli_start(tmp)
             try:
                 ep_phase(torch, smi, procs)
+            finally:
+                stop_all(proc for _, proc in procs)
+        return 0
+    if argv == ["--ssm-tp"]:
+        with tempfile.TemporaryDirectory() as tmp, phase(SSM_TP_PHASE):
+            procs = ssm_tp_cli_start(tmp)
+            try:
+                ssm_tp_phase(torch, smi, procs)
             finally:
                 stop_all(proc for _, proc in procs)
         return 0
@@ -5760,7 +5895,8 @@ def main(argv: list[str]) -> int:
         dry_procs = dryrun_cli_start(tmp)
         tp_proc = dryrun_cell_start(tmp, TP_CLI, "dryrun_tp")
         ep_procs = ep_cli_start(tmp)
-        later = [tp_proc[1]] + [proc for _, proc in ep_procs]
+        ssm_tp_procs = ssm_tp_cli_start(tmp)
+        later = [tp_proc[1]] + [proc for _, proc in ep_procs + ssm_tp_procs]
         try:
             with phase(f"LM stack: {LM_ARCH} at full width, L = {LM_DEPTH}, "
                        f"seq {LM_SEQ}, batch {LM_BATCH}; the FFN bridge"):
@@ -5772,7 +5908,7 @@ def main(argv: list[str]) -> int:
             run = torchrun_start(tmp)
             later.append(run[1])
             with phase(SSM_PHASE):
-                ssm_phase(torch, tmp, ssm_clis)
+                ssm = ssm_phase(torch, tmp, ssm_clis)
             with phase(SHARD_PHASE):
                 shard = shard_phase(torch, tmp, run)
             with phase(DRYRUN_PHASE):
@@ -5781,6 +5917,8 @@ def main(argv: list[str]) -> int:
                 tp_phase(torch, smi, tp_proc, shard)
             with phase(EP_PHASE):
                 ep_phase(torch, smi, ep_procs)
+            with phase(SSM_TP_PHASE):
+                ssm_tp_phase(torch, smi, ssm_tp_procs, ssm.get("trim_s"))
         finally:
             stop_all([c[1] for c in clis.values()]
                      + [d[1] for d in dry_procs] + later)

@@ -15,9 +15,9 @@ counts the aten ops the step dispatches on them (:mod:`.hlo_cost`).
 * the batch: the rank's rows, shaped by the ``Layout`` of
   :func:`repro_torch.pshard.batch_spec` (no global host batch);
 * decode caches: :func:`repro_torch.models.model.cache_init`'s, the
-  rank's blocks (its rows; an attention cache's kv heads or positions,
-  an MLA latent cache's positions, over "model",
-  :func:`repro_torch.train.steps.cache_layouts`).
+  rank's blocks (its rows; over "model" an attention cache's kv heads or
+  positions, an MLA latent cache's positions, a recurrent state's heads,
+  channels or widths: :func:`repro_torch.train.steps.cache_layouts`).
 
 Every function here creates fake tensors and must run inside a
 ``FakeTensorMode`` (:func:`.hlo_cost.fake_mode`). ``mesh=None`` is one
@@ -116,12 +116,12 @@ def cache_struct(cfg: M.ArchConfig, batch: int, smax: int, mesh,
                  dtype=torch.bfloat16, device=None):
     """The rank's decode caches (``cache_init``'s, its blocks in
     :func:`repro_torch.train.steps.cache_layouts`: its rows of the batch,
-    an attention cache's kv heads or positions and an MLA cache's
-    positions over "model") and their Layouts (None on one device)."""
+    and over "model" what the reference's cache specs cut) and their
+    Layouts (None on one device)."""
     dev = _device(device)
     meta = M.cache_init(cfg, batch, smax, dtype, device="meta")
     lays = None if mesh is None else ST.cache_layouts(cfg, mesh, batch,
-                                                      smax, dtype)
+                                                      smax)
 
     def fake(tree, lay):
         if isinstance(tree, dict):

@@ -287,10 +287,10 @@ class Attention(nn.Module):
              "wv": P("embed", "kv", None), "wo": P("heads", None, "embed"),
              "bq": P("heads", None), "bk": P("kv", None),
              "bv": P("kv", None), "qnorm": P(None), "knorm": P(None)}
-    # the split region's mark (wq's heads cut over "model") and the
-    # leaves read inside it (None: all): those replicated over "model"
-    # have gradients that are each model rank's part
-    SPLIT = ("wq", 1, None)
+    # the split region: where wq's heads are cut over "model"; every
+    # leaf is read inside it, so those replicated over "model" have
+    # gradients that are each model rank's part
+    SPLIT = pshard.Split("wq", 1)
 
     def __init__(self, spec: AttnSpec, gen: torch.Generator, dtype=F32):
         super().__init__()
@@ -648,7 +648,7 @@ class Moe(nn.Module):
              "w_out": P("experts", None, "embed")}
     # as Attention.SPLIT: the experts cut over "model"; the router is
     # read inside the region (the combine weights)
-    SPLIT = ("w_in", 0, ("router",))
+    SPLIT = pshard.Split("w_in", 0, ("router",))
 
     def __init__(self, spec: MoeSpec, gen: torch.Generator, dtype=F32):
         super().__init__()

@@ -45,7 +45,7 @@ class Mla(nn.Module):
              "kv_norm": P(None), "w_uk": P("lora", "heads", None),
              "w_uv": P("lora", "heads", None), "wo": P("heads", None, "embed")}
     # as layers.Attention.SPLIT: ``w_dkv`` and ``kv_norm`` are read inside
-    SPLIT = ("wq", 1, None)
+    SPLIT = pshard.Split("wq", 1)
 
     def __init__(self, spec: MlaSpec, gen: torch.Generator, dtype=F32):
         super().__init__()

@@ -256,6 +256,7 @@ def _ffn(p, blk: Block, x):
 
 # the sLSTM cache's keys, in the order of the cell's state tuple
 SLSTM_STATE = ("h", "c", "n", "m")
+_RECURRENT = ("mamba2", "mlstm", "slstm")
 
 
 def _block_forward(p, blk: Block, cfg: ArchConfig, x, positions,
@@ -285,7 +286,12 @@ def _block_forward(p, blk: Block, cfg: ArchConfig, x, positions,
                                  q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk)
         if want_cache:
             cache = {"k": kv[0], "v": kv[1]}
-    return _ffn(p, blk, x + mix), (cache if want_cache else None)
+    if not want_cache:
+        return _ffn(p, blk, x + mix), None
+    moves = _state_moves(p["mixer"], blk, cfg, x.shape[0])
+    if moves:                           # the compute's layout → the cache's
+        cache = {n: _move(t, *moves[n]) for n, t in cache.items()}
+    return _ffn(p, blk, x + mix), cache
 
 
 def _block_decode(p, blk: Block, cfg: ArchConfig, x, cache, cache_len,
@@ -293,8 +299,13 @@ def _block_decode(p, blk: Block, cfg: ArchConfig, x, cache, cache_len,
     """Single-token decode → (x, cache). Attention and MLA caches are
     written in place (``smax``: the whole cache's positions, which name
     its layout on the model axis; by default the given cache's own); a
-    recurrent block returns its new state."""
+    recurrent block returns its new state, read from and written to the
+    cache's layout (:func:`_state_moves`)."""
     h = L.rmsnorm(p["norm1"], x)
+    moves = _state_moves(p["mixer"], blk, cfg, x.shape[0])
+    state = cache
+    if moves:
+        state = {n: _move(t, *moves[n][::-1]) for n, t in cache.items()}
     if blk.kind == "mla":
         cut = M.mla_cache_cut(cache["c"].shape[1] if smax is None else smax)
         mix, cc, ckpe = M.mla_decode(p["mixer"], blk.mla, h, cache["c"],
@@ -302,14 +313,14 @@ def _block_decode(p, blk: Block, cfg: ArchConfig, x, cache, cache_len,
         cache = {"c": cc, "kpe": ckpe}
     elif blk.kind == "mamba2":
         mix, (hf, conv) = S.mamba2_decode(p["mixer"], blk.mamba, h,
-                                          (cache["ssm"], cache["conv"]))
+                                          (state["ssm"], state["conv"]))
         cache = {"ssm": hf, "conv": conv}
     elif blk.kind == "mlstm":
-        mix, hf = S.mlstm_decode(p["mixer"], blk.mlstm, h, cache["h"])
+        mix, hf = S.mlstm_decode(p["mixer"], blk.mlstm, h, state["h"])
         cache = {"h": hf}
     elif blk.kind == "slstm":
         mix, st = S.slstm_decode(p["mixer"], blk.slstm, h,
-                                 tuple(cache[k] for k in SLSTM_STATE))
+                                 tuple(state[k] for k in SLSTM_STATE))
         cache = dict(zip(SLSTM_STATE, st))
     else:
         cut = L.attn_cache_cut(blk.attn, cache["k"].shape[2]
@@ -317,7 +328,110 @@ def _block_decode(p, blk: Block, cfg: ArchConfig, x, cache, cache_len,
         mix, ck, cv = L.attn_decode(p["mixer"], blk.attn, h, cache["k"],
                                     cache["v"], cache_len, cut)
         cache = {"k": ck, "v": cv}
+    if moves:
+        cache = {n: _move(t, *moves[n]) for n, t in cache.items()}
     return _ffn(p, blk, x + mix), cache
+
+
+def _state_moves(mixer, blk: Block, cfg: ArchConfig, rows: int) -> dict:
+    """{state: (the compute's layout, the cache's layout)} of a
+    recurrent block inside a model context (empty for any other block,
+    and outside one), each layout a
+    :class:`repro_torch.pshard.Pieces` or None (whole): the compute's
+    from the mixer's leaves (:func:`ssm.mamba2_state_layouts`,
+    :func:`ssm.mlstm_state_layouts`; sLSTM's whole), the cache's the dim
+    that :func:`block_cache_layouts` cuts over "model"."""
+    sh = pshard.model_shard()
+    if sh is None or blk.kind not in _RECURRENT:
+        return {}
+    if blk.kind == "mamba2":
+        comp = S.mamba2_state_layouts(mixer, blk.mamba)
+    elif blk.kind == "mlstm":
+        comp = S.mlstm_state_layouts(mixer, blk.mlstm)
+    else:
+        comp = dict.fromkeys(SLSTM_STATE)
+    out = {}
+    for n, lay in block_cache_layouts(blk, cfg, sh.mesh, rows, 1).items():
+        dims = [d for d in range(1, len(lay.shape))
+                if pshard.MODEL_AXIS in lay.dim_axes(d)]
+        cut = (pshard.Pieces(dims[0], (lay.shape[dims[0]],), (True,))
+               if dims else None)
+        out[n] = (comp[n], cut)
+    return out
+
+
+def _move(t, src, dst):
+    """A recurrent state from layout ``src`` to ``dst`` (each a
+    :class:`repro_torch.pshard.Pieces` or None, whole) on this rank's
+    model shard: joined over "model" where ``src`` cuts it, then
+    ``dst``'s pieces taken."""
+    if src == dst:
+        return t
+    sh = pshard.model_shard()
+    whole = t if src is None else src.join(t, sh, "state")
+    return whole if dst is None else dst.take(whole, sh.index, sh.count)
+
+
+def _block_caches(blk: Block, cfg: ArchConfig, batch: int, smax: int,
+                  dtype) -> dict:
+    """{cache name: (shape, dtype)} of one block's decode cache."""
+    if blk.kind == "attn":
+        a = blk.attn
+        kv = ((batch, a.n_kv_heads, smax, a.d_head), dtype)
+        return {"k": kv, "v": kv}
+    if blk.kind == "mla":
+        m = blk.mla
+        return {"c": ((batch, smax, m.kv_lora_rank), dtype),
+                "kpe": ((batch, smax, m.d_rope), dtype)}
+    if blk.kind == "mamba2":
+        mb = blk.mamba
+        return {"ssm": ((batch, mb.n_heads, mb.d_state, mb.head_dim), F32),
+                "conv": ((batch, mb.conv_k - 1,
+                          mb.d_inner + 2 * mb.n_groups * mb.d_state), dtype)}
+    if blk.kind == "mlstm":
+        ml = blk.mlstm
+        return {"h": ((batch, ml.n_heads, ml.d_qk, ml.d_v + 1), F32)}
+    if blk.kind == "slstm":
+        return {k: ((batch, cfg.d_model), F32) for k in SLSTM_STATE}
+    raise ValueError(blk.kind)
+
+
+def _block_cache_specs(blk: Block) -> dict:
+    """The logical specs of :func:`_block_caches`' caches (see
+    :func:`cache_specs`)."""
+    if blk.kind == "attn":
+        sp = (P("batch", "tensor", None, None)
+              if blk.attn.n_kv_heads % 16 == 0
+              else P("batch", None, "tensor", None))
+        return {"k": sp, "v": sp}
+    if blk.kind == "mla":
+        return {"c": P("batch", "tensor", None),
+                "kpe": P("batch", "tensor", None)}
+    if blk.kind == "mamba2":
+        return {"ssm": P("batch", "tensor", None, None),
+                "conv": P("batch", None, "tensor")}
+    if blk.kind == "mlstm":
+        return {"h": P("batch", None, "tensor", None)}
+    if blk.kind == "slstm":
+        return {k: P("batch", "tensor") for k in SLSTM_STATE}
+    raise ValueError(blk.kind)
+
+
+def block_cache_layouts(blk: Block, cfg: ArchConfig, mesh, batch: int,
+                        smax: int) -> dict:
+    """{cache name: :class:`repro_torch.pshard.Layout`} of one block's
+    caches for a global batch of ``batch`` rows and ``smax`` positions on
+    ``mesh``: rows over the batch axes (degraded as
+    :func:`repro_torch.pshard.batch_spec` degrades them), every other dim
+    as :func:`repro_torch.pshard.resolve_spec` resolves the reference's
+    spec (:func:`_block_cache_specs`)."""
+    rows = pshard.batch_spec(mesh, 1, batch)[0]
+    specs = _block_cache_specs(blk)
+    out = {}
+    for n, (shape, _) in _block_caches(blk, cfg, batch, smax, F32).items():
+        rest = tuple(pshard.resolve_spec(mesh, specs[n], shape))[1:]
+        out[n] = pshard.Layout(pshard.P(rows, *rest), shape, mesh)
+    return out
 
 
 def cache_init(cfg: ArchConfig, batch: int, smax: int, dtype=torch.bfloat16,
@@ -331,32 +445,10 @@ def cache_init(cfg: ArchConfig, batch: int, smax: int, dtype=torch.bfloat16,
     ``{"h", "c", "n", "m"}`` (batch, d) in f32."""
     dev = resolve_device(device)
 
-    def zeros(*shape, dt=dtype):
-        return torch.zeros(shape, dtype=dt, device=dev)
-
     def one(blk):
-        if blk.kind == "attn":
-            a = blk.attn
-            return {"k": zeros(batch, a.n_kv_heads, smax, a.d_head),
-                    "v": zeros(batch, a.n_kv_heads, smax, a.d_head)}
-        if blk.kind == "mla":
-            m = blk.mla
-            return {"c": zeros(batch, smax, m.kv_lora_rank),
-                    "kpe": zeros(batch, smax, m.d_rope)}
-        if blk.kind == "mamba2":
-            mb = blk.mamba
-            return {"ssm": zeros(batch, mb.n_heads, mb.d_state, mb.head_dim,
-                                 dt=F32),
-                    "conv": zeros(batch, mb.conv_k - 1, mb.d_inner
-                                  + 2 * mb.n_groups * mb.d_state)}
-        if blk.kind == "mlstm":
-            ml = blk.mlstm
-            return {"h": zeros(batch, ml.n_heads, ml.d_qk, ml.d_v + 1,
-                               dt=F32)}
-        if blk.kind == "slstm":
-            return {k: zeros(batch, cfg.d_model, dt=F32)
-                    for k in SLSTM_STATE}
-        raise ValueError(blk.kind)
+        return {n: torch.zeros(shape, dtype=dt, device=dev)
+                for n, (shape, dt) in _block_caches(blk, cfg, batch, smax,
+                                                    dtype).items()}
 
     return [[{f"b{bi}": one(blk) for bi, blk in enumerate(seg.blocks)}
              for _ in range(seg.repeat)] for seg in cfg.segments]
@@ -372,25 +464,8 @@ def cache_specs(cfg: ArchConfig) -> list:
     the reference's ``cache_init_specs`` (``model.py:335``) without the
     stacking ``None``. An attention cache's heads shard when 16 divides
     them, else its sequence, as in the reference."""
-    def one(blk):
-        if blk.kind == "attn":
-            sp = (P("batch", "tensor", None, None)
-                  if blk.attn.n_kv_heads % 16 == 0
-                  else P("batch", None, "tensor", None))
-            return {"k": sp, "v": sp}
-        if blk.kind == "mla":
-            return {"c": P("batch", "tensor", None),
-                    "kpe": P("batch", "tensor", None)}
-        if blk.kind == "mamba2":
-            return {"ssm": P("batch", "tensor", None, None),
-                    "conv": P("batch", None, "tensor")}
-        if blk.kind == "mlstm":
-            return {"h": P("batch", None, "tensor", None)}
-        if blk.kind == "slstm":
-            return {k: P("batch", "tensor") for k in SLSTM_STATE}
-        raise ValueError(blk.kind)
-
-    return [[{f"b{bi}": one(blk) for bi, blk in enumerate(seg.blocks)}
+    return [[{f"b{bi}": _block_cache_specs(blk)
+              for bi, blk in enumerate(seg.blocks)}
              for _ in range(seg.repeat)] for seg in cfg.segments]
 
 

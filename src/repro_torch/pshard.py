@@ -22,15 +22,19 @@ the port runs one process per rank with explicit collectives
 batch, and its activations span the model ranks of its data group as
 the reference's rules lay them out:
 
-* within a **split region** (attention and MLA heads, the dense FFN's
-  hidden width, MoE experts, the vocabulary: a dimension
-  :func:`resolve_spec` cuts over "model"), each model rank computes its
-  part from its block of the leaves. :func:`enter` opens a region (the
+* within a **split region** (attention, MLA, Mamba2 and mLSTM heads,
+  the dense FFN's hidden width, MoE experts, the vocabulary: a
+  dimension :func:`resolve_spec` cuts over "model"), each model rank
+  computes its part from its block of the leaves (or, for a leaf whose
+  columns concatenate unlike parts, from its :class:`Pieces`). A
+  module declares its region with a :class:`Split`. :func:`enter` opens a region (the
   identity forward; the gradient summed over "model" in backward) and
   :func:`leave` closes it (a sum over "model" forward; the identity
   backward), the reference's ``with_sharding_constraint`` pairs as GSPMD
   partitions them.
   :func:`model_shard` tells a layer its index and the axis's size;
+  :func:`model_sum` sums a statistic every rank reads whole (a gated
+  norm's sum of squares over a width cut over "model");
 * between regions activations are replicated over "model";
 * MoE routing runs over the whole batch
   (:func:`repro_torch.models.layers.moe_route`), which reads the rank's
@@ -54,6 +58,7 @@ import dataclasses
 import math
 import weakref
 from collections.abc import Mapping
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -445,12 +450,95 @@ def leave(x: torch.Tensor, sh: ModelShard,
     return _Leave.apply(x, sh, tag)
 
 
+def model_sum(t: torch.Tensor, sh: ModelShard, tag: str) -> torch.Tensor:
+    """Each rank's partial ``t`` summed over "model" (in f32, in ``t``'s
+    dtype), for a statistic that every rank then reads whole: in
+    backward each rank's part of its gradient is summed over "model"
+    too (:func:`enter` of :func:`leave`)."""
+    return enter(leave(t, sh, tag), sh, tag)
+
+
 def model_max(t: torch.Tensor, sh: ModelShard, tag: str) -> torch.Tensor:
     """A new tensor: the elementwise MAX of ``t`` over "model" (no
     gradient)."""
     wire = t.detach().clone().contiguous()
     all_reduce(wire, sh.mesh, (MODEL_AXIS,), op="max", tag=tag)
     return wire
+
+
+class Pieces(NamedTuple):
+    """A leaf whose dim ``dim`` concatenates parts of ``widths`` (Mamba2's
+    ``w_in``: [z | x | B | C | dt]), where each part flagged in ``cut``
+    is laid out head by head and the others are read by every head. A
+    rank of a split region reads block ``index`` of ``count`` of each
+    cut part and the others whole: its pieces, which are not its
+    contiguous block of the leaf."""
+    dim: int
+    widths: tuple[int, ...]
+    cut: tuple[bool, ...]
+
+    def spans(self, index: int, count: int) -> list[tuple[int, int]]:
+        """(first, width) of each piece along ``dim``, in order."""
+        out, at = [], 0
+        for w, c in zip(self.widths, self.cut):
+            out.append((at + index * (w // count), w // count) if c
+                       else (at, w))
+            at += w
+        return out
+
+    def take(self, t: torch.Tensor, index: int,
+             count: int) -> torch.Tensor:
+        """The pieces of a whole ``t`` (a new tensor)."""
+        return torch.cat([t.narrow(self.dim, a, n)
+                          for a, n in self.spans(index, count)], self.dim)
+
+    def place(self, g: torch.Tensor, index: int,
+              count: int) -> torch.Tensor:
+        """The inverse of :meth:`take`: ``g``, shaped as the pieces, at
+        their places in a zero tensor shaped as the whole."""
+        shape = list(g.shape)
+        shape[self.dim] = sum(self.widths)
+        out = g.new_zeros(shape)
+        at = 0
+        for a, n in self.spans(index, count):
+            out.narrow(self.dim, a, n).copy_(g.narrow(self.dim, at, n))
+            at += n
+        return out
+
+    def join(self, t: torch.Tensor, sh: ModelShard,
+             tag: str) -> torch.Tensor:
+        """Every model rank's pieces ``t`` (no gradient) → the whole:
+        each cut piece gathered over "model", the others as they are."""
+        parts, at = [], 0
+        for n, c in zip(self.widths, self.cut):
+            w = n // sh.count if c else n
+            part = t.narrow(self.dim, at, w)
+            parts.append(all_gather_dim(part, sh, self.dim, tag) if c
+                         else part)
+            at += w
+        return torch.cat(parts, self.dim)
+
+
+class Split(NamedTuple):
+    """A module's split region: it computes its part on each model rank
+    where dim ``dim`` of its leaf ``mark`` is cut over "model" in blocks
+    of a multiple of ``unit`` (a head's width), else whole, its leaves
+    gathered whole. ``inside``: the leaves read inside the region (None:
+    all), whose gradients are each model rank's part where they are
+    replicated over "model"; ``pieces``: {leaf: :class:`Pieces`} of the
+    leaves the rank reads as pieces (gathered over "model" where they
+    are cut over it, their gradients summed over it)."""
+    mark: str
+    dim: int
+    inside: tuple[str, ...] | None = None
+    unit: int = 1
+    pieces: dict | None = None
+
+    def on(self, lay: "Layout") -> bool:
+        """Whether the region splits, ``lay`` the mark's layout."""
+        if MODEL_AXIS not in lay.dim_axes(self.dim):
+            return False
+        return (lay.shape[self.dim] // lay.shards(self.dim)) % self.unit == 0
 
 
 # ---------------------------------------------------------------------------
@@ -488,7 +576,11 @@ def collective_tags() -> dict[str, tuple[int, int]]:
     sums of squares), ``region`` (attention's and the dense FFN's split
     regions' sums over "model", forward and backward), ``mla``,
     ``experts`` and ``shared`` (the same sums of MLA's, the routed
-    experts' and a MoE's shared experts' regions), ``embed`` (the
+    experts' and a MoE's shared experts' regions), ``mamba`` and
+    ``mlstm`` (the Mamba2 and mLSTM regions' sums), ``norm_ss`` (their
+    gated norms' sums of squares, forward and backward), ``state`` (the
+    recurrent caches gathered over "model" to or from the compute's
+    layout in prefill and decode), ``embed`` (the
     vocab-parallel lookup), ``vocab_max`` and ``vocab_sum`` (the
     vocab-parallel loss), ``logits`` (the last logits gathered over
     "model"), ``decode_q``, ``decode_kv``, ``decode_max`` and

@@ -33,11 +33,15 @@ one process per rank, ``torchrun --nproc-per-node N``):
   then a gather gives the bits of a gather then a cast, in half the
   bytes) over the axes that cut it but "model": the reference's FSDP
   gather over "data". A leaf cut over "model" stays the rank's block, and
-  the layers compute the rank's part of the attention and MLA heads, the
-  FFN's hidden width, the MoE experts and the vocabulary
-  (:mod:`repro_torch.pshard`'s split regions). The leaves of the blocks
-  whose compute is still whole on "model" (Mamba2, mLSTM, sLSTM: each
-  declares ``model_split = False``) are gathered whole. Forward and
+  the layers compute the rank's part of the attention, MLA, Mamba2 and
+  mLSTM heads, the FFN's hidden width, the MoE experts and the
+  vocabulary (:mod:`repro_torch.pshard`'s split regions, each block's
+  ``SPLIT``). A leaf whose columns concatenate unlike parts (Mamba2's
+  ``w_in`` and ``conv_w``, mLSTM's ``w_up`` and ``w_if``) is gathered
+  over "model" too and the rank keeps its pieces alone
+  (:class:`LeafPlan`). A block whose split is off (its heads do not
+  divide "model") or that declares none (``SPLIT = None``: the sLSTM
+  recurrence) computes whole, its leaves gathered whole. Forward and
   backward run on the rank's rows of the global batch
   (:func:`repro_torch.data.device_batch`), the loss divided by the whole
   batch's label count;
@@ -45,7 +49,9 @@ one process per rank, ``torchrun --nproc-per-node N``):
   over "data" by a reduce-scatter there, so each rank keeps its shard,
   and a leaf replicated over "model" but read inside a split region (the
   kv projections of replicated kv heads, ``qnorm``/``knorm``, MLA's
-  ``w_dkv`` and ``kv_norm``, MoE's router) also over "model"; then it
+  ``w_dkv`` and ``kv_norm``, MoE's router, Mamba2's ``a_log``,
+  ``dt_bias`` and ``d_skip``, mLSTM's ``f_bias``) also over "model", a
+  leaf read as pieces by a reduce-scatter over "model"; then it
   takes the bf16 round trip (or, with ``accum_steps > 1``, one
   reduction per microbatch before its bf16 add): the order
   GSPMD gives the reference, whose reduction happens inside
@@ -61,9 +67,13 @@ for bit. MoE routing runs over the whole batch
 (:func:`repro_torch.pshard.collective_counts`, ``collective_tags``).
 
 Prefill and decode gather the leaves alike and compute on the same
-split. Attention and MLA caches take the reference's layouts on
-"model" (:func:`cache_layouts`): an attention cache's kv heads cut where
-16 divides them, else its sequence; an MLA latent cache's sequence;
+split. Every cache takes the reference's layout on "model"
+(:func:`cache_layouts`): an attention cache's kv heads cut where 16
+divides them, else its sequence; an MLA latent cache's sequence;
+Mamba2's ``ssm`` over heads and ``conv`` over channels, mLSTM's ``h``
+over d_qk, sLSTM's states over d (a recurrent state is gathered over
+"model" where the compute reads it in another layout, and cut again
+after the step: :func:`repro_torch.models.model._state_moves`);
 :func:`pad_caches` carries prefill's caches into decode's.
 """
 
@@ -205,50 +215,59 @@ def _batch_spec(mesh, batch_shardings_, accum_steps: int = 1) -> pshard.P:
 
 class LeafPlan(NamedTuple):
     """How the sharded steps treat one leaf: the axes it is gathered over
-    (its compute leaf is the rank's block along the others), and whether
+    (its compute leaf is the rank's block along the others), whether
     its gradient is each model rank's part (a leaf replicated over
-    "model" but read inside a split region), summed over "model"."""
+    "model" but read inside a split region, or read as pieces), summed
+    over "model", and the :class:`~repro_torch.pshard.Pieces` the rank
+    reads of it (None: the gathered leaf itself)."""
     gathered: tuple[str, ...]
     partial: bool
-
-
-def _split_partials(name: str, mod, layouts: dict) -> list[str]:
-    """The leaves of module ``name`` that are replicated over "model" but
-    read inside its split region (their gradients are each model rank's
-    part), as its ``SPLIT`` (mark leaf, its dim, the leaves read inside
-    or None: all) declares them, or [] where the mark is not cut over
-    "model" or the module declares no ``SPLIT``."""
-    if not hasattr(mod, "SPLIT"):
-        return []
-    cut, dim, leaves = mod.SPLIT
-    if pshard.MODEL_AXIS not in layouts[f"{name}.{cut}"].dim_axes(dim):
-        return []
-    if leaves is None:
-        leaves = [n for n, _ in mod.named_parameters()]
-    return [f"{name}.{n}" for n in leaves
-            if pshard.MODEL_AXIS not in layouts[f"{name}.{n}"].axes]
+    pieces: pshard.Pieces | None = None
 
 
 def leaf_plans(cfg: M.ArchConfig, layouts: dict) -> dict[str, LeafPlan]:
     """{name: :class:`LeafPlan`} of ``cfg``'s leaves laid out as
-    ``layouts``."""
+    ``layouts``. A leaf is gathered over every axis that cuts it but
+    "model". Where "model" has more than one rank, a module declaring
+    a :class:`~repro_torch.pshard.Split` splits where the split is
+    :meth:`~repro_torch.pshard.Split.on`: the leaves read inside the
+    region and replicated over "model" are partial, and a leaf read as
+    pieces is gathered over "model" too and partial; where it is off
+    (or the module declares ``SPLIT = None``) the module computes whole
+    and its own leaves are gathered over every axis."""
     model = M.LM(cfg, device="meta")
     split = pshard.axis_sizes(next(iter(layouts.values())).mesh).get(
         pshard.MODEL_AXIS, 1) > 1
-    whole, partial = [], set()
+    whole, partial, pieces = set(), set(), {}
     for name, mod in model.named_modules():
-        if not getattr(mod, "model_split", True):
-            whole.append(name + ".")
-        elif split:
-            partial.update(_split_partials(name, mod, layouts))
+        if not split or not hasattr(mod, "SPLIT"):
+            continue
+        sp = mod.SPLIT
+        own = [n for n, _ in mod.named_parameters(recurse=False)]
+        if sp is None or not sp.on(layouts[f"{name}.{sp.mark}"]):
+            whole.update(f"{name}.{n}" for n in own)
+            continue
+        pieces.update({f"{name}.{n}": pc
+                       for n, pc in (sp.pieces or {}).items()})
+        partial.update(
+            k for k in (f"{name}.{n}" for n in (own if sp.inside is None
+                                                 else sp.inside))
+            if k in pieces or pshard.MODEL_AXIS not in layouts[k].axes)
     plans = {}
     for k, lay in layouts.items():
-        if any(k.startswith(w) for w in whole):
-            plans[k] = LeafPlan(lay.axes, False)
-            continue
-        gathered = tuple(a for a in lay.axes if a != pshard.MODEL_AXIS)
-        plans[k] = LeafPlan(gathered, k in partial)
+        if k in whole or k in pieces:
+            plans[k] = LeafPlan(lay.axes, k in partial, pieces.get(k))
+        else:
+            plans[k] = LeafPlan(tuple(a for a in lay.axes
+                                      if a != pshard.MODEL_AXIS),
+                                k in partial)
     return plans
+
+
+def _model_index(mesh) -> tuple[int, int]:
+    """(this rank's index on "model", the axis's size)."""
+    return (pshard.coordinate(mesh)[pshard.MODEL_AXIS],
+            pshard.axis_sizes(mesh)[pshard.MODEL_AXIS])
 
 
 def _gather_params(model: M.LM, layouts: dict, plans: dict, cdt,
@@ -265,6 +284,8 @@ def _gather_params(model: M.LM, layouts: dict, plans: dict, cdt,
         cast = p.dtype == F32 and p.dim() > 1 and cdt != F32
         x = pshard.gather(p.detach().to(cdt) if cast else p.detach(),
                           layouts[k].part(plans[k].gathered), "gather")
+        if plans[k].pieces is not None:     # the whole is dropped here
+            x = plans[k].pieces.take(x, *_model_index(layouts[k].mesh))
         if not grad:
             tree[k] = x
             continue
@@ -277,21 +298,24 @@ def _reduce_grad(g: torch.Tensor, lay: pshard.Layout, plan: LeafPlan,
                  baxes: tuple[str, ...]) -> torch.Tensor:
     """The rank's shard of a leaf's gradient, summed over the batch axes
     (and "model" for a partial one), from the gradient of its compute
-    leaf: a dim cut over a batch axis by a reduce-scatter there, a dim
-    cut over another axis by this rank's block."""
+    leaf (pieces placed back in the gathered leaf's shape first): a dim
+    cut over a batch axis, or over "model" for a partial leaf, by a
+    reduce-scatter there, a dim cut over another axis by this rank's
+    block."""
     mesh = lay.mesh
+    if plan.pieces is not None:
+        g = plan.pieces.place(g, *_model_index(mesh))
     part = lay.part(plan.gathered)
-    own = tuple(a for a in part.axes if a not in baxes)
+    scattered = baxes + ((pshard.MODEL_AXIS,) if plan.partial else ())
+    own = tuple(a for a in part.axes if a not in scattered)
     if own:
         g = g[part.only(own).index()]
     g = g.contiguous()
     for d in range(g.dim()):
         for a in part.dim_axes(d):
-            if a in baxes:
+            if a in scattered:
                 g = pshard.reduce_scatter(g, mesh, a, d, "grad")
-    summed = tuple(a for a in baxes if a not in plan.gathered)
-    if plan.partial:
-        summed += (pshard.MODEL_AXIS,)
+    summed = tuple(a for a in scattered if a not in plan.gathered)
     return pshard.all_reduce(g, mesh, summed, tag="grad")
 
 
@@ -415,34 +439,19 @@ def _sharded_train_step(cfg, tc: TrainConfig, mesh, state_shardings,
     return step
 
 
-def cache_layouts(cfg: M.ArchConfig, mesh, batch: int, smax: int,
-                  dtype=torch.bfloat16):
+def cache_layouts(cfg: M.ArchConfig, mesh, batch: int, smax: int):
     """The :class:`~repro_torch.pshard.Layout` tree of
     :func:`repro_torch.models.model.cache_init`'s caches for a global
-    batch of ``batch`` rows and ``smax`` positions on ``mesh``: rows over
-    the batch axes (degraded as :func:`~repro_torch.pshard.batch_spec`
-    degrades them); an attention cache's kv heads or positions, and an
-    MLA cache's positions, over "model" as
-    :func:`~repro_torch.pshard.resolve_spec` resolves the reference's
-    ``cache_specs``. The recurrent blocks' caches are cut over the batch
-    axes alone (their compute is whole on "model")."""
-    meta = M.cache_init(cfg, batch, smax, dtype, device="meta")
-    specs = M.cache_specs(cfg)
-    rows = pshard.batch_spec(mesh, 1, batch)[0]
-
-    def one(c, sp):
-        out = {}
-        for n, t in c.items():
-            shape = tuple(t.shape)
-            rest = (None,) * (len(shape) - 1)
-            if set(c) in M._SEQ_CACHES:
-                rest = tuple(pshard.resolve_spec(mesh, sp[n], shape))[1:]
-            out[n] = pshard.Layout(pshard.P(rows, *rest), shape, mesh)
-        return out
-
-    return [[{b: one(c, sl[b]) for b, c in layer.items()}
-             for layer, sl in zip(seg, sseg)]
-            for seg, sseg in zip(meta, specs)]
+    batch of ``batch`` rows and ``smax`` positions on ``mesh``, each
+    block's as :func:`repro_torch.models.model.block_cache_layouts` lays
+    it out (the model's recurrent blocks read the same layouts): an
+    attention cache's kv heads or positions, an MLA cache's positions,
+    Mamba2's ``ssm`` over heads and ``conv`` over channels, mLSTM's ``h``
+    over d_qk and sLSTM's states over d, each over "model" where it
+    divides."""
+    return [[{f"b{bi}": M.block_cache_layouts(blk, cfg, mesh, batch, smax)
+              for bi, blk in enumerate(seg.blocks)}
+             for _ in range(seg.repeat)] for seg in cfg.segments]
 
 
 def pad_caches(cfg: M.ArchConfig, mesh, caches, batch: int, seq: int,
@@ -453,29 +462,33 @@ def pad_caches(cfg: M.ArchConfig, mesh, caches, batch: int, seq: int,
     layouts), the caches and ``cache_shardings`` that
     :func:`make_decode_step` continues from at ``cache_len = seq``. On one
     device (``mesh`` None): :func:`repro_torch.models.model.pad_caches`
-    and None. A cache whose positions are cut over "model" is gathered
-    over it, padded and cut again."""
+    and None. An attention or MLA cache whose positions are cut over
+    "model" is gathered over it, padded and cut again; a recurrent state
+    has no positions, and keeps its layout."""
     if not _sharded(mesh):
         return M.pad_caches(caches, smax), None
     old = cache_layouts(cfg, mesh, batch, seq)
     new = cache_layouts(cfg, mesh, batch, smax)
     model = (pshard.MODEL_AXIS,)
 
-    def seq_cut(lay) -> bool:         # positions (axis −2) over "model"
-        return pshard.MODEL_AXIS in lay.dim_axes(len(lay.shape) - 2)
+    def seq_cut(c, lays) -> bool:     # positions (axis −2) over "model"
+        return set(c) in M._SEQ_CACHES and any(
+            pshard.MODEL_AXIS in lay.dim_axes(len(lay.shape) - 2)
+            for lay in lays.values())
 
-    def each(tree, lays, fn):
-        if isinstance(tree, dict):
-            return {k: each(v, lays[k], fn) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [each(v, lo, fn) for v, lo in zip(tree, lays)]
-        return fn(tree, lays)
+    def blocks(tree, lays, fn):
+        return [[{b: fn(c, lo[b]) if seq_cut(c, lo[b]) else c
+                  for b, c in layer.items()}
+                 for layer, lo in zip(seg, sl)]
+                for seg, sl in zip(tree, lays)]
 
-    whole = each(caches, old, lambda t, lay: pshard.gather(
-        t, lay.part(model), "cache") if seq_cut(lay) else t)
+    whole = blocks(caches, old, lambda c, lays: {
+        n: pshard.gather(t, lays[n].part(model), "cache")
+        for n, t in c.items()})
     padded = M.pad_caches(whole, smax)
-    return each(padded, new, lambda t, lay: t[lay.part(model).index()]
-                .contiguous() if seq_cut(lay) else t), new
+    return blocks(padded, new, lambda c, lays: {
+        n: t[lays[n].part(model).index()].contiguous()
+        for n, t in c.items()}), new
 
 
 def make_prefill_step(cfg: M.ArchConfig, tc: TrainConfig, mesh=None,

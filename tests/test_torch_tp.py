@@ -198,6 +198,41 @@ def test_cache_layouts_cut_heads_or_sequence_as_the_reference():
     assert tuple(odd[0][0]["b0"]["c"].spec) == ("data", None, None)
 
 
+# the recurrent caches' resolved specs on (16, 16), the reference's
+# cache specs (Mamba2 ``ssm`` P("batch", "tensor", None, None), ``conv``
+# P("batch", None, "tensor"), mLSTM ``h`` P("batch", None, "tensor",
+# None), sLSTM P("batch", "tensor")) with "tensor" over "model" where 16
+# divides the dim: (arch, tiny, block) → {cache: spec}
+RECURRENT_CACHES = {
+    ("zamba2-1.2b", False, "b0"): {"ssm": ("data", "model", None, None),
+                                   "conv": ("data", None, "model")},
+    ("zamba2-1.2b", False, "b6"): {"k": ("data", "model", None, None)},
+    ("xlstm-350m", False, "b0"): {"h": ("data", None, "model", None)},
+    ("xlstm-350m", False, "b7"): {n: ("data", "model")
+                                  for n in M.SLSTM_STATE},
+    # tiny zamba2's 8 heads do not divide 16, its 160 conv channels do
+    ("zamba2-1.2b", True, "b0"): {"ssm": ("data", None, None, None),
+                                  "conv": ("data", None, "model")},
+}
+
+
+@pytest.mark.parametrize("arch,tiny,block", list(RECURRENT_CACHES))
+def test_cache_layouts_cut_recurrent_states_as_the_reference(arch, tiny,
+                                                             block):
+    """:func:`steps.cache_layouts` on (16, 16) resolves the recurrent
+    caches' specs too (Mamba2's heads and conv channels, mLSTM's d_qk,
+    sLSTM's d), each the rank's block of the whole cache."""
+    from repro_torch import configs as TC
+    mesh = pshard.MeshShape(mesh_axes((16, 16)), (16, 16))
+    cfg = TC.get_tiny(arch) if tiny else TC.get_config(arch)
+    lay = ST.cache_layouts(cfg, mesh, 256, 32768)[0][0][block]
+    for n, want in RECURRENT_CACHES[arch, tiny, block].items():
+        assert tuple(lay[n].spec) == want, (n, lay[n].spec)
+        cut = [d for d, e in enumerate(want) if e == "model"]
+        assert all(lay[n].local_shape[d] * 16 == lay[n].shape[d]
+                   for d in cut), n
+
+
 def test_leaf_plans_on_the_production_mesh():
     """yi-9b on (16, 16): a leaf cut over "model" stays the rank's block
     (gathered over "data" alone), the replicated kv projections are
@@ -235,6 +270,58 @@ def test_leaf_plans_on_the_production_mesh():
             assert plans[mla + "kv_norm"] == ST.LeafPlan((), True)
             assert plans["segments.0.0.b0.ffn.w_in"] == ST.LeafPlan(
                 ("data",), False)
+
+
+def test_mamba2_plans_on_the_production_mesh():
+    """zamba2-1.2b on (16, 16): a Mamba2 rank computes its 4 of 64 heads.
+    It reads ``w_in`` as pieces, 644 of 8 384 columns (its z, x and dt
+    columns and every B and C column), and ``conv_w`` as 384 of 4 224
+    channels, each gathered whole and its gradient summed over "model";
+    ``norm_scale`` and ``w_out`` are its blocks (gathered over "data"
+    alone); ``a_log``, ``dt_bias`` and ``d_skip`` are partial; the
+    shared block's heads are cut as yi-9b's."""
+    import torch
+    from repro_torch import configs as TC
+    mesh = pshard.MeshShape(mesh_axes((16, 16)), (16, 16))
+    cfg = TC.get_config("zamba2-1.2b")
+    model = M.LM(cfg, device="meta")
+    named = dict(model.named_parameters())
+    plans = ST.leaf_plans(cfg, pshard.resolve_tree(mesh, model.specs(),
+                                                   named))
+    for i in range(6):                       # every Mamba2 block alike
+        p = f"segments.0.0.b{i}.mixer."
+        for leaf, axes, width in (("w_in", ("data", "model"), 644),
+                                  ("conv_w", ("model",), 384)):
+            pl = plans[p + leaf]
+            assert (pl.gathered, pl.partial) == (axes, True), leaf
+            got = pl.pieces.take(torch.empty(named[p + leaf].shape,
+                                             device="meta"), 15, 16)
+            assert got.shape[-1] == width, leaf
+        assert plans[p + "norm_scale"] == ST.LeafPlan((), False)
+        assert plans[p + "w_out"] == ST.LeafPlan(("data",), False)
+        for leaf in ("a_log", "dt_bias", "d_skip"):
+            assert plans[p + leaf] == ST.LeafPlan((), True), leaf
+    assert plans["shared.mixer.wq"] == ST.LeafPlan(("data",), False)
+    assert not [k for k, pl in plans.items() if pshard.MODEL_AXIS in
+                pl.gathered and pl.pieces is None], "a leaf gathered whole"
+
+
+def test_xlstm_plans_on_the_production_mesh_are_unchanged():
+    """xlstm-350m on (16, 16): its 4 heads do not divide 16, so every
+    mLSTM and sLSTM mixer computes whole and its leaves are gathered over
+    every axis that cuts them, partial nowhere; the other leaves (the
+    embedding, the norms) are gathered over all but "model"."""
+    from repro_torch import configs as TC
+    mesh = pshard.MeshShape(mesh_axes((16, 16)), (16, 16))
+    cfg = TC.get_config("xlstm-350m")
+    model = M.LM(cfg, device="meta")
+    layouts = pshard.resolve_tree(mesh, model.specs(),
+                                  dict(model.named_parameters()))
+    want = {k: ST.LeafPlan(lay.axes if ".mixer." in k else tuple(
+        a for a in lay.axes if a != pshard.MODEL_AXIS), False)
+        for k, lay in layouts.items()}
+    assert ST.leaf_plans(cfg, layouts) == want
+    assert want["segments.0.0.b0.mixer.w_up"].gathered == ("data", "model")
 
 
 @pytest.mark.parametrize("shape", SHAPES)

@@ -1,6 +1,7 @@
-"""The reference's own sharded steps, for tests/test_torch_lm_shard.py.
+"""The reference's own sharded steps, for tests/test_torch_lm_shard.py
+and tests/test_torch_ssm_split.py.
 
-    python tests/torch_lm_shard_reference.py OUT.npz INIT.npz ARCH
+    python tests/torch_lm_shard_reference.py OUT.npz INIT.npz ARCH [PART]
 
 runs in a process of its own, which sets ``XLA_FLAGS=
 --xla_force_host_platform_device_count=4`` before importing JAX, the
@@ -22,7 +23,14 @@ padded to smax (32; deepseek also 24 to 33, a whole latent cache) and
 placed in ``cache_init``'s layouts, then ``make_decode_step`` to smax,
 in f32 and bf16, on (1, 4); for each of ``W.ROUTE_TIES`` the bf16 runs
 on (1, 1) too. Each of ``W.F32_ONLY`` (tiny moonshot-v1-16b-a3b)
-trains in f32 on its mesh alone. Each run compiles for 5–10 s, so the
+trains in f32 on its mesh alone. PART ``"ssm"`` runs
+tests/test_torch_ssm_split.py's set instead: ``W.SSM_TRAIN`` (tiny
+xlstm-350m) in f32 on (1, 1), (1, 2), (2, 2) and (1, 4), and each
+(prefill, smax) of ``W.SSM_DECODE[ARCH]`` (tiny zamba2-1.2b and
+xlstm-350m: the recurrent states kept as prefill leaves them, the
+attention caches padded) in f32 and bf16 on (1, 4) and in bf16 on
+(1, 1). Each run compiles
+for 5–10 s, so the
 set is kept to what the test reads. It first writes INIT.npz, the
 initial parameters under the port's names (where every port arm of the
 test starts), then OUT.npz: per train run, the losses and the
@@ -64,6 +72,13 @@ RUNS["deepseek-v2-lite-16b"] += (((4, 1), "f32"),)
 RUNS["zamba2-1.2b"] += (((1, 1), "f32"),)
 RUNS["kv16"] = ()
 RUNS.update({a: ((shape, "f32"),) for a, shape in W.F32_ONLY.items()})
+# tests/test_torch_ssm_split.py (PART "ssm"): SSM_TRAIN in f32 on one
+# device and on each of its meshes, and the serve runs of W.SSM_DECODE
+SSM_RUNS = {W.SSM_TRAIN: tuple((shape, "f32") for shape in
+                               ((1, 1), (1, 2), (2, 2), (1, 4)))}
+# the blocks' caches with a sequence (axis −2), padded to smax after
+# prefill: attention's and MLA's; a recurrent state has none
+SEQ_CACHES = ({"k", "v"}, {"c", "kpe"})
 
 
 def ref_config(arch: str):
@@ -121,10 +136,10 @@ def run(arch: str, shape, mode: str) -> dict:
             "params": port_vector(state.params, arch), **out}
 
 
-def serve(arch: str, mode: str, shape=W.REF_SERVE_MESH) -> dict:
-    """Each of ``W.REF_DECODE[arch]``'s runs on ``shape`` in ``mode``:
-    prefill of ``prefill`` tokens, then decode to ``smax``:
-    {(prefill, smax): logits (BATCH, smax − prefill + 1, vocab)}."""
+def serve(arch: str, mode: str, runs, shape=W.REF_SERVE_MESH) -> dict:
+    """Each (prefill, smax) of ``runs`` on ``shape`` in ``mode``: prefill
+    of ``prefill`` tokens, then decode to ``smax``: {(prefill, smax):
+    logits (BATCH, smax − prefill + 1, vocab)}."""
     mesh = mesh_of(shape)
     cfg = ref_config(arch)
     tc = JST.TrainConfig(**({"compute_dtype": "float32"} if mode == "f32"
@@ -132,7 +147,7 @@ def serve(arch: str, mode: str, shape=W.REF_SERVE_MESH) -> dict:
     state, sh = JST.init_state(jax.random.PRNGKey(0), cfg, tc, mesh)
     params = jax.device_put(state.params, sh.params)
     decodes, out = {}, {}
-    for pre, smax in W.REF_DECODE[arch]:
+    for pre, smax in runs:
         toks = W.serve_tokens(cfg.vocab, smax)
         specs = JM.cache_init_specs(cfg, W.BATCH, smax)
         tsh = JST.batch_shardings(mesh, cfg, "serve",
@@ -144,8 +159,8 @@ def serve(arch: str, mode: str, shape=W.REF_SERVE_MESH) -> dict:
         last, caches = prefill(params, device_batch(mesh, batch))
         caches = [{b: {n: jnp.pad(a, [(0, 0)] * (a.ndim - 2)
                                   + [(0, smax - pre), (0, 0)])
-                       for n, a in c.items()} for b, c in seg.items()}
-                  for seg in caches]
+                       for n, a in c.items()} if set(c) in SEQ_CACHES
+                   else c for b, c in seg.items()} for seg in caches]
         cshard = JSH.resolve_tree(mesh, specs, caches)
         caches = jax.device_put(caches, cshard)
         if smax not in decodes:
@@ -162,22 +177,25 @@ def serve(arch: str, mode: str, shape=W.REF_SERVE_MESH) -> dict:
     return out
 
 
-def main(out: str, init: str, arch: str) -> None:
+def main(out: str, init: str, arch: str, part: str = "shard") -> None:
     state, _ = JST.init_state(jax.random.PRNGKey(0), ref_config(arch),
                               JST.TrainConfig())
     np.savez(init + ".tmp.npz", **port_named(state.params, arch))
     os.replace(init + ".tmp.npz", init)
+    if part == "ssm":
+        runs, serves = SSM_RUNS.get(arch, ()), W.SSM_DECODE.get(arch, ())
+    else:
+        runs, serves = RUNS[arch], W.REF_DECODE.get(arch, ())
     res = {}
-    for shape, mode in RUNS[arch]:
+    for shape, mode in runs:
         res.update({f"{shape}|{mode}|{k}": v
                     for k, v in run(arch, shape, mode).items()})
-    if arch in W.REF_DECODE:
-        for mode in ("f32", "bf16"):
-            res.update({f"{W.REF_SERVE_MESH}|serve|{mode}|{pre}|{smax}": v
-                        for (pre, smax), v in serve(arch, mode).items()})
-    if arch in W.ROUTE_TIES:
+    for mode in ("f32", "bf16") if serves else ():
+        res.update({f"{W.REF_SERVE_MESH}|serve|{mode}|{pre}|{smax}": v
+                    for (pre, smax), v in serve(arch, mode, serves).items()})
+    if serves and (part == "ssm" or arch in W.ROUTE_TIES):
         res.update({f"(1, 1)|serve|bf16|{pre}|{smax}": v for (pre, smax), v
-                    in serve(arch, "bf16", (1, 1)).items()})
+                    in serve(arch, "bf16", serves, (1, 1)).items()})
     np.savez(out, **res)
 
 

@@ -40,6 +40,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import model as M
 from repro_torch.models import pad_caches
+from repro_torch.models import ssm as S
 from repro_torch.optim import adamw
 from repro_torch.runtime import ElasticConfig, SimulatedFailure, run_elastic
 from repro_torch.train import steps as ST
@@ -456,10 +457,15 @@ KV16 = dict(n_layers=2, d_model=64, n_heads=16, n_kv_heads=16, d_head=4,
 
 def tp_config(arch: str) -> M.ArchConfig:
     """A tiny config: ``TC.get_tiny(arch)``, or ``"kv16"``: a dense LM with
-    16 kv heads, whose attention caches cut their heads over "model"."""
+    16 kv heads, whose attention caches cut their heads over "model", or
+    ``"zamba2-odd"`` (``SSM_ODD``): a zamba2 whose 3 Mamba2 heads divide
+    no model axis while its conv channels (128) do."""
     if arch == "kv16":
         from repro_torch.configs.common import dense_lm
         return dense_lm("kv16-tiny", **KV16)
+    if arch == "zamba2-odd":
+        from repro_torch.configs.zamba2_1_2b import _build
+        return _build("zamba2-odd", **SSM_ODD)
     return TC.get_tiny(arch)
 
 
@@ -852,9 +858,185 @@ def compute_ep(inp, world: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# tests/test_torch_ssm_split.py: Mamba2 and mLSTM heads over "model"
+# ---------------------------------------------------------------------------
+
+SSM_ARCHS = ("zamba2-1.2b", "xlstm-350m")
+# the module cases: (arch, block index in segment 0); the scans run in
+# chunks of SSM_CHUNK over SSM_SEQ positions
+SSM_MIXERS = {"mamba2": ("zamba2-1.2b", 0), "mlstm": ("xlstm-350m", 0),
+              "slstm": ("xlstm-350m", 1)}
+SSM_SEQ = 40
+SSM_CHUNK = 16
+# ``_build``'s arguments of "zamba2-odd": d_inner 96, 3 heads of 32,
+# conv channels 96 + 2·16
+SSM_ODD = dict(d_model=48, n_mamba=3, period=2, n_heads=4, n_kv=4,
+               d_head=12, d_ff=96, d_state=16, vocab=256, head_dim=32)
+# the serve runs held to the reference's sharded prefill and decode on
+# REF_SERVE_MESH, from its initial parameters, {arch: ((prefill, smax),
+# ...)}: zamba2's shared attention caches (4 kv heads) are cut over
+# positions from 24 and whole from 27
+SSM_DECODE = {"zamba2-1.2b": ((24, TP_SMAX), (27, TP_SMAX)),
+              "xlstm-350m": ((24, TP_SMAX),)}
+# every serve run, (arch, prefill) to TP_SMAX: SSM_DECODE's, and
+# "zamba2-odd" from its seed-0 parameters
+SSM_SERVES = tuple((a, p) for a, runs in SSM_DECODE.items()
+                   for p, _ in runs) + (("zamba2-odd", 24),)
+SSM_TRAIN = "xlstm-350m"        # held to the reference's sharded steps here
+# a (1, 1) mesh against one device; the f32 first-step gradient on every
+# mesh against one device
+SSM_BITS = ("zamba2-1.2b", "xlstm-350m")
+
+
+def ssm_mixer(kind: str, mesh=None) -> dict:
+    """The ``kind`` mixer of its tiny arch over (2, SSM_SEQ, d) inputs,
+    forward and every gradient, each leaf as the sharded steps hand it
+    to the rank (:func:`repro_torch.train.steps.leaf_plans` on ``mesh``:
+    its block, its pieces or the whole), on one device without ``mesh``;
+    the partial leaves' gradients summed over "model" (placed back first
+    where they are pieces; "raw|" before the sum) and every gradient
+    whole. Also the compute leaves' shapes, the plans' partial and
+    pieces leaves and the collectives by purpose."""
+    import dataclasses
+    arch, bi = SSM_MIXERS[kind]
+    cfg = tp_config(arch)
+    blk = cfg.segments[0].blocks[bi]
+    spec = {"mamba2": blk.mamba, "mlstm": blk.mlstm, "slstm": blk.slstm}[kind]
+    if kind != "slstm":
+        spec = dataclasses.replace(spec, chunk=SSM_CHUNK)
+    fn = {"mamba2": S.mamba2_forward, "mlstm": S.mlstm_forward,
+          "slstm": S.slstm_forward}[kind]
+    prefix = f"segments.0.0.b{bi}.mixer."
+    named, _ = _block_leaves(cfg, prefix)
+    x = _rng_tensor(21, (2, SSM_SEQ, cfg.d_model))
+    plans = {}
+    if mesh is not None:
+        model = M.LM(cfg, device="meta")
+        plans = {k[len(prefix):]: pl for k, pl in ST.leaf_plans(
+            cfg, pshard.resolve_tree(mesh, model.specs(), dict(
+                model.named_parameters()))).items() if k.startswith(prefix)}
+        lays = {k[len(prefix):]: lay.only(MODEL) for k, lay in
+                pshard.resolve_tree(mesh, model.specs(), dict(
+                    model.named_parameters())).items()
+                if k.startswith(prefix)}
+        at = (pshard.coordinate(mesh)[pshard.MODEL_AXIS],
+              pshard.axis_sizes(mesh)[pshard.MODEL_AXIS])
+    params = {}
+    for k, v in named.items():
+        pl = plans.get(k)
+        if pl is None or pshard.MODEL_AXIS in pl.gathered:
+            t = v.clone() if pl is None or pl.pieces is None \
+                else pl.pieces.take(v, *at)
+        else:
+            t = pshard.cut(v, lays[k])
+        params[k] = t.requires_grad_()
+    x.requires_grad_()
+    pshard.reset_collectives()
+    with (contextlib.nullcontext() if mesh is None
+          else pshard.model_context(mesh)):
+        out = fn(L.tree_from_named(params), spec, x)[0]
+        torch.sum(out * _rng_tensor(99, tuple(out.shape))).backward()
+    res = {"out": out.detach().numpy(), "d_in": x.grad.numpy(),
+           "tags": np.array(sorted(pshard.collective_tags()))}
+    for k, p in params.items():
+        g = torch.zeros_like(p) if p.grad is None else p.grad
+        res[f"shape|{k}"] = np.array(tuple(p.shape))
+        pl = plans.get(k)
+        if pl is not None and pl.partial:
+            res[f"raw|{k}"] = g.numpy().copy()
+            if pl.pieces is not None:
+                g = pl.pieces.place(g, *at)
+            pshard.all_reduce(g, mesh, MODEL)
+        elif pl is not None and pshard.MODEL_AXIS not in pl.gathered:
+            g = pshard.gather(g, lays[k])
+        res[f"g|{k}"] = g.numpy()
+    res["partial"] = np.array(sorted(k for k, pl in plans.items()
+                                     if pl.partial))
+    res["pieces"] = np.array(sorted(k for k, pl in plans.items()
+                                    if pl.pieces is not None))
+    return res
+
+
+def ssm_serve_tags(arch: str, mesh) -> np.ndarray:
+    """The collectives' purposes of a bf16 prefill of 24 and one decode
+    step of ``tp_config(arch)`` on ``mesh``."""
+    pshard.reset_collectives()
+    tp_serve(arch, "bf16", TP_SMAX - 1, mesh)
+    return np.array(sorted(pshard.collective_tags()))
+
+
+def ssm_cases(inp, mesh=None) -> dict:
+    """Every case of tests/test_torch_ssm_split.py on ``mesh`` (None: one
+    device), keyed ``<kind>|<case>|<field>``: the mixers, the serve runs
+    in f32 and bf16 (``SSM_DECODE``'s from ``inp``'s parameters),
+    ``SSM_TRAIN``'s f32 train steps and each of ``SSM_BITS``' f32 first
+    step's gradient (β₁ = 0: the first moment) from ``inp``'s
+    parameters."""
+    out = {}
+    for kind in SSM_MIXERS:
+        out.update({f"mixer|{kind}|{k}": v
+                    for k, v in ssm_mixer(kind, mesh).items()})
+    for arch, pre in SSM_SERVES:
+        for mode in ("f32", "bf16"):
+            out[f"serve|{arch}|{mode}|{pre}"] = tp_serve(
+                arch, mode, pre, mesh, inp if arch in SSM_DECODE else None)
+    out.update({f"train|{k}": v
+                for k, v in train(inp, SSM_TRAIN, "f32", mesh).items()})
+    for arch in SSM_BITS:
+        out[f"grad|{arch}"] = train(inp, arch, "f32", mesh, steps=1,
+                                    **FIRST_STEP)["m"]
+    return out
+
+
+def compute_ssm(inp, world: int) -> dict:
+    """tests/test_torch_ssm_split.py's cases on each mesh of
+    ``TP_MESHES[world]`` (``"<shape>|..."``), the rank's data index, the
+    collectives of one bf16 train step of each of ``SSM_ARCHS`` and of a
+    serve run on each; in a world of 2, :func:`ssm_bits` on a (1, 1)
+    mesh of rank 0."""
+    out = {}
+    for shape in TP_MESHES[world]:
+        mesh = mesh_of(shape)
+        out.update({f"{shape}|{k}": v
+                    for k, v in ssm_cases(inp, mesh).items()})
+        out[f"{shape}|data_index"] = np.array(
+            pshard.coordinate(mesh)["data"])
+        for arch in SSM_ARCHS:
+            cfg = TC.get_tiny(arch)
+            tc = ST.TrainConfig()
+            state, sh = ST.init_state(0, cfg, tc, mesh)
+            src = SyntheticLM(vocab=cfg.vocab, seq=SEQ, global_batch=BATCH)
+            step = ST.make_train_step(cfg, tc, mesh, sh, ST.batch_shardings(
+                mesh, cfg, "train", src.host_batch(0)))
+            pshard.reset_collectives()
+            step(state, device_batch(mesh, src.host_batch(0)))
+            for k, (calls, nbytes) in pshard.collective_tags().items():
+                out[f"{shape}|tags|{arch}|{k}"] = np.array([calls, nbytes])
+            out[f"{shape}|serve_tags|{arch}"] = ssm_serve_tags(arch, mesh)
+    if world == 2:
+        one = mesh_of((1, 1))
+        if one.get_coordinate() is not None:
+            out.update(ssm_bits(inp, one))
+    return out
+
+
+def ssm_bits(inp, mesh=None) -> dict:
+    """Each of ``SSM_BITS``' first step (β₁ = 0) in f32 and bf16 on
+    ``mesh`` (None: one device): the digests of its parameters and first
+    moment."""
+    out = {}
+    for arch in SSM_BITS:
+        for mode in ("f32", "bf16"):
+            r = train(inp, arch, mode, mesh, steps=1, **FIRST_STEP)
+            out[f"bits|{arch}|{mode}"] = np.array(
+                f"{r['params_digest']} {r['m_digest']}")
+    return out
+
+
 JOBS = {"train": compute_train, "ckpt": compute_ckpt,
         "collectives": compute_collectives, "tp": compute_tp,
-        "ep": compute_ep}
+        "ep": compute_ep, "ssm": compute_ssm}
 
 
 def _run(rank: int, world: int, workdir: str, job: str) -> None:
